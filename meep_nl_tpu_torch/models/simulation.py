@@ -9,9 +9,10 @@
     powers = sim.get_fluxes(flux)
 
 Runs on CUDA unless constructed with ``device="cpu"``.  `run` routes each
-stretch through the K1 hybrid driver and falls back to the eager stepper
-only for plans the kernel declines; `Simulation.routes` counts the
-stretches each route took.  Step functions, symmetries, k-points, the
+stretch through the hybrid driver (the K2 and K1 kernels) and falls back to
+the eager stepper only for plans the kernels decline; `Simulation.routes`
+counts the stretches each route took, the kernel objects' own counters say
+which kernel ran.  Step functions, symmetries, k-points, the
 resident path and the other monitors wait for later slices (ROADMAP).
 """
 
@@ -116,7 +117,7 @@ class Simulation:
         self._plan = None
         self._state = None
         self._t = 0
-        #: stretches of run() by route ("hybrid": through K1, "eager")
+        #: stretches of run() by route ("hybrid": through K2/K1, "eager")
         self.routes = collections.Counter()
 
     # ------------------------------------------------------------------ setup
@@ -295,7 +296,8 @@ class Simulation:
             self._check_finite()
 
     def _run_steps_inner(self, nsteps):
-        """Route a stretch: the K1 hybrid driver, else the eager stepper."""
+        """Route a stretch: the hybrid driver (K2/K1), else the eager
+        stepper."""
         from ..ops.hybrid import hybrid_run
         out = hybrid_run(self._plan, self._state, nsteps, self._t)
         if out is not None:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, keyed by a hash of the source and the flags, under
-``meep_nl_tpu_torch/_build/`` (listed in .gitignore), and loaded with
-ctypes.  Nothing is built when a module is imported: the CPU tests import
-every module on machines without nvcc.
+with a plain C interface, keyed by a hash of every file of csrc/ (the
+sources share headers) and the flags, under ``meep_nl_tpu_torch/_build/``
+(listed in .gitignore), and loaded with ctypes.  Nothing is built when a
+module is imported: the CPU tests import every module on machines without
+nvcc.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,11 +39,14 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        h = hashlib.sha1(fh.read() + " ".join(flags).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{h[:16]}.so")
+def library_path(name: str) -> str:
+    """Where csrc/<name>.cu's library goes: the name carries a hash of all
+    of csrc/ and the flags, so an edit to a shared header rebuilds."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for fname in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            h.update(fname.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
@@ -53,7 +57,7 @@ def build(name: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
                           os.path.join(CSRC, f"{name}.cu")],
                          capture_output=True, text=True)
     if res.returncode != 0:

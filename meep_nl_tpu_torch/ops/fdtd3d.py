@@ -76,7 +76,8 @@ def step_ref(plan):
 
 
 # ---------------------------------------------------------------------------
-# the C parameter block (mirrors csrc/fdtd3d.cu; every member is 8 bytes)
+# the C parameter block (mirrors csrc/fdtd3d_site.cuh; every member is 8
+# bytes)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -112,7 +113,7 @@ class _Params(ctypes.Structure):
                 ("pw2", ctypes.c_double * MAXPOL),
                 ("csgn", ctypes.c_double)] + \
         [(n, _I) for n in ("ncurl", "neh", "npol", "S0", "S1", "S2", "sgn",
-                           "nr_iters")]
+                           "nr_iters", "R")]
 
 
 def _lib():
@@ -128,8 +129,8 @@ def _lib():
             ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
         lib.mnt_k1_source.restype = ctypes.c_int
         if lib.mnt_k1_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("csrc/fdtd3d.cu Params layout does not match "
-                               "ops/fdtd3d.py")
+            raise RuntimeError("csrc/fdtd3d_site.cuh Params layout does not "
+                               "match ops/fdtd3d.py")
         lib._mnt_bound = True
     return lib
 
@@ -228,6 +229,7 @@ class Fdtd3dKernel:
         plan, C = self.plan, self.plan.coefs
         P = _Params()
         P.S0, P.S1, P.S2 = self.shape
+        P.R = self.shape[0]               # the state holds every x-plane
         P.nr_iters = NR_ITERS
         is_d = family == "d"
         curls = plan.curl_specs_d if is_d else plan.curl_specs_b

@@ -527,8 +527,10 @@ def compile_plan(
             else:
                 support_boxes[key] = tuple(
                     (int(ix.min()), int(ix.max()) + 1) for ix in nz)
+        # contiguous: the kernels index these tensors by flat offsets (the
+        # .real/.imag of a complex array are strided views)
         coefs[key] = torch.as_tensor(
-            np.asarray(arr, dtype=as_dtype or dtype),
+            np.ascontiguousarray(arr, dtype=as_dtype or dtype),
             dtype=torch_dtype(as_dtype or dtype), device=dev)
         return key
 

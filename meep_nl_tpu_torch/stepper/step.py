@@ -488,12 +488,19 @@ def _region_values(plan: Plan, m, arr):
 
 
 def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
-                xs: Dict[str, Any]) -> Dict[str, Any]:
+                xs: Dict[str, Any], fv_of=None) -> Dict[str, Any]:
     """DTFT accumulator update (dft.cpp:265 in-step sampling), in the real
-    (re, im) pair layout: acc_re += cr ph_re, acc_im += cr ph_im."""
+    (re, im) pair layout: acc_re += cr ph_re, acc_im += cr ph_im.
+
+    `fv_of(mi, m)` optionally supplies monitor mi's region-sliced,
+    centered-averaged field values (the hybrid driver samples x-planes that
+    the K2 kernel captured; `state` then only needs its "dft" entry)."""
     dft = dict(state["dft"])
     for mi, m in enumerate(plan.dfts):
-        fv = _region_values(plan, m, state["f"][m.component])
+        if fv_of is not None:
+            fv = fv_of(mi, m)
+        else:
+            fv = _region_values(plan, m, state["f"][m.component])
         phr = xs[f"dft{mi}:ph_re"]
         phi = xs[f"dft{mi}:ph_im"]
         if f"dft{mi}:w" not in C:

@@ -22,7 +22,7 @@ from meep_nl_tpu_torch.stepper import step as TS
 NSTEPS = 8
 
 
-def _sim(flagship, device):
+def _sim(flagship, device, dtype=np.float32):
     geometry = []
     if flagship:
         med = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
@@ -33,7 +33,8 @@ def _sim(flagship, device):
         cell_size=mp.Vector3(4, 3, 3), resolution=8, geometry=geometry,
         sources=[mp.Source(mp.GaussianSource(1.0, fwidth=1.0),
                            component=mp.Ez, center=mp.Vector3(-1.2, 0, 0))],
-        boundary_layers=[mp.PML(0.5)], eps_averaging=False, device=device)
+        boundary_layers=[mp.PML(0.5)], eps_averaging=False, device=device,
+        dtype=dtype)
     sim.init_sim()
     return sim.plan
 
@@ -44,7 +45,7 @@ def _random_state(plan, seed):
 
     def rnd(t):
         return torch.from_numpy(1e-2 * rng.standard_normal(
-            tuple(t.shape)).astype(np.float32)).to(t.device)
+            tuple(t.shape)).astype(plan.dtype)).to(t.device)
 
     st["f"] = {c: TS._apply_mask(plan, plan.coefs, c, rnd(t))
                for c, t in st["f"].items()}
@@ -87,6 +88,26 @@ def test_kernel_matches_plain_on_cuda(flagship):
         for k in ("p", "pp"):
             for c, t in pr[k].items():
                 assert float((pk[k][c] - t).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_cuda_fp64():
+    """fp64, from a step where the source's amplitude matters (the kernel
+    reads the source tables by flat offset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    plan = _sim(True, "cuda", np.float64)
+    plan.slab_opt = True
+    rows = TS.xs_rows(plan, TS.build_xs(plan, NSTEPS, 20))
+    ker, ref = TF.Fdtd3dKernel(plan), TF.step_ref(plan)
+    sk = sr = TS.init_state(plan)
+    for i in range(NSTEPS):
+        sk = ker.step(_clone(sk) if i == 0 else sk, rows[i])
+        sr = ref(sr, rows[i])
+    scale = max(float(t.abs().max()) for t in sr["f"].values())
+    assert scale > 0
+    for c, t in sr["f"].items():
+        assert float((sk["f"][c] - t).abs().max()) <= 1e-12 * scale, c
 
 
 @pytest.mark.gpu

@@ -1,9 +1,9 @@
 """The same Simulation through meep_nl_tpu (the JAX package, on the CPU its
 jnp stepper) and meep_nl_tpu_torch(device="cpu"): fluxes and fields agree
 to 1e-4 of their maximum (fp32; the two round in different orders over
-~130 steps).  On the CPU the port's run goes through the K1
-hybrid driver, whose kernel wrapper takes its plain version there; the
-route and step counters show it."""
+~130 steps).  On the CPU the port's run goes through the hybrid driver,
+whose kernel wrappers (K2 at depth 2 and 3, K1) take their plain versions
+there; the route and step counters show it."""
 
 import numpy as np
 import pytest
@@ -82,8 +82,21 @@ def test_simulation_matches_jax(flagship, eps_averaging, last):
     _close(st.get_fluxes(ft), sj.get_fluxes(fj), "flux")
     assert st._t > 100
     assert dict(st.routes) == {"hybrid": 2}
-    ker = st.plan._k1_kernel
-    assert ker.plain_steps == st._t and ker.launches == 0
+    # every step went through a kernel wrapper's plain version: the
+    # flagship scenes sample every step and take the capture route (K2 at
+    # depth 3 with capture planes, the tail of each stretch through K1);
+    # the vacuum scene's two-step decimation cycles take K2 at depth 2
+    ker = st.plan._t2_kernel
+    kers = {"k1": ker._k1, "k2_d2": ker, "k2_d3": ker.k3}
+    for (depth, _), k in st.plan.__dict__.get("_cap_kernels", {}).items():
+        kers[f"k2_cap_d{depth}"] = k
+    assert all(k.launches == 0 for k in kers.values())
+    plain = {n: k.plain_steps for n, k in kers.items() if k.plain_steps}
+    assert sum(plain.values()) == st._t
+    if flagship:
+        assert set(plain) <= {"k2_cap_d3", "k1"} and plain.get("k1", 0) <= 4
+    else:
+        assert plain == {"k2_d2": st._t}
     assert st.meep_time() == pytest.approx(sj.meep_time())
 
 

@@ -87,6 +87,36 @@ def test_eager_matches_jax(case, dtype, slab):
     assert_states_close(interop.state_to_numpy(got), want, TOL[dtype])
 
 
+@pytest.mark.parametrize("slab", [True, False], ids=["slab", "full"])
+def test_source_inside_pml_slab_follows_jax(slab):
+    """A fault of the reference, pinned: with a current source inside a PML
+    sigma slab (here 2-3 cells inside the x slab of a 0.75 PML), the
+    slab-local chains (plan.slab_opt, the route of the fused kernels) and
+    the full-grid chains give different fields, because the source enters f
+    only and breaks the f_u == f invariant the slab path rests on.  The
+    port follows the reference on each route; the two routes differ far
+    beyond roundoff."""
+    kw = dict(pml=0.75)
+    nsteps, t0 = 60, 120                    # around the source's peak
+    pj = build_plan(JAX, **kw)
+    lo = pj.curl_specs_d[2].dsig_slabs[0]
+    assert pj.curl_specs_d[2].dsig_axis == 0
+    assert np.asarray(pj.coefs["src0:idx"])[:, 0].max() < lo
+    pj.slab_opt = slab
+    want = jax.tree_util.tree_map(
+        np.asarray, JS.run(pj, JS.init_state(pj), nsteps, t0=t0))
+    out = {}
+    for route in (True, False):
+        pt = build_plan(PORT, device="cpu", **kw)
+        pt.slab_opt = route
+        out[route] = interop.state_to_numpy(
+            TS.run(pt, TS.init_state(pt), nsteps, t0=t0))
+    assert_states_close(out[slab], want, 1e-5, keys=("f", "f_u", "f_w"))
+    scale = float(np.abs(want["f"]["ez"]).max())
+    gap = float(np.abs(out[True]["f"]["ez"] - out[False]["f"]["ez"]).max())
+    assert gap > 0.1 * scale
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_nr_solve_matches_jax(dtype):
     """Three Newton iterations from the perturbative seed, on random
