@@ -35,7 +35,25 @@ falls back to the CPU or to a plain version:
   6. vacuum uPML at 255^3 through Simulation.run, 50 steps without a
      monitor: the fully fused route, 16 depth-3 K2 calls and 2 K1 steps
      (counters); K2 and K1 against their plain versions from that run's end
-     state; K1, K2 and the plain version timed with CUDA events.
+     state; K1, K2 and the plain version timed with CUDA events;
+  7. the resident path in 2D: the JAX package's bench.py::run_resident
+     scene (767^2 at resolution 16, an eps=12 disk, a Gaussian Ez point
+     source, PML 1) through Simulation.run, 1000 steps without a monitor,
+     then again with an x-normal flux line of 3 frequencies: every stretch
+     on the resident route, one K3 launch per stretch of at most 1024
+     steps, no plain step (counters); K3 against its plain version from
+     each run's end state over 20 steps (and, with the flux line, from a
+     seeded random state), the DTFT accumulators to 1e-5 of their own
+     maximum; K3, its plain version and the
+     step_cost bound timed and reported as ms/step and GCells/s;
+  8. the ring-resonator tutorial (Meep's python/examples/ring.py, without
+     its mirror symmetry) at resolution 10: run(after_sources(Harminv(Ez,
+     (r + 0.1, 0), 0.15, 0.1)), until_after_sources=300), then the same
+     scene with until_after_sources=stop_when_fields_decayed(50, Ez,
+     (r + 0.1, 0), 1e-3): every stretch through K4 (counters); K4 against
+     its plain version from the end state (series and state); the modes and
+     the decay run's stop step on the card against the same runs of the
+     port on the CPU.
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -53,6 +71,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 K1_REPLACES = "meep_nl_tpu/ops/pallas/fdtd3d.py:554"
 K2_REPLACES = "meep_nl_tpu/ops/pallas/fdtd3d_t2.py:182"
+K3_REPLACES = "meep_nl_tpu/ops/pallas/resident.py:223"
+K4_REPLACES = "meep_nl_tpu/ops/pallas/resident.py:289"
 
 
 def card_line() -> str:
@@ -105,6 +125,77 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
             decimation_factor=decimation)
     sim.init_sim()
     return sim, fl
+
+
+def resident_sim(mp, n, device, flux=False):
+    """bench.py::run_resident's scene through the public API: an
+    (n / 16)^2 cell at resolution 16 (n^2 cells), an eps=12 disk of radius
+    n / 96 at the centre, a Gaussian Ez point source (f 1, fwidth 0.5) at
+    x = -n / 48, PML 1 on every side; `flux` adds an x-normal flux line of 3
+    frequencies at x = +n / 48."""
+    res = 16.0
+    L = n / res
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(L, L), resolution=res,
+        geometry=[mp.Cylinder(radius=L / 6,
+                              material=mp.Medium(epsilon=12))],
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
+                           component=mp.Ez,
+                           center=mp.Vector3(-L / 3, 0))],
+        boundary_layers=[mp.PML(1.0)], device=device)
+    fl = None
+    if flux:
+        fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
+            center=mp.Vector3(L / 3, 0), size=mp.Vector3(0, L / 2)))
+    sim.init_sim()
+    return sim, fl
+
+
+def ring_sim(mp, res, device):
+    """Meep's ring-resonator tutorial (python/examples/ring.py) without its
+    Mirror(Y): n = 3.4, w = 1, r = 1, pad = 4, dpml = 2 (a 16 x 16 cell),
+    an Ez Gaussian source (0.15, fwidth 0.1) at (r + 0.1, 0)."""
+    n, w, r, pad, dpml = 3.4, 1, 1, 4, 2
+    sxy = 2 * (r + w + pad + dpml)
+    return mp.Simulation(
+        cell_size=mp.Vector3(sxy, sxy), resolution=res,
+        geometry=[mp.Cylinder(radius=r + w, material=mp.Medium(index=n)),
+                  mp.Cylinder(radius=r)],
+        sources=[mp.Source(mp.GaussianSource(0.15, fwidth=0.1), mp.Ez,
+                           center=mp.Vector3(r + 0.1))],
+        boundary_layers=[mp.PML(dpml)], device=device)
+
+
+def compare_resident(ker, st0, t0, nsteps, probes=()):
+    """K3 (K4 with probes) against resident_ref over nsteps from state st0
+    at step t0 (these launches are not counted); returns (abs, rel, the
+    DTFT accumulators' max abs error relative to their own maximum, the
+    series' max abs error).  Fails if the plan has DTFT monitors and no
+    step of the window samples them."""
+    import numpy as np
+    from meep_nl_tpu_torch.ops import resident as R
+    from meep_nl_tpu_torch.stepper.step import build_xs
+    plan = ker.plan
+    xs = build_xs(plan, nsteps, t0)
+    if plan.dfts and not any(np.any(xs[f"dft{mi}:ph_re"] != 0)
+                             for mi in range(len(plan.dfts))):
+        raise AssertionError(f"no DTFT sample step in steps {t0}.."
+                             f"{t0 + nsteps - 1}")
+    counts = (ker.launches, ker.probed_launches)
+    sk, yk = ker._run(clone_state(st0), nsteps, t0, probes)
+    sr, yr = R.resident_ref(plan)(clone_state(st0), nsteps, t0, probes)
+    ker.launches, ker.probed_launches = counts
+    err, rel = state_error(sk, sr)
+    drel = 0.0
+    for c, t in sr["dft"].items():
+        scale = float(t.abs().max())
+        if not scale > 0:
+            raise AssertionError(f"DTFT accumulator {c} is zero")
+        derr = float((sk["dft"][c] - t).abs().max())
+        err = max(err, derr)
+        drel = max(drel, derr / scale)
+    serr = max([0.0] + [float((yk[k] - yr[k]).abs().max()) for k in yr])
+    return err, rel, drel, serr
 
 
 def random_state(plan, seed, device, scale=1e-2):
@@ -247,7 +338,7 @@ def launch_breakdown(ker, state, row, reps=20):
     import torch
     from meep_nl_tpu_torch.ops import fdtd3d
     lib = fdtd3d._lib()
-    pb, pd = ker._params("b", state), ker._params("d", state)
+    pb, pd = (fdtd3d.build_params(ker.plan, f, state) for f in "bd")
     parts = {"b_curl+h": lambda: ker._launch(lib, pb, fdtd3d.MODE_BH),
              "d_curl": lambda: ker._launch(lib, pd, fdtd3d.MODE_D),
              "d_sources": lambda: ker._sources(lib, "d", state, row),
@@ -330,6 +421,272 @@ def force_k1_route(sim):
 def rel_diff(a, b):
     import numpy as np
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def resident_run_counted(sim, *step_funcs, nsteps=None, **run_kw):
+    """sim.run with the resident kernel's counters set to 0 just before;
+    returns (wall seconds, K3 launches, K4 launches), read just after.
+    Fails if a stretch left the resident route or a plain step ran."""
+    import torch
+    ker = sim.plan._resident_kernel
+    ker.launches = ker.probed_launches = ker.plain_steps = 0
+    sim.routes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if nsteps is not None:
+        sim.run(*step_funcs, until=nsteps * sim.dt)
+    else:
+        sim.run(*step_funcs, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if set(sim.routes) != {"resident"} or ker.plain_steps:
+        raise AssertionError(f"run left the resident route: routes "
+                             f"{dict(sim.routes)}, plain steps "
+                             f"{ker.plain_steps}")
+    return wall, ker.launches, ker.probed_launches
+
+
+def time_resident(fn, st0, nsteps, reps=3):
+    """(kernel, call): ms per step of the K3/K4 launches alone (CUDA events
+    recorded just around the launch call, after the wrapper's host work
+    and uploads; None when fn launches nothing) and of the whole call
+    fn(state, nsteps), best of reps calls after one warm-up, each from a
+    copy of st0."""
+    import torch
+    from meep_nl_tpu_torch.ops import resident as R
+    lib, events = R._lib(), []
+
+    class Timed:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def mnt_k3_launch(self, *args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            rc = lib.mnt_k3_launch(*args)
+            ev[1].record()
+            events.append(ev)
+            return rc
+
+    saved, R._lib = R._lib, Timed
+    try:
+        fn(clone_state(st0), nsteps)
+        best_k = best_c = None
+        for _ in range(reps):
+            st = clone_state(st0)
+            events.clear()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            fn(st, nsteps)
+            end.record()
+            torch.cuda.synchronize()
+            call = start.elapsed_time(end) / nsteps
+            best_c = call if best_c is None else min(best_c, call)
+            if events:
+                k = sum(a.elapsed_time(b) for a, b in events) / nsteps
+                best_k = k if best_k is None else min(best_k, k)
+    finally:
+        R._lib = saved
+    return best_k, best_c
+
+
+def phase_resident(mp, dev, card, blank):
+    """Phases 7 and 8: the resident path (K3, K4); returns their kernel
+    table entries."""
+    import numpy as np
+    from meep_nl_tpu_torch.ops import resident as R
+    k3 = {"name": "resident_k3", "route": "cuda",
+          "source": "meep_nl_tpu_torch/csrc/resident.cu",
+          "replaces": K3_REPLACES, **blank}
+    k4 = {"name": "resident_k4", "route": "cuda",
+          "source": "meep_nl_tpu_torch/csrc/resident.cu",
+          "replaces": K4_REPLACES, **blank}
+    k3["launches"] = k4["launches"] = 0
+    k3["max_abs_err"] = k4["max_abs_err"] = 0.0
+    grids = {f"{'K4' if pr else 'K3'}{' nonlinear' if nl else ''}":
+             R._lib().mnt_k3_max_blocks(nl, pr) for pr in (0, 1)
+             for nl in (0, 1)}
+    print(f"[7] K3/K4's largest co-resident grids (blocks of 256 threads): "
+          f"{grids}", flush=True)
+
+    # ---- 7: bench.py::run_resident's scene, 767^2 ----------------------
+    n, nsteps = 767, 1000
+    cells = n * n
+    for flux in (False, True):
+        sim, fl = resident_sim(mp, n, dev, flux)
+        plan = sim.plan
+        sim.run(until=24 * sim.dt)                  # warm-up: tables
+        wall, launches, probed = resident_run_counted(sim, nsteps=nsteps)
+        want = -(-nsteps // 1024)
+        if (launches, probed, dict(sim.routes)) != (want, 0,
+                                                    {"resident": want}):
+            raise AssertionError(f"767^2 run: K3 launches {launches}, K4 "
+                                 f"{probed}, routes {dict(sim.routes)}")
+        k3["launches"] += launches
+        ez = sim.get_array(mp.Ez)
+        flux_v = sim.get_fluxes(fl) if flux else np.zeros(1)
+        if not (np.all(np.isfinite(ez)) and np.any(ez != 0)
+                and np.all(np.isfinite(flux_v))
+                and (not flux or np.any(flux_v != 0))):
+            raise AssertionError(f"767^2 run: output not finite/non-zero: "
+                                 f"flux {flux_v}")
+        label = "flux line" if flux else "no monitor"
+        print(f"[7] resident 767^2, {label}: Simulation.run {nsteps} steps "
+              f"in {wall:.3f} s = {wall / nsteps * 1e3:.4f} ms/step = "
+              f"{cells * nsteps / wall / 1e9:.3f} GCells/s; K3 launches "
+              f"{launches}, routes {dict(sim.routes)}"
+              + (f"; flux {flux_v.tolist()}" if flux else "") + f" ({card})",
+              flush=True)
+        ker = plan._resident_kernel
+        st, t_end = sim.fields_state, sim._t
+        starts = [("the run's state", st)]
+        if flux:
+            # the pulse has not reached the flux line by t_end: a seeded
+            # random state puts the DTFT's inputs at every region site
+            starts.append(("a random state", random_state(plan, 11, dev)))
+        for what, st0 in starts:
+            err, rel, drel, _ = compare_resident(ker, st0, t_end, 20)
+            print(f"[7] K3 vs plain at 767^2 ({label}) from {what}, 20 "
+                  f"steps: max abs {err:.3e}, max rel {rel:.3e}"
+                  + (f"; DTFT max rel {drel:.3e}" if flux else ""),
+                  flush=True)
+            if not (rel <= 1e-5 and drel <= 1e-5):
+                raise AssertionError(f"K3 disagrees at 767^2 from {what}: "
+                                     f"rel {rel:.3e}, DTFT {drel:.3e}")
+            k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        ms, call_ms = time_resident(
+            lambda s_, n_: ker._run(s_, n_, t_end, ()), st, nsteps)
+        ker.launches = launches
+        ref = R.resident_ref(plan)
+        _, plain_ms = time_resident(lambda s_, n_: ref(s_, n_, t_end), st,
+                                    20, reps=1)
+        cost = R.step_cost(plan, nsteps)
+        b_ms, b_by = bound({"bytes": cost["bytes"] / nsteps,
+                            "ops": cost["ops"] / nsteps})
+        stream_ms = cost["stream_bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"[7] K3 at 767^2 ({label}): {ms:.4f} ms/step = "
+              f"{cells / ms / 1e6:.3f} GCells/s over {nsteps}-step launches "
+              f"(the wrapper's call, host work included: {call_ms:.4f} "
+              f"ms/step); plain {plain_ms:.4f} ms/step; bound {b_ms:.5f} "
+              f"ms/step "
+              f"({b_by}; state in and out once per launch), a per-step "
+              f"stream of state and coefficients {stream_ms:.4f} ms/step "
+              f"({cost['stream_bytes'] / 2 ** 20:.1f} MiB) ({card})",
+              flush=True)
+        if flux:
+            k3.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del sim, st
+
+    # ---- 8: the ring resonator, Harminv and a decay stop -----------------
+    r, res = 1.0, 10
+    out = {}
+    for d in (dev, "cpu"):
+        sim = ring_sim(mp, res, d)
+        h = mp.Harminv(mp.Ez, mp.Vector3(r + 0.1), 0.15, 0.1)
+        if d == "cpu":                         # the plain version
+            sim.run(mp.after_sources(h), until_after_sources=300)
+            out[d] = (sim, h)
+            continue
+        sim.init_sim()
+        R._kernel(sim.plan)                   # made before the counted run
+        wall, launches, probed = resident_run_counted(
+            sim, mp.after_sources(h), until_after_sources=300)
+        out[d] = (sim, h)
+    sim, h = out[dev]
+    want = -(-sim._t // 1024)
+    if (launches, probed, dict(sim.routes)) != (0, want,
+                                                {"resident": want}):
+        raise AssertionError(f"ring Harminv run: K3 launches {launches}, K4 "
+                             f"{probed}, routes {dict(sim.routes)}")
+    k4["launches"] += probed
+    cells = int(np.prod(sim.plan.storage_shape))
+    print(f"[8] ring resolution {res} ({sim.plan.storage_shape}), "
+          f"after_sources(Harminv), until_after_sources=300: {sim._t} steps "
+          f"in {wall:.3f} s = {wall / sim._t * 1e3:.4f} ms/step; K4 launches "
+          f"{probed}, routes {dict(sim.routes)} ({card})", flush=True)
+    ser = {d: np.asarray(out[d][1].data) for d in out}
+    srel = rel_diff(ser[dev], ser["cpu"])
+    amax = max(m.amp for m in h.modes)
+    print("[8] modes on the card (freq, Q, amp): " + ", ".join(
+        f"({m.freq:.8f}, {m.Q:.1f}, {m.amp:.3e})" for m in h.modes),
+        flush=True)
+    print("[8] modes on the CPU  (freq, Q, amp): " + ", ".join(
+        f"({m.freq:.8f}, {m.Q:.1f}, {m.amp:.3e})" for m in out["cpu"][1].modes),
+        flush=True)
+    worst = 0.0
+    for m in h.modes:
+        if m.amp > 1e-3 * amax:
+            f = min((x.freq for x in out["cpu"][1].modes),
+                    key=lambda v: abs(v - m.freq))
+            worst = max(worst, abs(f - m.freq) / abs(m.freq))
+    print(f"[8] Harminv series, card vs CPU: max rel {srel:.3e}; mode "
+          f"frequencies (amplitude above 1e-3 of the largest): max rel "
+          f"{worst:.3e}", flush=True)
+    if not (srel <= 1e-4 and worst <= 1e-4 and len(h.modes) > 0):
+        raise AssertionError(f"ring modes differ between card and CPU: "
+                             f"series {srel:.3e}, frequencies {worst:.3e}")
+    ker = sim.plan._resident_kernel
+    st, t_end = sim.fields_state, sim._t
+    probe = [sim._point_probe("hm0", mp.Ez, mp.Vector3(r + 0.1))]
+    err, rel, _, serr = compare_resident(ker, st, t_end, 20, probe)
+    print(f"[8] K4 vs plain at the ring's end state, 20 steps: state max abs "
+          f"{err:.3e}, max rel {rel:.3e}; series max abs {serr:.3e}",
+          flush=True)
+    if not (rel <= 1e-5 and serr <= 1e-5 * max(np.abs(ser[dev]).max(),
+                                               1e-30)):
+        raise AssertionError(f"K4 disagrees: rel {rel:.3e}, series "
+                             f"{serr:.3e}")
+    k4["max_abs_err"] = max(err, serr)
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, probe), st, 1024)
+    ref = R.resident_ref(sim.plan)
+    _, plain_ms = time_resident(lambda s_, n_: ref(s_, n_, t_end, probe), st,
+                                20, reps=1)
+    cost = R.step_cost(sim.plan, 1024)
+    b_ms, b_by = bound({"bytes": cost["bytes"] / 1024,
+                        "ops": cost["ops"] / 1024})
+    print(f"[8] K4 at the ring ({cells} cells): {ms:.4f} ms/step over "
+          f"1024-step launches (the wrapper's call: {call_ms:.4f} ms/step); "
+          f"plain {plain_ms:.4f} ms/step; bound "
+          f"{b_ms:.5f} ms/step ({b_by}) ({card})", flush=True)
+    k4.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del out, sim, st
+
+    stop_at = {}
+    for d in (dev, "cpu"):
+        sim = ring_sim(mp, res, d)
+        stop = mp.stop_when_fields_decayed(50, mp.Ez, mp.Vector3(r + 0.1),
+                                           1e-3)
+        if d == "cpu":                         # the plain version
+            sim.run(until_after_sources=stop)
+            stop_at[d] = sim._t
+            continue
+        sim.init_sim()
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(
+            sim, until_after_sources=stop)
+        if launches or probed != sim.routes["resident"] or probed < 2:
+            raise AssertionError(f"decay run: K3 launches {launches}, K4 "
+                                 f"{probed}, routes {dict(sim.routes)}")
+        k4["launches"] += probed
+        ez = sim.get_array(mp.Ez)
+        if not np.all(np.isfinite(ez)):
+            raise AssertionError("decay run: fields not finite")
+        stop_at[d] = sim._t
+        print(f"[8] ring with until_after_sources=stop_when_fields_decayed("
+              f"50, Ez, (1.1, 0), 1e-3): stopped at t = "
+              f"{sim.meep_time():.1f} after {sim._t} steps in {wall:.3f} s "
+              f"= {wall / sim._t * 1e3:.4f} ms/step; K4 launches {probed} "
+              f"(one per 50-unit block), routes {dict(sim.routes)} ({card})",
+              flush=True)
+    print(f"[8] decay stop step, card {stop_at[dev]}, the same run on the "
+          f"CPU {stop_at['cpu']}", flush=True)
+    if stop_at[dev] != stop_at["cpu"]:
+        raise AssertionError(f"decay run stops at step {stop_at[dev]} on the "
+                             f"card, {stop_at['cpu']} on the CPU")
+    return k3, k4
 
 
 def main() -> int:
@@ -492,12 +849,20 @@ def main() -> int:
         raise AssertionError(f"K2 and K1 routes' fluxes differ: {fdiff:.3e}")
     del sim, sim1, st
 
-    # the same scene, small, on the card and on the CPU
+    # the same scene, small, on the card and on the CPU: both take the
+    # resident route (K3 in 3D on the card, its plain version on the CPU)
     out = {}
     for d in ("cuda", "cpu"):
         s2, f2 = flagship_sim(mp, 16, 8.0, d, pml=0.25)
         s2.run(until=200 * s2.dt)
         out[d] = (s2.get_fluxes(f2), s2.get_array(mp.Ez))
+        rk = s2.plan._resident_kernel
+        if dict(s2.routes) != {"resident": 1} or (
+                (rk.launches, rk.plain_steps) != (1, 0) if d == "cuda"
+                else (rk.launches, rk.plain_steps) != (0, 200)):
+            raise AssertionError(f"16^3 scene on {d}: routes "
+                                 f"{dict(s2.routes)}, K3 launches "
+                                 f"{rk.launches}, plain {rk.plain_steps}")
     for i, what in enumerate(("flux", "ez")):
         rel = rel_diff(out["cuda"][i], out["cpu"][i])
         print(f"[4] 16^3 scene, card vs CPU {what}: max rel {rel:.3e}",
@@ -602,8 +967,11 @@ def main() -> int:
           f"{launch_breakdown(kers['k1'], clone_state(st), rows[0])} "
           f"({card})", flush=True)
 
+    del sim, st
+    k3, k4 = phase_resident(mp, dev, card, blank)
+
     print(card)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,9 +12,13 @@ from .stepper.plan import (MaterialSpec, PolSpec, PMLSpec, SrcVolSpec,
 from .stepper.step import init_state, make_step, build_xs, run
 from .models.source import (GaussianSource, ContinuousSource, CustomSource,
                             Source, SourceTime)
-from .models.geom import (Vector3, Medium, Sphere, Block, GeometricObject,
-                          LorentzianSusceptibility, DrudeSusceptibility,
-                          vacuum, air)
+from .models.geom import (Vector3, Medium, Sphere, Cylinder, Block,
+                          GeometricObject, LorentzianSusceptibility,
+                          DrudeSusceptibility, vacuum, air)
+from .models.run_control import (after_sources, at_every, at_beginning,
+                                 at_end, during_sources,
+                                 stop_when_fields_decayed)
+from .analysis.harminv import Harminv, Mode, harminv
 from .models.simulation import (Simulation, PML, FluxRegion, get_fluxes,
                                 Ex, Ey, Ez, Hx, Hy, Hz, Dx, Dy, Dz,
                                 Bx, By, Bz, X, Y, Z, ALL)

@@ -3,7 +3,7 @@
 The port's own copy of the subset of ``meep_nl_tpu/models/geom.py`` that
 this slice needs: `Vector3`, `Medium` (eps/mu, conductivities,
 susceptibilities, chi2/chi3 with `chi2_full_tensor`), the Lorentzian
-susceptibility family, and the `Sphere` and `Block` primitives.  Objects are
+susceptibility family, and the `Sphere`, `Cylinder` and `Block` primitives.  Objects are
 pure descriptions; rasterization onto Yee sites happens in models.scene.
 """
 
@@ -191,6 +191,50 @@ class Sphere(GeometricObject):
         d = pts - c
         r = np.sqrt(np.maximum((d ** 2).sum(-1, keepdims=True), 1e-300))
         return d / r
+
+
+@dataclasses.dataclass(init=False)
+class Cylinder(GeometricObject):
+    """A right circular cylinder about `axis` (default z), infinitely tall
+    unless `height` is given (python/geom.py Cylinder)."""
+    radius: float = 0.0
+    height: float = float("inf")
+    axis: Vector3 = dataclasses.field(default_factory=lambda: Vector3(0, 0, 1))
+
+    def __init__(self, radius=0.0, height=float("inf"), axis=None,
+                 material=None, center=None):
+        self.radius = float(radius)
+        self.height = height
+        self.axis = axis if axis is not None else Vector3(0, 0, 1)
+        self._init_common(material, center)
+
+    def _split(self, pts):
+        """(axial coordinate, perpendicular offset) of each point."""
+        c = np.array(tuple(_v3(self.center)))
+        a = np.array(tuple(_v3(self.axis)), dtype=np.float64)
+        a = a / np.linalg.norm(a)
+        d = pts - c
+        z = (d * a).sum(-1)
+        return z, d - z[..., None] * a, a
+
+    def inside(self, pts):
+        z, perp, _ = self._split(pts)
+        ok = (perp ** 2).sum(-1) <= self.radius ** 2
+        if self.height != float("inf"):
+            ok &= np.abs(z) <= self.height / 2
+        return ok
+
+    def normal_at(self, pts):
+        # the side wall's radial normal, or the nearer end cap's axial one
+        z, perp, a = self._split(pts)
+        r = np.sqrt(np.maximum((perp ** 2).sum(-1), 1e-300))
+        lat = perp / r[..., None]
+        if self.height == float("inf"):
+            return lat
+        lat_dist = np.abs(r - self.radius)
+        cap_dist = np.abs(self.height / 2 - np.abs(z))
+        cap = np.where(z >= 0, 1.0, -1.0)[..., None] * a
+        return np.where((lat_dist <= cap_dist)[..., None], lat, cap)
 
 
 @dataclasses.dataclass(init=False)

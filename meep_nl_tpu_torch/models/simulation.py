@@ -1,5 +1,6 @@
 """User-facing Simulation API: the subset of
-``meep_nl_tpu/models/simulation.py`` this slice carries (3D Cartesian cells).
+``meep_nl_tpu/models/simulation.py`` the port carries so far (2D and 3D
+Cartesian cells).
 
     sim = Simulation(cell_size=Vector3(8, 8, 8), resolution=16,
                      geometry=[Sphere(...)], sources=[Source(...)],
@@ -9,11 +10,15 @@
     powers = sim.get_fluxes(flux)
 
 Runs on CUDA unless constructed with ``device="cpu"``.  `run` routes each
-stretch through the hybrid driver (the K2 and K1 kernels) and falls back to
-the eager stepper only for plans the kernels decline; `Simulation.routes`
-counts the stretches each route took, the kernel objects' own counters say
-which kernel ran.  Step functions, symmetries, k-points, the
-resident path and the other monitors wait for later slices (ROADMAP).
+stretch as the reference does: the resident kernels first (K3, or K4 for
+stretches that record probe series), then the hybrid driver (K2 and K1) for
+plain stretches, and the eager stepper only for plans the kernels decline;
+`Simulation.routes` counts the stretches each route took, the kernel
+objects' own counters say which kernel ran.  `run` takes the step-function
+DSL of models/run_control.py (at_every, at_beginning, at_end,
+during_sources, after_sources, Harminv collectors, stop_when_fields_decayed).
+Symmetries, k-points, 1D and cylindrical cells and the other monitors wait
+for later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -92,13 +97,21 @@ class Simulation:
                  Courant: float = 0.5,
                  eps_averaging: bool = True,
                  subpixel_n: int = 3,
+                 dimensions=None,
                  dtype=np.float32,
                  device=None):
-        self.cell_size = _v3(cell_size)
-        if min(self.cell_size.x, self.cell_size.y, self.cell_size.z) <= 0:
+        self.cell_size = cs = _v3(cell_size)
+        # infer dimensionality as the reference does (simulation.py:438-442)
+        if dimensions == 1 or (cs.x == 0 and cs.y == 0 and cs.z > 0):
             raise NotImplementedError(
-                "only 3D Cartesian cells are ported; 1D/2D/cylindrical "
-                "cells run on the resident path (ROADMAP A7)")
+                "1D cells are not ported yet (ROADMAP A5)")
+        if dimensions in (None, 2) and cs.z == 0 and cs.x > 0 and cs.y > 0:
+            dim, size = "2d", [cs.x, cs.y]
+        elif dimensions in (-2, "cyl", "CYLINDRICAL"):
+            raise NotImplementedError(
+                "cylindrical cells are not ported yet (ROADMAP A9)")
+        else:
+            dim, size = "3d", [cs.x, cs.y, cs.z]
         self.resolution = float(resolution)
         self.geometry = list(geometry)
         self.sources = list(sources)
@@ -109,15 +122,14 @@ class Simulation:
         self.subpixel_n = subpixel_n
         self.dtype = dtype
         self.device = resolve_device(device)
-        cs = self.cell_size
-        self.gv = G.GridVolume.create("3d", [cs.x, cs.y, cs.z],
-                                      self.resolution)
+        self.gv = G.GridVolume.create(dim, size, self.resolution)
         self._dft_specs: List[DftSpec] = []
         self._handles: List[Any] = []
         self._plan = None
         self._state = None
         self._t = 0
-        #: stretches of run() by route ("hybrid": through K2/K1, "eager")
+        #: stretches of run() by route ("resident": K3/K4, "hybrid": K2/K1,
+        #: "eager": the plain stepper)
         self.routes = collections.Counter()
 
     # ------------------------------------------------------------------ setup
@@ -177,8 +189,10 @@ class Simulation:
                     if s.amp_func is not None:
                         # meep convention: amp_func receives the point
                         # RELATIVE to the source center (python/source.py)
-                        pt = [gv.comp_coords(comp, ax)[gidx[ax]]
-                              for ax in range(3)]
+                        pt = [0.0, 0.0, 0.0]
+                        for ax, d in enumerate(gv.axes):
+                            pt["xyz".index(d)] = \
+                                gv.comp_coords(comp, ax)[gidx[ax]]
                         c3 = _v3(s.center)
                         amp = amp * s.amp_func(Vector3(pt[0] - c3[0],
                                                        pt[1] - c3[1],
@@ -195,8 +209,7 @@ class Simulation:
         return out
 
     def init_sim(self):
-        """Rasterize the scene and compile the plan (simulation.py:1262,
-        the 3D path)."""
+        """Rasterize the scene and compile the plan (simulation.py:1262)."""
         if self._plan is not None:
             return
         live_e, live_h = self._live_components()
@@ -217,9 +230,10 @@ class Simulation:
             self.gv, mat, pmls=pmls, sources=self._build_sources(),
             dfts=self._dft_specs, courant=self.courant, dtype=self.dtype,
             live_e=live_e, live_h=live_h,
-            # x storage padded to a multiple of 8 like the JAX package
+            # 3D x storage padded to a multiple of 8 like the JAX package
             # (simulation.py:1407), so both compile the same plan
-            pad_to_multiple=(8, 1, 1), device=self.device)
+            pad_to_multiple=(8, 1, 1) if self.gv.dim == "3d" else 1,
+            device=self.device)
         self._state = S.init_state(self._plan)
 
     # -------------------------------------------------------------- monitors
@@ -273,40 +287,166 @@ class Simulation:
         return total
 
     # ------------------------------------------------------------------ run
-    def run(self, until=None, until_after_sources=None):
-        """Run for `until` more time units, or until `until_after_sources`
-        time units past the last source turns off (simulation.py:2692).
-        Stretches are bounded by MNT_FINITE_BLOCK steps, each followed by
-        the NaN/Inf abort of step.cpp:138."""
+    def run(self, *step_funcs, until=None, until_after_sources=None):
+        """Run the simulation (simulation.py:2692).
+
+        `until` / `until_after_sources` take a time (after the last source
+        turns off, for the latter) or, for `until_after_sources`, a stop
+        condition (stop_when_fields_decayed).  `step_funcs` are the DSL of
+        models/run_control.py: at_every / at_beginning / at_end /
+        during_sources / after_sources(...) / bare callables, and Harminv
+        collectors, which ride per-step probe series.  Without callbacks
+        the run goes in stretches of MNT_FINITE_BLOCK steps, each followed by
+        the NaN/Inf abort of step.cpp:138; with them, in blocks of the
+        smallest callback interval (4 time units for a stop condition)."""
+        from . import run_control as RC
         self.init_sim()
+        sf = RC.parse_step_funcs(step_funcs)
         last_src = max((s.src.last_time() for s in self.sources), default=0.0)
-        if until_after_sources is not None:
+
+        stop_cond = None
+        if until_after_sources is not None and not isinstance(
+                until_after_sources, (int, float)):
+            stop_cond = until_after_sources
+            t_end = None
+            t_min = last_src
+        elif until_after_sources is not None:
             t_end = last_src + until_after_sources
-        elif until is not None:
-            t_end = self._t * self.dt + until
-        else:
+            t_min = 0.0
+        elif until is None:
             raise ValueError("run() needs until= or until_after_sources=")
-        total_steps = max(0, int(round(t_end / self.dt)) - self._t)
-        guard = int(os.environ.get("MNT_FINITE_BLOCK", "1024"))
+        elif isinstance(until, (int, float)):
+            t_end = self._t * self.dt + until
+            t_min = 0.0
+        else:
+            stop_cond = until
+            t_end = None
+            t_min = 0.0
+        if stop_cond is not None and not (
+                hasattr(stop_cond, "check_window")
+                and getattr(stop_cond, "c", None) is not None):
+            raise NotImplementedError(
+                "only stop_when_fields_decayed is ported (ROADMAP A13)")
+
+        for fn in sf.begin:
+            fn(self)
+
+        # one probe per collector, and one for the stop condition: its
+        # decision sees the max over each dt window, not one instant
+        probes = [self._point_probe(f"hm{i}", h.c, h.pt)
+                  for i, (h, _) in enumerate(sf.collectors)]
+        if stop_cond is not None:
+            probes.append(self._point_probe("stopc", stop_cond.c,
+                                            stop_cond.pt))
+        series = {p.name: [] for p in probes}
+
+        intervals = [iv for iv, _ in sf.every if iv > 0]
+        if stop_cond is not None:
+            intervals.append(stop_cond.dt)
+        need_blocks = bool(intervals or sf.every or stop_cond is not None
+                           or sf.after_sources_fns)
+        total_steps = (max(0, int(round(t_end / self.dt)) - self._t)
+                       if t_end is not None else None)
+
+        if not need_blocks:
+            guard = int(os.environ.get("MNT_FINITE_BLOCK", "1024"))
+            done = 0
+            while done < total_steps:
+                n = min(guard, total_steps - done)
+                self._run_steps_inner(n, probes, series)
+                done += n
+                self._check_finite()
+            self._finish_collectors(sf, series)
+            for fn in sf.end:
+                fn(self)
+            return
+
+        block_steps = max(1, int(round(
+            (min(intervals) if intervals else 4.0) / self.dt)))
+        last_fire = {id(fn): self.meep_time() for _, fn in sf.every}
+        max_steps = total_steps if total_steps is not None else 10 ** 9
         done = 0
-        while done < total_steps:
-            n = min(guard, total_steps - done)
-            self._run_steps_inner(n)
+        while done < max_steps:
+            n = min(block_steps, max_steps - done)
+            self._run_steps_inner(n, probes, series)
             done += n
             self._check_finite()
+            now = self.meep_time()
+            for iv, fn in sf.every:
+                if iv <= 0 or now - last_fire[id(fn)] >= iv - 1e-9:
+                    fn(self)
+                    last_fire[id(fn)] = now
+            if now > last_src and sf.after_sources_fns:
+                fns = sf.after_sources_fns
+                sf.after_sources_fns = []
+                for fn in fns:
+                    fn(self)
+            if stop_cond is not None and now >= t_min:
+                window = np.concatenate(series["stopc"])
+                series["stopc"] = []
+                if stop_cond.check_window(np.abs(window).max()):
+                    break
+        self._finish_collectors(sf, series)
+        for fn in sf.end:
+            fn(self)
 
-    def _run_steps_inner(self, nsteps):
-        """Route a stretch: the hybrid driver (K2/K1), else the eager
-        stepper."""
+    def _point_probe(self, name, component, pt) -> S.ProbeSpec:
+        """A probe of `component` interpolated at point `pt`."""
+        pts = self.gv.interp_weights(component, _vec_to_axes(self.gv, pt))
+        return S.ProbeSpec(name, component,
+                           np.array([p for p, w in pts], np.int32),
+                           np.array([w for p, w in pts]))
+
+    def _run_steps_inner(self, nsteps, probes=(), series=None):
+        """Route a stretch as the reference does (simulation.py:2876-2928):
+        with probes, the resident probed kernel (K4), else the eager
+        stepper; without, the resident kernel (K3), then the hybrid driver
+        (K2/K1), then the eager stepper.  Probe series are appended to
+        `series` as numpy arrays."""
         from ..ops.hybrid import hybrid_run
-        out = hybrid_run(self._plan, self._state, nsteps, self._t)
-        if out is not None:
-            self.routes["hybrid"] += 1
-            self._state = out
+        from ..ops.resident import resident_probed_run, resident_run
+        if probes:
+            out = resident_probed_run(self._plan, self._state, nsteps,
+                                      self._t, probes)
+            if out is not None:
+                self.routes["resident"] += 1
+            else:
+                self.routes["eager"] += 1
+                out = S.run(self._plan, self._state, nsteps, t0=self._t,
+                            probes=probes)
+            self._state, ys = out
+            for k in series:
+                series[k].append(ys[k].detach().cpu().numpy())
         else:
-            self.routes["eager"] += 1
-            self._state = S.run(self._plan, self._state, nsteps, t0=self._t)
+            out = resident_run(self._plan, self._state, nsteps, self._t)
+            if out is not None:
+                self.routes["resident"] += 1
+            else:
+                out = hybrid_run(self._plan, self._state, nsteps, self._t)
+                if out is not None:
+                    self.routes["hybrid"] += 1
+                else:
+                    self.routes["eager"] += 1
+                    out = S.run(self._plan, self._state, nsteps, t0=self._t)
+            self._state = out
         self._t += nsteps
+
+    def _finish_collectors(self, sf, series):
+        """Hand each collector its series (after_sources ones from the step
+        the last source turned off) and let it analyze
+        (simulation.py:2930-2943)."""
+        last_src = max((s.src.last_time() for s in self.sources), default=0.0)
+        for i, (h, after) in enumerate(sf.collectors):
+            chunks = series.get(f"hm{i}", [])
+            if not chunks:
+                continue
+            data = np.concatenate(chunks)
+            if after:
+                n_skip = max(0, int(round(last_src / self.dt))
+                             - (self._t - len(data)))
+                data = data[n_skip:]
+            h._collect(data, self.dt)
+            h._analyze()
 
     def _check_finite(self):
         """Per-stretch NaN/Inf abort (step.cpp:138): one mid-plane of the
@@ -321,6 +461,14 @@ class Simulation:
     def meep_time(self) -> float:
         return self._t * self.dt
 
+    def get_field_point(self, component, pt) -> complex:
+        """The component interpolated at point `pt` (simulation.py:3456,
+        without derived quantities and symmetry folds)."""
+        self.init_sim()
+        pts = self.gv.interp_weights(component, _vec_to_axes(self.gv, pt))
+        arr = self._state["f"][component]
+        return sum(w * complex(arr[tuple(idx)]) for idx, w in pts)
+
     def get_array(self, component=None, center=None, size=None,
                   snap: bool = False) -> np.ndarray:
         """Dense array of a field component (array_slice.cpp analog).
@@ -332,7 +480,8 @@ class Simulation:
         self.init_sim()
         arr = self._state["f"][component].detach().cpu().numpy()
         arr = arr[tuple(slice(0, n + 1) for n in self.gv.num)]
-        coords = [self.gv.comp_coords(component, ax) for ax in range(3)]
+        coords = [self.gv.comp_coords(component, ax)
+                  for ax in range(self.gv.ndim)]
         if not snap:
             ys = G.yee_shift(component, self.gv.dim)
             for ax, d in enumerate(self.gv.axes):
@@ -353,7 +502,7 @@ class Simulation:
         c_ax = _vec_to_axes(self.gv, center)
         s_ax = _vec_to_axes(self.gv, size)
         sl = []
-        for ax in range(3):
+        for ax in range(self.gv.ndim):
             lo = c_ax[ax] - s_ax[ax] / 2
             hi = c_ax[ax] + s_ax[ax] / 2
             i0 = int(np.searchsorted(coords[ax], lo - 1e-9))

@@ -139,6 +139,102 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def build_params(plan, family: str, state) -> _Params:
+    """The parameter block of one half step of `plan` over `state`: family
+    'b' (curl B, H from B with the H-family polarizations) or 'd' (curl D,
+    E from D with the E-family ones).  A 2D plan is the grid (S0, S1, 1):
+    no curl partner or chain lies along the absent axis."""
+    C = plan.coefs
+    dtype = torch_dtype(plan.dtype)
+    shape = tuple(plan.storage_shape or plan.gv.shape)
+    P = _Params()
+    P.S0, P.S1, P.S2 = shape + (1,) * (3 - len(shape))
+    P.R = P.S0                        # the state holds every x-plane
+    P.nr_iters = NR_ITERS
+    is_d = family == "d"
+    curls = plan.curl_specs_d if is_d else plan.curl_specs_b
+    ehs = plan.eh_specs_e if is_d else plan.eh_specs_h
+    P.csgn = (1.0 if is_d else -1.0) * plan.courant
+    P.sgn = 1 if is_d else -1
+    P.ncurl, P.neh = len(curls), len(ehs)
+    slab = 1 if plan.slab_opt else 0
+
+    def vec(key):
+        return _ptr(C[key]) if key in C else 0
+
+    for q, s in enumerate(curls):
+        cp = P.curl[q]
+        cp.f = _ptr(state["f"][s.c])
+        cp.fu = _ptr(state["f_u"].get(s.c))
+        cp.gp = _ptr(state["f"][s.g_plus]) if s.g_plus else 0
+        cp.gm = _ptr(state["f"][s.g_minus]) if s.g_minus else 0
+        cp.ap = s.plus_axis if s.plus_axis is not None else -1
+        cp.am = s.minus_axis if s.minus_axis is not None else -1
+        cp.kap, cp.sig, cp.siginv = (vec(f"{s.c}:kap"), vec(f"{s.c}:sig"),
+                                     vec(f"{s.c}:siginv"))
+        cp.kapu, cp.sigu, cp.siginvu = (vec(f"{s.c}:kapu"),
+                                        vec(f"{s.c}:sigu"),
+                                        vec(f"{s.c}:siginvu"))
+        cp.sig_ax = -1 if s.dsig_axis is None else s.dsig_axis
+        if s.dsig_axis is not None:
+            cp.sig_lo, cp.sig_hi = s.dsig_slabs
+            cp.sig_n = plan.gv.num[s.dsig_axis] + 1
+        cp.sigu_ax = -1 if s.dsigu_axis is None else s.dsigu_axis
+        if s.dsigu_axis is not None:
+            cp.sigu_lo, cp.sigu_hi = s.dsigu_slabs
+            cp.sigu_n = plan.gv.num[s.dsigu_axis] + 1
+        cp.slab = slab
+        alive = alive_vectors(plan, s.c, dtype, plan.device)
+        for ax in range(3):
+            cp.alive[ax] = _ptr(alive.get(ax))
+
+    dc_index = {s.dc: q for q, s in enumerate(ehs)}
+    pols = plan.pol_specs_e if is_d else plan.pol_specs_h
+    pol0 = 0 if is_d else len(plan.pol_specs_e)      # index in state["pol"]
+    has_pols = bool(pols)
+    P.npol = len(pols)
+    for pi, p in enumerate(pols):
+        w2pi = 2 * math.pi * p.omega0
+        g2pi = 2 * math.pi * p.gamma
+        omega0dtsqr = (w2pi * plan.dt) ** 2
+        P.pg1inv[pi] = 1.0 / (1 + 0.5 * g2pi * plan.dt)
+        P.pg1[pi] = 1 - 0.5 * g2pi * plan.dt
+        P.p2md[pi] = 2 - (0.0 if p.drude else omega0dtsqr)
+        P.pw2[pi] = omega0dtsqr
+    for q, s in enumerate(ehs):
+        ep = P.eh[q]
+        ep.f = _ptr(state["f"][s.ec])
+        ep.fw = _ptr(state["f_w"].get(s.ec))
+        ep.d = _ptr(state["f"][s.dc])
+        ep.u = vec(f"{s.ec}:u") if s.has_u else 0
+        ep.w_ax = -1 if s.dsigw_axis is None else s.dsigw_axis
+        if s.dsigw_axis is not None:
+            ep.kapw, ep.sigw = vec(f"{s.ec}:kapw"), vec(f"{s.ec}:sigw")
+            ep.w_lo, ep.w_hi = s.dsigw_slabs
+            ep.w_n = plan.gv.num[s.dsigw_axis] + 1
+            ep.w_slab = 1 if (plan.slab_opt and not has_pols) else 0
+        if s.has_nr:
+            ep.nreps, ep.nrchi2 = (vec(f"{s.ec}:nreps"),
+                                   vec(f"{s.ec}:nrchi2"))
+        if s.has_chi3:
+            ep.chi3, ep.chi2 = vec(f"{s.ec}:chi3"), vec(f"{s.ec}:chi2")
+        ep.dc1 = dc_index.get(s.dc1, -1) if s.dc1 else -1
+        ep.dc2 = dc_index.get(s.dc2, -1) if s.dc2 else -1
+        ep.ax_own = -1 if s.ax_own is None else s.ax_own
+        ep.ax_1 = -1 if s.ax_1 is None else s.ax_1
+        ep.ax_2 = -1 if s.ax_2 is None else s.ax_2
+        alive = alive_vectors(plan, s.ec, dtype, plan.device)
+        for ax in range(3):
+            ep.alive[ax] = _ptr(alive.get(ax))
+        for pi in range(len(pols)):
+            pst = state["pol"][pol0 + pi]
+            if s.ec in pst["p"]:
+                ep.pol[pi].p = _ptr(pst["p"][s.ec])
+                ep.pol[pi].pp = _ptr(pst["pp"][s.ec])
+                ep.pol[pi].sigma = vec(f"pol{pol0 + pi}:{s.ec}:{s.ec[1]}")
+    return P
+
+
 class Fdtd3dKernel:
     """One K1 step driver for one plan (the counterpart of the JAX
     package's Fdtd3dKernel)."""
@@ -223,96 +319,6 @@ class Fdtd3dKernel:
                 f"tensor of shape {self.shape}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
-    def _params(self, family: str, state) -> _Params:
-        """The parameter block of one half step: family 'b' (curl B, H from
-        B) or 'd' (curl D, E from D with the polarizations)."""
-        plan, C = self.plan, self.plan.coefs
-        P = _Params()
-        P.S0, P.S1, P.S2 = self.shape
-        P.R = self.shape[0]               # the state holds every x-plane
-        P.nr_iters = NR_ITERS
-        is_d = family == "d"
-        curls = plan.curl_specs_d if is_d else plan.curl_specs_b
-        ehs = plan.eh_specs_e if is_d else plan.eh_specs_h
-        P.csgn = (1.0 if is_d else -1.0) * plan.courant
-        P.sgn = 1 if is_d else -1
-        P.ncurl, P.neh = len(curls), len(ehs)
-        slab = 1 if plan.slab_opt else 0
-
-        def vec(key):
-            return _ptr(C[key]) if key in C else 0
-
-        for q, s in enumerate(curls):
-            cp = P.curl[q]
-            cp.f = _ptr(state["f"][s.c])
-            cp.fu = _ptr(state["f_u"].get(s.c))
-            cp.gp = _ptr(state["f"][s.g_plus]) if s.g_plus else 0
-            cp.gm = _ptr(state["f"][s.g_minus]) if s.g_minus else 0
-            cp.ap = s.plus_axis if s.plus_axis is not None else -1
-            cp.am = s.minus_axis if s.minus_axis is not None else -1
-            cp.kap, cp.sig, cp.siginv = (vec(f"{s.c}:kap"), vec(f"{s.c}:sig"),
-                                         vec(f"{s.c}:siginv"))
-            cp.kapu, cp.sigu, cp.siginvu = (vec(f"{s.c}:kapu"),
-                                            vec(f"{s.c}:sigu"),
-                                            vec(f"{s.c}:siginvu"))
-            cp.sig_ax = -1 if s.dsig_axis is None else s.dsig_axis
-            if s.dsig_axis is not None:
-                cp.sig_lo, cp.sig_hi = s.dsig_slabs
-                cp.sig_n = plan.gv.num[s.dsig_axis] + 1
-            cp.sigu_ax = -1 if s.dsigu_axis is None else s.dsigu_axis
-            if s.dsigu_axis is not None:
-                cp.sigu_lo, cp.sigu_hi = s.dsigu_slabs
-                cp.sigu_n = plan.gv.num[s.dsigu_axis] + 1
-            cp.slab = slab
-            alive = alive_vectors(plan, s.c, self.dtype, plan.device)
-            for ax in range(3):
-                cp.alive[ax] = _ptr(alive.get(ax))
-
-        dc_index = {s.dc: q for q, s in enumerate(ehs)}
-        pols = plan.pol_specs_e if is_d else []
-        has_pols = bool(pols)
-        P.npol = len(pols)
-        for pi, p in enumerate(pols):
-            w2pi = 2 * math.pi * p.omega0
-            g2pi = 2 * math.pi * p.gamma
-            omega0dtsqr = (w2pi * plan.dt) ** 2
-            P.pg1inv[pi] = 1.0 / (1 + 0.5 * g2pi * plan.dt)
-            P.pg1[pi] = 1 - 0.5 * g2pi * plan.dt
-            P.p2md[pi] = 2 - (0.0 if p.drude else omega0dtsqr)
-            P.pw2[pi] = omega0dtsqr
-        for q, s in enumerate(ehs):
-            ep = P.eh[q]
-            ep.f = _ptr(state["f"][s.ec])
-            ep.fw = _ptr(state["f_w"].get(s.ec))
-            ep.d = _ptr(state["f"][s.dc])
-            ep.u = vec(f"{s.ec}:u") if s.has_u else 0
-            ep.w_ax = -1 if s.dsigw_axis is None else s.dsigw_axis
-            if s.dsigw_axis is not None:
-                ep.kapw, ep.sigw = vec(f"{s.ec}:kapw"), vec(f"{s.ec}:sigw")
-                ep.w_lo, ep.w_hi = s.dsigw_slabs
-                ep.w_n = plan.gv.num[s.dsigw_axis] + 1
-                ep.w_slab = 1 if (plan.slab_opt and not has_pols) else 0
-            if s.has_nr:
-                ep.nreps, ep.nrchi2 = (vec(f"{s.ec}:nreps"),
-                                       vec(f"{s.ec}:nrchi2"))
-            if s.has_chi3:
-                ep.chi3, ep.chi2 = vec(f"{s.ec}:chi3"), vec(f"{s.ec}:chi2")
-            ep.dc1 = dc_index.get(s.dc1, -1) if s.dc1 else -1
-            ep.dc2 = dc_index.get(s.dc2, -1) if s.dc2 else -1
-            ep.ax_own = -1 if s.ax_own is None else s.ax_own
-            ep.ax_1 = -1 if s.ax_1 is None else s.ax_1
-            ep.ax_2 = -1 if s.ax_2 is None else s.ax_2
-            alive = alive_vectors(plan, s.ec, self.dtype, plan.device)
-            for ax in range(3):
-                ep.alive[ax] = _ptr(alive.get(ax))
-            for pi in range(len(pols)):
-                pst = state["pol"][pi]
-                if s.ec in pst["p"]:
-                    ep.pol[pi].p = _ptr(pst["p"][s.ec])
-                    ep.pol[pi].pp = _ptr(pst["pp"][s.ec])
-                    ep.pol[pi].sigma = vec(f"pol{pi}:{s.ec}:{s.ec[1]}")
-        return P
-
     def _launch(self, lib, P, mode):
         rc = lib.mnt_k1_half(ctypes.byref(P), mode,
                              1 if self.dtype == torch.float64 else 0,
@@ -342,14 +348,14 @@ class Fdtd3dKernel:
     def _step_cuda(self, state, x_t):
         self._check(state)
         lib = _lib()
-        pb = self._params("b", state)
+        pb = build_params(self.plan, "b", state)
         if self.sources["b"]:
             self._launch(lib, pb, MODE_B)
             self._sources(lib, "b", state, x_t)
             self._launch(lib, pb, MODE_H)
         else:
             self._launch(lib, pb, MODE_BH)
-        pd = self._params("d", state)
+        pd = build_params(self.plan, "d", state)
         self._launch(lib, pd, MODE_D)
         self._sources(lib, "d", state, x_t)
         self._launch(lib, pd, MODE_E)

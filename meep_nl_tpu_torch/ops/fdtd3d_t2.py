@@ -408,7 +408,7 @@ class Fdtd3dT2Kernel:
             view = {**ring, "pol": [{"p": e[a], "pp": e[b]}
                                     for e in ring["pol"]]}
             for fam, dst in (("b", A.pb), ("d", A.pd)):
-                P = k1._params(fam, view)
+                P = fdtd3d.build_params(k1.plan, fam, view)
                 P.R = R
                 dst[s] = P
         # LOAD / STORE: (path into the state, ring tensor, slab).  f_u and

@@ -282,6 +282,12 @@ class Plan:
     beta: float = 0.0
     #: the torch device every coefficient tensor lives on
     device: Any = None
+    #: sources injected from dense pre-scattered amplitude arrays
+    #: (coefs src{i}:dense_re / dense_im) instead of per-site scatter-adds,
+    #: and DTFT accumulators in the frequency-major (nfreq, 2, region...)
+    #: layout: the plan of the resident route (ops/resident.py)
+    scatter_free: bool = False
+    dft_front: bool = False
 
     @property
     def dt(self) -> float:

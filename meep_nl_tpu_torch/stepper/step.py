@@ -1,9 +1,9 @@
 """The FDTD timestep as a plain PyTorch `state -> state` function.
 
-The torch counterpart of ``meep_nl_tpu/stepper/step.py`` for the 3D-style
-real Cartesian subset: the eager stepper is the plain version of the whole
-step and the port's own oracle (the K1 kernel in ops/fdtd3d.py is held
-against it).  Reference mapping, as in the JAX package:
+The torch counterpart of ``meep_nl_tpu/stepper/step.py`` for the real
+Cartesian subset (2D and 3D cells): the eager stepper is the plain version
+of the whole step and the port's own oracle (the K1, K2 and resident
+kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
 
   * fields::step ordering          -> `make_step` (step.cpp:35-140)
   * step_curl + PML chain          -> `_curl_update` (step_generic.cpp:69-253)
@@ -13,6 +13,7 @@ against it).  Reference mapping, as in the JAX package:
   * lorentzian_susceptibility::update_P -> `_pol_update_lorentzian`
   * dft_chunk::update_dft          -> `_dft_update` (dft.cpp:265-306)
   * step_source                    -> `_apply_sources` (step.cpp:296-319)
+  * get_field time series          -> `run(..., probes=...)`, `ProbeSpec`
 
 The state is a dict of tensors: {"f", "f_u", "f_cond", "f_w": {comp:
 tensor}, "pol": [{"p": {...}, "pp": {...}}], "dft": {name: (..., nfreq,
@@ -22,8 +23,9 @@ its input untouched), like the JAX stepper it mirrors.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -455,6 +457,13 @@ def _apply_sources(plan: Plan, C: Dict[str, Any], ft2: str,
             continue
         dc = ft2 + s.component[1]
         w_re, w_im = xs[f"src{si}:cur_re"], xs[f"src{si}:cur_im"]
+        if plan.scatter_free:
+            # dense-source mode (the resident route, ops/resident.py): the
+            # amplitude pattern pre-scattered into full-grid arrays, the
+            # injection a multiply-add everywhere (step.py:1228-1246)
+            f[dc] = f[dc] - (w_re * C[f"src{si}:dense_re"]
+                             - w_im * C[f"src{si}:dense_im"]) * dt
+            continue
         A = (w_re * C[f"src{si}:amp_re"] - w_im * C[f"src{si}:amp_im"]) * dt
         f[dc] = f[dc].index_put(source_index(plan, si), -A, accumulate=True)
     return {**state, "f": f}
@@ -508,6 +517,14 @@ def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
                 "complex monitor weights (LDOS) are not ported yet "
                 "(ROADMAP A4)")
         cr = C[f"dft{mi}:w"] * fv
+        if plan.dft_front:
+            # frequency-major accumulators (nfreq, 2, region...), the
+            # resident route's layout (step.py:1357-1371)
+            shp = (-1,) + (1,) * cr.ndim
+            dft[m.name] = dft[m.name] + torch.stack(
+                [phr.reshape(shp) * cr[None], phi.reshape(shp) * cr[None]],
+                dim=1)
+            continue
         dre = cr[..., None] * phr
         dim = cr[..., None] * phi
         dft[m.name] = dft[m.name] + torch.stack([dre, dim], dim=-1)
@@ -609,14 +626,48 @@ def xs_rows(plan: Plan, xs: Dict[str, Any]):
              **{k: v[i] for k, v in phase.items()}} for i in range(n)]
 
 
+@dataclasses.dataclass
+class ProbeSpec:
+    """Point (or weighted-stencil) field sampler emitted every step
+    (step.py:1666): sum_p weights[p] * f[component][indices[p]]."""
+    name: str
+    component: str
+    indices: Any        # (npts, ndim) int
+    weights: Any        # (npts,)
+
+
 def run(plan: Plan, state: Dict[str, Any], nsteps: int,
-        t0: Optional[int] = None) -> Dict[str, Any]:
+        t0: Optional[int] = None, probes: Sequence[ProbeSpec] = ()):
     """Advance the state by nsteps eager steps (the inner loop of
-    Simulation.run)."""
+    Simulation.run).  With `probes`, returns (state, {name: (nsteps,)
+    tensor}): each probe's weighted sum after every step, the analog of
+    the scan-emitted probe series of step.py:1590-1663, summed point by
+    point from 0.0 in the state's type (the resident probed kernel's
+    order, ops/pallas/resident.py:336-339)."""
     if t0 is None:
         t0 = int(state["t"])
     step = make_step(plan)
     rows = xs_rows(plan, build_xs(plan, nsteps, t0))
+    dtype = torch_dtype(plan.dtype)
+    pidx = {p.name: tuple(torch.as_tensor(np.asarray(p.indices, np.int64),
+                                          device=plan.device).unbind(1))
+            for p in probes}
+    pw = {p.name: torch.as_tensor(np.asarray(p.weights), dtype=dtype,
+                                  device=plan.device) for p in probes}
+    prods = {p.name: [] for p in probes}
     for i in range(nsteps):
         state = step(state, rows[i] if rows else {})
-    return state
+        for p in probes:
+            prods[p.name].append(
+                state["f"][p.component][pidx[p.name]] * pw[p.name])
+    if not probes:
+        return state
+    series = {}
+    for name, v in prods.items():
+        acc = torch.zeros(nsteps, dtype=dtype, device=plan.device)
+        if v:
+            pv = torch.stack(v)
+            for q in range(pv.shape[1]):
+                acc = acc + pv[:, q]
+        series[name] = acc
+    return state, series

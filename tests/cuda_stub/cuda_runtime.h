@@ -1,8 +1,10 @@
 // Host stand-in for <cuda_runtime.h>: enough of the CUDA runtime to compile
-// meep_nl_tpu_torch/csrc/fdtd3d_t2.cu with a C++ compiler and run its kernel
-// as one thread of one block (tests/test_torch_fdtd3d_t2_emul.py).  A
-// cooperative launch becomes a plain call, a grid barrier a no-op, constant
-// memory a static, an atomic add a plain add.
+// meep_nl_tpu_torch/csrc/fdtd3d_t2.cu and resident.cu with a C++ compiler
+// and run their kernels as one thread of one block
+// (tests/test_torch_fdtd3d_t2_emul.py, tests/test_torch_resident_emul.py).
+// A cooperative launch becomes a plain call (with the one pointer argument
+// the resident kernel takes), a grid or block barrier a no-op, constant and
+// shared memory a static, an atomic add a plain add.
 #pragma once
 #include <cmath>
 #include <cstddef>
@@ -15,6 +17,8 @@
 #define __launch_bounds__(...)
 #define __grid_constant__
 #define __constant__ static
+#define __shared__ static
+inline void __syncthreads() {}
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -49,9 +53,12 @@ cudaError_t cudaMemcpyToSymbolAsync(S& symbol, const void* src, size_t n,
   return 0;
 }
 inline cudaError_t cudaLaunchCooperativeKernel(const void* fn, dim3, dim3,
-                                               void**, size_t,
+                                               void** args, size_t,
                                                cudaStream_t) {
-  ((void (*)())fn)();
+  if (args)
+    ((void (*)(const void*))fn)(*(const void* const*)args[0]);
+  else
+    ((void (*)())fn)();
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }

@@ -96,7 +96,7 @@ def test_capture_matches_reference_kernel_interpreted(monkeypatch):
     slabs."""
     monkeypatch.setenv("MNT_PALLAS_INTERPRET", "1")
     depth, t0 = 2, 150
-    kw = dict(cells=(24, 12, 12))
+    kw = dict(cells=(20, 12, 12))
     pj = build_plan(JAX, **kw)
     pj.slab_opt = True
     assert JT2.supported(pj, depth=depth)

@@ -14,6 +14,7 @@ import meep_nl_tpu as mnt
 import meep_nl_tpu_torch as mtt
 from meep_nl_tpu_torch.ops import fdtd3d_t2 as T2
 from meep_nl_tpu_torch.ops import hybrid as HY
+from meep_nl_tpu_torch.ops import resident as R
 from meep_nl_tpu_torch.stepper import step as TS
 
 from test_torch_fdtd3d_t2_gpu import _random_state as random_state
@@ -191,15 +192,18 @@ def _close(got, want, what, scale=None):
 
 
 @pytest.mark.parametrize("scene", ["flagship", "linear"])
-def test_simulation_routes_match_jax(scene):
+def test_simulation_routes_match_jax(scene, monkeypatch):
     """Simulation.run through the capture route (flagship) and the cycle
-    route (linear) against the JAX package's Simulation."""
+    route (linear) against the JAX package's Simulation.  These small cells
+    would take the resident route first, as in the reference; PREFER_BYTES
+    = 0 hands them to the hybrid route."""
+    monkeypatch.setattr(R, "PREFER_BYTES", 0)
     sj, fj = make_sim(mnt, scene)
     st, ft = make_sim(mtt, scene, device="cpu")
     sj.init_sim()
     sj._plan.slab_opt = True            # the route the port follows
     peak = {}
-    for until in (4.0, 2.0):
+    for until in (3.0, 3.0):            # one JAX runner for both
         sj.run(until=until)
         st.run(until=until)
         assert st._t == sj._t
@@ -217,3 +221,26 @@ def test_simulation_routes_match_jax(scene):
         assert [m.decimation for m in st.plan.dfts] == [4] * 4
         assert plain["k2_d2"] >= st._t - 8 and "cap_d3" not in plain
     assert st._t == 96
+
+
+@pytest.mark.parametrize("scene", ["flagship", "linear"])
+def test_simulation_resident_route_matches_jax(scene):
+    """The resident-route counterpart of test_simulation_routes_match_jax:
+    the same cells take K3 (its plain version on the CPU, full-grid PML
+    chains), held against the JAX package's jnp stepper, which runs the
+    full-grid chains too."""
+    sj, fj = make_sim(mnt, scene, use_fused=False)
+    st, ft = make_sim(mtt, scene, device="cpu")
+    peak = {}
+    for until in (3.0, 3.0):
+        sj.run(until=until)
+        st.run(until=until)
+        assert st._t == sj._t
+        for c in ("ez", "hy"):
+            want = sj.get_array(c)
+            peak[c] = max(peak.get(c, 0.0), float(np.abs(want).max()))
+            _close(st.get_array(c), want, c, peak[c])
+    _close(st.get_fluxes(ft), sj.get_fluxes(fj), "flux")
+    assert dict(st.routes) == {"resident": 2}
+    assert st.plan._resident_kernel.plain_steps == st._t == 96
+    assert "_t2_kernel" not in st.plan.__dict__ and not st.plan.slab_opt

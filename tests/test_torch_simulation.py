@@ -1,9 +1,10 @@
 """The same Simulation through meep_nl_tpu (the JAX package, on the CPU its
 jnp stepper) and meep_nl_tpu_torch(device="cpu"): fluxes and fields agree
 to 1e-4 of their maximum (fp32; the two round in different orders over
-~130 steps).  On the CPU the port's run goes through the hybrid driver,
+~130 steps).  These small 3D cells take the resident route first, as in the
+reference; with PREFER_BYTES set to 0 they take the hybrid driver instead,
 whose kernel wrappers (K2 at depth 2 and 3, K1) take their plain versions
-there; the route and step counters show it."""
+on the CPU.  The route and step counters show which ran."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 import meep_nl_tpu as mnt
 import meep_nl_tpu_torch as mtt
+from meep_nl_tpu_torch.ops import resident as R
 
 torch.set_num_threads(2)
 
@@ -45,16 +47,20 @@ def _close(got, want, what, scale=None):
     assert err <= 1e-4 * scale, f"{what}: {err:.3e} vs max {scale:.3e}"
 
 
-@pytest.mark.parametrize("flagship,eps_averaging,last", [
-    (True, False, {"until": 3.0}),
-    (True, True, {"until": 3.0}),
-    (False, False, {"until_after_sources": 1.0}),
+@pytest.mark.parametrize("flagship,eps_averaging,first,last", [
+    (True, False, 4.0, {"until": 4.0}),
+    (True, True, 4.0, {"until": 4.0}),
+    (False, False, 5.5, {"until_after_sources": 1.0}),
 ], ids=["flagship", "flagship-subpixel", "vacuum-after-sources"])
-def test_simulation_matches_jax(flagship, eps_averaging, last):
-    """Two stretches: run(until=5) while the pulse is in the cell, then
-    `last`.  Fields are held to 1e-4 of the run's peak field (by the end
-    the pulse has mostly left through the PML, and fp32 round-off is
-    relative to the peak); fluxes to 1e-4 of their maximum."""
+def test_simulation_matches_jax(flagship, eps_averaging, first, last,
+                                monkeypatch):
+    """Two stretches through the hybrid route: run(until=first) while the
+    pulse is in the cell, then `last`, a stretch of as many steps (so the
+    JAX side compiles its runner once).  Fields are held to 1e-4 of the
+    run's peak field (by the end the pulse has mostly left through the PML,
+    and fp32 round-off is relative to the peak); fluxes to 1e-4 of their
+    maximum."""
+    monkeypatch.setattr(R, "PREFER_BYTES", 0)     # the hybrid route
     sj, fj = make_sim(mnt, flagship, eps_averaging)
     st, ft = make_sim(mtt, flagship, eps_averaging, device="cpu")
     # the JAX package's production route (its hybrid driver) runs the
@@ -64,7 +70,7 @@ def test_simulation_matches_jax(flagship, eps_averaging, last):
     sj.init_sim()
     sj._plan.slab_opt = True
     peak = {}
-    for run_kw in ({"until": 5.0}, last):
+    for run_kw in ({"until": first}, last):
         sj.run(**run_kw)
         st.run(**run_kw)
         assert st._t == sj._t
@@ -108,7 +114,31 @@ def test_simulation_default_device_is_cuda():
             make_sim(mtt)
 
 
-def test_simulation_rejects_2d():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mtt.Simulation(cell_size=mtt.Vector3(2, 2, 0), resolution=8,
-                       device="cpu")
+def test_simulation_resident_route_matches_jax():
+    """The flagship cell on the resident route (K3's plain version on the
+    CPU: full-grid PML chains) against the JAX package's jnp stepper, which
+    runs the full-grid chains too: two stretches of 40 steps."""
+    sj, fj = make_sim(mnt, True, use_fused=False)
+    st, ft = make_sim(mtt, True, device="cpu")
+    peak = 0.0
+    for until in (2.5, 2.5):
+        sj.run(until=until)
+        st.run(until=until)
+        assert st._t == sj._t
+        want = sj.get_array("ez")
+        peak = max(peak, float(np.abs(want).max()))
+        _close(st.get_array("ez"), want, "ez", peak)
+    _close(st.get_fluxes(ft), sj.get_fluxes(fj), "flux")
+    assert dict(st.routes) == {"resident": 2}
+    ker = st.plan._resident_kernel
+    assert ker.plain_steps == st._t == 80 and ker.launches == 0
+    assert not st.plan.slab_opt and "_t2_kernel" not in st.plan.__dict__
+
+
+@pytest.mark.parametrize("cell,kw,item", [
+    ((0, 0, 2), {}, "ROADMAP A5"),
+    ((2, 0, 2), {"dimensions": -2}, "ROADMAP A9")], ids=["1d", "cylindrical"])
+def test_simulation_rejects_1d_and_cylindrical(cell, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        mtt.Simulation(cell_size=mtt.Vector3(*cell), resolution=8,
+                       device="cpu", **kw)
