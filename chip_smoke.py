@@ -12,10 +12,13 @@ falls back to the CPU or to a plain version:
      random state at 64^3, on the flagship material plan (eps=4 ball,
      Lorentz pole, chi2 Newton-Raphson) and a vacuum uPML plan: K1 over 20
      steps; K2 at depth 2 and depth 3 with capture planes on the flux
-     plane's x-planes over 6 calls, state and every captured plane.  fp32
-     max error <= 1e-5 of the field maximum (the kernels are built without
-     FMA contraction and in the plain version's operation order, so in
-     practice they agree bit for bit);
+     plane's x-planes over 6 calls, state and every captured plane; K5
+     (both half-step kernels and the source fix-up) over 20 steps with the
+     source near its peak, on vacuum uPML plans in fp32 and fp64 and an
+     eps=4 ball padded to (8, 8, 128).  fp32 max error <= 1e-5 of the field
+     maximum, fp64 1e-12 (the kernels are built without FMA contraction and
+     in the plain version's operation order, so in practice they agree bit
+     for bit);
   4. the main path: Simulation.run of the flagship ball at 128^3 (cell
      8x8x8 at resolution 16) with PML on every face, a Gaussian Ez point
      source and a flux plane, 602 steps.  Every step samples the DTFT, so
@@ -53,7 +56,23 @@ falls back to the CPU or to a plain version:
      (r + 0.1, 0), 1e-3): every stretch through K4 (counters); K4 against
      its plain version from the end state (series and state); the modes and
      the decay run's stop step on the card against the same runs of the
-     port on the CPU.
+     port on the CPU;
+  9. the use_pallas route: Simulation(use_pallas=True, use_fused=False) at
+     phase 6's 255^3 vacuum scene, 50 steps without a monitor (every
+     stretch "half_step", 2 K5 launches per step, no plain step), K5
+     against its plain version from the end state, K5, its plain version
+     and the step_cost bound timed; then phase 5's 96^3 linear monitored
+     scene, whose fluxes must equal those of the plain stepper (use_fused=
+     False), whose full-grid PML chains K5 follows, to 1e-4 (their
+     difference from phase 5's K2 route, whose slab-local chains see the
+     scene's source inside the x-PML slab otherwise, is printed);
+ 10. the fused probed route: the 128^3 flagship without its flux plane,
+     run(after_sources(Harminv(Ez, (0.3, 0.2, 0.1), 1, 1)),
+     until_after_sources=50): every probed stretch through fused_probed_run
+     (K4 declines the doubled state), 4 K1 launches per step, no plain
+     step; the modes, the wall ms/step and K1's share of it; then 100 steps
+     of fused_probed_run against the eager stepper's probe series from the
+     end state (expected bit for bit, gate 1e-6).
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -73,6 +92,7 @@ K1_REPLACES = "meep_nl_tpu/ops/pallas/fdtd3d.py:554"
 K2_REPLACES = "meep_nl_tpu/ops/pallas/fdtd3d_t2.py:182"
 K3_REPLACES = "meep_nl_tpu/ops/pallas/resident.py:223"
 K4_REPLACES = "meep_nl_tpu/ops/pallas/resident.py:289"
+K5_REPLACES = "meep_nl_tpu/ops/pallas/fused.py:71"
 
 
 def card_line() -> str:
@@ -96,13 +116,14 @@ def build_all():
 
 
 def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
-                 pml=1.0, linear=False, decimation=0):
+                 pml=1.0, linear=False, decimation=0, **sim_kw):
     """The flagship scene: an eps=4 ball (radius a quarter of the cell)
     with a Lorentz pole and full-tensor chi2 (the NR solve), uPML on every
     face, a Gaussian Ez point source off the ball and an x-normal flux
     plane (the JAX package's bench.py material configuration).  `linear`
     keeps the eps=4 ball and drops its pole and chi2; `decimation` is the
-    flux monitor's DTFT decimation factor (0: automatic)."""
+    flux monitor's DTFT decimation factor (0: automatic); `sim_kw` goes to
+    Simulation (use_pallas, use_fused)."""
     L = n_cells / res
     geometry = []
     if ball:
@@ -116,7 +137,8 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
         sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
                            component=mp.Ez,
                            center=mp.Vector3(-0.35 * L, 0.01 * L, 0))],
-        boundary_layers=[mp.PML(pml)], eps_averaging=False, device=device)
+        boundary_layers=[mp.PML(pml)], eps_averaging=False, device=device,
+        **sim_kw)
     fl = None
     if flux:
         fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
@@ -689,6 +711,311 @@ def phase_resident(mp, dev, card, blank):
     return k3, k4
 
 
+def k5_plan(mp, n, device, dtype, ball, pad):
+    """A 3D plan for K5 from numpy inputs: an (n / 8)^3 cell at resolution
+    8, PML 1 on every face, a Gaussian Ez point source (f 1, fwidth 0.5) at
+    (-0.35 L, 0.01 L, 0), with `ball` chi1inv 0.25 (eps 4) inside a sphere
+    of radius L / 4, the storage padded to multiples of `pad`; use_pallas."""
+    import numpy as np
+    from meep_nl_tpu_torch.stepper import plan as P
+    res, L = 8.0, n / 8.0
+    gv = mp.GridVolume.create("3d", [L, L, L], res)
+    chi1inv = {}
+    if ball:
+        for c in ("ex", "ey", "ez"):
+            xx, yy, zz = np.meshgrid(*[gv.comp_coords(c, a) - L / 2
+                                       for a in range(3)], indexing="ij")
+            chi1inv[c] = {c[1]: np.where(
+                xx * xx + yy * yy + zz * zz < (L / 4) ** 2, 0.25, 1.0)}
+    pts = gv.interp_weights("ez", [-0.35 * L + L / 2, 0.01 * L + L / 2,
+                                   L / 2])
+    src = P.SrcVolSpec("ez", np.array([p for p, w in pts], np.int32),
+                       np.array([w * res ** 3 for p, w in pts],
+                                np.complex128),
+                       mp.GaussianSource(frequency=1.0, fwidth=0.5))
+    plan = P.compile_plan(gv, P.MaterialSpec(chi1inv=chi1inv),
+                          pmls=[P.PMLSpec(d, 1.0) for d in "xyz"],
+                          sources=[src], pad_to_multiple=pad, dtype=dtype,
+                          device=device)
+    plan.use_pallas = True
+    return plan
+
+
+def k5_counts(plan):
+    """{label: (CUDA launches, plain calls)} of the plan's K5 objects."""
+    ker = plan.__dict__.get("_fused_kernels", {})
+    return {k: (v.launches, v.plain_steps) for k, v in ker.items()
+            if v is not None}
+
+
+def k5_reset(plan):
+    from meep_nl_tpu_torch.ops import fused
+    for v in fused.kernels_of(plan).values():
+        if v is not None:
+            v.launches = v.plain_steps = 0
+
+
+def compare_k5(plan, st0, t0, nsteps):
+    """The K5 step (both half-step kernels and the fix-ups) against its
+    plain version over nsteps from state st0 at step t0; the launches are
+    not counted.  Fails if no step of the window injects a current."""
+    import numpy as np
+    from meep_nl_tpu_torch.ops import fused
+    from meep_nl_tpu_torch.stepper.step import build_xs, make_step, xs_rows
+    xs = build_xs(plan, nsteps, t0)
+    if not any(np.any(v != 0) for k, v in xs.items() if ":cur_" in k):
+        raise AssertionError(f"no source current in steps {t0}..")
+    rows = xs_rows(plan, xs)
+    before = k5_counts(plan)
+    step, ref = make_step(plan, dft=False), fused.step_ref(plan)
+    sk, sr = clone_state(st0), clone_state(st0)
+    for row in rows:
+        sr = ref(sr, row)
+        sk = step(sk, row)
+    got = k5_counts(plan)
+    launched = {k: got[k][0] - before.get(k, (0, 0))[0] for k in got}
+    if launched["b"] != nsteps or launched["d"] != nsteps or any(
+            got[k][1] != before.get(k, (0, 0))[1] for k in got):
+        raise AssertionError(f"K5 comparison did not run the kernels: "
+                             f"{launched}")
+    for k, v in plan._fused_kernels.items():
+        if v is not None:
+            v.launches, v.plain_steps = before.get(k, (0, 0))
+    return state_error(sk, sr)
+
+
+def phase_k5_compare(mp, dev):
+    """Phase 3 (K5): K5 against its plain version at 64^3 from a seeded
+    random state, 20 steps with the source near its peak; returns the max
+    abs error."""
+    import numpy as np
+    worst = 0.0
+    for label, dtype, ball, pad in (
+            ("vacuum uPML fp32", np.float32, False, (8, 1, 1)),
+            ("vacuum uPML fp64", np.float64, False, (8, 1, 1)),
+            ("eps=4 ball, padded (8, 8, 128)", np.float32, True,
+             (8, 8, 128))):
+        plan = k5_plan(mp, 64, dev, dtype, ball, pad)
+        err, rel = compare_k5(plan, random_state(plan, 7, dev), 150, 20)
+        print(f"[3] K5 vs plain, {label} (storage {plan.storage_shape}) x "
+              f"20 steps: max abs {err:.3e}, max rel {rel:.3e}", flush=True)
+        tol = 1e-5 if dtype == np.float32 else 1e-12
+        if not rel <= tol:
+            raise AssertionError(f"K5 disagrees with its plain version "
+                                 f"({label}): rel {rel:.3e} > {tol:.0e}")
+        worst = max(worst, err)
+    return worst
+
+
+def k5_run_counted(sim, nsteps):
+    """sim.run for nsteps with the K5 counters set to 0 just before;
+    returns (wall seconds, K5 launches of the two halves, fix-up launches),
+    read just after.  Fails unless every stretch was a "half_step" stretch
+    and no plain version ran."""
+    import torch
+    k5_reset(sim.plan)
+    sim.routes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(until=nsteps * sim.dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = k5_counts(sim.plan)
+    if set(sim.routes) != {"half_step"} or any(p for _, p in counts.values()):
+        raise AssertionError(f"use_pallas run left the K5 route: routes "
+                             f"{dict(sim.routes)}, counts {counts}")
+    fix = sum(counts[k][0] for k in ("fix_b", "fix_d") if k in counts)
+    return wall, counts["b"][0] + counts["d"][0], fix
+
+
+def phase_use_pallas(mp, dev, card, fluxes96, k5):
+    """Phase 9: Simulation(use_pallas=True, use_fused=False) at 255^3
+    vacuum (50 steps, no monitor) and at the 96^3 linear monitored scene
+    (its fluxes against the plain stepper's, beside phase 5's K2 route's
+    `fluxes96`); fills the K5 entry."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import fused
+    from meep_nl_tpu_torch.stepper.step import build_xs, make_step, xs_rows
+    n, res, nsteps = 255, 16.0, 50
+    cells = n ** 3
+    sim, _ = flagship_sim(mp, n, res, dev, flux=False, ball=False,
+                          use_pallas=True, use_fused=False)
+    plan = sim.plan
+    sim.run(until=9 * sim.dt)                       # warm-up
+    wall, launches, fix = k5_run_counted(sim, nsteps)
+    if (launches, fix, dict(sim.routes)) != (2 * nsteps, nsteps,
+                                             {"half_step": 1}):
+        raise AssertionError(f"255^3 use_pallas run: K5 launches {launches}, "
+                             f"fix-up {fix}, routes {dict(sim.routes)}")
+    k5["launches"] = launches
+    ez = sim.get_array(mp.Ez)
+    if not (np.all(np.isfinite(ez)) and np.any(ez != 0)):
+        raise AssertionError("255^3 use_pallas run: Ez not finite/non-zero")
+    print(f"[9] vacuum uPML 255^3 Simulation(use_pallas=True, use_fused="
+          f"False).run: {nsteps} steps in {wall:.3f} s = "
+          f"{wall / nsteps * 1e3:.4f} ms/step = "
+          f"{cells * nsteps / wall / 1e9:.3f} GCells/s; K5 launches "
+          f"{launches}, fix-up launches {fix}, routes {dict(sim.routes)} "
+          f"({card})", flush=True)
+    st, t_end = sim.fields_state, sim._t
+    err, rel = compare_k5(plan, st, t_end, 5)
+    print(f"[9] K5 vs plain at 255^3 from the run's state, 5 steps: max abs "
+          f"{err:.3e}, max rel {rel:.3e}", flush=True)
+    if not rel <= 1e-5:
+        raise AssertionError(f"K5 disagrees at 255^3: rel {rel:.3e}")
+    k5["max_abs_err"] = max(k5["max_abs_err"], err)
+    ker = fused.kernels_of(plan)
+    rows = xs_rows(plan, build_xs(plan, 13, t_end))
+    hb, hd = fused.half_step_ref(plan, "b"), fused.half_step_ref(plan, "d")
+
+    def halves(h1, h2):
+        def fn(s_, _row):
+            f, fu, fw = h1(s_["f"], s_["f_u"], s_["f_w"])
+            f, fu, fw = h2(f, fu, fw)
+            return {**s_, "f": f, "f_u": fu, "f_w": fw}
+        return fn
+
+    counts = k5_counts(plan)
+    k5["ms"], _ = time_steps(halves(ker["b"], ker["d"]), clone_state(st),
+                             rows)
+    step_ms, _ = time_steps(make_step(plan, dft=False), clone_state(st),
+                            rows)
+    k5["plain_ms"], _ = time_steps(halves(hb, hd), clone_state(st), rows[:6])
+    for k, v in ker.items():
+        if v is not None:
+            v.launches, v.plain_steps = counts[k]
+    k5["bound_ms"], k5["bound_by"] = bound(fused.step_cost(plan))
+    print(f"[9] K5 at 255^3: the two half-step launches {k5['ms']:.4f} "
+          f"ms/step = {cells / k5['ms'] / 1e6:.3f} GCells/s; the whole step "
+          f"with the fix-up {step_ms:.4f} ms/step; plain halves "
+          f"{k5['plain_ms']:.4f} ms/step; bound {k5['bound_ms']:.4f} ms "
+          f"({k5['bound_by']}, {fused.step_cost(plan)['bytes'] / 1e9:.3f} "
+          f"GB per step) ({card})", flush=True)
+    del sim, st
+
+    n, nsteps, dec = 96, 300, 5
+    sim, fl = flagship_sim(mp, n, res, dev, linear=True, decimation=dec,
+                           use_pallas=True, use_fused=False)
+    sim.run(until=10 * sim.dt)                      # as phase 5
+    wall, launches, fix = k5_run_counted(sim, nsteps)
+    if (launches, fix) != (2 * nsteps, nsteps):
+        raise AssertionError(f"96^3 use_pallas run: K5 launches {launches}, "
+                             f"fix-up {fix}")
+    k5["launches"] += launches
+    flux = sim.get_fluxes(fl)
+    # the same scene through the plain stepper with the full-grid chains,
+    # which the K5 route follows; this scene's source (x = -2.1) lies in
+    # the x-PML slab, where the K2 route's slab-local chains give other
+    # fields, in the reference too (ROADMAP C)
+    ref, fl_ref = flagship_sim(mp, n, res, dev, linear=True, decimation=dec,
+                               use_fused=False)
+    ref.run(until=10 * ref.dt)
+    ref.run(until=nsteps * ref.dt)
+    if dict(ref.routes) != {"eager": 2}:
+        raise AssertionError(f"96^3 reference run: routes {dict(ref.routes)}")
+    fdiff = rel_diff(flux, ref.get_fluxes(fl_ref))
+    k2diff = rel_diff(flux, fluxes96)
+    print(f"[9] linear monitored 96^3, decimation {dec}, use_pallas: "
+          f"{nsteps} steps, {wall / nsteps * 1e3:.4f} ms/step, K5 launches "
+          f"{launches}, fix-up {fix}, routes {dict(sim.routes)}; flux "
+          f"{flux.tolist()}; against the plain stepper's full-grid chains: "
+          f"max rel {fdiff:.3e}; against phase 5's K2 cycle route "
+          f"(slab-local chains, the source inside the x-PML slab): max rel "
+          f"{k2diff:.3e} ({card})", flush=True)
+    if not (fdiff <= 1e-4 and np.any(flux != 0)):
+        raise AssertionError(f"96^3 use_pallas fluxes differ from the plain "
+                             f"stepper's by {fdiff:.3e}")
+    del ref
+    plan, st, t_end = sim.plan, sim.fields_state, sim._t
+    err, rel = compare_k5(plan, st, t_end, 5)
+    k5["max_abs_err"] = max(k5["max_abs_err"], err)
+    ker, counts = fused.kernels_of(plan), k5_counts(plan)
+    ms, _ = time_steps(halves(ker["b"], ker["d"]), clone_state(st),
+                       xs_rows(plan, build_xs(plan, 13, t_end)))
+    for k, v in ker.items():
+        if v is not None:
+            v.launches, v.plain_steps = counts[k]
+    b_ms, b_by = bound(fused.step_cost(plan))
+    print(f"[9] K5 vs plain at 96^3 linear from the run's state, 5 steps: "
+          f"max abs {err:.3e}, max rel {rel:.3e}; the two half-step "
+          f"launches {ms:.4f} ms/step, bound {b_ms:.4f} ms ({b_by}) "
+          f"({card})", flush=True)
+    if not rel <= 1e-5:
+        raise AssertionError(f"K5 disagrees at 96^3: rel {rel:.3e}")
+    del sim, st
+    torch.cuda.empty_cache()
+
+
+def phase_fused_probed(mp, dev, card):
+    """Phase 10: the 128^3 flagship without its flux plane, run(after_
+    sources(Harminv(Ez, (0.3, 0.2, 0.1), 1, 1)), until_after_sources=50):
+    every probed stretch through fused_probed_run (K4 declines the doubled
+    state); then 100 steps of fused_probed_run against the eager stepper
+    from the end state.  Returns K1's launches in the run."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import resident as R
+    from meep_nl_tpu_torch.stepper import step as S
+    from meep_nl_tpu_torch.stepper.step import build_xs, xs_rows
+    sim, _ = flagship_sim(mp, 128, 16.0, dev, flux=False)
+    plan = sim.plan
+    if R.resident_supported(plan):
+        raise AssertionError("the resident route would take the 128^3 scene")
+    k1 = HY._get_kernel(plan)._k1            # made before the counted run
+    pt = mp.Vector3(0.3, 0.2, 0.1)
+    h = mp.Harminv(mp.Ez, pt, 1.0, 1.0)
+    k1.launches = k1.plain_steps = 0
+    sim.routes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(mp.after_sources(h), until_after_sources=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nsteps = sim._t
+    if set(sim.routes) != {"fused_probed"} or k1.plain_steps \
+            or k1.launches != k1.launches_per_step * nsteps:
+        raise AssertionError(f"128^3 Harminv run: routes {dict(sim.routes)}, "
+                             f"K1 launches {k1.launches}, plain "
+                             f"{k1.plain_steps}")
+    launches = k1.launches
+    data = np.asarray(h.data)
+    if not (np.all(np.isfinite(data)) and np.any(data != 0)
+            and len(h.modes) > 0):
+        raise AssertionError(f"128^3 Harminv run: series or modes empty "
+                             f"({len(h.modes)} modes)")
+    st, t_end = sim.fields_state, sim._t
+    rows = xs_rows(plan, build_xs(plan, 23, t_end))
+    k1_ms, _ = time_steps(k1.step, clone_state(st), rows)
+    k1.launches, k1.plain_steps = launches, 0
+    print(f"[10] flagship 128^3 (no flux plane), run(after_sources(Harminv("
+          f"Ez, (0.3, 0.2, 0.1), 1, 1)), until_after_sources=50): {nsteps} "
+          f"steps in {wall:.3f} s = {wall / nsteps * 1e3:.4f} ms/step; routes "
+          f"{dict(sim.routes)}, K1 launches {launches}; K1 {k1_ms:.4f} "
+          f"ms/step = {k1_ms / (wall / nsteps * 1e3) * 100:.1f} % of the wall "
+          f"({card})", flush=True)
+    print("[10] modes (freq, Q, amp): " + ", ".join(
+        f"({m.freq:.8f}, {m.Q:.1f}, {m.amp:.3e})" for m in h.modes),
+        flush=True)
+    probe = [sim._point_probe("hm0", mp.Ez, pt)]
+    sk, yk = HY.fused_probed_run(plan, clone_state(st), 100, t_end, probe)
+    sr, yr = S.run(plan, clone_state(st), 100, t0=t_end, probes=probe)
+    serr = float((yk["hm0"] - yr["hm0"]).abs().max())
+    scale = float(yr["hm0"].abs().max())
+    err, rel = state_error(sk, sr)
+    k1.launches, k1.plain_steps = launches, 0
+    print(f"[10] fused_probed_run vs the eager stepper, 100 steps from the "
+          f"end state: series max abs {serr:.3e} (max {scale:.3e}), state "
+          f"max abs {err:.3e}, max rel {rel:.3e}", flush=True)
+    if not (scale > 0 and serr <= 1e-6 * scale and rel <= 1e-6):
+        raise AssertionError(f"fused_probed_run disagrees with the eager "
+                             f"stepper: series {serr:.3e}, state {rel:.3e}")
+    del sim, st, sk, sr
+    torch.cuda.empty_cache()
+    return launches, max(err, serr)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -717,6 +1044,9 @@ def main() -> int:
     k2 = {"name": "fdtd3d_t2_k2", "route": "cuda",
           "source": "meep_nl_tpu_torch/csrc/fdtd3d_t2.cu",
           "replaces": K2_REPLACES, **blank}
+    k5 = {"name": "fused_k5", "route": "cuda",
+          "source": "meep_nl_tpu_torch/csrc/fused.cu",
+          "replaces": K5_REPLACES, **blank}
 
     names, secs = build_all()
     grids = {f"{'fp64' if f else 'fp32'}{' nonlinear' if nl else ''}":
@@ -752,6 +1082,7 @@ def main() -> int:
                 raise AssertionError(
                     f"K2 depth {depth} disagrees with its plain version "
                     f"({label}): rel {rel:.3e}, captures {cerr:.3e}")
+    k5["max_abs_err"] = phase_k5_compare(mp, dev)
 
     # ---- 4: the main path, flagship 128^3 -------------------------------
     res, n = 16.0, 128
@@ -921,6 +1252,7 @@ def main() -> int:
     if not (fdiff <= 1e-4 and np.any(fluxes["k2"] != 0)):
         raise AssertionError(f"linear scene: routes differ by {fdiff:.3e}")
     del sim
+    torch.cuda.empty_cache()
 
     # ---- 6: vacuum uPML 255^3, the fully fused route --------------------
     n = 255
@@ -969,9 +1301,13 @@ def main() -> int:
 
     del sim, st
     k3, k4 = phase_resident(mp, dev, card, blank)
+    phase_use_pallas(mp, dev, card, fluxes["k2"], k5)
+    launches, err = phase_fused_probed(mp, dev, card)
+    k1["launches"] += launches
+    k1["max_abs_err"] = max(k1["max_abs_err"], err)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,8 +15,8 @@ from .models.source import (GaussianSource, ContinuousSource, CustomSource,
 from .models.geom import (Vector3, Medium, Sphere, Cylinder, Block,
                           GeometricObject, LorentzianSusceptibility,
                           DrudeSusceptibility, vacuum, air)
-from .models.run_control import (after_sources, at_every, at_beginning,
-                                 at_end, during_sources,
+from .models.run_control import (FieldProbe, after_sources, at_every,
+                                 at_beginning, at_end, during_sources,
                                  stop_when_fields_decayed)
 from .analysis.harminv import Harminv, Mode, harminv
 from .models.simulation import (Simulation, PML, FluxRegion, get_fluxes,

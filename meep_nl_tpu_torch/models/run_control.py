@@ -9,13 +9,15 @@ series (stepper.step.ProbeSpec) and never interrupt it.
 
 Not carried over yet (ROADMAP A13): the output functions and h5 writers,
 `in_volume`, the time-gated combinators, `stop_when_dft_decayed` and the
-other stop conditions, `FieldProbe` / `WeightedProbe`.
+other stop conditions, `WeightedProbe`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, List
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -69,6 +71,26 @@ class stop_when_fields_decayed:
         cur = float(window_max_abs) ** 2
         self._peak = max(self._peak, cur)
         return self._peak > 0 and cur <= self.decay_by * self._peak
+
+
+class FieldProbe:
+    """In-loop point time-series sampler (run_control.py:143): records
+    component `c` at `pt` every step, riding the probe series as Harminv
+    does (no per-step host sync).  After run(), `.data` holds the series
+    and `.dt` the timestep."""
+
+    def __init__(self, c, pt):
+        self.c = c
+        self.pt = pt
+        self.data = np.zeros(0)
+        self.dt = None
+
+    def _collect(self, data, dt):
+        self.data = np.concatenate([self.data, np.asarray(data)])
+        self.dt = dt
+
+    def _analyze(self):
+        pass
 
 
 def _is_collector(x) -> bool:

@@ -10,13 +10,17 @@ Cartesian cells).
     powers = sim.get_fluxes(flux)
 
 Runs on CUDA unless constructed with ``device="cpu"``.  `run` routes each
-stretch as the reference does: the resident kernels first (K3, or K4 for
-stretches that record probe series), then the hybrid driver (K2 and K1) for
-plain stretches, and the eager stepper only for plans the kernels decline;
-`Simulation.routes` counts the stretches each route took, the kernel
-objects' own counters say which kernel ran.  `run` takes the step-function
-DSL of models/run_control.py (at_every, at_beginning, at_end,
-during_sources, after_sources, Harminv collectors, stop_when_fields_decayed).
+stretch as the reference does: with `use_fused` (the default) the resident
+kernels first (K3, or K4 for stretches that record probe series), then the
+hybrid driver (K2 and K1) for plain stretches or `fused_probed_run` (K1)
+for probed ones, and the eager stepper only for plans the kernels decline;
+with `use_fused=False` every stretch goes to the eager stepper.  With
+`use_pallas=True` the eager stepper's step is the fused half-step kernel
+(K5) where the plan admits it.  `Simulation.routes` counts the stretches
+each route took, the kernel objects' own counters say which kernel ran.
+`run` takes the step-function DSL of models/run_control.py (at_every,
+at_beginning, at_end, during_sources, after_sources, Harminv and
+FieldProbe collectors, stop_when_fields_decayed).
 Symmetries, k-points, 1D and cylindrical cells and the other monitors wait
 for later slices (ROADMAP).
 """
@@ -99,6 +103,8 @@ class Simulation:
                  subpixel_n: int = 3,
                  dimensions=None,
                  dtype=np.float32,
+                 use_pallas: bool = False,
+                 use_fused: bool = True,
                  device=None):
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
@@ -121,6 +127,12 @@ class Simulation:
         self.eps_averaging = eps_averaging
         self.subpixel_n = subpixel_n
         self.dtype = dtype
+        #: step through the fused half-step kernel (K5) where the plan
+        #: admits it
+        self.use_pallas = use_pallas
+        #: try the resident, hybrid and fused probed routes before the
+        #: stepper
+        self.use_fused = use_fused
         self.device = resolve_device(device)
         self.gv = G.GridVolume.create(dim, size, self.resolution)
         self._dft_specs: List[DftSpec] = []
@@ -128,8 +140,9 @@ class Simulation:
         self._plan = None
         self._state = None
         self._t = 0
-        #: stretches of run() by route ("resident": K3/K4, "hybrid": K2/K1,
-        #: "eager": the plain stepper)
+        #: stretches of run() and step() by route ("resident": K3/K4,
+        #: "hybrid": K2/K1, "fused_probed": K1 with probe series,
+        #: "half_step": the stepper through K5, "eager": the plain stepper)
         self.routes = collections.Counter()
 
     # ------------------------------------------------------------------ setup
@@ -234,6 +247,7 @@ class Simulation:
             # (simulation.py:1407), so both compile the same plan
             pad_to_multiple=(8, 1, 1) if self.gv.dim == "3d" else 1,
             device=self.device)
+        self._plan.use_pallas = self.use_pallas
         self._state = S.init_state(self._plan)
 
     # -------------------------------------------------------------- monitors
@@ -398,37 +412,59 @@ class Simulation:
                            np.array([w for p, w in pts]))
 
     def _run_steps_inner(self, nsteps, probes=(), series=None):
-        """Route a stretch as the reference does (simulation.py:2876-2928):
-        with probes, the resident probed kernel (K4), else the eager
-        stepper; without, the resident kernel (K3), then the hybrid driver
-        (K2/K1), then the eager stepper.  Probe series are appended to
+        """Route a stretch as the reference does (simulation.py:2876-2928).
+        With `use_fused`: with probes, the resident probed kernel (K4), then
+        fused_probed_run (K1), then the stepper; without, the resident kernel
+        (K3), then the hybrid driver (K2/K1), then the stepper.  Without
+        `use_fused`, always the stepper.  Probe series are appended to
         `series` as numpy arrays."""
-        from ..ops.hybrid import hybrid_run
+        from ..ops.hybrid import fused_probed_run, hybrid_run
         from ..ops.resident import resident_probed_run, resident_run
+        out = None
         if probes:
-            out = resident_probed_run(self._plan, self._state, nsteps,
-                                      self._t, probes)
-            if out is not None:
-                self.routes["resident"] += 1
-            else:
-                self.routes["eager"] += 1
-                out = S.run(self._plan, self._state, nsteps, t0=self._t,
-                            probes=probes)
+            if self.use_fused:
+                out = resident_probed_run(self._plan, self._state, nsteps,
+                                          self._t, probes)
+                if out is not None:
+                    self.routes["resident"] += 1
+                else:
+                    out = fused_probed_run(self._plan, self._state, nsteps,
+                                           self._t, probes)
+                    if out is not None:
+                        self.routes["fused_probed"] += 1
+            if out is None:
+                out = self._stepper_run(nsteps, probes)
             self._state, ys = out
             for k in series:
                 series[k].append(ys[k].detach().cpu().numpy())
         else:
-            out = resident_run(self._plan, self._state, nsteps, self._t)
-            if out is not None:
-                self.routes["resident"] += 1
-            else:
-                out = hybrid_run(self._plan, self._state, nsteps, self._t)
+            if self.use_fused:
+                out = resident_run(self._plan, self._state, nsteps, self._t)
                 if out is not None:
-                    self.routes["hybrid"] += 1
+                    self.routes["resident"] += 1
                 else:
-                    self.routes["eager"] += 1
-                    out = S.run(self._plan, self._state, nsteps, t0=self._t)
+                    out = hybrid_run(self._plan, self._state, nsteps,
+                                     self._t)
+                    if out is not None:
+                        self.routes["hybrid"] += 1
+            if out is None:
+                out = self._stepper_run(nsteps)
             self._state = out
+        self._t += nsteps
+
+    def _stepper_run(self, nsteps, probes=()):
+        """A stretch through step.run, counted as "half_step" when its step
+        is the fused half-step kernel, else "eager"."""
+        from ..ops.fused import takes
+        self.routes["half_step" if takes(self._plan) else "eager"] += 1
+        return S.run(self._plan, self._state, nsteps, t0=self._t,
+                     probes=probes)
+
+    def step(self, nsteps: int = 1):
+        """Advance nsteps through the stepper, without monitors' callbacks
+        or the kernel routes (simulation.py:2945)."""
+        self.init_sim()
+        self._state = self._stepper_run(nsteps)
         self._t += nsteps
 
     def _finish_collectors(self, sf, series):

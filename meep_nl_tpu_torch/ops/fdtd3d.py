@@ -71,8 +71,9 @@ def supported(plan) -> bool:
 
 
 def step_ref(plan):
-    """The plain version: the eager make_step without the DTFT update."""
-    return make_step(plan, dft=False)
+    """The plain version: the eager make_step without the DTFT update
+    (whatever plan.use_pallas says)."""
+    return make_step(plan, dft=False, use_pallas=False)
 
 
 # ---------------------------------------------------------------------------

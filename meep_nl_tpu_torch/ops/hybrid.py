@@ -16,7 +16,9 @@ last step samples.  The routes, as the reference takes them:
     variant, the monitor planes of the intermediate steps written by the
     kernel itself, and a tail of K1 steps;
   * a plan that K2 declines but K1 takes: the same driver with K1 behind a
-    two-step adapter.
+    two-step adapter;
+  * a stretch that records probe series (`fused_probed_run`): K1 once per
+    step, the probes gathered on the device after every step.
 
 The kernels keep the eager state layout, so a monitor's x-plane is the slice
 state["f"][c][x:x+1] (where the reference assembles fused_mesh.e_eff_plane
@@ -30,6 +32,7 @@ both kernels decline (or stretches too short to fuse).
 
 from __future__ import annotations
 
+import hashlib
 import types
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -38,6 +41,7 @@ import torch
 
 from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
+from ..core.device import torch_dtype
 from ..stepper.step import (_dft_update, _region_values, build_xs,
                             run as eager_run, xs_rows)
 
@@ -233,6 +237,85 @@ def _capture_run(plan, deep, k1, plane_meta, state, rows, ncyc):
             fv_of=lambda mi, m: _fv_planes(plan, state,
                                            plane_meta[mi]))["dft"]
     return {**state, "dft": dft}
+
+
+def _probe_gathers(plan, probes):
+    """Per probe (name, component, flat storage offsets, weights) as device
+    tensors, uploaded once and cached on the plan by the probes' (name,
+    component, indices, weights) (hybrid.py:261-271); None when a probe has
+    complex weights with a nonzero imaginary part."""
+    cache = plan.__dict__.setdefault("_fused_probe_cache", {})
+    key = tuple((p.name, p.component, hashlib.sha1(
+        np.ascontiguousarray(p.indices).tobytes()
+        + np.ascontiguousarray(p.weights).tobytes()).hexdigest())
+        for p in probes)
+    if key not in cache:
+        shape = tuple(plan.storage_shape or plan.gv.shape)
+        dtype = torch_dtype(plan.dtype)
+        out = []
+        for p in probes:
+            w = np.asarray(p.weights)
+            if np.iscomplexobj(w):
+                if np.abs(w.imag).max() > 0:
+                    return None
+                w = w.real
+            idx = np.asarray(p.indices, np.int64).reshape(-1, len(shape))
+            off = np.ravel_multi_index(tuple(idx.T), shape)
+            out.append((p.name, p.component,
+                        torch.as_tensor(off, device=plan.device),
+                        torch.as_tensor(w, dtype=dtype, device=plan.device)))
+        cache[key] = out
+    return cache[key]
+
+
+def fused_probed_run(plan, state: Dict[str, Any], nsteps: int, t0: int,
+                     probes) -> Optional[tuple]:
+    """Probe-emitting fused run (hybrid.py:194-305): K1 once per step, each
+    probe's weighted point sample gathered on the device after every step,
+    so Harminv / FieldProbe / decay-stop stretches of plans the resident
+    route declines leave the eager stepper.  Returns (state, {name:
+    (nsteps,) series}), or None for plans with DFT monitors, complex
+    fields, conductivity (ROADMAP A6), plans outside the kernels' envelope,
+    a probe component outside the state, or complex probe weights.
+
+    In the full-state layout E is stored, so a probe reads state["f"][c]
+    directly (no e_eff_plane).  The products of every step go into one
+    preallocated (nsteps, npts) device tensor, with no host sync in the
+    stretch; each series is then summed point by point from 0.0 in the
+    state's type, in `step.run`'s order, so it equals the eager stepper's
+    bit for bit.  K1 keeps the plan's chain semantics (slab-local once the
+    hybrid route has stepped the plan, full-grid before).  Not carried
+    over: the jax.jit runner cache and the `_hybrid_broken` fallback (a
+    failure raises)."""
+    if plan.dfts or plan.complex_fields:
+        return None
+    if any(s.has_cond for s in plan.curl_specs_d + plan.curl_specs_b):
+        return None
+    if not hybrid_applicable(plan):
+        return None
+    k1 = getattr(_get_kernel(plan), "_k1", None)
+    if k1 is None:
+        return None
+    if any(p.component not in state["f"] for p in probes):
+        return None
+    gathers = _probe_gathers(plan, probes)
+    if gathers is None:
+        return None
+    dtype = torch_dtype(plan.dtype)
+    prods = [torch.empty((nsteps, len(off)), dtype=dtype, device=plan.device)
+             for (_, _, off, _) in gathers]
+    rows = xs_rows(plan, build_xs(plan, nsteps, t0))
+    for i in range(nsteps):
+        state = k1.step(state, rows[i] if rows else {})
+        for (_, comp, off, w), pr in zip(gathers, prods):
+            torch.mul(state["f"][comp].reshape(-1)[off], w, out=pr[i])
+    series = {}
+    for (name, _, _, _), pr in zip(gathers, prods):
+        acc = torch.zeros(nsteps, dtype=dtype, device=plan.device)
+        for q in range(pr.shape[1]):
+            acc = acc + pr[:, q]
+        series[name] = acc
+    return state, series
 
 
 def hybrid_run(plan, state: Dict[str, Any], nsteps: int, t0: int

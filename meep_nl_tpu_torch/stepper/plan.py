@@ -237,8 +237,8 @@ class Plan:
     slab_opt: bool = False
     #: plane-zero masks via dynamic-update-slice (same aliasing caveat)
     plane_masks: bool = False
-    #: the JAX package's round-1 half-step kernels (fused.py); kept for
-    #: plan parity, not read by the port
+    #: step through the fused half-step kernel (ops/fused.py, K5) where
+    #: the plan admits it (step.make_step)
     use_pallas: bool = False
     #: slab-stored stepper (stepper/slabstep.py): PML aux fields live only
     #: on their sigma slabs, E/H are the only full arrays; silently falls

@@ -536,11 +536,42 @@ def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 
-def make_step(plan: Plan, dft: bool = True):
+def make_step(plan: Plan, dft: bool = True,
+              use_pallas: Optional[bool] = None):
     """Returns step(state, xs_t, coefs=None) -> state implementing
     fields::step (step.cpp:35-140) for one timestep.  `dft=False` leaves
-    the DTFT update out (the K1 kernel's plain version)."""
+    the DTFT update out.
+
+    With plan.use_pallas (or `use_pallas=True`) a plan the fused half-step
+    kernel takes (ops/fused.py `takes`) steps through it, as the
+    reference's step_pallas (step.py:1467-1492): the B half, its source
+    fix-up, the D half, its fix-up, t + 1, the DTFT update.  On a CPU state
+    the kernel objects run their plain versions.  `use_pallas=False` always
+    gives the eager step (with dft=False, the K1 kernel's plain version)."""
     check_supported(plan)
+    if plan.use_pallas if use_pallas is None else use_pallas:
+        from ..ops import fused
+        if fused.takes(plan):
+            ker = fused.kernels_of(plan)
+            half_b, half_d = ker["b"], ker["d"]
+            fix_b, fix_d = ker["fix_b"], ker["fix_d"]
+
+            def step_pallas(state: Dict[str, Any], xs: Dict[str, Any],
+                            C: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, Any]:
+                if C is None:
+                    C = plan.coefs
+                f, fu, fw = half_b(state["f"], state["f_u"], state["f_w"])
+                if fix_b is not None:
+                    f, fw = fix_b(f, fw, C, xs)
+                f, fu, fw = half_d(f, fu, fw)
+                if fix_d is not None:
+                    f, fw = fix_d(f, fw, C, xs)
+                state = {**state, "f": f, "f_u": fu, "f_w": fw,
+                         "t": state["t"] + 1}
+                return _dft_update(plan, C, state, xs) if dft else state
+
+            return step_pallas
 
     def step(state: Dict[str, Any], xs: Dict[str, Any],
              C: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:

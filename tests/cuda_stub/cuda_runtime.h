@@ -1,14 +1,18 @@
 // Host stand-in for <cuda_runtime.h>: enough of the CUDA runtime to compile
-// meep_nl_tpu_torch/csrc/fdtd3d_t2.cu and resident.cu with a C++ compiler
-// and run their kernels as one thread of one block
-// (tests/test_torch_fdtd3d_t2_emul.py, tests/test_torch_resident_emul.py).
-// A cooperative launch becomes a plain call (with the one pointer argument
-// the resident kernel takes), a grid or block barrier a no-op, constant and
-// shared memory a static, an atomic add a plain add.
+// meep_nl_tpu_torch/csrc/fdtd3d_t2.cu, resident.cu and fused.cu with a C++
+// compiler and run their kernels as one thread of one block
+// (tests/test_torch_fdtd3d_t2_emul.py, tests/test_torch_resident_emul.py,
+// tests/test_torch_fused_emul.py).  A cooperative launch becomes a plain
+// call (with the one pointer argument the resident kernel takes), a
+// cudaLaunchKernel a call with its arguments unpacked, a grid or block
+// barrier a no-op, constant and shared memory a static, an atomic add a
+// plain add.
 #pragma once
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <type_traits>
+#include <utility>
 #define __device__
 #define __global__
 #define __host__
@@ -59,6 +63,16 @@ inline cudaError_t cudaLaunchCooperativeKernel(const void* fn, dim3, dim3,
     ((void (*)(const void*))fn)(*(const void* const*)args[0]);
   else
     ((void (*)())fn)();
+  return 0;
+}
+template <class... A, size_t... I>
+void stub_call(void (*fn)(A...), void** args, std::index_sequence<I...>) {
+  fn(*static_cast<typename std::remove_reference<A>::type*>(args[I])...);
+}
+template <class... A>
+cudaError_t cudaLaunchKernel(void (*fn)(A...), dim3, dim3, void** args,
+                             size_t, cudaStream_t) {
+  stub_call(fn, args, std::index_sequence_for<A...>{});
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }

@@ -244,3 +244,71 @@ def test_simulation_resident_route_matches_jax(scene):
     assert dict(st.routes) == {"resident": 2}
     assert st.plan._resident_kernel.plain_steps == st._t == 96
     assert "_t2_kernel" not in st.plan.__dict__ and not st.plan.slab_opt
+
+
+def probed_sim(mp, **kw):
+    """The reference test_fused_probed_run's scene: a 4x2x2 cell at
+    resolution 8, an eps=4 block, PML 0.5, a Gaussian Ez point source."""
+    return mp.Simulation(
+        cell_size=mp.Vector3(4.0, 2.0, 2.0), resolution=8,
+        geometry=[mp.Block(center=mp.Vector3(0.3, 0, 0),
+                           size=mp.Vector3(0.7, 0.7, 0.7),
+                           material=mp.Medium(epsilon=4.0))],
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.4),
+                           component=mp.Ez, center=mp.Vector3(-1.2, 0, 0))],
+        boundary_layers=[mp.PML(0.5)], **kw)
+
+
+def test_fused_probed_run_matches_eager_and_jax(monkeypatch):
+    """A FieldProbe run through fused_probed_run (K1 per step, its plain
+    version here): the series equals the port's use_fused=False series bit
+    for bit, and the JAX package's to 5e-6 of its maximum.  The scene is
+    small enough for the resident route; VMEM_BUDGET = 0 hands it on, as K4
+    declines every realistic 3D cell."""
+    monkeypatch.setattr(R, "VMEM_BUDGET", 0)
+    pt = (0.3, 0.1, 0.0)
+    out = {}
+    for fused in (True, False):
+        sim = probed_sim(mtt, use_fused=fused, device="cpu")
+        probe = mtt.FieldProbe(mtt.Ez, mtt.Vector3(*pt))
+        sim.run(probe, until=5.0)
+        out[fused] = (sim, probe.data)
+    sim = out[True][0]
+    assert dict(sim.routes) == {"fused_probed": 1}
+    assert dict(out[False][0].routes) == {"eager": 1}
+    assert sim.plan._t2_kernel._k1.plain_steps == sim._t == 80
+    assert len(sim.plan._fused_probe_cache) == 1
+    assert np.array_equal(out[True][1], out[False][1])
+    for key in ("f", "f_u", "f_w"):
+        for c, t in out[False][0].fields_state[key].items():
+            assert torch.equal(sim.fields_state[key][c], t), (key, c)
+    sj = probed_sim(mnt, use_fused=False)
+    pj = mnt.FieldProbe(mnt.Ez, mnt.Vector3(*pt))
+    sj.run(pj, until=5.0)
+    want = np.real(np.asarray(pj.data, np.complex128))
+    scale = float(np.abs(want).max())
+    assert len(want) == len(out[True][1]) == 80 and scale > 0
+    assert float(np.abs(out[True][1] - want).max()) <= 5e-6 * scale
+
+
+def test_fused_probed_run_declines():
+    """None (the caller runs the eager stepper) for a plan with a flux
+    monitor, a conductive plan, complex probe weights and a component the
+    state does not hold."""
+    from test_torch_plan import PORT, build_plan
+    sim, _ = make_sim(mtt, "linear", device="cpu")
+    probe = sim._point_probe("p", mtt.Ez, mtt.Vector3())
+    assert HY.fused_probed_run(sim.plan, sim.fields_state, 4, 0,
+                               [probe]) is None
+    cond = build_plan(PORT, device="cpu", ball=True, cond=True)
+    assert HY.fused_probed_run(cond, {}, 4, 0, [probe]) is None
+    sim = probed_sim(mtt, device="cpu")
+    sim.init_sim()
+    plan, st = sim.plan, sim.fields_state
+    cplx = TS.ProbeSpec("c", "ez", probe.indices, probe.weights * (1 + 1j))
+    assert HY.fused_probed_run(plan, st, 4, 0, [cplx]) is None
+    other = TS.ProbeSpec("o", "er", probe.indices, probe.weights)
+    assert HY.fused_probed_run(plan, st, 4, 0, [other]) is None
+    real = TS.ProbeSpec("r", "ez", probe.indices, probe.weights + 0j)
+    st, ys = HY.fused_probed_run(plan, st, 4, 0, [real])
+    assert ys["r"].shape == (4,) and st["t"] == 4
