@@ -1,12 +1,18 @@
-// The per-site arithmetic of one 3D Yee step, shared by K1 (fdtd3d.cu, one
-// launch per half step over the full-grid state) and K2 (fdtd3d_t2.cu,
-// `depth` steps in one launch over a ring of x-planes): both kernels run
-// these functions, so their stages round alike.
+// The per-site arithmetic of one 3D Yee step, shared by K1 (fdtd3d.cu),
+// K2 (fdtd3d_t2.cu) and K3/K4 (resident.cu).
 //
-// Every function takes two flat indices of its site (i, j, k):
+// Two layers.  The value functions (curl_delta, curl_value, nr_solve,
+// pade, w_value, ade_value) take values and return values: every rounding
+// of the step lives in them, in the plain version's operation order.  The
+// load-based entry points (curl_site, eh_lin / eh_site, w_store, pol_site)
+// read a site's operands from device memory, call the value functions and
+// store; K2 and K3/K4 run these.  K1 feeds the same value functions from
+// its shared-memory plane ring instead, so all the kernels round alike.
+//
+// The load-based functions take two flat indices of their site (i, j, k):
 //   n   into the full-grid coefficient arrays, (i*S1 + j)*S2 + k;
 //   fn  into the field arrays, (slot(i)*S1 + j)*S2 + k, where plane i of a
-//       field array lives in slot i % R.  K1's field arrays are the full
+//       field array lives in slot i % R.  K3/K4's field arrays are the full
 //       grid (R = S0, RING = false, fn == n); K2's are rings of R planes
 //       (RING = true), and only the x-neighbour reads need the slot rule.
 // The per-axis coefficient vectors and the 0/1 alive vectors are indexed by
@@ -129,46 +135,74 @@ __device__ __forceinline__ T diff(const T* g, const Params& P, i64 a,
   return (c < extent(P, a) - 1 ? g[up] : T(0)) - g[fn];
 }
 
+// dfl of step._curl: (+-Courant) * (diff g_plus - diff g_minus); hp / hm:
+// the partner exists, dp / dm its difference
+template <typename T>
+__device__ __forceinline__ T curl_delta(bool hp, T dp, bool hm, T dm,
+                                        T csgn) {
+  T dfl = T(0);
+  if (hp || hm) {
+    T tot = hp ? (hm ? dp - dm : dp) : -dm;
+    dfl = csgn * tot;
+  }
+  return dfl;
+}
+
+// the PML chains of step._curl_update around dfl, before the mask:
+//   dfl -> [sigma chain: f or fu] -> [sigma_u chain: f].
+// sig_ax: the sigma chain exists (it then feeds fu); sig_on / sigu_on: the
+// site runs that chain (everywhere, or on its slabs with plan.slab_opt);
+// kms = kap - sig and kmsu = kapu - sigu, rounded once as the plain
+// version's (kap - sig); *fun receives the new fu where sigu_on
+template <typename T>
+__device__ __forceinline__ T curl_value(T f, T dfl, bool sig_ax, bool sig_on,
+                                        T kms, T siginv, bool sigu_on,
+                                        T kmsu, T siginvu, T fuo, T* fun) {
+  T base = f + dfl;
+  if (sig_on) base = (kms * f + dfl) * siginv;
+  if (sigu_on) {
+    *fun = sig_ax ? (kms * fuo + dfl) * siginv : fuo + dfl;
+    base = siginvu * (kmsu * f + *fun - fuo);
+  }
+  return base;
+}
+
 template <typename T, bool IS_D, bool RING>
 __device__ void curl_site(const CurlP& c, const Params& P, i64 fn, i64 i,
                           i64 j, i64 k) {
   T* F = (T*)c.f;
-  T dfl = T(0);
-  if (c.gp || c.gm) {
-    T tot;
-    if (c.gp)
-      tot = diff<T, IS_D, RING>((const T*)c.gp, P, c.ap, fn, i, j, k);
-    if (c.gm) {
-      T t2 = diff<T, IS_D, RING>((const T*)c.gm, P, c.am, fn, i, j, k);
-      tot = c.gp ? tot - t2 : -t2;
-    }
-    dfl = T(P.csgn) * tot;
-  }
+  T dp = T(0), dm = T(0);
+  if (c.gp) dp = diff<T, IS_D, RING>((const T*)c.gp, P, c.ap, fn, i, j, k);
+  if (c.gm) dm = diff<T, IS_D, RING>((const T*)c.gm, P, c.am, fn, i, j, k);
+  T dfl = curl_delta<T>(c.gp != nullptr, dp, c.gm != nullptr, dm,
+                        T(P.csgn));
   T f = F[fn];
-  T base = f + dfl;
+  T kap = T(0), sig = T(0), siginv = T(0);
+  T kapu = T(0), sigu = T(0), siginvu = T(0), fuo = T(0), fun = T(0);
+  bool sig_on = false, sigu_on = false;
   i64 cs = 0;
-  const T* kap = (const T*)c.kap;
-  const T* sig = (const T*)c.sig;
-  const T* siginv = (const T*)c.siginv;
   if (c.sig_ax >= 0) {
     cs = coord(c.sig_ax, i, j, k);
-    if (!c.slab || in_slab(cs, c.sig_lo, c.sig_hi, c.sig_n))
-      base = ((kap[cs] - sig[cs]) * f + dfl) * siginv[cs];
+    sig_on = !c.slab || in_slab(cs, c.sig_lo, c.sig_hi, c.sig_n);
   }
   if (c.sigu_ax >= 0) {
     i64 cu = coord(c.sigu_ax, i, j, k);
-    if (!c.slab || in_slab(cu, c.sigu_lo, c.sigu_hi, c.sigu_n)) {
-      T* FU = (T*)c.fu;
-      const T* kapu = (const T*)c.kapu;
-      const T* sigu = (const T*)c.sigu;
-      const T* siginvu = (const T*)c.siginvu;
-      T fuo = FU[fn];
-      T fun = c.sig_ax >= 0 ? ((kap[cs] - sig[cs]) * fuo + dfl) * siginv[cs]
-                            : fuo + dfl;
-      base = siginvu[cu] * ((kapu[cu] - sigu[cu]) * f + fun - fuo);
-      FU[fn] = fun;
+    sigu_on = !c.slab || in_slab(cu, c.sigu_lo, c.sigu_hi, c.sigu_n);
+    if (sigu_on) {
+      kapu = ((const T*)c.kapu)[cu];
+      sigu = ((const T*)c.sigu)[cu];
+      siginvu = ((const T*)c.siginvu)[cu];
+      fuo = ((T*)c.fu)[fn];
     }
   }
+  if (c.sig_ax >= 0 && (sig_on || sigu_on)) {
+    kap = ((const T*)c.kap)[cs];
+    sig = ((const T*)c.sig)[cs];
+    siginv = ((const T*)c.siginv)[cs];
+  }
+  T base = curl_value<T>(f, dfl, c.sig_ax >= 0, sig_on, kap - sig, siginv,
+                         sigu_on, kapu - sigu, siginvu, fuo, &fun);
+  if (sigu_on) ((T*)c.fu)[fn] = fun;
   F[fn] = base * mask_of<T>(c.alive, i, j, k);
 }
 
@@ -243,6 +277,22 @@ __device__ T nr_solve(T A_own, T A_1, T A_2, T eps, T chi2, i64 iters) {
   return x;
 }
 
+// one partner's term of the chi3 Pade's D^2 (step._eh_update): Dsqr +
+// (sum4 / 4)^2, written as the plain version rounds it
+template <typename T>
+__device__ __forceinline__ T dsqr_add(T Dsqr, T g) {
+  return Dsqr + T(0.0625) * (g * g);
+}
+
+// lin times the Kerr/chi2 Pade factor of step._nonlinear_u; gs = D - P,
+// us = chi1inv (1 without u).  chi2 = chi3 = 0 gives the factor 1 exactly.
+template <typename T>
+__device__ __forceinline__ T pade(T lin, T gs, T Dsqr, T chi2, T chi3, T us) {
+  T c2 = gs * chi2 * (us * us);
+  T c3 = Dsqr * chi3 * (us * us * us);
+  return lin * ((T(1) + c2 + T(2) * c3) / (T(1) + T(2) * c2 + T(3) * c3));
+}
+
 // step._eh_update at one site, in three stages so that every load of the
 // site's (up to three) components is issued before the first store: the
 // field arrays are untyped pointers that may alias for all the compiler
@@ -266,17 +316,14 @@ __device__ T eh_lin(const Params& P, int q, i64 n, i64 fn, i64 i, i64 j,
   T lin = e.u ? gs * us : gs;
   if (NL && e.chi3) {
     T Dsqr = gs * gs;
-    if (e.dc1 >= 0) {
-      T g = sum4<T, RING>(P.eh[e.dc1], P, i, j, k, e.ax_own, e.ax_1);
-      Dsqr = Dsqr + T(0.0625) * (g * g);
-    }
-    if (e.dc2 >= 0) {
-      T g = sum4<T, RING>(P.eh[e.dc2], P, i, j, k, e.ax_own, e.ax_2);
-      Dsqr = Dsqr + T(0.0625) * (g * g);
-    }
-    T c2 = gs * ((const T*)e.chi2)[n] * (us * us);
-    T c3 = Dsqr * ((const T*)e.chi3)[n] * (us * us * us);
-    lin = lin * ((T(1) + c2 + T(2) * c3) / (T(1) + T(2) * c2 + T(3) * c3));
+    if (e.dc1 >= 0)
+      Dsqr = dsqr_add<T>(Dsqr, sum4<T, RING>(P.eh[e.dc1], P, i, j, k,
+                                             e.ax_own, e.ax_1));
+    if (e.dc2 >= 0)
+      Dsqr = dsqr_add<T>(Dsqr, sum4<T, RING>(P.eh[e.dc2], P, i, j, k,
+                                             e.ax_own, e.ax_2));
+    lin = pade<T>(lin, gs, Dsqr, ((const T*)e.chi2)[n],
+                  ((const T*)e.chi3)[n], us);
   }
   if (NL && e.nrchi2) {
     T chi2 = ((const T*)e.nrchi2)[n];
@@ -295,9 +342,11 @@ __device__ T eh_lin(const Params& P, int q, i64 n, i64 fn, i64 i, i64 j,
 }
 
 // stage 2: what the W chain and the mask of one component read at the site
+// kp = kapw + sigw, km = kapw - sigw, each rounded once as the plain
+// version's
 template <typename T>
 struct WIn {
-  T f, fw, kw, sw, mask;
+  T f, fw, kp, km, mask;
   bool on;                  // the site runs the chain (else E = lin)
 };
 
@@ -306,13 +355,14 @@ __device__ __forceinline__ WIn<T> w_load(const EhP& e, i64 fn, i64 i, i64 j,
                                          i64 k) {
   WIn<T> w;
   w.on = false;
-  w.f = w.fw = w.kw = w.sw = T(0);
+  w.f = w.fw = w.kp = w.km = T(0);
   if (e.w_ax >= 0) {
     i64 cw = coord(e.w_ax, i, j, k);
     if (!e.w_slab || in_slab(cw, e.w_lo, e.w_hi, e.w_n)) {
       w.on = true;
-      w.kw = ((const T*)e.kapw)[cw];
-      w.sw = ((const T*)e.sigw)[cw];
+      const T kw = ((const T*)e.kapw)[cw], sw = ((const T*)e.sigw)[cw];
+      w.kp = kw + sw;
+      w.km = kw - sw;
       w.f = ((const T*)e.f)[fn];
       w.fw = ((const T*)e.fw)[fn];
     }
@@ -321,16 +371,21 @@ __device__ __forceinline__ WIn<T> w_load(const EhP& e, i64 fn, i64 i, i64 j,
   return w;
 }
 
+// the W chain and the mask: the new E/H from lin (the new f_w is lin where
+// w.on)
+template <typename T>
+__device__ __forceinline__ T w_value(T lin, const WIn<T>& w) {
+  T fnew = lin;
+  if (w.on) fnew = w.f + w.kp * lin - w.km * w.fw;
+  return fnew * w.mask;
+}
+
 // stage 3: the W chain, the mask, the stores; returns the new E/H
 template <typename T>
 __device__ __forceinline__ T w_store(const EhP& e, i64 fn, T lin,
                                      const WIn<T>& w) {
-  T fnew = lin;
-  if (w.on) {
-    fnew = w.f + (w.kw + w.sw) * lin - (w.kw - w.sw) * w.fw;
-    ((T*)e.fw)[fn] = lin;
-  }
-  fnew = fnew * w.mask;
+  T fnew = w_value<T>(lin, w);
+  if (w.on) ((T*)e.fw)[fn] = lin;
   ((T*)e.f)[fn] = fnew;
   return fnew;
 }
@@ -359,6 +414,17 @@ inline bool has_nl(const Params& P) {
   return false;
 }
 
+// the Lorentz/Drude ADE of polarization p (step._pol_update_lorentzian):
+// the new P from the drive field W, sigma, the current P and the previous;
+// sigma = 0 leaves a drive of zero
+template <typename T>
+__device__ __forceinline__ T ade_value(const Params& P, int p, T W, T sigma,
+                                       T pcur, T pprev) {
+  T drive = sigma * W;
+  return T(P.pg1inv[p]) * (pcur * T(P.p2md[p]) - T(P.pg1[p]) * pprev +
+                           T(P.pw2[p]) * drive);
+}
+
 // Lorentz/Drude ADE from the new E (step._pol_update_lorentzian) at one
 // site, after eh_site; the new P goes into the PP buffer, whose old value
 // only this site reads (the caller swaps the roles).  Per polarization, the
@@ -374,11 +440,8 @@ __device__ void pol_site(const Params& P, i64 n, i64 fn, const T* lin,
       const PolC& pc = P.eh[q].pol[p];
       if (!pc.p) continue;
       T W = P.eh[q].w_ax >= 0 ? lin[q] : fnew[q];
-      T drive = ((const T*)pc.sigma)[n] * W;
-      T pcur = ((const T*)pc.p)[fn];
-      T pprev = ((const T*)pc.pp)[fn];
-      pnew[q] = T(P.pg1inv[p]) * (pcur * T(P.p2md[p]) - T(P.pg1[p]) * pprev +
-                                  T(P.pw2[p]) * drive);
+      pnew[q] = ade_value<T>(P, p, W, ((const T*)pc.sigma)[n],
+                             ((const T*)pc.p)[fn], ((const T*)pc.pp)[fn]);
     }
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {

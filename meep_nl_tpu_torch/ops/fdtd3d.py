@@ -28,7 +28,15 @@ from ..stepper.step import (NR_ITERS, alive_vectors, build_xs, make_step,
 
 MAXPOL = 4
 NCOMP = 3
-MODE_B, MODE_H, MODE_BH, MODE_D, MODE_E = range(5)
+MAXRING = NCOMP * (1 + MAXPOL)
+#: waveforms a launch takes by value (more go through a device table)
+MAXSRC = 32
+#: the launch kinds of csrc/fdtd3d.cu
+K_B, K_D, K_E = range(3)
+#: streaming multiprocessors of the H100, and the (tile, chunk) items a
+#: launch aims at for each
+SMS = 132
+ITEMS_PER_SM = 16
 
 
 def supported(plan) -> bool:
@@ -117,21 +125,71 @@ class _Params(ctypes.Structure):
                            "nr_iters", "R")]
 
 
+class _Box(ctypes.Structure):
+    _fields_ = [("lo", ctypes.c_int * 3), ("hi", ctypes.c_int * 3)]
+
+
+class _CurlC(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "gp", "gm", "ap", "am", "sax", "s_lo", "s_hi0", "s_n", "uax", "u_lo",
+        "u_hi0", "u_n")]
+
+
+class _EhC(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "wax", "w_lo", "w_hi0", "w_n", "has_u", "pols")]
+
+
+#: the slab rule (lo, hi0, n) that holds at every site
+EVERYWHERE = (2 ** 31 - 1, 0, 0)
+
+
+def _rule(lo, hi, n, slab):
+    """csrc/fdtd3d.cu's slab rule of a chain: on its slabs (c < lo or
+    n - hi <= c < n) with plan.slab_opt, else everywhere."""
+    return (lo, n - hi, n) if slab else EVERYWHERE
+
+
+class _K1Args(ctypes.Structure):
+    """Mirrors csrc/fdtd3d.cu's K1Args: one launch's argument block."""
+    _fields_ = ([("P", _Params), ("ring", _P * MAXRING)]
+                + [(n, _P) for n in ("src_ptr", "src_key", "src_id",
+                                     "src_amp", "wave_dev")]
+                + [("wave", ctypes.c_double * (2 * MAXSRC)),
+                   ("dt", ctypes.c_double),
+                   ("nl3", _Box * NCOMP), ("nlnr", _Box * NCOMP),
+                   ("pol", (_Box * MAXPOL) * NCOMP), ("nl", _Box),
+                   ("cc", _CurlC * NCOMP), ("ec", _EhC * NCOMP),
+                   ("d_of", ctypes.c_int * NCOMP),
+                   ("p_of", (ctypes.c_int * MAXPOL) * NCOMP)]
+                + [(n, ctypes.c_int) for n in ("nring", "S0", "S1", "S2",
+                                               "nty", "ntz", "ch", "nch")])
+
+
 def _lib():
     from . import _build
-    lib = _build.load("fdtd3d")
+    return bind(_build.load("fdtd3d"))
+
+
+def bind(lib):
+    """Declare csrc/fdtd3d.cu's C functions on a loaded library and check
+    its argument layout against this module's (once per library)."""
     if not getattr(lib, "_mnt_bound", False):
         lib.mnt_k1_params_size.restype = ctypes.c_longlong
-        lib.mnt_k1_half.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_void_p]
-        lib.mnt_k1_half.restype = ctypes.c_int
-        lib.mnt_k1_source.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
-            ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
-        lib.mnt_k1_source.restype = ctypes.c_int
-        if lib.mnt_k1_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("csrc/fdtd3d_site.cuh Params layout does not "
+        lib.mnt_k1_args_size.restype = ctypes.c_longlong
+        lib.mnt_k1_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+        lib.mnt_k1_launch.restype = ctypes.c_int
+        lib.mnt_k1_smem.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int]
+        lib.mnt_k1_smem.restype = ctypes.c_longlong
+        if lib.mnt_k1_params_size() != ctypes.sizeof(_Params) or \
+                lib.mnt_k1_args_size() != ctypes.sizeof(_K1Args):
+            raise RuntimeError("csrc/fdtd3d.cu argument layout does not "
                                "match ops/fdtd3d.py")
+        tile = (ctypes.c_int * 2)()
+        lib.mnt_k1_tile(tile)
+        lib.mnt_tile = tuple(tile)
         lib._mnt_bound = True
     return lib
 
@@ -236,33 +294,178 @@ def build_params(plan, family: str, state) -> _Params:
     return P
 
 
+def _box(plan, keys, shape):
+    """The union of the support boxes of coefficient `keys` as (lo, hi)
+    per axis: a key without a recorded box covers the storage, a key with
+    an empty support (None) nothing."""
+    boxes = []
+    for key in keys:
+        b = (plan.support_boxes or {}).get(key, "full")
+        if b == "full":
+            b = tuple((0, n) for n in shape)
+        if b is not None:
+            boxes.append(b)
+    if not boxes:
+        return ((0, 0),) * 3
+    return tuple((min(b[ax][0] for b in boxes), max(b[ax][1] for b in boxes))
+                 for ax in range(3))
+
+
+def _set_box(dst, box):
+    for ax, (lo, hi) in enumerate(box):
+        dst.lo[ax], dst.hi[ax] = lo, hi
+
+
+#: K1's launches of a step: (family, [(kind, name)])
+_LAUNCHES = (("b", ((K_B, "b_curl+src+h"),)),
+             ("d", ((K_D, "d_curl+src"), (K_E, "e_from_d+pol"))))
+
+
+def chunk_planes(shape, tile, items_per_sm: int = ITEMS_PER_SM) -> int:
+    """x-planes per chunk of a K1 launch over y-z tiles of `tile` = (TY,
+    TZ) sites: the fewest that still give `items_per_sm` (tile, chunk)
+    items for each of the card's SMs."""
+    S0, S1, S2 = shape
+    tiles = -(-S1 // tile[0]) * -(-S2 // tile[1])
+    nch = max(1, min(S0, -(-SMS * items_per_sm // tiles)))
+    return -(-S0 // nch)
+
+
 class Fdtd3dKernel:
     """One K1 step driver for one plan (the counterpart of the JAX
-    package's Fdtd3dKernel)."""
+    package's Fdtd3dKernel): three launches per step (csrc/fdtd3d.cu: the
+    B half with the H-family sources and H, the D half with the E-family
+    sources, E with the ADE).  `ch` sets the x-planes per chunk (default
+    `chunk_planes`).  The launch geometry, the source lists and the
+    static parts of the argument blocks are made at the first CUDA step,
+    for the tile of the loaded library."""
 
-    def __init__(self, plan):
+    def __init__(self, plan, ch=None):
         if not supported(plan):
             raise ValueError("plan outside the fdtd3d kernel envelope")
         self.plan = plan
         self.shape = tuple(plan.storage_shape or plan.gv.shape)
+        if int(np.prod(self.shape)) >= 2 ** 31:
+            raise ValueError(f"fdtd3d: a storage of {self.shape} has 2^31 "
+                             f"sites or more (the kernel's offsets are "
+                             f"32-bit)")
         self.dtype = torch_dtype(plan.dtype)
         self._ref = step_ref(plan)
         self.launches = 0                 # CUDA launches
         self.plain_steps = 0              # steps of the plain version
-        b_src = [si for si, s in enumerate(plan.sources)
-                 if s.component[0] == "h"]
-        d_src = [si for si, s in enumerate(plan.sources)
-                 if s.component[0] == "e"]
-        self.sources = {"b": b_src, "d": d_src}
+        #: source indices by family (K2 takes them from here)
+        self.sources = {
+            "b": [si for si, s in enumerate(plan.sources)
+                  if s.component[0] == "h"],
+            "d": [si for si, s in enumerate(plan.sources)
+                  if s.component[0] == "e"]}
         #: CUDA launches per step
-        self.launches_per_step = (3 + len(d_src)
-                                  + (1 + len(b_src) if b_src else 0))
-        # flat storage offsets of the source sites
-        S1, S2 = self.shape[1], self.shape[2]
+        self.launches_per_step = 3
+        S0, S1, S2 = self.shape
+        self.ch = ch
+        self.tile = self._key = None
+        # flat storage offsets of the source sites (K2's source ops)
         self._src_off = {}
-        for si in b_src + d_src:
+        for si in range(len(plan.sources)):
             i, j, k = source_index(plan, si)
             self._src_off[si] = ((i * S1 + j) * S2 + k).contiguous()
+
+    def _setup(self, tile, state):
+        """Launch geometry, source lists and, per launch, the argument
+        block's parts that hold for every step, for y-z tiles of `tile` =
+        (TY, TZ) sites and the plan's chain rule (plan.slab_opt)."""
+        key = (tile, self.plan.slab_opt)
+        if self._key == key:
+            return
+        S0, S1, S2 = self.shape
+        self._key, self.tile = key, tile
+        self.ch = self.ch or chunk_planes(self.shape, tile)
+        self._geo = dict(S0=S0, S1=S1, S2=S2, nty=-(-S1 // tile[0]),
+                         ntz=-(-S2 // tile[1]), ch=self.ch,
+                         nch=-(-S0 // self.ch))
+        self._src = {f: self._source_lists(f) for f in "bd"}
+        self._static, self._ring_keys = {}, {}
+        for fam, kinds in _LAUNCHES:
+            P = build_params(self.plan, fam, state)
+            for kind, _ in kinds:
+                A = self._static_args(fam)
+                A.P = P
+                self._ring_keys[kind] = self._roles(A, kind, fam, state)
+                self._compact(A)
+                self._static[kind] = A
+
+    def _source_lists(self, family):
+        """The family's current sources as per-(tile, plane) lists for the
+        thread that owns each site: entries sorted by (tile, plane), then
+        by site and component, then in plan.sources order and entry order
+        (the plain version's order of accumulation)."""
+        plan = self.plan
+        curls = plan.curl_specs_b if family == "b" else plan.curl_specs_d
+        q_of = {s.c: q for q, s in enumerate(curls)}
+        src = [si for si, s in enumerate(plan.sources)
+               if (s.component[0] == "h") == (family == "b")]
+        if not src:
+            return None
+        S0 = self.shape[0]
+        ntz = self._geo["ntz"]
+        TY, TZ = self.tile
+        buckets, keys, ids, amps = [], [], [], []
+        for w, si in enumerate(src):
+            i, j, k = (t.cpu().numpy() for t in source_index(plan, si))
+            q = q_of[family + plan.sources[si].component[1]]
+            buckets.append(((j // TY) * ntz + k // TZ) * S0 + i)
+            keys.append((((j % TY) * TZ + k % TZ) << 2) | q)
+            ids.append(np.full(len(i), w))
+            amps.append(torch.stack([plan.coefs[f"src{si}:amp_re"],
+                                     plan.coefs[f"src{si}:amp_im"]], 1))
+        bucket, key = np.concatenate(buckets), np.concatenate(keys)
+        order = np.lexsort((np.arange(len(key)), key, bucket))
+        ntile = self._geo["nty"] * ntz
+        ptr = np.searchsorted(bucket[order], np.arange(ntile * S0 + 1))
+        dev = plan.device
+
+        def i32(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=dev)
+
+        amp = torch.cat(amps)[torch.as_tensor(order, device=dev)]
+        return {"src": src, "ptr": i32(ptr), "key": i32(key[order]),
+                "id": i32(np.concatenate(ids)[order]),
+                "amp": amp.contiguous()}
+
+    def _static_args(self, family):
+        """What the argument blocks of a family's launches hold for every
+        step: geometry, support boxes, source lists."""
+        plan = self.plan
+        shape = self.shape
+        A = _K1Args()
+        for k, v in self._geo.items():
+            setattr(A, k, v)
+        A.dt = plan.dt
+        src = self._src[family]
+        if src is not None:
+            A.src_ptr, A.src_key = src["ptr"].data_ptr(), src["key"].data_ptr()
+            A.src_id, A.src_amp = src["id"].data_ptr(), src["amp"].data_ptr()
+        if family == "b":
+            return A
+        # the E launch's support boxes (coefficients zero outside them)
+        nl = []
+        for q, s in enumerate(plan.eh_specs_e):
+            b3 = _box(plan, (f"{s.ec}:chi3", f"{s.ec}:chi2"), shape) \
+                if s.has_chi3 else ((0, 0),) * 3
+            bnr = _box(plan, (f"{s.ec}:nrchi2",), shape) if s.has_nr \
+                else ((0, 0),) * 3
+            _set_box(A.nl3[q], b3)
+            _set_box(A.nlnr[q], bnr)
+            nl += [b for b in (b3, bnr) if all(lo < hi for lo, hi in b)]
+            for pi in range(len(plan.pol_specs_e)):
+                _set_box(A.pol[q][pi],
+                         _box(plan, (f"pol{pi}:{s.ec}:{s.ec[1]}",), shape))
+        if nl:
+            _set_box(A.nl, tuple((min(b[ax][0] for b in nl),
+                                  max(b[ax][1] for b in nl))
+                                 for ax in range(3)))
+        return A
 
     # ---- the identity conversions of this slice ---------------------------
     def to_full(self, state, C=None):
@@ -320,46 +523,109 @@ class Fdtd3dKernel:
                 f"tensor of shape {self.shape}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
-    def _launch(self, lib, P, mode):
-        rc = lib.mnt_k1_half(ctypes.byref(P), mode,
-                             1 if self.dtype == torch.float64 else 0,
-                             torch.cuda.current_stream().cuda_stream)
+    def launch_args(self, state, x_t):
+        """[(name, kind, argument block)] of one step's launches over
+        `state` with the source row `x_t`, in launch order."""
+        plan = self.plan
+        self._setup(_lib().mnt_tile, state)
+        out = []
+        for fam, kinds in _LAUNCHES:
+            P = build_params(plan, fam, state)
+            src = self._src[fam]
+            wave = [] if src is None else [
+                float(x_t[f"src{si}:cur_{p}"]) for si in src["src"]
+                for p in ("re", "im")]
+            wd = None
+            if len(wave) > 2 * MAXSRC:
+                wd = torch.tensor(wave, dtype=torch.float64,
+                                  device=plan.device)
+            for kind, name in kinds:
+                A = _K1Args()
+                ctypes.pointer(A)[0] = self._static[kind]
+                A.P = P
+                if wd is None:
+                    A.wave[:len(wave)] = wave
+                else:
+                    A.wave_dev = wd.data_ptr()
+                    A._wave_dev = wd            # alive until the launch
+                for r, path in enumerate(self._ring_keys[kind]):
+                    A.ring[r] = (state["f"][path[1]] if path[0] == "f" else
+                                 state["pol"][path[1]]["p"][path[2]]
+                                 ).data_ptr()
+                out.append((name, kind, A))
+        return out
+
+    def _roles(self, A, kind, fam, state):
+        """The arrays launch `kind` reads across sites (its plane ring):
+        their roles in A, and their places in the state as a list of
+        ("f", component) or ("p", polarization, component)."""
+        plan = self.plan
+        keys = []
+        if kind == K_E:
+            for q, s in enumerate(plan.eh_specs_e):
+                A.d_of[q] = len(keys)
+                keys.append(("f", s.dc))
+                for pi in range(MAXPOL):
+                    A.p_of[q][pi] = -1
+                    if pi < len(state["pol"]) and \
+                            s.ec in state["pol"][pi]["p"]:
+                        A.p_of[q][pi] = len(keys)
+                        keys.append(("p", pi, s.ec))
+            A.nring = len(keys)
+            return keys
+        curls = plan.curl_specs_b if fam == "b" else plan.curl_specs_d
+        names = []
+        for s in curls:
+            for g in (s.g_plus, s.g_minus):
+                if g and g not in names:
+                    names.append(g)
+        A.nring = len(names)
+        for q in range(NCOMP):
+            A.cc[q].gp = A.cc[q].gm = -1
+        for q, s in enumerate(curls):
+            A.cc[q].gp = names.index(s.g_plus) if s.g_plus else -1
+            A.cc[q].gm = names.index(s.g_minus) if s.g_minus else -1
+        if kind == K_B:
+            q_of = {s.c: q for q, s in enumerate(curls)}
+            for q, s in enumerate(plan.eh_specs_h):
+                A.d_of[q] = q_of[s.dc]
+        return [("f", g) for g in names]
+
+    @staticmethod
+    def _compact(A):
+        """The 32-bit copies of the parameter block's fields that the site
+        work reads (A.cc, A.ec), from A.P."""
+        P = A.P
+        for q in range(P.ncurl):
+            c, cc = P.curl[q], A.cc[q]
+            cc.ap, cc.am = c.ap, c.am
+            cc.sax, cc.uax = c.sig_ax, c.sigu_ax
+            cc.s_lo, cc.s_hi0, cc.s_n = _rule(c.sig_lo, c.sig_hi, c.sig_n,
+                                              c.slab)
+            cc.u_lo, cc.u_hi0, cc.u_n = _rule(c.sigu_lo, c.sigu_hi,
+                                              c.sigu_n, c.slab)
+        for q in range(P.neh):
+            e, ec = P.eh[q], A.ec[q]
+            ec.wax = e.w_ax
+            ec.w_lo, ec.w_hi0, ec.w_n = _rule(e.w_lo, e.w_hi, e.w_n,
+                                              e.w_slab)
+            ec.has_u = 1 if e.u else 0
+            ec.pols = sum(1 << p for p in range(P.npol) if e.pol[p].p)
+
+    def _launch(self, lib, A, kind):
+        rc = lib.mnt_k1_launch(ctypes.byref(A), kind,
+                               1 if self.dtype == torch.float64 else 0,
+                               torch.cuda.current_stream().cuda_stream)
         self.launches += 1
         if rc != 0:
-            raise RuntimeError(f"fdtd3d kernel launch (mode {mode}) failed: "
+            raise RuntimeError(f"fdtd3d kernel launch (kind {kind}) failed: "
                                f"cudaError {rc}")
-
-    def _sources(self, lib, family, state, x_t):
-        plan, C = self.plan, self.plan.coefs
-        fp64 = 1 if self.dtype == torch.float64 else 0
-        for si in self.sources[family]:
-            s = plan.sources[si]
-            f = state["f"][family + s.component[1]]
-            off = self._src_off[si]
-            rc = lib.mnt_k1_source(
-                f.data_ptr(), off.data_ptr(), C[f"src{si}:amp_re"].data_ptr(),
-                C[f"src{si}:amp_im"].data_ptr(), off.numel(),
-                float(x_t[f"src{si}:cur_re"]), float(x_t[f"src{si}:cur_im"]),
-                plan.dt, fp64, torch.cuda.current_stream().cuda_stream)
-            self.launches += 1
-            if rc != 0:
-                raise RuntimeError(f"fdtd3d source launch failed: "
-                                   f"cudaError {rc}")
 
     def _step_cuda(self, state, x_t):
         self._check(state)
         lib = _lib()
-        pb = build_params(self.plan, "b", state)
-        if self.sources["b"]:
-            self._launch(lib, pb, MODE_B)
-            self._sources(lib, "b", state, x_t)
-            self._launch(lib, pb, MODE_H)
-        else:
-            self._launch(lib, pb, MODE_BH)
-        pd = build_params(self.plan, "d", state)
-        self._launch(lib, pd, MODE_D)
-        self._sources(lib, "d", state, x_t)
-        self._launch(lib, pd, MODE_E)
+        for _, kind, A in self.launch_args(state, x_t):
+            self._launch(lib, A, kind)
         # the new P was written into the PP buffers: swap the roles
         pol = [{"p": dict(e["pp"]), "pp": dict(e["p"])}
                for e in state["pol"]]
@@ -384,8 +650,9 @@ def step_cost(plan) -> Dict[str, float]:
     """Bytes and floating-point operations of one K1 step on the full-state
     layout, each input read once and each output written once, counting
     what this plan's data needs: f_u and the slab-mode f_w only on their
-    PML slabs, polarizations and material windows only over the support
-    boxes the plan recorded.  `ops` is a per-site count of the arithmetic
+    PML slabs, the old H only where its W chain runs (the old E feeds the
+    B curl everywhere), polarizations and material windows (nreps with
+    nrchi2) only over the support boxes the plan recorded.  `ops` is a per-site count of the arithmetic
     in csrc/fdtd3d.cu (curl + chains ~12, E/H update ~6, the NR solve ~150
     per nonlinear site and component, the ADE ~8)."""
     shape = tuple(plan.storage_shape or plan.gv.shape)
@@ -406,15 +673,16 @@ def step_cost(plan) -> Dict[str, float]:
                                                        s.dsigu_slabs)
             elems += 2 * n
     for s in plan.eh_specs_e + plan.eh_specs_h:
-        elems += 2 * N                                   # E/H read + write
+        n = 0                                            # W chain sites
         if s.dsigw_axis is not None:
             full = not plan.slab_opt or (has_pols and s.ec[0] == "e")
             n = N if full else slab_sites(s.dsigw_axis, s.dsigw_slabs)
-            elems += 2 * n
+            elems += 2 * n                               # f_w in and out
+        elems += N + (N if s.ec[0] == "e" else n)        # E/H out, old in
         if s.has_u:
             elems += N
         if s.has_nr:
-            elems += N + _box_sites(plan, f"{s.ec}:nrchi2", shape)
+            elems += 2 * _box_sites(plan, f"{s.ec}:nrchi2", shape)
         if s.has_chi3:
             elems += (_box_sites(plan, f"{s.ec}:chi3", shape)
                       + _box_sites(plan, f"{s.ec}:chi2", shape))
@@ -431,3 +699,55 @@ def step_cost(plan) -> Dict[str, float]:
     ncomp = len(plan.curl_specs_b + plan.curl_specs_d)
     ops = 12 * ncomp * N + 6 * ncomp * N + 150 * nl_sites + 8 * pol_sites
     return {"bytes": float(elems * item), "ops": float(ops)}
+
+
+def launch_cost(plan) -> Dict[str, float]:
+    """Bytes each of K1's launches must move per step, each array it reads
+    read once and each it writes written once ('b': the B half, E read
+    across sites, B in and out, H out, f_u and H's W chain where they run;
+    'd': the D half, H read; 'e': E from D - P, D and u read, E out, E and
+    f_w in and out where the W chain runs, P, PP and the new P over the
+    grid, the material windows (nreps with nrchi2) over their support
+    boxes).  The sum exceeds `step_cost`, which counts E and H once per
+    step."""
+    shape = tuple(plan.storage_shape or plan.gv.shape)
+    N = int(np.prod(shape))
+    item = np.dtype(plan.dtype).itemsize
+    plane = {ax: N // shape[ax] for ax in range(3)}
+
+    def sites(ax, slabs, full):
+        return N if full else (slabs[0] + slabs[1]) * plane[ax]
+
+    out = {}
+    for fam, curls, ehs in (("b", plan.curl_specs_b, plan.eh_specs_h),
+                            ("d", plan.curl_specs_d, ())):
+        partners = {g for s in curls for g in (s.g_plus, s.g_minus) if g}
+        elems = len(partners) * N
+        for s in curls:
+            elems += 2 * N
+            if s.dsigu_axis is not None:
+                elems += 2 * sites(s.dsigu_axis, s.dsigu_slabs,
+                                   not plan.slab_opt)
+        for s in ehs:
+            elems += N + (N if s.has_u else 0)
+            if s.dsigw_axis is not None:
+                elems += 3 * sites(s.dsigw_axis, s.dsigw_slabs,
+                                   not plan.slab_opt)
+        out[fam] = float(elems * item)
+    has_pols = bool(plan.pol_specs_e)
+    elems = 0
+    for s in plan.eh_specs_e:
+        elems += 2 * N + (N if s.has_u else 0)
+        if s.dsigw_axis is not None:
+            elems += 3 * sites(s.dsigw_axis, s.dsigw_slabs,
+                               not plan.slab_opt or has_pols)
+        if s.has_nr:
+            elems += 2 * _box_sites(plan, f"{s.ec}:nrchi2", shape)
+        if s.has_chi3:
+            elems += (_box_sites(plan, f"{s.ec}:chi3", shape)
+                      + _box_sites(plan, f"{s.ec}:chi2", shape))
+    for pi, p in enumerate(plan.pol_specs_e):
+        for (c, d) in p.sigma:
+            elems += 3 * N + _box_sites(plan, f"pol{pi}:{c}:{d}", shape)
+    out["e"] = float(elems * item)
+    return out

@@ -1,18 +1,22 @@
 // Host stand-in for <cuda_runtime.h>: enough of the CUDA runtime to compile
-// meep_nl_tpu_torch/csrc/fdtd3d_t2.cu, resident.cu and fused.cu with a C++
-// compiler and run their kernels as one thread of one block
-// (tests/test_torch_fdtd3d_t2_emul.py, tests/test_torch_resident_emul.py,
-// tests/test_torch_fused_emul.py).  A cooperative launch becomes a plain
-// call (with the one pointer argument the resident kernel takes), a
-// cudaLaunchKernel a call with its arguments unpacked, a grid or block
-// barrier a no-op, constant and shared memory a static, an atomic add a
-// plain add.
+// meep_nl_tpu_torch/csrc/fdtd3d.cu, fdtd3d_t2.cu, resident.cu and fused.cu
+// with a C++ compiler and run their kernels as one thread of one block
+// (tests/test_torch_fdtd3d_emul.py, tests/test_torch_fdtd3d_t2_emul.py,
+// tests/test_torch_resident_emul.py, tests/test_torch_fused_emul.py).  A
+// cooperative launch becomes a plain call (with the one pointer argument
+// the resident kernel takes), a cudaLaunchKernel a call with its arguments
+// unpacked and its dynamic shared memory a zeroed host buffer
+// (stub_dynamic_smem, which a source reads in place of its `extern
+// __shared__` array when MNT_CUDA_STUB is defined), a grid or block barrier
+// a no-op, constant and shared memory a static, an atomic add a plain add.
 #pragma once
 #include <cmath>
 #include <cstddef>
 #include <cstring>
 #include <type_traits>
 #include <utility>
+#include <vector>
+#define MNT_CUDA_STUB
 #define __device__
 #define __global__
 #define __host__
@@ -35,8 +39,18 @@ enum {
   cudaErrorInvalidValue = 1,
   cudaErrorLaunchOutOfResources = 701,
   cudaMemcpyHostToDevice = 1,
-  cudaDevAttrMultiProcessorCount = 16
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
 };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, int, int) {
+  return 0;
+}
+inline std::vector<unsigned char>& stub_smem_buffer() {
+  static std::vector<unsigned char> buf;
+  return buf;
+}
+inline unsigned char* stub_dynamic_smem() { return stub_smem_buffer().data(); }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 template <class F>
@@ -71,7 +85,8 @@ void stub_call(void (*fn)(A...), void** args, std::index_sequence<I...>) {
 }
 template <class... A>
 cudaError_t cudaLaunchKernel(void (*fn)(A...), dim3, dim3, void** args,
-                             size_t, cudaStream_t) {
+                             size_t smem, cudaStream_t) {
+  stub_smem_buffer().assign(smem + 16, 0);
   stub_call(fn, args, std::index_sequence_for<A...>{});
   return 0;
 }

@@ -94,9 +94,9 @@ def test_kernel_state_checks():
     st = interop.state_from_numpy(random_state(build_plan(JAX), 1), "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ker._step_cuda(st, {})
-    assert ker.launches_per_step == 4
+    assert ker.launches_per_step == 3
     assert TF.Fdtd3dKernel(build_plan(PORT, device="cpu",
-                                      src_comp="hz")).launches_per_step == 5
+                                      src_comp="hz")).launches_per_step == 3
     with pytest.raises(ValueError):
         TF.Fdtd3dKernel(build_plan(PORT, device="cpu", cond=True, ball=True))
 
