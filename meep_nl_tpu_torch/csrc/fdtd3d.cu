@@ -94,7 +94,7 @@
 // launch goes through cudaLaunchKernel, so tests/cuda_stub runs this file
 // as one thread of one block (tests/test_torch_fdtd3d_emul.py).
 
-#include "fdtd3d_site.cuh"
+#include "fdtd3d_march.cuh"
 
 // the y-z tile: TY rows (j) of TZ columns (k), one warp a row; another
 // tile is a build option (-DK1_TY=.. -DK1_TZ=..), which the host emulation
@@ -125,44 +125,6 @@
 
 enum { K_B = 0, K_D = 1, K_E = 2 };
 
-// a support box [lo, hi) per axis; empty when lo >= hi on an axis
-struct Box {
-  int lo[3], hi[3];
-};
-
-// The fields of a component that the site work reads, as 32-bit copies of
-// Params' (filled by the wrapper).  A slab rule (lo, hi0, n) is on at c
-// when c < lo or hi0 <= c < n: the chain's slabs with plan.slab_opt, every
-// site (lo = INT_MAX) without.
-struct CurlC {
-  int gp, gm, ap, am;                 // ring index (-1: none) and axis of
-                                      // the curl partners
-  int sax, s_lo, s_hi0, s_n;          // sigma chain (axis -1: none)
-  int uax, u_lo, u_hi0, u_n;          // sigma_u chain
-};
-
-struct EhC {
-  int wax, w_lo, w_hi0, w_n;          // W chain (axis -1: none)
-  int has_u;                          // chi1inv given (else 1)
-  int pols;                           // bit p: polarization p holds it
-};
-
-// The standard layout of a 3D plan with uPML on every axis: component q
-// (0 x, 1 y, 2 z) differentiates its curl partners (ring arrays
-// u_gp(q), u_gm(q)) along (q+1)%3 and (q+2)%3 and runs its sigma chain
-// along (q+1)%3, its sigma_u chain along (q+2)%3; an E/H component runs its
-// W chain along its own axis.  The launches of a plan with this layout
-// (`upml_layout`) take these as compile-time values (template flag U): the
-// selects and indices they feed fold away.
-__host__ __device__ constexpr int u_ax1(int q) { return (q + 1) % 3; }
-__host__ __device__ constexpr int u_ax2(int q) { return (q + 2) % 3; }
-__host__ __device__ constexpr int u_gp(int q) {
-  return q == 0 ? 0 : (q == 1 ? 2 : 1);
-}
-__host__ __device__ constexpr int u_gm(int q) {
-  return q == 0 ? 1 : (q == 1 ? 0 : 2);
-}
-
 // Mirrored by meep_nl_tpu_torch/ops/fdtd3d.py (_K1Args).
 struct K1Args {
   Params P;                           // the family's block (build_params)
@@ -190,38 +152,6 @@ extern __shared__ __align__(16) unsigned char k1_smem[];
 #define K1_SMEM k1_smem
 #endif
 
-// ---- asynchronous copies into shared memory (plain copies on the host) ---
-
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-#ifdef __CUDA_ARCH__
-  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void cp_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// wait until at most one group of this thread is in flight
-__device__ __forceinline__ void cp_wait1() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-#endif
-}
-
 // ---- geometry -----------------------------------------------------------
 
 // the plane ring of a launch kind: the halo below / above the tile in y and
@@ -235,15 +165,6 @@ struct Ring {
   static constexpr int PW = RW * (TY + LO + HI);
   static constexpr int NPOS = (PW + NTHR - 1) / NTHR;
 };
-
-__device__ __forceinline__ bool in_rule(int c, int lo, int hi0, int n) {
-  return c < lo || (c >= hi0 && c < n);
-}
-
-__device__ __forceinline__ bool in_box(const Box& b, int i, int j, int k) {
-  return i >= b.lo[0] && i < b.hi[0] && j >= b.lo[1] && j < b.hi[1] &&
-         k >= b.lo[2] && k < b.hi[2];
-}
 
 // the tiles and chunks that meet the union of the nonlinear boxes
 struct Rect {

@@ -6,17 +6,12 @@
 // of the step lives in them, in the plain version's operation order.  The
 // load-based entry points (curl_site, eh_lin / eh_site, w_store, pol_site)
 // read a site's operands from device memory, call the value functions and
-// store; K2 and K3/K4 run these.  K1 feeds the same value functions from
-// its shared-memory plane ring instead, so all the kernels round alike.
+// store; K3/K4 run these.  K1 and K2 feed the same value functions from
+// their shared-memory plane rings instead, so all the kernels round alike.
 //
-// The load-based functions take two flat indices of their site (i, j, k):
-//   n   into the full-grid coefficient arrays, (i*S1 + j)*S2 + k;
-//   fn  into the field arrays, (slot(i)*S1 + j)*S2 + k, where plane i of a
-//       field array lives in slot i % R.  K3/K4's field arrays are the full
-//       grid (R = S0, RING = false, fn == n); K2's are rings of R planes
-//       (RING = true), and only the x-neighbour reads need the slot rule.
-// The per-axis coefficient vectors and the 0/1 alive vectors are indexed by
-// the true coordinates.
+// The load-based functions take the flat index n = (i*S1 + j)*S2 + k of
+// their site (i, j, k) into the full-grid arrays; the per-axis coefficient
+// vectors and the 0/1 alive vectors are indexed by the coordinates.
 
 #pragma once
 
@@ -82,7 +77,6 @@ struct Params {
   i64 S0, S1, S2;
   i64 sgn;                  // +1 E family, -1 H family
   i64 nr_iters;
-  i64 R;                    // x-planes the field arrays hold (S0: full grid)
 };
 
 __device__ __forceinline__ i64 coord(i64 ax, i64 i, i64 j, i64 k) {
@@ -101,12 +95,6 @@ __device__ __forceinline__ bool in_slab(i64 c, i64 lo, i64 hi, i64 n) {
   return c < lo || (c >= n - hi && c < n);
 }
 
-// the slot of x-plane i in a field array of R planes
-template <bool RING>
-__device__ __forceinline__ i64 slot(i64 R, i64 i) {
-  return RING ? (i64)((int)i % (int)R) : i;
-}
-
 // the product of the per-axis 0/1 vectors step.alive_vectors builds
 template <typename T>
 __device__ __forceinline__ T mask_of(const void* const alive[3], i64 i,
@@ -120,19 +108,13 @@ __device__ __forceinline__ T mask_of(const void* const alive[3], i64 i,
 
 // D: backward difference g - g[-1]; B: forward difference g[+1] - g;
 // zero outside the storage (the PEC / not-owned convention of step._sh)
-template <typename T, bool IS_D, bool RING>
-__device__ __forceinline__ T diff(const T* g, const Params& P, i64 a,
-                                  i64 fn, i64 i, i64 j, i64 k) {
+template <typename T, bool IS_D>
+__device__ __forceinline__ T diff(const T* g, const Params& P, i64 a, i64 n,
+                                  i64 i, i64 j, i64 k) {
   i64 c = coord(a, i, j, k);
   i64 st = stride(P, a);
-  i64 up = fn + st, dn = fn - st;
-  if (RING && a == 0) {
-    i64 here = slot<RING>(P.R, i);
-    up = fn + (slot<RING>(P.R, i + 1) - here) * st;
-    dn = fn + (slot<RING>(P.R, i + P.R - 1) - here) * st;
-  }
-  if (IS_D) return g[fn] - (c > 0 ? g[dn] : T(0));
-  return (c < extent(P, a) - 1 ? g[up] : T(0)) - g[fn];
+  if (IS_D) return g[n] - (c > 0 ? g[n - st] : T(0));
+  return (c < extent(P, a) - 1 ? g[n + st] : T(0)) - g[n];
 }
 
 // dfl of step._curl: (+-Courant) * (diff g_plus - diff g_minus); hp / hm:
@@ -167,16 +149,16 @@ __device__ __forceinline__ T curl_value(T f, T dfl, bool sig_ax, bool sig_on,
   return base;
 }
 
-template <typename T, bool IS_D, bool RING>
-__device__ void curl_site(const CurlP& c, const Params& P, i64 fn, i64 i,
+template <typename T, bool IS_D>
+__device__ void curl_site(const CurlP& c, const Params& P, i64 n, i64 i,
                           i64 j, i64 k) {
   T* F = (T*)c.f;
   T dp = T(0), dm = T(0);
-  if (c.gp) dp = diff<T, IS_D, RING>((const T*)c.gp, P, c.ap, fn, i, j, k);
-  if (c.gm) dm = diff<T, IS_D, RING>((const T*)c.gm, P, c.am, fn, i, j, k);
+  if (c.gp) dp = diff<T, IS_D>((const T*)c.gp, P, c.ap, n, i, j, k);
+  if (c.gm) dm = diff<T, IS_D>((const T*)c.gm, P, c.am, n, i, j, k);
   T dfl = curl_delta<T>(c.gp != nullptr, dp, c.gm != nullptr, dm,
                         T(P.csgn));
-  T f = F[fn];
+  T f = F[n];
   T kap = T(0), sig = T(0), siginv = T(0);
   T kapu = T(0), sigu = T(0), siginvu = T(0), fuo = T(0), fun = T(0);
   bool sig_on = false, sigu_on = false;
@@ -192,7 +174,7 @@ __device__ void curl_site(const CurlP& c, const Params& P, i64 fn, i64 i,
       kapu = ((const T*)c.kapu)[cu];
       sigu = ((const T*)c.sigu)[cu];
       siginvu = ((const T*)c.siginvu)[cu];
-      fuo = ((T*)c.fu)[fn];
+      fuo = ((T*)c.fu)[n];
     }
   }
   if (c.sig_ax >= 0 && (sig_on || sigu_on)) {
@@ -202,21 +184,21 @@ __device__ void curl_site(const CurlP& c, const Params& P, i64 fn, i64 i,
   }
   T base = curl_value<T>(f, dfl, c.sig_ax >= 0, sig_on, kap - sig, siginv,
                          sigu_on, kapu - sigu, siginvu, fuo, &fun);
-  if (sigu_on) ((T*)c.fu)[fn] = fun;
-  F[fn] = base * mask_of<T>(c.alive, i, j, k);
+  if (sigu_on) ((T*)c.fu)[n] = fun;
+  F[n] = base * mask_of<T>(c.alive, i, j, k);
 }
 
 template <typename T>
-__device__ __forceinline__ T dmp_at(const EhP& e, i64 npol, i64 fn) {
-  T v = ((const T*)e.d)[fn];
+__device__ __forceinline__ T dmp_at(const EhP& e, i64 npol, i64 n) {
+  T v = ((const T*)e.d)[n];
   for (int p = 0; p < npol; ++p)
-    if (e.pol[p].p) v = v - ((const T*)e.pol[p].p)[fn];
+    if (e.pol[p].p) v = v - ((const T*)e.pol[p].p)[n];
   return v;
 }
 
 // D - P of component e at (i,j,k) + da along axis a + db along axis b;
 // zero where any shifted coordinate leaves the storage
-template <typename T, bool RING>
+template <typename T>
 __device__ T dmp_nb(const EhP& e, const Params& P, i64 i, i64 j, i64 k,
                     i64 a, i64 da, i64 b, i64 db) {
   i64 ci = i + (a == 0 ? da : 0) + (b == 0 ? db : 0);
@@ -224,20 +206,19 @@ __device__ T dmp_nb(const EhP& e, const Params& P, i64 i, i64 j, i64 k,
   i64 ck = k + (a == 2 ? da : 0) + (b == 2 ? db : 0);
   if (ci < 0 || ci >= P.S0 || cj < 0 || cj >= P.S1 || ck < 0 || ck >= P.S2)
     return T(0);
-  return dmp_at<T>(e, P.npol,
-                   (slot<RING>(P.R, ci) * P.S1 + cj) * P.S2 + ck);
+  return dmp_at<T>(e, P.npol, (ci * P.S1 + cj) * P.S2 + ck);
 }
 
 // g + g_s + g_x + g_sx of step._sum4 / _avg4: g_s one site along the own
 // axis (sign sgn), g_x one site back along the partner's axis
-template <typename T, bool RING>
+template <typename T>
 __device__ T sum4(const EhP& e, const Params& P, i64 i, i64 j, i64 k,
                   i64 own, i64 off) {
   i64 s = P.sgn;
-  T g = dmp_nb<T, RING>(e, P, i, j, k, -1, 0, -1, 0);
-  T gs = dmp_nb<T, RING>(e, P, i, j, k, own, s, -1, 0);
-  T gx = dmp_nb<T, RING>(e, P, i, j, k, off, -s, -1, 0);
-  T gsx = dmp_nb<T, RING>(e, P, i, j, k, own, s, off, -s);
+  T g = dmp_nb<T>(e, P, i, j, k, -1, 0, -1, 0);
+  T gs = dmp_nb<T>(e, P, i, j, k, own, s, -1, 0);
+  T gx = dmp_nb<T>(e, P, i, j, k, off, -s, -1, 0);
+  T gsx = dmp_nb<T>(e, P, i, j, k, own, s, off, -s);
   return g + gs + gx + gsx;
 }
 
@@ -307,20 +288,20 @@ __device__ __forceinline__ T pade(T lin, T gs, T Dsqr, T chi2, T chi3, T us) {
 // the chi3 and chi2-NR branches out, for plans (and for the H family) that
 // have neither: their presence alone costs the kernel registers, and with
 // them the occupancy of every site.
-template <typename T, bool RING, bool NL>
-__device__ T eh_lin(const Params& P, int q, i64 n, i64 fn, i64 i, i64 j,
+template <typename T, bool NL>
+__device__ T eh_lin(const Params& P, int q, i64 n, i64 i, i64 j,
                     i64 k) {
   const EhP& e = P.eh[q];
-  T gs = dmp_at<T>(e, P.npol, fn);
+  T gs = dmp_at<T>(e, P.npol, n);
   T us = e.u ? ((const T*)e.u)[n] : T(1);
   T lin = e.u ? gs * us : gs;
   if (NL && e.chi3) {
     T Dsqr = gs * gs;
     if (e.dc1 >= 0)
-      Dsqr = dsqr_add<T>(Dsqr, sum4<T, RING>(P.eh[e.dc1], P, i, j, k,
+      Dsqr = dsqr_add<T>(Dsqr, sum4<T>(P.eh[e.dc1], P, i, j, k,
                                              e.ax_own, e.ax_1));
     if (e.dc2 >= 0)
-      Dsqr = dsqr_add<T>(Dsqr, sum4<T, RING>(P.eh[e.dc2], P, i, j, k,
+      Dsqr = dsqr_add<T>(Dsqr, sum4<T>(P.eh[e.dc2], P, i, j, k,
                                              e.ax_own, e.ax_2));
     lin = pade<T>(lin, gs, Dsqr, ((const T*)e.chi2)[n],
                   ((const T*)e.chi3)[n], us);
@@ -328,10 +309,10 @@ __device__ T eh_lin(const Params& P, int q, i64 n, i64 fn, i64 i, i64 j,
   if (NL && e.nrchi2) {
     T chi2 = ((const T*)e.nrchi2)[n];
     if (chi2 != T(0)) {
-      T g1 = e.dc1 >= 0 ? T(0.25) * sum4<T, RING>(P.eh[e.dc1], P, i, j, k,
+      T g1 = e.dc1 >= 0 ? T(0.25) * sum4<T>(P.eh[e.dc1], P, i, j, k,
                                                   e.ax_own, e.ax_1)
                         : T(0);
-      T g2 = e.dc2 >= 0 ? T(0.25) * sum4<T, RING>(P.eh[e.dc2], P, i, j, k,
+      T g2 = e.dc2 >= 0 ? T(0.25) * sum4<T>(P.eh[e.dc2], P, i, j, k,
                                                   e.ax_own, e.ax_2)
                         : T(0);
       lin = nr_solve<T>(gs, g1, g2, ((const T*)e.nreps)[n], chi2,
@@ -351,7 +332,7 @@ struct WIn {
 };
 
 template <typename T>
-__device__ __forceinline__ WIn<T> w_load(const EhP& e, i64 fn, i64 i, i64 j,
+__device__ __forceinline__ WIn<T> w_load(const EhP& e, i64 n, i64 i, i64 j,
                                          i64 k) {
   WIn<T> w;
   w.on = false;
@@ -363,8 +344,8 @@ __device__ __forceinline__ WIn<T> w_load(const EhP& e, i64 fn, i64 i, i64 j,
       const T kw = ((const T*)e.kapw)[cw], sw = ((const T*)e.sigw)[cw];
       w.kp = kw + sw;
       w.km = kw - sw;
-      w.f = ((const T*)e.f)[fn];
-      w.fw = ((const T*)e.fw)[fn];
+      w.f = ((const T*)e.f)[n];
+      w.fw = ((const T*)e.fw)[n];
     }
   }
   w.mask = mask_of<T>(e.alive, i, j, k);
@@ -382,29 +363,28 @@ __device__ __forceinline__ T w_value(T lin, const WIn<T>& w) {
 
 // stage 3: the W chain, the mask, the stores; returns the new E/H
 template <typename T>
-__device__ __forceinline__ T w_store(const EhP& e, i64 fn, T lin,
+__device__ __forceinline__ T w_store(const EhP& e, i64 n, T lin,
                                      const WIn<T>& w) {
   T fnew = w_value<T>(lin, w);
-  if (w.on) ((T*)e.fw)[fn] = lin;
-  ((T*)e.f)[fn] = fnew;
+  if (w.on) ((T*)e.fw)[n] = lin;
+  ((T*)e.f)[n] = fnew;
   return fnew;
 }
 
 // the whole E (or H) update of a site: lin and the new field per component
-template <typename T, bool RING, bool NL>
-__device__ __forceinline__ void eh_site(const Params& P, i64 n, i64 fn,
-                                        i64 i, i64 j, i64 k, T* lin,
-                                        T* fnew) {
+template <typename T, bool NL>
+__device__ __forceinline__ void eh_site(const Params& P, i64 n, i64 i,
+                                        i64 j, i64 k, T* lin, T* fnew) {
   WIn<T> w[NCOMP];
 #pragma unroll
   for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) lin[q] = eh_lin<T, RING, NL>(P, q, n, fn, i, j, k);
+    if (q < P.neh) lin[q] = eh_lin<T, NL>(P, q, n, i, j, k);
 #pragma unroll
   for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) w[q] = w_load<T>(P.eh[q], fn, i, j, k);
+    if (q < P.neh) w[q] = w_load<T>(P.eh[q], n, i, j, k);
 #pragma unroll
   for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) fnew[q] = w_store<T>(P.eh[q], fn, lin[q], w[q]);
+    if (q < P.neh) fnew[q] = w_store<T>(P.eh[q], n, lin[q], w[q]);
 }
 
 // whether an E-family parameter block needs the NL = true functions
@@ -430,7 +410,7 @@ __device__ __forceinline__ T ade_value(const Params& P, int p, T W, T sigma,
 // only this site reads (the caller swaps the roles).  Per polarization, the
 // loads of every component before the stores, as in eh_site.
 template <typename T>
-__device__ void pol_site(const Params& P, i64 n, i64 fn, const T* lin,
+__device__ void pol_site(const Params& P, i64 n, const T* lin,
                          const T* fnew) {
   for (int p = 0; p < P.npol; ++p) {
     T pnew[NCOMP];
@@ -441,13 +421,13 @@ __device__ void pol_site(const Params& P, i64 n, i64 fn, const T* lin,
       if (!pc.p) continue;
       T W = P.eh[q].w_ax >= 0 ? lin[q] : fnew[q];
       pnew[q] = ade_value<T>(P, p, W, ((const T*)pc.sigma)[n],
-                             ((const T*)pc.p)[fn], ((const T*)pc.pp)[fn]);
+                             ((const T*)pc.p)[n], ((const T*)pc.pp)[n]);
     }
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
       if (q >= P.neh) continue;
       const PolC& pc = P.eh[q].pol[p];
-      if (pc.p) ((T*)pc.pp)[fn] = pnew[q];
+      if (pc.p) ((T*)pc.pp)[n] = pnew[q];
     }
   }
 }

@@ -1,341 +1,1057 @@
-// K2 on Hopper: `depth` (2 or 3) consecutive 3D Yee steps in ONE launch and
-// one pass over the grid, by temporal blocking along x, with the monitor
-// planes of the intermediate steps written by the kernel itself.  Written
-// by hand for sm_90a, bound through a plain C interface (ctypes).
+// K2 on Hopper: `depth` (2 or 3) consecutive 3D Yee steps per call in one
+// ordinary launch per item class, with the monitor planes of the
+// intermediate steps written by the kernel itself.  Written by hand for
+// sm_90a, bound through a plain C interface (ctypes).
 //
 // Replaces the TPU kernel meep_nl_tpu/ops/pallas/fdtd3d_t2.py::_build_call2
 // (:182, kernel body :893, pallas_call :2047, driven by Fdtd3dT2Kernel
-// :2084).  It computes `depth` applications of K1's step (fdtd3d.cu; the
-// per-site arithmetic of both is fdtd3d_site.cuh), stage s with row s of the
-// source table, plus the capture planes: E/H of chosen x-planes after a
-// chosen stage, as state["f"][comp][x:x+1] would read there.  The Mosaic
-// plan (lo/mid/disp/hi call segments, host-precomputed halos, cross-call
-// packages, VMEM ping-pong) is not carried over.
+// :2084).  It computes `depth` applications of K1's step (fdtd3d.cu; both
+// run fdtd3d_site.cuh's value functions, built without FMA contraction),
+// stage s with row s of the source table, plus the capture planes: E/H of
+// chosen x-planes after a chosen stage, as state["f"][comp][x:x+1] reads.
 //
-// Design: a wavefront marching along x over a ring of x-planes.
-//   * One cooperative launch (cudaLaunchCooperativeKernel); the grid is
-//     co-resident and every block loops over sites, so grid.sync() orders
-//     the phases.
-//   * A ring of R x-planes per state array (scratch, R = O(depth + bx), far
-//     below S0) holds the only copy of every intermediate stage.  LOAD
-//     copies planes of the state into the ring, the stages update the ring
-//     in place, STORE copies finished planes back.  The state arrays are
-//     read once and written once per `depth` steps.
-//   * The host (ops/fdtd3d_t2.py::schedule) turns the step into a list of
-//     ops -- LOAD, per stage [B curl, B sources, H] or the fused [B curl +
-//     H], D curl, D sources, E (+ polarization), then STORE -- and gives
-//     each a phase and an x offset: at wavefront step w, an op works on the
-//     planes [w*bx - off, w*bx - off + bx).  Offsets follow from the ops'
-//     read and write sets (which planes of which arrays, at x-1, x, x+1),
-//     so that whatever an op reads is complete and whatever it overwrites
-//     is no longer needed.  The kernel below only executes that table.
+// Design: barrier-free temporal blocking.  One block owns an item, an
+// output box (a y-z tile x an x-chunk) that the wrapper lists; the items
+// tile the storage.  The block computes all `depth` stages of its item,
+// ordered by __syncthreads only; no two blocks exchange anything, and no
+// launch is cooperative.
+//   * Overlapped (trapezoid) items.  Along y and z stage s is computed on
+//     the output grown by (depth - s) h, B/H h more below (D reads H at
+//     -1) and h - 1 above, D h - 1 on both sides (ops/fdtd3d_t2.py::
+//     regions).  h = 1 on linear items; h = 2 on nonlinear ones, whose
+//     first stage meets a site with a nonzero chi2/chi3 coefficient (the
+//     neighbour sums read D - P at +-1 in every axis).  The halo's stages
+//     are recomputed by design.
+//   * An x-march.  At step t stage s updates B/H and D on plane
+//     t - (s-1) h and E on the plane h - 1 behind it, so every plane a
+//     stage reads across sites (E at x+1, H at x-1, D - P at x+-1) was
+//     finished by the stage before it in this step or earlier.
+//   * Intermediate stages on chip.  Every array lives, for the planes in
+//     flight, in a ring of planes in shared memory, and a plane's slot
+//     holds the newest stage computed there: a stage updates it in place
+//     at the site's own position and reads the neighbours' values of the
+//     stage before it.  A ring's plane covers the first stage's region of
+//     its first writer (four kinds: E, B/H, D, E-family); the wrapper
+//     sizes every ring (ops/fdtd3d_t2.py::march; tests/test_torch_
+//     fdtd3d_t2.py replays every read of the march against it).  The y and
+//     z coefficients of the chains and the alive factors are staged per
+//     item in shared-memory rows.
+//   * Out of place: the state is read once and written once per call.
+//     Stage 1 reads the input state (its E planes by cp.async two planes
+//     ahead, the other operands at the site), the last stage writes the
+//     item's own sites into a second set of state tensors.  An item reads
+//     only input tensors and writes only output ones, so overlapped items
+//     cannot race whatever order the blocks run in (the host emulation
+//     runs them in several orders).
+//   * Sources and captures from per-plane lists of any length.
+//   * Two item classes, each its own launch: the nonlinear items (few,
+//     long: a tile's whole nonlinear x-range, cut to about fill the SMs
+//     once) on a stream of the highest priority, forked from and joined
+//     back to the caller's, the linear items on the caller's stream, so
+//     that the linear blocks fill the SMs the nonlinear ones leave.
 //
-// Where trouble was likely:
-//  (a) in-place state: the stages never touch the state arrays.  Stage 1
-//      reads ring planes that LOAD filled; STORE trails the last stage; a
-//      ring slot is reloaded only after every reader of its plane has run
-//      (R = largest offset + 1 + bx).
-//  (b) order within a stage: B curl reads E at x+1, D curl reads H at x-1,
-//      E reads D - P at x-1 and x+1 (the chi2/chi3 neighbour sums).  Each is
-//      an op of its own, behind the op it reads from by the needed planes
-//      and in a later phase (or a whole block later); phases end in
-//      grid.sync().
-//  (c) P/PP roles: the E op writes the new P over the PP array, so the
-//      roles alternate per stage; the host hands stage s its Params with the
-//      roles of that stage, and STORE writes the array that holds the
-//      newest P into the state's p (after 3 stages: the other one).
-//  (d) sources: an op per source and stage adds row s of the table
-//      (B currents at t*dt, D at (t+1/2)*dt) at the source's sites whose
-//      plane lies in the op's block, between the curl and the E/H op.
-//  (e) edges: an op's block is clipped to [0, S0), so the first and last
-//      wavefront steps run fewer ops; dead storage planes are masked by the
-//      alive vectors as in K1.
-//  (f) cooperative launch: the grid is min(wanted, occupancy x SM count)
-//      blocks; a refused launch returns its cudaError to the wrapper, which
-//      raises.
-//  (g) fp64 plans run the same template.
+// Where trouble was likely, and what the design does:
+//  (a) edges: the regions are clipped to the storage; sites outside it
+//      read 0 across sites (the plain version's zero fill): the E ring's
+//      loads write 0 there, the H and D - P rings are zeroed per item and
+//      never written there, x-neighbours outside [0, S0) are tested.  The
+//      alive masks are applied as in K1.  Chunks start at 0 and end at S0.
+//  (b) slab-local chains (plan.slab_opt): f_u / f_w are read and written
+//      only where their chain runs, the halo included, by K1's slab rule;
+//      outside, the output tensor keeps what it held, which the wrapper
+//      makes equal to the input (its pairing of the two state sets).
+//  (c) P/PP roles: the rings keep P and PP of every stage explicitly (the
+//      ADE writes the new P into P and the current one into PP), so the
+//      last stage writes the newest P into the output's p.
+//  (d) the nonlinear reach: D - P of a stage has its own ring, written
+//      when D is, so E reads its neighbours' values before any of them
+//      updates P; within a step a nonlinear E waits for D (a barrier).
+//  (e) sources in the halo: the thread of every site adds its sources,
+//      halo sites too (their intermediate stages must see them), from a
+//      per-plane list sorted by site, then in plan.sources and entry order.
+//  (f) captures: only the thread that computes a site of the item's own
+//      output box writes it, never a halo copy.
+//  (g) register pressure: each variant has its own budget (below); the
+//      site work loads all its operands before its first store (the
+//      arrays are untyped pointers that may alias).
 //
 // What bounds it on the H100: by its byte count, device memory (the state
-// once in, once out per call).  In this first version it is far from that
-// bound and slower per step than K1: every phase is a pass of one site per
-// thread over a co-resident grid of a few hundred blocks (one kernel holds
-// every op, so the heaviest op's registers set the occupancy of all), ended
-// by a grid.sync(), and LOAD/STORE move every array through the ring once
-// more.  Left on the table: stage 1 reading the state directly and the last
-// stage writing it, a shared-memory ring over y-z tiles in place of the
-// grid-wide barriers, the compact D/B layout, TMA plane loads.
+// once in, once out per call: ops/fdtd3d_t2.py::step_cost).  In practice
+// the site work, 3-4x K1's per site and step at the plans of PERF.md: the
+// trapezoid recomputes 1.5x (linear, 8 x 32 tiles, depth 3) to ~9x
+// (nonlinear, 8 x 8 tiles, h = 2) of the output's sites; a block runs one
+// sub-update at a time between barriers, often on fewer sites than it has
+// threads; the first stage waits on device memory.
+// Budget: 512 threads a block.  A class's rings get the SM's shared memory
+// divided among as many blocks as its registers let an SM hold: nonlinear
+// blocks one an SM (at most 128 registers a thread); linear blocks two an
+// SM (64 registers, MINB = 2) when half the SM's shared memory holds the
+// largest tile the whole would, else one (MINB = 1); the wrapper takes the
+// largest tile of at most K2_TY x K2_TZ that fits.  Variants: fp32 / fp64
+// (T), nonlinear or linear items (NL), the standard uPML layout as
+// compile-time values or not (U), one pole or up to MAXPOL (NP), the
+// linear register budget (MINB).  PERF.md records tiles, shared memory and
+// ptxas's registers and spills for the driven plans.
 
-#include <cooperative_groups.h>
+// Host emulation: the site loops are block-stride loops, every cp.async
+// has a plain-copy twin, and tests/cuda_stub runs each block as one thread,
+// the blocks one after another in a chosen order.
 
-#include "fdtd3d_site.cuh"
+#include "fdtd3d_march.cuh"
 
-namespace cg = cooperative_groups;
+// the largest output tile (rows j x columns k); a smaller one is a build
+// option (-DK2_TY=.. -DK2_TZ=..), which the host emulation uses to put
+// tile edges inside small grids
+#ifndef K2_TY
+#define K2_TY 8
+#endif
+#ifndef K2_TZ
+#define K2_TZ 32
+#endif
+#ifdef MNT_CUDA_STUB
+#define K2_NTHR 1
+#define K2_SMEM stub_dynamic_smem()
+#else
+#define K2_NTHR 512
+extern __shared__ __align__(16) unsigned char k2_smem[];
+#define K2_SMEM k2_smem
+#endif
 
-#define MAXDEPTH 3
-#define MAXOPS 48
-#define MAXCOPY 64
-#define MAXSRC 8
-#define MAXCAP 48
+// the rings of an item: E, H, D - P (nonlinear items), then the arrays
+// read only at the site's own position
+enum { R_E, R_H, R_M, R_B, R_FUB, R_FWH, R_D, R_FUD, R_FWE, R_P, R_PP,
+       NROLE };
+#define NQ (NCOMP * MAXPOL)            // P / PP: component * MAXPOL + pole
+// A ring's plane covers the region its first writer updates in stage 1
+// (ops/fdtd3d_t2.py::regions): the E ring the whole item region (the
+// input's E), the H and B-family rings B/H's, the D-family and D - P rings
+// D's, the E-family rings (f_w of E, P, PP) E's.
+enum { G_E, G_B, G_D, G_F, NKIND };
+__host__ __device__ constexpr int kind_of(int role) {
+  return role == R_E ? G_E
+         : (role == R_H || role == R_B || role == R_FUB || role == R_FWH)
+             ? G_B
+             : (role == R_M || role == R_D || role == R_FUD) ? G_D : G_F;
+}
 
-enum {
-  OP_LOAD = 0, OP_STORE = 1, OP_BC = 2, OP_BH = 3, OP_HH = 4, OP_DC = 5,
-  OP_EE = 6, OP_SRC = 7
+// The per-axis coefficients a site reads, staged per item in shared
+// memory along y and z (the x ones, the same for a whole plane, are read
+// from device memory): for each curl component of the B and the D family
+// (slot = family * 3 + component) its chains' kap - sig and 1/sig along
+// that axis and its alive factor; for each E/H component (slot = 0..2 H,
+// 3..5 E) its W chain's kapw +- sigw and its alive factor.  A row holds
+// one of these over the item's E-plane span of the axis.
+enum { F_KMS, F_SIV, F_KMSU, F_SIVU, F_ALC, NF_CURL };
+enum { F_KP = NF_CURL * 6, F_KM = F_KP + 6, F_ALE = F_KM + 6,
+       NROW = F_ALE + 6 };
+
+// One item class's shared-memory layout (mirrored by ops/fdtd3d_t2.py).
+struct K2Class {
+  int off[NROLE][NQ];                 // first element of a ring (-1: none)
+  int ns[NROLE];                      // planes a ring holds
+  int below[NKIND];                   // a kind's plane: sites below the
+  int rz[NKIND];                      //   output tile in y and z, columns,
+  int pw[NKIND];                      //   sites
+  int tab, ly, lz;                    // the coefficient rows: first
+                                      // element, lengths along y and z
+  int words;                          // elements of all rings and rows
 };
 
-// Mirrored by meep_nl_tpu_torch/ops/fdtd3d_t2.py; every member is 8 bytes.
-struct Op {
-  i64 kind, stage, phase, off, arg;   // stage 0-based; arg: source index
-};
-
-struct CopyArr {
-  void* state;
-  void* ring;
-  i64 ax, lo, hi, n;                  // copy only this slab (ax -1: all)
-};
-
-struct Src {
-  void* f;                            // the D/B ring array it adds into
-  const void* off;                    // full-grid flat offsets (int64)
-  const void* are;
-  const void* aim;
-  i64 n;
-  double wre[MAXDEPTH], wim[MAXDEPTH];
-};
-
-struct Cap {
-  void* out;                          // one (S1, S2) plane
-  i64 stage, fam, q, x;               // fam 0: H (pb), 1: E (pd); q: eh[]
-};
-
+// Mirrored by meep_nl_tpu_torch/ops/fdtd3d_t2.py (_K2Args).
 struct K2Args {
-  Params pb[MAXDEPTH], pd[MAXDEPTH];
-  Op ops[MAXOPS];
-  CopyArr load[MAXCOPY], store[MAXCOPY];
-  Src src[MAXSRC];
-  Cap cap[MAXCAP];
+  Params pb, pd;                      // the families over the INPUT state
+  void* out_b[NCOMP];                 // the output state
+  void* out_fub[NCOMP];
+  void* out_h[NCOMP];
+  void* out_fwh[NCOMP];
+  void* out_d[NCOMP];
+  void* out_fud[NCOMP];
+  void* out_e[NCOMP];
+  void* out_fwe[NCOMP];
+  void* out_p[NCOMP][MAXPOL];
+  void* out_pp[NCOMP][MAXPOL];
+  const void* items;                  // int32 (n, 8): i0 i1 j0 j1 k0 k1 - -
+                                      // (linear items, then nonlinear)
+  const void* src_ptr[2];             // per family (B, D): int32 [S0 + 1]
+  const void* src_key[2];             // int32 ((j*S2 + k) << 2) | comp
+  const void* src_id[2];              // int32 plan.sources index
+  const void* src_amp[2];             // T (n, 2): amplitude re, im
+  const void* wave;                   // double (depth, nsrc, 2)
+  const void* cap_ptr;                // int32 [(stage*2 + fam)*S0 + x] ->
+  const void* cap_q;                  //   entries; int32 component
+  void* cap_out;                      // T (ncap, S1, S2)
   double dt;
-  i64 nops, nphase, nload, nstore, ncap, depth, bx, nwave, S0, S1, S2, R;
+  Box nl3[NCOMP], nlnr[NCOMP], pol[NCOMP][MAXPOL];
+  CurlC cb[NCOMP], cd[NCOMP];         // gp / gm: E (B) or H (D) component
+  EhC eh[NCOMP], ee[NCOMP];           // H, E
+  int hb_of[NCOMP];                   // B component of each H
+  int ed_of[NCOMP];                   // D component of each E
+  K2Class cls[2];                     // linear items, nonlinear items
+  int nitems[2];                      // items of each class
+  int pair;                           // linear blocks: two an SM (1) or one
+  int depth, S0, S1, S2, nsrc;
 };
 
-// a site of an op's block [lo, hi): its plane i, in-plane offset r = j*S2 + k,
-// and its indices n (full grid) and fn (ring); 32-bit decode, a block has
-// fewer than 2^31 sites
-struct Site {
-  i64 i, j, k, r, n, fn;
+struct Item {
+  int i0, i1, j0, j1, k0, k1;
 };
 
-__device__ __forceinline__ Site site_of(const K2Args& A, i64 lo,
-                                        unsigned it) {
-  const unsigned s12 = (unsigned)(A.S1 * A.S2), S2 = (unsigned)A.S2;
-  unsigned di = it / s12, r = it - di * s12;
-  unsigned j = r / S2, k = r - j * S2;
-  Site s;
-  s.i = lo + di;
-  s.j = j;
-  s.k = k;
-  s.r = r;
-  s.n = s.i * s12 + r;
-  s.fn = slot<true>(A.R, s.i) * s12 + r;
+struct Span {
+  int lo, hi;
+};
+
+// one item's rings: the base of the shared memory, the class layout and
+// the item's output corner
+template <typename T>
+struct Rings {
+  T* sm;
+  const K2Class* C;
+  int j0, k0;
+  // the offset of plane p's slot in a ring of `role` (block-uniform:
+  // worked out once per sub-update), and the slot of component c there
+  __device__ __forceinline__ int plane(int role, int p) const {
+    return (p % C->ns[role]) * C->pw[kind_of(role)];
+  }
+  __device__ __forceinline__ T* at(int role, int c, int pl) const {
+    return sm + C->off[role][c] + pl;
+  }
+  __device__ __forceinline__ bool has(int role, int c) const {
+    return C->off[role][c] >= 0;
+  }
+  // site (j, k) in a plane of kind g, and the step to the next row
+  __device__ __forceinline__ int pos(int g, int j, int k) const {
+    return (j - j0 + C->below[g]) * C->rz[g] + (k - k0 + C->below[g]);
+  }
+  __device__ __forceinline__ int row(int g) const { return C->rz[g]; }
+  // the coefficient of row `r` along axis ax (1 y, 2 z) at site (j, k)
+  __device__ __forceinline__ T coef(int ax, int r, int j, int k) const {
+    const T* t = sm + C->tab;
+    return ax == 1 ? t[r * C->ly + j - j0 + C->below[G_E]]
+                   : t[(NROW * C->ly) + r * C->lz + k - k0 + C->below[G_E]];
+  }
+};
+
+__device__ __forceinline__ int coord3(int ax, int i, int j, int k) {
+  return ax == 0 ? i : (ax == 1 ? j : k);
+}
+
+// ---- sources and captures --------------------------------------------
+
+// the entries [a, b) of plane p in a per-plane list (none: a == b)
+struct Range {
+  int a, b;
+};
+
+__device__ __forceinline__ Range plane_range(const void* ptr, int key) {
+  Range r = {0, 0};
+  if (ptr) {
+    r.a = ((const int*)ptr)[key];
+    r.b = ((const int*)ptr)[key + 1];
+  }
+  return r;
+}
+
+// the current sources of family `fam` at site (j, k) of the plane whose
+// entries are `sr` into the new D/B values f[q] at stage s: f - current *
+// dt per entry, in the list's order
+template <typename T>
+__device__ __forceinline__ void add_sources(const K2Args& A, int fam, int s,
+                                            Range sr, int j, int k, T* f) {
+  const int a = sr.a, b = sr.b;
+  if (a == b) return;
+  const int* key = (const int*)A.src_key[fam];
+  const int me = (j * A.S2 + k) << 2;
+  int lo = a, hi = b;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((key[mid] & ~3) < me) lo = mid + 1;
+    else hi = mid;
+  }
+  const T* amp = (const T*)A.src_amp[fam];
+  const int* id = (const int*)A.src_id[fam];
+  const double* wv = (const double*)A.wave + 2 * (s - 1) * A.nsrc;
+  for (int e = lo; e < b && (key[e] & ~3) == me; ++e) {
+    const int w = id[e];
+    const T add = -source_amp<T>(amp, amp + 1, 2 * e, T(wv[2 * w]),
+                                 T(wv[2 * w + 1]), T(A.dt));
+    const int q = key[e] & 3;
+#pragma unroll
+    for (int qq = 0; qq < NCOMP; ++qq)
+      if (qq == q) f[qq] = f[qq] + add;
+  }
+}
+
+// the capture planes of component q (entries `cr` of the stage, family
+// and plane) at output site (j, k)
+template <typename T>
+__device__ __forceinline__ void capture(const K2Args& A, Range cr, int q,
+                                        int j, int k, T v) {
+  const int* cq = (const int*)A.cap_q;
+  for (int e = cr.a; e < cr.b; ++e)
+    if (cq[e] == q)
+      ((T*)A.cap_out)[(i64)e * A.S1 * A.S2 + j * A.S2 + k] = v;
+}
+
+// ---- the PML chains of a curl component ------------------------------
+
+// The new D/B of curl component q (row slot `sl`) at site (i, j, k) from
+// its old value f, dfl and (where the sigma_u chain runs) the old f_u:
+// K1's curl update (fdtd3d.cu curl_site_k1) before the sources; uon: the
+// sigma_u chain runs here, *fun its new f_u.  The coefficients along y and
+// z come from the item's rows, those along x from device memory.
+template <typename T, bool U>
+__device__ __forceinline__ T chain(const Rings<T>& R, const CurlP& c,
+                                   const CurlC& cc, int q, int sl, int i,
+                                   int j, int k, T f, T dfl, bool uon, T fuo,
+                                   T* fun) {
+  const int sax = U ? u_ax1(q) : cc.sax, uax = U ? u_ax2(q) : cc.uax;
+  T kms = T(0), siv = T(0), kmsu = T(0), sivu = T(0);
+  bool son = false;
+  if (sax == 0) {
+    kms = ((const T*)c.kap)[i] - ((const T*)c.sig)[i];
+    siv = ((const T*)c.siginv)[i];
+  } else if (sax > 0) {
+    kms = R.coef(sax, F_KMS * 6 + sl, j, k);
+    siv = R.coef(sax, F_SIV * 6 + sl, j, k);
+  }
+  if (sax >= 0)
+    son = in_rule(coord3(sax, i, j, k), cc.s_lo, cc.s_hi0, cc.s_n);
+  if (uax == 0) {
+    kmsu = ((const T*)c.kapu)[i] - ((const T*)c.sigu)[i];
+    sivu = ((const T*)c.siginvu)[i];
+  } else if (uax > 0) {
+    kmsu = R.coef(uax, F_KMSU * 6 + sl, j, k);
+    sivu = R.coef(uax, F_SIVU * 6 + sl, j, k);
+  }
+  *fun = T(0);
+  const T ax = c.alive[0] ? ((const T*)c.alive[0])[i] : T(1);
+  return curl_value<T>(f, dfl, sax >= 0, son, kms, siv, uon, kmsu, sivu, fuo,
+                       fun) *
+         (ax * R.coef(1, F_ALC * 6 + sl, j, k) *
+          R.coef(2, F_ALC * 6 + sl, j, k));
+}
+
+template <bool U>
+__device__ __forceinline__ bool u_on(const CurlC& cc, int q, int i, int j,
+                                     int k) {
+  const int uax = U ? u_ax2(q) : cc.uax;
+  return uax >= 0 && in_rule(coord3(uax, i, j, k), cc.u_lo, cc.u_hi0,
+                             cc.u_n);
+}
+
+// the W chain's inputs of E/H component q (row slot `sl`) at site
+// (i, j, k), without the old field and f_w (the caller fills them where
+// w.on); y and z coefficients from the item's rows
+template <typename T, bool U>
+__device__ __forceinline__ WIn<T> w_of(const Rings<T>& R, const EhP& e,
+                                       const EhC& ec, int q, int sl, int i,
+                                       int j, int k) {
+  WIn<T> w;
+  const int wax = U ? q : ec.wax;
+  w.on = false;
+  w.f = w.fw = w.kp = w.km = T(0);
+  if (wax == 0) {
+    const T kw = ((const T*)e.kapw)[i], sw = ((const T*)e.sigw)[i];
+    w.kp = kw + sw;
+    w.km = kw - sw;
+  } else if (wax > 0) {
+    w.kp = R.coef(wax, F_KP + sl, j, k);
+    w.km = R.coef(wax, F_KM + sl, j, k);
+  }
+  if (wax >= 0) w.on = in_rule(coord3(wax, i, j, k), ec.w_lo, ec.w_hi0,
+                               ec.w_n);
+  const T ax = e.alive[0] ? ((const T*)e.alive[0])[i] : T(1);
+  w.mask = ax * R.coef(1, F_ALE + sl, j, k) * R.coef(2, F_ALE + sl, j, k);
+  return w;
+}
+
+// fill the item's coefficient rows (after the rings are zeroed): row r of
+// axis ax at position t is the coefficient at coordinate (j0 or k0) -
+// below + t; outside the storage 0 (no site there is computed)
+template <typename T>
+__device__ __forceinline__ void fill_rows(const K2Args& A,
+                                          const Rings<T>& R, int tid) {
+  const K2Class& C = *R.C;
+  const int ly = C.ly, lz = C.lz, below = C.below[G_E];
+  T* t = R.sm + C.tab;
+  for (int e = tid; e < NROW * (ly + lz); e += K2_NTHR) {
+    const bool z = e >= NROW * ly;
+    const int L = z ? lz : ly, e2 = z ? e - NROW * ly : e;
+    const int r = e2 / L, ax = z ? 2 : 1;
+    const int c = (z ? R.k0 : R.j0) - below + (e2 - r * L);
+    const bool in = c >= 0 && c < (z ? A.S2 : A.S1);
+    T v = T(0);
+    if (in && r < F_KP) {
+      const int f = r / 6, sl = r - 6 * f, q = sl % 3;
+      const Params& P = sl < 3 ? A.pb : A.pd;
+      const CurlC& cc = sl < 3 ? A.cb[q] : A.cd[q];
+      const CurlP& cp = P.curl[q];
+      if (q < P.ncurl) {
+        if (f == F_ALC)
+          v = cp.alive[ax] ? ((const T*)cp.alive[ax])[c] : T(1);
+        else if ((f == F_KMS || f == F_SIV) && cc.sax == ax)
+          v = f == F_KMS ? ((const T*)cp.kap)[c] - ((const T*)cp.sig)[c]
+                         : ((const T*)cp.siginv)[c];
+        else if ((f == F_KMSU || f == F_SIVU) && cc.uax == ax)
+          v = f == F_KMSU ? ((const T*)cp.kapu)[c] - ((const T*)cp.sigu)[c]
+                          : ((const T*)cp.siginvu)[c];
+      }
+    } else if (in) {
+      const int f = (r - F_KP) / 6, sl = r - F_KP - 6 * f, q = sl % 3;
+      const Params& P = sl < 3 ? A.pb : A.pd;
+      const EhC& ec = sl < 3 ? A.eh[q] : A.ee[q];
+      const EhP& eh = P.eh[q];
+      if (q < P.neh) {
+        if (f == 2)
+          v = eh.alive[ax] ? ((const T*)eh.alive[ax])[c] : T(1);
+        else if (ec.wax == ax) {
+          const T kw = ((const T*)eh.kapw)[c], sw = ((const T*)eh.sigw)[c];
+          v = f == 0 ? kw + sw : kw - sw;
+        }
+      }
+    }
+    t[e] = v;
+  }
+}
+
+// ---- the three sub-updates of a stage on one plane -------------------------
+
+// B <- curl E with the chains and the B-family sources, H <- W(u B); stage
+// s at plane p on the region (ys, zs)
+template <typename T, bool U>
+__device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
+                                        const Item& I, int tid, int s, int p,
+                                        Span ys, Span zs) {
+  const Params& P = A.pb;
+  const int S1 = A.S1, S2 = A.S2;
+  const bool last = s == A.depth;
+  const bool xo = p >= I.i0 && p < I.i1;
+  const T csgn = T(P.csgn);
+  const int pE = R.plane(R_E, p), pE1 = R.plane(R_E, p + 1);
+  const int pH = R.plane(R_H, p), pB = R.plane(R_B, p);
+  const Range sr = plane_range(A.src_ptr[0], p);
+  const Range cr = plane_range(A.cap_ptr, ((s - 1) * 2) * A.S0 + p);
+  const int nz = zs.hi - zs.lo, cnt = (ys.hi - ys.lo) * nz;
+  for (int r = tid; r < cnt; r += K2_NTHR) {
+    const int j = ys.lo + r / nz, k = zs.lo + r % nz;
+    const int n = (p * S1 + j) * S2 + k;
+    const int oe = R.pos(G_E, j, k), o = R.pos(G_B, j, k);
+    const bool own = last && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
+                     k < I.k1;
+    T f[NCOMP], fun[NCOMP];
+    bool uon[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      f[q] = fun[q] = T(0);
+      uon[q] = false;
+      if (!U && q >= P.ncurl) continue;
+      const CurlC& cc = A.cb[q];
+      const CurlP& c = P.curl[q];
+      // forward differences of the E partners of the stage before
+      T dd[2];
+      bool hv[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int g = m == 0 ? cc.gp : cc.gm;
+        const int ax = U ? (m == 0 ? u_ax1(q) : u_ax2(q))
+                         : (m == 0 ? cc.ap : cc.am);
+        hv[m] = U || g >= 0;
+        dd[m] = T(0);
+        if (!hv[m]) continue;
+        const T* here = R.at(R_E, g, pE);
+        T nb;
+        if (ax == 0) nb = p + 1 < A.S0 ? R.at(R_E, g, pE1)[oe] : T(0);
+        else nb = here[oe + (ax == 1 ? R.row(G_E) : 1)];
+        dd[m] = nb - here[oe];
+      }
+      const T dfl = curl_delta<T>(hv[0], dd[0], hv[1], dd[1], csgn);
+      const T fo = s == 1 ? ((const T*)c.f)[n] : R.at(R_B, q, pB)[o];
+      uon[q] = u_on<U>(cc, q, p, j, k);
+      T fuo = T(0);
+      if (uon[q])
+        fuo = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUB, q, pB)[o];
+      f[q] = chain<T, U>(R, c, cc, q, q, p, j, k, fo, dfl, uon[q], fuo,
+                         &fun[q]);
+    }
+    // H's operands, loaded before the first store: the arrays are untyped
+    // pointers that may alias for all the compiler knows, so a store
+    // between two loads would serialise their trips to memory
+    WIn<T> w[NCOMP];
+    T us[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      us[q] = T(1);
+      if (!U && q >= P.neh) continue;
+      const EhP& e = P.eh[q];
+      const EhC& ec = A.eh[q];
+      if (ec.has_u) us[q] = ((const T*)e.u)[n];
+      w[q] = w_of<T, U>(R, e, ec, q, q, p, j, k);
+      if (w[q].on) {
+        w[q].f = s == 1 ? ((const T*)e.f)[n] : R.at(R_H, q, pH)[o];
+        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWH, q, pB)[o];
+      }
+    }
+    add_sources<T>(A, 0, s, sr, j, k, f);
+    // H from the new B
+    T lin[NCOMP], h[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      lin[q] = h[q] = T(0);
+      if (!U && q >= P.neh) continue;
+      T gs = T(0);
+#pragma unroll
+      for (int qq = 0; qq < NCOMP; ++qq)
+        if (qq == A.hb_of[q]) gs = f[qq];
+      lin[q] = A.eh[q].has_u ? gs * us[q] : gs;
+      h[q] = w_value<T>(lin[q], w[q]);
+    }
+    // the stores
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      if (!U && q >= P.ncurl) continue;
+      R.at(R_B, q, pB)[o] = f[q];
+      if (uon[q] && R.has(R_FUB, q)) R.at(R_FUB, q, pB)[o] = fun[q];
+      if (own) {
+        ((T*)A.out_b[q])[n] = f[q];
+        if (uon[q]) ((T*)A.out_fub[q])[n] = fun[q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      if (!U && q >= P.neh) continue;
+      R.at(R_H, q, pH)[o] = h[q];
+      if (w[q].on && R.has(R_FWH, q)) R.at(R_FWH, q, pB)[o] = lin[q];
+      if (own) {
+        ((T*)A.out_h[q])[n] = h[q];
+        if (w[q].on) ((T*)A.out_fwh[q])[n] = lin[q];
+      }
+      if (cr.a < cr.b && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
+          k < I.k1)
+        capture<T>(A, cr, q, j, k, h[q]);
+    }
+  }
+}
+
+// D <- curl H with the chains and the D-family sources; on nonlinear
+// items also D - P (of the stage before) into its ring
+template <typename T, bool NL, bool U>
+__device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
+                                        const Item& I, int tid, int s, int p,
+                                        Span ys, Span zs) {
+  const Params& P = A.pd;
+  const int S1 = A.S1, S2 = A.S2;
+  const bool last = s == A.depth;
+  const bool xo = p >= I.i0 && p < I.i1;
+  const T csgn = T(P.csgn);
+  const int pH = R.plane(R_H, p), pH0 = p > 0 ? R.plane(R_H, p - 1) : 0;
+  const int pD = R.plane(R_D, p), pF = R.plane(R_P, p);
+  const int pM = NL ? R.plane(R_M, p) : 0;
+  const Range sr = plane_range(A.src_ptr[1], p);
+  const int nz = zs.hi - zs.lo, cnt = (ys.hi - ys.lo) * nz;
+  for (int r = tid; r < cnt; r += K2_NTHR) {
+    const int j = ys.lo + r / nz, k = zs.lo + r % nz;
+    const int n = (p * S1 + j) * S2 + k;
+    const int ob = R.pos(G_B, j, k), o = R.pos(G_D, j, k);
+    const bool own = last && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
+                     k < I.k1;
+    T f[NCOMP], fun[NCOMP];
+    bool uon[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      f[q] = fun[q] = T(0);
+      uon[q] = false;
+      if (!U && q >= P.ncurl) continue;
+      const CurlC& cc = A.cd[q];
+      const CurlP& c = P.curl[q];
+      // backward differences of the H partners of this stage
+      T dd[2];
+      bool hv[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int g = m == 0 ? cc.gp : cc.gm;
+        const int ax = U ? (m == 0 ? u_ax1(q) : u_ax2(q))
+                         : (m == 0 ? cc.ap : cc.am);
+        hv[m] = U || g >= 0;
+        dd[m] = T(0);
+        if (!hv[m]) continue;
+        const T* here = R.at(R_H, g, pH);
+        T nb;
+        if (ax == 0) nb = p > 0 ? R.at(R_H, g, pH0)[ob] : T(0);
+        else nb = here[ob - (ax == 1 ? R.row(G_B) : 1)];
+        dd[m] = here[ob] - nb;
+      }
+      const T dfl = curl_delta<T>(hv[0], dd[0], hv[1], dd[1], csgn);
+      const T fo = s == 1 ? ((const T*)c.f)[n] : R.at(R_D, q, pD)[o];
+      uon[q] = u_on<U>(cc, q, p, j, k);
+      T fuo = T(0);
+      if (uon[q])
+        fuo = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUD, q, pD)[o];
+      f[q] = chain<T, U>(R, c, cc, q, 3 + q, p, j, k, fo, dfl, uon[q], fuo,
+                         &fun[q]);
+    }
+    add_sources<T>(A, 1, s, sr, j, k, f);
+    // nonlinear items: D - P of every E component, in dmp_at's order, its
+    // P loaded before the first store (see b_plane)
+    T m[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      m[q] = T(0);
+      if (!NL || (!U && q >= P.neh)) continue;
+      const int of = R.pos(G_F, j, k);
+#pragma unroll
+      for (int qq = 0; qq < NCOMP; ++qq)
+        if (qq == A.ed_of[q]) m[q] = f[qq];
+#pragma unroll
+      for (int pi = 0; pi < MAXPOL; ++pi)
+        if (pi < P.npol && ((A.ee[q].pols >> pi) & 1))
+          m[q] = m[q] - (s == 1 ? ((const T*)P.eh[q].pol[pi].p)[n]
+                                : R.at(R_P, q * MAXPOL + pi, pF)[of]);
+    }
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      if (!U && q >= P.ncurl) continue;
+      R.at(R_D, q, pD)[o] = f[q];
+      if (uon[q] && R.has(R_FUD, q)) R.at(R_FUD, q, pD)[o] = fun[q];
+      if (own) {
+        ((T*)A.out_d[q])[n] = f[q];
+        if (uon[q]) ((T*)A.out_fud[q])[n] = fun[q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q)
+      if (NL && (U || q < P.neh)) R.at(R_M, q, pM)[o] = m[q];
+  }
+}
+
+// step._sum4 of E component qq's D - P around site (p, o): g, g one site
+// along `own` (+1, the E family), one site back along `off`, and both;
+// pm: the offsets of planes p - 1, p, p + 1 in the D - P ring
+template <typename T>
+__device__ __forceinline__ T ring_sum4(const K2Args& A, const Rings<T>& R,
+                                       int p, int pm0, int pm1, int pm2,
+                                       int o, int qq, int own, int off) {
+  const int so = own == 0 ? 0 : (own == 1 ? R.row(G_D) : 1);
+  const int sf = off == 0 ? 0 : (off == 1 ? R.row(G_D) : 1);
+  const int po = p + (own == 0 ? 1 : 0), pf = p - (off == 0 ? 1 : 0);
+  const int pof = po - (off == 0 ? 1 : 0);
+  const int lo = pm0, mid = pm1, hi = pm2;
+  const T g = R.at(R_M, qq, mid)[o];
+  const T gs = po < A.S0 ? R.at(R_M, qq, po > p ? hi : mid)[o + so] : T(0);
+  const T gx = pf >= 0 ? R.at(R_M, qq, pf < p ? lo : mid)[o - sf] : T(0);
+  const T gsx = (pof >= 0 && pof < A.S0)
+                    ? R.at(R_M, qq, pof > p ? hi : (pof < p ? lo : mid))[
+                          o + so - sf]
+                    : T(0);
+  return g + gs + gx + gsx;
+}
+
+// E <- chi1inv (D - P) with the chi3 Pade factor and the chi2 NR solve in
+// their boxes (nonlinear items), the W chain, the mask, the ADE
+template <typename T, bool NL, bool U, int NP>
+__device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
+                                        const Item& I, int tid, int s, int p,
+                                        Span ys, Span zs) {
+  const Params& P = A.pd;
+  const int S1 = A.S1, S2 = A.S2;
+  const bool last = s == A.depth;
+  const bool xo = p >= I.i0 && p < I.i1;
+  const int pE = R.plane(R_E, p), pD = R.plane(R_D, p);
+  const int pF = R.plane(R_P, p);
+  const int pm0 = NL && p > 0 ? R.plane(R_M, p - 1) : 0;
+  const int pm1 = NL ? R.plane(R_M, p) : 0;
+  const int pm2 = NL ? R.plane(R_M, p + 1) : 0;
+  const Range cr = plane_range(A.cap_ptr, ((s - 1) * 2 + 1) * A.S0 + p);
+  const int nz = zs.hi - zs.lo, cnt = (ys.hi - ys.lo) * nz;
+  for (int r = tid; r < cnt; r += K2_NTHR) {
+    const int j = ys.lo + r / nz, k = zs.lo + r % nz;
+    const int n = (p * S1 + j) * S2 + k;
+    const int oe = R.pos(G_E, j, k), od = R.pos(G_D, j, k),
+              o = R.pos(G_F, j, k);
+    const bool mine = xo && j >= I.j0 && j < I.j1 && k >= I.k0 && k < I.k1;
+    const bool own = last && mine;
+    T lin[NCOMP], pcur[NCOMP][NP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      lin[q] = T(0);
+      if (!U && q >= P.neh) continue;
+      const EhP& e = P.eh[q];
+      const EhC& ec = A.ee[q];
+      T gs = R.at(R_D, A.ed_of[q], pD)[od];
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) {
+        pcur[q][pi] = T(0);
+        if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
+        pcur[q][pi] = s == 1 ? ((const T*)e.pol[pi].p)[n]
+                             : R.at(R_P, q * MAXPOL + pi, pF)[o];
+        gs = gs - pcur[q][pi];
+      }
+      const T us = ec.has_u ? ((const T*)e.u)[n] : T(1);
+      T l = ec.has_u ? gs * us : gs;
+      if (NL) {
+        // step._sum4 of partner qq's D - P, the partner's axis `off`
+        auto sum4 = [&](int qq, int off) {
+          return ring_sum4<T>(A, R, p, pm0, pm1, pm2, od, qq, (int)e.ax_own,
+                              off);
+        };
+        if (e.chi3 && in_box(A.nl3[q], p, j, k)) {
+          T Dsqr = gs * gs;
+          if (e.dc1 >= 0)
+            Dsqr = dsqr_add<T>(Dsqr, sum4((int)e.dc1, (int)e.ax_1));
+          if (e.dc2 >= 0)
+            Dsqr = dsqr_add<T>(Dsqr, sum4((int)e.dc2, (int)e.ax_2));
+          l = pade<T>(l, gs, Dsqr, ((const T*)e.chi2)[n],
+                      ((const T*)e.chi3)[n], us);
+        }
+        if (e.nrchi2 && in_box(A.nlnr[q], p, j, k)) {
+          const T chi2 = ((const T*)e.nrchi2)[n];
+          if (chi2 != T(0)) {
+            const T g1 = e.dc1 >= 0
+                             ? T(0.25) * sum4((int)e.dc1, (int)e.ax_1)
+                             : T(0);
+            const T g2 = e.dc2 >= 0
+                             ? T(0.25) * sum4((int)e.dc2, (int)e.ax_2)
+                             : T(0);
+            l = nr_solve<T>(gs, g1, g2, ((const T*)e.nreps)[n], chi2,
+                            P.nr_iters);
+          }
+        }
+      }
+      lin[q] = l;
+    }
+    // the W chain's and the ADE's operands, loaded before the first store
+    // (see b_plane)
+    WIn<T> w[NCOMP];
+    T pp[NCOMP][NP], sg[NCOMP][NP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      if (!U && q >= P.neh) continue;
+      const EhP& e = P.eh[q];
+      const EhC& ec = A.ee[q];
+      w[q] = w_of<T, U>(R, e, ec, q, 3 + q, p, j, k);
+      if (w[q].on) {
+        w[q].f = R.at(R_E, q, pE)[oe];
+        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWE, q, pF)[o];
+      }
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) {
+        pp[q][pi] = sg[q][pi] = T(0);
+        if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
+        pp[q][pi] = s == 1 ? ((const T*)e.pol[pi].pp)[n]
+                           : R.at(R_PP, q * MAXPOL + pi, pF)[o];
+        if (in_box(A.pol[q][pi], p, j, k))
+          sg[q][pi] = ((const T*)e.pol[pi].sigma)[n];
+      }
+    }
+    // the new E (the W chain, the mask) and the ADE of each pole from the
+    // drive W
+    T fnew[NCOMP], pn[NCOMP][NP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      fnew[q] = T(0);
+      if (!U && q >= P.neh) continue;
+      fnew[q] = w_value<T>(lin[q], w[q]);
+      const T W = (U || A.ee[q].wax >= 0) ? lin[q] : fnew[q];
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi)
+        pn[q][pi] = ade_value<T>(P, pi, W, sg[q][pi], pcur[q][pi],
+                                 pp[q][pi]);
+    }
+    // the stores
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      if (!U && q >= P.neh) continue;
+      const EhC& ec = A.ee[q];
+      R.at(R_E, q, pE)[oe] = fnew[q];
+      if (w[q].on && R.has(R_FWE, q)) R.at(R_FWE, q, pF)[o] = lin[q];
+      if (own) {
+        ((T*)A.out_e[q])[n] = fnew[q];
+        if (w[q].on) ((T*)A.out_fwe[q])[n] = lin[q];
+      }
+      if (mine && cr.a < cr.b) capture<T>(A, cr, q, j, k, fnew[q]);
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) {
+        if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
+        const int c = q * MAXPOL + pi;
+        R.at(R_P, c, pF)[o] = pn[q][pi];
+        R.at(R_PP, c, pF)[o] = pcur[q][pi];
+        if (own) {
+          ((T*)A.out_p[q][pi])[n] = pn[q][pi];
+          ((T*)A.out_pp[q][pi])[n] = pcur[q][pi];
+        }
+      }
+    }
+  }
+}
+
+// ---- the x-march of one item -----------------------------------------
+
+// bring plane p of the input's E (every component) into its ring slot;
+// sites outside the storage read zero
+template <typename T>
+__device__ __forceinline__ void e_issue(const K2Args& A, const Rings<T>& R,
+                                        int tid, int p, int plo, int phi) {
+  if (p < plo || p >= phi || p < 0 || p >= A.S0) return;
+  const int rz = R.C->rz[G_E], pw = R.C->pw[G_E], below = R.C->below[G_E];
+  const int base = p * A.S1 * A.S2, pl = R.plane(R_E, p);
+  for (int q = 0; q < A.pd.neh; ++q) {
+    const T* src = (const T*)A.pd.eh[q].f + base;
+    T* dst = R.at(R_E, q, pl);
+    for (int o = tid; o < pw; o += K2_NTHR) {
+      const int j = R.j0 - below + o / rz, k = R.k0 - below + o % rz;
+      if (j >= 0 && j < A.S1 && k >= 0 && k < A.S2)
+        cp_async<T>(dst + o, src + j * A.S2 + k);
+      else
+        dst[o] = T(0);
+    }
+  }
+}
+
+__device__ __forceinline__ Span clip(int lo, int hi, int n) {
+  Span s = {lo < 0 ? 0 : lo, hi > n ? n : hi};
   return s;
 }
 
-// LOAD / STORE: the arrays in batches, every load of a batch issued before
-// its stores
-#define COPY_BATCH 8
-
-template <typename T>
-__device__ void copy_planes(const K2Args& A, bool load, i64 lo, i64 hi,
-                            unsigned tid, unsigned nthr) {
-  const CopyArr* arr = load ? A.load : A.store;
-  const int narr = (int)(load ? A.nload : A.nstore);
-  const unsigned nsite = (unsigned)((hi - lo) * A.S1 * A.S2);
-  for (unsigned it = tid; it < nsite; it += nthr) {
-    Site s = site_of(A, lo, it);
-    for (int a0 = 0; a0 < narr; a0 += COPY_BATCH) {
-      T v[COPY_BATCH];
-      bool on[COPY_BATCH];
-#pragma unroll
-      for (int b = 0; b < COPY_BATCH; ++b) {
-        on[b] = a0 + b < narr;
-        if (!on[b]) continue;
-        const CopyArr& c = arr[a0 + b];
-        on[b] = c.ax < 0 ||
-                in_slab(coord(c.ax, s.i, s.j, s.k), c.lo, c.hi, c.n);
-        if (on[b])
-          v[b] = load ? ((const T*)c.state)[s.n] : ((const T*)c.ring)[s.fn];
+// NL: h = 2 (the neighbour sums of E reach D - P at +-1), else h = 1.  At
+// step t stage s updates B/H and D on plane t - (s-1) h and E on the plane
+// h - 1 behind; along y and z stage s covers the output grown by
+// (depth - s) h, B/H from h below to h - 1 above that, D h - 1 on both
+// sides (ops/fdtd3d_t2.py::regions).
+template <typename T, bool NL, bool U, int NP>
+__device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
+                                      const Item& I, T* sm, int tid) {
+  constexpr int h = NL ? 2 : 1, n = h - 1, L = h;
+  const int d = A.depth, G = d * h;
+  Rings<T> R;
+  R.sm = sm;
+  R.C = &C;
+  R.j0 = I.j0;
+  R.k0 = I.k0;
+  for (int e = tid; e < C.tab; e += K2_NTHR) sm[e] = T(0);
+  fill_rows<T>(A, R, tid);
+  __syncthreads();
+  const int plo = I.i0 - G, phi = I.i1 + G;
+  const int t0 = I.i0 - G, t1 = I.i1 + n + (d - 1) * L;
+  e_issue<T>(A, R, tid, t0, plo, phi);
+  cp_commit();
+  e_issue<T>(A, R, tid, t0 + 1, plo, phi);
+  cp_commit();
+  for (int t = t0; t < t1; ++t) {
+    e_issue<T>(A, R, tid, t + 2, plo, phi);
+    cp_commit();
+    cp_wait1();
+    __syncthreads();
+    for (int s = 1; s <= d; ++s) {
+      const int gr = (d - s) * h;
+      const int b = t - (s - 1) * L;
+      const int xlo = I.i0 - gr, xhi = I.i1 + gr;
+      if (b >= xlo - h && b < xhi + n && b >= 0 && b < A.S0) {
+        b_plane<T, U>(A, R, I, tid, s, b,
+                      clip(I.j0 - gr - h, I.j1 + gr + n, A.S1),
+                      clip(I.k0 - gr - h, I.k1 + gr + n, A.S2));
+        __syncthreads();
       }
-#pragma unroll
-      for (int b = 0; b < COPY_BATCH; ++b) {
-        if (!on[b]) continue;
-        const CopyArr& c = arr[a0 + b];
-        if (load) ((T*)c.ring)[s.fn] = v[b];
-        else ((T*)c.state)[s.n] = v[b];
+      if (b >= xlo - n && b < xhi + n && b >= 0 && b < A.S0) {
+        d_plane<T, NL, U>(A, R, I, tid, s, b,
+                          clip(I.j0 - gr - n, I.j1 + gr + n, A.S1),
+                          clip(I.k0 - gr - n, I.k1 + gr + n, A.S2));
+        // a linear E reads D only at its own site, which the same thread
+        // updated (the D and E regions coincide)
+        if (NL) __syncthreads();
+      }
+      const int pe = b - n;
+      if (pe >= xlo && pe < xhi && pe >= 0 && pe < A.S0) {
+        e_plane<T, NL, U, NP>(A, R, I, tid, s, pe,
+                          clip(I.j0 - gr, I.j1 + gr, A.S1),
+                          clip(I.k0 - gr, I.k1 + gr, A.S2));
+        __syncthreads();
       }
     }
   }
 }
 
-// the capture planes of component q (family `fam`) after stage `s`
-template <typename T>
-__device__ __forceinline__ void capture(const K2Args& A, i64 s, i64 fam,
-                                        i64 q, i64 i, i64 r, T fnew) {
-  for (i64 c = 0; c < A.ncap; ++c) {
-    const Cap& cp = A.cap[c];
-    if (cp.x == i && cp.q == q && cp.stage == s && cp.fam == fam)
-      ((T*)cp.out)[r] = fnew;
+// ---- the kernel ---------------------------------------------------------
+
+// one block per item of class NL (0 linear, 1 nonlinear); NP: the poles a
+// site holds (a compile-time bound on P.npol: 1 or MAXPOL); MINB: the
+// blocks an SM should hold by their registers (2: at most 64 registers a
+// thread; the linear class's variant when two blocks' rings fit an SM)
+template <typename T, bool NL, bool U, int NP, int MINB>
+__global__ void __launch_bounds__(K2_NTHR, MINB)
+k2_kernel(const __grid_constant__ K2Args A) {
+  T* sm = (T*)K2_SMEM;
+  const int* it =
+      (const int*)A.items + 8 * ((NL ? A.nitems[0] : 0) + blockIdx.x);
+  const Item I = {it[0], it[1], it[2], it[3], it[4], it[5]};
+  march<T, NL, U, NP>(A, A.cls[NL ? 1 : 0], I, sm, threadIdx.x);
+}
+
+// whether the plan has the standard uPML layout (u_ax1 ...) in both
+// families
+static bool upml_layout(const K2Args& A) {
+  if (A.pb.ncurl != NCOMP || A.pd.ncurl != NCOMP || A.pb.neh != NCOMP ||
+      A.pd.neh != NCOMP)
+    return false;
+  for (int q = 0; q < NCOMP; ++q) {
+    for (const CurlC* c : {&A.cb[q], &A.cd[q]})
+      if (c->gp < 0 || c->gm < 0 || c->ap != u_ax1(q) ||
+          c->am != u_ax2(q) || c->sax != u_ax1(q) || c->uax != u_ax2(q))
+        return false;
+    if (A.eh[q].wax != q || A.ee[q].wax != q) return false;
   }
+  return true;
 }
 
-// E or H of every component at one site (+ the ADE for E), and its captures
-template <typename T, bool NL>
-__device__ __forceinline__ void eh_all(const K2Args& A, const Params& P,
-                                       i64 s, i64 fam, const Site& x) {
-  T lin[NCOMP], fnew[NCOMP];
-  eh_site<T, true, NL>(P, x.n, x.fn, x.i, x.j, x.k, lin, fnew);
-#pragma unroll
-  for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) capture<T>(A, s, fam, q, x.i, x.r, fnew[q]);
-  if (fam == 1) pol_site<T>(P, x.n, x.fn, lin, fnew);
-}
-
-template <typename T, bool NL>
-__device__ void run_sites(const K2Args& A, const Op& op, i64 lo, i64 hi,
-                          unsigned tid, unsigned nthr) {
-  const i64 s = op.stage;
-  const i64 kind = op.kind;
-  const Params& PB = A.pb[s];
-  const Params& PD = A.pd[s];
-  const unsigned nsite = (unsigned)((hi - lo) * A.S1 * A.S2);
-  for (unsigned it = tid; it < nsite; it += nthr) {
-    Site x = site_of(A, lo, it);
-    if (kind == OP_BC || kind == OP_BH)
-      for (int q = 0; q < PB.ncurl; ++q)
-        curl_site<T, false, true>(PB.curl[q], PB, x.fn, x.i, x.j, x.k);
-    if (kind == OP_HH || kind == OP_BH) eh_all<T, false>(A, PB, s, 0, x);
-    if (kind == OP_DC)
-      for (int q = 0; q < PD.ncurl; ++q)
-        curl_site<T, true, true>(PD.curl[q], PD, x.fn, x.i, x.j, x.k);
-    if (kind == OP_EE) eh_all<T, NL>(A, PD, s, 1, x);
+template <typename T, bool NL, bool U, int NP, int MINB>
+static int launch_v(const K2Args* a, cudaStream_t s) {
+  const size_t smem = (size_t)a->cls[NL ? 1 : 0].words * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        k2_kernel<T, NL, U, NP, MINB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
   }
+  void* args[] = {(void*)a};
+  cudaError_t rc = cudaLaunchKernel(k2_kernel<T, NL, U, NP, MINB>,
+                                    dim3((unsigned)a->nitems[NL ? 1 : 0]),
+                                    dim3(K2_NTHR), args, smem, s);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
-template <typename T>
-__device__ void run_source(const K2Args& A, const Op& op, i64 lo, i64 hi,
-                           unsigned tid, unsigned nthr) {
-  const Src& sc = A.src[op.arg];
-  const i64 s12 = A.S1 * A.S2;
-  const i64* off = (const i64*)sc.off;
-  T wre = (T)sc.wre[op.stage], wim = (T)sc.wim[op.stage], dt = (T)A.dt;
-  for (i64 t = tid; t < sc.n; t += nthr) {
-    i64 i = off[t] / s12;
-    if (i < lo || i >= hi) continue;
-    i64 fn = slot<true>(A.R, i) * s12 + (off[t] - i * s12);
-    atomicAdd(&((T*)sc.f)[fn],
-              -source_amp<T>((const T*)sc.are, (const T*)sc.aim, t, wre, wim,
-                             dt));
-  }
-}
-
-// the argument block of the launch in flight (uploaded before each launch,
-// in stream order: every K2 launch of a process goes to one stream)
-__constant__ K2Args c_args;
-
-// NL = false: the variant for plans without chi3 / chi2-NR coefficients, with
-// those branches compiled out (fewer registers, a larger co-resident grid)
-template <typename T, bool NL>
-__global__ void __launch_bounds__(256, 2) k2_kernel() {
-  cg::grid_group grid = cg::this_grid();
-  // every site reads the argument block (op table, per-stage Params, copy
-  // and capture tables), the same words in every thread of a warp: it lies
-  // in constant memory
-  const K2Args& A = c_args;
-  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned nthr = gridDim.x * blockDim.x;
-  for (i64 w = 0; w < A.nwave; ++w) {
-    i64 o = 0;
-    for (i64 ph = 0; ph < A.nphase; ++ph) {
-      bool any = false;               // the same in every thread
-      for (; o < A.nops && A.ops[o].phase == ph; ++o) {
-        const Op& op = A.ops[o];
-        i64 lo = w * A.bx - op.off, hi = lo + A.bx;
-        if (lo < 0) lo = 0;
-        if (hi > A.S0) hi = A.S0;
-        if (lo >= hi) continue;
-        any = true;
-        if (op.kind == OP_LOAD || op.kind == OP_STORE)
-          copy_planes<T>(A, op.kind == OP_LOAD, lo, hi, tid, nthr);
-        else if (op.kind == OP_SRC)
-          run_source<T>(A, op, lo, hi, tid, nthr);
-        else
-          run_sites<T, NL>(A, op, lo, hi, tid, nthr);
-      }
-      if (any) grid.sync();
+// The variant of item class NL for the plan: the uPML layout as
+// compile-time values or not, one pole or up to MAXPOL, and for linear
+// items two blocks an SM or one (nonlinear items: one).  Called with a
+// launcher (F::go launches) or an address-taker (F::go returns the
+// kernel), so the two lists of variants cannot differ.
+template <typename T, bool NL, typename F>
+static auto variant(const K2Args& a, F f) {
+  const bool u = upml_layout(a), one = a.pd.npol <= 1;
+  if constexpr (NL) {
+    if (u)
+      return one ? f.template go<T, NL, true, 1, 1>()
+                 : f.template go<T, NL, true, MAXPOL, 1>();
+    return one ? f.template go<T, NL, false, 1, 1>()
+               : f.template go<T, NL, false, MAXPOL, 1>();
+  } else {
+    const bool two = a.pair != 0;
+    if (u) {
+      if (one)
+        return two ? f.template go<T, NL, true, 1, 2>()
+                   : f.template go<T, NL, true, 1, 1>();
+      return two ? f.template go<T, NL, true, MAXPOL, 2>()
+                 : f.template go<T, NL, true, MAXPOL, 1>();
     }
+    if (one)
+      return two ? f.template go<T, NL, false, 1, 2>()
+                 : f.template go<T, NL, false, 1, 1>();
+    return two ? f.template go<T, NL, false, MAXPOL, 2>()
+               : f.template go<T, NL, false, MAXPOL, 1>();
   }
 }
 
-static const void* kernel_of(int fp64, int nl) {
-  if (fp64)
-    return nl ? (const void*)k2_kernel<double, true>
-              : (const void*)k2_kernel<double, false>;
-  return nl ? (const void*)k2_kernel<float, true>
-            : (const void*)k2_kernel<float, false>;
+struct Launcher {
+  const K2Args* a;
+  cudaStream_t s;
+  template <typename T, bool NL, bool U, int NP, int MINB>
+  int go() const {
+    return launch_v<T, NL, U, NP, MINB>(a, s);
+  }
+};
+
+struct Address {
+  template <typename T, bool NL, bool U, int NP, int MINB>
+  const void* go() const {
+    return (const void*)k2_kernel<T, NL, U, NP, MINB>;
+  }
+};
+
+template <typename T, bool NL>
+static int launch_c(const K2Args* a, cudaStream_t s) {
+  return variant<T, NL>(*a, Launcher{a, s});
 }
 
-static int max_blocks(int fp64, int nl, int* out) {
-  static int cached[2][2] = {{0, 0}, {0, 0}};
-  if (!cached[fp64][nl]) {
-    int dev = 0, sms = 0, per = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+template <typename T, bool NL>
+static const void* kernel_of(const K2Args& a) {
+  return variant<T, NL>(a, Address{});
+}
+
+// The two classes' launches side by side: the nonlinear items (few, long
+// and heavy) on a second stream of the highest priority, forked from and
+// joined back to `s` by events, so that their blocks take SMs first and
+// the linear items, on `s`, fill the rest.
+template <typename T>
+static int launch(const K2Args* a, cudaStream_t s) {
+  if (a->depth < 2 || a->depth > 3 || a->pd.npol > MAXPOL || has_nl(a->pb))
+    return (int)cudaErrorInvalidValue;
+  if (a->nitems[1] == 0) return launch_c<T, false>(a, s);
+  if (a->nitems[0] == 0) return launch_c<T, true>(a, s);
+  static cudaStream_t side = nullptr;
+  static cudaEvent_t fork = nullptr, join = nullptr;
+  cudaError_t e = cudaSuccess;
+  if (!side) {
+    int lo = 0, hi = 0;
+    e = cudaDeviceGetStreamPriorityRange(&lo, &hi);
     if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      e = cudaStreamCreateWithPriority(&side, cudaStreamNonBlocking, hi);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, kernel_of(fp64, nl), 256, 0);
+      e = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
+    if (e == cudaSuccess)
+      e = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
     if (e != cudaSuccess) return (int)e;
-    if (per < 1 || sms < 1) return (int)cudaErrorLaunchOutOfResources;
-    cached[fp64][nl] = per * sms;
   }
-  *out = cached[fp64][nl];
-  return 0;
+  e = cudaEventRecord(fork, s);
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(side, fork, 0);
+  if (e != cudaSuccess) return (int)e;
+  int rc = launch_c<T, true>(a, side);
+  if (rc == 0) rc = launch_c<T, false>(a, s);
+  if (rc == 0) e = cudaEventRecord(join, side);
+  if (rc == 0 && e == cudaSuccess) e = cudaStreamWaitEvent(s, join, 0);
+  return rc != 0 ? rc : (int)e;
 }
 
 extern "C" {
 
 i64 mnt_k2_args_size(void) { return (i64)sizeof(K2Args); }
 
-// the largest co-resident grid (blocks of 256 threads) of the kernel
-// variant (fp64, nl), or -cudaError
-int mnt_k2_max_blocks(int fp64, int nl) {
-  int blocks = 0;
-  int rc = max_blocks(fp64 != 0, nl != 0, &blocks);
-  return rc ? -rc : blocks;
+// the largest output tile this library was built with, and the threads of
+// a block
+void mnt_k2_tile(int* out) {
+  out[0] = K2_TY;
+  out[1] = K2_TZ;
+  out[2] = K2_NTHR;
 }
 
-// Copy the argument block into constant memory and launch the kernel
-// cooperatively, both on `stream`, with at most `blocks` blocks; the variant
-// without the nonlinear branches when no stage's E block carries chi3 /
-// chi2-NR coefficients.  Returns the cudaError of the first call that
-// failed, else 0.
-int mnt_k2_launch(const K2Args* host, int blocks, int fp64, void* stream) {
+// the card's shared memory: a block's most (opt-in), an SM's, and what
+// the card reserves of it per block, in bytes; or the cudaError
+int mnt_k2_smem(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  const cudaDeviceAttr attr[3] = {cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                  cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                  cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 3 && e == cudaSuccess; ++i)
+    e = cudaDeviceGetAttribute(&out[i], attr[i], dev);
+  return (int)e;
+}
+
+// blocks of item class `nl` an SM can hold by their registers, for the
+// plan's variant (or -cudaError)
+int mnt_k2_blocks(const K2Args* a, int nl, int fp64) {
+  const void* k = fp64 ? (nl ? kernel_of<double, true>(*a)
+                             : kernel_of<double, false>(*a))
+                       : (nl ? kernel_of<float, true>(*a)
+                             : kernel_of<float, false>(*a));
+  int n = 0;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, K2_NTHR, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launch the call's kernels on `stream`, one per item class that has
+// items, each with the uPML layout as compile-time values when the plan
+// has it.  Returns the cudaError of the first call that failed, else 0.
+int mnt_k2_launch(const K2Args* a, int fp64, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int nl = 0;
-  for (i64 d = 0; d < host->depth; ++d) {
-    if (has_nl(host->pb[d])) return (int)cudaErrorInvalidValue;
-    nl |= has_nl(host->pd[d]);
-  }
-  fp64 = fp64 != 0;
-  int most = 0;
-  int rc = max_blocks(fp64, nl, &most);
-  if (rc) return rc;
-  if (blocks < 1 || blocks > most) blocks = most;
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_args, host, sizeof(K2Args), 0,
-                                          cudaMemcpyHostToDevice, s);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchCooperativeKernel(kernel_of(fp64, nl), dim3((unsigned)blocks),
-                                  dim3(256), nullptr, 0, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return fp64 ? launch<double>(a, s) : launch<float>(a, s);
 }
 
 }  // extern "C"

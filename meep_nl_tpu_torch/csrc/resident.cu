@@ -162,8 +162,8 @@ __device__ __forceinline__ Site site_of(unsigned n, unsigned s12,
 template <bool NL>
 __device__ __forceinline__ void eh_at(const Params& P, const Site& x) {
   float lin[NCOMP], fnew[NCOMP];
-  eh_site<float, false, NL>(P, x.n, x.n, x.i, x.j, x.k, lin, fnew);
-  pol_site<float>(P, x.n, x.n, lin, fnew);
+  eh_site<float, NL>(P, x.n, x.i, x.j, x.k, lin, fnew);
+  pol_site<float>(P, x.n, lin, fnew);
 }
 
 // the family's sources at their sites, in source order per site
@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(256) k3_kernel(const ResArgs* gA) {
     for (unsigned n = tid; n < N; n += nthr) {
       Site x = site_of(n, s12, S2);
       for (int q = 0; q < PB.ncurl; ++q)
-        curl_site<float, false, false>(PB.curl[q], PB, x.n, x.i, x.j, x.k);
+        curl_site<float, false>(PB.curl[q], PB, x.n, x.i, x.j, x.k);
       if (!bsrc) eh_at<false>(PB, x);
     }
     if (bsrc) {
@@ -316,7 +316,7 @@ __global__ void __launch_bounds__(256) k3_kernel(const ResArgs* gA) {
     for (unsigned n = tid; n < N; n += nthr) {
       Site x = site_of(n, s12, S2);
       for (int q = 0; q < PD.ncurl; ++q)
-        curl_site<float, true, false>(PD.curl[q], PD, x.n, x.i, x.j, x.k);
+        curl_site<float, true>(PD.curl[q], PD, x.n, x.i, x.j, x.k);
       if (fused) eh_at<NL>(PD, x);
     }
     if (!fused) {

@@ -122,7 +122,7 @@ class _Params(ctypes.Structure):
                 ("pw2", ctypes.c_double * MAXPOL),
                 ("csgn", ctypes.c_double)] + \
         [(n, _I) for n in ("ncurl", "neh", "npol", "S0", "S1", "S2", "sgn",
-                           "nr_iters", "R")]
+                           "nr_iters")]
 
 
 class _Box(ctypes.Structure):
@@ -208,7 +208,6 @@ def build_params(plan, family: str, state) -> _Params:
     shape = tuple(plan.storage_shape or plan.gv.shape)
     P = _Params()
     P.S0, P.S1, P.S2 = shape + (1,) * (3 - len(shape))
-    P.R = P.S0                        # the state holds every x-plane
     P.nr_iters = NR_ITERS
     is_d = family == "d"
     curls = plan.curl_specs_d if is_d else plan.curl_specs_b

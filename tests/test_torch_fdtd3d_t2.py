@@ -2,8 +2,11 @@
 planes against the JAX package's jnp stepper (the reference that the JAX
 package's own tests/test_fdtd3d_t2.py uses), one small case against the
 reference's capture kernel in interpret mode, its envelope against the JAX
-kernel's, its bound, and its wavefront schedule.  The CUDA kernel itself is
-held against its plain version in test_torch_fdtd3d_t2_gpu.py.
+kernel's, its bound, the march of its items (stage lags, ring planes, halo
+widths) replayed on version counters, its item planning, and a Simulation
+with more current sources than its first port took.  The CUDA kernel
+itself is held against its plain version in test_torch_fdtd3d_t2_emul.py
+(on the host) and test_torch_fdtd3d_t2_gpu.py (on the card).
 
 The kernel route runs the slab-local PML chains (plan.slab_opt), so the JAX
 side runs with the same flag.  Tolerance: fp32 1e-5 of the field maximum."""
@@ -15,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import meep_nl_tpu_torch as mtt
 from meep_nl_tpu.ops.pallas import fdtd3d_t2 as JT2
 from meep_nl_tpu.stepper import step as JS
 from meep_nl_tpu_torch import interop
@@ -246,70 +250,198 @@ def test_step_cost_is_k1s_bytes_plus_the_captures(depth):
 
 
 # ---------------------------------------------------------------------------
-# the wavefront schedule, replayed on version counters
+# the march of an item, replayed on version counters
 # ---------------------------------------------------------------------------
 
-
-def replay(ops, bx, nphase, R, S0):
-    """Execute a schedule on counters instead of fields.  Every (group,
-    ring slot) holds (plane, version); an op's read must find its plane at
-    the version the sequential program gives it (the number of earlier ops
-    that write the group), ops of one phase must not touch what another op
-    of that phase writes, and STORE must see every plane finished."""
-    expect = {}
-    for n, op in enumerate(ops):
-        expect[op.name] = {g: sum(1 for first in ops[:n] if g in first.writes)
-                           for g in T2.GROUPS}
-    final = {g: sum(1 for op in ops if g in op.writes) for g in T2.GROUPS}
-    ring = {}
-    stored = set()
-    nwave = (S0 - 1 + max(op.off for op in ops)) // bx + 1
-    for w in range(nwave):
-        for ph in range(nphase):
-            writes, reads = {}, {}
-            for op in ops:
-                if op.phase != ph:
-                    continue
-                for x in range(max(w * bx - op.off, 0),
-                               min(w * bx - op.off + bx, S0)):
-                    for g, dx in op.reads:
-                        if not 0 <= x + dx < S0:
-                            continue
-                        cell = (g, (x + dx) % R)
-                        assert ring.get(cell) == (x + dx, expect[op.name][g]), \
-                            (op.name, x, g, dx, ring.get(cell))
-                        reads.setdefault(cell, set()).add((op.name, x))
-                    for g in op.writes:
-                        cell = (g, x % R)
-                        assert cell not in writes, (op.name, x, g)
-                        writes[cell] = (op.name, x)
-                    if op.kind == T2.OP_STORE:
-                        assert all(ring[(g, x % R)] == (x, final[g])
-                                   for g in T2.GROUPS)
-                        stored.add(x)
-            for cell, who in writes.items():
-                assert reads.get(cell, set()) <= {who}, (cell, who)
-            for (g, slot), (name, x) in writes.items():
-                ring[(g, slot)] = (x, expect[name][g] + 1)
-    assert stored == set(range(S0))
+#: what each sub-update of stage s reads at its own site (at the version
+#: of stage s - 1; stage 1 reads them from the input state) and writes
+OWN = {"b": (T2.R_B, T2.R_FUB, T2.R_FWH, T2.R_H),
+       "d": (T2.R_D, T2.R_FUD),
+       "e": (T2.R_FWE, T2.R_P, T2.R_PP, T2.R_E)}
 
 
-@pytest.mark.parametrize("depth,b_src,d_src,bx,nphase,S0", [
-    (2, (), (0,), 4, None, 24), (3, (), (0,), 5, None, 24),
-    (2, (0,), (1,), 3, None, 17), (3, (0, 1), (2,), 2, None, 13),
-    (3, (), (), 8, None, 24), (2, (), (0,), 4, 3, 24),
-    (3, (0,), (1,), 3, 4, 19), (3, (), (0,), 16, None, 8),
-])
-def test_schedule_orders_every_access(depth, b_src, d_src, bx, nphase, S0):
-    ops = T2.program(depth, b_src, d_src)
-    nphase, R = T2.schedule(ops, bx, nphase)
-    assert R == max(op.off for op in ops) + 1 + bx
-    replay(ops, bx, nphase, R, S0)
+def replay_march(depth, nl, i0, i1, S0, ns=None):
+    """Execute T2.march_order on counters instead of fields.  Every (ring,
+    slot) holds (plane, stage); a read must find the plane it wants at the
+    stage the sequential algorithm gives it, the input's E planes must be
+    complete (issued a step before), and the last stage must reach every
+    output plane.  `ns`: ring planes (default T2.march's)."""
+    ns = ns or T2.march(depth, nl)["ns"]
+    ring, issued, done = {}, {}, set()
+
+    def write(role, p, v):
+        ring[role, p % ns[role]] = (p, v)
+
+    def read(role, p, v, t, what):
+        if 0 <= p < S0:
+            assert ring.get((role, p % ns[role])) == (p, v), \
+                (what, role, p, v, ring.get((role, p % ns[role])))
+            if role == T2.R_E and v == 0:
+                assert issued[p] < t, ("E not loaded", p)
+
+    for t, what, s, p in T2.march_order(depth, nl, i0, i1, S0):
+        ev = (what, s, p)
+        if what == "load":
+            write(T2.R_E, p, 0)
+            issued[p] = t
+            continue
+        if s > 1:
+            for role in OWN[what]:
+                read(role, p, s - 1, t, ev)
+        if what == "b":
+            read(T2.R_E, p, s - 1, t, ev)
+            read(T2.R_E, p + 1, s - 1, t, ev)
+        elif what == "d":
+            read(T2.R_H, p, s, t, ev)
+            read(T2.R_H, p - 1, s, t, ev)
+            if nl and s > 1:
+                read(T2.R_P, p, s - 1, t, ev)
+        else:
+            read(T2.R_D, p, s, t, ev)
+            if nl:
+                for dp in (-1, 0, 1):
+                    read(T2.R_M, p + dp, s, t, ev)
+        for role in OWN[what] + ((T2.R_M,) if nl and what == "d" else ()):
+            write(role, p, s)
+        done.add(ev)
+    for p in range(i0, i1):
+        assert {(w, depth, p) for w in "bde"} <= done, p
 
 
-def test_schedule_replay_catches_a_broken_offset():
-    ops = T2.program(2, (), (0,))
-    nphase, R = T2.schedule(ops, 4)
-    next(op for op in ops if op.name == "ee1").off -= 1
+def replay_regions(depth, nl, lo, hi, size, reg=None):
+    """The same along y or z, with T2.regions: every site a stage reads
+    across sites or at its own position was updated by the stage that
+    must have written it, or (stage 1) lies in the input's E plane of the
+    ring; every read falls inside its ring's plane; the last stage covers
+    the output [lo, hi)."""
+    reg = reg or T2.regions(depth, nl, lo, hi, size)
+    ver = {}
+
+    def span(key):
+        a, b = reg[key]
+        return range(a, b)
+
+    def read(role, c, v):
+        if not 0 <= c < size or (v == 0 and role != T2.R_E):
+            return            # zero outside the storage; the input state
+        a, b = reg[T2.KIND[role]]
+        assert a <= c < b, ("outside the ring plane", role, c)
+        if v:                 # v == 0: the input's E, loaded into the ring
+            assert ver.get((role, c)) == v, (role, c, v, ver.get((role, c)))
+
+    for s in range(1, depth + 1):
+        for what in "bde":
+            for c in span((what, s)):
+                for role in OWN[what]:
+                    read(role, c, s - 1)
+                if what == "b":
+                    read(T2.R_E, c, s - 1)
+                    read(T2.R_E, c + 1, s - 1)
+                elif what == "d":
+                    read(T2.R_H, c, s)
+                    read(T2.R_H, c - 1, s)
+                    if nl:
+                        read(T2.R_P, c, s - 1)
+                else:
+                    read(T2.R_D, c, s)
+                    for dc in ((-1, 0, 1) if nl else ()):
+                        read(T2.R_M, c + dc, s)
+            for c in span((what, s)):
+                for role in OWN[what] + ((T2.R_M,) if nl and what == "d"
+                                         else ()):
+                    ver[role, c] = s
+    for c in range(max(lo, 0), min(hi, size)):
+        assert all(ver.get((r, c)) == depth for w in "bde" for r in OWN[w])
+
+
+#: (i0, i1, S0) of an item: inside the storage, at x = 0, at the end
+PLACES = {"inner": (9, 14, 40), "low-edge": (0, 4, 40),
+          "high-edge": (33, 40, 40)}
+
+
+@pytest.mark.parametrize("place", sorted(PLACES))
+@pytest.mark.parametrize("nl", [False, True], ids=["linear", "nonlinear"])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_march_orders_every_access(depth, nl, place):
+    i0, i1, S0 = PLACES[place]
+    replay_march(depth, nl, i0, i1, S0)
+    replay_regions(depth, nl, i0, i1, S0)
+
+
+@pytest.mark.parametrize("role", ["R_E", "R_H", "R_M", "R_B", "R_D", "R_P"])
+def test_march_replay_catches_a_short_ring(role):
+    """One plane fewer in any ring and some read finds a newer plane."""
+    ns = dict(T2.march(3, True)["ns"])
+    ns[getattr(T2, role)] -= 1
     with pytest.raises(AssertionError):
-        replay(ops, 4, nphase, R, 24)
+        replay_march(3, True, *PLACES["inner"], ns=ns)
+
+
+def test_region_replay_catches_a_short_halo():
+    reg = T2.regions(3, True, 9, 14, 40)
+    a, b = reg["d", 2]
+    reg["d", 2] = (a + 1, b)
+    with pytest.raises(AssertionError):
+        replay_regions(3, True, 9, 14, 40, reg=reg)
+
+
+@pytest.mark.parametrize("scene", ["flagship", "upml"])
+def test_items_tile_the_storage_once(scene):
+    """Every site of the storage is the output of exactly one item; the
+    nonlinear class holds every item whose first stage meets a nonzero
+    chi2 site, and no other; each class's rings fit the budget."""
+    kw = dict(cells=(32, 24, 24), ball=True, pol=True, nr=True) \
+        if scene == "flagship" else dict(cells=(32, 24, 24))
+    pt = build_plan(PORT, device="cpu", **kw)
+    pt.slab_opt = True
+    S = pt.storage_shape
+    budget = T2.SMEM_H100 // 2
+    items, lays, ch, counts, tile = T2.plan_items(pt, 3, (4, 8),
+                                                  (budget, budget))
+    assert tile[0] <= 4 and tile[1] <= 8
+    assert len(items) == sum(counts)
+    cover = np.zeros(S, np.int32)
+    for i0, i1, j0, j1, k0, k1, _, _ in items:
+        cover[i0:i1, j0:j1, k0:k1] += 1
+    assert (cover == 1).all()
+    sat = T2._nl_counts(pt)
+    assert (sat is not None) == (scene == "flagship")
+    for n, (i0, i1, j0, j1, k0, k1, _, _) in enumerate(items):
+        # the first stage's E region holds a nonzero chi2 site
+        meets = sat is not None and T2._count(
+            sat, ((i0 - 2, i1 + 2), (j0 - 2, j1 + 2), (k0 - 2, k1 + 2))) > 0
+        assert meets == (n >= counts[0])
+    if sat is not None:
+        # the count agrees with the coefficient arrays
+        nr = pt.coefs["ex:nrchi2"].numpy() != 0
+        assert T2._count(sat, ((0, S[0]),) * 3) == int(
+            (nr | (pt.coefs["ey:nrchi2"].numpy() != 0)
+             | (pt.coefs["ez:nrchi2"].numpy() != 0)).sum())
+    for lay in lays:
+        assert lay is None or lay[0] * 4 <= budget
+    assert (counts[1] > 0) == (scene == "flagship") and counts[0] > 0
+
+
+def nine_source_sim(device, **kw):
+    from test_torch_fdtd3d_t2_gpu import nine_source_sim as sim
+    return sim(mtt, device, **kw)
+
+
+def test_nine_sources_take_the_hybrid_route(monkeypatch):
+    """The first K2 port refused more than 8 current sources in its
+    constructor; the scene runs through the hybrid route (the resident one
+    declined) as the eager stepper does."""
+    from meep_nl_tpu_torch.ops import resident as R
+    monkeypatch.setattr(R, "VMEM_BUDGET", 0)
+    sim = nine_source_sim("cpu")
+    assert len(sim.plan.sources) == 9 and T2.supported(sim.plan, 3)
+    sim.run(until=2.0)
+    assert dict(sim.routes) == {"hybrid": 1}
+    ker = sim.plan._t2_kernel
+    assert ker.k3.plain_steps > 0
+    eager = nine_source_sim("cpu", use_fused=False)
+    eager.run(until=2.0)
+    want = eager.get_array(mtt.Ez)
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(sim.get_array(mtt.Ez), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

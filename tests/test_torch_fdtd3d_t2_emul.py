@@ -1,16 +1,24 @@
 """K2's CUDA source on the CPU: csrc/fdtd3d_t2.cu compiled by the host's C++
-compiler against the stand-in headers of tests/cuda_stub and run as one
-thread, against the plain version `steps_ref`.
+compiler against the stand-in headers of tests/cuda_stub, each block run
+as one thread, through the real wrapper (`Fdtd3dT2Kernel._step_cuda`: its
+items and ring layouts, source and capture lists, argument block and
+out-of-place pairing), against the plain version `steps_ref` on the cases
+of test_torch_fdtd3d_t2_gpu.CASES.
 
-This executes the kernel's own code -- the op table, the ring addressing,
-the LOAD/STORE tables with their slab rules, the polarization roles, the
-source and capture ops -- through the wrapper's argument block.  In fp32 it
-agrees with the plain version bit for bit (both sides round alike: no FMA
-contraction); in fp64 to 1e-12 of the field maximum.
-One thread hides every race, so the ordering of the ops is checked
-separately (test_torch_fdtd3d_t2.py replays the schedule), and the parallel
-kernel on the card by test_torch_fdtd3d_t2_gpu.py and chip_smoke.py.  Skips
-where there is no g++."""
+This executes the kernel's own code -- the x-march with its stage lags,
+the overlapped regions and their clipping, the shared-memory rings, both
+item classes, the sources of halo sites, the captures of owned sites --
+built with the card's largest tile (8 x 32) and with a 4 x 8 one, which
+puts tile edges, and so overlapped halos, inside these small grids.  In
+fp32 it agrees with the plain version bit for bit (both round alike: no
+FMA contraction), in fp64 to 1e-12 of the field maximum.
+
+The stub runs a launch's blocks one after another, in an order it is told:
+an item reads only the input state and writes only the output, so every
+order gives the same result, which an in-place design would not.  One
+thread per block hides races inside a block; those are left to the card
+(test_torch_fdtd3d_t2_gpu.py, chip_smoke.py).  Skips where there is no
+g++."""
 
 import ctypes
 import os
@@ -18,76 +26,73 @@ import shutil
 import subprocess
 import types
 
-import numpy as np
 import pytest
 import torch
 
 from meep_nl_tpu_torch.ops import _build
 from meep_nl_tpu_torch.ops import fdtd3d as TF
 from meep_nl_tpu_torch.ops import fdtd3d_t2 as T2
-from meep_nl_tpu_torch.stepper import step as TS
 
-from test_torch_fdtd3d_t2_gpu import CASES, _clone, _plan, _random_state
+from test_torch_fdtd3d_t2_gpu import CASES, NCALL, hold_case
 
 torch.set_num_threads(2)
 STUB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_stub")
 
+#: the largest output tile the source is built with: the card's, and one
+#: smaller than the test grids
+TILES = {"tile8x32": (), "tile4x8": ("-DK2_TY=4", "-DK2_TZ=8")}
+#: block orders of the stub: forward, reversed, a seeded shuffle
+ORDERS = {"forward": 0, "reversed": 1, "shuffled": 7}
+
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def host_libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    out = str(tmp_path_factory.mktemp("k2") / "libk2_host.so")
-    subprocess.run(
-        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-Wno-unknown-pragmas", "-I", STUB, "-I", _build.CSRC, "-x", "c++",
-         os.path.join(_build.CSRC, "fdtd3d_t2.cu"), "-o", out], check=True)
-    lib = ctypes.CDLL(out)
-    lib.mnt_k2_args_size.restype = ctypes.c_longlong
-    lib.mnt_k2_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mnt_k2_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p]
-    assert lib.mnt_k2_args_size() == ctypes.sizeof(T2._K2Args)
-    return lib
+    libs = {}
+    for name, flags in TILES.items():
+        out = str(tmp_path_factory.mktemp("k2") / f"libk2_{name}.so")
+        subprocess.run(
+            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+             "-fPIC", "-Wno-unknown-pragmas", *flags, "-I", STUB, "-I",
+             _build.CSRC, "-x", "c++",
+             os.path.join(_build.CSRC, "fdtd3d_t2.cu"), "-o", out],
+            check=True)
+        lib = T2.bind(ctypes.CDLL(out))
+        lib.stub_set_block_order.argtypes = [ctypes.c_int]
+        libs[name] = lib
+    return libs
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_source_matches_plain_on_the_host(case, host_lib, monkeypatch):
-    scene, depth, caps, dtype, src, bx = CASES[case]
-    monkeypatch.setattr(T2, "_lib", lambda: host_lib)
+def _emulate(monkeypatch, lib, order):
+    lib.stub_set_block_order(order)
+    monkeypatch.setattr(T2, "_lib", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     # the wrapper's tensor checks want CUDA tensors; here they are the host's
     monkeypatch.setattr(TF.Fdtd3dKernel, "_check", lambda self, state: None)
-    plan = _plan(scene, "cpu", dtype, src)
-    planes = [("ey", 20), ("ez", 20), ("ez", 21), ("hy", 20), ("hz", 0),
-              ("hz", plan.storage_shape[0] - 1)] if caps else None
-    ker = T2.Fdtd3dT2Kernel(plan, depth=depth, cap_planes=planes,
-                            bx=bx or 5)
-    ref = T2.steps_ref(plan, depth, planes)
-    rows = TS.xs_rows(plan, TS.build_xs(plan, 2 * depth, 20))
-    st0 = _random_state(plan, 9)
-    scale = max(float(t.abs().max()) for t in st0["f"].values())
-    tol = 0.0 if dtype == np.float32 else 1e-12 * scale
 
-    def same(a, b):
-        return float((a - b).abs().max()) <= tol
 
-    sk, sr = _clone(st0), _clone(st0)
-    for c in range(2):
-        xc = rows[c * depth:(c + 1) * depth]
-        sk, ck = ker._step_cuda(sk, xc)
-        sr, cr = ref(sr, xc)
-        assert set(ck) == set(cr)
-        for key in cr:
-            assert same(ck[key], cr[key]), key
-    assert ker.launches == 2 and ker._cuda["R"] < plan.storage_shape[0] \
-        or bx == 40
-    assert float((sr["f"]["ez"] - st0["f"]["ez"]).abs().max()) > 0
-    for key in ("f", "f_u", "f_w"):
-        for c, t in sr[key].items():
-            assert same(sk[key][c], t), f"{key}[{c}]"
-    for pk, pr in zip(sk["pol"], sr["pol"]):
-        for k in ("p", "pp"):
-            for c, t in pr[k].items():
-                assert same(pk[k][c], t), f"pol {k}[{c}]"
+@pytest.mark.parametrize("tile", sorted(TILES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_source_matches_plain_on_the_host(case, tile, host_libs,
+                                                 monkeypatch):
+    _emulate(monkeypatch, host_libs[tile], ORDERS["forward"])
+    ker = hold_case(case, "cpu", lambda k, s, r: k._step_cuda(s, r))
+    assert ker.launches == NCALL * ker.launches_per_call
+    assert ker._cuda["tile"] == host_libs[tile].mnt_tile
+    if CASES[case][0] == "flagship":
+        # both item classes ran
+        assert 0 < ker._cuda["nl_items"] < ker._cuda["nitems"] or \
+            tile == "tile8x32"
+
+
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+@pytest.mark.parametrize("case", ["chunk-edges-d3-caps",
+                                  "many-sources-d3-caps"])
+def test_item_order_does_not_matter(case, order, host_libs, monkeypatch):
+    """The overlapped items in other orders than forward give the plain
+    version's state and captures bit for bit, as forward does."""
+    _emulate(monkeypatch, host_libs["tile4x8"], ORDERS[order])
+    ker = hold_case(case, "cpu", lambda k, s, r: k._step_cuda(s, r))
+    assert ker._cuda["nitems"] > 8

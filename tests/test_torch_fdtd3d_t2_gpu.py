@@ -7,10 +7,12 @@ Imports only the port, so it runs where JAX is absent:
 
 (`--noconftest`: tests/conftest.py imports jax.)
 
-Tolerance 1e-5 of the field maximum in fp32 and 1e-12 in fp64 (the kernel
-is built without FMA contraction from K1's per-site functions and in the
-plain version's operation order, so in practice the two agree bit for
-bit)."""
+The kernel is built without FMA contraction and runs the plain version's
+operation order, so the cases of `CASES` (shared with the host emulation
+test_torch_fdtd3d_t2_emul.py) are held bit for bit in fp32 and to 1e-12 of
+the field maximum in fp64, against the plain version on the host (where
+its current sources accumulate repeated sites in entry order, which the
+kernel keeps)."""
 
 import numpy as np
 import pytest
@@ -18,15 +20,40 @@ import torch
 
 import meep_nl_tpu_torch as mp
 from meep_nl_tpu_torch.ops import fdtd3d_t2 as T2
+from meep_nl_tpu_torch.ops import resident as R
 from meep_nl_tpu_torch.stepper import step as TS
 
-NCALL = 4
+NCALL = 2
+T0 = 20             # near the source's peak: every stage's source row matters
+
+
+def _sources(src):
+    """Ez point sources (src a component: one of it), or "many": 11
+    current sources of both families, each with its own frequency, two
+    pairs of them on the same spot (repeated sites across sources) and
+    several whose interpolation stencils straddle the y = 8, 16 and z = 8,
+    16 tile edges of a 24-site plane (the card's tiles and the host
+    emulation's 4 x 8 ones)."""
+    if src != "many":
+        return [mp.Source(mp.GaussianSource(1.0, fwidth=1.0), component=src,
+                          center=mp.Vector3(-1.2, 0, 0))]
+    spots = [(-1.2, -0.5, 0.0), (-0.9, 0.5, -0.5), (-0.3, 0.0, 0.5),
+             (0.2, -0.5, -0.5), (0.6, 0.3, 0.1), (1.1, -0.2, 0.5),
+             (-1.2, -0.5, 0.0), (0.6, 0.3, 0.1), (0.0, 0.5, 0.0),
+             (0.9, -0.5, 0.5), (-0.6, 0.1, -0.5)]
+    comps = [mp.Ez, mp.Hz, mp.Ex, mp.Hy, mp.Ez, mp.Ez, mp.Ez, mp.Hz,
+             mp.Hx, mp.Ey, mp.Hz]
+    return [mp.Source(mp.GaussianSource(1.0 + 0.02 * i, fwidth=1.0),
+                      component=c, center=mp.Vector3(*at),
+                      amplitude=np.exp(0.4j * i))
+            for i, (c, at) in enumerate(zip(comps, spots))]
 
 
 def _plan(scene, device, dtype=np.float32, src=mp.Ez):
-    """A 32x24x24 cell with PML on every face and a point source; scene
-    "flagship" adds the eps=4 ball with a Lorentz pole and full-tensor chi2,
-    "mu" a mu=2 ball (has_u on the H specs)."""
+    """A 32x24x24 cell with PML on every face; scene "flagship" adds the
+    eps=4 ball with a Lorentz pole and full-tensor chi2, "mu" a mu=2 ball
+    (has_u on the H specs), "poles" a ball with a Lorentz and a Drude
+    pole; `src` as `_sources`."""
     geometry = []
     if scene == "flagship":
         med = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
@@ -35,12 +62,16 @@ def _plan(scene, device, dtype=np.float32, src=mp.Ez):
         geometry = [mp.Sphere(0.6, material=med)]
     elif scene == "mu":
         geometry = [mp.Sphere(0.6, material=mp.Medium(epsilon=2.0, mu=2.0))]
+    elif scene == "poles":
+        med = mp.Medium(epsilon=2.0, E_susceptibilities=[
+            mp.LorentzianSusceptibility(frequency=2.0, gamma=0.05,
+                                        sigma=0.2),
+            mp.DrudeSusceptibility(frequency=1.5, gamma=0.1, sigma=0.1)])
+        geometry = [mp.Sphere(0.6, material=med)]
     sim = mp.Simulation(
         cell_size=mp.Vector3(4, 3, 3), resolution=8, geometry=geometry,
-        sources=[mp.Source(mp.GaussianSource(1.0, fwidth=1.0),
-                           component=src, center=mp.Vector3(-1.2, 0, 0))],
-        boundary_layers=[mp.PML(0.5)], eps_averaging=False, device=device,
-        dtype=dtype)
+        sources=_sources(src), boundary_layers=[mp.PML(0.5)],
+        eps_averaging=False, device=device, dtype=dtype)
     sim.init_sim()
     sim.plan.slab_opt = True
     return sim.plan
@@ -70,18 +101,106 @@ def _clone(st):
                      for k in ("p", "pp")} for e in st["pol"]]}
 
 
+def _host(st):
+    return {**st, **{k: {c: t.cpu().clone() for c, t in st[k].items()}
+                     for k in ("f", "f_u", "f_w")},
+            "pol": [{k: {c: t.cpu().clone() for c, t in e[k].items()}
+                     for k in ("p", "pp")} for e in st["pol"]]}
+
+
+def nine_source_sim(mp, device, **kw):
+    """A 3x3x3 cell at resolution 8 with PML 0.5 and nine Gaussian Ez point
+    sources (more than the first K2 port's argument block took), on no
+    lattice plane; `kw` goes to Simulation (use_fused)."""
+    spots = [(-0.8 + 0.2 * i, 0.1 * (i % 3) - 0.1, 0.07 * i - 0.3)
+             for i in range(9)]
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(3, 3, 3), resolution=8,
+        sources=[mp.Source(mp.GaussianSource(1.0, fwidth=0.5),
+                           component=mp.Ez, center=mp.Vector3(*at))
+                 for at in spots],
+        boundary_layers=[mp.PML(0.5)], device=device, **kw)
+    sim.init_sim()
+    return sim
+
+
+#: case -> (scene, depth, capture planes, dtype, sources, x-planes per
+#: item).  Capture planes: None, "mon" (monitor-like planes in the cell and
+#: on x = 0 and S0 - 1) or "chunk" (also on both sides of every chunk edge
+#: of `ch` = 5); every capture plane crosses the tile edges in y and z.
+#: The flagship scenes have a nonlinear box, so their items split into the
+#: two classes (h = 2 around the ball, h = 1 elsewhere).
 CASES = {
-    "upml-d2": ("vacuum", 2, False, np.float32, mp.Ez, None),
-    "upml-d3-caps": ("vacuum", 3, True, np.float32, mp.Ez, None),
-    "flagship-d2-caps": ("flagship", 2, True, np.float32, mp.Ez, None),
-    "flagship-d3": ("flagship", 3, False, np.float32, mp.Ez, None),
-    "flagship-d3-caps-fp64": ("flagship", 3, True, np.float64, mp.Ez, None),
-    "upml-d2-fp64": ("vacuum", 2, False, np.float64, mp.Ez, None),
-    "h-source-d3-caps": ("vacuum", 3, True, np.float32, mp.Hz, None),
-    "mu-d3": ("mu", 3, False, np.float32, mp.Ez, None),
-    "flagship-d3-caps-bx3": ("flagship", 3, True, np.float32, mp.Ez, 3),
-    "flagship-d2-bx40": ("flagship", 2, False, np.float32, mp.Ez, 40),
+    "upml-d2": ("vacuum", 2, None, np.float32, mp.Ez, None),
+    "upml-d3-caps": ("vacuum", 3, "mon", np.float32, mp.Ez, None),
+    "flagship-d2-caps": ("flagship", 2, "mon", np.float32, mp.Ez, None),
+    "flagship-d3": ("flagship", 3, None, np.float32, mp.Ez, None),
+    "flagship-d3-caps-fp64": ("flagship", 3, "mon", np.float64, mp.Ez, None),
+    "upml-d2-fp64": ("vacuum", 2, None, np.float64, mp.Ez, None),
+    "h-source-d3-caps": ("vacuum", 3, "mon", np.float32, mp.Hz, None),
+    "mu-d3": ("mu", 3, None, np.float32, mp.Ez, None),
+    "flagship-d3-caps-ch3": ("flagship", 3, "mon", np.float32, mp.Ez, 3),
+    "flagship-d2-ch40": ("flagship", 2, None, np.float32, mp.Ez, 40),
+    "many-sources-d3-caps": ("vacuum", 3, "mon", np.float32, "many", None),
+    "many-sources-flagship-d2": ("flagship", 2, None, np.float32, "many",
+                                 4),
+    "chunk-edges-d3-caps": ("flagship", 3, "chunk", np.float32, mp.Ez, 5),
+    "two-poles-d3-caps": ("poles", 3, "mon", np.float32, mp.Ez, 7),
 }
+
+
+def case_planes(kind, plan, ch):
+    if kind is None:
+        return None
+    S0 = plan.storage_shape[0]
+    planes = [("ey", 20), ("ez", 20), ("ez", 21), ("hy", 20), ("hz", 0),
+              ("hz", S0 - 1)]
+    if kind == "chunk":
+        edges = range(ch, S0, ch)
+        planes += [(c, x) for e in edges for c, x in
+                   (("ez", e - 1), ("hy", e))]
+    return planes
+
+
+def hold_case(case, device, capture_step):
+    """K2 (`capture_step(ker, state, rows)`, on a plan on `device`) against
+    steps_ref on the host over NCALL calls of CASES[case] from one seeded
+    random state: state and captures bit for bit in fp32, to 1e-12 of the
+    field maximum in fp64.  Returns the kernel object."""
+    scene, depth, kind, dtype, src, ch = CASES[case]
+    plan = _plan(scene, device, dtype, src)
+    ref_plan = _plan(scene, "cpu", dtype, src)
+    planes = case_planes(kind, plan, ch)
+    ker = T2.Fdtd3dT2Kernel(plan, depth=depth, cap_planes=planes, ch=ch)
+    ref = T2.steps_ref(ref_plan, depth, planes)
+    xs = TS.build_xs(plan, NCALL * depth, T0)
+    rows, ref_rows = TS.xs_rows(plan, xs), TS.xs_rows(ref_plan, xs)
+    st0 = _random_state(plan, 9)
+    scale = max(float(t.abs().max()) for t in st0["f"].values())
+    tol = 0.0 if dtype == np.float32 else 1e-12 * scale
+
+    def same(a, b, what):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= tol, f"{what}: {err:.3e}"
+
+    sk, sr = _clone(st0), _host(st0)
+    for c in range(NCALL):
+        sl = slice(c * depth, (c + 1) * depth)
+        sk, ck = capture_step(ker, sk, rows[sl])
+        sr, cr = ref(sr, ref_rows[sl])
+        assert set(ck) == set(cr)
+        for key in cr:
+            same(ck[key], cr[key], f"call {c} {key}")
+    assert int(sk["t"]) == NCALL * depth
+    assert not torch.equal(sr["f"]["ez"], _host(st0)["f"]["ez"])
+    for key in ("f", "f_u", "f_w"):
+        for c, t in sr[key].items():
+            same(sk[key][c], t, f"{key}[{c}]")
+    for pk, pr in zip(sk["pol"], sr["pol"]):
+        for k in ("p", "pp"):
+            for c, t in pr[k].items():
+                same(pk[k][c], t, f"pol {k}[{c}]")
+    return ker
 
 
 @pytest.mark.gpu
@@ -89,40 +208,12 @@ CASES = {
 def test_kernel_matches_plain_on_cuda(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    scene, depth, caps, dtype, src, bx = CASES[case]
-    plan = _plan(scene, "cuda", dtype, src)
-    planes = [("ey", 20), ("ez", 20), ("ez", 21), ("hy", 20), ("hz", 0),
-              ("hz", plan.storage_shape[0] - 1)] if caps else None
-    # t0 near the source's peak, so every stage's source row matters
-    rows = TS.xs_rows(plan, TS.build_xs(plan, NCALL * depth, 20))
-    ker = T2.Fdtd3dT2Kernel(plan, depth=depth, cap_planes=planes, bx=bx)
-    ref = T2.steps_ref(plan, depth, planes)
-    st0 = _random_state(plan, 9)
-    sk, sr = _clone(st0), _clone(st0)
-    tol = 1e-5 if dtype == np.float32 else 1e-12
-    scale = max(float(t.abs().max()) for t in st0["f"].values())
-    for c in range(NCALL):
-        xc = rows[c * depth:(c + 1) * depth]
-        sk, ck = ker.capture_step(sk, xc)
-        sr, cr = ref(sr, xc)
-        assert set(ck) == set(cr)
-        for key in cr:
-            err = float((ck[key] - cr[key]).abs().max())
-            assert err <= tol * scale, f"call {c} {key}: {err:.3e}"
+    ker = hold_case(case, "cuda", lambda k, s, r: k.capture_step(s, r))
     torch.cuda.synchronize()
     assert ker.launches == NCALL * ker.launches_per_call
     assert ker.plain_steps == 0 and ker._k1.launches == 0
-    assert int(sk["t"]) == NCALL * depth
-    if bx is not None:
-        assert ker._cuda["bx"] == bx
-    for key in ("f", "f_u", "f_w"):
-        for c, t in sr[key].items():
-            err = float((sk[key][c] - t).abs().max())
-            assert err <= tol * scale, f"{key}[{c}]: {err:.3e}"
-    for pk, pr in zip(sk["pol"], sr["pol"]):
-        for k in ("p", "pp"):
-            for c, t in pr[k].items():
-                assert float((pk[k][c] - t).abs().max()) <= tol * scale
+    if CASES[case][5] is not None:
+        assert ker._cuda["ch"] == CASES[case][5]
 
 
 @pytest.mark.gpu
@@ -137,13 +228,53 @@ def test_run_takes_the_residue_through_k1_on_cuda():
     step = T2.fdtd3d.step_ref(plan)
     for row in TS.xs_rows(plan, TS.build_xs(plan, 8, 20)):
         want = step(want, row)
-    assert ker.launches == 2
+    assert ker.launches == 2 * ker.launches_per_call
     assert ker._k1.launches == 2 * ker._k1.launches_per_step
-    scale = max(float(t.abs().max()) for t in want["f"].values())
-    for c, t in want["f"].items():
-        assert float((got["f"][c] - t).abs().max()) <= 1e-5 * scale
+    for key in ("f", "f_u", "f_w"):
+        for c, t in want[key].items():
+            assert torch.equal(got[key][c], t), f"{key}[{c}]"
     for c, t in want["pol"][0]["p"].items():
-        assert float((got["pol"][0]["p"][c] - t).abs().max()) <= 1e-5 * scale
+        assert torch.equal(got["pol"][0]["p"][c], t)
+
+
+@pytest.mark.gpu
+def test_out_of_place_hands_the_input_over_on_cuda():
+    """A call returns new tensors and leaves its input untouched; the next
+    call writes into the tensors the first one was given, so two calls
+    cycle between two sets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = _plan("flagship", "cuda")
+    ker = T2.Fdtd3dT2Kernel(plan, depth=2)
+    rows = TS.xs_rows(plan, TS.build_xs(plan, 4, T0))
+    s0 = _random_state(plan, 5)
+    keep = _clone(s0)
+    s1 = ker.step(s0, rows[:2])
+    for c, t in keep["f"].items():
+        assert torch.equal(s0["f"][c], t)
+        assert s1["f"][c].data_ptr() != t.data_ptr()
+    s2 = ker.step(s1, rows[2:])
+    for c in s0["f"]:
+        assert s2["f"][c].data_ptr() == s0["f"][c].data_ptr()
+
+
+@pytest.mark.gpu
+def test_nine_sources_through_the_hybrid_route_on_cuda(monkeypatch):
+    """The nine-source scene on the card: the hybrid route's K2 launches and
+    the fields of the eager stepper."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(R, "VMEM_BUDGET", 0)
+    sim = nine_source_sim(mp, "cuda")
+    sim.run(until=2.0)
+    assert dict(sim.routes) == {"hybrid": 1}
+    ker = sim.plan._t2_kernel
+    assert ker.k3.launches + ker.launches > 0
+    eager = nine_source_sim(mp, "cuda", use_fused=False)
+    eager.run(until=2.0)
+    want = eager.get_array(mp.Ez)
+    got = sim.get_array(mp.Ez)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.gpu
