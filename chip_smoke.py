@@ -372,7 +372,24 @@ def k2_items(ker):
             for lay in cu["lays"]]
     return (f"{cu['nitems']} items ({cu['nl_items']} nonlinear), x-chunk "
             f"{cu['ch']}, shared memory {smem[0]} / {smem[1]} KiB (linear "
-            f"/ nonlinear items)")
+            f"/ nonlinear items), linear blocks an SM {1 + cu['pair']}")
+
+
+def nine_source_sim(mp, device, **kw):
+    """A 3x3x3 cell at resolution 8 with PML 0.5 and nine Gaussian Ez point
+    sources (more than the first K2 port's argument block took), on no
+    lattice plane; `kw` goes to Simulation (use_fused).  The card tests and
+    the CPU tests build the same scene from here."""
+    spots = [(-0.8 + 0.2 * i, 0.1 * (i % 3) - 0.1, 0.07 * i - 0.3)
+             for i in range(9)]
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(3, 3, 3), resolution=8,
+        sources=[mp.Source(mp.GaussianSource(1.0, fwidth=0.5),
+                           component=mp.Ez, center=mp.Vector3(*at))
+                 for at in spots],
+        boundary_layers=[mp.PML(0.5)], device=device, **kw)
+    sim.init_sim()
+    return sim
 
 
 def phase_nine_sources(mp, dev):
@@ -387,14 +404,7 @@ def phase_nine_sources(mp, dev):
     resident.VMEM_BUDGET = 0
     try:
         for fused in (True, False):
-            spots = [(-0.8 + 0.2 * i, 0.1 * (i % 3) - 0.1, 0.07 * i - 0.3)
-                     for i in range(9)]
-            sim = mp.Simulation(
-                cell_size=mp.Vector3(3, 3, 3), resolution=8,
-                sources=[mp.Source(mp.GaussianSource(1.0, fwidth=0.5),
-                                   component=mp.Ez, center=mp.Vector3(*at))
-                         for at in spots],
-                boundary_layers=[mp.PML(0.5)], device=dev, use_fused=fused)
+            sim = nine_source_sim(mp, dev, use_fused=fused)
             sim.run(until=2.0)
             sims[fused] = sim
     finally:

@@ -1,7 +1,7 @@
 // The per-site arithmetic of one 3D Yee step, shared by K1 (fdtd3d.cu),
 // K2 (fdtd3d_t2.cu) and K3/K4 (resident.cu).
 //
-// Two layers.  The value functions (curl_delta, curl_value, nr_solve,
+// Two layers.  The value functions (curl_delta, curl_value, nr_solve_n,
 // pade, w_value, ade_value) take values and return values: every rounding
 // of the step lives in them, in the plain version's operation order.  The
 // load-based entry points (curl_site, eh_lin / eh_site, w_store, pol_site)
@@ -223,39 +223,60 @@ __device__ T sum4(const EhP& e, const Params& P, i64 i, i64 j, i64 k,
 }
 
 // step._nr_solve: Newton on the zinc-blende chi2 system from the
-// first-order perturbative seed, closed-form 3x3 solve; returns x (own)
+// first-order perturbative seed, closed-form 3x3 solve, for N sites or
+// components side by side (lane m: A_own[m], A_1[m], A_2[m], eps[m],
+// chi2[m]; x[m] the solution's own component).  Each lane rounds as the
+// plain version does; the lanes only interleave, so that their dependent
+// chains overlap.
+template <typename T, int N>
+__device__ __forceinline__ void nr_solve_n(const T* A_own, const T* A_1,
+                                           const T* A_2, const T* eps,
+                                           const T* chi2, i64 iters, T* x) {
+  T y[N], z[N], aa[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    T ueff = T(1) / (eps[m] == T(0) ? T(1) : eps[m]);
+    T sx = A_own[m] * ueff, sy = A_1[m] * ueff, sz = A_2[m] * ueff;
+    T cu = chi2[m] * ueff;
+    x[m] = sx - cu * sy * sz;
+    y[m] = sy - cu * sx * sz;
+    z[m] = sz - cu * sx * sy;
+    aa[m] = eps[m] * eps[m];
+  }
+  for (i64 it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const T e = eps[m], c2 = chi2[m];
+      T F1 = A_own[m] - (e * x[m] + c2 * y[m] * z[m]);
+      T F2 = A_1[m] - (e * y[m] + c2 * x[m] * z[m]);
+      T F3 = A_2[m] - (e * z[m] + c2 * x[m] * y[m]);
+      T a = e, b = c2 * z[m], c = c2 * y[m], d = c2 * x[m];
+      T b2 = b * b, cc = c * c, d2 = d * d;
+      T det = a * (aa[m] - b2 - cc - d2) + T(2) * (b * c * d);
+      if (fabs(det) < T(1e-30)) det = T(1e-30);
+      T rdet = T(1) / det;
+      T i00 = aa[m] - d2;
+      T i01 = c * d - b * a;
+      T i02 = b * d - c * a;
+      T i11 = aa[m] - cc;
+      T i12 = c * b - a * d;
+      T i22 = aa[m] - b2;
+      T dx = (i00 * F1 + i01 * F2 + i02 * F3) * rdet;
+      T dy = (i01 * F1 + i11 * F2 + i12 * F3) * rdet;
+      T dz = (i02 * F1 + i12 * F2 + i22 * F3) * rdet;
+      x[m] = x[m] + dx;
+      y[m] = y[m] + dy;
+      z[m] = z[m] + dz;
+    }
+  }
+}
+
+// the same for one site and component; returns x (own)
 template <typename T>
 __device__ T nr_solve(T A_own, T A_1, T A_2, T eps, T chi2, i64 iters) {
-  T ueff = T(1) / (eps == T(0) ? T(1) : eps);
-  T sx = A_own * ueff, sy = A_1 * ueff, sz = A_2 * ueff;
-  T cu = chi2 * ueff;
-  T x = sx - cu * sy * sz;
-  T y = sy - cu * sx * sz;
-  T z = sz - cu * sx * sy;
-  T aa = eps * eps;
-  for (i64 it = 0; it < iters; ++it) {
-    T F1 = A_own - (eps * x + chi2 * y * z);
-    T F2 = A_1 - (eps * y + chi2 * x * z);
-    T F3 = A_2 - (eps * z + chi2 * x * y);
-    T a = eps, b = chi2 * z, c = chi2 * y, d = chi2 * x;
-    T b2 = b * b, c2 = c * c, d2 = d * d;
-    T det = a * (aa - b2 - c2 - d2) + T(2) * (b * c * d);
-    if (fabs(det) < T(1e-30)) det = T(1e-30);
-    T rdet = T(1) / det;
-    T i00 = aa - d2;
-    T i01 = c * d - b * a;
-    T i02 = b * d - c * a;
-    T i11 = aa - c2;
-    T i12 = c * b - a * d;
-    T i22 = aa - b2;
-    T dx = (i00 * F1 + i01 * F2 + i02 * F3) * rdet;
-    T dy = (i01 * F1 + i11 * F2 + i12 * F3) * rdet;
-    T dz = (i02 * F1 + i12 * F2 + i22 * F3) * rdet;
-    x = x + dx;
-    y = y + dy;
-    z = z + dz;
-  }
-  return x;
+  T x[1];
+  nr_solve_n<T, 1>(&A_own, &A_1, &A_2, &eps, &chi2, iters, x);
+  return x[0];
 }
 
 // one partner's term of the chi3 Pade's D^2 (step._eh_update): Dsqr +

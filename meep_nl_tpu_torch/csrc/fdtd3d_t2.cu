@@ -15,13 +15,14 @@
 // tile the storage.  The block computes all `depth` stages of its item,
 // ordered by __syncthreads only; no two blocks exchange anything, and no
 // launch is cooperative.
-//   * Overlapped (trapezoid) items.  Along y and z stage s is computed on
-//     the output grown by (depth - s) h, B/H h more below (D reads H at
+//   * Overlapped (trapezoid) items.  Along each axis stage s is computed
+//     on the output grown by (depth - s) h, B/H h more below (D reads H at
 //     -1) and h - 1 above, D h - 1 on both sides (ops/fdtd3d_t2.py::
 //     regions).  h = 1 on linear items; h = 2 on nonlinear ones, whose
 //     first stage meets a site with a nonzero chi2/chi3 coefficient (the
-//     neighbour sums read D - P at +-1 in every axis).  The halo's stages
-//     are recomputed by design.
+//     neighbour sums read D - P at +-1 in every axis), except on their
+//     sides where no stage reaches such a site at its edge (side_widths).
+//     The halo's stages are recomputed by design.
 //   * An x-march.  At step t stage s updates B/H and D on plane
 //     t - (s-1) h and E on the plane h - 1 behind it, so every plane a
 //     stage reads across sites (E at x+1, H at x-1, D - P at x+-1) was
@@ -46,9 +47,9 @@
 //   * Sources and captures from per-plane lists of any length.
 //   * Two item classes, each its own launch: the nonlinear items (few,
 //     long: a tile's whole nonlinear x-range, cut to about fill the SMs
-//     once) on a stream of the highest priority, forked from and joined
-//     back to the caller's, the linear items on the caller's stream, so
-//     that the linear blocks fill the SMs the nonlinear ones leave.
+//     once) on a stream of higher priority that the wrapper forks from and
+//     joins back to the caller's, the linear items on the caller's stream,
+//     so that the linear blocks fill the SMs the nonlinear ones leave.
 //
 // Where trouble was likely, and what the design does:
 //  (a) edges: the regions are clipped to the storage; sites outside it
@@ -74,24 +75,32 @@
 //  (g) register pressure: each variant has its own budget (below); the
 //      site work loads all its operands before its first store (the
 //      arrays are untyped pointers that may alias).
+//  (h) latency: a block runs one sub-update at a time between barriers,
+//      often on fewer sites than it has threads, so a site's chain of
+//      waits sets the pace.  Each sub-update therefore issues all of a
+//      site's device-memory operands (the input state at stage 1, the
+//      coefficients in their boxes at every stage) together before the
+//      arithmetic that waits for them, and the NR solves of a site's three
+//      E components run side by side (nr_solve_n), not one after another.
 //
 // What bounds it on the H100: by its byte count, device memory (the state
 // once in, once out per call: ops/fdtd3d_t2.py::step_cost).  In practice
-// the site work, 3-4x K1's per site and step at the plans of PERF.md: the
-// trapezoid recomputes 1.5x (linear, 8 x 32 tiles, depth 3) to ~9x
-// (nonlinear, 8 x 8 tiles, h = 2) of the output's sites; a block runs one
-// sub-update at a time between barriers, often on fewer sites than it has
-// threads; the first stage waits on device memory.
-// Budget: 512 threads a block.  A class's rings get the SM's shared memory
-// divided among as many blocks as its registers let an SM hold: nonlinear
-// blocks one an SM (at most 128 registers a thread); linear blocks two an
-// SM (64 registers, MINB = 2) when half the SM's shared memory holds the
-// largest tile the whole would, else one (MINB = 1); the wrapper takes the
-// largest tile of at most K2_TY x K2_TZ that fits.  Variants: fp32 / fp64
-// (T), nonlinear or linear items (NL), the standard uPML layout as
-// compile-time values or not (U), one pole or up to MAXPOL (NP), the
-// linear register budget (MINB).  PERF.md records tiles, shared memory and
-// ptxas's registers and spills for the driven plans.
+// the latency of the site work: the trapezoid recomputes 1.3-1.4x
+// (linear, 16 x 16 tiles, depth 3) to ~3x (nonlinear, 8 x 8 tiles, h = 2)
+// of the output's sites, and the phases between barriers are too small to
+// hide their chains (PERF.md).
+// Budget: 512 threads a block.  A nonlinear block, or a linear one that
+// has its SM to itself, may take the SM's whole shared memory (at most 128
+// registers a thread, MINB = 1); linear blocks run two an SM (64
+// registers, MINB = 2, each with half the shared memory) when half holds
+// the largest tile the whole would, or when the plan has nonlinear items
+// (they hold an SM each, and the finer linear blocks fill the card around
+// them more evenly); the wrapper takes the largest tile of at most
+// K2_TY x K2_TZ that fits.  Variants: fp32 / fp64 (T), nonlinear or
+// linear items (NL), the standard uPML layout as compile-time values or
+// not (U), one pole or up to MAXPOL (NP), the linear register budget
+// (MINB).  PERF.md records tiles, shared memory and ptxas's registers and
+// spills for the driven plans.
 
 // Host emulation: the site loops are block-stride loops, every cp.async
 // has a plain-copy twin, and tests/cuda_stub runs each block as one thread,
@@ -99,14 +108,15 @@
 
 #include "fdtd3d_march.cuh"
 
-// the largest output tile (rows j x columns k); a smaller one is a build
-// option (-DK2_TY=.. -DK2_TZ=..), which the host emulation uses to put
-// tile edges inside small grids
+// the largest output tile (rows j x columns k; the wrapper takes the
+// largest of its halvings that fits, a square one first, as its halo is
+// the smallest); another is a build option (-DK2_TY=.. -DK2_TZ=..), which
+// the host emulation uses to put tile edges inside small grids
 #ifndef K2_TY
-#define K2_TY 8
+#define K2_TY 16
 #endif
 #ifndef K2_TZ
-#define K2_TZ 32
+#define K2_TZ 16
 #endif
 #ifdef MNT_CUDA_STUB
 #define K2_NTHR 1
@@ -170,8 +180,9 @@ struct K2Args {
   void* out_fwe[NCOMP];
   void* out_p[NCOMP][MAXPOL];
   void* out_pp[NCOMP][MAXPOL];
-  const void* items;                  // int32 (n, 8): i0 i1 j0 j1 k0 k1 - -
-                                      // (linear items, then nonlinear)
+  const void* items;                  // int32 (n, 8): i0 i1 j0 j1 k0 k1
+                                      // wide - (linear items, then
+                                      // nonlinear)
   const void* src_ptr[2];             // per family (B, D): int32 [S0 + 1]
   const void* src_key[2];             // int32 ((j*S2 + k) << 2) | comp
   const void* src_id[2];              // int32 plan.sources index
@@ -194,6 +205,8 @@ struct K2Args {
 
 struct Item {
   int i0, i1, j0, j1, k0, k1;
+  int wide;                           // nonlinear items: the sides that
+                                      // grow by 2 (bit axis * 2 + above)
 };
 
 struct Span {
@@ -438,12 +451,43 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
     const int oe = R.pos(G_E, j, k), o = R.pos(G_B, j, k);
     const bool own = last && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
                      k < I.k1;
-    T f[NCOMP], fun[NCOMP];
+    // the site's operands at its own position, issued together before the
+    // arithmetic (at stage 1 from the input state, a round trip each
+    // otherwise): B and its f_u, H's u, old value and f_w; and loaded
+    // before the first store (the arrays are untyped pointers that may
+    // alias for all the compiler knows, so a store between two loads would
+    // serialise their trips to memory)
+    T fo[NCOMP], fuo[NCOMP], us[NCOMP];
     bool uon[NCOMP];
+    WIn<T> w[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      fo[q] = fuo[q] = T(0);
+      uon[q] = false;
+      if (!U && q >= P.ncurl) continue;
+      const CurlP& c = P.curl[q];
+      uon[q] = u_on<U>(A.cb[q], q, p, j, k);
+      fo[q] = s == 1 ? ((const T*)c.f)[n] : R.at(R_B, q, pB)[o];
+      if (uon[q])
+        fuo[q] = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUB, q, pB)[o];
+    }
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      us[q] = T(1);
+      if (!U && q >= P.neh) continue;
+      const EhP& e = P.eh[q];
+      const EhC& ec = A.eh[q];
+      if (ec.has_u) us[q] = ((const T*)e.u)[n];
+      w[q] = w_of<T, U>(R, e, ec, q, q, p, j, k);
+      if (w[q].on) {
+        w[q].f = s == 1 ? ((const T*)e.f)[n] : R.at(R_H, q, pH)[o];
+        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWH, q, pB)[o];
+      }
+    }
+    T f[NCOMP], fun[NCOMP];
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
       f[q] = fun[q] = T(0);
-      uon[q] = false;
       if (!U && q >= P.ncurl) continue;
       const CurlC& cc = A.cb[q];
       const CurlP& c = P.curl[q];
@@ -465,31 +509,8 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
         dd[m] = nb - here[oe];
       }
       const T dfl = curl_delta<T>(hv[0], dd[0], hv[1], dd[1], csgn);
-      const T fo = s == 1 ? ((const T*)c.f)[n] : R.at(R_B, q, pB)[o];
-      uon[q] = u_on<U>(cc, q, p, j, k);
-      T fuo = T(0);
-      if (uon[q])
-        fuo = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUB, q, pB)[o];
-      f[q] = chain<T, U>(R, c, cc, q, q, p, j, k, fo, dfl, uon[q], fuo,
+      f[q] = chain<T, U>(R, c, cc, q, q, p, j, k, fo[q], dfl, uon[q], fuo[q],
                          &fun[q]);
-    }
-    // H's operands, loaded before the first store: the arrays are untyped
-    // pointers that may alias for all the compiler knows, so a store
-    // between two loads would serialise their trips to memory
-    WIn<T> w[NCOMP];
-    T us[NCOMP];
-#pragma unroll
-    for (int q = 0; q < NCOMP; ++q) {
-      us[q] = T(1);
-      if (!U && q >= P.neh) continue;
-      const EhP& e = P.eh[q];
-      const EhC& ec = A.eh[q];
-      if (ec.has_u) us[q] = ((const T*)e.u)[n];
-      w[q] = w_of<T, U>(R, e, ec, q, q, p, j, k);
-      if (w[q].on) {
-        w[q].f = s == 1 ? ((const T*)e.f)[n] : R.at(R_H, q, pH)[o];
-        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWH, q, pB)[o];
-      }
     }
     add_sources<T>(A, 0, s, sr, j, k, f);
     // H from the new B
@@ -554,12 +575,38 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
     const int ob = R.pos(G_B, j, k), o = R.pos(G_D, j, k);
     const bool own = last && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
                      k < I.k1;
-    T f[NCOMP], fun[NCOMP];
+    // the site's operands at its own position, issued together before the
+    // arithmetic and the first store (see b_plane): D and its f_u, and on
+    // nonlinear items the P of every pole (of the stage before)
+    T fo[NCOMP], fuo[NCOMP], pv[NCOMP][MAXPOL];
     bool uon[NCOMP];
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
-      f[q] = fun[q] = T(0);
+      fo[q] = fuo[q] = T(0);
       uon[q] = false;
+      if (!U && q >= P.ncurl) continue;
+      const CurlP& c = P.curl[q];
+      uon[q] = u_on<U>(A.cd[q], q, p, j, k);
+      fo[q] = s == 1 ? ((const T*)c.f)[n] : R.at(R_D, q, pD)[o];
+      if (uon[q])
+        fuo[q] = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUD, q, pD)[o];
+    }
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+#pragma unroll
+      for (int pi = 0; pi < MAXPOL; ++pi) {
+        pv[q][pi] = T(0);
+        if (!NL || (!U && q >= P.neh)) continue;
+        if (pi < P.npol && ((A.ee[q].pols >> pi) & 1))
+          pv[q][pi] = s == 1 ? ((const T*)P.eh[q].pol[pi].p)[n]
+                             : R.at(R_P, q * MAXPOL + pi, pF)[R.pos(G_F, j,
+                                                                    k)];
+      }
+    }
+    T f[NCOMP], fun[NCOMP];
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      f[q] = fun[q] = T(0);
       if (!U && q >= P.ncurl) continue;
       const CurlC& cc = A.cd[q];
       const CurlP& c = P.curl[q];
@@ -581,31 +628,23 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
         dd[m] = here[ob] - nb;
       }
       const T dfl = curl_delta<T>(hv[0], dd[0], hv[1], dd[1], csgn);
-      const T fo = s == 1 ? ((const T*)c.f)[n] : R.at(R_D, q, pD)[o];
-      uon[q] = u_on<U>(cc, q, p, j, k);
-      T fuo = T(0);
-      if (uon[q])
-        fuo = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUD, q, pD)[o];
-      f[q] = chain<T, U>(R, c, cc, q, 3 + q, p, j, k, fo, dfl, uon[q], fuo,
-                         &fun[q]);
+      f[q] = chain<T, U>(R, c, cc, q, 3 + q, p, j, k, fo[q], dfl, uon[q],
+                         fuo[q], &fun[q]);
     }
     add_sources<T>(A, 1, s, sr, j, k, f);
-    // nonlinear items: D - P of every E component, in dmp_at's order, its
-    // P loaded before the first store (see b_plane)
+    // nonlinear items: D - P of every E component, in dmp_at's order
     T m[NCOMP];
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
       m[q] = T(0);
       if (!NL || (!U && q >= P.neh)) continue;
-      const int of = R.pos(G_F, j, k);
 #pragma unroll
       for (int qq = 0; qq < NCOMP; ++qq)
         if (qq == A.ed_of[q]) m[q] = f[qq];
 #pragma unroll
       for (int pi = 0; pi < MAXPOL; ++pi)
         if (pi < P.npol && ((A.ee[q].pols >> pi) & 1))
-          m[q] = m[q] - (s == 1 ? ((const T*)P.eh[q].pol[pi].p)[n]
-                                : R.at(R_P, q * MAXPOL + pi, pF)[of]);
+          m[q] = m[q] - pv[q][pi];
     }
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
@@ -669,78 +708,101 @@ __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
               o = R.pos(G_F, j, k);
     const bool mine = xo && j >= I.j0 && j < I.j1 && k >= I.k0 && k < I.k1;
     const bool own = last && mine;
-    T lin[NCOMP], pcur[NCOMP][NP];
+    // the site's operands from device memory, issued together before the
+    // arithmetic that waits for them (each would otherwise be a round trip
+    // of its own): the coefficients in their boxes (chi1inv, chi2 / chi3,
+    // the NR solve's chi2 and eps, each pole's sigma) and, at stage 1, the
+    // input's P, PP and f_w; the rings' values of the stage before
+    T us[NCOMP], x2[NCOMP], x3[NCOMP], nrc[NCOMP], nre[NCOMP];
+    bool in3[NCOMP], innr[NCOMP];
+    T pcur[NCOMP][NP], pp[NCOMP][NP], sg[NCOMP][NP];
+    WIn<T> w[NCOMP];
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
-      lin[q] = T(0);
+      us[q] = T(1);
+      x2[q] = x3[q] = nrc[q] = nre[q] = T(0);
+      in3[q] = innr[q] = false;
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) pcur[q][pi] = pp[q][pi] = sg[q][pi] = T(0);
+      if (!U && q >= P.neh) continue;
+      const EhP& e = P.eh[q];
+      const EhC& ec = A.ee[q];
+      if (ec.has_u) us[q] = ((const T*)e.u)[n];
+      if (NL) {
+        in3[q] = e.chi3 && in_box(A.nl3[q], p, j, k);
+        if (in3[q]) {
+          x2[q] = ((const T*)e.chi2)[n];
+          x3[q] = ((const T*)e.chi3)[n];
+        }
+        innr[q] = e.nrchi2 && in_box(A.nlnr[q], p, j, k);
+        if (innr[q]) {
+          nrc[q] = ((const T*)e.nrchi2)[n];
+          nre[q] = ((const T*)e.nreps)[n];
+        }
+      }
+#pragma unroll
+      for (int pi = 0; pi < NP; ++pi) {
+        if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
+        pcur[q][pi] = s == 1 ? ((const T*)e.pol[pi].p)[n]
+                             : R.at(R_P, q * MAXPOL + pi, pF)[o];
+        pp[q][pi] = s == 1 ? ((const T*)e.pol[pi].pp)[n]
+                           : R.at(R_PP, q * MAXPOL + pi, pF)[o];
+        if (in_box(A.pol[q][pi], p, j, k))
+          sg[q][pi] = ((const T*)e.pol[pi].sigma)[n];
+      }
+      w[q] = w_of<T, U>(R, e, ec, q, 3 + q, p, j, k);
+      if (w[q].on) {
+        w[q].f = R.at(R_E, q, pE)[oe];
+        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWE, q, pF)[o];
+      }
+    }
+    // lin: chi1inv (D - P), the Pade factor in the chi3 box; on nonlinear
+    // items the NR solve of every component whose chi2 is nonzero, the
+    // components side by side
+    T lin[NCOMP], gsv[NCOMP], g1[NCOMP], g2[NCOMP];
+    bool nr[NCOMP], any = false;
+#pragma unroll
+    for (int q = 0; q < NCOMP; ++q) {
+      lin[q] = gsv[q] = g1[q] = g2[q] = T(0);
+      nr[q] = false;
       if (!U && q >= P.neh) continue;
       const EhP& e = P.eh[q];
       const EhC& ec = A.ee[q];
       T gs = R.at(R_D, A.ed_of[q], pD)[od];
 #pragma unroll
-      for (int pi = 0; pi < NP; ++pi) {
-        pcur[q][pi] = T(0);
-        if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
-        pcur[q][pi] = s == 1 ? ((const T*)e.pol[pi].p)[n]
-                             : R.at(R_P, q * MAXPOL + pi, pF)[o];
-        gs = gs - pcur[q][pi];
-      }
-      const T us = ec.has_u ? ((const T*)e.u)[n] : T(1);
-      T l = ec.has_u ? gs * us : gs;
+      for (int pi = 0; pi < NP; ++pi)
+        if (pi < P.npol && ((ec.pols >> pi) & 1)) gs = gs - pcur[q][pi];
+      T l = ec.has_u ? gs * us[q] : gs;
       if (NL) {
         // step._sum4 of partner qq's D - P, the partner's axis `off`
         auto sum4 = [&](int qq, int off) {
           return ring_sum4<T>(A, R, p, pm0, pm1, pm2, od, qq, (int)e.ax_own,
                               off);
         };
-        if (e.chi3 && in_box(A.nl3[q], p, j, k)) {
+        if (in3[q]) {
           T Dsqr = gs * gs;
           if (e.dc1 >= 0)
             Dsqr = dsqr_add<T>(Dsqr, sum4((int)e.dc1, (int)e.ax_1));
           if (e.dc2 >= 0)
             Dsqr = dsqr_add<T>(Dsqr, sum4((int)e.dc2, (int)e.ax_2));
-          l = pade<T>(l, gs, Dsqr, ((const T*)e.chi2)[n],
-                      ((const T*)e.chi3)[n], us);
+          l = pade<T>(l, gs, Dsqr, x2[q], x3[q], us[q]);
         }
-        if (e.nrchi2 && in_box(A.nlnr[q], p, j, k)) {
-          const T chi2 = ((const T*)e.nrchi2)[n];
-          if (chi2 != T(0)) {
-            const T g1 = e.dc1 >= 0
-                             ? T(0.25) * sum4((int)e.dc1, (int)e.ax_1)
-                             : T(0);
-            const T g2 = e.dc2 >= 0
-                             ? T(0.25) * sum4((int)e.dc2, (int)e.ax_2)
-                             : T(0);
-            l = nr_solve<T>(gs, g1, g2, ((const T*)e.nreps)[n], chi2,
-                            P.nr_iters);
-          }
+        nr[q] = innr[q] && nrc[q] != T(0);
+        if (nr[q]) {
+          any = true;
+          if (e.dc1 >= 0) g1[q] = T(0.25) * sum4((int)e.dc1, (int)e.ax_1);
+          if (e.dc2 >= 0) g2[q] = T(0.25) * sum4((int)e.dc2, (int)e.ax_2);
         }
       }
+      gsv[q] = gs;
       lin[q] = l;
     }
-    // the W chain's and the ADE's operands, loaded before the first store
-    // (see b_plane)
-    WIn<T> w[NCOMP];
-    T pp[NCOMP][NP], sg[NCOMP][NP];
+    if (NL && any) {
+      T x[NCOMP];
+      nr_solve_n<T, NCOMP>(gsv, g1, g2, nre, nrc, P.nr_iters, x);
 #pragma unroll
-    for (int q = 0; q < NCOMP; ++q) {
-      if (!U && q >= P.neh) continue;
-      const EhP& e = P.eh[q];
-      const EhC& ec = A.ee[q];
-      w[q] = w_of<T, U>(R, e, ec, q, 3 + q, p, j, k);
-      if (w[q].on) {
-        w[q].f = R.at(R_E, q, pE)[oe];
-        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWE, q, pF)[o];
-      }
-#pragma unroll
-      for (int pi = 0; pi < NP; ++pi) {
-        pp[q][pi] = sg[q][pi] = T(0);
-        if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
-        pp[q][pi] = s == 1 ? ((const T*)e.pol[pi].pp)[n]
-                           : R.at(R_PP, q * MAXPOL + pi, pF)[o];
-        if (in_box(A.pol[q][pi], p, j, k))
-          sg[q][pi] = ((const T*)e.pol[pi].sigma)[n];
-      }
+      for (int q = 0; q < NCOMP; ++q)
+        if (nr[q]) lin[q] = x[q];
     }
     // the new E (the W chain, the mask) and the ADE of each pole from the
     // drive W
@@ -813,14 +875,24 @@ __device__ __forceinline__ Span clip(int lo, int hi, int n) {
 
 // NL: h = 2 (the neighbour sums of E reach D - P at +-1), else h = 1.  At
 // step t stage s updates B/H and D on plane t - (s-1) h and E on the plane
-// h - 1 behind; along y and z stage s covers the output grown by
-// (depth - s) h, B/H from h below to h - 1 above that, D h - 1 on both
-// sides (ops/fdtd3d_t2.py::regions).
+// h - 1 behind.  Along each axis stage s covers the output grown by
+// (depth - s) g, B/H from g below to g - 1 above that, D g - 1 on both
+// sides, with g = h on every side of a linear item; a side of a nonlinear
+// item grows by g = 1 where its bit in I.wide is clear: no stage's E
+// region, so grown, holds a chi2/chi3 site in its edge layer there, so
+// nothing reads D - P beyond it (ops/fdtd3d_t2.py::side_widths, regions,
+// march_order).
 template <typename T, bool NL, bool U, int NP>
 __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
                                       const Item& I, T* sm, int tid) {
   constexpr int h = NL ? 2 : 1, n = h - 1, L = h;
-  const int d = A.depth, G = d * h;
+  const int d = A.depth;
+  int ga[3], gb[3];                   // growth below / above per axis
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    ga[ax] = NL && !((I.wide >> (2 * ax)) & 1) ? 1 : h;
+    gb[ax] = NL && !((I.wide >> (2 * ax + 1)) & 1) ? 1 : h;
+  }
   Rings<T> R;
   R.sm = sm;
   R.C = &C;
@@ -829,8 +901,8 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
   for (int e = tid; e < C.tab; e += K2_NTHR) sm[e] = T(0);
   fill_rows<T>(A, R, tid);
   __syncthreads();
-  const int plo = I.i0 - G, phi = I.i1 + G;
-  const int t0 = I.i0 - G, t1 = I.i1 + n + (d - 1) * L;
+  const int plo = I.i0 - d * ga[0], phi = I.i1 + d * gb[0];
+  const int t0 = plo, t1 = I.i1 + n + (d - 1) * L;
   e_issue<T>(A, R, tid, t0, plo, phi);
   cp_commit();
   e_issue<T>(A, R, tid, t0 + 1, plo, phi);
@@ -841,28 +913,30 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
     cp_wait1();
     __syncthreads();
     for (int s = 1; s <= d; ++s) {
-      const int gr = (d - s) * h;
+      const int e = d - s;
       const int b = t - (s - 1) * L;
-      const int xlo = I.i0 - gr, xhi = I.i1 + gr;
-      if (b >= xlo - h && b < xhi + n && b >= 0 && b < A.S0) {
+      const int xlo = I.i0 - e * ga[0], xhi = I.i1 + e * gb[0];
+      const int ylo = I.j0 - e * ga[1], yhi = I.j1 + e * gb[1];
+      const int zlo = I.k0 - e * ga[2], zhi = I.k1 + e * gb[2];
+      if (b >= xlo - ga[0] && b < xhi + gb[0] - 1 && b >= 0 && b < A.S0) {
         b_plane<T, U>(A, R, I, tid, s, b,
-                      clip(I.j0 - gr - h, I.j1 + gr + n, A.S1),
-                      clip(I.k0 - gr - h, I.k1 + gr + n, A.S2));
+                      clip(ylo - ga[1], yhi + gb[1] - 1, A.S1),
+                      clip(zlo - ga[2], zhi + gb[2] - 1, A.S2));
         __syncthreads();
       }
-      if (b >= xlo - n && b < xhi + n && b >= 0 && b < A.S0) {
+      if (b >= xlo - ga[0] + 1 && b < xhi + gb[0] - 1 && b >= 0 &&
+          b < A.S0) {
         d_plane<T, NL, U>(A, R, I, tid, s, b,
-                          clip(I.j0 - gr - n, I.j1 + gr + n, A.S1),
-                          clip(I.k0 - gr - n, I.k1 + gr + n, A.S2));
+                          clip(ylo - ga[1] + 1, yhi + gb[1] - 1, A.S1),
+                          clip(zlo - ga[2] + 1, zhi + gb[2] - 1, A.S2));
         // a linear E reads D only at its own site, which the same thread
         // updated (the D and E regions coincide)
         if (NL) __syncthreads();
       }
       const int pe = b - n;
       if (pe >= xlo && pe < xhi && pe >= 0 && pe < A.S0) {
-        e_plane<T, NL, U, NP>(A, R, I, tid, s, pe,
-                          clip(I.j0 - gr, I.j1 + gr, A.S1),
-                          clip(I.k0 - gr, I.k1 + gr, A.S2));
+        e_plane<T, NL, U, NP>(A, R, I, tid, s, pe, clip(ylo, yhi, A.S1),
+                              clip(zlo, zhi, A.S2));
         __syncthreads();
       }
     }
@@ -881,7 +955,7 @@ k2_kernel(const __grid_constant__ K2Args A) {
   T* sm = (T*)K2_SMEM;
   const int* it =
       (const int*)A.items + 8 * ((NL ? A.nitems[0] : 0) + blockIdx.x);
-  const Item I = {it[0], it[1], it[2], it[3], it[4], it[5]};
+  const Item I = {it[0], it[1], it[2], it[3], it[4], it[5], it[6]};
   march<T, NL, U, NP>(A, A.cls[NL ? 1 : 0], I, sm, threadIdx.x);
 }
 
@@ -917,95 +991,33 @@ static int launch_v(const K2Args* a, cudaStream_t s) {
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
-// The variant of item class NL for the plan: the uPML layout as
+// Launch the variant of item class NL for the plan: the uPML layout as
 // compile-time values or not, one pole or up to MAXPOL, and for linear
-// items two blocks an SM or one (nonlinear items: one).  Called with a
-// launcher (F::go launches) or an address-taker (F::go returns the
-// kernel), so the two lists of variants cannot differ.
-template <typename T, bool NL, typename F>
-static auto variant(const K2Args& a, F f) {
-  const bool u = upml_layout(a), one = a.pd.npol <= 1;
-  if constexpr (NL) {
-    if (u)
-      return one ? f.template go<T, NL, true, 1, 1>()
-                 : f.template go<T, NL, true, MAXPOL, 1>();
-    return one ? f.template go<T, NL, false, 1, 1>()
-               : f.template go<T, NL, false, MAXPOL, 1>();
-  } else {
-    const bool two = a.pair != 0;
-    if (u) {
-      if (one)
-        return two ? f.template go<T, NL, true, 1, 2>()
-                   : f.template go<T, NL, true, 1, 1>();
-      return two ? f.template go<T, NL, true, MAXPOL, 2>()
-                 : f.template go<T, NL, true, MAXPOL, 1>();
-    }
-    if (one)
-      return two ? f.template go<T, NL, false, 1, 2>()
-                 : f.template go<T, NL, false, 1, 1>();
-    return two ? f.template go<T, NL, false, MAXPOL, 2>()
-               : f.template go<T, NL, false, MAXPOL, 1>();
-  }
-}
-
-struct Launcher {
-  const K2Args* a;
-  cudaStream_t s;
-  template <typename T, bool NL, bool U, int NP, int MINB>
-  int go() const {
-    return launch_v<T, NL, U, NP, MINB>(a, s);
-  }
-};
-
-struct Address {
-  template <typename T, bool NL, bool U, int NP, int MINB>
-  const void* go() const {
-    return (const void*)k2_kernel<T, NL, U, NP, MINB>;
-  }
-};
-
+// items two blocks an SM or one (nonlinear items: one).
 template <typename T, bool NL>
 static int launch_c(const K2Args* a, cudaStream_t s) {
-  return variant<T, NL>(*a, Launcher{a, s});
-}
-
-template <typename T, bool NL>
-static const void* kernel_of(const K2Args& a) {
-  return variant<T, NL>(a, Address{});
-}
-
-// The two classes' launches side by side: the nonlinear items (few, long
-// and heavy) on a second stream of the highest priority, forked from and
-// joined back to `s` by events, so that their blocks take SMs first and
-// the linear items, on `s`, fill the rest.
-template <typename T>
-static int launch(const K2Args* a, cudaStream_t s) {
-  if (a->depth < 2 || a->depth > 3 || a->pd.npol > MAXPOL || has_nl(a->pb))
-    return (int)cudaErrorInvalidValue;
-  if (a->nitems[1] == 0) return launch_c<T, false>(a, s);
-  if (a->nitems[0] == 0) return launch_c<T, true>(a, s);
-  static cudaStream_t side = nullptr;
-  static cudaEvent_t fork = nullptr, join = nullptr;
-  cudaError_t e = cudaSuccess;
-  if (!side) {
-    int lo = 0, hi = 0;
-    e = cudaDeviceGetStreamPriorityRange(&lo, &hi);
-    if (e == cudaSuccess)
-      e = cudaStreamCreateWithPriority(&side, cudaStreamNonBlocking, hi);
-    if (e == cudaSuccess)
-      e = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
-    if (e == cudaSuccess)
-      e = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
-    if (e != cudaSuccess) return (int)e;
+  const bool u = upml_layout(*a), one = a->pd.npol <= 1;
+  if constexpr (NL) {
+    if (u)
+      return one ? launch_v<T, NL, true, 1, 1>(a, s)
+                 : launch_v<T, NL, true, MAXPOL, 1>(a, s);
+    return one ? launch_v<T, NL, false, 1, 1>(a, s)
+               : launch_v<T, NL, false, MAXPOL, 1>(a, s);
+  } else {
+    const bool two = a->pair != 0;
+    if (u) {
+      if (one)
+        return two ? launch_v<T, NL, true, 1, 2>(a, s)
+                   : launch_v<T, NL, true, 1, 1>(a, s);
+      return two ? launch_v<T, NL, true, MAXPOL, 2>(a, s)
+                 : launch_v<T, NL, true, MAXPOL, 1>(a, s);
+    }
+    if (one)
+      return two ? launch_v<T, NL, false, 1, 2>(a, s)
+                 : launch_v<T, NL, false, 1, 1>(a, s);
+    return two ? launch_v<T, NL, false, MAXPOL, 2>(a, s)
+               : launch_v<T, NL, false, MAXPOL, 1>(a, s);
   }
-  e = cudaEventRecord(fork, s);
-  if (e == cudaSuccess) e = cudaStreamWaitEvent(side, fork, 0);
-  if (e != cudaSuccess) return (int)e;
-  int rc = launch_c<T, true>(a, side);
-  if (rc == 0) rc = launch_c<T, false>(a, s);
-  if (rc == 0) e = cudaEventRecord(join, side);
-  if (rc == 0 && e == cudaSuccess) e = cudaStreamWaitEvent(s, join, 0);
-  return rc != 0 ? rc : (int)e;
 }
 
 extern "C" {
@@ -1033,25 +1045,20 @@ int mnt_k2_smem(int* out) {
   return (int)e;
 }
 
-// blocks of item class `nl` an SM can hold by their registers, for the
-// plan's variant (or -cudaError)
-int mnt_k2_blocks(const K2Args* a, int nl, int fp64) {
-  const void* k = fp64 ? (nl ? kernel_of<double, true>(*a)
-                             : kernel_of<double, false>(*a))
-                       : (nl ? kernel_of<float, true>(*a)
-                             : kernel_of<float, false>(*a));
-  int n = 0;
-  cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, K2_NTHR, 0);
-  return e == cudaSuccess ? n : -(int)e;
-}
-
-// Launch the call's kernels on `stream`, one per item class that has
-// items, each with the uPML layout as compile-time values when the plan
-// has it.  Returns the cudaError of the first call that failed, else 0.
-int mnt_k2_launch(const K2Args* a, int fp64, void* stream) {
+// Launch item class `nl` (0 linear, 1 nonlinear) on `stream`, with the
+// uPML layout as compile-time values when the plan has it; the wrapper
+// puts the nonlinear class on a stream of higher priority, forked from and
+// joined back to the caller's, so that its few long blocks take SMs first
+// and the linear ones fill the rest.  Returns the cudaError, else 0.
+int mnt_k2_launch(const K2Args* a, int nl, int fp64, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return fp64 ? launch<double>(a, s) : launch<float>(a, s);
+  if (a->depth < 2 || a->depth > 3 || a->pd.npol > MAXPOL || has_nl(a->pb) ||
+      a->nitems[nl ? 1 : 0] == 0)
+    return (int)cudaErrorInvalidValue;
+  return fp64 ? (nl ? launch_c<double, true>(a, s)
+                    : launch_c<double, false>(a, s))
+              : (nl ? launch_c<float, true>(a, s)
+                    : launch_c<float, false>(a, s));
 }
 
 }  // extern "C"

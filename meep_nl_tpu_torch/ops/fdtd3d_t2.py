@@ -58,10 +58,12 @@ KIND = {R_E: G_E, R_H: G_B, R_B: G_B, R_FUB: G_B, R_FWH: G_B, R_M: G_D,
 #: the rows of per-axis coefficients an item stages along y and along z
 #: (csrc/fdtd3d_t2.cu: 5 fields of 6 curl components, 3 of 6 E/H ones)
 NROW = 48
-#: the (tile, chunk) items a call aims at for each SM (one block per SM)
-ITEMS_PER_SM = 4
-#: dynamic shared memory a block may have on the H100 (bytes); the wrapper
-#: asks the card, this is what it answers
+#: the (tile, chunk) linear items a call aims at for each block an SM holds
+ITEMS_PER_BLOCK = 4
+#: the shared memory of a block that has its SM to itself on the H100
+#: (bytes): what `supported` admits a plan by; `Fdtd3dT2Kernel._items` takes
+#: the same from the card (mnt_k2_smem: the least of a block's most and the
+#: SM's less the per-block reserve), and the card tests hold the two equal
 SMEM_H100 = 232448
 
 
@@ -155,25 +157,31 @@ def march(depth: int, nl: bool) -> Dict[str, Any]:
     return {"h": h, "n": n, "lag": lag, "ns": ns}
 
 
-def regions(depth: int, nl: bool, lo: int, hi: int, size: int
+def regions(depth: int, nl: bool, lo: int, hi: int, size: int, hs=None
             ) -> Dict[Any, Tuple[int, int]]:
-    """Along y or z, the sites an item with output [lo, hi) updates, clipped
-    to [0, size): per stage s (1-based) its B/H ('b', s), D ('d', s) and E
+    """Along one axis, the sites an item with output [lo, hi) updates,
+    clipped to [0, size): per stage s (1-based) its B/H ('b', s), D ('d', s) and E
     ('e', s) regions; and per ring kind the span of its plane, unclipped
     (the first stage's region of the ring's first writer; the E ring also
-    the input's E that the first B/H reads at +1)."""
+    the input's E that the first B/H reads at +1).  `hs` = (below, above):
+    the sites a stage grows by on each side (default: march's h on both;
+    1 on a side of a nonlinear item where no stage's E region reaches a
+    chi2/chi3 site at its edge, `side_widths`); the ring planes keep the
+    class's h."""
     m = march(depth, nl)
-    h, n = m["h"], m["n"]
+    h = m["h"]
+    ha, hb = hs or (h, h)
 
     def clip(a, b):
         return max(a, 0), min(b, size)
 
     out = {}
     for s in range(1, depth + 1):
-        g = (depth - s) * h
-        out["b", s] = clip(lo - g - h, hi + g + n)
-        out["d", s] = clip(lo - g - n, hi + g + n)
-        out["e", s] = clip(lo - g, hi + g)
+        ga, gb = (depth - s) * ha, (depth - s) * hb
+        out["b", s] = clip(lo - ga - ha, hi + gb + hb - 1)
+        out["d", s] = clip(lo - ga - ha + 1, hi + gb + hb - 1)
+        out["e", s] = clip(lo - ga, hi + gb)
+    n = h - 1
     g1 = (depth - 1) * h
     out[G_E] = (lo - depth * h, hi + depth * h)
     out[G_B] = (lo - g1 - h, hi + g1 + n)
@@ -182,36 +190,59 @@ def regions(depth: int, nl: bool, lo: int, hi: int, size: int
     return out
 
 
-def march_order(depth: int, nl: bool, i0: int, i1: int, S0: int):
+def march_order(depth: int, nl: bool, i0: int, i1: int, S0: int, hs=None):
     """The x-march of an item with output planes [i0, i1), as the kernel
     runs it: [(step, what, stage, plane)] in order, what being 'load' (the
     input's E plane brought into its ring, issued at that step and complete
-    one step later), 'b' (B/H), 'd' (D) or 'e' (E with the ADE)."""
+    one step later), 'b' (B/H), 'd' (D) or 'e' (E with the ADE).  `hs`: the
+    planes a stage grows by below and above, as in `regions`."""
     m = march(depth, nl)
     h, n, lag = m["h"], m["n"], m["lag"]
-    G = depth * h
+    ha, hb = hs or (h, h)
     out = []
 
     def load(t, p):
-        if i0 - G <= p < i1 + G and 0 <= p < S0:
+        if i0 - depth * ha <= p < i1 + depth * hb and 0 <= p < S0:
             out.append((t, "load", 0, p))
 
-    t0, t1 = i0 - G, i1 + n + (depth - 1) * lag
+    t0, t1 = i0 - depth * ha, i1 + n + (depth - 1) * lag
     load(t0 - 1, t0)
     load(t0 - 1, t0 + 1)
     for t in range(t0, t1):
         load(t, t + 2)
         for s in range(1, depth + 1):
-            g = (depth - s) * h
+            ga, gb = (depth - s) * ha, (depth - s) * hb
             b = t - (s - 1) * lag
-            xlo, xhi = i0 - g, i1 + g
-            if xlo - h <= b < xhi + n and 0 <= b < S0:
+            xlo, xhi = i0 - ga, i1 + gb
+            if xlo - ha <= b < xhi + hb - 1 and 0 <= b < S0:
                 out.append((t, "b", s, b))
-            if xlo - n <= b < xhi + n and 0 <= b < S0:
+            if xlo - ha + 1 <= b < xhi + hb - 1 and 0 <= b < S0:
                 out.append((t, "d", s, b))
             if xlo <= b - n < xhi and 0 <= b - n < S0:
                 out.append((t, "e", s, b - n))
     return out
+
+
+def side_widths(depth: int, sat, box) -> int:
+    """The sides of a nonlinear item (output `box` = ((x0, x1), (y0, y1),
+    (z0, z1))) that grow by 2 sites a stage, as bits (axis * 2 + 0 below,
+    + 1 above); the others grow by 1.  A side may grow by 1 when no stage's
+    E region, grown so, holds a chi2/chi3 site (`sat`, _nl_counts) in its
+    edge layer on that side: only such a site reads D - P one site beyond
+    its stage's E region (the region of every stage the others span by at
+    most 2 sites a stage)."""
+    bits = 0
+    for ax in range(3):
+        lo, hi = box[ax]
+        for side in (0, 1):
+            for s in range(1, depth + 1):
+                e = depth - s
+                layer = [(a - 2 * e, b + 2 * e) for a, b in box]
+                c = lo - e if side == 0 else hi + e - 1
+                layer[ax] = (c, c + 1)
+                if _count(sat, layer) > 0:
+                    bits |= 1 << (ax * 2 + side)
+    return bits
 
 
 # ---------------------------------------------------------------------------
@@ -345,22 +376,23 @@ def _tiles(most):
     return sorted(cand, key=lambda t: (-t[0] * t[1], t[0] + t[1]))
 
 
-def plan_items(plan, depth: int, most, budgets, ch=None):
+def plan_items(plan, depth: int, most, budgets, ch=None, blocks=1):
     """The items of one call and the two classes' layouts: y-z tiles of at
     most `most` sites cut as evenly as the storage allows, x-chunks of `ch`
-    planes (default: ITEMS_PER_SM items for each of the card's SMs).  An
-    item is nonlinear when its first stage's E region holds a site with a
-    nonzero chi2 or chi3 coefficient (elsewhere the linear update is exact:
-    the Pade factor of zero coefficients is 1, the NR solve is skipped):
-    the y-z tiles that hold one anywhere along x are cut into the
-    nonlinear class's smaller tiles, each over the planes between its
-    first and last that need the nonlinear update cut into as many x-chunks
-    as let the nonlinear items about fill the card's SMs once, the planes
-    before and after linear items in chunks.  Each class takes the largest
-    tile whose rings fit its budget (bytes; `budgets` = (linear,
-    nonlinear)).  Returns (items as an (n, 8) int32 array, the linear ones
-    first, [linear layout or None, nonlinear layout or None], chunk
-    length, items per class, the linear tile)."""
+    planes (default: ITEMS_PER_BLOCK items for each of the `blocks` linear
+    blocks each of the card's SMs holds).  An item is nonlinear when its
+    first stage's E region holds a site with a nonzero chi2 or chi3
+    coefficient (elsewhere the linear update is exact: the Pade factor of
+    zero coefficients is 1, the NR solve is skipped): the y-z tiles that
+    hold one anywhere along x are cut into the nonlinear class's smaller
+    tiles, each over the planes between its first and last that need the
+    nonlinear update, cut into x-chunks of at most the planes that would
+    spread all of these evenly over the card's SMs (one nonlinear block an
+    SM), the planes before and after linear items in chunks.  Each class
+    takes the largest tile whose rings fit its budget (bytes; `budgets` =
+    (linear, nonlinear)).  Returns (items as an (n, 8) int32 array, the
+    linear ones first, [linear layout or None, nonlinear layout or None],
+    chunk length, items per class, the linear tile)."""
     shape = tuple(plan.storage_shape or plan.gv.shape)
     item = np.dtype(plan.dtype).itemsize
     sat = _nl_counts(plan)
@@ -379,7 +411,8 @@ def plan_items(plan, depth: int, most, budgets, ch=None):
     for tl in _tiles(most):
         ys, zs = _splits(shape[1], tl[0]), _splits(shape[2], tl[1])
         if ch is None:
-            nch = -(-fdtd3d.SMS * ITEMS_PER_SM // (len(ys) * len(zs)))
+            nch = -(-fdtd3d.SMS * ITEMS_PER_BLOCK * blocks
+                    // (len(ys) * len(zs)))
             chunk = -(-shape[0] // max(1, min(shape[0], nch)))
         else:
             chunk = int(ch)
@@ -403,12 +436,11 @@ def plan_items(plan, depth: int, most, budgets, ch=None):
                             hots.append((h, y2, z2))
                         lin += [(x, y2, z2) for span in spans
                                 for x in _splits_in(span, chunk)]
-            # each nonlinear column in as many x-chunks as let the items
-            # about fill the card's SMs once (one block an SM)
-            cuts = max(1, fdtd3d.SMS // max(1, len(hots)))
+            # the nonlinear planes spread over the card's SMs: a column's
+            # hot planes in chunks of at most an SM's share of them all
+            share = -(-sum(b - a for (a, b), _, _ in hots) // fdtd3d.SMS)
             for (a, b), y2, z2 in hots:
-                nl += [(x, y2, z2)
-                       for x in _splits_in((a, b), -(-(b - a) // cuts))]
+                nl += [(x, y2, z2) for x in _splits_in((a, b), share)]
             lay_lin = _fit(plan, depth, False, lin, tl, budgets[0], item) \
                 if lin else None
             if lin and lay_lin is None:
@@ -417,7 +449,9 @@ def plan_items(plan, depth: int, most, budgets, ch=None):
                 if nl else None
             if nl and lay_nl is None:
                 continue
-            items = [(*x, *y, *z, 0, 0) for x, y, z in lin + nl]
+            items = [(*x, *y, *z, 0, 0) for x, y, z in lin] + \
+                [(*x, *y, *z, side_widths(depth, sat, (x, y, z)), 0)
+                 for x, y, z in nl]
             return (np.array(items, np.int32).reshape(-1, 8),
                     [lay_lin, lay_nl], chunk, (len(lin), len(nl)), tl)
     raise ValueError("fdtd3d_t2: no item's rings fit the card's shared "
@@ -496,10 +530,8 @@ def bind(lib):
     check its argument layout against this module's (once per library)."""
     if not getattr(lib, "_mnt_bound", False):
         lib.mnt_k2_args_size.restype = ctypes.c_longlong
-        lib.mnt_k2_blocks.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int]
         lib.mnt_k2_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_void_p]
+                                      ctypes.c_int, ctypes.c_void_p]
         lib.mnt_k2_launch.restype = ctypes.c_int
         if lib.mnt_k2_args_size() != ctypes.sizeof(_K2Args):
             raise RuntimeError("csrc/fdtd3d_t2.cu K2Args layout does not "
@@ -510,6 +542,13 @@ def bind(lib):
         lib.mnt_nthr = tile[2]
         lib._mnt_bound = True
     return lib
+
+
+def side_stream(device):
+    """A stream of higher priority than the default on `device`, for the
+    nonlinear item class (one per kernel object, so no two plans or
+    devices share it)."""
+    return torch.cuda.Stream(device=device, priority=-1)
 
 
 def k1_of(plan) -> fdtd3d.Fdtd3dKernel:
@@ -737,33 +776,35 @@ class Fdtd3dT2Kernel:
             A.ed_of[q] = d_idx[s.dc]
 
     def _items(self, lib, A):
-        """plan_items for the loaded library, with A.pair set: each class's
-        rings get the SM's shared memory shared by as many blocks as its
-        registers let an SM hold (within a block's most); linear items run
-        two blocks an SM (the variant held to 64 registers) when that
-        budget still takes the largest tile the single-block one does,
-        else one."""
+        """plan_items for the loaded library, with A.pair set: a nonlinear
+        block, or a linear one that has its SM to itself, gets the card's
+        whole budget (SMEM_H100 on the H100); linear items run two blocks
+        an SM (the variant held to 64 registers, each with half the SM's
+        shared memory) when that still takes the largest tile the single
+        block does, or when the plan has nonlinear items: those hold an SM
+        each for most of the call, and the finer linear blocks fill the
+        rest of the card more evenly (PERF.md §6)."""
         smem = (ctypes.c_int * 3)()
         rc = lib.mnt_k2_smem(smem)
         if rc != 0:
             raise RuntimeError(f"fdtd3d_t2: shared memory (cudaError {rc})")
         most, per_sm, reserve = smem
-        fp64 = 1 if self.dtype == torch.float64 else 0
-
-        def budget(nl):
-            blocks = lib.mnt_k2_blocks(ctypes.byref(A), nl, fp64)
-            if blocks < 1:
-                raise RuntimeError(f"fdtd3d_t2: occupancy (cudaError "
-                                   f"{-blocks})")
-            return min(most, per_sm // blocks - reserve)
-
+        one = min(most, per_sm - reserve)
+        two = min(most, per_sm // 2 - reserve)
         plans = {}
-        for pair in (1, 0):
+        for pair, lin in ((0, one), (1, two)):
             A.pair = pair
-            plans[pair] = plan_items(self.plan, self.depth, lib.mnt_tile,
-                                     (budget(0), budget(1)), self.ch)
-        area = {p: v[4][0] * v[4][1] for p, v in plans.items()}
-        A.pair = 1 if area[1] >= area[0] else 0
+            try:
+                plans[pair] = plan_items(self.plan, self.depth, lib.mnt_tile,
+                                         (lin, one), self.ch, 1 + pair)
+            except ValueError:
+                if pair == 0:
+                    raise
+        two_ok = 1 in plans and (
+            plans[1][3][1] > 0
+            or plans[1][4][0] * plans[1][4][1]
+            >= plans[0][4][0] * plans[0][4][1])
+        A.pair = 1 if two_ok else 0
         return plans[A.pair][:4]
 
     def _setup_cuda(self, lib, state):
@@ -911,14 +952,34 @@ class Fdtd3dT2Kernel:
                                   device=dev)
             A.cap_out = cap_out.data_ptr()
             caps = {name: cap_out[e:e + 1] for name, e in plane.items()}
-        rc = lib.mnt_k2_launch(ctypes.byref(A),
-                               1 if self.dtype == torch.float64 else 0,
-                               torch.cuda.current_stream().cuda_stream)
+        self._launch(lib, cu, A)
+        return {**out, "t": state["t"] + self.depth}, caps
+
+    def _launch(self, lib, cu, A):
+        """Launch the call's item classes: a lone class on the caller's
+        stream; both, the nonlinear class on the kernel's side stream of
+        higher priority, forked from the caller's stream and joined back to
+        it, and the linear class on the caller's."""
+        fp64 = 1 if self.dtype == torch.float64 else 0
+        cur = torch.cuda.current_stream()
+        if A.nitems[0] and A.nitems[1]:
+            side = cu.get("side")
+            if side is None:
+                side = cu["side"] = side_stream(self.plan.device)
+            side.wait_stream(cur)
+            rc = lib.mnt_k2_launch(ctypes.byref(A), 1, fp64,
+                                   side.cuda_stream)
+            if rc == 0:
+                rc = lib.mnt_k2_launch(ctypes.byref(A), 0, fp64,
+                                       cur.cuda_stream)
+            cur.wait_stream(side)
+        else:
+            rc = lib.mnt_k2_launch(ctypes.byref(A), 1 if A.nitems[1] else 0,
+                                   fp64, cur.cuda_stream)
         self.launches += self.launches_per_call
         if rc != 0:
             raise RuntimeError(f"fdtd3d_t2 kernel launch failed: "
                                f"cudaError {rc}")
-        return {**out, "t": state["t"] + self.depth}, caps
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,9 @@ and 2).  For each plan and depth it prints
     (chip_smoke.launch_breakdown), times `depth`: the yardstick;
   * the bound (`step_cost` at 3.35 TB/s or 67 TFLOP/s) and the share of
     it K2 reaches;
-  * for a tree whose K2 lists items: their count, the nonlinear ones and
-    the two classes' shared memory;
+  * for a tree whose K2 lists items: their count, the nonlinear ones, the
+    two classes' shared memory, the linear blocks an SM, and (`class_times`)
+    each class timed alone and the call with no narrow side;
 then ptxas's report on the tree's csrc/fdtd3d_t2.cu (registers, stack,
 spills per variant) and the card's name and power limit.  Needs a CUDA
 device.
@@ -50,6 +51,40 @@ def ptxas_report(build) -> str:
     keep = ("Compiling entry", "stack frame", "Used")
     return "\n".join("    " + ln.strip() for ln in res.stderr.splitlines()
                      if any(k in ln for k in keep))
+
+
+def class_times(T2, CS, plan, ker, st, rows, depth, caps) -> str:
+    """For a tree whose K2 splits its items into a linear and a nonlinear
+    class: each class's launch timed alone (the other class's item count
+    set to 0, so the state is wrong and only the time counts), and where
+    the tree grows a nonlinear item's sides by 1 where it may
+    (`side_widths`), the call with every side grown by 2."""
+    cu = ker._cuda
+    if not cu.get("nl_items") or cu["nitems"] == cu["nl_items"]:
+        return ""
+    A = cu["args"]
+    n0, n1 = A.nitems[0], A.nitems[1]
+    A.nitems[1] = 0
+    lin, _ = CS.time_steps(ker.step, CS.clone_state(st), rows, per=depth,
+                           nwarm=2)
+    A.nitems[0], A.nitems[1] = 0, n1
+    A.items = cu["items"][n0:].data_ptr()
+    nl, _ = CS.time_steps(ker.step, CS.clone_state(st), rows, per=depth,
+                          nwarm=2)
+    A.nitems[0] = n0
+    A.items = cu["items"].data_ptr()
+    out = f"; linear class alone {lin:.4f} ms, nonlinear class alone {nl:.4f}"
+    if hasattr(T2, "side_widths"):
+        real = T2.side_widths
+        T2.side_widths = lambda depth, sat, box: 63
+        try:
+            wide = T2.Fdtd3dT2Kernel(plan, depth=depth, cap_planes=caps)
+            ms, _ = CS.time_steps(wide.step, CS.clone_state(st), rows,
+                                  per=depth, nwarm=2)
+        finally:
+            T2.side_widths = real
+        out += f"; every nonlinear side grown by 2: {ms:.4f} ms/call"
+    return out
 
 
 def main() -> int:
@@ -104,7 +139,9 @@ def main() -> int:
                 items = (f"; {cu['nitems']} items ({cu['nl_items']} "
                          f"nonlinear), x-chunk {cu['ch']}, shared memory "
                          f"{smem[0]:.1f} / {smem[1]:.1f} KiB (linear / "
-                         f"nonlinear class)")
+                         f"nonlinear class), linear blocks an SM "
+                         f"{1 + cu.get('pair', 0)}")
+            items += class_times(T2, CS, plan, ker, st, rows, depth, caps)
             cap = f" + {len(ker.captures)} captures" if caps else ""
             print(f"[{label}] {scene} K2 depth {depth}{cap}"
                   f": max abs vs plain {err:.3e}; {ms:.4f} ms/call = "

@@ -40,7 +40,6 @@ static dim3 blockIdx(0, 0, 0), blockDim, gridDim, threadIdx(0, 0, 0);
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 typedef int cudaDeviceAttr;
-typedef void* cudaEvent_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
@@ -131,28 +130,6 @@ cudaError_t cudaLaunchKernel(void (*fn)(A...), dim3 grid, dim3, void** args,
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
-// streams and events: the one host thread runs every launch when it is
-// made, so ordering is trivially kept
-enum { cudaStreamNonBlocking = 1, cudaEventDisableTiming = 2 };
-inline cudaError_t cudaDeviceGetStreamPriorityRange(int* lo, int* hi) {
-  *lo = *hi = 0;
-  return 0;
-}
-inline cudaError_t cudaStreamCreateWithPriority(cudaStream_t* s, unsigned,
-                                                int) {
-  static int token;
-  *s = &token;
-  return 0;
-}
-inline cudaError_t cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) {
-  static int token;
-  *e = &token;
-  return 0;
-}
-inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
-inline cudaError_t cudaStreamWaitEvent(cudaStream_t, cudaEvent_t, unsigned) {
-  return 0;
-}
 template <class T>
 T atomicAdd(T* p, T v) {
   T old = *p;

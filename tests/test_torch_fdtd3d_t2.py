@@ -260,12 +260,14 @@ OWN = {"b": (T2.R_B, T2.R_FUB, T2.R_FWH, T2.R_H),
        "e": (T2.R_FWE, T2.R_P, T2.R_PP, T2.R_E)}
 
 
-def replay_march(depth, nl, i0, i1, S0, ns=None):
+def replay_march(depth, nl, i0, i1, S0, ns=None, hs=None, hot=None):
     """Execute T2.march_order on counters instead of fields.  Every (ring,
     slot) holds (plane, stage); a read must find the plane it wants at the
     stage the sequential algorithm gives it, the input's E planes must be
     complete (issued a step before), and the last stage must reach every
-    output plane.  `ns`: ring planes (default T2.march's)."""
+    output plane.  `ns`: ring planes (default T2.march's); `hs`: the growth
+    below and above (march_order); `hot`: the planes whose E reads D - P at
+    +-1 on a nonlinear item (default: all)."""
     ns = ns or T2.march(depth, nl)["ns"]
     ring, issued, done = {}, {}, set()
 
@@ -279,7 +281,7 @@ def replay_march(depth, nl, i0, i1, S0, ns=None):
             if role == T2.R_E and v == 0:
                 assert issued[p] < t, ("E not loaded", p)
 
-    for t, what, s, p in T2.march_order(depth, nl, i0, i1, S0):
+    for t, what, s, p in T2.march_order(depth, nl, i0, i1, S0, hs):
         ev = (what, s, p)
         if what == "load":
             write(T2.R_E, p, 0)
@@ -298,7 +300,7 @@ def replay_march(depth, nl, i0, i1, S0, ns=None):
                 read(T2.R_P, p, s - 1, t, ev)
         else:
             read(T2.R_D, p, s, t, ev)
-            if nl:
+            if nl and (hot is None or p in hot):
                 for dp in (-1, 0, 1):
                     read(T2.R_M, p + dp, s, t, ev)
         for role in OWN[what] + ((T2.R_M,) if nl and what == "d" else ()):
@@ -308,13 +310,13 @@ def replay_march(depth, nl, i0, i1, S0, ns=None):
         assert {(w, depth, p) for w in "bde"} <= done, p
 
 
-def replay_regions(depth, nl, lo, hi, size, reg=None):
+def replay_regions(depth, nl, lo, hi, size, reg=None, hs=None, hot=None):
     """The same along y or z, with T2.regions: every site a stage reads
     across sites or at its own position was updated by the stage that
     must have written it, or (stage 1) lies in the input's E plane of the
     ring; every read falls inside its ring's plane; the last stage covers
-    the output [lo, hi)."""
-    reg = reg or T2.regions(depth, nl, lo, hi, size)
+    the output [lo, hi).  `hs`, `hot` as in replay_march."""
+    reg = reg or T2.regions(depth, nl, lo, hi, size, hs)
     ver = {}
 
     def span(key):
@@ -344,7 +346,8 @@ def replay_regions(depth, nl, lo, hi, size, reg=None):
                         read(T2.R_P, c, s - 1)
                 else:
                     read(T2.R_D, c, s)
-                    for dc in ((-1, 0, 1) if nl else ()):
+                    near = nl and (hot is None or c in hot)
+                    for dc in ((-1, 0, 1) if near else ()):
                         read(T2.R_M, c + dc, s)
             for c in span((what, s)):
                 for role in OWN[what] + ((T2.R_M,) if nl and what == "d"
@@ -375,6 +378,79 @@ def test_march_replay_catches_a_short_ring(role):
     ns[getattr(T2, role)] -= 1
     with pytest.raises(AssertionError):
         replay_march(3, True, *PLACES["inner"], ns=ns)
+
+
+def narrow_hot(depth, lo, hi, size, hs):
+    """The chi2/chi3 coordinates a nonlinear item with growth `hs` may
+    hold: all but the edge layers of its stages' E regions on its narrow
+    (growth 1) sides."""
+    edge = set()
+    if hs[0] == 1:
+        edge |= set(range(lo - depth + 1, lo + 1))
+    if hs[1] == 1:
+        edge |= set(range(hi - 1, hi + depth - 1))
+    return set(range(size)) - edge
+
+
+#: (below, above) growth of a nonlinear item's narrow sides
+NARROW = {"below": (1, 2), "above": (2, 1), "both": (1, 1)}
+
+
+@pytest.mark.parametrize("place", sorted(PLACES))
+@pytest.mark.parametrize("hs", sorted(NARROW))
+@pytest.mark.parametrize("depth", [2, 3])
+def test_narrow_sides_order_every_access(depth, hs, place):
+    """A nonlinear item grown by 1 on a side whose stages' E regions hold
+    no chi2/chi3 site at their edge: the march and the regions still find
+    every value they read."""
+    i0, i1, S0 = PLACES[place]
+    hot = narrow_hot(depth, i0, i1, S0, NARROW[hs])
+    replay_march(depth, True, i0, i1, S0, hs=NARROW[hs], hot=hot)
+    replay_regions(depth, True, i0, i1, S0, hs=NARROW[hs], hot=hot)
+
+
+@pytest.mark.parametrize("hs", sorted(NARROW))
+def test_narrow_side_replay_catches_a_site_at_the_edge(hs):
+    """A chi2/chi3 site in a narrow side's edge layer reads D - P that no
+    stage computed."""
+    i0, i1, S0 = PLACES["inner"]
+    ha, hb = NARROW[hs]
+    hot = narrow_hot(3, i0, i1, S0, NARROW[hs])
+    hot.add(i0 if ha == 1 else i1 - 1)
+    with pytest.raises(AssertionError):
+        replay_regions(3, True, i0, i1, S0, hs=NARROW[hs], hot=hot)
+    with pytest.raises(AssertionError):
+        replay_march(3, True, i0, i1, S0, hs=NARROW[hs], hot=hot)
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_side_widths_match_the_edge_layers(depth):
+    """side_widths (summed-volume counts) against the edge layers cut from
+    a random chi2 mask directly."""
+    rng = np.random.default_rng(depth)
+    mask = rng.random((20, 18, 16)) < 0.01
+    sat = np.zeros(tuple(n + 1 for n in mask.shape), np.int64)
+    sat[1:, 1:, 1:] = mask.cumsum(0).cumsum(1).cumsum(2)
+    wide = 0
+    for _ in range(40):
+        box = [tuple(sorted(rng.integers(0, n, 2) + (0, 1)))
+               for n in mask.shape]
+        bits = T2.side_widths(depth, sat, box)
+        for ax in range(3):
+            for side in (0, 1):
+                need = False
+                for s in range(1, depth + 1):
+                    g = 2 * (depth - s)
+                    sl = [slice(max(lo - g, 0), max(hi + g, 0))
+                          for lo, hi in box]
+                    lo, hi = box[ax]
+                    c = lo - (depth - s) if side == 0 else hi + depth - s - 1
+                    sl[ax] = slice(c, c + 1) if 0 <= c < mask.shape[ax] \
+                        else slice(0, 0)
+                    need |= bool(mask[tuple(sl)].any())
+                assert bool((bits >> (2 * ax + side)) & 1) == need
+                wide += need
+    assert 0 < wide < 40 * 6
 
 
 def test_region_replay_catches_a_short_halo():
@@ -423,7 +499,7 @@ def test_items_tile_the_storage_once(scene):
 
 
 def nine_source_sim(device, **kw):
-    from test_torch_fdtd3d_t2_gpu import nine_source_sim as sim
+    from chip_smoke import nine_source_sim as sim
     return sim(mtt, device, **kw)
 
 

@@ -23,6 +23,8 @@ from meep_nl_tpu_torch.ops import fdtd3d_t2 as T2
 from meep_nl_tpu_torch.ops import resident as R
 from meep_nl_tpu_torch.stepper import step as TS
 
+from chip_smoke import nine_source_sim
+
 NCALL = 2
 T0 = 20             # near the source's peak: every stage's source row matters
 
@@ -106,22 +108,6 @@ def _host(st):
                      for k in ("f", "f_u", "f_w")},
             "pol": [{k: {c: t.cpu().clone() for c, t in e[k].items()}
                      for k in ("p", "pp")} for e in st["pol"]]}
-
-
-def nine_source_sim(mp, device, **kw):
-    """A 3x3x3 cell at resolution 8 with PML 0.5 and nine Gaussian Ez point
-    sources (more than the first K2 port's argument block took), on no
-    lattice plane; `kw` goes to Simulation (use_fused)."""
-    spots = [(-0.8 + 0.2 * i, 0.1 * (i % 3) - 0.1, 0.07 * i - 0.3)
-             for i in range(9)]
-    sim = mp.Simulation(
-        cell_size=mp.Vector3(3, 3, 3), resolution=8,
-        sources=[mp.Source(mp.GaussianSource(1.0, fwidth=0.5),
-                           component=mp.Ez, center=mp.Vector3(*at))
-                 for at in spots],
-        boundary_layers=[mp.PML(0.5)], device=device, **kw)
-    sim.init_sim()
-    return sim
 
 
 #: case -> (scene, depth, capture planes, dtype, sources, x-planes per
@@ -291,3 +277,19 @@ def test_kernel_refuses_bad_tensors_on_cuda():
     with pytest.raises(ValueError, match="rows"):
         ker.step(TS.init_state(plan), rows[:1])
     assert ker.launches == 0
+
+
+@pytest.mark.gpu
+def test_block_budget_is_what_supported_admits_by_on_cuda():
+    """`supported` admits a plan by SMEM_H100, the wrapper sizes the items
+    by what the card reports: on the H100 the two are one number, so a
+    plan `supported` admits always finds a tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if "H100" not in torch.cuda.get_device_name(0):
+        pytest.skip("SMEM_H100 is the H100's figure")
+    import ctypes
+    smem = (ctypes.c_int * 3)()
+    assert T2._lib().mnt_k2_smem(smem) == 0
+    most, per_sm, reserve = smem
+    assert min(most, per_sm - reserve) == T2.SMEM_H100
