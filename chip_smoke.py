@@ -219,6 +219,23 @@ def ring_sim(mp, res, device):
         boundary_layers=[mp.PML(dpml)], device=device)
 
 
+def schedule_text(ker, nsteps, probed):
+    """K3/K4's schedule of a stretch of nsteps: tiles, T, blocks, shared
+    memory per block, passes and grid barriers; or the direct schedule's
+    blocks and grid barriers a step."""
+    d = ker.describe(nsteps, probed)
+    if d["direct"]:
+        return (f"direct schedule (tiles would give no temporal reuse): "
+                f"the whole grid in place, {d['blocks']} blocks, T 1, "
+                f"{d['barriers'][0]}-{d['barriers'][1]} grid barriers a "
+                f"step, {d['passes']} steps per {nsteps}-step stretch")
+    tile = "x".join(str(v) for v in d["t"][:len(ker.shape)])
+    return (f"tiles {tile} ({d['ntile']}), T {d['T']}, {d['blocks']} "
+            f"blocks of {d['smem']} B shared memory (+ static), "
+            f"{d['passes']} passes = {d['barriers']} grid barriers per "
+            f"{nsteps}-step stretch")
+
+
 def compare_resident(ker, st0, t0, nsteps, probes=()):
     """K3 (K4 with probes) against resident_ref over nsteps from state st0
     at step t0 (these launches are not counted); returns (abs, rel, the
@@ -638,12 +655,6 @@ def phase_resident(mp, dev, card, blank):
           "replaces": K4_REPLACES, **blank}
     k3["launches"] = k4["launches"] = 0
     k3["max_abs_err"] = k4["max_abs_err"] = 0.0
-    grids = {f"{'K4' if pr else 'K3'}{' nonlinear' if nl else ''}":
-             R._lib().mnt_k3_max_blocks(nl, pr) for pr in (0, 1)
-             for nl in (0, 1)}
-    print(f"[7] K3/K4's largest co-resident grids (blocks of 256 threads): "
-          f"{grids}", flush=True)
-
     # ---- 7: bench.py::run_resident's scene, 767^2 ----------------------
     n, nsteps = 767, 1000
     cells = n * n
@@ -673,6 +684,8 @@ def phase_resident(mp, dev, card, blank):
               + (f"; flux {flux_v.tolist()}" if flux else "") + f" ({card})",
               flush=True)
         ker = plan._resident_kernel
+        print(f"[7] K3 at 767^2 ({label}): {schedule_text(ker, 1000, False)}",
+              flush=True)
         st, t_end = sim.fields_state, sim._t
         starts = [("the run's state", st)]
         if flux:
@@ -761,6 +774,8 @@ def phase_resident(mp, dev, card, blank):
         raise AssertionError(f"ring modes differ between card and CPU: "
                              f"series {srel:.3e}, frequencies {worst:.3e}")
     ker = sim.plan._resident_kernel
+    print(f"[8] K4 at the ring: {schedule_text(ker, 1024, True)}",
+          flush=True)
     st, t_end = sim.fields_state, sim._t
     probe = [sim._point_probe("hm0", mp.Ez, mp.Vector3(r + 0.1))]
     err, rel, _, serr = compare_resident(ker, st, t_end, 20, probe)
@@ -1320,6 +1335,21 @@ def main() -> int:
             raise AssertionError(f"16^3 scene on {d}: routes "
                                  f"{dict(s2.routes)}, K3 launches "
                                  f"{rk.launches}, plain {rk.plain_steps}")
+        if d == "cuda":
+            print(f"[4] 16^3 scene ({s2.plan.storage_shape}) on the resident "
+                  f"route: {schedule_text(rk, 200, False)}", flush=True)
+            # K3 in 3D against its plain version, from the run's state and
+            # from a seeded random one (every site's chi2 partner sums on)
+            for what, st0 in (("the run's state", s2.fields_state),
+                              ("a random state",
+                               random_state(s2.plan, 13, d))):
+                err, rel, drel, _ = compare_resident(rk, st0, s2._t, 20)
+                print(f"[4] K3 vs plain at 16^3 from {what}, 20 steps: max "
+                      f"abs {err:.3e}, max rel {rel:.3e}; DTFT max rel "
+                      f"{drel:.3e}", flush=True)
+                if not (rel <= 1e-5 and drel <= 1e-5):
+                    raise AssertionError(f"K3 disagrees at 16^3 from {what}:"
+                                         f" rel {rel:.3e}, DTFT {drel:.3e}")
     for i, what in enumerate(("flux", "ez")):
         rel = rel_diff(out["cuda"][i], out["cpu"][i])
         print(f"[4] 16^3 scene, card vs CPU {what}: max rel {rel:.3e}",

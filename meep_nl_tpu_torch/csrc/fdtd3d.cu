@@ -605,7 +605,7 @@ __device__ __forceinline__ void curl_site_k1(const K1Args& A, const T* tab,
 
 // ---- K_E: E from D - P, the W chain, the ADE -----------------------------
 
-// D - P of E component qq at ring position o of slot `sl` (dmp_at's order)
+// D - P of E component qq at ring position o of slot `sl` (D, then each P in pole order)
 template <typename T>
 __device__ __forceinline__ T ring_dmp(const K1Args& A, const T* ring, int sl,
                                       int qq, int o) {

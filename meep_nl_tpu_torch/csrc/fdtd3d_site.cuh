@@ -1,17 +1,14 @@
 // The per-site arithmetic of one 3D Yee step, shared by K1 (fdtd3d.cu),
 // K2 (fdtd3d_t2.cu) and K3/K4 (resident.cu).
 //
-// Two layers.  The value functions (curl_delta, curl_value, nr_solve_n,
+// The value functions (curl_delta, curl_value, nr_solve_n,
 // pade, w_value, ade_value) take values and return values: every rounding
-// of the step lives in them, in the plain version's operation order.  The
-// load-based entry points (curl_site, eh_lin / eh_site, w_store, pol_site)
-// read a site's operands from device memory, call the value functions and
-// store; K3/K4 run these.  K1 and K2 feed the same value functions from
-// their shared-memory plane rings instead, so all the kernels round alike.
-//
-// The load-based functions take the flat index n = (i*S1 + j)*S2 + k of
-// their site (i, j, k) into the full-grid arrays; the per-axis coefficient
-// vectors and the 0/1 alive vectors are indexed by the coordinates.
+// of the step lives in them, in the plain version's operation order.  Each
+// kernel feeds them from where it keeps its operands -- K1 and K2 from
+// their shared-memory plane rings, K3/K4 from tiles staged in shared memory
+// -- so all the kernels round alike.  The rest: the parameter blocks the
+// wrappers build (ops/fdtd3d.py::build_params), the difference `diff` of
+// device-memory arrays (K5), the W-chain store `w_store` (K1).
 
 #pragma once
 
@@ -91,21 +88,6 @@ __device__ __forceinline__ i64 stride(const Params& P, i64 ax) {
   return ax == 0 ? P.S1 * P.S2 : (ax == 1 ? P.S2 : 1);
 }
 
-__device__ __forceinline__ bool in_slab(i64 c, i64 lo, i64 hi, i64 n) {
-  return c < lo || (c >= n - hi && c < n);
-}
-
-// the product of the per-axis 0/1 vectors step.alive_vectors builds
-template <typename T>
-__device__ __forceinline__ T mask_of(const void* const alive[3], i64 i,
-                                     i64 j, i64 k) {
-  T m = T(1);
-  if (alive[0]) m = m * ((const T*)alive[0])[i];
-  if (alive[1]) m = m * ((const T*)alive[1])[j];
-  if (alive[2]) m = m * ((const T*)alive[2])[k];
-  return m;
-}
-
 // D: backward difference g - g[-1]; B: forward difference g[+1] - g;
 // zero outside the storage (the PEC / not-owned convention of step._sh)
 template <typename T, bool IS_D>
@@ -147,79 +129,6 @@ __device__ __forceinline__ T curl_value(T f, T dfl, bool sig_ax, bool sig_on,
     base = siginvu * (kmsu * f + *fun - fuo);
   }
   return base;
-}
-
-template <typename T, bool IS_D>
-__device__ void curl_site(const CurlP& c, const Params& P, i64 n, i64 i,
-                          i64 j, i64 k) {
-  T* F = (T*)c.f;
-  T dp = T(0), dm = T(0);
-  if (c.gp) dp = diff<T, IS_D>((const T*)c.gp, P, c.ap, n, i, j, k);
-  if (c.gm) dm = diff<T, IS_D>((const T*)c.gm, P, c.am, n, i, j, k);
-  T dfl = curl_delta<T>(c.gp != nullptr, dp, c.gm != nullptr, dm,
-                        T(P.csgn));
-  T f = F[n];
-  T kap = T(0), sig = T(0), siginv = T(0);
-  T kapu = T(0), sigu = T(0), siginvu = T(0), fuo = T(0), fun = T(0);
-  bool sig_on = false, sigu_on = false;
-  i64 cs = 0;
-  if (c.sig_ax >= 0) {
-    cs = coord(c.sig_ax, i, j, k);
-    sig_on = !c.slab || in_slab(cs, c.sig_lo, c.sig_hi, c.sig_n);
-  }
-  if (c.sigu_ax >= 0) {
-    i64 cu = coord(c.sigu_ax, i, j, k);
-    sigu_on = !c.slab || in_slab(cu, c.sigu_lo, c.sigu_hi, c.sigu_n);
-    if (sigu_on) {
-      kapu = ((const T*)c.kapu)[cu];
-      sigu = ((const T*)c.sigu)[cu];
-      siginvu = ((const T*)c.siginvu)[cu];
-      fuo = ((T*)c.fu)[n];
-    }
-  }
-  if (c.sig_ax >= 0 && (sig_on || sigu_on)) {
-    kap = ((const T*)c.kap)[cs];
-    sig = ((const T*)c.sig)[cs];
-    siginv = ((const T*)c.siginv)[cs];
-  }
-  T base = curl_value<T>(f, dfl, c.sig_ax >= 0, sig_on, kap - sig, siginv,
-                         sigu_on, kapu - sigu, siginvu, fuo, &fun);
-  if (sigu_on) ((T*)c.fu)[n] = fun;
-  F[n] = base * mask_of<T>(c.alive, i, j, k);
-}
-
-template <typename T>
-__device__ __forceinline__ T dmp_at(const EhP& e, i64 npol, i64 n) {
-  T v = ((const T*)e.d)[n];
-  for (int p = 0; p < npol; ++p)
-    if (e.pol[p].p) v = v - ((const T*)e.pol[p].p)[n];
-  return v;
-}
-
-// D - P of component e at (i,j,k) + da along axis a + db along axis b;
-// zero where any shifted coordinate leaves the storage
-template <typename T>
-__device__ T dmp_nb(const EhP& e, const Params& P, i64 i, i64 j, i64 k,
-                    i64 a, i64 da, i64 b, i64 db) {
-  i64 ci = i + (a == 0 ? da : 0) + (b == 0 ? db : 0);
-  i64 cj = j + (a == 1 ? da : 0) + (b == 1 ? db : 0);
-  i64 ck = k + (a == 2 ? da : 0) + (b == 2 ? db : 0);
-  if (ci < 0 || ci >= P.S0 || cj < 0 || cj >= P.S1 || ck < 0 || ck >= P.S2)
-    return T(0);
-  return dmp_at<T>(e, P.npol, (ci * P.S1 + cj) * P.S2 + ck);
-}
-
-// g + g_s + g_x + g_sx of step._sum4 / _avg4: g_s one site along the own
-// axis (sign sgn), g_x one site back along the partner's axis
-template <typename T>
-__device__ T sum4(const EhP& e, const Params& P, i64 i, i64 j, i64 k,
-                  i64 own, i64 off) {
-  i64 s = P.sgn;
-  T g = dmp_nb<T>(e, P, i, j, k, -1, 0, -1, 0);
-  T gs = dmp_nb<T>(e, P, i, j, k, own, s, -1, 0);
-  T gx = dmp_nb<T>(e, P, i, j, k, off, -s, -1, 0);
-  T gsx = dmp_nb<T>(e, P, i, j, k, own, s, off, -s);
-  return g + gs + gx + gsx;
 }
 
 // step._nr_solve: Newton on the zinc-blende chi2 system from the
@@ -295,55 +204,7 @@ __device__ __forceinline__ T pade(T lin, T gs, T Dsqr, T chi2, T chi3, T us) {
   return lin * ((T(1) + c2 + T(2) * c3) / (T(1) + T(2) * c2 + T(3) * c3));
 }
 
-// step._eh_update at one site, in three stages so that every load of the
-// site's (up to three) components is issued before the first store: the
-// field arrays are untyped pointers that may alias for all the compiler
-// knows, so a store between two components' loads would serialise their
-// trips to memory.  No component reads what another writes in this update
-// (E/H and W are read and written at the own site only; the neighbour reads
-// of the NR solve and the chi3 sum are of D - P), so the order is free and
-// each value's arithmetic is that of step._eh_update.
-
-// stage 1: lin, the W-chain input -- chi1inv (D - P) with the chi3 Pade
-// factor and the chi2 Newton-Raphson solve; loads only.  NL = false compiles
-// the chi3 and chi2-NR branches out, for plans (and for the H family) that
-// have neither: their presence alone costs the kernel registers, and with
-// them the occupancy of every site.
-template <typename T, bool NL>
-__device__ T eh_lin(const Params& P, int q, i64 n, i64 i, i64 j,
-                    i64 k) {
-  const EhP& e = P.eh[q];
-  T gs = dmp_at<T>(e, P.npol, n);
-  T us = e.u ? ((const T*)e.u)[n] : T(1);
-  T lin = e.u ? gs * us : gs;
-  if (NL && e.chi3) {
-    T Dsqr = gs * gs;
-    if (e.dc1 >= 0)
-      Dsqr = dsqr_add<T>(Dsqr, sum4<T>(P.eh[e.dc1], P, i, j, k,
-                                             e.ax_own, e.ax_1));
-    if (e.dc2 >= 0)
-      Dsqr = dsqr_add<T>(Dsqr, sum4<T>(P.eh[e.dc2], P, i, j, k,
-                                             e.ax_own, e.ax_2));
-    lin = pade<T>(lin, gs, Dsqr, ((const T*)e.chi2)[n],
-                  ((const T*)e.chi3)[n], us);
-  }
-  if (NL && e.nrchi2) {
-    T chi2 = ((const T*)e.nrchi2)[n];
-    if (chi2 != T(0)) {
-      T g1 = e.dc1 >= 0 ? T(0.25) * sum4<T>(P.eh[e.dc1], P, i, j, k,
-                                                  e.ax_own, e.ax_1)
-                        : T(0);
-      T g2 = e.dc2 >= 0 ? T(0.25) * sum4<T>(P.eh[e.dc2], P, i, j, k,
-                                                  e.ax_own, e.ax_2)
-                        : T(0);
-      lin = nr_solve<T>(gs, g1, g2, ((const T*)e.nreps)[n], chi2,
-                        P.nr_iters);
-    }
-  }
-  return lin;
-}
-
-// stage 2: what the W chain and the mask of one component read at the site
+// what the W chain and the mask of one E (or H) component read at a site:
 // kp = kapw + sigw, km = kapw - sigw, each rounded once as the plain
 // version's
 template <typename T>
@@ -351,27 +212,6 @@ struct WIn {
   T f, fw, kp, km, mask;
   bool on;                  // the site runs the chain (else E = lin)
 };
-
-template <typename T>
-__device__ __forceinline__ WIn<T> w_load(const EhP& e, i64 n, i64 i, i64 j,
-                                         i64 k) {
-  WIn<T> w;
-  w.on = false;
-  w.f = w.fw = w.kp = w.km = T(0);
-  if (e.w_ax >= 0) {
-    i64 cw = coord(e.w_ax, i, j, k);
-    if (!e.w_slab || in_slab(cw, e.w_lo, e.w_hi, e.w_n)) {
-      w.on = true;
-      const T kw = ((const T*)e.kapw)[cw], sw = ((const T*)e.sigw)[cw];
-      w.kp = kw + sw;
-      w.km = kw - sw;
-      w.f = ((const T*)e.f)[n];
-      w.fw = ((const T*)e.fw)[n];
-    }
-  }
-  w.mask = mask_of<T>(e.alive, i, j, k);
-  return w;
-}
 
 // the W chain and the mask: the new E/H from lin (the new f_w is lin where
 // w.on)
@@ -382,7 +222,8 @@ __device__ __forceinline__ T w_value(T lin, const WIn<T>& w) {
   return fnew * w.mask;
 }
 
-// stage 3: the W chain, the mask, the stores; returns the new E/H
+// the W chain, the mask, the stores into device memory at flat index n;
+// returns the new E/H
 template <typename T>
 __device__ __forceinline__ T w_store(const EhP& e, i64 n, T lin,
                                      const WIn<T>& w) {
@@ -390,22 +231,6 @@ __device__ __forceinline__ T w_store(const EhP& e, i64 n, T lin,
   if (w.on) ((T*)e.fw)[n] = lin;
   ((T*)e.f)[n] = fnew;
   return fnew;
-}
-
-// the whole E (or H) update of a site: lin and the new field per component
-template <typename T, bool NL>
-__device__ __forceinline__ void eh_site(const Params& P, i64 n, i64 i,
-                                        i64 j, i64 k, T* lin, T* fnew) {
-  WIn<T> w[NCOMP];
-#pragma unroll
-  for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) lin[q] = eh_lin<T, NL>(P, q, n, i, j, k);
-#pragma unroll
-  for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) w[q] = w_load<T>(P.eh[q], n, i, j, k);
-#pragma unroll
-  for (int q = 0; q < NCOMP; ++q)
-    if (q < P.neh) fnew[q] = w_store<T>(P.eh[q], n, lin[q], w[q]);
 }
 
 // whether an E-family parameter block needs the NL = true functions
@@ -419,38 +244,17 @@ inline bool has_nl(const Params& P) {
 // the new P from the drive field W, sigma, the current P and the previous;
 // sigma = 0 leaves a drive of zero
 template <typename T>
-__device__ __forceinline__ T ade_value(const Params& P, int p, T W, T sigma,
-                                       T pcur, T pprev) {
+__device__ __forceinline__ T ade_value(T pg1inv, T p2md, T pg1, T pw2, T W,
+                                       T sigma, T pcur, T pprev) {
   T drive = sigma * W;
-  return T(P.pg1inv[p]) * (pcur * T(P.p2md[p]) - T(P.pg1[p]) * pprev +
-                           T(P.pw2[p]) * drive);
+  return pg1inv * (pcur * p2md - pg1 * pprev + pw2 * drive);
 }
 
-// Lorentz/Drude ADE from the new E (step._pol_update_lorentzian) at one
-// site, after eh_site; the new P goes into the PP buffer, whose old value
-// only this site reads (the caller swaps the roles).  Per polarization, the
-// loads of every component before the stores, as in eh_site.
 template <typename T>
-__device__ void pol_site(const Params& P, i64 n, const T* lin,
-                         const T* fnew) {
-  for (int p = 0; p < P.npol; ++p) {
-    T pnew[NCOMP];
-#pragma unroll
-    for (int q = 0; q < NCOMP; ++q) {
-      if (q >= P.neh) continue;
-      const PolC& pc = P.eh[q].pol[p];
-      if (!pc.p) continue;
-      T W = P.eh[q].w_ax >= 0 ? lin[q] : fnew[q];
-      pnew[q] = ade_value<T>(P, p, W, ((const T*)pc.sigma)[n],
-                             ((const T*)pc.p)[n], ((const T*)pc.pp)[n]);
-    }
-#pragma unroll
-    for (int q = 0; q < NCOMP; ++q) {
-      if (q >= P.neh) continue;
-      const PolC& pc = P.eh[q].pol[p];
-      if (pc.p) ((T*)pc.pp)[n] = pnew[q];
-    }
-  }
+__device__ __forceinline__ T ade_value(const Params& P, int p, T W, T sigma,
+                                       T pcur, T pprev) {
+  return ade_value<T>(T(P.pg1inv[p]), T(P.p2md[p]), T(P.pg1[p]),
+                      T(P.pw2[p]), W, sigma, pcur, pprev);
 }
 
 // one current source entry into D/B: f -= current * dt (step._apply_sources)

@@ -632,7 +632,7 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
                          fuo[q], &fun[q]);
     }
     add_sources<T>(A, 1, s, sr, j, k, f);
-    // nonlinear items: D - P of every E component, in dmp_at's order
+    // nonlinear items: D - P of every E component, D then each P in pole order
     T m[NCOMP];
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {

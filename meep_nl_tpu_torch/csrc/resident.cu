@@ -1,8 +1,7 @@
 // K3 and K4 on Hopper: a whole chunk of Yee steps of a small grid (every 2D
-// cell, small 3D cells) in ONE cooperative launch, the state kept in device
-// memory between the steps, with the sources, the DTFT and (K4) the probe
-// series inside the time loop.  Written by hand for sm_90a, bound through a
-// plain C interface (ctypes).
+// cell, small 3D cells) in ONE cooperative launch, with the sources, the
+// DTFT and (K4) the probe series inside the time loop.  Written by hand for
+// sm_90a, bound through a plain C interface (ctypes).
 //
 // Replaces the TPU kernels meep_nl_tpu/ops/pallas/resident.py::
 // ResidentKernel._runner (K3, :223, pallas_call :271) and _runner_probed
@@ -13,80 +12,82 @@
 // (full-grid PML chains, dense pre-scattered sources, frequency-major DTFT
 // accumulators; ops/resident.py::resident_plan), with the per-site
 // arithmetic of K1 and K2 (fdtd3d_site.cuh) on the grid (S0, S1, S2), a 2D
-// plan being (S0, S1, 1).  K4 is the same kernel with a probe table: after
-// every step one thread per probe sums w * f over the probe's points in
-// point order from 0.0f (resident.py:336-339) into its series.
+// plan being (S0, S1, 1).  K4 is the same kernel with probes: after every
+// step one thread per probe sums w * f over the probe's points in point
+// order from 0.0f (resident.py:336-339) into its series.
 //
-// Design: the time loop runs inside the kernel.
-//   * One cooperative launch (cudaLaunchCooperativeKernel) per chunk of at
-//     most MAX_CHUNK steps; the grid is min(wanted, occupancy x SM count)
-//     blocks of 256 threads, every block loops over sites (grid-stride), and
-//     grid.sync() orders the phases.  A refused launch returns its cudaError
-//     to the wrapper, which raises.
-//   * The state stays in device memory; a 767^2 2D plan's working set (about
-//     43 MiB with the dense source arrays) fits in the 50 MB L2.
-//   * The argument block (two Params per family: the P/PP roles of even and
-//     odd steps; the source tables) lives in per-launch device memory that
-//     the wrapper fills, and every block copies it into shared memory once:
-//     no site reads it from global memory, and no two kernel objects share
-//     it.  The DTFT monitors and the probes are tables of any length in
-//     per-launch device memory that the block points to; every block copies
-//     them into shared memory too when they fit in TAB_WORDS (7 KB: 48
-//     monitors and 16 probes, say), and reads larger ones where they are.
+// Design: temporal blocking in shared-memory tiles, one grid barrier per
+// pass of T steps.
+//   * The grid is cut into tiles (rectangles in 2D, boxes in 3D; tile
+//     extents, T and the halos come from ops/resident.py::tiling).  A pass
+//     runs T steps (fewer in the chunk's last pass).  In a pass a block
+//     stages its tile grown by a halo -- every array the step reads per
+//     site: the state (f, f_u, f_w, P and PP) and the per-site
+//     coefficients (chi1inv, the chi2/chi3 arrays, the ADE sigmas) -- in
+//     shared memory, runs the pass's steps there with block barriers only,
+//     then writes its tile's interior into the other of two state sets:
+//     the kernel is out of place, so no block reads what another writes
+//     within a pass.  One grid.sync() ends each pass.  The grid is
+//     min(tiles, co-resident blocks); a block loops over tiles when there
+//     are more.  A launch runs at most MAX_CHUNK steps; the wrapper hands
+//     the input set over and returns the set the last pass wrote.
+//   * The valid region shrinks as the steps go: the B curl reads E at +1,
+//     the D curl H at -1, and E reads the neighbours' D - P at +-1 where it
+//     has chi2/chi3 partner sums (e_local false).  So each step costs the
+//     region c = 1 + (E reads neighbours) sites on every side, and the
+//     staged box of a pass of Tp steps is the interior grown by Tp * c
+//     below and Tp * c + e above, e = 1 on the axes along which a DTFT
+//     monitor's centred average reads the next site.  In step r of the
+//     pass (valid region grown by L = (Tp - r) c below, L + e above) the
+//     B curl and H run on the region grown by (L, L + e - 1), the D curl on
+//     (L - 1, L + e - 1), E and the ADE on (L - 1 - nl, L + e - 1 - nl),
+//     all clipped to the grid, where the plain version's zero boundary is
+//     exact.  No computed site reads past its staged box except across the
+//     grid's edge.
+//   * Each tile's parameter blocks become descriptors of its staged box
+//     (build_fam): the per-site arrays, which the wrapper names by slot
+//     tokens (slot + 1), as float offsets into the tile's shared memory,
+//     the per-axis vectors (PML profiles, alive masks) at the box's origin,
+//     the box's local strides.  A sub-update runs component by component,
+//     the component's descriptor in registers, every site's arithmetic
+//     through the value functions of fdtd3d_site.cuh (curl_value, pade,
+//     nr_solve, w_value, ade_value) in the plain version's order; its
+//     bound checks on the box's edge are the grid's, by the rule above.
+//   * The P/PP roles swap every step (A.pb / A.pd by step parity), as in
+//     the plain version; an odd step count hands the buffers back swapped.
+//   * Sources: per family, the wrapper lists the sites where any source's
+//     dense amplitude arrays are nonzero, each with every source's (re, im)
+//     amplitude in source order, and per tile the sites in its staged box
+//     (halo sites included); a block applies them, on the steps whose flags
+//     say so, in source order per site as the plain version's f -= (w_re
+//     dre - w_im dim) dt does over the whole dense array.  Only f is
+//     touched.
+//   * DTFT: the tile that owns a region site updates its accumulators on
+//     each sample step (per site and frequency in the plain order).
+//   * Probes (K4): the tile that owns a probe point writes w * f for each
+//     step of the pass into a (T, points) buffer, double-buffered by pass
+//     parity; after the pass's barrier (during the next pass) one thread
+//     per probe and step sums the points in point order from 0.0f.
+//   * The direct schedule, for plans where tiles give no temporal reuse
+//     (tiling() finds only T = 1, no tile fits, or more than MAXSLOT
+//     arrays): no staging and no second set.  The wrapper lays the state
+//     arrays, the per-site coefficients and the per-axis vectors out in one
+//     device buffer (A.base, the same offsets as a staged box that is the
+//     whole grid), the whole grid is one tile whose sites the grid's
+//     threads share, and the step's sub-updates run in place with a grid
+//     barrier where a tile pass has a block barrier (2-7 a step).
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
-//     a per-step flag word saying which of them are nonzero.  A step whose
-//     currents of a family are all zero skips that family's source phase
-//     and one whose phase rows are all zero (decimation) skips the DTFT:
-//     the plain version adds exact zeros there.
+//     a per-step flag word saying which of them are nonzero: a step whose
+//     currents of a family are all zero skips that family's sources, one
+//     whose phase rows are all zero skips the DTFT (the plain version adds
+//     exact zeros there).
 //
-// Phases of one step, and the grid barriers between them (each cross-site
-// read needs one):
-//   1. B curl at every site (reads E at neighbours), then at the same site
-//      H from B (+ the H-family ADE; site-local: the envelope has no
-//      H-family chi2/chi3) -- fused, unless B sources are on this step:
-//        | barrier: the B sources read and write B sites another thread
-//        |   curled;
-//      1b. B sources at their sites;
-//        | barrier: H must see the sourced B;
-//      1c. H from B.
-//   | barrier: the D curl reads H at neighbours.
-//   2. D curl at every site, then at the same site E from D (chi1inv (D - P),
-//      the chi3 Pade factor, the chi2 Newton-Raphson solve, the W chain, the
-//      E-family ADE) -- fused when E is site-local (no chi2/chi3 partner
-//      sums) and no D source is on this step; else:
-//        | barrier: the sources (or the neighbour sums of D - P) read D that
-//        |   other threads curled;
-//      2b. D sources at their sites (steps with D currents);
-//        | barrier (after 2b): E reads the sourced D;
-//      2c. E from D.  The new P is written into the PP buffer (the
-//          neighbour sums read the old P), so P and PP swap roles every
-//          step: even steps use pb[0]/pd[0], odd steps pb[1]/pd[1].
-//   | barrier, on DTFT sample steps and in K4 on every step: the centred
-//   |   DTFT average reads E/H at neighbours, the probes any site;
-//   3. DTFT update over the monitors' region sites (the centred average
-//      folded axis by axis, as step._region_values does), probe sums.
-//   | barrier before the next step: its B curl reads E at neighbours, its H
-//   |   overwrites the H that phase 3 reads.
-// So a step takes 2 barriers (TM, source off, no sample) to 6 (sources of
-// both families on, NL partner sums, a sample).
-//
-// Sources: the wrapper lists, per family, the sites where any source's
-// dense amplitude arrays are nonzero, and at each site every source's
-// (re, im) amplitude in source order; one thread per site applies them in
-// that order as the plain version's f -= (w_re dre - w_im dim) dt does over
-// the whole dense array (every other site gets exact zeros there).  Only
-// f is touched: the envelope has no conductive component, whose f_u /
-// f_cond the reference mirrors the delta into.
-//
-// What bounds it on the H100: counted per step and site, operations; the
-// bytes a launch must move are the state in and out once per chunk.  In
-// this first version every phase is a grid-stride pass of one site per
-// thread ended by a grid-wide barrier, the same structure that makes K2
-// slower than K1, and the state is read from L2 (or HBM past 50 MB) once
-// or twice per step.  Left on the table: fewer barriers (the DTFT of E in
-// the next step's B phase, the probes beside it), shared-memory tiles with
-// halos across several steps, 32-bit index math in the site functions.
+// Block barriers of one step: B curl (+ H) | [B sources | H |] D curl
+// (+ E, fused when E is site-local and no D source is on) | [[D sources |]
+// E |] DTFT, probe products |.  The co-resident grid is sized per device
+// (mnt_k3_max_blocks: occupancy of the variant at its shared memory, which
+// the wrapper asks once per device, variant and shared memory).
 
 #include <cooperative_groups.h>
 
@@ -94,29 +95,31 @@
 
 namespace cg = cooperative_groups;
 
-#define TAB_WORDS 896
+#define NTHR 512        // threads per block (the nonlinear variant: half,
+                        // for registers without spill)
+#define MAXSLOT 96      // staged arrays (tiles; the direct schedule has
+                        // no limit)
 #define STEP_BSRC 1
 #define STEP_DSRC 2
 #define STEP_DFT 4
 
+#ifdef MNT_CUDA_STUB
+#define K3_SMEM ((float*)stub_dynamic_smem())
+#else
+extern __shared__ __align__(16) float k3_smem[];
+#define K3_SMEM k3_smem
+#endif
+
 // Mirrored by meep_nl_tpu_torch/ops/resident.py; every member is 8 bytes.
 struct DftM {
   void* acc;            // (nfreq, 2, R) frequency-major accumulators
-  const void* f;        // the field component the monitor reads
+  const void* f;        // slot token of the field component it reads
   const void* w;        // (R) weights of the region sites
   const void* phr;      // (nsteps, nfreq) phase rows
   const void* phi;
   i64 nfreq, R;         // frequencies, region sites
   i64 lo[3], n[3];      // region origin and extents per axis (n = 1: absent)
   i64 navg, avg[3];     // axes of the centred average, ascending
-};
-
-struct ProbeR {
-  const void* f;        // the field component
-  const void* off;      // (npts) int32 flat offsets
-  const void* w;        // (npts) float weights
-  void* out;            // (nsteps) float series
-  i64 npts;
 };
 
 struct SrcFam {         // one family's sources, by site
@@ -126,50 +129,428 @@ struct SrcFam {         // one family's sources, by site
   const void* c_src;       // int32 source index (column of the currents)
   const void* c_re;        // float dense_re / dense_im at the site
   const void* c_im;
+  const void* tstart;      // (ntile + 1) int32: each tile's entries
+  const void* tslot;       // int32 sites (slot indices) in the tile's box
   i64 nslot;
 };
 
+struct Probes {         // K4: the probes' points, probe after probe
+  const void* off;         // (npt) int32 flat offsets
+  const void* tok;         // (npt) int32 slot token of the component
+  const void* w;           // (npt) float weights
+  const void* start;       // (nprobe + 1) int32: each probe's points
+  const void* tstart;      // (ntile + 1) int32: each tile's entries
+  const void* tpt;         // int32 points in the tile's interior
+  void* series;            // (nprobe, nsteps) float
+  void* prod;              // (2, T, npt) float: w * f by pass parity, step
+  i64 nprobe, npt;
+};
+
+struct Tiling {         // ops/resident.py::tiling
+  i64 t[3];                // tile interior extents
+  i64 nt[3];               // tiles per axis
+  i64 e[3];                // sites past the interior's upper side the
+                           // pass's last step leaves valid (the DTFT)
+  i64 T;                   // steps of a full pass
+  i64 c;                   // sites per side a step costs the valid region
+  i64 vol;                 // floats per slot (the largest staged box)
+  i64 nslot, nstate;       // staged arrays; the first nstate are written
+  i64 nvec, gvec;          // staged per-axis vectors, floats each
+  i64 direct;              // 1: the direct schedule (one tile, T = 1)
+};
+
 struct ResArgs {
-  Params pb[2], pd[2];  // [step parity]: the P/PP roles of that step
+  Params pb[2], pd[2];  // [step parity]: the P/PP roles of that step;
+                        // per-site arrays as slot tokens
   SrcFam src[2];        // 0: B family, 1: D family
+  Probes pr;
+  Tiling tl;
+  const void* set[2][MAXSLOT];  // each slot's array in state set 0 and 1
+  const void* vec;      // (nvec, 2) int64: each per-axis vector's address
+                        // and axis
+  void* base;           // the direct schedule's buffer (nslot arrays of
+                        // vol floats, then nvec vectors of gvec floats)
   const DftM* dft;      // (ndft) monitors
-  const ProbeR* probe;  // (nprobe) probes
   const void* cur;      // (nsteps, nsrc, 2) float source currents
   const void* flags;    // (nsteps) int32 STEP_* bits
   double dt;
-  i64 nsteps, nsrc, ndft, nprobe;
+  i64 nsteps, nsrc, ndft;
   i64 e_local;          // 1: E from D reads no neighbour (fusable)
 };
 
-// a site of the grid: plane i, row j, column k; 32-bit decode
-struct Site {
-  i64 n, i, j, k;
+// the box a block stages in a pass: origin and extents in the grid
+struct Box {
+  int o[3], n[3];
 };
 
-__device__ __forceinline__ Site site_of(unsigned n, unsigned s12,
-                                        unsigned S2) {
-  unsigned i = n / s12, r = n - i * s12;
-  unsigned j = r / S2;
-  Site s;
-  s.n = n;
-  s.i = i;
-  s.j = j;
-  s.k = r - j * S2;
-  return s;
+// A family's parameter block of one step parity on a tile's staged box:
+// the staged arrays as float offsets into the tile's shared memory (-1:
+// absent; from the wrapper's slot tokens), the per-axis vectors at the
+// box's origin, local strides.  Built per tile (build_fam); the sub-update
+// loops copy one component's descriptor into registers.
+struct CurlT {
+  int f, fu, gp, gm;
+  int ap, am;               // derivative axes of gp / gm
+  int stp, stm;             // their local strides
+  int sig_ax, sigu_ax;      // chain axes (-1: none)
+  int kap, sig, siginv, kapu, sigu, siginvu;   // staged vectors
+  int alive[3];             // -1: all 1
+};
+
+struct EhT {
+  int f, fw, d, u, nreps, nrchi2, chi3, chi2;
+  int w_ax;                 // W chain axis (-1: none)
+  int dc1, dc2, ax_own, ax_1, ax_2;
+  int kapw, sigw;
+  int alive[3];
+};
+
+struct PolT {               // one E/H component's poles (indexed at run
+  int p[MAXPOL], pp[MAXPOL], sigma[MAXPOL];   // time: read in place)
+};
+
+struct FamS {               // the family's scalars
+  float pg1inv[MAXPOL], pg1[MAXPOL], p2md[MAXPOL], pw2[MAXPOL];
+  float csgn;
+  int ncurl, neh, npol, sgn, nr_iters;
+};
+
+struct FamT {
+  CurlT curl[NCOMP];
+  EhT eh[NCOMP];
+  PolT pol[NCOMP];
+  FamS s;
+};
+
+__device__ __forceinline__ int off_of(const void* tok, int vol) {
+  return tok ? ((int)(uintptr_t)tok - 1) * vol : -1;
 }
 
-// E (fam 1) or H (fam 0) of every component at one site, and the ADE
+// a staged per-axis vector's offset from its token (vector + 1; the
+// vectors follow the slots, gvec floats each)
+__device__ __forceinline__ int vec_of(const void* tok, const Tiling& tl) {
+  return tok ? (int)(tl.nslot * tl.vol + ((i64)(uintptr_t)tok - 1) * tl.gvec)
+             : -1;
+}
+
+__device__ __forceinline__ int lstride(const Box& b, i64 ax) {
+  return ax == 0 ? b.n[1] * b.n[2] : (ax == 1 ? b.n[2] : 1);
+}
+
+// piece `w` (0-2: curl component, 3-5: E/H component, 6: scalars) of the
+// descriptor of parameter block P on box b
+__device__ void build_fam(FamT& F, const Params& P, int w, const Box& b,
+                          const Tiling& tl) {
+  const int vol = (int)tl.vol;
+  if (w < 3 && w < P.ncurl) {
+    const CurlP& c = P.curl[w];
+    CurlT& t = F.curl[w];
+    t.f = off_of(c.f, vol);
+    t.fu = off_of(c.fu, vol);
+    t.gp = off_of(c.gp, vol);
+    t.gm = off_of(c.gm, vol);
+    t.ap = (int)c.ap;
+    t.am = (int)c.am;
+    t.stp = lstride(b, c.ap);
+    t.stm = lstride(b, c.am);
+    t.sig_ax = (int)c.sig_ax;
+    t.sigu_ax = (int)c.sigu_ax;
+    t.kap = vec_of(c.kap, tl);
+    t.sig = vec_of(c.sig, tl);
+    t.siginv = vec_of(c.siginv, tl);
+    t.kapu = vec_of(c.kapu, tl);
+    t.sigu = vec_of(c.sigu, tl);
+    t.siginvu = vec_of(c.siginvu, tl);
+    for (int ax = 0; ax < 3; ++ax) t.alive[ax] = vec_of(c.alive[ax], tl);
+  } else if (w >= 3 && w < 6 && w - 3 < P.neh) {
+    const EhP& e = P.eh[w - 3];
+    EhT& t = F.eh[w - 3];
+    t.f = off_of(e.f, vol);
+    t.fw = off_of(e.fw, vol);
+    t.d = off_of(e.d, vol);
+    t.u = off_of(e.u, vol);
+    t.nreps = off_of(e.nreps, vol);
+    t.nrchi2 = off_of(e.nrchi2, vol);
+    t.chi3 = off_of(e.chi3, vol);
+    t.chi2 = off_of(e.chi2, vol);
+    t.w_ax = (int)e.w_ax;
+    t.dc1 = (int)e.dc1;
+    t.dc2 = (int)e.dc2;
+    t.ax_own = (int)e.ax_own;
+    t.ax_1 = (int)e.ax_1;
+    t.ax_2 = (int)e.ax_2;
+    PolT& pl = F.pol[w - 3];
+    for (int p = 0; p < MAXPOL; ++p) {
+      pl.p[p] = off_of(e.pol[p].p, vol);
+      pl.pp[p] = off_of(e.pol[p].pp, vol);
+      pl.sigma[p] = off_of(e.pol[p].sigma, vol);
+    }
+    t.kapw = vec_of(e.kapw, tl);
+    t.sigw = vec_of(e.sigw, tl);
+    for (int ax = 0; ax < 3; ++ax) t.alive[ax] = vec_of(e.alive[ax], tl);
+  } else if (w == 6) {
+    FamS& s = F.s;
+    for (int p = 0; p < MAXPOL; ++p) {
+      s.pg1inv[p] = (float)P.pg1inv[p];
+      s.pg1[p] = (float)P.pg1[p];
+      s.p2md[p] = (float)P.p2md[p];
+      s.pw2[p] = (float)P.pw2[p];
+    }
+    s.csgn = (float)P.csgn;
+    s.ncurl = (int)P.ncurl;
+    s.neh = (int)P.neh;
+    s.npol = (int)P.npol;
+    s.sgn = (int)P.sgn;
+    s.nr_iters = (int)P.nr_iters;
+  }
+}
+
+// the threads that share a sub-update: a block's on a tile, the grid's in
+// the direct schedule
+struct Team {
+  unsigned rank, size;
+};
+
+template <bool DIRECT>
+__device__ __forceinline__ Team team_of() {
+  Team t;
+  t.rank = DIRECT ? blockIdx.x * blockDim.x + threadIdx.x : threadIdx.x;
+  t.size = DIRECT ? gridDim.x * blockDim.x : blockDim.x;
+  return t;
+}
+
+// the barrier between sub-updates: the block's, or the grid's
+template <bool DIRECT>
+__device__ __forceinline__ void bar() {
+  if (DIRECT)
+    cg::this_grid().sync();
+  else
+    __syncthreads();
+}
+
+// a site of the staged box: local flat index and local coordinates
+struct Loc {
+  int l, i, j, k;
+};
+
+// every site of the box [lo, hi) (grid coordinates, inside the staged box
+// b), one per thread of the team: f(Loc); the same thread gets the same
+// site in every call with the same box
+template <class F>
+__device__ __forceinline__ void over(const Box& b, const int* lo,
+                                     const int* hi, const Team& tm, F f) {
+  const int n0 = hi[0] - lo[0], n1 = hi[1] - lo[1], n2 = hi[2] - lo[2];
+  if (n0 <= 0 || n1 <= 0 || n2 <= 0) return;
+  const unsigned n12 = (unsigned)(n1 * n2), nn = (unsigned)n0 * n12;
+  for (unsigned u = tm.rank; u < nn; u += tm.size) {
+    const unsigned a = u / n12, r = u - a * n12;
+    const unsigned c = n2 == 1 ? r : r / (unsigned)n2;
+    Loc x;
+    x.i = lo[0] - b.o[0] + (int)a;
+    x.j = lo[1] - b.o[1] + (int)c;
+    x.k = lo[2] - b.o[2] + (int)(r - c * (unsigned)n2);
+    x.l = (x.i * b.n[1] + x.j) * b.n[2] + x.k;
+    f(x);
+  }
+}
+
+__device__ __forceinline__ int coord_of(int ax, const Loc& x) {
+  return ax == 0 ? x.i : (ax == 1 ? x.j : x.k);
+}
+
+// the product of the per-axis 0/1 vectors (step.alive_vectors) at the
+// site, on the box's vectors
+__device__ __forceinline__ float mask_t(const int* alive, const float* sm,
+                                        const Loc& x) {
+  float m = 1.0f;
+  if (alive[0] >= 0) m = m * sm[alive[0] + x.i];
+  if (alive[1] >= 0) m = m * sm[alive[1] + x.j];
+  if (alive[2] >= 0) m = m * sm[alive[2] + x.k];
+  return m;
+}
+
+// diff (fdtd3d_site.cuh) of the staged array at offset g: the box's edge
+// is the grid's wherever the schedule computes a site
+template <bool IS_D>
+__device__ __forceinline__ float diff_t(const float* sm, int g, int ax,
+                                        int st, const Box& b, const Loc& x) {
+  const int c = coord_of(ax, x);
+  if (IS_D) return sm[g + x.l] - (c > 0 ? sm[g + x.l - st] : 0.0f);
+  return (c < b.n[ax] - 1 ? sm[g + x.l + st] : 0.0f) - sm[g + x.l];
+}
+
+// step._curl_update of one component at one site
+template <bool IS_D>
+__device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
+                                       const Box& b, const Loc& x) {
+  float dp = 0.0f, dm = 0.0f;
+  if (c.gp >= 0) dp = diff_t<IS_D>(sm, c.gp, c.ap, c.stp, b, x);
+  if (c.gm >= 0) dm = diff_t<IS_D>(sm, c.gm, c.am, c.stm, b, x);
+  const float dfl = curl_delta<float>(c.gp >= 0, dp, c.gm >= 0, dm, csgn);
+  const float f = sm[c.f + x.l];
+  float kap = 0.0f, sig = 0.0f, siginv = 0.0f;
+  float kapu = 0.0f, sigu = 0.0f, siginvu = 0.0f, fuo = 0.0f, fun = 0.0f;
+  const bool sig_on = c.sig_ax >= 0, sigu_on = c.sigu_ax >= 0;
+  if (sigu_on) {
+    const int cu = coord_of(c.sigu_ax, x);
+    kapu = sm[c.kapu + cu];
+    sigu = sm[c.sigu + cu];
+    siginvu = sm[c.siginvu + cu];
+    fuo = sm[c.fu + x.l];
+  }
+  if (sig_on) {
+    const int cs = coord_of(c.sig_ax, x);
+    kap = sm[c.kap + cs];
+    sig = sm[c.sig + cs];
+    siginv = sm[c.siginv + cs];
+  }
+  const float base = curl_value<float>(f, dfl, sig_on, sig_on, kap - sig,
+                                       siginv, sigu_on, kapu - sigu, siginvu,
+                                       fuo, &fun);
+  if (sigu_on) sm[c.fu + x.l] = fun;
+  sm[c.f + x.l] = base * mask_t(c.alive, sm, x);
+}
+
+// D - P of component e at local site l: D, then each P in pole order
+__device__ __forceinline__ float dmp_t(int d, const PolT& pl, int npol,
+                                       const float* sm, int l) {
+  float v = sm[d + l];
+  for (int p = 0; p < npol; ++p)
+    if (pl.p[p] >= 0) v = v - sm[pl.p[p] + l];
+  return v;
+}
+
+// D - P of component e at the site shifted by da along axis a and db along
+// axis bb (-1: none); zero off the grid (the box's edge there)
+__device__ float dmp_nb_t(int d, const PolT& pl, int npol, const float* sm,
+                          const Box& b, const Loc& x, int a, int da, int bb,
+                          int db) {
+  const int ci = x.i + (a == 0 ? da : 0) + (bb == 0 ? db : 0);
+  const int cj = x.j + (a == 1 ? da : 0) + (bb == 1 ? db : 0);
+  const int ck = x.k + (a == 2 ? da : 0) + (bb == 2 ? db : 0);
+  if (ci < 0 || ci >= b.n[0] || cj < 0 || cj >= b.n[1] || ck < 0 ||
+      ck >= b.n[2])
+    return 0.0f;
+  return dmp_t(d, pl, npol, sm, (ci * b.n[1] + cj) * b.n[2] + ck);
+}
+
+// sum4 (step._sum4 / _avg4) of partner q of family F around the site
+__device__ float sum4_t(const FamT& F, int q, const float* sm, const Box& b,
+                        const Loc& x, int own, int off) {
+  const int g = F.s.sgn, d = F.eh[q].d, np = F.s.npol;
+  const PolT& pl = F.pol[q];
+  const float v0 = dmp_nb_t(d, pl, np, sm, b, x, -1, 0, -1, 0);
+  const float vs = dmp_nb_t(d, pl, np, sm, b, x, own, g, -1, 0);
+  const float vx = dmp_nb_t(d, pl, np, sm, b, x, off, -g, -1, 0);
+  const float vsx = dmp_nb_t(d, pl, np, sm, b, x, own, g, off, -g);
+  return v0 + vs + vx + vsx;
+}
+
+// step._eh_update of one E (or H) component (descriptor e, in registers;
+// its poles pl) at one site, then its ADE (step._pol_update_lorentzian):
+// the new P into the PP buffer, whose old value only this site reads; F is
+// the family (its scalars, the chi2/chi3 partners of an NL block)
 template <bool NL>
-__device__ __forceinline__ void eh_at(const Params& P, const Site& x) {
-  float lin[NCOMP], fnew[NCOMP];
-  eh_site<float, NL>(P, x.n, x.i, x.j, x.k, lin, fnew);
-  pol_site<float>(P, x.n, lin, fnew);
+__device__ __forceinline__ void eh_t(const FamT& F, const EhT& e,
+                                     const PolT& pl, float* sm, const Box& b,
+                                     const Loc& x) {
+  const FamS& s = F.s;
+  const int l = x.l;
+  const float gs = dmp_t(e.d, pl, s.npol, sm, l);
+  const float us = e.u >= 0 ? sm[e.u + l] : 1.0f;
+  float lin = e.u >= 0 ? gs * us : gs;
+  if (NL && e.chi3 >= 0) {
+    float Dsqr = gs * gs;
+    if (e.dc1 >= 0)
+      Dsqr = dsqr_add<float>(
+          Dsqr, sum4_t(F, e.dc1, sm, b, x, e.ax_own, e.ax_1));
+    if (e.dc2 >= 0)
+      Dsqr = dsqr_add<float>(
+          Dsqr, sum4_t(F, e.dc2, sm, b, x, e.ax_own, e.ax_2));
+    lin = pade<float>(lin, gs, Dsqr, sm[e.chi2 + l], sm[e.chi3 + l], us);
+  }
+  if (NL && e.nrchi2 >= 0) {
+    const float chi2 = sm[e.nrchi2 + l];
+    if (chi2 != 0.0f) {
+      const float g1 =
+          e.dc1 >= 0 ? 0.25f * sum4_t(F, e.dc1, sm, b, x, e.ax_own, e.ax_1)
+                     : 0.0f;
+      const float g2 =
+          e.dc2 >= 0 ? 0.25f * sum4_t(F, e.dc2, sm, b, x, e.ax_own, e.ax_2)
+                     : 0.0f;
+      lin = nr_solve<float>(gs, g1, g2, sm[e.nreps + l], chi2, s.nr_iters);
+    }
+  }
+  WIn<float> w;
+  w.on = e.w_ax >= 0;
+  w.f = w.fw = w.kp = w.km = 0.0f;
+  if (w.on) {
+    const int cw = coord_of(e.w_ax, x);
+    const float kw = sm[e.kapw + cw], sw = sm[e.sigw + cw];
+    w.kp = kw + sw;
+    w.km = kw - sw;
+    w.f = sm[e.f + l];
+    w.fw = sm[e.fw + l];
+  }
+  w.mask = mask_t(e.alive, sm, x);
+  const float fnew = w_value<float>(lin, w);
+  if (w.on) sm[e.fw + l] = lin;
+  sm[e.f + l] = fnew;
+  const float W = e.w_ax >= 0 ? lin : fnew;
+  for (int p = 0; p < s.npol; ++p) {
+    if (pl.p[p] < 0) continue;
+    sm[pl.pp[p] + l] = ade_value<float>(
+        s.pg1inv[p], s.p2md[p], s.pg1[p], s.pw2[p], W, sm[pl.sigma[p] + l],
+        sm[pl.p[p] + l], sm[pl.pp[p] + l]);
+  }
 }
 
-// the family's sources at their sites, in source order per site
-__device__ void sources_at(const ResArgs& A, const SrcFam& sf,
-                           const Params& P, i64 s, unsigned tid,
-                           unsigned nthr) {
+// the curl of every component of family F over [lo, hi), component by
+// component (each one's descriptor in registers)
+template <bool IS_D>
+__device__ __forceinline__ void curl_all(const FamT& F, float* sm,
+                                         const Box& b, const int* lo,
+                                         const int* hi, const Team& tm) {
+  const float csgn = F.s.csgn;
+  for (int q = 0; q < F.s.ncurl; ++q) {
+    const CurlT c = F.curl[q];
+    over(b, lo, hi, tm,
+         [&](const Loc& x) { curl_t<IS_D>(c, csgn, sm, b, x); });
+  }
+}
+
+// E (or H) and the ADE of every component of family F over [lo, hi),
+// component by component: the descriptor in registers, its poles (indexed
+// at run time, which registers cannot be) and the family's scalars read in
+// place
+template <bool NL>
+__device__ __forceinline__ void eh_all(const FamT& F, float* sm,
+                                       const Box& b, const int* lo,
+                                       const int* hi, const Team& tm) {
+  for (int q = 0; q < F.s.neh; ++q) {
+    const EhT e = F.eh[q];
+    const PolT& pl = F.pol[q];
+    over(b, lo, hi, tm,
+         [&](const Loc& x) { eh_t<NL>(F, e, pl, sm, b, x); });
+  }
+}
+
+// the local index of grid offset `off` in box b, or -1 outside it
+__device__ __forceinline__ int local_of(int off, const Box& b, int S1,
+                                        int S2) {
+  const int i = off / (S1 * S2), r = off - i * S1 * S2;
+  const int j = r / S2, k = r - j * S2;
+  const int li = i - b.o[0], lj = j - b.o[1], lk = k - b.o[2];
+  if (li < 0 || li >= b.n[0] || lj < 0 || lj >= b.n[1] || lk < 0 ||
+      lk >= b.n[2])
+    return -1;
+  return (li * b.n[1] + lj) * b.n[2] + lk;
+}
+
+// the family's sources at the tile's staged sites, in source order per site
+__device__ void sources_at(const ResArgs& A, const SrcFam& sf, const FamT& F,
+                           float* sm, const Box& b, int tile, i64 s, int S1,
+                           int S2, const Team& tm) {
   const float dt = (float)A.dt;
   const float* cur = (const float*)A.cur + s * A.nsrc * 2;
   const int* soff = (const int*)sf.slot_off;
@@ -178,35 +559,39 @@ __device__ void sources_at(const ResArgs& A, const SrcFam& sf,
   const int* csrc = (const int*)sf.c_src;
   const float* cre = (const float*)sf.c_re;
   const float* cim = (const float*)sf.c_im;
-  for (unsigned t = tid; t < (unsigned)sf.nslot; t += nthr) {
-    float* f = (float*)P.curl[sq[t]].f;
-    float v = f[soff[t]];
+  const int* ts = (const int*)sf.tstart;
+  const int* tsl = (const int*)sf.tslot;
+  for (int u = ts[tile] + (int)tm.rank; u < ts[tile + 1]; u += (int)tm.size) {
+    const int t = tsl[u];
+    const int l = local_of(soff[t], b, S1, S2);
+    if (l < 0) continue;               // outside a shorter pass's box
+    float* f = sm + F.curl[sq[t]].f + l;
+    float v = *f;
     for (int c = start[t]; c < start[t + 1]; ++c) {
       const float wre = cur[2 * csrc[c]], wim = cur[2 * csrc[c] + 1];
       v = v - (wre * cre[c] - wim * cim[c]) * dt;
     }
-    f[soff[t]] = v;
+    *f = v;
   }
 }
 
-// the monitor's field value at region site (i, j, k): the centred average
-// folded over its axes in order, 0.5 * (lower + upper) per axis, zero past
-// the storage (step._region_values)
-__device__ __forceinline__ float region_value(const DftM& d, const Params& P,
-                                              i64 i, i64 j, i64 k) {
-  const float* f = (const float*)d.f;
+// the monitor's field value at the site: the centred average folded over
+// its axes in order, 0.5 * (lower + upper) per axis, zero past the grid
+// (step._region_values); f: the component's staged array
+__device__ __forceinline__ float region_value(const DftM& d, const float* f,
+                                              const Box& b, const Loc& x) {
   float v[8];
   const int nc = 1 << d.navg;
   for (int c = 0; c < nc; ++c) {
-    i64 ci = i, cj = j, ck = k;
-    for (int b = 0; b < d.navg; ++b) {
-      if (!((c >> b) & 1)) continue;
-      if (d.avg[b] == 0) ++ci;
-      else if (d.avg[b] == 1) ++cj;
+    int ci = x.i, cj = x.j, ck = x.k;
+    for (int m = 0; m < d.navg; ++m) {
+      if (!((c >> m) & 1)) continue;
+      if (d.avg[m] == 0) ++ci;
+      else if (d.avg[m] == 1) ++cj;
       else ++ck;
     }
-    v[c] = (ci < P.S0 && cj < P.S1 && ck < P.S2)
-               ? f[(ci * P.S1 + cj) * P.S2 + ck]
+    v[c] = (ci < b.n[0] && cj < b.n[1] && ck < b.n[2])
+               ? f[(ci * b.n[1] + cj) * b.n[2] + ck]
                : 0.0f;
   }
   for (int m = 1; m <= d.navg; ++m)
@@ -215,51 +600,288 @@ __device__ __forceinline__ float region_value(const DftM& d, const Params& P,
   return v[0];
 }
 
-// phase 3: the DTFT update (acc += ph * w * fv, re and im rows) and the
-// probe sums
-template <bool PROBED>
-__device__ void observe(const ResArgs& A, const Params& P, i64 s, bool dft,
-                        unsigned tid, unsigned nthr) {
-  if (dft) {
-    for (int m = 0; m < A.ndft; ++m) {
-      const DftM& d = A.dft[m];
-      const float* phr = (const float*)d.phr + s * d.nfreq;
-      const float* phi = (const float*)d.phi + s * d.nfreq;
-      const unsigned n12 = (unsigned)(d.n[1] * d.n[2]);
-      const unsigned n2 = (unsigned)d.n[2];
-      for (unsigned r = tid; r < (unsigned)d.R; r += nthr) {
-        unsigned a = r / n12, rem = r - a * n12;
-        unsigned b = rem / n2, c = rem - b * n2;
-        float fv = region_value(d, P, d.lo[0] + a, d.lo[1] + b, d.lo[2] + c);
-        float cr = ((const float*)d.w)[r] * fv;
-        float* acc = (float*)d.acc;
-        for (int q = 0; q < d.nfreq; ++q) {
-          float* re = acc + (2 * q) * d.R + r;
-          float* im = re + d.R;
-          *re = *re + phr[q] * cr;
-          *im = *im + phi[q] * cr;
+// the DTFT update (acc += ph * w * fv, re and im rows) at the region sites
+// of the tile's interior [lo, hi)
+__device__ void dtft(const ResArgs& A, float* sm, int vol, const Box& b,
+                     const int* lo, const int* hi, i64 s, const Team& tm) {
+  for (int m = 0; m < A.ndft; ++m) {
+    const DftM& d = A.dft[m];
+    int rlo[3], rhi[3];
+    for (int ax = 0; ax < 3; ++ax) {
+      rlo[ax] = max(lo[ax], (int)d.lo[ax]);
+      rhi[ax] = min(hi[ax], (int)(d.lo[ax] + d.n[ax]));
+    }
+    const float* f = sm + off_of(d.f, vol);
+    const float* phr = (const float*)d.phr + s * d.nfreq;
+    const float* phi = (const float*)d.phi + s * d.nfreq;
+    float* acc = (float*)d.acc;
+    over(b, rlo, rhi, tm, [&](const Loc& x) {
+      const int r = ((x.i + b.o[0] - (int)d.lo[0]) * (int)d.n[1] +
+                     (x.j + b.o[1] - (int)d.lo[1])) *
+                        (int)d.n[2] +
+                    (x.k + b.o[2] - (int)d.lo[2]);
+      const float cr = ((const float*)d.w)[r] * region_value(d, f, b, x);
+      for (int q0 = 0; q0 < d.nfreq; q0 += 4) {   // 8 loads in flight
+        float re[4], im[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          if (q0 + m >= d.nfreq) continue;
+          re[m] = acc[(2 * (q0 + m)) * d.R + r];
+          im[m] = acc[(2 * (q0 + m) + 1) * d.R + r];
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int q = q0 + m;
+          if (q >= d.nfreq) continue;
+          acc[(2 * q) * d.R + r] = re[m] + phr[q] * cr;
+          acc[(2 * q + 1) * d.R + r] = im[m] + phi[q] * cr;
         }
       }
-    }
+    });
   }
-  if (PROBED) {
-    for (unsigned p = tid; p < (unsigned)A.nprobe; p += nthr) {
-      const ProbeR& pr = A.probe[p];
-      const float* f = (const float*)pr.f;
-      const int* off = (const int*)pr.off;
-      const float* w = (const float*)pr.w;
-      float v = 0.0f;
-      for (int q = 0; q < pr.npts; ++q) v = v + f[off[q]] * w[q];
-      ((float*)pr.out)[s] = v;
+}
+
+// K4: the tile's probe points, resolved once per pass: the team's thread t
+// holds the t-th point of the tile (and the t + size-th, ...) as its index
+// q, the component's staged offset plus the local site, and its weight
+struct Pts {
+  int q, at;
+  float w;
+};
+
+__device__ __forceinline__ Pts probe_point(const ResArgs& A, int vol,
+                                           const Box& b, int u, int S1,
+                                           int S2) {
+  const Probes& pr = A.pr;
+  Pts p;
+  p.q = ((const int*)pr.tpt)[u];
+  p.at = (((const int*)pr.tok)[p.q] - 1) * vol +
+         local_of(((const int*)pr.off)[p.q], b, S1, S2);
+  p.w = ((const float*)pr.w)[p.q];
+  return p;
+}
+
+// K4: w * f at the probe points of the tile's interior, step r of the pass;
+// `mine` is the thread's first point (q -1: none), the rest are resolved
+// here
+__device__ __forceinline__ void probe_products(const ResArgs& A,
+                                               const float* sm, int vol,
+                                               const Box& b, int tile,
+                                               i64 pass, int r, int S1,
+                                               int S2, const Pts& mine,
+                                               const Team& tm) {
+  const Probes& pr = A.pr;
+  float* out = (float*)pr.prod + ((pass & 1) * A.tl.T + r) * pr.npt;
+  if (mine.q >= 0) out[mine.q] = sm[mine.at] * mine.w;
+  const int* ts = (const int*)pr.tstart;
+  for (int u = ts[tile] + (int)(tm.rank + tm.size); u < ts[tile + 1];
+       u += (int)tm.size) {
+    const Pts p = probe_point(A, vol, b, u, S1, S2);
+    out[p.q] = sm[p.at] * p.w;
+  }
+}
+
+// K4: the series of pass `pass` (steps s0 .. s0 + Tp - 1): per probe and
+// step, the products summed in point order from 0.0f; all blocks share it
+__device__ void probe_sums(const ResArgs& A, i64 pass) {
+  const Probes& pr = A.pr;
+  const i64 s0 = pass * A.tl.T;
+  const int Tp = (int)min(A.tl.T, A.nsteps - s0);
+  const float* prod = (const float*)pr.prod + (pass & 1) * A.tl.T * pr.npt;
+  const int* start = (const int*)pr.start;
+  const unsigned n = (unsigned)(pr.nprobe * Tp);
+  for (unsigned w = blockIdx.x * blockDim.x + threadIdx.x; w < n;
+       w += gridDim.x * blockDim.x) {
+    const int p = (int)(w / (unsigned)Tp), r = (int)(w % (unsigned)Tp);
+    const float* row = prod + r * pr.npt;
+    float v = 0.0f;
+    for (int q = start[p]; q < start[p + 1]; ++q) v = v + row[q];
+    ((float*)pr.series)[p * A.nsteps + s0 + r] = v;
+  }
+}
+
+// copy the box [lo, lo + n) of each of the first `ns` arrays between the
+// grid (arrays `grid[k]`, strides S1 S2) and shared memory (slot k at
+// k * vol, strided as the staged box b): into shared memory when IN, out of
+// it else; eight loads in flight per thread
+template <bool IN>
+__device__ __forceinline__ void copy_box(const void* const* grid, float* sm,
+                                         int vol, int ns, const Box& b,
+                                         const int* lo, const int* n, int S1,
+                                         int S2) {
+  const int n12 = n[1] * n[2];
+  const unsigned bv = (unsigned)(n[0] * n12), tot = (unsigned)ns * bv;
+  const unsigned step = blockDim.x;
+  for (unsigned u0 = threadIdx.x; u0 < tot; u0 += 8 * step) {
+    float v[8];
+    int g[8], s[8], k[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const unsigned u = u0 + m * step;
+      g[m] = -1;
+      if (u >= tot) continue;
+      k[m] = (int)(u / bv);
+      const int l = (int)(u - (unsigned)k[m] * bv);
+      const int i = l / n12, r = l - i * n12;
+      const int j = r / n[2], kk = r - j * n[2];
+      g[m] = ((lo[0] + i) * S1 + lo[1] + j) * S2 + lo[2] + kk;
+      s[m] = k[m] * vol +
+             ((lo[0] - b.o[0] + i) * b.n[1] + lo[1] - b.o[1] + j) * b.n[2] +
+             lo[2] - b.o[2] + kk;
+      v[m] = IN ? ((const float*)grid[k[m]])[g[m]] : sm[s[m]];
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      if (g[m] < 0) continue;
+      if (IN) sm[s[m]] = v[m];
+      else ((float*)grid[k[m]])[g[m]] = v[m];
     }
   }
 }
 
-// NL: the E family carries chi3 / chi2-NR coefficients; PROBED: K4
+// the Tp steps of pass `pass` on box b (staged in sm, or the grid itself
+// in the direct schedule), interior [lo, hi); `tf` the descriptors on b,
+// `mine` the thread's first probe point
+template <bool NL, bool PROBED, bool DIRECT>
+__device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
+                           float* sm, const Box& b, const int* lo,
+                           const int* hi, int tile, i64 pass, int Tp,
+                           const Pts& mine) {
+  const Tiling& tl = A.tl;
+  const Team tm = team_of<DIRECT>();
+  const int S[3] = {(int)A.pb[0].S0, (int)A.pb[0].S1, (int)A.pb[0].S2};
+  const int vol = (int)tl.vol;
+  const int c = (int)tl.c, nl = c - 1;
+  const int* flags = (const int*)A.flags;
+  for (int r = 0; r < Tp; ++r) {
+    const i64 s = pass * tl.T + r;
+    const FamT& FB = tf[0][s & 1];
+    const FamT& FD = tf[1][s & 1];
+    const int fl = flags[s];
+    const bool bsrc = fl & STEP_BSRC, dsrc = fl & STEP_DSRC;
+    const int L = (Tp - r) * c;
+    int blo[3], bhi[3], dlo[3], elo[3], ehi[3];
+    for (int ax = 0; ax < 3; ++ax) {
+      const int H = L + (int)tl.e[ax];
+      blo[ax] = max(0, lo[ax] - L);
+      bhi[ax] = min(S[ax], hi[ax] + H - 1);
+      dlo[ax] = max(0, lo[ax] - L + 1);
+      elo[ax] = max(0, lo[ax] - L + 1 + nl);
+      ehi[ax] = min(S[ax], hi[ax] + H - 1 - nl);
+    }
+    // B curl (+ H)
+    curl_all<false>(FB, sm, b, blo, bhi, tm);
+    if (!bsrc) eh_all<false>(FB, sm, b, blo, bhi, tm);
+    bar<DIRECT>();
+    if (bsrc) {
+      sources_at(A, A.src[0], FB, sm, b, tile, s, S[1], S[2], tm);
+      bar<DIRECT>();
+      eh_all<false>(FB, sm, b, blo, bhi, tm);
+      bar<DIRECT>();
+    }
+    // D curl (+ E)
+    const bool fused = A.e_local && !dsrc;
+    curl_all<true>(FD, sm, b, dlo, bhi, tm);
+    if (fused) eh_all<NL>(FD, sm, b, dlo, bhi, tm);
+    bar<DIRECT>();
+    if (!fused) {
+      if (dsrc) {
+        sources_at(A, A.src[1], FD, sm, b, tile, s, S[1], S[2], tm);
+        bar<DIRECT>();
+      }
+      eh_all<NL>(FD, sm, b, elo, ehi, tm);
+      bar<DIRECT>();
+    }
+    // DTFT and probe products at the interior's sites
+    const bool dft = fl & STEP_DFT;
+    if (dft) dtft(A, sm, vol, b, lo, hi, s, tm);
+    if (PROBED)
+      probe_products(A, sm, vol, b, tile, pass, r, S[1], S[2], mine, tm);
+    if (dft || PROBED) bar<DIRECT>();
+  }
+}
+
+// tile `tile`'s interior [lo, hi) and its staged box b in a pass of Tp
+// steps
+__device__ __forceinline__ void tile_box(const ResArgs& A, int tile, int Tp,
+                                         int* lo, int* hi, Box& b) {
+  const Tiling& tl = A.tl;
+  const int S[3] = {(int)A.pb[0].S0, (int)A.pb[0].S1, (int)A.pb[0].S2};
+  const int c = (int)tl.c;
+  const int nt12 = (int)(tl.nt[1] * tl.nt[2]);
+  const int at[3] = {tile / nt12, (tile / (int)tl.nt[2]) % (int)tl.nt[1],
+                     tile % (int)tl.nt[2]};
+  for (int ax = 0; ax < 3; ++ax) {
+    lo[ax] = at[ax] * (int)tl.t[ax];
+    hi[ax] = min(S[ax], lo[ax] + (int)tl.t[ax]);
+    b.o[ax] = max(0, lo[ax] - Tp * c);
+    b.n[ax] = min(S[ax], hi[ax] + Tp * c + (int)tl.e[ax]) - b.o[ax];
+  }
+}
+
+// the four parameter blocks' descriptors on box b, and the thread's first
+// probe point of the tile (its team's); the caller syncs the block
+template <bool PROBED, bool DIRECT>
+__device__ __forceinline__ void describe_box(const ResArgs& A,
+                                             FamT (&tf)[2][2], const Box& b,
+                                             int tile, Pts& mine) {
+  for (unsigned w = threadIdx.x; w < 28; w += blockDim.x) {
+    const unsigned fp = w / 7;
+    const Params& P = fp < 2 ? A.pb[fp] : A.pd[fp - 2];
+    build_fam(tf[fp / 2][fp % 2], P, (int)(w % 7), b, A.tl);
+  }
+  mine.q = -1;
+  if (PROBED) {
+    const int* ts = (const int*)A.pr.tstart;
+    const int u = ts[tile] + (int)team_of<DIRECT>().rank;
+    if (u < ts[tile + 1])
+      mine = probe_point(A, (int)A.tl.vol, b, u, (int)A.pb[0].S1,
+                         (int)A.pb[0].S2);
+  }
+}
+
+// one tile's pass: stage, Tp steps, write the interior into the other set
 template <bool NL, bool PROBED>
-__global__ void __launch_bounds__(256) k3_kernel(const ResArgs* gA) {
-  __shared__ ResArgs A;
-  __shared__ i64 tabs[TAB_WORDS];
+__device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
+                          int tile, i64 pass, int Tp) {
+  const Tiling& tl = A.tl;
+  const int S1 = (int)A.pb[0].S1, S2 = (int)A.pb[0].S2;
+  const int vol = (int)tl.vol;
+  int lo[3], hi[3], n[3];
+  Box b;
+  tile_box(A, tile, Tp, lo, hi, b);
+  for (int ax = 0; ax < 3; ++ax) n[ax] = hi[ax] - lo[ax];
+  // the parameter blocks on this box, and the staged arrays from the set
+  // this pass reads
+  Pts mine;
+  describe_box<PROBED, false>(A, tf, b, tile, mine);
+  copy_box<true>(A.set[pass & 1], sm, vol, (int)tl.nslot, b, b.o, b.n, S1,
+                 S2);
+  // the per-axis vectors on the box's range of their axis
+  const i64* vt = (const i64*)A.vec;
+  for (unsigned u = threadIdx.x; u < (unsigned)(tl.nvec * tl.gvec);
+       u += blockDim.x) {
+    const int v = (int)(u / (unsigned)tl.gvec), m = (int)(u % tl.gvec);
+    const int ax = (int)vt[2 * v + 1];
+    if (m < b.n[ax])
+      sm[tl.nslot * vol + u] = ((const float*)vt[2 * v])[b.o[ax] + m];
+  }
+  __syncthreads();
+  pass_steps<NL, PROBED, false>(A, tf, sm, b, lo, hi, tile, pass, Tp, mine);
+  // the interior into the set this pass writes
+  copy_box<false>(A.set[(pass + 1) & 1], sm, vol, (int)tl.nstate, b, lo, n,
+                  S1, S2);
+  __syncthreads();                     // before the next tile stages
+}
+
+// NL: the E family carries chi3 / chi2-NR coefficients; PROBED: K4; DIRECT:
+// the direct schedule (one tile, the whole grid, stepped in place in A.base
+// by all the grid's threads, T = 1)
+template <bool NL, bool PROBED, bool DIRECT>
+__global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
+    k3_kernel(const ResArgs* gA) {
+  __shared__ __align__(16) ResArgs A;
+  __shared__ __align__(16) FamT tf[2][2];  // [family][step parity] on the tile
   {
     const i64* from = (const i64*)gA;
     i64* to = (i64*)&A;
@@ -267,134 +889,150 @@ __global__ void __launch_bounds__(256) k3_kernel(const ResArgs* gA) {
       to[w] = from[w];
   }
   __syncthreads();
-  {
-    // the tables into shared memory when they fit; A then points there
-    // (held in A, not in registers live across the step loop)
-    const unsigned nd = (unsigned)A.ndft * (sizeof(DftM) / 8);
-    const unsigned np = (unsigned)A.nprobe * (sizeof(ProbeR) / 8);
-    if (nd + np <= TAB_WORDS) {
-      for (unsigned w = threadIdx.x; w < nd; w += blockDim.x)
-        tabs[w] = ((const i64*)A.dft)[w];
-      for (unsigned w = threadIdx.x; w < np; w += blockDim.x)
-        tabs[nd + w] = ((const i64*)A.probe)[w];
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        A.dft = (const DftM*)tabs;
-        A.probe = (const ProbeR*)(tabs + nd);
-      }
+  const i64 npass = (A.nsteps + A.tl.T - 1) / A.tl.T;
+  if (DIRECT) {
+    int lo[3], hi[3];
+    Box b;
+    tile_box(A, 0, 1, lo, hi, b);
+    Pts mine;
+    describe_box<PROBED, true>(A, tf, b, 0, mine);
+    __syncthreads();
+    // every step ends with a grid barrier (after E, or after the DTFT and
+    // the probe products)
+    for (i64 p = 0; p < npass; ++p) {
+      if (PROBED && p > 0) probe_sums(A, p - 1);
+      pass_steps<NL, PROBED, true>(A, tf, (float*)A.base, b, lo, hi, 0, p, 1,
+                                   mine);
+    }
+  } else {
+    cg::grid_group grid = cg::this_grid();
+    float* sm = K3_SMEM;
+    const int ntile = (int)(A.tl.nt[0] * A.tl.nt[1] * A.tl.nt[2]);
+    for (i64 p = 0; p < npass; ++p) {
+      if (PROBED && p > 0) probe_sums(A, p - 1);
+      const int Tp = (int)min(A.tl.T, A.nsteps - p * A.tl.T);
+      for (int tile = (int)blockIdx.x; tile < ntile; tile += (int)gridDim.x)
+        tile_pass<NL, PROBED>(A, tf, sm, tile, p, Tp);
+      if (PROBED || p + 1 < npass) grid.sync();
     }
   }
-  __syncthreads();
-  cg::grid_group grid = cg::this_grid();
-  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned nthr = gridDim.x * blockDim.x;
-  const unsigned S2 = (unsigned)A.pb[0].S2;
-  const unsigned s12 = (unsigned)A.pb[0].S1 * S2;
-  const unsigned N = (unsigned)A.pb[0].S0 * s12;
-  const int* flags = (const int*)A.flags;
-  for (i64 s = 0; s < A.nsteps; ++s) {
-    const Params& PB = A.pb[s & 1];
-    const Params& PD = A.pd[s & 1];
-    const int fl = flags[s];
-    const bool bsrc = fl & STEP_BSRC, dsrc = fl & STEP_DSRC;
-    // 1: B curl (+ H)
-    for (unsigned n = tid; n < N; n += nthr) {
-      Site x = site_of(n, s12, S2);
-      for (int q = 0; q < PB.ncurl; ++q)
-        curl_site<float, false>(PB.curl[q], PB, x.n, x.i, x.j, x.k);
-      if (!bsrc) eh_at<false>(PB, x);
-    }
-    if (bsrc) {
-      grid.sync();
-      sources_at(A, A.src[0], PB, s, tid, nthr);
-      grid.sync();
-      for (unsigned n = tid; n < N; n += nthr) eh_at<false>(PB, site_of(n, s12, S2));
-    }
-    grid.sync();
-    // 2: D curl (+ E)
-    const bool fused = A.e_local && !dsrc;
-    for (unsigned n = tid; n < N; n += nthr) {
-      Site x = site_of(n, s12, S2);
-      for (int q = 0; q < PD.ncurl; ++q)
-        curl_site<float, true>(PD.curl[q], PD, x.n, x.i, x.j, x.k);
-      if (fused) eh_at<NL>(PD, x);
-    }
-    if (!fused) {
-      grid.sync();
-      if (dsrc) {
-        sources_at(A, A.src[1], PD, s, tid, nthr);
-        grid.sync();
-      }
-      for (unsigned n = tid; n < N; n += nthr) eh_at<NL>(PD, site_of(n, s12, S2));
-    }
-    // 3: DTFT and probes
-    const bool dft = fl & STEP_DFT;
-    if (dft || PROBED) {
-      grid.sync();
-      observe<PROBED>(A, PD, s, dft, tid, nthr);
-    }
-    if (s + 1 < A.nsteps) grid.sync();
-  }
+  if (PROBED) probe_sums(A, npass - 1);
 }
 
-static const void* kernel_of(int nl, int probed) {
+static int threads_of(int nl) { return nl ? NTHR / 2 : NTHR; }
+
+template <bool NL, bool PROBED>
+static const void* kernel_dir(int direct) {
+  return direct ? (const void*)k3_kernel<NL, PROBED, true>
+                : (const void*)k3_kernel<NL, PROBED, false>;
+}
+
+static const void* kernel_of(int nl, int probed, int direct) {
   if (nl)
-    return probed ? (const void*)k3_kernel<true, true>
-                  : (const void*)k3_kernel<true, false>;
-  return probed ? (const void*)k3_kernel<false, true>
-                : (const void*)k3_kernel<false, false>;
-}
-
-static int max_blocks(int nl, int probed, int* out) {
-  static int cached[2][2] = {{0, 0}, {0, 0}};
-  if (!cached[nl][probed]) {
-    int dev = 0, sms = 0, per = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, kernel_of(nl, probed), 256, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (per < 1 || sms < 1) return (int)cudaErrorLaunchOutOfResources;
-    cached[nl][probed] = per * sms;
-  }
-  *out = cached[nl][probed];
-  return 0;
+    return probed ? kernel_dir<true, true>(direct)
+                  : kernel_dir<true, false>(direct);
+  return probed ? kernel_dir<false, true>(direct)
+                : kernel_dir<false, false>(direct);
 }
 
 extern "C" {
 
 i64 mnt_k3_args_size(void) { return (i64)sizeof(ResArgs); }
 
-// the largest co-resident grid (blocks of 256 threads) of the variant
-// (nl, probed), or -cudaError
-int mnt_k3_max_blocks(int nl, int probed) {
-  int blocks = 0;
-  int rc = max_blocks(nl != 0, probed != 0, &blocks);
-  return rc ? -rc : blocks;
+// threads per block of the linear (nl 0) or nonlinear variant
+i64 mnt_k3_threads(int nl) { return threads_of(nl); }
+
+i64 mnt_k3_maxslot(void) { return MAXSLOT; }
+
+// the kernel's static shared memory: its argument block and the tile's
+// parameter-block descriptors
+i64 mnt_k3_static_smem(void) {
+  return (i64)((sizeof(ResArgs) + 15) / 16 * 16 + 4 * sizeof(FamT));
+}
+
+// the shared memory a block may have on the current device: [0] a block's
+// opt-in most, [1] an SM's, [2] the reserve per block, [3] the kernel's
+// static shared memory (its argument block and the tile's descriptors);
+// returns the cudaError, else 0
+int mnt_k3_smem(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  const cudaDeviceAttr attr[3] = {cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                  cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                  cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 3 && e == cudaSuccess; ++i)
+    e = cudaDeviceGetAttribute(&out[i], attr[i], dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel_of(0, 0, 0));
+  if (e == cudaSuccess) out[3] = (int)fa.sharedSizeBytes;
+  return (int)e;
+}
+
+// the current device's SM count, or -cudaError
+int mnt_k3_sms(void) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? sms : -(int)e;
+}
+
+// the largest co-resident grid of the variant (nl, probed, direct) with
+// `smem` bytes of dynamic shared memory on the current device, after
+// allowing the variant that much there; or -cudaError.  The wrapper asks
+// once per device, variant and smem, and launches at most that many blocks.
+int mnt_k3_max_blocks(int nl, int probed, int direct, int smem) {
+  const void* fn = kernel_of(nl != 0, probed != 0, direct != 0);
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, fn, threads_of(nl != 0), (size_t)smem);
+  if (e != cudaSuccess) return -(int)e;
+  if (per < 1 || sms < 1) return -(int)cudaErrorLaunchOutOfResources;
+  return per * sms;
 }
 
 // Launch the kernel cooperatively on `stream` over the argument block at
 // device address `args` (`host` is the same block in host memory, read for
-// the variant), with at most `blocks` blocks; the variant with the
-// nonlinear branches when an E-family block carries chi3 / chi2-NR
-// coefficients, the probed one (K4) when the block has probes.  Returns the
+// the variant) with `blocks` blocks (at most mnt_k3_max_blocks' figure for
+// the variant and `smem` on this device) and `smem` bytes of dynamic shared
+// memory; the variant with the nonlinear branches when an E-family block
+// carries chi3 / chi2-NR coefficients, the probed one (K4) when the block
+// has probes, the direct one when the tiling says so.  Returns the
 // cudaError of the first call that failed, else 0.
 int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
-                  void* stream) {
+                  int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  for (int par = 0; par < 2; ++par)
+  for (int par = 0; par < 2; ++par) {
     if (has_nl(host->pb[par])) return (int)cudaErrorInvalidValue;
+    // the descriptors run the PML chains everywhere (no slabs)
+    for (int fam = 0; fam < 2; ++fam) {
+      const Params& P = fam ? host->pd[par] : host->pb[par];
+      for (int q = 0; q < P.ncurl; ++q)
+        if (P.curl[q].slab) return (int)cudaErrorInvalidValue;
+      for (int q = 0; q < P.neh; ++q)
+        if (P.eh[q].w_slab) return (int)cudaErrorInvalidValue;
+    }
+  }
+  const Tiling& tl = host->tl;
+  const int direct = tl.direct ? 1 : 0;
+  if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const i64 ntile = tl.nt[0] * tl.nt[1] * tl.nt[2];
+  if (direct ? (tl.T != 1 || !host->base || ntile != 1) : tl.nslot > MAXSLOT)
+    return (int)cudaErrorInvalidValue;
   const int nl = has_nl(host->pd[0]) ? 1 : 0;
-  const int probed = host->nprobe > 0 ? 1 : 0;
-  int most = 0;
-  int rc = max_blocks(nl, probed, &most);
-  if (rc) return rc;
-  if (blocks < 1 || blocks > most) blocks = most;
+  const int probed = host->pr.nprobe > 0 ? 1 : 0;
   void* kargs[] = {(void*)&args};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_of(nl, probed), dim3((unsigned)blocks), dim3(256), kargs, 0, s);
+      kernel_of(nl, probed, direct), dim3((unsigned)blocks),
+      dim3(threads_of(nl)), kargs, (size_t)smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,13 @@ is the eager stepper traced into one Mosaic program whose time loop keeps
 the whole state in VMEM; `Simulation.run` tries this path first for every
 stretch, so it carries every 2D run and every small 3D run.  Here the
 kernel is hand-written CUDA that runs the time loop inside one cooperative
-launch per chunk, with the state in device memory (in the L2 at the sizes
-this path takes).  What it computes is the eager `make_step` over
+launch per chunk: tiles staged with their halos in shared memory, T steps
+per pass, one grid barrier per pass (`tiling` picks the tile and T,
+`boxes` gives the regions each step computes), or, where tiles give no
+temporal reuse (T = 1 only, no tile fits, more than MAXSLOT arrays), the
+direct schedule: the whole grid stepped in place in one device buffer, a
+grid barrier per sub-update (`direct_tiling`).  What it computes is the
+eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
 the DTFT accumulated in the loop in the frequency-major layout; K4 adds the
 probes' per-step weighted sums.
@@ -15,8 +20,10 @@ probes' per-step weighted sums.
 `ResidentKernel.run` / `run_probed` take and return the standard state
 layout; the frequency-major DTFT layout exists only inside the call.  A
 state on the CPU runs the plain version (`resident_ref`), a state on the
-card the kernel, in place; `launches` (K3), `probed_launches` (K4) and
-`plain_steps` count which ran.
+card the kernel, out of place between the state's tensors and a second set
+the kernel object keeps (the input's tensors are handed over: use only the
+returned state); `launches` (K3), `probed_launches` (K4) and `plain_steps`
+count which ran.
 
 Not carried over from the reference, each on purpose:
   * the environment switches MNT_RESIDENT_BUDGET / CHUNK / CPU / PREFER:
@@ -192,6 +199,154 @@ def resident_ref(plan):
 
 
 # ---------------------------------------------------------------------------
+# the schedule: tiles, passes, staged boxes
+# ---------------------------------------------------------------------------
+
+#: threads per block (csrc/resident.cu NTHR; the nonlinear variant half)
+NTHR = 512
+#: the most arrays a block stages (csrc/resident.cu MAXSLOT)
+MAXSLOT = 96
+#: the H100's shared memory for one block (the wrapper asks the card:
+#: mnt_k3_smem)
+SMEM_H100 = fdtd3d_t2.SMEM_H100
+#: the longest pass
+TMAX = 16
+#: the tile extents tried along an axis (besides the whole axis)
+TILE_SIZES = (4, 6, 8, 12, 16, 20, 24, 32, 40, 48, 56, 64, 80, 96, 128)
+#: the cost model of a pass (microseconds; fitted on an H100 by
+#: scripts/resident_time.py --sweep, PERF.md §6): a grid barrier, a block's
+#: bytes staged or written back per us, one round of a component's
+#: sub-update (NTHR sites)
+COST_BARRIER, COST_BYTES_PER_US, COST_ROUND = 7.4411, 4952.7, 0.2608
+
+
+def step_us(T, ntile, vol, interior, nslot: int, nstate: int, nloops: int,
+            sms: int):
+    """The cost model's microseconds per step of a tiling: per pass a grid
+    barrier, then per wave of tiles (one block an SM) the staging and
+    write-back and T steps of nloops component loops of ceil(vol / NTHR)
+    rounds.  T, ntile, vol and interior may be integer arrays (tilings
+    side by side)."""
+    waves = -(-ntile // sms)
+    moved = 4 * (nslot * vol + nstate * interior)
+    rounds = -(-vol // NTHR)
+    tile = moved / COST_BYTES_PER_US + T * nloops * rounds * COST_ROUND
+    return (COST_BARRIER + waves * tile) / T
+
+
+def tiling(shape, nslot: int, nstate: int, c: int, e, nloops: int,
+           budget: int, sms: int, force=None, nvec: int = 0
+           ) -> Dict[str, Any]:
+    """T, the tile and the shared memory of K3/K4 for a grid `shape` (3
+    extents, 1 on an absent axis) whose step stages `nslot` arrays per site
+    (the first `nstate` written back) and `nvec` per-axis vectors, costs the
+    valid region `c` sites per side (1, or 2 when E reads its neighbours'
+    D - P), leaves `e[ax]` more sites valid above the interior (the DTFT's
+    centred average) and runs `nloops` component loops a step.  A tile (t0,
+    t1, t2) is staged grown by T c below and T c + e above (`boxes`): nslot
+    arrays of `vol` floats (the grown extents' product) and nvec vectors of
+    `gvec` floats (the largest grown extent), which must fit `budget` bytes;
+    among those, the choice with the least modelled time per step on `sms`
+    SMs (`step_us`).  `force` = ((t0, t1, t2), T) takes that choice
+    instead (the tests' tile seams, scripts/resident_time.py's sweep;
+    ValueError if it does not fit).
+    Returns {"t", "nt", "e", "T", "c", "vol", "gvec", "smem", "ntile",
+    "direct": False}, or None when not even the smallest tile fits at
+    T = 1."""
+    shape = tuple(int(s) for s in shape)
+    e = tuple(int(v) for v in e)
+
+    def grown(t, T):
+        return tuple(min(S, ti + 2 * T * c + ei)
+                     for S, ti, ei in zip(shape, t, e))
+
+    def result(t, T):
+        g = grown(t, T)
+        vol = int(np.prod(g))
+        nt = tuple(-(-S // ti) for S, ti in zip(shape, t))
+        return {"t": t, "nt": nt, "e": e, "T": T, "c": c, "vol": vol,
+                "gvec": max(g), "smem": 4 * (nslot * vol + nvec * max(g)),
+                "ntile": int(np.prod(nt)), "direct": False}
+
+    if force is not None:
+        t, T = tuple(min(S, int(v)) for S, v in zip(shape, force[0])), \
+            int(force[1])
+        out = result(t, T)
+        if out["smem"] > budget:
+            raise ValueError(f"resident: forced tiling {force} needs "
+                             f"{out['smem']} bytes of shared memory")
+        return out
+    # every (T, t0, t1, t2) at once, in the order of nested loops over
+    # them: argmin takes the first of equal costs
+    sizes = [sorted({min(S, v) for v in TILE_SIZES} | {S}) for S in shape]
+    Tg, t0, t1, t2 = (g.ravel() for g in np.meshgrid(
+        np.arange(1, TMAX + 1), *sizes, indexing="ij"))
+    g = [np.minimum(S, ti + 2 * Tg * c + ei)
+         for S, ti, ei in zip(shape, (t0, t1, t2), e)]
+    vol = g[0] * g[1] * g[2]
+    fits = 4 * (nslot * vol + nvec * np.maximum(np.maximum(g[0], g[1]),
+                                                 g[2])) <= budget
+    if not fits.any():
+        return None
+    ntile = ((-(-shape[0] // t0)) * (-(-shape[1] // t1))
+             * (-(-shape[2] // t2)))
+    cost = np.where(fits, step_us(Tg, ntile, vol, t0 * t1 * t2, nslot,
+                                  nstate, nloops, sms), np.inf)
+    k = int(np.argmin(cost))
+    return result((int(t0[k]), int(t1[k]), int(t2[k])), int(Tg[k]))
+
+
+def direct_tiling(shape, c: int, e) -> Dict[str, Any]:
+    """The direct schedule in tiling()'s terms: one tile, the whole grid
+    (`shape`, 3 extents), T = 1, no shared memory; its "vol" and "gvec"
+    lay out the device buffer the kernel steps in (nslot arrays of vol
+    floats, then the per-axis vectors, gvec floats each)."""
+    shape = tuple(int(s) for s in shape)
+    return {"t": shape, "nt": (1, 1, 1), "e": tuple(int(v) for v in e),
+            "T": 1, "c": c, "vol": int(np.prod(shape)), "gvec": max(shape),
+            "smem": 0, "ntile": 1, "direct": True}
+
+
+def staged_boxes(tl, shape, Tp: int):
+    """Every tile's staged box in a pass of Tp steps: (lo, hi), each
+    (ntile, 3) in grid coordinates (hi exclusive), the tile's interior grown
+    by Tp c below and Tp c + e above, clipped to the grid."""
+    at = np.stack(np.unravel_index(np.arange(tl["ntile"]), tl["nt"]), 1)
+    lo = at * np.asarray(tl["t"])
+    hi = np.minimum(shape, lo + np.asarray(tl["t"]))
+    grow = Tp * tl["c"]
+    return (np.maximum(0, lo - grow),
+            np.minimum(shape, hi + grow + np.asarray(tl["e"])))
+
+
+def boxes(tl, shape, tile: int, Tp: int, r: int) -> Dict[str, Any]:
+    """The boxes (lo, hi per axis, grid coordinates, hi exclusive) of tile
+    `tile` in a pass of Tp steps, at its step r, as csrc/resident.cu
+    computes them: "interior", "staged" (grown by Tp c below and Tp c + e
+    above, clipped to the grid) and the sub-updates' boxes "b" (B curl, B
+    sources, H), "d" (D curl, D sources), "e" (E and the ADE)."""
+    c, nl = tl["c"], tl["c"] - 1
+    nt = tl["nt"]
+    at = (tile // (nt[1] * nt[2]), (tile // nt[2]) % nt[1], tile % nt[2])
+    lo = [a * t for a, t in zip(at, tl["t"])]
+    hi = [min(S, a + t) for S, a, t in zip(shape, lo, tl["t"])]
+    L = (Tp - r) * c
+    out = {"interior": (lo, hi)}
+
+    def box(dlo, dhi):
+        return ([max(0, a - dlo) for a in lo],
+                [min(S, b + dhi + ei) for S, b, ei in zip(shape, hi,
+                                                           tl["e"])])
+
+    slo, shi = staged_boxes(tl, shape, Tp)
+    out["staged"] = (slo[tile].tolist(), shi[tile].tolist())
+    out["b"] = box(L, L - 1)
+    out["d"] = box(L - 1, L - 1)
+    out["e"] = box(L - 1 - nl, L - 1 - nl)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the C argument block (mirrors csrc/resident.cu; every member is 8 bytes)
 # ---------------------------------------------------------------------------
 
@@ -205,42 +360,129 @@ class _DftM(ctypes.Structure):
                    ("navg", _I), ("avg", _I * 3)])
 
 
-class _ProbeR(ctypes.Structure):
-    _fields_ = [(n, _P) for n in ("f", "off", "w", "out")] + [("npts", _I)]
-
-
 class _SrcFam(ctypes.Structure):
     _fields_ = ([(n, _P) for n in ("slot_off", "slot_q", "slot_start",
-                                   "c_src", "c_re", "c_im")]
+                                   "c_src", "c_re", "c_im", "tstart",
+                                   "tslot")]
                 + [("nslot", _I)])
+
+
+class _Probes(ctypes.Structure):
+    _fields_ = ([(n, _P) for n in ("off", "tok", "w", "start", "tstart",
+                                   "tpt", "series", "prod")]
+                + [("nprobe", _I), ("npt", _I)])
+
+
+class _Tiling(ctypes.Structure):
+    _fields_ = [("t", _I * 3), ("nt", _I * 3), ("e", _I * 3)] + \
+        [(n, _I) for n in ("T", "c", "vol", "nslot", "nstate", "nvec",
+                           "gvec", "direct")]
 
 
 class _ResArgs(ctypes.Structure):
     _fields_ = [("pb", fdtd3d._Params * 2), ("pd", fdtd3d._Params * 2),
-                ("src", _SrcFam * 2), ("dft", _P), ("probe", _P),
-                ("cur", _P), ("flags", _P), ("dt", ctypes.c_double)] + \
-        [(n, _I) for n in ("nsteps", "nsrc", "ndft", "nprobe", "e_local")]
+                ("src", _SrcFam * 2), ("pr", _Probes), ("tl", _Tiling),
+                ("set", (_P * MAXSLOT) * 2), ("vec", _P), ("base", _P),
+                ("dft", _P),
+                ("cur", _P),
+                ("flags", _P), ("dt", ctypes.c_double)] + \
+        [(n, _I) for n in ("nsteps", "nsrc", "ndft", "e_local")]
 
 
-def _lib():
-    from . import _build
-    lib = _build.load("resident")
+#: the kernel's static shared memory: its argument block, 16-byte aligned,
+#: and the tile's four parameter-block descriptors (csrc/resident.cu FamT,
+#: 688 bytes each; bind() checks the sum against the library's
+#: mnt_k3_static_smem, a card test against the card's figure)
+STATIC_SMEM = -(-ctypes.sizeof(_ResArgs) // 16) * 16 + 4 * 688
+
+
+def bind(lib):
+    """Declare the C interface of a loaded csrc/resident.cu library (the
+    card's, or the host build of the emulation tests); checks that its
+    argument block is the one mirrored here."""
     if not getattr(lib, "_mnt_bound", False):
-        lib.mnt_k3_args_size.restype = ctypes.c_longlong
-        lib.mnt_k3_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+        for name in ("mnt_k3_args_size", "mnt_k3_threads", "mnt_k3_maxslot",
+                     "mnt_k3_static_smem"):
+            getattr(lib, name).restype = ctypes.c_longlong
+        lib.mnt_k3_threads.argtypes = [ctypes.c_int]
+        lib.mnt_k3_smem.argtypes = [ctypes.c_void_p]
+        lib.mnt_k3_smem.restype = ctypes.c_int
+        lib.mnt_k3_sms.restype = ctypes.c_int
+        lib.mnt_k3_max_blocks.argtypes = [ctypes.c_int] * 4
         lib.mnt_k3_max_blocks.restype = ctypes.c_int
         lib.mnt_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_int, ctypes.c_void_p]
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
         lib.mnt_k3_launch.restype = ctypes.c_int
-        if lib.mnt_k3_args_size() != ctypes.sizeof(_ResArgs):
+        if (lib.mnt_k3_args_size(), lib.mnt_k3_threads(0),
+                lib.mnt_k3_threads(1), lib.mnt_k3_maxslot(),
+                lib.mnt_k3_static_smem()) != \
+                (ctypes.sizeof(_ResArgs), NTHR, NTHR // 2, MAXSLOT,
+                 STATIC_SMEM):
             raise RuntimeError("csrc/resident.cu ResArgs layout does not "
                                "match ops/resident.py")
         lib._mnt_bound = True
     return lib
 
 
+def _lib():
+    from . import _build
+    return bind(_build.load("resident"))
+
+
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+class _Tok:
+    """A state array's slot token (slot + 1) in place of its address: what
+    build_params reads from a state view (data_ptr)."""
+
+    def __init__(self, slot: int):
+        self.slot = slot
+
+    def data_ptr(self) -> int:
+        return self.slot + 1
+
+
+def state_paths(plan):
+    """The state arrays K3/K4 stage, in slot order: ("f", c), ("f_u", c),
+    ("f_w", c), ("pol", index, "p" or "pp", c) -- the keys of
+    step.init_state's state."""
+    curls = plan.curl_specs_d + plan.curl_specs_b
+    ehs = plan.eh_specs_e + plan.eh_specs_h
+    paths = [("f", s.c) for s in curls] + [("f", s.ec) for s in ehs]
+    paths += [("f_u", s.c) for s in curls if s.dsigu_axis is not None]
+    paths += [("f_w", s.ec) for s in ehs if s.dsigw_axis is not None]
+    for pi, p in enumerate(plan.pol_specs_e + plan.pol_specs_h):
+        comps = sorted({c for (c, d) in p.sigma
+                        if d == G.component_direction(c)})
+        paths += [("pol", pi, k, c) for k in ("p", "pp") for c in comps]
+    return paths
+
+
+def _get(state, path):
+    return state["pol"][path[1]][path[2]][path[3]] if path[0] == "pol" \
+        else state[path[0]][path[1]]
+
+
+def _with(state, paths, tensors):
+    """`state` with the arrays at `paths` replaced by `tensors`."""
+    out = {**state, "f": dict(state["f"]), "f_u": dict(state["f_u"]),
+           "f_w": dict(state["f_w"]),
+           "pol": [{k: dict(e[k]) for k in ("p", "pp")}
+                   for e in state["pol"]]}
+    for path, t in zip(paths, tensors):
+        if path[0] == "pol":
+            out["pol"][path[1]][path[2]][path[3]] = t
+        else:
+            out[path[0]][path[1]] = t
+    return out
+
+
+def _swap_pols(state):
+    return {**state, "pol": [{"p": e["pp"], "pp": e["p"]}
+                             for e in state["pol"]]}
 
 
 class ResidentKernel:
@@ -257,6 +499,14 @@ class ResidentKernel:
         self.probed_launches = 0          # K4 launches
         self.plain_steps = 0              # steps of the plain version
         self._tables = None
+        self._layout_ = None
+        self._spare = None                # the second state set (tiles)
+        self._buf = None                  # the direct schedule's buffer
+        self._const = None                # its coefficients and vectors
+        self._probes_ = None              # the last probes' tables
+        self._device = {}                 # device -> (budget, SMs)
+        self._most = {}                   # (device, variant, smem) -> blocks
+        self.schedule = None              # (device, the schedule)
 
     def run(self, state, nsteps: int, t0: int = 0):
         """Advance `state` by nsteps (chunks of at most MAX_CHUNK steps)."""
@@ -292,8 +542,11 @@ class ResidentKernel:
 
     # ---- CUDA path ---------------------------------------------------------
     def _run_cuda(self, state, nsteps, t0, probes):
-        """The kernel over chunks of at most MAX_CHUNK steps, in place on
-        frequency-major copies of the DTFT accumulators."""
+        """The kernel over chunks of at most MAX_CHUNK steps, out of place
+        between the state's arrays and a second set (tiles), or in place in
+        the direct schedule's buffer (the input's arrays are handed over:
+        use only the returned state), the DTFT in place on frequency-major
+        copies of the accumulators."""
         state = self._check(state)
         state = {**state, "dft": {k: v.movedim((-2, -1), (0, 1)).contiguous()
                                   for k, v in state["dft"].items()}}
@@ -308,7 +561,7 @@ class ResidentKernel:
 
     def _check(self, state):
         """Device, dtype, shape and contiguity of every state tensor; a new
-        dict whose tensors share no storage (the kernel updates in place)."""
+        dict whose tensors share no storage (the kernel writes them)."""
         if torch.device(self.plan.device).type != "cuda":
             raise RuntimeError("resident: the plan's coefficients are not on "
                                "a CUDA device")
@@ -335,13 +588,221 @@ class ResidentKernel:
                       for pi, e in enumerate(state["pol"])]
         return out
 
-    def _site_tables(self):
+    def _layout(self):
+        """(state paths, parameter blocks, coefficients, vectors, vector
+        table): the parameter blocks of both families and step parities
+        with every per-site array named by its slot token -- the state
+        arrays' slots first (state_paths), then the per-site coefficients'
+        (chi1inv, the chi2/chi3 arrays, the ADE sigmas), whose tensors fill
+        the rest of both sets -- and every per-axis vector (PML profiles,
+        alive masks) by its vector token, the vectors' (tensor, axis)
+        listed in `vectors` and their (address, axis), on the plan's
+        device, in the table the kernel stages them from; built once."""
+        if self._layout_ is not None:
+            return self._layout_
+        rp = self.rplan
+        paths = state_paths(rp)
+        tok = {p: _Tok(k) for k, p in enumerate(paths)}
+        npol = len(rp.pol_specs_e + rp.pol_specs_h)
+        view = {"f": {}, "f_u": {}, "f_w": {},
+                "pol": [{"p": {}, "pp": {}} for _ in range(npol)]}
+        for p in paths:
+            if p[0] == "pol":
+                view["pol"][p[1]][p[2]][p[3]] = tok[p]
+            else:
+                view[p[0]][p[1]] = tok[p]
+        coef = []                        # addresses, in slot order
+        vecs = []                        # (address, axis), in vector order
+        pb, pd = [], []
+        for par in (0, 1):
+            # odd steps read P from the buffers even steps wrote into
+            v = view if par == 0 else _swap_pols(view)
+            for fam, out in (("b", pb), ("d", pd)):
+                P = fdtd3d.build_params(rp, fam, v)
+                for q in range(P.neh):
+                    e = P.eh[q]
+                    for name in ("u", "nreps", "nrchi2", "chi3", "chi2"):
+                        setattr(e, name, self._coef_tok(
+                            getattr(e, name), len(paths), coef))
+                    for pc in e.pol:
+                        pc.sigma = self._coef_tok(pc.sigma, len(paths), coef)
+                    for name in ("kapw", "sigw"):
+                        setattr(e, name, self._vec_tok(getattr(e, name),
+                                                       e.w_ax, vecs))
+                    for ax in range(3):
+                        e.alive[ax] = self._vec_tok(e.alive[ax], ax, vecs)
+                for q in range(P.ncurl):
+                    cp = P.curl[q]
+                    for names, ax in ((("kap", "sig", "siginv"), cp.sig_ax),
+                                      (("kapu", "sigu", "siginvu"),
+                                       cp.sigu_ax)):
+                        for name in names:
+                            setattr(cp, name, self._vec_tok(
+                                getattr(cp, name), ax, vecs))
+                    for ax in range(3):
+                        cp.alive[ax] = self._vec_tok(cp.alive[ax], ax, vecs)
+                out.append(P)
+        # the tensors behind the addresses the parameter blocks hold
+        known = list(rp.coefs.values()) + [
+            t for vv in rp.__dict__.get("_alive_cache", {}).values()
+            for t in vv.values()]
+        N = int(np.prod(self.shape))
+        shape = self.shape + (1,) * (3 - len(self.shape))
+
+        def tensor(addr, numel):
+            for t in known:
+                if t.data_ptr() == addr and t.numel() == numel:
+                    return t.reshape(-1)
+            raise RuntimeError(f"resident: no coefficient of {numel} "
+                               f"values at address {addr:#x}")
+
+        coef = [tensor(a, N) for a in coef]
+        vec_t = [(tensor(a, shape[ax]), ax) for a, ax in vecs]
+        table = torch.as_tensor(np.asarray(vecs, np.int64).reshape(-1, 2),
+                                device=self.plan.device)
+        self._layout_ = (paths, pb, pd, coef, vec_t, table)
+        return self._layout_
+
+    @staticmethod
+    def _vec_tok(addr, ax, vecs):
+        """The token (vector + 1) of per-axis vector `addr` along axis `ax`
+        (None or no axis: absent) in `vecs`."""
+        if not addr or ax < 0:
+            return 0
+        if (addr, ax) not in vecs:
+            vecs.append((addr, ax))
+        return vecs.index((addr, ax)) + 1
+
+    @staticmethod
+    def _coef_tok(addr, nstate, coef):
+        """The slot token of per-site coefficient array `addr` (None: absent)
+        in `coef` (addresses of the slots from nstate on)."""
+        if not addr:
+            return 0
+        if addr not in coef:
+            coef.append(addr)
+        return nstate + coef.index(addr) + 1
+
+    def _device_key(self):
+        """The device the launches go to: the current CUDA device (a plan
+        on the host runs the host build of the emulation tests)."""
+        if torch.device(self.plan.device).type == "cuda":
+            return torch.cuda.current_device()
+        return "host"
+
+    def _tiling(self, lib):
+        """The schedule of this plan on the current device: tiling()'s
+        choice on the card's shared memory, or the direct schedule
+        (`direct_tiling`) where tiles give no temporal reuse: more staged
+        arrays than MAXSLOT, no tile that fits, or only T = 1.  Asked of the
+        card once per device."""
+        key = self._device_key()
+        if self.schedule is not None and self.schedule[0] == key:
+            return self.schedule[1]
+        paths, pb, pd, coef, vecs, _ = self._layout()
+        rp = self.rplan
+        if key not in self._device:
+            smem = (ctypes.c_int * 4)()
+            rc = lib.mnt_k3_smem(smem)
+            if rc != 0:
+                raise RuntimeError(f"resident: shared memory (cudaError "
+                                   f"{rc})")
+            most, per_sm, reserve, _ = smem
+            sms = lib.mnt_k3_sms()
+            if sms < 1:
+                raise RuntimeError(f"resident: SM count (cudaError {-sms})")
+            self._device[key] = (min(most, per_sm - reserve) - STATIC_SMEM,
+                                 sms)
+        budget, sms = self._device[key]
+        e = [0, 0, 0]
+        for m in rp.dfts:
+            if m.centered:
+                ys_ = G.yee_shift(m.component, rp.gv.dim)
+                for ax, dd in enumerate(rp.gv.axes):
+                    if ys_[dd] == 0:
+                        e[ax] = 1
+        shape = self.shape + (1,) * (3 - len(self.shape))
+        c = 1 if self._e_local() else 2
+        nloops = len(rp.curl_specs_b + rp.eh_specs_h + rp.curl_specs_d
+                     + rp.eh_specs_e)
+        nslot = len(paths) + len(coef)
+        tl = None
+        if nslot <= MAXSLOT:
+            tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
+                        nvec=len(vecs))
+        if tl is None or tl["T"] == 1:
+            tl = direct_tiling(shape, c, e)
+        self.schedule = (key, tl)
+        return tl
+
+    def _nl(self):
+        return int(any(s.has_chi3 or s.has_nr for s in self.rplan.eh_specs_e))
+
+    def _blocks(self, lib, tl, probed):
+        """The grid of a launch: min(tiles, co-resident blocks), or in the
+        direct schedule one site per thread, at most the co-resident
+        blocks; the occupancy asked once per device, variant and shared
+        memory."""
+        nl = self._nl()
+        key = (self._device_key(), nl, int(probed), int(tl["direct"]),
+               tl["smem"])
+        if key not in self._most:
+            most = lib.mnt_k3_max_blocks(*key[1:])
+            if most < 1:
+                raise RuntimeError(f"resident: occupancy (cudaError "
+                                   f"{-most})")
+            self._most[key] = most
+        want = -(-tl["vol"] // (NTHR // 2 if nl else NTHR)) \
+            if tl["direct"] else tl["ntile"]
+        return min(want, self._most[key])
+
+    def describe(self, nsteps: int, probed: bool) -> Dict[str, Any]:
+        """The schedule of a stretch of nsteps on the current device:
+        tiling()'s choice (or the direct schedule's), the grid's blocks,
+        the passes and the grid barriers of the stretch: one per pass,
+        less one per launch for K3, whose last pass needs none; in the
+        direct schedule, a pass is a step and "barriers" gives the least
+        and most a step takes (a step with sources of either family, or
+        without a DTFT sample, differs)."""
+        lib = _lib()
+        tl = self._tiling(lib)
+        chunks = [MAX_CHUNK] * (nsteps // MAX_CHUNK) + \
+            ([nsteps % MAX_CHUNK] if nsteps % MAX_CHUNK else [])
+        passes = sum(-(-n // tl["T"]) for n in chunks)
+        if tl["direct"]:
+            least = 2 + int(tl["c"] == 2) + int(probed)
+            barriers = (least, 6 + int(probed or bool(self.rplan.dfts)))
+        else:
+            barriers = passes - (0 if probed else len(chunks))
+        return {**tl, "blocks": self._blocks(lib, tl, probed),
+                "passes": passes, "barriers": barriers}
+
+    def _e_local(self):
+        """E from D reads no neighbour (no live chi2/chi3 partner sums)."""
+        rp = self.rplan
+        live = {s.dc for s in rp.eh_specs_e}
+        return not any((s.has_chi3 or s.has_nr)
+                       and (s.dc1 in live or s.dc2 in live)
+                       for s in rp.eh_specs_e)
+
+    def _site_tables(self, tl):
         """Per family, the source sites (every site where a source's dense
         arrays are nonzero), each with its sources' amplitudes in source
-        order, as the kernel's CSR tables; built once."""
-        if self._tables is not None:
-            return self._tables
+        order, as the kernel's CSR tables, and per tile the sites in its
+        staged box; built once per tiling."""
+        if self._tables is not None and self._tables[0] == tl:
+            return self._tables[1]
         rp, dev = self.rplan, self.plan.device
+        shape = self.shape + (1,) * (3 - len(self.shape))
+
+        def i32(v):
+            return torch.as_tensor(np.asarray(v, np.int32).reshape(-1),
+                                   device=dev)
+
+        def f32(v):
+            return torch.as_tensor(np.asarray(v, np.float32).reshape(-1),
+                                   device=dev)
+
         fams = []
         for fam, specs in (("b", rp.curl_specs_b), ("d", rp.curl_specs_d)):
             qof = {s.c: q for q, s in enumerate(specs)}
@@ -359,29 +820,119 @@ class ResidentKernel:
             slots = sorted(contrib)
             start = np.cumsum([0] + [len(contrib[k]) for k in slots])
             flat = [c for k in slots for c in contrib[k]]
-
-            def i32(v):
-                return torch.as_tensor(np.asarray(v, np.int32).reshape(-1),
-                                       device=dev)
-
-            def f32(v):
-                return torch.as_tensor(np.asarray(v, np.float32).reshape(-1),
-                                       device=dev)
-
+            where = np.array(np.unravel_index(
+                np.asarray([o for _, o in slots], np.int64), shape),
+                np.int64).reshape(3, -1).T
+            lo, hi = staged_boxes(tl, shape, tl["T"])
+            # (tile, site): the site lies in the tile's staged box
+            inside = np.all((where[None] >= lo[:, None])
+                            & (where[None] < hi[:, None]), axis=2)
+            tstart = np.concatenate([[0], np.cumsum(inside.sum(1))])
+            tslot = np.nonzero(inside)[1]
             fams.append({"slot_off": i32([o for _, o in slots]),
                          "slot_q": i32([q for q, _ in slots]),
                          "slot_start": i32(start),
                          "c_src": i32([c[0] for c in flat]),
                          "c_re": f32([c[1] for c in flat]),
                          "c_im": f32([c[2] for c in flat]),
+                         "tstart": i32(tstart), "tslot": i32(tslot),
                          "nslot": len(slots)})
-        self._tables = fams
+        self._tables = (tl, fams)
         return fams
+
+    def _probe_tables(self, probes, tl, slot):
+        """K4's tables for `probes` under tiling tl, on the plan's device:
+        every probe's points (flat offsets, slot tokens, weights), each
+        probe's and each tile's (its interior's) points, and the products'
+        buffer (2, T, points); kept for the last probes and tiling."""
+        cached = self._probes_
+        if cached is not None and cached[1] is tl \
+                and len(cached[0]) == len(probes) \
+                and all(a is b for a, b in zip(cached[0], probes)):
+            return cached[2]
+        dev = self.plan.device
+        shape = self.shape + (1,) * (3 - len(self.shape))
+        table = _probe_table(self.rplan, probes)
+        off = np.concatenate([o for _, _, o, _ in table])
+        w = np.concatenate([w for _, _, _, w in table])
+        tok = np.concatenate([np.full(len(o), slot[("f", c)] + 1)
+                              for _, c, o, _ in table])
+        where = np.array(np.unravel_index(off.astype(np.int64), shape))
+        owner = np.zeros(len(off), np.int64)
+        for ax in range(3):
+            owner = owner * tl["nt"][ax] + where[ax] // tl["t"][ax]
+        order = np.argsort(owner, kind="stable")
+        tstart = np.searchsorted(owner[order], np.arange(tl["ntile"] + 1))
+
+        def up(arr, dtype):
+            return torch.as_tensor(np.ascontiguousarray(arr, dtype),
+                                   device=dev)
+
+        tabs = {"off": up(off, np.int32), "tok": up(tok, np.int32),
+                "w": up(w, np.float32),
+                "start": up(np.cumsum([0] + [len(o) for _, _, o, _ in table]),
+                            np.int32),
+                "tstart": up(tstart, np.int32), "tpt": up(order, np.int32),
+                "prod": torch.empty(2 * tl["T"] * len(off),
+                                    dtype=torch.float32, device=dev),
+                "names": [name for name, _, _, _ in table],
+                "npt": len(off)}
+        self._probes_ = (list(probes), tl, tabs)
+        return tabs
+
+    def _pair(self, ins):
+        """The second state set for `ins` (the state's arrays in slot
+        order): the arrays an earlier call handed over, or new ones when
+        there are none or one of them is among `ins`."""
+        spare = self._spare
+        mine = {t.data_ptr() for t in ins}
+        if spare is None or any(t.data_ptr() in mine for t in spare):
+            spare = [torch.empty_like(t) for t in ins]
+        return spare
+
+    def _direct_set(self, ins, tl):
+        """The direct schedule's buffer for the state arrays `ins` (slot
+        order) and the views of its state slots: one device buffer of the
+        nslot arrays of tl["vol"] floats (the state's, then the
+        coefficients') and the per-axis vectors (tl["gvec"] floats each),
+        in which the kernel steps in place.  A state the last call returned
+        comes back as those views, in the slots' order or with its P/PP
+        roles swapped (then copied into slot order; the input's arrays are
+        handed over); any other state is copied into a new buffer, so no
+        state the caller still holds is written."""
+        N, ns = tl["vol"], len(ins)
+        got = [t.data_ptr() for t in ins]
+        if self._buf is not None:
+            buf, views = self._buf
+            mine = [t.data_ptr() for t in views]
+            if got == mine:
+                return self._buf
+            if sorted(got) == sorted(mine):
+                buf[:ns * N].copy_(torch.cat([t.reshape(-1) for t in ins]))
+                return self._buf
+        if self._const is None:
+            _, _, _, coef, vecs, _ = self._layout()
+            gv = tl["gvec"]
+            self._const = torch.cat(
+                [t.to(torch.float32) for t in coef]
+                + [torch.nn.functional.pad(t.to(torch.float32),
+                                           (0, gv - t.numel()))
+                   for t, _ in vecs]
+                + [torch.zeros(0, device=self.plan.device)])
+        buf = torch.empty(ns * N + self._const.numel(), dtype=torch.float32,
+                          device=self.plan.device)
+        torch.cat([t.reshape(-1) for t in ins], out=buf[:ns * N])
+        buf[ns * N:].copy_(self._const)
+        self._buf = (buf, [buf[k * N:(k + 1) * N].view(self.shape)
+                           for k in range(ns)])
+        return self._buf
 
     def _launch(self, state, n, t0, probes):
         """One K3/K4 launch of n steps on the frequency-major state."""
         rp, dev = self.rplan, self.plan.device
         lib = _lib()
+        paths, pb, pd, coef, vecs, vtab = self._layout()
+        tl = self._tiling(lib)
         xs = build_xs(rp, n, t0)
         A = _ResArgs()
         keep = []                        # tensors the launch reads
@@ -400,11 +951,28 @@ class ResidentKernel:
             return t.data_ptr()
 
         for par in (0, 1):
-            # odd steps read P from the buffers even steps wrote into
-            view = state if par == 0 else {**state, "pol": [
-                {"p": e["pp"], "pp": e["p"]} for e in state["pol"]]}
-            A.pb[par] = fdtd3d.build_params(rp, "b", view)
-            A.pd[par] = fdtd3d.build_params(rp, "d", view)
+            A.pb[par], A.pd[par] = pb[par], pd[par]
+        ins = [_get(state, p) for p in paths]
+        blocks = self._blocks(lib, tl, bool(probes))
+        if tl["direct"]:
+            buf, views = self._direct_set(ins, tl)
+            A.base = buf.data_ptr()
+        else:
+            spare = self._pair(ins)
+            for k, (a, b) in enumerate(zip(ins, spare)):
+                A.set[0][k], A.set[1][k] = a.data_ptr(), b.data_ptr()
+            for k, t in enumerate(coef):
+                A.set[0][len(paths) + k] = A.set[1][len(paths) + k] = \
+                    t.data_ptr()
+        t = A.tl
+        for ax in range(3):
+            t.t[ax], t.nt[ax], t.e[ax] = tl["t"][ax], tl["nt"][ax], \
+                tl["e"][ax]
+        t.T, t.c, t.vol = tl["T"], tl["c"], tl["vol"]
+        t.nslot, t.nstate = len(paths) + len(coef), len(paths)
+        t.nvec, t.gvec = len(vecs), tl["gvec"]
+        t.direct = int(tl["direct"])
+        A.vec = _ptr(vtab)
         # source currents (n, nsrc, 2) and the per-step flags
         nsrc = len(rp.sources)
         cur = np.zeros((n, max(nsrc, 1), 2), np.float32)
@@ -416,14 +984,15 @@ class ResidentKernel:
             flags |= np.where(on, STEP_BSRC if s.component[0] == "h"
                               else STEP_DSRC, 0).astype(np.int32)
         A.cur, A.nsrc = up(cur, np.float32), nsrc
-        for fi, tab in enumerate(self._site_tables()):
+        for fi, tab in enumerate(self._site_tables(tl)):
             sf = A.src[fi]
             for key in ("slot_off", "slot_q", "slot_start", "c_src", "c_re",
-                        "c_im"):
+                        "c_im", "tstart", "tslot"):
                 setattr(sf, key, _ptr(tab[key]))
             sf.nslot = tab["nslot"]
         # DTFT monitors
         gv = rp.gv
+        slot = {p: k for k, p in enumerate(paths)}
         dtab = (_DftM * max(len(rp.dfts), 1))()
         for mi, m in enumerate(rp.dfts):
             d = dtab[mi]
@@ -431,7 +1000,7 @@ class ResidentKernel:
             flags |= np.where(np.any(phr != 0, 1) | np.any(phi != 0, 1),
                               STEP_DFT, 0).astype(np.int32)
             d.acc = _ptr(state["dft"][m.name])
-            d.f = _ptr(state["f"][m.component])
+            d.f = slot[("f", m.component)] + 1
             d.w = _ptr(rp.coefs[f"dft{mi}:w"])
             d.phr, d.phi = up(phr, np.float32), up(phi, np.float32)
             d.nfreq = len(m.freqs)
@@ -448,28 +1017,24 @@ class ResidentKernel:
                 d.avg[b] = ax
         A.dft, A.ndft = up_table(dtab), len(rp.dfts)
         A.flags = up(flags, np.int32)
-        # probes (K4)
+        # probes (K4): every probe's points, and per tile the points of its
+        # interior
         series = {}
-        ptab = (_ProbeR * max(len(probes), 1))()
-        for pi, (name, comp, off, w) in enumerate(_probe_table(rp, probes)):
-            pr = ptab[pi]
-            out = torch.empty(n, dtype=torch.float32, device=dev)
-            series[name] = out
-            pr.f = _ptr(state["f"][comp])
-            pr.off, pr.w = up(off, np.int32), up(w, np.float32)
-            pr.out, pr.npts = out.data_ptr(), len(off)
-        A.probe, A.nprobe = up_table(ptab), len(probes)
+        if probes:
+            tabs = self._probe_tables(probes, tl, slot)
+            pr = A.pr
+            for key in ("off", "tok", "w", "start", "tstart", "tpt", "prod"):
+                setattr(pr, key, tabs[key].data_ptr())
+            out = torch.empty((len(tabs["names"]), n), dtype=torch.float32,
+                              device=dev)
+            pr.series = out.data_ptr()
+            pr.nprobe, pr.npt = len(tabs["names"]), tabs["npt"]
+            series = {name: out[i] for i, name in enumerate(tabs["names"])}
         A.dt = rp.dt
         A.nsteps = n
-        # E from D reads neighbours only through the chi2/chi3 partner sums
-        live = {s.dc for s in rp.eh_specs_e}
-        A.e_local = int(not any((s.has_chi3 or s.has_nr)
-                                and (s.dc1 in live or s.dc2 in live)
-                                for s in rp.eh_specs_e))
+        A.e_local = int(tl["c"] == 1)
         args = up_table(A)
-        N = int(np.prod(self.shape))
-        rc = lib.mnt_k3_launch(ctypes.byref(A), args,
-                               (N + 255) // 256,
+        rc = lib.mnt_k3_launch(ctypes.byref(A), args, blocks, tl["smem"],
                                torch.cuda.current_stream().cuda_stream)
         if probes:
             self.probed_launches += 1
@@ -478,11 +1043,20 @@ class ResidentKernel:
         if rc != 0:
             raise RuntimeError(f"resident kernel launch failed: cudaError "
                                f"{rc}")
+        if tl["direct"]:
+            # stepped in place: the buffer's views hold the state
+            state = _with(state, paths, views)
+        elif -(-n // tl["T"]) % 2:
+            # the last of the launch's ceil(n / T) passes wrote set 1 when
+            # their count is odd: the input's arrays become the second set
+            state = _with(state, paths, spare)
+            self._spare = ins
+        else:
+            self._spare = spare
         # new P went into the PP buffers on even steps: after an odd count
         # the buffers' roles are swapped
         if n % 2:
-            state = {**state, "pol": [{"p": e["pp"], "pp": e["p"]}
-                                      for e in state["pol"]]}
+            state = _swap_pols(state)
         return state, series
 
 

@@ -1,9 +1,11 @@
-// Host stand-in for <cooperative_groups.h>: one thread, so the grid barrier
-// has nothing to wait for (see cuda_runtime.h beside it).
+// Host stand-in for <cooperative_groups.h>: the grid barrier of a
+// cooperative launch hands the turn to the next block (see cuda_runtime.h
+// beside it, which this needs).
 #pragma once
+#include <cuda_runtime.h>
 namespace cooperative_groups {
 struct grid_group {
-  void sync() {}
+  void sync() { stub_coop_yield(false); }
 };
 inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups

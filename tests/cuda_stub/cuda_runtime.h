@@ -3,21 +3,30 @@
 // with a C++ compiler and run their kernels with one thread per block
 // (tests/test_torch_fdtd3d_emul.py, tests/test_torch_fdtd3d_t2_emul.py,
 // tests/test_torch_resident_emul.py, tests/test_torch_fused_emul.py).  A
-// cooperative launch becomes a plain call (with the one pointer argument
-// the resident kernel takes); a cudaLaunchKernel runs the grid's blocks
-// one after another, each a call with the arguments unpacked, blockIdx set
-// and its dynamic shared memory a zeroed host buffer (stub_dynamic_smem,
-// which a source reads in place of its `extern __shared__` array when
-// MNT_CUDA_STUB is defined), in the order stub_set_block_order chose:
-// forward, reversed or a seeded shuffle.  A grid or block barrier is a
-// no-op, constant and shared memory a static, an atomic add a plain add.
+// cudaLaunchKernel runs the grid's blocks one after another, each a call
+// with the arguments unpacked, blockIdx set and its dynamic shared memory a
+// zeroed host buffer (stub_dynamic_smem, which a source reads in place of
+// its `extern __shared__` array when MNT_CUDA_STUB is defined), in the
+// order stub_set_block_order chose: forward, reversed or a seeded shuffle.
+// A cooperative launch (the resident kernel's: one pointer argument) runs
+// each block on a host thread of its own, one at a time: the blocks take
+// turns in that order, and grid.sync() hands the turn to the next block
+// (cooperative_groups.h), so every block reaches a barrier before any
+// passes it; the grid has min(blocks asked, stub_set_sms's SM count)
+// blocks.  A block barrier is a no-op, constant memory a static, shared
+// memory and the block coordinates per host thread, an atomic add a plain
+// add.
 #pragma once
 #include <algorithm>
 #include <cmath>
+#include <condition_variable>
+#include <cstdint>
 #include <cstddef>
 #include <cstring>
+#include <mutex>
 #include <numeric>
 #include <random>
+#include <thread>
 #include <type_traits>
 #include <utility>
 #include <vector>
@@ -29,14 +38,18 @@
 #define __restrict__
 #define __launch_bounds__(...)
 #define __grid_constant__
+#define __align__(n) __attribute__((aligned(n)))
 #define __constant__ static
-#define __shared__ static
+#define __shared__ static thread_local
 inline void __syncthreads() {}
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-static dim3 blockIdx(0, 0, 0), blockDim, gridDim, threadIdx(0, 0, 0);
+static thread_local dim3 blockIdx(0, 0, 0), threadIdx(0, 0, 0);
+static dim3 blockDim, gridDim;
+using std::max;
+using std::min;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 typedef int cudaDeviceAttr;
@@ -51,22 +64,37 @@ enum {
   cudaDevAttrReservedSharedMemoryPerBlock = 111,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8
 };
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes;
+};
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  a->sharedSizeBytes = 0;
+  return 0;
+}
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
 }
 inline std::vector<unsigned char>& stub_smem_buffer() {
-  static std::vector<unsigned char> buf;
+  static thread_local std::vector<unsigned char> buf;
   return buf;
 }
 inline unsigned char* stub_dynamic_smem() { return stub_smem_buffer().data(); }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// the SM count the stub reports (1 unless stub_set_sms chose another)
+inline int& stub_sms() {
+  static int sms = 1;
+  return sms;
+}
+extern "C" void stub_set_sms(int n) { stub_sms() = n; }
 // the H100's shared memory (a block's opt-in most, an SM's, the reserve
-// per block); 1 for any other attribute
+// per block), stub_sms() SMs; 1 for any other attribute
 inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
   *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin       ? 232448
        : attr == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? 233472
        : attr == cudaDevAttrReservedSharedMemoryPerBlock     ? 1024
+       : attr == cudaDevAttrMultiProcessorCount              ? stub_sms()
                                                              : 1;
   return 0;
 }
@@ -87,15 +115,6 @@ cudaError_t cudaMemcpyToSymbolAsync(S& symbol, const void* src, size_t n,
   memcpy(&symbol, src, n);
   return 0;
 }
-inline cudaError_t cudaLaunchCooperativeKernel(const void* fn, dim3, dim3,
-                                               void** args, size_t,
-                                               cudaStream_t) {
-  if (args)
-    ((void (*)(const void*))fn)(*(const void* const*)args[0]);
-  else
-    ((void (*)())fn)();
-  return 0;
-}
 template <class... A, size_t... I>
 void stub_call(void (*fn)(A...), void** args, std::index_sequence<I...>) {
   fn(*static_cast<typename std::remove_reference<A>::type*>(args[I])...);
@@ -108,6 +127,72 @@ inline int& stub_block_order() {
 }
 extern "C" void stub_set_block_order(int order) {
   stub_block_order() = order;
+}
+// a cooperative launch's turn-taking: the blocks' positions in the run
+// order, whose turn it is, which have returned
+struct StubCoop {
+  std::mutex m;
+  std::condition_variable cv;
+  size_t n = 0, turn = 0;
+  std::vector<bool> done;
+};
+inline StubCoop& stub_coop() {
+  static StubCoop c;
+  return c;
+}
+inline size_t& stub_coop_pos() {
+  static thread_local size_t pos = 0;
+  return pos;
+}
+// the calling block hands the turn to the next one in the order that has
+// not returned (finished: it has returned), then waits for its own turn
+inline void stub_coop_yield(bool finished) {
+  StubCoop& c = stub_coop();
+  std::unique_lock<std::mutex> lk(c.m);
+  const size_t me = stub_coop_pos();
+  if (finished) c.done[me] = true;
+  for (size_t d = 1; d <= c.n; ++d) {
+    const size_t q = (me + d) % c.n;
+    if (!c.done[q]) {
+      c.turn = q;
+      break;
+    }
+  }
+  c.cv.notify_all();
+  if (!finished) c.cv.wait(lk, [&] { return c.turn == me; });
+}
+inline cudaError_t cudaLaunchCooperativeKernel(const void* fn, dim3 grid,
+                                               dim3, void** args,
+                                               size_t smem, cudaStream_t) {
+  std::vector<unsigned> blocks(grid.x);
+  std::iota(blocks.begin(), blocks.end(), 0u);
+  const int order = stub_block_order();
+  if (order == 1)
+    std::reverse(blocks.begin(), blocks.end());
+  else if (order != 0)
+    std::shuffle(blocks.begin(), blocks.end(), std::mt19937(order));
+  StubCoop& c = stub_coop();
+  c.n = blocks.size();
+  c.turn = 0;
+  c.done.assign(c.n, false);
+  gridDim = dim3(grid.x);
+  const void* arg = *(const void* const*)args[0];
+  std::vector<std::thread> threads;
+  for (size_t pos = 0; pos < blocks.size(); ++pos)
+    threads.emplace_back([=, &c] {
+      stub_coop_pos() = pos;
+      blockIdx = dim3(blocks[pos]);
+      stub_smem_buffer().assign(smem + 16, 0);
+      {
+        std::unique_lock<std::mutex> lk(c.m);
+        c.cv.wait(lk, [&] { return c.turn == pos; });
+      }
+      ((void (*)(const void*))fn)(arg);
+      stub_coop_yield(true);
+    });
+  for (auto& t : threads) t.join();
+  gridDim = dim3();
+  return 0;
 }
 template <class... A>
 cudaError_t cudaLaunchKernel(void (*fn)(A...), dim3 grid, dim3, void** args,

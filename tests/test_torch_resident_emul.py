@@ -1,18 +1,27 @@
 """K3/K4's CUDA source on the CPU: csrc/resident.cu compiled by the host's
-C++ compiler against the stand-in headers of tests/cuda_stub and run as one
-thread through the real wrapper (`ResidentKernel._run_cuda`), against the
-plain version `resident_ref`.
+C++ compiler against the stand-in headers of tests/cuda_stub and run
+through the real wrapper (`ResidentKernel._run_cuda`), one host thread per
+block and one thread per block's threads, against the plain version
+`resident_ref`.
 
-This executes the kernel's own code -- the phases and their order, the
-fused and split E/H phases, the source site tables, the P/PP roles of odd
-and even steps across chunk seams, the DTFT with its centred average, the
-probe sums -- through the wrapper's argument block.  Both sides round alike
-(no FMA contraction), so they agree bit for bit.  One thread hides every
-race; the parallel kernel is held against the plain version on the card by
-test_torch_resident_gpu.py and chip_smoke.py.  Skips where there is no
+This executes the kernel's own code -- the tiles and their staged boxes,
+the passes of T steps and the grid barrier between them (the stub's
+blocks take turns in a chosen order: forward, reversed, shuffled), the two
+state sets, the fused and split E/H sub-updates, the per-tile source
+lists, the P/PP roles of odd and even steps across pass and chunk seams,
+the DTFT with its centred average, the probe products and sums -- through
+the wrapper's argument block.  Both sides round alike (no FMA
+contraction), so they agree bit for bit.  The tile cases force small tiles
+(at least two per axis, T not dividing the stretch) with a source, probe
+points and the flux line on tile seams.  One thread per block hides every
+race inside a block; the parallel kernel is held against the plain version
+on the card by test_torch_resident_gpu.py and chip_smoke.py.
+`test_boxes_keep_every_read_valid` replays the schedule's boxes
+(resident.boxes, tiling) on version counters.  Skips where there is no
 g++."""
 
 import ctypes
+import itertools
 import os
 import shutil
 import subprocess
@@ -38,16 +47,10 @@ def host_lib(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("k3") / "libk3_host.so")
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-Wno-unknown-pragmas", "-I", STUB, "-I", _build.CSRC, "-x", "c++",
+         "-pthread", "-Wno-unknown-pragmas", "-I", STUB, "-I", _build.CSRC,
+         "-x", "c++",
          os.path.join(_build.CSRC, "resident.cu"), "-o", out], check=True)
-    lib = ctypes.CDLL(out)
-    lib.mnt_k3_args_size.restype = ctypes.c_longlong
-    lib.mnt_k3_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mnt_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_int, ctypes.c_void_p]
-    lib.mnt_k3_launch.restype = ctypes.c_int
-    assert lib.mnt_k3_args_size() == ctypes.sizeof(R._ResArgs)
-    return lib
+    return R.bind(ctypes.CDLL(out))
 
 
 def scene(kind, device="cpu", res=10):
@@ -57,7 +60,10 @@ def scene(kind, device="cpu", res=10):
     flag-tm / flag-te: the flagship material (eps=4, a Lorentz pole,
     full-tensor chi2) on a cylinder, TM or TE; tm-many: tm with 25 more
     flux lines (52 DTFT monitors); 3d: a 24^3 eps=8 ball with a flux
-    plane."""
+    plane; nl3d: the flagship material on a ball in a 16x15x15 grid (its 42
+    staged arrays fit tiles only at T = 1); poles3d: a ball with 4 E and 4
+    H Lorentz poles in that grid (99 staged arrays, more than
+    MAXSLOT)."""
     src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Ez,
                      center=mp.Vector3(-2, 0.1))]
     geom = [mp.Cylinder(radius=1.0, material=mp.Medium(epsilon=12))]
@@ -87,11 +93,26 @@ def scene(kind, device="cpu", res=10):
         src = [mp.Source(mp.GaussianSource(0.8, fwidth=0.3), mp.Ez,
                          center=mp.Vector3(-0.6, 0, 0))]
         cell, res, flux_size = mp.Vector3(3, 3, 3), 8, mp.Vector3(0, 1, 1)
+    elif kind in ("nl3d", "poles3d"):
+        def poles(n, f0):
+            return [mp.LorentzianSusceptibility(
+                frequency=f0 + 0.3 * i, gamma=0.1, sigma=0.2 / (i + 1))
+                for i in range(n)]
+        mat = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
+                        E_susceptibilities=poles(1, 2.0)) \
+            if kind == "nl3d" else \
+            mp.Medium(epsilon=3.0, E_susceptibilities=poles(4, 1.1),
+                      H_susceptibilities=poles(4, 1.3))
+        geom = [mp.Sphere(radius=0.5, material=mat)]
+        src = [mp.Source(mp.GaussianSource(0.8, fwidth=0.3), mp.Ez,
+                         center=mp.Vector3(-0.45, 0.05, 0))]
+        cell, res, flux_size = mp.Vector3(2, 2, 2), 7, mp.Vector3(0, 1, 1)
+    pml = 0.5 if kind in ("nl3d", "poles3d") else 0.8
     sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
-                        sources=src, boundary_layers=[mp.PML(0.8)],
+                        sources=src, boundary_layers=[mp.PML(pml)],
                         device=device)
-    sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(center=mp.Vector3(0.9, 0, 0),
-                                            size=flux_size))
+    sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
+        center=mp.Vector3(0.4 if pml == 0.5 else 0.9, 0, 0), size=flux_size))
     if kind == "tm-many":
         for i in range(25):
             sim.add_flux(0.5, 0.2, 2, mp.FluxRegion(
@@ -125,19 +146,65 @@ def _own(self, st):
                      for k in ("p", "pp")} for e in st["pol"]]}
 
 
-#: case -> (scene, probed, steps, MAX_CHUNK)
-CASES = {"tm-k3": ("tm", False, 13, 8192), "tm-k4": ("tm", True, 13, 8192),
-         "many-k4": ("tm-many", True, 7, 8192),
-         "disp-k4-seams": ("disp", True, 13, 5),
-         "flag-te-k4": ("flag-te", True, 13, 8192),
-         "te-k3-seams": ("te", False, 13, 5),
-         "3d-k3": ("3d", False, 9, 8192), "3d-k4-seams": ("3d", True, 9, 4)}
+#: case -> (scene, probed, steps, MAX_CHUNK, schedule): schedule None
+#: takes the wrapper's choice, else (tile, T, blocks, block order: 0
+#: forward, 1 reversed, else a seeded shuffle), tile None for the direct
+#: schedule (nl3d and poles3d take it by themselves)
+CASES = {"tm-k3": ("tm", False, 13, 8192, None),
+         "tm-k4": ("tm", True, 13, 8192, None),
+         "many-k4": ("tm-many", True, 7, 8192, None),
+         "disp-k4-seams": ("disp", True, 13, 5, None),
+         "flag-te-k4": ("flag-te", True, 13, 8192, None),
+         "te-k3-seams": ("te", False, 13, 5, None),
+         "3d-k3": ("3d", False, 9, 8192, None),
+         "3d-k4-seams": ("3d", True, 9, 4, None),
+         "tm-k4-tiles": ("tm", True, 13, 8192, ((13, 13, 1), 3, 3, 0)),
+         "tm-k4-tiles-reversed": ("tm", True, 13, 8192,
+                                  ((13, 13, 1), 3, 4, 1)),
+         "tm-k3-tiles-seams": ("tm", False, 13, 5, ((13, 13, 1), 3, 5, 7)),
+         "disp-k4-tiles": ("disp", True, 13, 5, ((13, 13, 1), 4, 2, 1)),
+         "te-k3-tiles": ("te", False, 13, 5, ((10, 14, 1), 2, 3, 1)),
+         "flag-te-k4-tiles": ("flag-te", True, 13, 8192,
+                              ((10, 14, 1), 3, 4, 0)),
+         "3d-k4-tiles": ("3d", True, 9, 4, ((8, 6, 6), 2, 3, 1)),
+         "nl3d-k3-direct": ("nl3d", False, 9, 8192, (None, 1, 3, 1)),
+         "nl3d-k4-direct-seams": ("nl3d", True, 9, 4, (None, 1, 4, 7)),
+         "poles3d-k3-direct-seams": ("poles3d", False, 7, 3, (None, 1, 2, 0)),
+         "disp-k3-direct-seams": ("disp", False, 13, 5, (None, 1, 4, 7)),
+         "te-k4-direct": ("te", True, 13, 8192, (None, 1, 3, 1))}
+
+
+def h100_schedule(ker, host_lib):
+    """The schedule the wrapper takes on an H100 (its 132 SMs), kept by
+    the kernel object for its launches on the host build."""
+    host_lib.stub_set_sms(132)
+    try:
+        return ker._tiling(host_lib)
+    finally:
+        host_lib.stub_set_sms(1)
+
+
+def force(monkeypatch, tile, T):
+    """Make ResidentKernel take tiling `tile`, T (tiling()'s `force`), or
+    the direct schedule when tile is None."""
+    orig = R.tiling
+
+    def forced(*args, **kw):
+        return None if tile is None else orig(*args, **kw, force=(tile, T))
+
+    monkeypatch.setattr(R, "tiling", forced)
+
+
+def _straddles(lo, hi, t):
+    """Whether the sites lo..hi (inclusive) lie in more than one tile of
+    extent t along an axis."""
+    return lo // t != hi // t
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_source_matches_plain_on_the_host(case, host_lib,
                                                  monkeypatch):
-    kind, probed, nsteps, chunk = CASES[case]
+    kind, probed, nsteps, chunk, sched = CASES[case]
     monkeypatch.setattr(R, "_lib", lambda: host_lib)
     monkeypatch.setattr(R, "MAX_CHUNK", chunk)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -146,8 +213,13 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
     plan = scene(kind)
     st0 = random_state(plan, 4)
     comp = {"te": "hz", "flag-te": "ey"}.get(kind, "ez")
-    pt = [10, 10] + ([10] if kind == "3d" else [])
-    probes = [TS.ProbeSpec("p0", comp, np.array([pt, [pt[0] + 1] + pt[1:]]),
+    is3d = plan.gv.ndim == 3
+    pt = [10, 10] + ([10] if is3d else [])
+    if sched is not None and sched[0] is not None:
+        # probe points across an x seam
+        pt = [sched[0][0], sched[0][1] + 1] + ([5] if is3d else [])
+    probes = [TS.ProbeSpec("p0", comp, np.array([[pt[0] - 1] + pt[1:],
+                                                 pt]),
                            np.array([0.6, 0.4])),
               TS.ProbeSpec("p1", comp, np.array([pt]), np.array([1.0]))] \
         if probed else []
@@ -157,13 +229,43 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
                                 np.array([[10 + i, 12], [10 + i, 13]]),
                                 np.array([0.25, 0.75])) for i in range(20)]
     ker = R.ResidentKernel(plan)
+    if sched is None:                      # the H100's choice, one block
+        h100_schedule(ker, host_lib)
+    else:
+        tile, T, blocks, order = sched
+        force(monkeypatch, tile, T)
+        host_lib.stub_set_sms(blocks)
+        host_lib.stub_set_block_order(order)
     t0 = 5                                 # the sources are on
-    sk, yk = ker._run_cuda(st0, nsteps, t0, probes)
+    try:
+        sk, yk = ker._run_cuda(st0, nsteps, t0, probes)
+    finally:
+        host_lib.stub_set_sms(1)
+        host_lib.stub_set_block_order(0)
     sr, yr = R.resident_ref(plan)(st0, nsteps, t0, probes)
     nlaunch = -(-nsteps // chunk)
     assert (ker.probed_launches, ker.launches) == \
         ((nlaunch, 0) if probed else (0, nlaunch))
     assert int(sk["t"]) == int(sr["t"]) == nsteps
+    tl = ker.schedule[1]
+    assert tl["direct"] == (kind in ("nl3d", "poles3d")
+                            or (sched is not None and sched[0] is None))
+    if sched is not None and tl["direct"]:
+        assert tl["T"] == 1 and tl["ntile"] == 1
+    elif sched is not None:
+        assert tl["t"] == tile and tl["T"] == T
+        assert all(n >= 2 for n, S in zip(tl["nt"], ker.shape) if S > 1)
+        lens = [chunk] * (nsteps // chunk) + [nsteps % chunk]
+        assert any(n % T for n in lens)   # a pass shorter than T
+        # a source site, the flux region and the probe p0 cross tile seams
+        rp = ker.rplan
+        src = np.argwhere(rp.coefs["src0:dense_re"].numpy() != 0)
+        lo, hi = rp.dfts[0].region[0], rp.dfts[0].region[1]
+        assert any(_straddles(src[:, ax].min() - 1, src[:, ax].max(), t)
+                   for ax, t in enumerate(tile[:src.shape[1]]))
+        assert _straddles(lo[0], lo[1], tile[0]) \
+            or _straddles(hi[0], hi[1] - 1, tile[1])
+        assert _straddles(pt[0] - 1, pt[0], tile[0])
     for key in ("f", "f_u", "f_w", "dft"):
         for c, t in sr[key].items():
             assert torch.equal(sk[key][c], t), f"{key}[{c}]"
@@ -176,3 +278,185 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
     for k, t in yr.items():
         assert t.shape == (nsteps,) and torch.equal(yk[k], t), k
     assert float((sr["f"][comp] - st0["f"][comp]).abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the schedule's boxes and the shared-memory rule
+# ---------------------------------------------------------------------------
+
+
+def _replay(shape, tl, Tp, nl_partners):
+    """Run each tile's pass of Tp steps on version counters per field class
+    (B, H, D, E, P; grid (S0, S1), stencil reach as the step's): each
+    sub-update computes its box (resident.boxes) from the versions its
+    reads need; every site it computes must read valid versions, and the
+    interior grown by e above must hold version Tp at the end."""
+    S = np.array(shape[:2])
+    for tile in range(tl["ntile"]):
+        st = R.boxes(tl, shape, tile, Tp, 0)["staged"]
+        o = np.array(st[0][:2])
+        n = np.array(st[1][:2]) - o
+        ver = {k: np.zeros(tuple(n), np.int64) for k in "BHDEP"}
+
+        def at(k, i, j, r):
+            """version of k at grid site (i, j), r if off the grid (the
+            zero boundary is exact), -1 if outside the staged box."""
+            if not (0 <= i < S[0] and 0 <= j < S[1]):
+                return r
+            li, lj = i - o[0], j - o[1]
+            if not (0 <= li < n[0] and 0 <= lj < n[1]):
+                return -1
+            return ver[k][li, lj]
+
+        def update(k, box, reads, r):
+            new = ver[k].copy()
+            for i in range(box[0][0], box[1][0]):
+                for j in range(box[0][1], box[1][1]):
+                    for (src, di, dj, want) in reads:
+                        got = at(src, i + di, j + dj, want)
+                        assert got == want, (tile, k, i, j, src, di, dj, r)
+                    new[i - o[0], j - o[1]] = r + 1
+            ver[k] = new
+
+        for r in range(Tp):
+            bx = R.boxes(tl, shape, tile, Tp, r)
+            update("B", bx["b"], [("B", 0, 0, r), ("E", 0, 0, r),
+                                  ("E", 1, 0, r), ("E", 0, 1, r)], r)
+            update("H", bx["b"], [("B", 0, 0, r + 1), ("H", 0, 0, r)], r)
+            update("D", bx["d"], [("D", 0, 0, r), ("H", 0, 0, r + 1),
+                                  ("H", -1, 0, r + 1), ("H", 0, -1, r + 1)],
+                   r)
+            near = [(0, 0)] + ([(1, 0), (0, 1), (-1, 0), (0, -1), (1, -1),
+                                (-1, 1)] if nl_partners else [])
+            update("E", bx["e"], [("D", a, b, r + 1) for a, b in near]
+                   + [("P", a, b, r) for a, b in near] + [("E", 0, 0, r)], r)
+            update("P", bx["e"], [("E", 0, 0, r + 1), ("P", 0, 0, r)], r)
+        lo, hi = bx["interior"]
+        for k in "BHDEP":
+            for i in range(lo[0], min(S[0], hi[0] + tl["e"][0])):
+                for j in range(lo[1], min(S[1], hi[1] + tl["e"][1])):
+                    assert at(k, i, j, Tp) == Tp, (tile, k, i, j)
+
+
+@pytest.mark.parametrize("c,e", [(1, (0, 0, 0)), (1, (1, 0, 0)),
+                                 (2, (0, 1, 0)), (2, (1, 1, 0))])
+def test_boxes_keep_every_read_valid(c, e):
+    """The staged box's halo (T c below, T c + e above) and the
+    sub-updates' boxes give every computed site valid reads and leave the
+    interior (grown by e above) valid after the pass, for full and shorter
+    passes, tiles on the grid's edges and inside, linear (c = 1) and
+    chi2-partner (c = 2) steps; and tiling() sizes the staged box so."""
+    shape = (23, 17, 1)
+    tl = R.tiling(shape, 4, 3, c, e, 6, 10 ** 9, 4, force=((7, 6, 1), 3))
+    assert tl["nt"] == (4, 3, 1) and tl["ntile"] == 12
+    g = [min(S, t + 2 * 3 * c + ei) for S, t, ei in zip(shape, tl["t"], e)]
+    assert tl["vol"] == int(np.prod(g)) and tl["smem"] == 16 * tl["vol"]
+    for Tp in (3, 1):
+        _replay(shape, tl, Tp, c == 2)
+
+
+def test_tiling_fits_shared_memory():
+    """tiling() keeps the staged slots within the budget (the H100's
+    SMEM_H100 less the kernel's static shared memory), takes T >= 2 at the
+    ring (161^2) and at 767^2, finds nothing where not even the smallest
+    tile fits, and refuses a forced tiling that does not fit."""
+    budget = R.SMEM_H100 - R.STATIC_SMEM
+    for shape, nslot, e in (((161, 161, 1), 11, (0, 0, 0)),
+                            ((767, 767, 1), 11, (0, 0, 0)),
+                            ((767, 767, 1), 11, (1, 0, 0))):
+        tl = R.tiling(shape, nslot, 10, 1, e, 6, budget, 132)
+        assert tl["smem"] == 4 * nslot * tl["vol"] <= budget
+        assert tl["T"] >= 2 and tl["ntile"] >= 2
+    # the flagship material in 3D: chi2 partner sums, a pole, 42 slots
+    tl = R.tiling((20, 20, 20), 42, 30, 2, (1, 1, 1), 12, budget, 132)
+    assert tl["smem"] <= budget
+    # with 3 more E poles and an H pole, 78 slots: not even a 4^3 tile at
+    # T = 1 fits (the wrapper then takes the direct schedule)
+    assert R.tiling((20, 20, 20), 78, 60, 2, (1, 1, 1), 12, budget,
+                    132) is None
+    with pytest.raises(ValueError):
+        R.tiling((767, 767, 1), 11, 10, 1, (0, 0, 0), 6, budget, 132,
+                 force=((128, 128, 1), 8))
+
+
+def _tiling_by_loop(shape, nslot, nstate, c, e, nloops, budget, sms, nvec):
+    """tiling()'s choice by nested loops over T and the tile extents: the
+    first of the least modelled costs among the tilings that fit."""
+    sizes = [sorted({min(S, v) for v in R.TILE_SIZES} | {S}) for S in shape]
+    best = None
+    for T in range(1, R.TMAX + 1):
+        for t in itertools.product(*sizes):
+            g = [min(S, ti + 2 * T * c + ei) for S, ti, ei in zip(shape, t, e)]
+            vol = g[0] * g[1] * g[2]
+            if 4 * (nslot * vol + nvec * max(g)) > budget:
+                continue
+            ntile = int(np.prod([-(-S // ti) for S, ti in zip(shape, t)]))
+            cost = R.step_us(T, ntile, vol, t[0] * t[1] * t[2], nslot, nstate,
+                             nloops, sms)
+            if best is None or cost < best[0]:
+                best = (cost, t, T)
+    return best and (best[1], best[2])
+
+
+def test_tiling_matches_the_loop():
+    """tiling() searches every (T, tile) at once; it takes what the nested
+    loops take, or None where nothing fits, on seeded random plans."""
+    rng = np.random.default_rng(3)
+    budget = R.SMEM_H100 - R.STATIC_SMEM
+    for _ in range(24):
+        nd = int(rng.integers(2, 4))
+        shape = tuple(int(v) for v in rng.integers(
+            3, 140 if nd == 2 else 40, nd)) + (1,) * (3 - nd)
+        e = tuple(int(rng.integers(0, 2)) if S > 1 else 0 for S in shape)
+        args = (shape, int(rng.integers(3, 100)), 3, int(rng.integers(1, 3)),
+                e, int(rng.integers(2, 13)), budget,
+                int(rng.choice([1, 7, 132])))
+        nvec = int(rng.integers(0, 90))
+        tl = R.tiling(*args, nvec=nvec)
+        want = _tiling_by_loop(*args, nvec)
+        assert (tl and (tl["t"], tl["T"])) == want, args
+
+
+@pytest.mark.parametrize("kind", ["tm", "te", "flag-te", "3d", "nl3d",
+                                  "poles3d"])
+def test_plans_stage_what_their_step_reads(kind, host_lib, monkeypatch):
+    """The wrapper's layout: every state array of step.init_state is a
+    slot, the per-site coefficients follow, every per-axis vector is staged
+    once; the schedule: tiles that fit the stub's H100 figures at T >= 2,
+    or the direct schedule exactly where tiles give no temporal reuse
+    (nl3d: T = 1 only; poles3d: more than MAXSLOT arrays); c is 2
+    exactly where E reads its neighbours."""
+    monkeypatch.setattr(R, "_lib", lambda: host_lib)
+    plan = scene(kind)
+    ker = R.ResidentKernel(plan)
+    paths, pb, pd, coef, vecs, table = ker._layout()
+    st = TS.init_state(plan)
+    assert {p for p in paths} == (
+        {("f", c) for c in st["f"]} | {("f_u", c) for c in st["f_u"]}
+        | {("f_w", c) for c in st["f_w"]}
+        | {("pol", i, k, c) for i, e in enumerate(st["pol"])
+           for k in ("p", "pp") for c in e[k]})
+    N = int(np.prod(ker.shape))
+    ptrs = [t.data_ptr() for t in coef]
+    assert len(ptrs) == len(set(ptrs)) and all(t.numel() == N for t in coef)
+    # every per-axis vector once, with its axis and its length there
+    shape = ker.shape + (1,) * (3 - len(ker.shape))
+    keys = [(t.data_ptr(), ax) for t, ax in vecs]
+    assert len(keys) == len(set(keys))
+    assert all(t.numel() == shape[ax] for t, ax in vecs)
+    assert table.tolist() == [list(k) for k in keys]
+    nslot = len(paths) + len(coef)
+    assert (nslot > R.MAXSLOT) == (kind == "poles3d")
+    tl = h100_schedule(ker, host_lib)
+    assert tl["c"] == {"te": 2, "flag-te": 2, "nl3d": 2}.get(kind, 1)
+    if kind in ("nl3d", "poles3d"):
+        assert tl == R.direct_tiling(shape, tl["c"], tl["e"])
+        assert tl["direct"] and tl["smem"] == 0 and tl["vol"] == N
+        if kind == "nl3d":               # tiles would fit only at T = 1
+            t1 = R.tiling(shape, nslot, len(paths), 2, tl["e"], 6,
+                          R.SMEM_H100 - R.STATIC_SMEM, 132, nvec=len(vecs))
+            assert t1 is not None and t1["T"] == 1
+        return
+    assert not tl["direct"] and tl["T"] >= 2
+    assert tl["smem"] == 4 * (nslot * tl["vol"] + len(vecs) * tl["gvec"])
+    assert tl["smem"] <= R.SMEM_H100 - R.STATIC_SMEM
