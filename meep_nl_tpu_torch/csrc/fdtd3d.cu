@@ -896,21 +896,8 @@ static int launch_kind(const K1Args* a, cudaStream_t s) {
 
 // whether launch `kind` of A has the standard uPML layout (u_ax1 ...)
 static bool upml_layout(const K1Args& A, int kind) {
-  if (kind != K_E) {
-    if (A.P.ncurl != NCOMP) return false;
-    for (int q = 0; q < NCOMP; ++q) {
-      const CurlC& c = A.cc[q];
-      if (c.gp != u_gp(q) || c.gm != u_gm(q) || c.ap != u_ax1(q) ||
-          c.am != u_ax2(q) || c.sax != u_ax1(q) || c.uax != u_ax2(q))
-        return false;
-    }
-  }
-  if (kind != K_D) {
-    if (A.P.neh != NCOMP) return false;
-    for (int q = 0; q < NCOMP; ++q)
-      if (A.ec[q].wax != q) return false;
-  }
-  return true;
+  return (kind == K_E || upml_curl(A.cc, (int)A.P.ncurl)) &&
+         (kind == K_D || upml_eh(A.ec, (int)A.P.neh));
 }
 
 template <typename T, int KIND, bool NL, int NP>

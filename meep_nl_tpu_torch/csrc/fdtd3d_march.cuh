@@ -1,9 +1,10 @@
-// What K1 (fdtd3d.cu) and K2 (fdtd3d_t2.cu) share beyond the per-site
-// value functions of fdtd3d_site.cuh: support boxes, the 32-bit copies of
-// the parameter fields the site work reads (CurlC, EhC) with their slab
-// rule, the standard uPML layout as compile-time values, and the
-// asynchronous plane copies into shared memory (plain copies on the host,
-// where tests/cuda_stub compiles these sources).
+// What K1 (fdtd3d.cu), K2 (fdtd3d_t2.cu) and K5 (fused.cu) share beyond
+// the per-site value functions of fdtd3d_site.cuh: support boxes, the
+// 32-bit copies of the parameter fields the site work reads (CurlC, EhC)
+// with their slab rule, the standard uPML layout as compile-time values
+// and the test for it, and the asynchronous plane copies into shared
+// memory (plain copies on the host, where tests/cuda_stub compiles these
+// sources).
 
 #pragma once
 
@@ -45,6 +46,25 @@ __host__ __device__ constexpr int u_gp(int q) {
 }
 __host__ __device__ constexpr int u_gm(int q) {
   return q == 0 ? 1 : (q == 1 ? 0 : 2);
+}
+
+// whether the curl components cc[0, n) (ring indices of their partners
+// included) and the E/H components ec[0, n) have that layout
+inline bool upml_curl(const CurlC* cc, int n) {
+  if (n != NCOMP) return false;
+  for (int q = 0; q < NCOMP; ++q)
+    if (cc[q].gp != u_gp(q) || cc[q].gm != u_gm(q) || cc[q].ap != u_ax1(q) ||
+        cc[q].am != u_ax2(q) || cc[q].sax != u_ax1(q) ||
+        cc[q].uax != u_ax2(q))
+      return false;
+  return true;
+}
+
+inline bool upml_eh(const EhC* ec, int n) {
+  if (n != NCOMP) return false;
+  for (int q = 0; q < NCOMP; ++q)
+    if (ec[q].wax != q) return false;
+  return true;
 }
 
 // ---- asynchronous copies into shared memory (plain copies on the host) ---

@@ -1,5 +1,5 @@
 // The per-site arithmetic of one 3D Yee step, shared by K1 (fdtd3d.cu),
-// K2 (fdtd3d_t2.cu) and K3/K4 (resident.cu).
+// K2 (fdtd3d_t2.cu), K3/K4 (resident.cu) and K5 (fused.cu).
 //
 // The value functions (curl_delta, curl_value, nr_solve_n,
 // pade, w_value, ade_value) take values and return values: every rounding
@@ -7,8 +7,8 @@
 // kernel feeds them from where it keeps its operands -- K1 and K2 from
 // their shared-memory plane rings, K3/K4 from tiles staged in shared memory
 // -- so all the kernels round alike.  The rest: the parameter blocks the
-// wrappers build (ops/fdtd3d.py::build_params), the difference `diff` of
-// device-memory arrays (K5), the W-chain store `w_store` (K1).
+// wrappers build (ops/fdtd3d.py::build_params, which K5's wrapper calls
+// too), the W-chain store `w_store` (K1).
 
 #pragma once
 
@@ -75,29 +75,6 @@ struct Params {
   i64 sgn;                  // +1 E family, -1 H family
   i64 nr_iters;
 };
-
-__device__ __forceinline__ i64 coord(i64 ax, i64 i, i64 j, i64 k) {
-  return ax == 0 ? i : (ax == 1 ? j : k);
-}
-
-__device__ __forceinline__ i64 extent(const Params& P, i64 ax) {
-  return ax == 0 ? P.S0 : (ax == 1 ? P.S1 : P.S2);
-}
-
-__device__ __forceinline__ i64 stride(const Params& P, i64 ax) {
-  return ax == 0 ? P.S1 * P.S2 : (ax == 1 ? P.S2 : 1);
-}
-
-// D: backward difference g - g[-1]; B: forward difference g[+1] - g;
-// zero outside the storage (the PEC / not-owned convention of step._sh)
-template <typename T, bool IS_D>
-__device__ __forceinline__ T diff(const T* g, const Params& P, i64 a, i64 n,
-                                  i64 i, i64 j, i64 k) {
-  i64 c = coord(a, i, j, k);
-  i64 st = stride(P, a);
-  if (IS_D) return g[n] - (c > 0 ? g[n - st] : T(0));
-  return (c < extent(P, a) - 1 ? g[n + st] : T(0)) - g[n];
-}
 
 // dfl of step._curl: (+-Courant) * (diff g_plus - diff g_minus); hp / hm:
 // the partner exists, dp / dm its difference

@@ -315,6 +315,27 @@ def _set_box(dst, box):
         dst.lo[ax], dst.hi[ax] = lo, hi
 
 
+def compact(A):
+    """The 32-bit copies of the parameter block's fields that the site
+    work reads (A.cc, A.ec), from A.P."""
+    P = A.P
+    for q in range(P.ncurl):
+        c, cc = P.curl[q], A.cc[q]
+        cc.ap, cc.am = c.ap, c.am
+        cc.sax, cc.uax = c.sig_ax, c.sigu_ax
+        cc.s_lo, cc.s_hi0, cc.s_n = _rule(c.sig_lo, c.sig_hi, c.sig_n,
+                                          c.slab)
+        cc.u_lo, cc.u_hi0, cc.u_n = _rule(c.sigu_lo, c.sigu_hi,
+                                          c.sigu_n, c.slab)
+    for q in range(P.neh):
+        e, ec = P.eh[q], A.ec[q]
+        ec.wax = e.w_ax
+        ec.w_lo, ec.w_hi0, ec.w_n = _rule(e.w_lo, e.w_hi, e.w_n,
+                                          e.w_slab)
+        ec.has_u = 1 if e.u else 0
+        ec.pols = sum(1 << p for p in range(P.npol) if e.pol[p].p)
+
+
 #: K1's launches of a step: (family, [(kind, name)])
 _LAUNCHES = (("b", ((K_B, "b_curl+src+h"),)),
              ("d", ((K_D, "d_curl+src"), (K_E, "e_from_d+pol"))))
@@ -390,7 +411,7 @@ class Fdtd3dKernel:
                 A = self._static_args(fam)
                 A.P = P
                 self._ring_keys[kind] = self._roles(A, kind, fam, state)
-                self._compact(A)
+                compact(A)
                 self._static[kind] = A
 
     def _source_lists(self, family):
@@ -589,27 +610,6 @@ class Fdtd3dKernel:
             for q, s in enumerate(plan.eh_specs_h):
                 A.d_of[q] = q_of[s.dc]
         return [("f", g) for g in names]
-
-    @staticmethod
-    def _compact(A):
-        """The 32-bit copies of the parameter block's fields that the site
-        work reads (A.cc, A.ec), from A.P."""
-        P = A.P
-        for q in range(P.ncurl):
-            c, cc = P.curl[q], A.cc[q]
-            cc.ap, cc.am = c.ap, c.am
-            cc.sax, cc.uax = c.sig_ax, c.sigu_ax
-            cc.s_lo, cc.s_hi0, cc.s_n = _rule(c.sig_lo, c.sig_hi, c.sig_n,
-                                              c.slab)
-            cc.u_lo, cc.u_hi0, cc.u_n = _rule(c.sigu_lo, c.sigu_hi,
-                                              c.sigu_n, c.slab)
-        for q in range(P.neh):
-            e, ec = P.eh[q], A.ec[q]
-            ec.wax = e.w_ax
-            ec.w_lo, ec.w_hi0, ec.w_n = _rule(e.w_lo, e.w_hi, e.w_n,
-                                              e.w_slab)
-            ec.has_u = 1 if e.u else 0
-            ec.pols = sum(1 << p for p in range(P.npol) if e.pol[p].p)
 
     def _launch(self, lib, A, kind):
         rc = lib.mnt_k1_launch(ctypes.byref(A), kind,

@@ -1,21 +1,21 @@
 """K5: one fused half step (curl, PML chains, E/H from D/B, W chain, masks)
-as a hand-written CUDA kernel (csrc/fused.cu), the step behind
-``Simulation(use_pallas=True)``.
+with the family's current sources, as a hand-written CUDA kernel
+(csrc/fused.cu), the step behind ``Simulation(use_pallas=True)``.
 
 The port of ``meep_nl_tpu/ops/pallas/fused.py``.  `make_step` takes this
 route when `plan.use_pallas` is set and `pallas_supported(plan)` holds (see
-`takes`): per step the B half, its source fix-up, the D half, its fix-up,
-then the DTFT update.  Unlike the eager stepper it injects the current
-sources after E/H is computed and carries dD through the linear E-from-D at
-the source sites only, so the two routes agree to round-off, not bit for
-bit; the chains run full-grid, as the reference's do.
+`takes`): per step the B half with its source fix-up, the D half with its
+fix-up, then the DTFT update.  Unlike the eager stepper it injects the
+current sources after E/H is computed and carries dD through the linear
+E-from-D at the source sites only, so the two routes agree to round-off,
+not bit for bit; the chains run full-grid, as the reference's do.
 
-`HalfStepKernel(plan, ft2)` is one half ('b' or 'd'): on a state on the
-card it launches the kernel and updates the tensors in place; on a CPU
-state it runs the plain version `half_step_ref`.  `SourceFixup` is the
-fix-up of one family: one small launch per current source on the card,
-PyTorch scatter-adds on the CPU.  Each object counts its CUDA launches
-(`launches`) and the calls its plain version took (`plain_steps`).
+`HalfStepKernel(plan, ft2)` is one half ('b' or 'd') with its fix-up
+(`SourceFixup`, the reference's build_source_fixup): on a state on the
+card one launch updates the tensors in place and adds the sources; on a
+CPU state it runs the plain versions `half_step_ref` and
+`SourceFixup._ref`.  Each object counts its CUDA launches (`launches`) and
+the calls its plain version took (`plain_steps`).
 
 Not carried over, being TPU artifacts and not semantics: the VMEM tile
 search (`tx`, MNT_PALLAS_VMEM_KIB, :78-95), the materialised x-shifted
@@ -31,7 +31,11 @@ import numpy as np
 import torch
 
 from ..core.device import torch_dtype
-from ..stepper.step import _apply_mask, _curl, alive_vectors, source_index
+from ..stepper.step import _apply_mask, _curl, source_index
+from . import fdtd3d as K1
+
+#: waveforms a launch takes by value (more go through a device table)
+MAXSRC = K1.MAXSRC
 
 
 def pallas_supported(plan) -> bool:
@@ -152,78 +156,55 @@ def step_ref(plan):
 
 
 # ---------------------------------------------------------------------------
-# the C parameter blocks (mirror csrc/fused.cu; every member is 8 bytes)
+# the C argument block (mirrors csrc/fused.cu's K5Args; its Params and the
+# 32-bit copies CurlC / EhC are K1's, ops/fdtd3d.py)
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_I = ctypes.c_longlong
 
 
-class _Coef(ctypes.Structure):
-    _fields_ = [("p", _P), ("s0", _I), ("s1", _I), ("s2", _I)]
-
-
-class _Curl(ctypes.Structure):
-    _fields_ = ([(n, _P) for n in ("f", "fu", "gp", "gm")]
-                + [("alive", _P * 3)]
-                + [(n, _Coef) for n in ("kap", "sig", "siginv", "kapu",
-                                        "sigu", "siginvu")]
-                + [("ap", _I), ("am", _I)])
-
-
-class _Eh(ctypes.Structure):
-    _fields_ = ([("e", _P), ("fw", _P), ("alive", _P * 3)]
-                + [(n, _Coef) for n in ("u", "kapw", "sigw")]
-                + [("dq", _I)])
-
-
-class _Params(ctypes.Structure):
-    _fields_ = [("curl", _Curl * 3), ("eh", _Eh * 3),
-                ("csgn", ctypes.c_double)] + \
-        [(n, _I) for n in ("ncurl", "neh", "S0", "S1", "S2")]
-
-
-class _FixArgs(ctypes.Structure):
-    _fields_ = [(n, _P) for n in ("d", "e", "fw", "off", "are", "aim", "cnd",
-                                  "alive", "u", "uoff", "kw", "kwoff", "sw",
-                                  "swoff")] + \
-        [("n", _I)] + [(n, ctypes.c_double) for n in ("wre", "wim", "dt")]
+class _K5Args(ctypes.Structure):
+    _fields_ = ([("P", K1._Params), ("ring", _P * 3)]
+                + [(n, _P) for n in ("src_ptr", "src_key", "src_id",
+                                     "src_amp", "wave_dev")]
+                + [("wave", ctypes.c_double * (2 * MAXSRC)),
+                   ("dt", ctypes.c_double),
+                   ("cc", K1._CurlC * 3), ("ec", K1._EhC * 3),
+                   ("d_of", ctypes.c_int * 3)]
+                + [(n, ctypes.c_int) for n in ("nring", "S0", "S1", "S2",
+                                               "nty", "ntz", "ch", "nch")])
 
 
 def _lib():
     from . import _build
-    lib = _build.load("fused")
+    return bind(_build.load("fused"))
+
+
+def bind(lib):
+    """Declare csrc/fused.cu's C functions on a loaded library and check its
+    argument layout against this module's (once per library)."""
     if not getattr(lib, "_mnt_bound", False):
+        lib.mnt_k5_args_size.restype = ctypes.c_longlong
         lib.mnt_k5_params_size.restype = ctypes.c_longlong
-        lib.mnt_k5_fixargs_size.restype = ctypes.c_longlong
         lib.mnt_k5_half.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p]
         lib.mnt_k5_half.restype = ctypes.c_int
-        lib.mnt_k5_fixup.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.mnt_k5_fixup.restype = ctypes.c_int
-        if (lib.mnt_k5_params_size() != ctypes.sizeof(_Params)
-                or lib.mnt_k5_fixargs_size() != ctypes.sizeof(_FixArgs)):
-            raise RuntimeError("csrc/fused.cu parameter layouts do not match "
+        lib.mnt_k5_smem.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.mnt_k5_smem.restype = ctypes.c_longlong
+        if (lib.mnt_k5_params_size() != ctypes.sizeof(K1._Params)
+                or lib.mnt_k5_args_size() != ctypes.sizeof(_K5Args)):
+            raise RuntimeError("csrc/fused.cu argument layout does not match "
                                "ops/fused.py")
+        tile = (ctypes.c_int * 2)()
+        lib.mnt_k5_tile(tile)
+        lib.mnt_tile = tuple(tile)
         lib._mnt_bound = True
     return lib
 
 
-def _ptr(t) -> int:
-    return 0 if t is None else t.data_ptr()
-
-
-def _coef(t) -> _Coef:
-    """A coefficient tensor with its element strides, 0 on broadcast axes."""
-    if t is None:
-        return _Coef()
-    st = [t.stride(ax) if t.shape[ax] > 1 else 0 for ax in range(3)]
-    return _Coef(t.data_ptr(), *st)
-
-
 def _stream():
     return torch.cuda.current_stream().cuda_stream
+
 
 
 def _check_state(what, plan, dtype, shape, groups):
@@ -249,109 +230,227 @@ def _check_state(what, plan, dtype, shape, groups):
 
 class HalfStepKernel:
     """One K5 half step ('b': curl B, H from B; 'd': curl D, E from D) for
-    one plan (the counterpart of the reference's build_half_step)."""
+    one plan (the counterpart of the reference's build_half_step), with the
+    family's current sources (`fix`, the reference's build_source_fixup):
+    on the card the kernel adds them itself.  `ch` sets the x-planes per
+    chunk (default fdtd3d.chunk_planes).  The argument block is built at
+    the first CUDA call and kept; it is rebuilt only when a tensor of the
+    state it points at changes (its data_ptr), so a call's host work is the
+    step's waveforms and the launch."""
 
-    def __init__(self, plan, ft2: str):
+    def __init__(self, plan, ft2: str, ch: Optional[int] = None):
         if ft2 not in ("b", "d"):
             raise ValueError(f"half step 'b' or 'd', not {ft2!r}")
         if not pallas_supported(plan):
             raise ValueError("plan outside the fused half-step envelope")
-        self.plan, self.ft2 = plan, ft2
+        self.plan, self.ft2, self.ch = plan, ft2, ch
         self.shape = tuple(plan.storage_shape or plan.gv.shape)
+        if int(np.prod(self.shape)) >= 2 ** 31:
+            raise ValueError(f"fused half step: a storage of {self.shape} "
+                             f"has 2^31 sites or more (the kernel's offsets "
+                             f"are 32-bit)")
         self.dtype = torch_dtype(plan.dtype)
+        self.is_d = 1 if ft2 == "d" else 0
+        self.fp64 = 1 if self.dtype == torch.float64 else 0
         self._ref = half_step_ref(plan, ft2)
+        self.fix = build_source_fixup(plan, ft2)
+        curls, ehs = _specs(plan, ft2)
+        for s in ehs:          # the kernel reads u at the site's offset
+            if s.has_u and tuple(plan.coefs[f"{s.ec}:u"].shape) != self.shape:
+                raise ValueError(f"fused half step: {s.ec}:u is not a full "
+                                 f"{self.shape} array")
+        # the state tensors the kernel reads or writes: (f, f_u, f_w) index
+        # and component, in the order of the argument block's key
+        fs = [s.c for s in curls] + [s.ec for s in ehs] + [
+            g for s in curls for g in (s.g_plus, s.g_minus) if g]
+        self._slots = ([(0, c) for c in dict.fromkeys(fs)]
+                       + [(1, s.c) for s in curls
+                          if s.dsigu_axis is not None]
+                       + [(2, s.ec) for s in ehs
+                          if s.dsigw_axis is not None])
+        self._args = self._key = None
         self.launches = 0                 # CUDA launches
         self.plain_steps = 0              # calls of the plain version
 
-    def __call__(self, f, fu, fw):
-        """(f, fu, fw) advanced by this half step.  CUDA state: in place
-        through the kernel (the returned dicts hold the same tensors); CPU
-        state: the plain version (new tensors)."""
-        dev = f[_specs(self.plan, self.ft2)[0][0].c].device
+    def __call__(self, f, fu, fw, x_t=None, C=None):
+        """(f, fu, fw) advanced by this half step, with the family's current
+        sources of the xs row `x_t` added (none without it).  CUDA state:
+        in place through the kernel (the returned dicts hold the same
+        tensors); CPU state: the plain versions (new tensors)."""
+        dev = f[self._slots[0][1]].device
         if dev.type == "cpu":
             self.plain_steps += 1
-            return self._ref(f, fu, fw)
+            C = self.plan.coefs if C is None else C
+            f, fu, fw = self._ref(f, fu, fw, C)
+            if x_t is not None and self.fix is not None:
+                f, fw = self.fix(f, fw, C, x_t)
+            return f, fu, fw
         if dev.type != "cuda":
             raise RuntimeError(f"fused half step: unsupported device {dev}")
-        return self._half_cuda(dict(f), dict(fu), dict(fw))
+        if C is not None and C is not self.plan.coefs:
+            raise ValueError("fused half step: the kernel reads the plan's "
+                             "own coefficients")
+        return self._half_cuda(f, fu, fw, x_t)
 
-    def _params(self, f, fu, fw) -> _Params:
-        plan, C = self.plan, self.plan.coefs
-        curls, ehs = _specs(plan, self.ft2)
-        P = _Params()
-        P.S0, P.S1, P.S2 = self.shape
-        P.csgn = (1.0 if self.ft2 == "d" else -1.0) * plan.courant
-        P.ncurl, P.neh = len(curls), len(ehs)
-        for q, s in enumerate(curls):
-            cp = P.curl[q]
-            cp.f = _ptr(f[s.c])
-            cp.gp = _ptr(f[s.g_plus]) if s.g_plus else 0
-            cp.gm = _ptr(f[s.g_minus]) if s.g_minus else 0
-            cp.ap = -1 if s.plus_axis is None else s.plus_axis
-            cp.am = -1 if s.minus_axis is None else s.minus_axis
-            if s.dsig_axis is not None:
-                cp.kap, cp.sig, cp.siginv = (_coef(C[f"{s.c}:{nm}"])
-                                             for nm in ("kap", "sig",
-                                                        "siginv"))
-            if s.dsigu_axis is not None:
-                cp.fu = _ptr(fu[s.c])
-                cp.kapu, cp.sigu, cp.siginvu = (_coef(C[f"{s.c}:{nm}"])
-                                                for nm in ("kapu", "sigu",
-                                                           "siginvu"))
-            alive = alive_vectors(plan, s.c, self.dtype, plan.device)
-            for ax in range(3):
-                cp.alive[ax] = _ptr(alive.get(ax))
-        dq = {s.c: q for q, s in enumerate(curls)}
-        for q, s in enumerate(ehs):
-            ep = P.eh[q]
-            ep.e = _ptr(f[s.ec])
-            ep.dq = dq[s.dc]
-            if s.has_u:
-                ep.u = _coef(C[f"{s.ec}:u"])
-            if s.dsigw_axis is not None:
-                ep.fw = _ptr(fw[s.ec])
-                ep.kapw = _coef(C[f"{s.ec}:kapw"])
-                ep.sigw = _coef(C[f"{s.ec}:sigw"])
-            alive = alive_vectors(plan, s.ec, self.dtype, plan.device)
-            for ax in range(3):
-                ep.alive[ax] = _ptr(alive.get(ax))
-        return P
+    # ---- CUDA path ---------------------------------------------------------
+    def launch_args(self, f, fu, fw, x_t=None):
+        """(argument block, (f, fu, fw)) of one launch over the state with
+        the sources of `x_t` (none without it): the block is built when a
+        state tensor is new to it (after the checks, which may clone
+        tensors that share storage: the returned dicts), else only its
+        waveforms are written.  The kernel object keeps the block, and its
+        next call overwrites them."""
+        groups = (f, fu, fw)
+        key = tuple(groups[g][c].data_ptr() for g, c in self._slots)
+        if key != self._key:
+            f, fu, fw = dict(f), dict(fu), dict(fw)
+            _check_state("fused half step", self.plan, self.dtype,
+                         self.shape, (("f", f), ("f_u", fu), ("f_w", fw)))
+            self._build(f, fu, fw)
+            groups = (f, fu, fw)
+            self._key = tuple(groups[g][c].data_ptr()
+                              for g, c in self._slots)
+        A = self._args
+        if self._src is None:
+            return A, groups
+        if x_t is None:
+            A.src_ptr = 0
+            return A, groups
+        A.src_ptr = self._src["ptr"].data_ptr()
+        wave = [x_t[k] for k in self._src["wave_keys"]]
+        if len(wave) <= 2 * MAXSRC:
+            A.wave[:len(wave)] = wave
+        else:
+            wd = torch.tensor(wave, dtype=torch.float64,
+                              device=self.plan.device)
+            A.wave_dev = wd.data_ptr()
+            self._wave_dev = wd               # alive until the launch
+        return A, groups
 
-    def _half_cuda(self, f, fu, fw):
-        _check_state("fused half step", self.plan, self.dtype, self.shape,
-                     (("f", f), ("f_u", fu), ("f_w", fw)))
-        P = self._params(f, fu, fw)
-        rc = _lib().mnt_k5_half(ctypes.byref(P), 1 if self.ft2 == "d" else 0,
-                                1 if self.dtype == torch.float64 else 0,
-                                _stream())
+    def _half_cuda(self, f, fu, fw, x_t=None):
+        A, (f, fu, fw) = self.launch_args(f, fu, fw, x_t)
+        rc = _lib().mnt_k5_half(self._byref, self.is_d, self.fp64, _stream())
         self.launches += 1
         if rc != 0:
             raise RuntimeError(f"fused half-step kernel ({self.ft2}) launch "
                                f"failed: cudaError {rc}")
         return f, fu, fw
 
+    def _build(self, f, fu, fw):
+        """The argument block over (f, fu, fw): K1's parameter block with
+        the chains on every site, the ring of curl partners, the launch
+        geometry for the library's tile and the source lists."""
+        plan = self.plan
+        lib = _lib()
+        curls, ehs = _specs(plan, self.ft2)
+        A = _K5Args()
+        A.P = K1.build_params(plan, self.ft2, {"f": f, "f_u": fu, "f_w": fw})
+        for q in range(len(curls)):
+            A.P.curl[q].slab = 0
+        for q in range(len(ehs)):
+            A.P.eh[q].w_slab = 0
+        K1.compact(A)
+        names = list(dict.fromkeys(g for s in curls
+                                   for g in (s.g_plus, s.g_minus) if g))
+        A.nring = len(names)
+        for r, g in enumerate(names):
+            A.ring[r] = f[g].data_ptr()
+        q_of = {s.c: q for q, s in enumerate(curls)}
+        for q in range(3):
+            cc = A.cc[q]
+            if q < len(curls):
+                s = curls[q]
+                cc.gp = names.index(s.g_plus) if s.g_plus else -1
+                cc.gm = names.index(s.g_minus) if s.g_minus else -1
+                if s.dsigu_axis is not None and s.c not in fu:
+                    raise ValueError(f"fused half step: f_u[{s.c}] missing")
+            else:
+                cc.gp = cc.gm = cc.sax = cc.uax = -1
+            if q < len(ehs):
+                s = ehs[q]
+                A.d_of[q] = q_of[s.dc]
+                if s.dsigw_axis is not None and s.ec not in fw:
+                    raise ValueError(f"fused half step: f_w[{s.ec}] missing")
+            else:
+                A.ec[q].wax = -1
+        S0, S1, S2 = self.shape
+        TY, TZ = lib.mnt_tile
+        A.S0, A.S1, A.S2 = S0, S1, S2
+        A.nty, A.ntz = -(-S1 // TY), -(-S2 // TZ)
+        A.ch = self.ch or K1.chunk_planes(self.shape, lib.mnt_tile)
+        A.nch = -(-S0 // A.ch)
+        A.dt = plan.dt
+        self._src = self._source_lists(lib.mnt_tile, A.ntz)
+        if self._src is not None:
+            A.src_key = self._src["key"].data_ptr()
+            A.src_id = self._src["id"].data_ptr()
+            A.src_amp = self._src["amp"].data_ptr()
+        self._args, self._byref = A, ctypes.byref(A)
+
+    def _source_lists(self, tile, ntz):
+        """The family's current sources (those of `fix`) as per-(tile,
+        plane) lists for the thread that owns each site: entries sorted by
+        (tile, plane), then by site, then in plan.sources order and entry
+        order (the plain version's order of accumulation); each keyed by
+        its site in the tile and its D/B and E/H components."""
+        if self.fix is None:
+            return None
+        plan, C = self.plan, self.plan.coefs
+        curls, ehs = _specs(plan, self.ft2)
+        qc_of = {s.c: q for q, s in enumerate(curls)}
+        qe_of = {s.ec: q for q, s in enumerate(ehs)}
+        S0 = self.shape[0]
+        TY, TZ = tile
+        buckets, keys, ids, amps, wave_keys = [], [], [], [], []
+        for w, (si, spec, _) in enumerate(self.fix.jobs):
+            if f"src{si}:cndinv" in C:
+                raise ValueError("fused half step: a source with a "
+                                 "conductivity factor")
+            i, j, k = (t.cpu().numpy() for t in source_index(plan, si))
+            buckets.append(((j // TY) * ntz + k // TZ) * S0 + i)
+            keys.append((((j % TY) * TZ + k % TZ) << 4)
+                        | (qe_of[spec.ec] << 2) | qc_of[spec.dc])
+            ids.append(np.full(len(i), w))
+            amps.append(torch.stack([C[f"src{si}:amp_re"],
+                                     C[f"src{si}:amp_im"]], 1))
+            wave_keys += [f"src{si}:cur_re", f"src{si}:cur_im"]
+        bucket, key = np.concatenate(buckets), np.concatenate(keys)
+        order = np.lexsort((np.arange(len(key)), key >> 4, bucket))
+        ntile = -(-self.shape[1] // TY) * ntz
+        ptr = np.searchsorted(bucket[order], np.arange(ntile * S0 + 1))
+        dev = plan.device
+
+        def i32(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=dev)
+
+        amp = torch.cat(amps)[torch.as_tensor(order, device=dev)]
+        return {"ptr": i32(ptr), "key": i32(key[order]),
+                "id": i32(np.concatenate(ids)[order]),
+                "amp": amp.contiguous(), "wave_keys": wave_keys}
+
 
 class SourceFixup:
     """Post-half current-source injection of one family (fused.py:358):
     dD = -J dt into D/B at the source sites, dlin = u dD into f_w, and
     (kapw + sigw) dlin (or dlin) into E/H at the live sites.  Calling it
-    with a row of the xs table returns the new (f, fw)."""
+    with a row of the xs table returns the new (f, fw).  This is the plain
+    version only: on the card the half-step kernel adds the sources itself
+    (HalfStepKernel with a row), so `launches` stays 0."""
+
+    launches = 0
 
     def __init__(self, plan, ft2: str, jobs):
         self.plan, self.ft2, self.jobs = plan, ft2, jobs
-        self.dtype = torch_dtype(plan.dtype)
-        self.launches = 0
         self.plain_steps = 0
-        self._cuda = None
 
     def __call__(self, f, fw, C, x_t):
         dev = f[self.jobs[0][1].dc].device
-        if dev.type == "cpu":
-            self.plain_steps += 1
-            return self._ref(f, fw, C, x_t)
-        if dev.type != "cuda":
-            raise RuntimeError(f"source fix-up: unsupported device {dev}")
-        return self._fix_cuda(f, fw, x_t)
+        if dev.type != "cpu":
+            raise RuntimeError(f"source fix-up on {dev}: the half-step "
+                               f"kernel adds the sources there")
+        self.plain_steps += 1
+        return self._ref(f, fw, C, x_t)
 
     def _gather_index(self, si, key):
         """The source sites' index into coefficient `key`, clamped to its
@@ -360,6 +459,28 @@ class SourceFixup:
         idx = self.plan.coefs[f"src{si}:idx"].long()
         return tuple(torch.clamp(idx[:, k], max=A.shape[k] - 1)
                      for k in range(3))
+
+    def _layers(self, si):
+        """Source si's entries in parts in which no site repeats: part r
+        holds the (r + 1)-th listing of each site (None: one part, the
+        source has no repeated site), so that scatter-adds part by part
+        accumulate a site's entries in entry order on every device (a CUDA
+        index_put sums the repeats of one call before adding them)."""
+        cache = self.__dict__.setdefault("_layer_cache", {})
+        if si not in cache:
+            idx = np.asarray(self.plan.sources[si].indices)
+            _, inv = np.unique(idx, axis=0, return_inverse=True)
+            inv = inv.reshape(-1)
+            rank = np.zeros(len(inv), np.int64)
+            seen: Dict[int, int] = {}
+            for e, site in enumerate(inv.tolist()):
+                rank[e] = seen.get(site, 0)
+                seen[site] = rank[e] + 1
+            cache[si] = None if rank.max(initial=0) == 0 else [
+                torch.as_tensor(np.nonzero(rank == r)[0],
+                                device=self.plan.device)
+                for r in range(rank.max() + 1)]
+        return cache[si]
 
     def _ref(self, f, fw, C, x_t):
         f, fw = dict(f), dict(fw)
@@ -371,75 +492,24 @@ class SourceFixup:
                    - w_im * C[f"src{si}:amp_im"]) * dt
             if f"src{si}:cndinv" in C:
                 dD = dD * C[f"src{si}:cndinv"]
-            pts = source_index(self.plan, si)
-            f[dc] = f[dc].index_put(pts, dD, accumulate=True)
             dlin = dD * C[f"{ec}:u"][self._gather_index(si, f"{ec}:u")] \
                 if spec.has_u else dD
-            am = alive
             if spec.dsigw_axis is not None:
                 kw = C[f"{ec}:kapw"][self._gather_index(si, f"{ec}:kapw")]
                 sw = C[f"{ec}:sigw"][self._gather_index(si, f"{ec}:sigw")]
-                fw[ec] = fw[ec].index_put(pts, dlin, accumulate=True)
-                f[ec] = f[ec].index_put(pts, (kw + sw) * dlin * am,
-                                        accumulate=True)
+                de = (kw + sw) * dlin * alive
             else:
-                f[ec] = f[ec].index_put(pts, dlin * am, accumulate=True)
-        return f, fw
-
-    def _tables(self):
-        """Per job the device tables of the CUDA launch: flat offsets of the
-        sites into the state and into u / kapw / sigw, and the liveness."""
-        if self._cuda is None:
-            C = self.plan.coefs
-            shape = tuple(self.plan.storage_shape or self.plan.gv.shape)
-            tabs = []
-            for si, spec, alive in self.jobs:
-                ec = spec.ec
-
-                def flat(key):
-                    A = C[key]
-                    ii = self._gather_index(si, key)
-                    return sum(ii[k] * A.stride(k) for k in range(3)
-                               ).contiguous()
-
-                i, j, k = source_index(self.plan, si)
-                t = {"off": ((i * shape[1] + j) * shape[2] + k).contiguous(),
-                     "alive": alive}
-                if spec.has_u:
-                    t["uoff"] = flat(f"{ec}:u")
+                de = dlin * alive
+            pts = source_index(self.plan, si)
+            for sel in self._layers(si) or [None]:
+                def part(t):
+                    return t if sel is None else t[sel]
+                at = tuple(part(p) for p in pts)
+                f[dc] = f[dc].index_put(at, part(dD), accumulate=True)
                 if spec.dsigw_axis is not None:
-                    t["kwoff"] = flat(f"{ec}:kapw")
-                    t["swoff"] = flat(f"{ec}:sigw")
-                tabs.append(t)
-            self._cuda = tabs
-        return self._cuda
-
-    def _fix_cuda(self, f, fw, x_t):
-        C, lib = self.plan.coefs, _lib()
-        fp64 = 1 if self.dtype == torch.float64 else 0
-        for (si, spec, _), t in zip(self.jobs, self._tables()):
-            dc, ec = spec.dc, spec.ec
-            A = _FixArgs()
-            A.d, A.e = _ptr(f[dc]), _ptr(f[ec])
-            A.off, A.alive = _ptr(t["off"]), _ptr(t["alive"])
-            A.are = _ptr(C[f"src{si}:amp_re"])
-            A.aim = _ptr(C[f"src{si}:amp_im"])
-            A.cnd = _ptr(C.get(f"src{si}:cndinv"))
-            if spec.has_u:
-                A.u, A.uoff = _ptr(C[f"{ec}:u"]), _ptr(t["uoff"])
-            if spec.dsigw_axis is not None:
-                A.fw = _ptr(fw[ec])
-                A.kw, A.kwoff = _ptr(C[f"{ec}:kapw"]), _ptr(t["kwoff"])
-                A.sw, A.swoff = _ptr(C[f"{ec}:sigw"]), _ptr(t["swoff"])
-            A.n = t["off"].numel()
-            A.wre = float(x_t[f"src{si}:cur_re"])
-            A.wim = float(x_t[f"src{si}:cur_im"])
-            A.dt = self.plan.dt
-            rc = lib.mnt_k5_fixup(ctypes.byref(A), fp64, _stream())
-            self.launches += 1
-            if rc != 0:
-                raise RuntimeError(f"source fix-up launch failed: "
-                                   f"cudaError {rc}")
+                    fw[ec] = fw[ec].index_put(at, part(dlin),
+                                              accumulate=True)
+                f[ec] = f[ec].index_put(at, part(de), accumulate=True)
         return f, fw
 
 
@@ -469,14 +539,14 @@ def build_source_fixup(plan, ft2: str) -> Optional[SourceFixup]:
 
 
 def kernels_of(plan) -> Dict[str, Any]:
-    """{"b", "d": HalfStepKernel, "fix_b", "fix_d": SourceFixup or None}
-    of the plan, made once and cached on it (their counters say what ran)."""
+    """{"b", "d": HalfStepKernel, "fix_b", "fix_d": their SourceFixup or
+    None} of the plan, made once and cached on it (their counters say what
+    ran)."""
     ker = plan.__dict__.get("_fused_kernels")
     if ker is None:
-        ker = plan._fused_kernels = {
-            "b": HalfStepKernel(plan, "b"), "d": HalfStepKernel(plan, "d"),
-            "fix_b": build_source_fixup(plan, "b"),
-            "fix_d": build_source_fixup(plan, "d")}
+        hb, hd = HalfStepKernel(plan, "b"), HalfStepKernel(plan, "d")
+        ker = plan._fused_kernels = {"b": hb, "d": hd, "fix_b": hb.fix,
+                                     "fix_d": hd.fix}
     return ker
 
 

@@ -545,7 +545,8 @@ def make_step(plan: Plan, dft: bool = True,
     With plan.use_pallas (or `use_pallas=True`) a plan the fused half-step
     kernel takes (ops/fused.py `takes`) steps through it, as the
     reference's step_pallas (step.py:1467-1492): the B half, its source
-    fix-up, the D half, its fix-up, t + 1, the DTFT update.  On a CPU state
+    fix-up, the D half, its fix-up (on the card each half's one launch adds
+    its sources), t + 1, the DTFT update.  On a CPU state
     the kernel objects run their plain versions.  `use_pallas=False` always
     gives the eager step (with dft=False, the K1 kernel's plain version)."""
     check_supported(plan)
@@ -554,22 +555,19 @@ def make_step(plan: Plan, dft: bool = True,
         if fused.takes(plan):
             ker = fused.kernels_of(plan)
             half_b, half_d = ker["b"], ker["d"]
-            fix_b, fix_d = ker["fix_b"], ker["fix_d"]
 
             def step_pallas(state: Dict[str, Any], xs: Dict[str, Any],
                             C: Optional[Dict[str, Any]] = None
                             ) -> Dict[str, Any]:
-                if C is None:
-                    C = plan.coefs
-                f, fu, fw = half_b(state["f"], state["f_u"], state["f_w"])
-                if fix_b is not None:
-                    f, fw = fix_b(f, fw, C, xs)
-                f, fu, fw = half_d(f, fu, fw)
-                if fix_d is not None:
-                    f, fw = fix_d(f, fw, C, xs)
+                f, fu, fw = half_b(state["f"], state["f_u"], state["f_w"],
+                                   xs, C)
+                f, fu, fw = half_d(f, fu, fw, xs, C)
                 state = {**state, "f": f, "f_u": fu, "f_w": fw,
                          "t": state["t"] + 1}
-                return _dft_update(plan, C, state, xs) if dft else state
+                if not dft:
+                    return state
+                return _dft_update(plan, plan.coefs if C is None else C,
+                                   state, xs)
 
             return step_pallas
 

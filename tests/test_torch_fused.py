@@ -59,7 +59,8 @@ def port_plan(name):
 @pytest.fixture(scope="module")
 def jax_runs():
     """{plan: (numpy start state, the JAX K5 steps' end state)}, made on
-    first use: the JAX make_step with use_pallas, its kernel interpreted."""
+    first use: the JAX make_step with use_pallas, its kernel interpreted;
+    the compiled steps stay in `.steps` ({plan: jitted step})."""
     cache = {}
 
     def get(name):
@@ -72,7 +73,7 @@ def jax_runs():
                 assert JFU.pallas_supported(pj)
                 st_np = random_state(pj, seed=3)
                 st_np["t"] = T0
-                step = jax.jit(JS.make_step(pj))
+                step = get.steps[name] = jax.jit(JS.make_step(pj))
                 xs = JS.build_xs(pj, NSTEPS, T0)
                 st = jax.tree_util.tree_map(jax.numpy.asarray, st_np)
                 for n in range(NSTEPS):
@@ -80,6 +81,7 @@ def jax_runs():
                 cache[name] = (st_np, jax.tree_util.tree_map(np.asarray, st))
         return cache[name]
 
+    get.steps = {}
     return get
 
 
@@ -189,13 +191,15 @@ def test_plan_the_hybrid_route_stepped_stays_eager(jax_runs):
     xs = JS.build_xs(jax_plan("vacuum"), 1, T0)
     row = {k: v[0] for k, v in xs.items()}
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MNT_PALLAS_INTERPRET", "1")
-        for use_pallas in (True, False):
-            pj = jax_plan("vacuum")
-            pj.slab_opt, pj.use_pallas = True, use_pallas
-            st = jax.tree_util.tree_map(jax.numpy.asarray, st_np)
-            out[use_pallas] = np.asarray(JS.make_step(pj)(st, row)["f"]["ez"])
+    for use_pallas in (True, False):
+        pj = jax_plan("vacuum")
+        pj.slab_opt, pj.use_pallas = True, use_pallas
+        st = jax.tree_util.tree_map(jax.numpy.asarray, st_np)
+        # the reference's step_pallas does not read slab_opt: it is the
+        # step jax_runs compiled; the slab-local jnp step compiled once
+        step = jax_runs.steps["vacuum"] if use_pallas \
+            else jax.jit(JS.make_step(pj))
+        out[use_pallas] = np.asarray(step(st, row, pj.coefs)["f"]["ez"])
     scale = float(np.abs(out[False]).max())
     assert float(np.abs(out[True] - out[False]).max()) > 0.1 * scale
     pt = port_plan("vacuum")
