@@ -83,7 +83,30 @@ falls back to the CPU or to a plain version:
      (K4 declines the doubled state), 3 K1 launches per step, no plain
      step; the modes, the wall ms/step and K1's share of it; then 100 steps
      of fused_probed_run against the eager stepper's probe series from the
-     end state, series and state bit for bit.
+     end state, series and state bit for bit;
+ 11. the DFT monitor family: the 128^3 flagship (phase 4's scene) with
+     add_dft_fields(Ez) on the z-normal plane through the ball, add_energy
+     on a box around it, add_near2far on the closed box, add_force on an
+     x-normal plane and add_ldos beside its flux plane, 602 steps on the
+     hybrid route (the full-state cycle, one K1 step a cycle: the energy
+     monitor reads D and B), its ms/step beside phase 4's; then the
+     following scenes, which a process of its own also runs on the CPU
+     from the script's start (cpu_twins, at a lowered priority): Meep's
+     bend-flux tutorial
+     (python/examples/bend-flux.py, 16x32 at resolution 10, an eps=12
+     guide, 21 frequencies), the straight guide to
+     until_after_sources=250 and its reflection data (get_flux_data), then
+     the bend with load_minus_flux_data to until_after_sources=350, both on
+     the resident route (K3, counters), T, R and 1 - T - R printed, K3
+     against its plain version from the bend's end state; phase 8's ring
+     with add_ldos(0.15, 0.1, 50) to until_after_sources=300, no probe,
+     through K3 with its complex-weight DTFT (counters), K3 against its
+     plain version from the end state bit for bit (state and
+     accumulators), the LDOS's largest peak within one frequency bin of a
+     mode that phase 8's Harminv found; the monitored flagship at 16^3 on
+     the resident route.  The bend's T and R (to
+     1e-4 of max |T|), the ring's LDOS and every output of the 16^3 scene
+     (to 1e-4 of its own maximum) must equal the CPU's.
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -152,14 +175,17 @@ def build_all():
 
 
 def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
-                 pml=1.0, linear=False, decimation=0, **sim_kw):
+                 pml=1.0, linear=False, decimation=0, monitors=False,
+                 **sim_kw):
     """The flagship scene: an eps=4 ball (radius a quarter of the cell)
     with a Lorentz pole and full-tensor chi2 (the NR solve), uPML on every
     face, a Gaussian Ez point source off the ball and an x-normal flux
     plane (the JAX package's bench.py material configuration).  `linear`
     keeps the eps=4 ball and drops its pole and chi2; `decimation` is the
-    flux monitor's DTFT decimation factor (0: automatic); `sim_kw` goes to
-    Simulation (use_pallas, use_fused)."""
+    flux monitor's DTFT decimation factor (0: automatic); `monitors` adds
+    the DFT monitor family (`monitor_family`) and returns its handles, the
+    flux plane's under "flux", in place of the flux handle; `sim_kw` goes
+    to Simulation (use_pallas, use_fused)."""
     L = n_cells / res
     geometry = []
     if ball:
@@ -181,8 +207,145 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
             center=mp.Vector3(0.35 * L, 0, 0),
             size=mp.Vector3(0, 0.4 * L, 0.4 * L)),
             decimation_factor=decimation)
+    if monitors:
+        fl = {"flux": fl, **monitor_family(mp, sim, L)}
     sim.init_sim()
     return sim, fl
+
+
+def monitor_family(mp, sim, L):
+    """Beside the flagship's flux plane (cell side L, the ball of radius
+    L / 4 at the centre), 3 frequencies each: add_dft_fields of Ez on the
+    z-normal plane through the ball, add_energy on a box around the ball,
+    add_near2far on the closed 6-face box around it, add_force (x) on an
+    x-normal plane, add_ldos at the source."""
+    h = 0.275 * L
+    faces = []
+    for ax in range(3):
+        for sgn in (1, -1):
+            c, sz = [0.0] * 3, [2 * h] * 3
+            c[ax], sz[ax] = sgn * h, 0.0
+            faces.append(mp.Near2FarRegion(center=mp.Vector3(*c),
+                                           size=mp.Vector3(*sz), weight=sgn))
+    return {
+        "dftf": sim.add_dft_fields([mp.Ez], 1.0, 0.4, 3, center=mp.Vector3(),
+                                   size=mp.Vector3(L, L, 0)),
+        "energy": sim.add_energy(1.0, 0.4, 3, mp.EnergyRegion(
+            center=mp.Vector3(), size=mp.Vector3(2 * h, 2 * h, 2 * h))),
+        "n2f": sim.add_near2far(1.0, 0.4, 3, *faces),
+        "force": sim.add_force(1.0, 0.4, 3, mp.ForceRegion(
+            center=mp.Vector3(0.3 * L, 0, 0),
+            size=mp.Vector3(0, 0.4 * L, 0.4 * L), direction=mp.X)),
+        "ldos": sim.add_ldos(1.0, 0.4, 3)}
+
+
+def monitor_outputs(mp, sim, mon):
+    """Every output of the monitor family: the dft array, the energies,
+    the forces, the LDOS and the far fields at the 4 points of a
+    get_farfields grid 10 units out along x."""
+    return {"flux": sim.get_fluxes(mon["flux"]),
+            "dft Ez": sim.get_dft_array(mon["dftf"], mp.Ez),
+            "electric energy": sim.get_electric_energy(mon["energy"]),
+            "magnetic energy": sim.get_magnetic_energy(mon["energy"]),
+            "total energy": sim.get_total_energy(mon["energy"]),
+            "force": sim.get_forces(mon["force"]),
+            "ldos": sim.get_ldos(mon["ldos"]),
+            "far fields": sim.get_farfields(
+                mon["n2f"], 1, center=mp.Vector3(10, 0, 0),
+                size=mp.Vector3(0, 1, 1))}
+
+
+#: Meep's bend-flux tutorial (python/examples/bend-flux.py, the JAX
+#: package's examples/bend_flux.py): cell, padding, guide width, PML,
+#: resolution, and its 21 frequencies
+BEND = dict(sx=16, sy=32, pad=4, w=1.0, dpml=1.0, res=10, fcen=0.15,
+            df=0.1, nfreq=21)
+
+
+def bend_sim(mp, bend, device):
+    """The tutorial's straight guide (bend False) or its 90-degree bend: an
+    eps=12 guide of width 1, an Ez line source across it, the reflection
+    flux line beside the source and the transmission line at the far end
+    of the guide."""
+    b = BEND
+    sx, sy, pad, w, dpml = b["sx"], b["sy"], b["pad"], b["w"], b["dpml"]
+    xcen = 0.5 * (sx - w - 2 * pad)
+    ycen = -0.5 * (sy - w - 2 * pad)
+    eps12 = mp.Medium(epsilon=12)
+    geometry = ([mp.Block(mp.Vector3(sx - pad, w, mp.inf),
+                          center=mp.Vector3(-0.5 * pad, ycen), material=eps12),
+                 mp.Block(mp.Vector3(w, sy - pad, mp.inf),
+                          center=mp.Vector3(xcen, 0.5 * pad), material=eps12)]
+                if bend else
+                [mp.Block(mp.Vector3(mp.inf, w, mp.inf),
+                          center=mp.Vector3(0, ycen), material=eps12)])
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(sx, sy), resolution=b["res"], geometry=geometry,
+        sources=[mp.Source(mp.GaussianSource(b["fcen"], fwidth=b["df"]),
+                           component=mp.Ez,
+                           center=mp.Vector3(-0.5 * sx + dpml, ycen),
+                           size=mp.Vector3(0, w))],
+        boundary_layers=[mp.PML(dpml)], device=device)
+    fl = (b["fcen"], b["df"], b["nfreq"])
+    refl = sim.add_flux(*fl, mp.FluxRegion(
+        center=mp.Vector3(-0.5 * sx + dpml + 0.5, ycen),
+        size=mp.Vector3(0, 2 * w)))
+    tran = sim.add_flux(*fl, mp.FluxRegion(
+        center=mp.Vector3(xcen, 0.5 * sy - dpml - 0.5),
+        size=mp.Vector3(2 * w, 0)) if bend else mp.FluxRegion(
+        center=mp.Vector3(0.5 * sx - dpml, ycen), size=mp.Vector3(0, 2 * w)))
+    sim.init_sim()
+    return sim, refl, tran
+
+
+def bend_flux(mp, device, run=None):
+    """The tutorial's recipe: the straight guide to until_after_sources=250
+    and its reflection data, then the bend, with that data subtracted
+    (load_minus_flux_data), to until_after_sources=350.  Returns (T, R,
+    the two simulations); `run(sim, **kw)` runs a simulation (default
+    sim.run)."""
+    import numpy as np
+    run = run or (lambda sim, **kw: sim.run(**kw))
+    sim0, refl0, tran0 = bend_sim(mp, False, device)
+    run(sim0, until_after_sources=250)
+    straight = np.array(sim0.get_fluxes(tran0))
+    data = sim0.get_flux_data(refl0)
+    sim1, refl1, tran1 = bend_sim(mp, True, device)
+    sim1.load_minus_flux_data(refl1, data)
+    run(sim1, until_after_sources=350)
+    return (np.array(sim1.get_fluxes(tran1)) / straight,
+            -np.array(sim1.get_fluxes(refl1)) / straight, (sim0, sim1))
+
+
+def ring_ldos_sim(mp, device):
+    """Phase 8's ring with add_ldos(0.15, 0.1, 50) and no probe."""
+    sim = ring_sim(mp, 10, device)
+    ldos = sim.add_ldos(0.15, 0.1, 50)
+    sim.init_sim()
+    return sim, ldos
+
+
+def cpu_twins(path) -> int:
+    """Phase 11's runs on the CPU (the port's plain versions), saved to
+    `path` (.npz): the bend-flux T and R, the ring's LDOS, the 16^3
+    monitored flagship's outputs.  chip_smoke.py runs this in a process of
+    its own (--cpu-twins PATH) from its start, while the card works."""
+    import numpy as np
+    import torch
+    import meep_nl_tpu_torch as mp
+    os.nice(10)                  # the card's host work comes first
+    torch.set_num_threads(4)
+    out = {}
+    out["T"], out["R"], _ = bend_flux(mp, "cpu")
+    sim, ldos = ring_ldos_sim(mp, "cpu")
+    sim.run(until_after_sources=300)
+    out["ldos"] = sim.get_ldos(ldos)
+    sim, mon = flagship_sim(mp, 16, 8.0, "cpu", pml=0.25, monitors=True)
+    sim.run(until=200 * sim.dt)
+    for k, v in monitor_outputs(mp, sim, mon).items():
+        out[f"16:{k}"] = v
+    np.savez(path, **out)
+    return 0
 
 
 def resident_sim(mp, n, device, flux=False):
@@ -757,6 +920,7 @@ def phase_resident(mp, dev, card, blank):
           f"after_sources(Harminv), until_after_sources=300: {sim._t} steps "
           f"in {wall:.3f} s = {wall / sim._t * 1e3:.4f} ms/step; K4 launches "
           f"{probed}, routes {dict(sim.routes)} ({card})", flush=True)
+    h_modes = list(h.modes)
     ser = {d: np.asarray(out[d][1].data) for d in out}
     srel = rel_diff(ser[dev], ser["cpu"])
     amax = max(m.amp for m in h.modes)
@@ -839,7 +1003,178 @@ def phase_resident(mp, dev, card, blank):
     if stop_at[dev] != stop_at["cpu"]:
         raise AssertionError(f"decay run stops at step {stop_at[dev]} on the "
                              f"card, {stop_at['cpu']} on the CPU")
-    return k3, k4
+    return k3, k4, h_modes
+
+
+def start_cpu_twins():
+    """cpu_twins in a process of its own (no card; it lowers its own
+    priority): it runs from the start of main() and phase 11 reads its
+    results.  Returns (the process, the .npz path, its directory)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    path = os.path.join(tmp, "cpu_twins.npz")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-twins", path],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return child, path, tmp
+
+
+def phase_monitors(mp, dev, card, modes, main_ms, k1, k3, twins):
+    """Phase 11: the DFT monitor family on the card (flux normalization,
+    dft fields, energy, force, LDOS, near2far), each scene beside the same
+    runs of the port on the CPU, which `twins` (start_cpu_twins) made.
+    `modes`: phase 8's Harminv modes of the ring; `main_ms`: phase 4's
+    ms/step.  Adds the phase's launches to the K1 and K3 table entries."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import resident as R
+    # ---- the monitored flagship 128^3 on the hybrid route ---------------
+    n, res, nsteps = 128, 16.0, 602
+    sim, mon = flagship_sim(mp, n, res, dev, monitors=True)
+    plan = sim.plan
+    sim.run(until=12 * sim.dt)                  # warm-up
+    HY.hybrid_routes(plan).clear()
+    wall, launches = timed_run(sim, nsteps)
+    expect(launches, {"k1": nsteps * K1_LAUNCHES, "k2_d2": 0, "k2_d3": 0},
+           "128^3 monitored flagship")
+    k1["launches"] += launches["k1"]
+    hroutes = dict(HY.hybrid_routes(plan))
+    if hroutes != {"full_state": 1}:
+        raise AssertionError(f"monitored flagship: hybrid routes "
+                             f"{hroutes}")
+    out = monitor_outputs(mp, sim, mon)
+    bad = [k for k, v in out.items()
+           if not (np.all(np.isfinite(v)) and np.any(v != 0))]
+    if bad:
+        raise AssertionError(f"monitored flagship outputs not finite or "
+                             f"zero: {bad}")
+    ms = wall / nsteps * 1e3
+    print(f"[11] monitored flagship 128^3 ({len(plan.dfts)} DTFT "
+          f"accumulators: flux, dft fields, energy with D and B, force, "
+          f"LDOS, near2far): {nsteps} steps in {wall:.3f} s = "
+          f"{ms:.4f} ms/step against phase 4's unmonitored "
+          f"{main_ms:.4f}; routes {dict(sim.routes)}, hybrid route "
+          f"{hroutes} (the full-state cycle, one K1 step each: the "
+          f"energy monitor reads D and B, which K2 does not capture), "
+          f"launches {launches} ({card})", flush=True)
+    print(f"[11] monitored flagship: force {out['force'].tolist()}, "
+          f"total energy {out['total energy'].tolist()}, LDOS "
+          f"{out['ldos'].tolist()}", flush=True)
+    del sim, plan, mon
+    torch.cuda.empty_cache()
+
+    child, path, _ = twins
+    runs = []
+
+    def counted(sim, **kw):
+        """sim.run on the resident route, K3's launches counted."""
+        sim.init_sim()
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(sim, **kw)
+        if probed or launches != sim.routes["resident"] or not launches:
+            raise AssertionError(f"K3 launches {launches}, K4 {probed}, "
+                                 f"routes {dict(sim.routes)}")
+        k3["launches"] += launches
+        runs.append((sim, wall, launches))
+
+    # ---- the bend-flux tutorial: T and R on the resident route ---------
+    T, Rf, (_, sim1) = bend_flux(mp, dev, counted)
+    b = BEND
+    freqs = np.linspace(b["fcen"] - b["df"] / 2, b["fcen"] + b["df"] / 2,
+                        b["nfreq"])
+    for what, (sim, wall, launches) in zip(("straight", "bend"), runs):
+        print(f"[11] bend flux, {what} guide ({sim.plan.storage_shape}):"
+              f" {sim._t} steps in {wall:.3f} s = "
+              f"{wall / sim._t * 1e3:.4f} ms/step, K3 launches "
+              f"{launches}, routes {dict(sim.routes)} ({card})",
+              flush=True)
+    print("[11] bend flux: f, T, R, 1 - T - R", flush=True)
+    for i in (4, 8, 10, 12, 16):
+        print(f"[11]   {freqs[i]:.3f}  {T[i]:.4f}  {Rf[i]:.4f}  "
+              f"{1 - T[i] - Rf[i]:.4f}", flush=True)
+    # 44 steps hold two sample steps of the decimated flux monitors
+    err, rel, drel, _ = compare_resident(
+        sim1.plan._resident_kernel, sim1.fields_state, sim1._t, 44)
+    print(f"[11] K3 vs plain at the bend's end state, 44 steps: max abs "
+          f"{err:.3e}, max rel {rel:.3e}; DTFT max rel {drel:.3e}",
+          flush=True)
+    if not (rel <= 1e-5 and drel <= 1e-5):
+        raise AssertionError(f"K3 disagrees at the bend: {rel:.3e}, "
+                             f"DTFT {drel:.3e}")
+    k3["max_abs_err"] = max(k3["max_abs_err"], err)
+    del sim, sim1
+    runs.clear()
+
+    # ---- the ring's LDOS: K3 with the complex-weight DTFT --------------
+    sim, ldos = ring_ldos_sim(mp, dev)
+    if not any(k.endswith(":wre") for k in sim.plan.coefs):
+        raise AssertionError("the LDOS monitor has no complex weights")
+    counted(sim, until_after_sources=300)
+    _, wall, launches = runs.pop()
+    ker = sim.plan._resident_kernel
+    L = sim.get_ldos(ldos)
+    lf = np.asarray(ldos.freqs)
+    peak = float(lf[int(np.argmax(L))])
+    near = min((m.freq for m in modes), key=lambda f: abs(f - peak))
+    print(f"[11] ring LDOS ({sim.plan.storage_shape}, add_ldos(0.15, "
+          f"0.1, 50), until_after_sources=300): {sim._t} steps in "
+          f"{wall:.3f} s = {wall / sim._t * 1e3:.4f} ms/step, K3 "
+          f"launches {launches}, routes {dict(sim.routes)} ({card}); "
+          f"largest peak at f = {peak:.5f}, the nearest Harminv mode "
+          f"of phase 8 at {near:.5f}", flush=True)
+    if not (np.all(np.isfinite(L))
+            and abs(peak - near) <= lf[1] - lf[0] + 1e-12):
+        raise AssertionError(f"ring LDOS peak {peak} not within a bin "
+                             f"of a mode ({near})")
+    st, t_end = sim.fields_state, sim._t
+    err, _, drel, _ = compare_resident(ker, st, t_end, 20)
+    print(f"[11] K3 vs plain at the ring's end state (complex-weight "
+          f"DTFT), 20 steps: state and accumulators max abs {err:.3e}"
+          f" (accumulators max rel {drel:.3e})", flush=True)
+    if not err == 0.0:
+        raise AssertionError(f"K3 with complex weights is not bit for "
+                             f"bit: max abs {err:.3e}")
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, ()), st, 1024)
+    cost = R.step_cost(sim.plan, 1024)
+    b_ms, b_by = bound({"bytes": cost["bytes"] / 1024,
+                        "ops": cost["ops"] / 1024})
+    print(f"[11] K3 at the ring with the LDOS monitor: {ms:.4f} ms/step "
+          f"over 1024-step launches (the wrapper's call: {call_ms:.4f} "
+          f"ms/step); bound {b_ms:.5f} ms/step ({b_by}) ({card})",
+          flush=True)
+    del sim, st, ker
+
+    # ---- its 16^3 twin on the card, against the CPU --------------------
+    sim, mon = flagship_sim(mp, 16, 8.0, dev, pml=0.25, monitors=True)
+    counted(sim, until=200 * sim.dt)
+    got = monitor_outputs(mp, sim, mon)
+    rc = child.wait(timeout=900)
+    if rc != 0:
+        raise AssertionError(f"the CPU runs failed (exit code {rc})")
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    worst = {k: float(np.abs(v - want[f"16:{k}"]).max()
+                      / max(np.abs(want[f"16:{k}"]).max(), 1e-30))
+             for k, v in got.items()}
+    print(f"[11] 16^3 monitored twin ({sim.plan.storage_shape}, 200 "
+          f"steps, K3 launches {runs[-1][2]}), card vs CPU, max abs "
+          f"error over each output's max: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    if not all(v <= 1e-4 for v in worst.values()):
+        raise AssertionError(f"16^3 monitors: card and CPU differ "
+                             f"{worst}")
+    tmax = float(np.abs(want["T"]).max())
+    dT = float(np.abs(T - want["T"]).max()) / tmax
+    dR = float(np.abs(Rf - want["R"]).max()) / tmax
+    dL = float(np.abs(L - want["ldos"]).max()
+               / np.abs(want["ldos"]).max())
+    print(f"[11] card vs CPU: bend T max abs {dT:.3e} and R {dR:.3e} of "
+          f"max |T|; ring LDOS {dL:.3e} of its max", flush=True)
+    if not (dT <= 1e-4 and dR <= 1e-4 and dL <= 1e-4):
+        raise AssertionError(f"card and CPU differ: T {dT:.3e}, R "
+                             f"{dR:.3e}, LDOS {dL:.3e}")
 
 
 #: per family a site of k5_plan's seam sources on a dead plane of its E/H
@@ -1243,12 +1578,27 @@ def phase_fused_probed(mp, dev, card):
 
 
 def main() -> int:
+    import shutil
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    twins = start_cpu_twins()
+    try:
+        return run_phases(twins)
+    finally:
+        child, _, tmp = twins
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(twins) -> int:
+    """Phases 1-11 (the module docstring); `twins`: start_cpu_twins()."""
     import numpy as np
+    import torch
     import meep_nl_tpu_torch as mp
     from meep_nl_tpu_torch.ops import fdtd3d, fdtd3d_t2
     from meep_nl_tpu_torch.ops import hybrid as HY
@@ -1349,6 +1699,7 @@ def main() -> int:
           f"{flux.tolist()}", flush=True)
     k1["launches"] = launches["k1"]
     k2["launches"] = launches["k2_cap_d3"]
+    main_ms = wall / nsteps * 1e3
     # the kernels against their plain versions at the main path's shapes,
     # from the main path's end state (these launches are not counted)
     st = sim.fields_state
@@ -1564,11 +1915,12 @@ def main() -> int:
           flush=True)
 
     del sim, st
-    k3, k4 = phase_resident(mp, dev, card, blank)
+    k3, k4, modes = phase_resident(mp, dev, card, blank)
     phase_use_pallas(mp, dev, card, fluxes["k2"], k5)
     launches, err = phase_fused_probed(mp, dev, card)
     k1["launches"] += launches
     k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    phase_monitors(mp, dev, card, modes, main_ms, k1, k3, twins)
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
@@ -1579,4 +1931,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-twins"] and len(sys.argv) == 3:
+        sys.exit(cpu_twins(sys.argv[2]))
     sys.exit(main())

@@ -19,7 +19,13 @@ from .models.run_control import (FieldProbe, after_sources, at_every,
                                  at_beginning, at_end, during_sources,
                                  stop_when_fields_decayed)
 from .analysis.harminv import Harminv, Mode, harminv
-from .models.simulation import (Simulation, PML, FluxRegion, get_fluxes,
+from .models.simulation import (Simulation, PML, FluxRegion, ForceRegion,
+                                EnergyRegion, FieldsRegion, Near2FarRegion,
+                                get_fluxes, get_forces, get_electric_energy,
+                                get_magnetic_energy, get_total_energy,
+                                get_flux_freqs, get_force_freqs,
+                                get_energy_freqs, get_ldos_freqs,
+                                get_near2far_freqs,
                                 Ex, Ey, Ez, Hx, Hy, Hz, Dx, Dy, Dz,
                                 Bx, By, Bz, X, Y, Z, ALL)
 

@@ -114,7 +114,8 @@ extern __shared__ __align__(16) float k3_smem[];
 struct DftM {
   void* acc;            // (nfreq, 2, R) frequency-major accumulators
   const void* f;        // slot token of the field component it reads
-  const void* w;        // (R) weights of the region sites
+  const void* w;        // (R) weights of the region sites (real parts)
+  const void* wi;       // (R) imaginary parts, or null: real weights
   const void* phr;      // (nsteps, nfreq) phase rows
   const void* phi;
   i64 nfreq, R;         // frequencies, region sites
@@ -615,12 +616,16 @@ __device__ void dtft(const ResArgs& A, float* sm, int vol, const Box& b,
     const float* phr = (const float*)d.phr + s * d.nfreq;
     const float* phi = (const float*)d.phi + s * d.nfreq;
     float* acc = (float*)d.acc;
+    const bool cplx = d.wi != nullptr;
     over(b, rlo, rhi, tm, [&](const Loc& x) {
       const int r = ((x.i + b.o[0] - (int)d.lo[0]) * (int)d.n[1] +
                      (x.j + b.o[1] - (int)d.lo[1])) *
                         (int)d.n[2] +
                     (x.k + b.o[2] - (int)d.lo[2]);
-      const float cr = ((const float*)d.w)[r] * region_value(d, f, b, x);
+      const float fv = region_value(d, f, b, x);
+      const float cr = ((const float*)d.w)[r] * fv;
+      // complex weights (LDOS): c = cr + i ci, acc += ph c
+      const float ci = cplx ? ((const float*)d.wi)[r] * fv : 0.0f;
       for (int q0 = 0; q0 < d.nfreq; q0 += 4) {   // 8 loads in flight
         float re[4], im[4];
 #pragma unroll
@@ -633,8 +638,13 @@ __device__ void dtft(const ResArgs& A, float* sm, int vol, const Box& b,
         for (int m = 0; m < 4; ++m) {
           const int q = q0 + m;
           if (q >= d.nfreq) continue;
-          acc[(2 * q) * d.R + r] = re[m] + phr[q] * cr;
-          acc[(2 * q + 1) * d.R + r] = im[m] + phi[q] * cr;
+          if (cplx) {
+            acc[(2 * q) * d.R + r] = re[m] + (phr[q] * cr - phi[q] * ci);
+            acc[(2 * q + 1) * d.R + r] = im[m] + (phi[q] * cr + phr[q] * ci);
+          } else {
+            acc[(2 * q) * d.R + r] = re[m] + phr[q] * cr;
+            acc[(2 * q + 1) * d.R + r] = im[m] + phi[q] * cr;
+          }
         }
       }
     });

@@ -8,13 +8,16 @@ last step samples.  The routes, as the reference takes them:
 
   * no sample step in the stretch: the deepest kernel (K2 at depth 3 where
     the plan admits it, else depth 2) over nsteps // depth calls, the
-    remainder through K1;
+    remainder through K1 ("no_sample" in `hybrid_routes`);
   * d > 1: each cycle is cut into 3-, 2- and 1-step kernel calls
-    (`decompose`), then the DTFT reads the monitors' x-planes;
+    (`decompose`), then the DTFT reads the monitors' x-planes ("planes"),
+    or the full state ("full_state") where `_dft_plane_meta` declines the
+    monitors (D/B components, planes across most of x); d == 1 without
+    the capture route is this route with one K1 step per cycle;
   * d == 1 (nonlinear media disable decimation, so every step samples): the
     capture route, supercycles of `depth` steps through K2's capture
     variant, the monitor planes of the intermediate steps written by the
-    kernel itself, and a tail of K1 steps;
+    kernel itself, and a tail of K1 steps ("capture");
   * a plan that K2 declines but K1 takes: the same driver with K1 behind a
     two-step adapter;
   * a stretch that records probe series (`fused_probed_run`): K1 once per
@@ -32,6 +35,7 @@ both kernels decline (or stretches too short to fuse).
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import types
 from typing import Any, Dict, List, Optional, Tuple
@@ -59,14 +63,18 @@ def _sample_steps(plan, t0: int, nsteps: int) -> np.ndarray:
 def cycle_structure(plan, t0: int, nsteps: int):
     """Split a monitored stretch into (prefix, d, ncyc, suffix) uniform
     decimation cycles whose last step is the DFT sample step, or None when
-    the sampling isn't uniformly spaced or there is no full cycle."""
+    there is no sample step or no full cycle.  Where monitors of different
+    decimations make the sampling non-uniform, every step is a cycle of one
+    (d = 1): the DTFT update after each step adds zero for the monitors
+    that do not sample there, as the eager stepper's does (the reference
+    sends such stretches to the eager stepper)."""
     active = _sample_steps(plan, t0, nsteps)
     idx = np.nonzero(active)[0]
     if len(idx) == 0:
         return None
     gaps = np.diff(idx)
     if len(gaps) and len(set(gaps.tolist())) != 1:
-        return None
+        return 0, 1, nsteps, 0
     d = int(gaps[0]) if len(gaps) else nsteps - int(idx[0])
     if d < 1:
         return None
@@ -77,6 +85,12 @@ def cycle_structure(plan, t0: int, nsteps: int):
     if ncyc < 1:
         return None
     return prefix, d, ncyc, suffix
+
+
+def hybrid_routes(plan) -> collections.Counter:
+    """Stretches of this plan by the hybrid driver's route ("no_sample",
+    "capture", "planes", "full_state")."""
+    return plan.__dict__.setdefault("_hybrid_routes", collections.Counter())
 
 
 def hybrid_applicable(plan) -> bool:
@@ -321,8 +335,9 @@ def fused_probed_run(plan, state: Dict[str, Any], nsteps: int, t0: int,
 def hybrid_run(plan, state: Dict[str, Any], nsteps: int, t0: int
                ) -> Optional[Dict[str, Any]]:
     """Advance the full state by nsteps through the fused kernels, or None
-    when the plan is outside both kernel envelopes / the stretch has no
-    uniform cycle (the caller then runs the eager stepper).  The
+    when the plan is outside both kernel envelopes / the stretch is
+    shorter than 4 steps or has no full decimation cycle (the caller then
+    runs the eager stepper).  The
     counterpart of the JAX package's hybrid_run and _hybrid_run_inner
     (hybrid.py:459, :497)."""
     if not hybrid_applicable(plan) or nsteps < 4:
@@ -337,6 +352,7 @@ def hybrid_run(plan, state: Dict[str, Any], nsteps: int, t0: int
     deep = ker.k3 if ker.k3 is not None else ker
     C = plan.coefs
     if not np.any(_sample_steps(plan, t0, nsteps)):
+        hybrid_routes(plan)["no_sample"] += 1
         return deep.run(state, nsteps, t0=t0)
     cs = cycle_structure(plan, t0, nsteps)
     if cs is None:
@@ -355,8 +371,11 @@ def hybrid_run(plan, state: Dict[str, Any], nsteps: int, t0: int
     if (d == 1 and plane_meta is not None
             and isinstance(ker, fdtd3d_t2.Fdtd3dT2Kernel)
             and ncyc >= deep.depth):
+        hybrid_routes(plan)["capture"] += 1
         state = _capture_run(plan, deep, k1, plane_meta, state, rows, ncyc)
     else:
+        hybrid_routes(plan)["planes" if plane_meta is not None
+                            else "full_state"] += 1
         for cyc in range(ncyc):
             xc = rows[cyc * d:(cyc + 1) * d]
             o = 0

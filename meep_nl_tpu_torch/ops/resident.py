@@ -38,7 +38,10 @@ Not carried over from the reference, each on purpose:
 The envelope is the reference's (2D and 3D, fp32, real fields, no noisy
 media, a doubled state within VMEM_BUDGET) intersected with what the
 port's eager stepper and this kernel run: no periodic axis (ROADMAP A8),
-masks made of dead planes, no H-family chi2/chi3, real monitor weights.
+masks made of dead planes, no H-family chi2/chi3.  Monitors read any
+field of the state (E/H, and D/B for the energy monitors), centred or on
+their own lattice, with real or complex weights (the LDOS monitors'
+conj(amplitude)).
 """
 
 from __future__ import annotations
@@ -141,8 +144,6 @@ def resident_supported(plan) -> bool:
     if any(s.has_chi3 or s.has_nr for s in plan.eh_specs_h):
         return False
     if any(planes is None for planes in (plan.mask_planes or {}).values()):
-        return False
-    if any(f"dft{mi}:w" not in plan.coefs for mi in range(len(plan.dfts))):
         return False
     if int(np.prod(plan.storage_shape or plan.gv.shape)) >= 2 ** 31:
         return False
@@ -355,7 +356,7 @@ _I = ctypes.c_longlong
 
 
 class _DftM(ctypes.Structure):
-    _fields_ = ([(n, _P) for n in ("acc", "f", "w", "phr", "phi")]
+    _fields_ = ([(n, _P) for n in ("acc", "f", "w", "wi", "phr", "phi")]
                 + [("nfreq", _I), ("R", _I), ("lo", _I * 3), ("n", _I * 3),
                    ("navg", _I), ("avg", _I * 3)])
 
@@ -548,8 +549,13 @@ class ResidentKernel:
         use only the returned state), the DTFT in place on frequency-major
         copies of the accumulators."""
         state = self._check(state)
-        state = {**state, "dft": {k: v.movedim((-2, -1), (0, 1)).contiguous()
-                                  for k, v in state["dft"].items()}}
+        # copies, also where the moved view is contiguous already (a region
+        # of one site, as an LDOS monitor's): the caller's accumulators
+        # stay as they were
+        state = {**state, "dft": {
+            k: v.movedim((-2, -1), (0, 1)).clone(
+                memory_format=torch.contiguous_format)
+            for k, v in state["dft"].items()}}
         series = {p.name: [] for p in probes}
         for done in range(0, nsteps, MAX_CHUNK):
             n = min(nsteps - done, MAX_CHUNK)
@@ -1001,7 +1007,11 @@ class ResidentKernel:
                               STEP_DFT, 0).astype(np.int32)
             d.acc = _ptr(state["dft"][m.name])
             d.f = slot[("f", m.component)] + 1
-            d.w = _ptr(rp.coefs[f"dft{mi}:w"])
+            if f"dft{mi}:w" in rp.coefs:
+                d.w = _ptr(rp.coefs[f"dft{mi}:w"])
+            else:                          # complex weights (LDOS)
+                d.w = _ptr(rp.coefs[f"dft{mi}:wre"])
+                d.wi = _ptr(rp.coefs[f"dft{mi}:wim"])
             d.phr, d.phi = up(phr, np.float32), up(phi, np.float32)
             d.nfreq = len(m.freqs)
             ext = [b - a for a, b in m.region] + [1] * (3 - len(m.region))
@@ -1127,8 +1137,9 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     N = int(np.prod(shape))
     state = _state_bytes(rp) - 4
     # what the kernel reads: the chain vectors and material arrays of each
-    # component, the polarization sigmas, the monitor weights (the masks
-    # reach it as per-axis vectors, the sources as site lists)
+    # component, the polarization sigmas, the monitor weights (both parts
+    # of complex ones, `dft{mi}:wre` and `:wim`; the masks reach it as
+    # per-axis vectors, the sources as site lists)
     comps = [s.c for s in rp.curl_specs_b + rp.curl_specs_d] + \
         [s.ec for s in rp.eh_specs_e + rp.eh_specs_h]
     keys = [k for k in rp.coefs
@@ -1143,8 +1154,11 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     pol = sum(int(torch.count_nonzero(rp.coefs[f"pol{pi}:{c}:{d}"]))
               for pi, p in enumerate(rp.pol_specs_e + rp.pol_specs_h)
               for (c, d) in p.sigma)
-    region = sum(int(np.prod([b - a for a, b in m.region])) * (4 + 4 * len(
-        m.freqs)) for m in rp.dfts)
+    # per region site: the weight product(s), then per frequency 2
+    # products and 2 sums, or with a complex weight 4 products and 4 sums
+    region = sum(int(np.prod([b - a for a, b in m.region])) * (
+        (4 + 4 * len(m.freqs)) if f"dft{mi}:w" in rp.coefs
+        else (5 + 8 * len(m.freqs))) for mi, m in enumerate(rp.dfts))
     ops_step = 18 * ncomp * N + 150 * nl + 8 * pol + region
     return {"bytes": float(2 * state + coef + table),
             "ops": float(nsteps * ops_step),

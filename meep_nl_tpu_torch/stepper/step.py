@@ -499,7 +499,10 @@ def _region_values(plan: Plan, m, arr):
 def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
                 xs: Dict[str, Any], fv_of=None) -> Dict[str, Any]:
     """DTFT accumulator update (dft.cpp:265 in-step sampling), in the real
-    (re, im) pair layout: acc_re += cr ph_re, acc_im += cr ph_im.
+    (re, im) pair layout: with c = w fv = cr + i ci (ci only for complex
+    weights, the LDOS monitors' conj(amplitude)),
+    acc_re += cr ph_re - ci ph_im, acc_im += cr ph_im + ci ph_re
+    (step.py:1335-1375; the fields are real).
 
     `fv_of(mi, m)` optionally supplies monitor mi's region-sliced,
     centered-averaged field values (the hybrid driver samples x-planes that
@@ -512,21 +515,26 @@ def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
             fv = _region_values(plan, m, state["f"][m.component])
         phr = xs[f"dft{mi}:ph_re"]
         phi = xs[f"dft{mi}:ph_im"]
-        if f"dft{mi}:w" not in C:
-            raise NotImplementedError(
-                "complex monitor weights (LDOS) are not ported yet "
-                "(ROADMAP A4)")
-        cr = C[f"dft{mi}:w"] * fv
+        if f"dft{mi}:w" in C:
+            cr, ci = C[f"dft{mi}:w"] * fv, None
+        else:
+            cr, ci = C[f"dft{mi}:wre"] * fv, C[f"dft{mi}:wim"] * fv
         if plan.dft_front:
             # frequency-major accumulators (nfreq, 2, region...), the
             # resident route's layout (step.py:1357-1371)
             shp = (-1,) + (1,) * cr.ndim
-            dft[m.name] = dft[m.name] + torch.stack(
-                [phr.reshape(shp) * cr[None], phi.reshape(shp) * cr[None]],
-                dim=1)
+            phr, phi, cr = phr.reshape(shp), phi.reshape(shp), cr[None]
+            dre, dim = phr * cr, phi * cr
+            if ci is not None:
+                dre = dre - phi * ci[None]
+                dim = dim + phr * ci[None]
+            dft[m.name] = dft[m.name] + torch.stack([dre, dim], dim=1)
             continue
         dre = cr[..., None] * phr
         dim = cr[..., None] * phi
+        if ci is not None:
+            dre = dre - ci[..., None] * phi
+            dim = dim + ci[..., None] * phr
         dft[m.name] = dft[m.name] + torch.stack([dre, dim], dim=-1)
     return {**state, "dft": dft}
 

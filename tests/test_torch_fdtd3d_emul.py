@@ -47,16 +47,17 @@ TILES = {"tile8x32": (), "tile4x8": ("-DK1_TY=4", "-DK1_TZ=8")}
 def host_libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    libs = {}
+    # one g++ per tile variant, all started together
+    outs, procs = {}, []
     for name, flags in TILES.items():
-        out = str(tmp_path_factory.mktemp("k1") / f"libk1_{name}.so")
-        subprocess.run(
+        outs[name] = str(tmp_path_factory.mktemp("k1") / f"libk1_{name}.so")
+        procs.append(subprocess.Popen(
             ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
              "-fPIC", "-Wno-unknown-pragmas", *flags, "-I", STUB, "-I",
              _build.CSRC, "-x", "c++",
-             os.path.join(_build.CSRC, "fdtd3d.cu"), "-o", out], check=True)
-        libs[name] = TF.bind(ctypes.CDLL(out))
-    return libs
+             os.path.join(_build.CSRC, "fdtd3d.cu"), "-o", outs[name]]))
+    assert all(p.wait() == 0 for p in procs), "g++ failed"
+    return {name: TF.bind(ctypes.CDLL(out)) for name, out in outs.items()}
 
 
 @pytest.mark.parametrize("tile", sorted(TILES))

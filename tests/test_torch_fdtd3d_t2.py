@@ -95,7 +95,7 @@ def test_capture_matches_reference_kernel_interpreted(monkeypatch):
     """One small case against the reference's own capture kernel
     (make_capture_step, Pallas interpret mode): same state after the call,
     same capture planes under the same keys.  The start state is a developed
-    one (the jnp stepper's, 24 steps around the source's peak), since the
+    one (the jnp stepper's, 25 steps around the source's peak), since the
     reference's compact layout holds no E or PML auxiliary outside its
     slabs."""
     monkeypatch.setenv("MNT_PALLAS_INTERPRET", "1")
@@ -104,7 +104,7 @@ def test_capture_matches_reference_kernel_interpreted(monkeypatch):
     pj = build_plan(JAX, **kw)
     pj.slab_opt = True
     assert JT2.supported(pj, depth=depth)
-    start = JS.run(pj, JS.init_state(pj), 24, t0=t0 - 24)
+    start = JS.run(pj, JS.init_state(pj), 25, t0=t0 - 25)
     planes = [("ez", 7), ("hy", 7), ("hy", 8)]
     jker = JT2.Fdtd3dT2Kernel(pj, depth=depth, cap_planes=planes)
     xs = {k: np.asarray(v) for k, v in JS.build_xs(pj, depth, t0).items()

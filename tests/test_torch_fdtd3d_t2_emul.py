@@ -51,15 +51,18 @@ ORDERS = {"forward": 0, "reversed": 1, "shuffled": 7}
 def host_libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    libs = {}
+    # one g++ per tile variant, all started together
+    outs, procs = {}, []
     for name, flags in TILES.items():
-        out = str(tmp_path_factory.mktemp("k2") / f"libk2_{name}.so")
-        subprocess.run(
+        outs[name] = str(tmp_path_factory.mktemp("k2") / f"libk2_{name}.so")
+        procs.append(subprocess.Popen(
             ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
              "-fPIC", "-Wno-unknown-pragmas", *flags, "-I", STUB, "-I",
              _build.CSRC, "-x", "c++",
-             os.path.join(_build.CSRC, "fdtd3d_t2.cu"), "-o", out],
-            check=True)
+             os.path.join(_build.CSRC, "fdtd3d_t2.cu"), "-o", outs[name]]))
+    assert all(p.wait() == 0 for p in procs), "g++ failed"
+    libs = {}
+    for name, out in outs.items():
         lib = T2.bind(ctypes.CDLL(out))
         lib.stub_set_block_order.argtypes = [ctypes.c_int]
         libs[name] = lib

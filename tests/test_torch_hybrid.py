@@ -203,7 +203,7 @@ def test_simulation_routes_match_jax(scene, monkeypatch):
     sj.init_sim()
     sj._plan.slab_opt = True            # the route the port follows
     peak = {}
-    for until in (3.0, 3.0):            # one JAX runner for both
+    for until in (3.0625, 3.0625):      # one JAX runner for both
         sj.run(until=until)
         st.run(until=until)
         assert st._t == sj._t
@@ -220,7 +220,7 @@ def test_simulation_routes_match_jax(scene, monkeypatch):
     else:
         assert [m.decimation for m in st.plan.dfts] == [4] * 4
         assert plain["k2_d2"] >= st._t - 8 and "cap_d3" not in plain
-    assert st._t == 96
+    assert st._t == 98
 
 
 @pytest.mark.parametrize("scene", ["flagship", "linear"])
@@ -232,7 +232,7 @@ def test_simulation_resident_route_matches_jax(scene):
     sj, fj = make_sim(mnt, scene, use_fused=False)
     st, ft = make_sim(mtt, scene, device="cpu")
     peak = {}
-    for until in (3.0, 3.0):
+    for until in (3.0625, 3.0625):
         sj.run(until=until)
         st.run(until=until)
         assert st._t == sj._t
@@ -242,7 +242,7 @@ def test_simulation_resident_route_matches_jax(scene):
             _close(st.get_array(c), want, c, peak[c])
     _close(st.get_fluxes(ft), sj.get_fluxes(fj), "flux")
     assert dict(st.routes) == {"resident": 2}
-    assert st.plan._resident_kernel.plain_steps == st._t == 96
+    assert st.plan._resident_kernel.plain_steps == st._t == 98
     assert "_t2_kernel" not in st.plan.__dict__ and not st.plan.slab_opt
 
 
@@ -271,12 +271,12 @@ def test_fused_probed_run_matches_eager_and_jax(monkeypatch):
     for fused in (True, False):
         sim = probed_sim(mtt, use_fused=fused, device="cpu")
         probe = mtt.FieldProbe(mtt.Ez, mtt.Vector3(*pt))
-        sim.run(probe, until=5.0)
+        sim.run(probe, until=5.0625)
         out[fused] = (sim, probe.data)
     sim = out[True][0]
     assert dict(sim.routes) == {"fused_probed": 1}
     assert dict(out[False][0].routes) == {"eager": 1}
-    assert sim.plan._t2_kernel._k1.plain_steps == sim._t == 80
+    assert sim.plan._t2_kernel._k1.plain_steps == sim._t == 81
     assert len(sim.plan._fused_probe_cache) == 1
     assert np.array_equal(out[True][1], out[False][1])
     for key in ("f", "f_u", "f_w"):
@@ -284,10 +284,10 @@ def test_fused_probed_run_matches_eager_and_jax(monkeypatch):
             assert torch.equal(sim.fields_state[key][c], t), (key, c)
     sj = probed_sim(mnt, use_fused=False)
     pj = mnt.FieldProbe(mnt.Ez, mnt.Vector3(*pt))
-    sj.run(pj, until=5.0)
+    sj.run(pj, until=5.0625)
     want = np.real(np.asarray(pj.data, np.complex128))
     scale = float(np.abs(want).max())
-    assert len(want) == len(out[True][1]) == 80 and scale > 0
+    assert len(want) == len(out[True][1]) == 81 and scale > 0
     assert float(np.abs(out[True][1] - want).max()) <= 5e-6 * scale
 
 

@@ -63,7 +63,9 @@ def scene(kind, device="cpu", res=10):
     plane; nl3d: the flagship material on a ball in a 16x15x15 grid (its 42
     staged arrays fit tiles only at T = 1); poles3d: a ball with 4 E and 4
     H Lorentz poles in that grid (99 staged arrays, more than
-    MAXSLOT)."""
+    MAXSLOT); ldos / ldos-te: tm / te with the DFT monitors of the LDOS
+    (complex weights, uncentred), energy (D/B beside E/H) and dft fields
+    kinds."""
     src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Ez,
                      center=mp.Vector3(-2, 0.1))]
     geom = [mp.Cylinder(radius=1.0, material=mp.Medium(epsilon=12))]
@@ -81,7 +83,7 @@ def scene(kind, device="cpu", res=10):
             epsilon=3, chi2=0.2, chi2_full_tensor=True,
             E_susceptibilities=[mp.LorentzianSusceptibility(
                 frequency=1.1, gamma=0.1, sigma=0.4)]))]
-    elif kind == "te":
+    elif kind in ("te", "ldos-te"):
         geom = [mp.Cylinder(radius=1.0, material=mp.Medium(
             epsilon=4, chi2=0.1, chi2_full_tensor=True))]
         src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Hz,
@@ -113,12 +115,26 @@ def scene(kind, device="cpu", res=10):
                         device=device)
     sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
         center=mp.Vector3(0.4 if pml == 0.5 else 0.9, 0, 0), size=flux_size))
+    if kind.startswith("ldos"):
+        # a complex amplitude: the weights conj(amplitude) have both parts
+        for s in sim.sources:
+            s.amplitude = 0.8 - 0.6j
+        sim.add_ldos(0.5, 0.2, 3)
+        sim.add_energy(0.5, 0.2, 2, mp.EnergyRegion(
+            center=mp.Vector3(0.2, 0), size=mp.Vector3(1.3, 1.1)))
+        sim.add_dft_fields([COMP.get(kind, "ez")], 0.5, 0.2, 2,
+                           center=mp.Vector3(-0.3, 0.2),
+                           size=mp.Vector3(1.5, 0.8))
     if kind == "tm-many":
         for i in range(25):
             sim.add_flux(0.5, 0.2, 2, mp.FluxRegion(
                 center=mp.Vector3(-1.8 + 0.15 * i, 0), size=flux_size))
     sim.init_sim()
     return sim.plan
+
+
+#: the component each scene's probes read (else ez)
+COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz"}
 
 
 def random_state(plan, seed):
@@ -171,7 +187,13 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "nl3d-k4-direct-seams": ("nl3d", True, 9, 4, (None, 1, 4, 7)),
          "poles3d-k3-direct-seams": ("poles3d", False, 7, 3, (None, 1, 2, 0)),
          "disp-k3-direct-seams": ("disp", False, 13, 5, (None, 1, 4, 7)),
-         "te-k4-direct": ("te", True, 13, 8192, (None, 1, 3, 1))}
+         "te-k4-direct": ("te", True, 13, 8192, (None, 1, 3, 1)),
+         # complex (LDOS) weights, D/B and uncentred monitors
+         "ldos-k3": ("ldos", False, 13, 8192, None),
+         "ldos-k4-tiles-seams": ("ldos", True, 13, 5, ((13, 13, 1), 3, 3, 7)),
+         "ldos-te-k4": ("ldos-te", True, 13, 8192, None),
+         "ldos-te-k3-direct-seams": ("ldos-te", False, 13, 5,
+                                     (None, 1, 4, 7))}
 
 
 def h100_schedule(ker, host_lib):
@@ -212,7 +234,7 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
     monkeypatch.setattr(R.ResidentKernel, "_check", _own)
     plan = scene(kind)
     st0 = random_state(plan, 4)
-    comp = {"te": "hz", "flag-te": "ey"}.get(kind, "ez")
+    comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3
     pt = [10, 10] + ([10] if is3d else [])
     if sched is not None and sched[0] is not None:

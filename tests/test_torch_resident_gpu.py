@@ -11,7 +11,9 @@ D is site-local and fuses with the D curl; TE: the chi2 partner sums read
 neighbours), the TM plan with 26 flux lines (52 DTFT monitors), a 24^3
 plan and the two 3D plans that take the direct schedule (the flagship
 material, whose tiles would fit only at T = 1; 4 E and 4 H poles, more
-staged arrays than MAXSLOT), with flux monitors and (K4) 20 probes, over
+staged arrays than MAXSLOT), the TM and TE plans with the LDOS (complex
+weights), energy and dft-fields monitors, with flux monitors and (K4) 20
+probes, over
 two chunks, with the wrapper's own schedule; and
 test_torch_resident_emul.py's schedule cases (small forced tiles, a
 source, probe points and the flux line on tile seams, T not dividing the
@@ -27,7 +29,7 @@ import torch
 from meep_nl_tpu_torch.ops import resident as R
 from meep_nl_tpu_torch.stepper import step as TS
 
-from test_torch_resident_emul import CASES, force, random_state, scene
+from test_torch_resident_emul import COMP, CASES, force, random_state, scene
 
 
 @pytest.fixture
@@ -44,12 +46,12 @@ def _err(a, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
 @pytest.mark.parametrize("kind", ["flag-tm", "flag-te", "tm-many", "3d",
-                                  "nl3d", "poles3d"])
+                                  "nl3d", "poles3d", "ldos", "ldos-te"])
 def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     monkeypatch.setattr(R, "MAX_CHUNK", 17)
     plan = scene(kind, device=cuda, res=16)
     st0 = random_state(plan, 8)
-    comp = "ey" if kind == "flag-te" else "ez"
+    comp = COMP.get(kind, "ez")
     pt = {"3d": [20, 20, 10], "nl3d": [5, 12, 7],
           "poles3d": [5, 12, 7]}.get(kind, [20, 20])
     # 20 probes of two points each; on the small 3D grids in two rows
@@ -100,7 +102,7 @@ def test_tile_seams_match_plain_on_cuda(case, cuda, monkeypatch):
     monkeypatch.setattr(R, "MAX_CHUNK", chunk)
     plan = scene(kind, device=cuda)
     st0 = random_state(plan, 4)
-    comp = {"te": "hz", "flag-te": "ey"}.get(kind, "ez")
+    comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3
     pt = ([10, 10] if tile is None else [tile[0], tile[1] + 1]) \
         + ([5] if is3d else [])
