@@ -106,7 +106,28 @@ falls back to the CPU or to a plain version:
      mode that phase 8's Harminv found; the monitored flagship at 16^3 on
      the resident route.  The bend's T and R (to
      1e-4 of max |T|), the ring's LDOS and every output of the 16^3 scene
-     (to 1e-4 of its own maximum) must equal the CPU's.
+     (to 1e-4 of its own maximum) must equal the CPU's;
+ 12. Mirror symmetry: K1 (20 steps) and K2 (depth 2 and 3 with the flux
+     plane's capture planes, 6 calls) bit for bit against their plain
+     versions at 64^3 on the flagship material folded on y and z (node
+     mirrors, an Ex source on both planes) and on y alone; the main path
+     folded to a quarter cell (phase 4's scene with its source on the
+     planes, Mirror(Y) and Mirror(Z, phase=-1): 128x64x64 cells, storage
+     136x65x65), 602 steps on the capture route (200 K2 capture calls and
+     2 K1 steps, counters, no eager stretch), its ms/step beside phase
+     4's, K1 and K2 against their plain versions from its end state and
+     its 16^3 twin (K3) against the same run on the CPU; the same scene
+     linear at 128^3 folded and full, fluxes and unfolded Ez to 1e-4;
+     Meep's ring.py as published (Mirror(Y), 161x81): Harminv and the
+     decay stop through K4 (counters), K4 bit for bit from the end state,
+     the series and the strong modes against phase 8's full ring printed
+     (that cell is not exactly y-symmetric, ring_sim), the stop step
+     against the CPU's; the ring with radii 1e-9 larger (exactly
+     y-symmetric) folded and full through K4, series and strong modes to
+     1e-4; K3 bit for bit on phase 7's 767^2
+     with Mirror(Y) (odd: a magnetic wall) and its flux line, on a 768^2
+     disk folded on x and y (node mirrors) and on the 16^3 flagship
+     folded on y (the direct schedule).
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -176,7 +197,7 @@ def build_all():
 
 def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
                  pml=1.0, linear=False, decimation=0, monitors=False,
-                 **sim_kw):
+                 src_comp=None, src_y=0.01, **sim_kw):
     """The flagship scene: an eps=4 ball (radius a quarter of the cell)
     with a Lorentz pole and full-tensor chi2 (the NR solve), uPML on every
     face, a Gaussian Ez point source off the ball and an x-normal flux
@@ -184,8 +205,9 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
     keeps the eps=4 ball and drops its pole and chi2; `decimation` is the
     flux monitor's DTFT decimation factor (0: automatic); `monitors` adds
     the DFT monitor family (`monitor_family`) and returns its handles, the
-    flux plane's under "flux", in place of the flux handle; `sim_kw` goes
-    to Simulation (use_pallas, use_fused)."""
+    flux plane's under "flux", in place of the flux handle; `src_comp`
+    (default Ez) and `src_y` (y over the cell side) move the source;
+    `sim_kw` goes to Simulation (use_pallas, use_fused, symmetries)."""
     L = n_cells / res
     geometry = []
     if ball:
@@ -197,8 +219,8 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
     sim = mp.Simulation(
         cell_size=mp.Vector3(L, L, L), resolution=res, geometry=geometry,
         sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
-                           component=mp.Ez,
-                           center=mp.Vector3(-0.35 * L, 0.01 * L, 0))],
+                           component=src_comp or mp.Ez,
+                           center=mp.Vector3(-0.35 * L, src_y * L, 0))],
         boundary_layers=[mp.PML(pml)], eps_averaging=False, device=device,
         **sim_kw)
     fl = None
@@ -344,16 +366,38 @@ def cpu_twins(path) -> int:
     sim.run(until=200 * sim.dt)
     for k, v in monitor_outputs(mp, sim, mon).items():
         out[f"16:{k}"] = v
+    # phase 12's twins: the folded flagship at 16^3, the folded ring's
+    # decay stop
+    sim, fl = flagship_sim(mp, 16, 8.0, "cpu", pml=0.25, src_y=0.0,
+                           symmetries=fold_main(mp))
+    sim.run(until=200 * sim.dt)
+    out["m16:flux"], out["m16:ez"] = sim.get_fluxes(fl), sim.get_array(mp.Ez)
+    sim = ring_sim(mp, 10, "cpu", symmetries=[mp.Mirror(mp.Y)])
+    sim.run(until_after_sources=ring_decay(mp))
+    out["ring_m_stop"] = sim._t
     np.savez(path, **out)
     return 0
 
 
-def resident_sim(mp, n, device, flux=False):
+def fold_main(mp):
+    """Phase 12's symmetries of the flagship: a node mirror on y (phase
+    +1, 128 cells: the plane on whole sites) and a metal wall on z (phase
+    -1): a quarter cell."""
+    return [mp.Mirror(mp.Y), mp.Mirror(mp.Z, phase=-1)]
+
+
+def ring_decay(mp):
+    """Phase 8's decay stop of the ring."""
+    return mp.stop_when_fields_decayed(50, mp.Ez, mp.Vector3(1.1), 1e-3)
+
+
+def resident_sim(mp, n, device, flux=False, **sim_kw):
     """bench.py::run_resident's scene through the public API: an
     (n / 16)^2 cell at resolution 16 (n^2 cells), an eps=12 disk of radius
     n / 96 at the centre, a Gaussian Ez point source (f 1, fwidth 0.5) at
     x = -n / 48, PML 1 on every side; `flux` adds an x-normal flux line of 3
-    frequencies at x = +n / 48."""
+    frequencies at x = +n / 48; `sim_kw` goes to Simulation
+    (symmetries)."""
     res = 16.0
     L = n / res
     sim = mp.Simulation(
@@ -363,7 +407,7 @@ def resident_sim(mp, n, device, flux=False):
         sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
                            component=mp.Ez,
                            center=mp.Vector3(-L / 3, 0))],
-        boundary_layers=[mp.PML(1.0)], device=device)
+        boundary_layers=[mp.PML(1.0)], device=device, **sim_kw)
     fl = None
     if flux:
         fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
@@ -372,19 +416,25 @@ def resident_sim(mp, n, device, flux=False):
     return sim, fl
 
 
-def ring_sim(mp, res, device):
-    """Meep's ring-resonator tutorial (python/examples/ring.py) without its
-    Mirror(Y): n = 3.4, w = 1, r = 1, pad = 4, dpml = 2 (a 16 x 16 cell),
-    an Ez Gaussian source (0.15, fwidth 0.1) at (r + 0.1, 0)."""
+def ring_sim(mp, res, device, nudge=0.0, **sim_kw):
+    """Meep's ring-resonator tutorial (python/examples/ring.py), without
+    its Mirror(Y) unless `sim_kw` declares it (symmetries): n = 3.4, w = 1,
+    r = 1, pad = 4, dpml = 2 (a 16 x 16 cell), an Ez Gaussian source
+    (0.15, fwidth 0.1) at (r + 0.1, 0).  `nudge` grows both radii: at
+    resolution 10 the outer surface r + w = 2 passes exactly through 8 of
+    the Ez sites (such as (1.6, +-1.2)), whose smoothed eps then depends on
+    how their coordinates round (6.87 at y = -1.2, 5.69 at +1.2), so the
+    published full cell is not exactly y-symmetric; 1e-9 makes it so."""
     n, w, r, pad, dpml = 3.4, 1, 1, 4, 2
     sxy = 2 * (r + w + pad + dpml)
     return mp.Simulation(
         cell_size=mp.Vector3(sxy, sxy), resolution=res,
-        geometry=[mp.Cylinder(radius=r + w, material=mp.Medium(index=n)),
-                  mp.Cylinder(radius=r)],
+        geometry=[mp.Cylinder(radius=r + w + nudge,
+                              material=mp.Medium(index=n)),
+                  mp.Cylinder(radius=r + nudge)],
         sources=[mp.Source(mp.GaussianSource(0.15, fwidth=0.1), mp.Ez,
                            center=mp.Vector3(r + 0.1))],
-        boundary_layers=[mp.PML(dpml)], device=device)
+        boundary_layers=[mp.PML(dpml)], device=device, **sim_kw)
 
 
 def schedule_text(ker, nsteps, probed):
@@ -812,7 +862,7 @@ def time_resident(fn, st0, nsteps, reps=3):
 
 def phase_resident(mp, dev, card, blank):
     """Phases 7 and 8: the resident path (K3, K4); returns their kernel
-    table entries."""
+    table entries, the ring's Harminv modes and its series on the card."""
     import numpy as np
     from meep_nl_tpu_torch.ops import resident as R
     k3 = {"name": "resident_k3", "route": "cuda",
@@ -1003,7 +1053,7 @@ def phase_resident(mp, dev, card, blank):
     if stop_at[dev] != stop_at["cpu"]:
         raise AssertionError(f"decay run stops at step {stop_at[dev]} on the "
                              f"card, {stop_at['cpu']} on the CPU")
-    return k3, k4, h_modes
+    return k3, k4, h_modes, ser[dev]
 
 
 def start_cpu_twins():
@@ -1577,6 +1627,308 @@ def phase_fused_probed(mp, dev, card):
     return launches, max(err, serr)
 
 
+def resident_counted_check(sim, what, card, k3, nsteps):
+    """Phase 12's K3 runs: sim.run for nsteps on the resident route (K3
+    launches counted into the table entry k3), then K3 against its plain
+    version over 20 steps from the run's end state and from a seeded random
+    state, state and accumulators bit for bit.  Returns the kernel
+    object."""
+    sim.init_sim()
+    from meep_nl_tpu_torch.ops import resident as R
+    R._kernel(sim.plan)
+    wall, launches, probed = resident_run_counted(sim, nsteps=nsteps)
+    if probed or launches != sim.routes["resident"] or not launches:
+        raise AssertionError(f"{what}: K3 launches {launches}, K4 {probed}, "
+                             f"routes {dict(sim.routes)}")
+    k3["launches"] += launches
+    ker = sim.plan._resident_kernel
+    print(f"[12] {what} ({sim.plan.storage_shape}, node mirrors "
+          f"{sim.plan.mirror_node}): {nsteps} steps in {wall:.3f} s = "
+          f"{wall / nsteps * 1e3:.4f} ms/step, K3 launches {launches}, "
+          f"routes {dict(sim.routes)}; {schedule_text(ker, nsteps, False)} "
+          f"({card})", flush=True)
+    for label, st0 in (("the run's state", sim.fields_state),
+                       ("a random state", random_state(sim.plan, 17,
+                                                       "cuda"))):
+        err, rel, drel, _ = compare_resident(ker, st0, sim._t, 20)
+        print(f"[12] K3 vs plain, {what}, from {label}, 20 steps: state "
+              f"and accumulators max abs {err:.3e} (DTFT max rel "
+              f"{drel:.3e})", flush=True)
+        if not err == 0.0:
+            raise AssertionError(f"K3 is not bit for bit ({what}, from "
+                                 f"{label}): max abs {err:.3e}")
+    return ker
+
+
+def phase_mirror(mp, dev, card, main_ms, ring8, kers, twins):
+    """Phase 12: Mirror symmetry.  `main_ms`: phase 4's ms/step; `ring8`:
+    phase 8's ring series and modes on the card; `kers`: the K1-K4 table
+    entries, to which the phase adds its launches; `twins`: the CPU runs
+    (start_cpu_twins), which phase 11 has waited for."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import resident as R
+    from meep_nl_tpu_torch.stepper.step import build_xs, xs_rows
+    k1, k2, k3, k4 = kers
+    # ---- 12.1: K1 and K2 on folded plans at 64^3 ------------------------
+    for label, syms, mn in (
+            ("y and z", [mp.Mirror(mp.Y), mp.Mirror(mp.Z)],
+             ((1, "y", 1), (2, "z", 1))),
+            ("y", [mp.Mirror(mp.Y)], ((1, "y", 1),))):
+        sim, _ = flagship_sim(mp, 64, 8.0, dev, src_comp=mp.Ex, src_y=0.0,
+                              symmetries=syms)
+        plan = sim.plan
+        if plan.mirror_node != mn:
+            raise AssertionError(f"64^3 fold on {label}: node mirrors "
+                                 f"{plan.mirror_node}")
+        err, rel, launches = compare_k1(plan, 20, 7, dev)
+        print(f"[12] K1 vs plain, flagship 64^3 folded on {label} "
+              f"({plan.storage_shape}) x 20 steps: max abs {err:.3e}, "
+              f"launches {launches}", flush=True)
+        if not (err == 0.0 and launches == 20 * K1_LAUNCHES):
+            raise AssertionError(f"K1 is not bit for bit on the fold "
+                                 f"({label}): max abs {err:.3e}")
+        caps = flux_planes(plan)
+        for depth in (2, 3):
+            err, rel, cerr, launches, ker = compare_k2(
+                plan, depth, 6, random_state(plan, 7, dev), 150, caps)
+            print(f"[12] K2 depth {depth} vs plain, 64^3 folded on {label}"
+                  f" x 6 calls, {len(ker.captures)} capture planes: state "
+                  f"max abs {err:.3e}, captures max abs {cerr:.3e}; "
+                  f"launches {launches}; {k2_items(ker)}", flush=True)
+            if not (err == 0.0 and cerr == 0.0
+                    and launches == 6 * ker.launches_per_call):
+                raise AssertionError(f"K2 depth {depth} is not bit for bit "
+                                     f"on the fold ({label}): {err:.3e}, "
+                                     f"captures {cerr:.3e}")
+        del sim, plan
+
+    # ---- 12.2: the main path, folded to a quarter cell ------------------
+    n, res, nsteps = 128, 16.0, 602
+    sim, fl = flagship_sim(mp, n, res, dev, src_y=0.0,
+                           symmetries=fold_main(mp))
+    plan = sim.plan
+    if tuple(plan.storage_shape) != (136, 65, 65):
+        raise AssertionError(f"folded storage {plan.storage_shape}")
+    sim.run(until=12 * sim.dt)                      # warm-up
+    HY.hybrid_routes(plan).clear()
+    wall, launches = timed_run(sim, nsteps)
+    kp = path_kernels(plan)
+    k2_per = kp["k2_cap_d3"].launches_per_call
+    expect(launches, {"k2_cap_d3": nsteps // 3 * k2_per,
+                      "k1": nsteps % 3 * K1_LAUNCHES, "k2_d2": 0,
+                      "k2_d3": 0}, "folded 128^3 flagship")
+    if dict(HY.hybrid_routes(plan)) != {"capture": 1}:
+        raise AssertionError(f"folded flagship: hybrid routes "
+                             f"{dict(HY.hybrid_routes(plan))}")
+    k1["launches"] += launches["k1"]
+    k2["launches"] += launches["k2_cap_d3"]
+    flux, ez = sim.get_fluxes(fl), sim.get_array(mp.Ez)
+    if not (np.all(np.isfinite(ez)) and np.all(np.isfinite(flux))
+            and np.any(flux != 0)):
+        raise AssertionError(f"folded main path: flux {flux}")
+    cells = int(np.prod(sim.gv.num))
+    ms = wall / nsteps * 1e3
+    print(f"[12] main path folded (Mirror(Y), Mirror(Z, phase=-1): "
+          f"{sim.gv.num} cells, storage {plan.storage_shape}): {nsteps} "
+          f"steps in {wall:.3f} s = {ms:.4f} ms/step against phase 4's "
+          f"full cell {main_ms:.4f} ms/step; {cells * nsteps / wall / 1e9:.3f}"
+          f" GCells/s of the folded cell's {cells} cells; capture route: "
+          f"{nsteps // 3} K2 capture calls ({k2_per} launches each) + "
+          f"{nsteps % 3} K1 steps, launches {launches}; flux "
+          f"{flux.tolist()} ({card})", flush=True)
+    st, t_end = sim.fields_state, sim._t
+    err, rel = compare_k1_from(plan, kp["k1"], st, t_end)
+    print(f"[12] K1 vs plain on the folded 128^3 from its end state, 5 "
+          f"steps: max abs {err:.3e}", flush=True)
+    if not err == 0.0:
+        raise AssertionError(f"K1 is not bit for bit on the folded 128^3: "
+                             f"{err:.3e}")
+    caps = flux_planes(plan)
+    for d in (2, 3):
+        err, rel, cerr, _, ker = compare_k2(plan, d, 2, st, t_end, caps)
+        print(f"[12] K2 depth {d} vs plain on the folded 128^3 from its end "
+              f"state, 2 calls: state max abs {err:.3e}, captures "
+              f"{cerr:.3e}; {k2_items(ker)}", flush=True)
+        if not (err == 0.0 and cerr == 0.0):
+            raise AssertionError(f"K2 depth {d} is not bit for bit on the "
+                                 f"folded 128^3: {err:.3e}, {cerr:.3e}")
+    rows = xs_rows(plan, build_xs(plan, 36, t_end))
+    ms2, _ = time_steps(kp["k2_cap_d3"].step, clone_state(st), rows, per=3)
+    ms1, _ = time_steps(kp["k1"].step, clone_state(st), rows[:11])
+    print(f"[12] on the folded 128^3: K2 depth 3 + captures {ms2:.4f} "
+          f"ms/call = {ms2 / 3:.4f} ms/step, K1 {ms1:.4f} ms/step ({card})",
+          flush=True)
+    del sim, st, kp
+    torch.cuda.empty_cache()
+    # its 16^3 twin, on the card (resident route) and on the CPU (twins)
+    sim, fl = flagship_sim(mp, 16, 8.0, dev, pml=0.25, src_y=0.0,
+                           symmetries=fold_main(mp))
+    resident_counted_check(sim, "folded 16^3 flagship twin", card, k3, 200)
+    child, path, _ = twins
+    if child.wait(timeout=900) != 0:
+        raise AssertionError("the CPU runs failed")
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    dflux = rel_diff(sim.get_fluxes(fl), want["m16:flux"])
+    dez = rel_diff(sim.get_array(mp.Ez), want["m16:ez"])
+    print(f"[12] folded 16^3 twin, card vs CPU: flux max rel {dflux:.3e}, "
+          f"unfolded Ez {dez:.3e}", flush=True)
+    if not (dflux <= 1e-4 and dez <= 1e-4):
+        raise AssertionError(f"folded 16^3: card and CPU differ: flux "
+                             f"{dflux:.3e}, Ez {dez:.3e}")
+    del sim
+
+    # ---- 12.3: physics on the card, folded against the full cell -------
+    out = {}
+    for label, syms in (("full", []), ("folded", fold_main(mp))):
+        sim, fl = flagship_sim(mp, n, res, dev, src_y=0.0, linear=True,
+                               symmetries=syms)
+        sim.run(until=nsteps * sim.dt)
+        if set(sim.routes) != {"hybrid"}:
+            raise AssertionError(f"linear {label}: routes {dict(sim.routes)}")
+        L = n / res
+        out[label] = (sim.get_fluxes(fl), sim.get_array(
+            mp.Ez, center=mp.Vector3(), size=mp.Vector3(L, L, L)))
+        del sim
+        torch.cuda.empty_cache()
+    dflux = rel_diff(out["folded"][0], out["full"][0])
+    dez = rel_diff(out["folded"][1], out["full"][1])
+    print(f"[12] linear 128^3, {nsteps} steps, folded (quarter cell) vs full "
+          f"cell: fluxes max rel {dflux:.3e} ({out['full'][0].tolist()}), "
+          f"unfolded Ez max abs over max {dez:.3e}", flush=True)
+    if not (dflux <= 1e-4 and dez <= 1e-4
+            and out["folded"][1].shape == out["full"][1].shape):
+        raise AssertionError(f"folded and full cells differ: flux "
+                             f"{dflux:.3e}, Ez {dez:.3e}")
+    del out
+
+    # ---- 12.4: Meep's ring.py as published, Mirror(Y) ------------------
+    def ring_harminv(nudge, syms):
+        sim = ring_sim(mp, 10, dev, nudge, symmetries=syms)
+        h = mp.Harminv(mp.Ez, mp.Vector3(1.1), 0.15, 0.1)
+        sim.init_sim()
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(
+            sim, mp.after_sources(h), until_after_sources=300)
+        if launches or probed != sim.routes["resident"] or not probed:
+            raise AssertionError(f"ring: K3 {launches}, K4 {probed}, "
+                                 f"routes {dict(sim.routes)}")
+        k4["launches"] += probed
+        return sim, h, wall, probed
+
+    def against(ser, modes, series0, modes0):
+        """(series max rel, strong modes' frequencies max rel) of a run
+        against another."""
+        srel = rel_diff(ser, series0) if ser.shape == series0.shape \
+            else np.inf
+        amax = max(m.amp for m in modes0)
+        worst = 0.0
+        for m in modes0:
+            if m.amp > 1e-3 * amax:
+                f = min((x.freq for x in modes), key=lambda v: abs(v - m.freq))
+                worst = max(worst, abs(f - m.freq) / abs(m.freq))
+        return srel, worst
+
+    series8, modes8 = ring8
+    sim, h, wall, probed = ring_harminv(0.0, [mp.Mirror(mp.Y)])
+    srel, worst = against(np.asarray(h.data), h.modes, series8, modes8)
+    print(f"[12] ring.py with Mirror(Y) ({sim.plan.storage_shape}): "
+          f"{sim._t} steps in {wall:.3f} s = {wall / sim._t * 1e3:.4f} "
+          f"ms/step, K4 launches {probed}, routes {dict(sim.routes)} "
+          f"({card}); against phase 8's full cell (not exactly y-symmetric "
+          f"at 8 eps sites on the outer surface, ring_sim): Harminv series "
+          f"max rel {srel:.3e}, strong modes' frequencies max rel "
+          f"{worst:.3e}", flush=True)
+    print("[12] modes (freq, Q, amp): " + ", ".join(
+        f"({m.freq:.8f}, {m.Q:.1f}, {m.amp:.3e})" for m in h.modes),
+        flush=True)
+    # the fold against the full cell where the full cell is exactly
+    # y-symmetric: the radii 1e-9 larger, both through K4
+    runs = {}
+    for label, syms in (("full", []), ("folded", [mp.Mirror(mp.Y)])):
+        s_, h_, _, _ = ring_harminv(1e-9, syms)
+        runs[label] = (np.asarray(h_.data), h_.modes)
+        del s_
+    srel_n, worst_n = against(*runs["folded"], *runs["full"])
+    print(f"[12] the ring with radii + 1e-9 (exactly y-symmetric), folded "
+          f"against full, both through K4: Harminv series max rel "
+          f"{srel_n:.3e}, strong modes' frequencies max rel {worst_n:.3e}",
+          flush=True)
+    if not (srel_n <= 1e-4 and worst_n <= 1e-4):
+        raise AssertionError(f"folded ring differs from the full cell: "
+                             f"series {srel_n:.3e}, modes {worst_n:.3e}")
+    ker = sim.plan._resident_kernel
+    st, t_end = sim.fields_state, sim._t
+    probe = [sim._point_probe("hm0", mp.Ez, mp.Vector3(1.1))]
+    err, _, _, serr = compare_resident(ker, st, t_end, 20, probe)
+    print(f"[12] K4 vs plain at the folded ring's end state, 20 steps: "
+          f"state max abs {err:.3e}, series max abs {serr:.3e}", flush=True)
+    if not (err == 0.0 and serr == 0.0):
+        raise AssertionError(f"K4 is not bit for bit on the folded ring: "
+                             f"{err:.3e}, series {serr:.3e}")
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, probe), st, 1024)
+    print(f"[12] K4 at the folded ring: {ms:.4f} ms/step over 1024-step "
+          f"launches (the wrapper's call: {call_ms:.4f} ms/step); "
+          f"{schedule_text(ker, 1024, True)} ({card})", flush=True)
+    del sim, st
+    sim = ring_sim(mp, 10, dev, symmetries=[mp.Mirror(mp.Y)])
+    sim.init_sim()
+    R._kernel(sim.plan)
+    wall, launches, probed = resident_run_counted(
+        sim, until_after_sources=ring_decay(mp))
+    if launches or probed != sim.routes["resident"] or probed < 2:
+        raise AssertionError(f"folded ring decay: K3 {launches}, K4 "
+                             f"{probed}, routes {dict(sim.routes)}")
+    k4["launches"] += probed
+    print(f"[12] folded ring, stop_when_fields_decayed: stopped after "
+          f"{sim._t} steps in {wall:.3f} s = {wall / sim._t * 1e3:.4f} "
+          f"ms/step, K4 launches {probed}; the CPU twin stopped after "
+          f"{int(want['ring_m_stop'])} ({card})", flush=True)
+    if sim._t != int(want["ring_m_stop"]):
+        raise AssertionError(f"folded ring decay stops at {sim._t} on the "
+                             f"card, {int(want['ring_m_stop'])} on the CPU")
+    del sim
+
+    # ---- 12.5: K3 on folded 2D and 3D plans ----------------------------
+    sim, fl = resident_sim(mp, 767, dev, flux=True,
+                           symmetries=[mp.Mirror(mp.Y)])
+    if sim.plan.mirror_node or sim._boundaries != {("y", "low"):
+                                                   "magnetic"}:
+        raise AssertionError("767^2 with Mirror(Y) is not the magnetic wall")
+    sim.run(until=24 * sim.dt)                       # warm-up: tables
+    ker = resident_counted_check(
+        sim, "767^2 disk, Mirror(Y) (magnetic wall), flux line", card,
+        k3, 1000)
+    kms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, sim._t, ()), sim.fields_state, 1000)
+    flux = sim.get_fluxes(fl)
+    print(f"[12] K3 at the folded 767^2 ({sim.gv.num}): {kms:.4f} ms/step "
+          f"over 1000-step launches (the wrapper's call: {call_ms:.4f}); "
+          f"flux {flux.tolist()} ({card})", flush=True)
+    if not np.all(np.isfinite(flux)):
+        raise AssertionError(f"folded 767^2: flux {flux}")
+    del sim, ker
+    sim, _ = resident_sim(mp, 768, dev, flux=True,
+                          symmetries=[mp.Mirror(mp.X), mp.Mirror(mp.Y)])
+    if sim.plan.mirror_node != ((0, "x", 1), (1, "y", 1)):
+        raise AssertionError(f"x and y fold: {sim.plan.mirror_node}")
+    resident_counted_check(sim, "768^2 disk folded on x and y (node "
+                           "mirrors), flux line", card, k3, 200)
+    del sim
+    sim, _ = flagship_sim(mp, 16, 8.0, dev, pml=0.25,
+                          symmetries=[mp.Mirror(mp.Y)])
+    ker = resident_counted_check(
+        sim, "16^3 flagship folded on y (node mirror)", card, k3, 200)
+    if not ker.schedule[1]["direct"]:
+        raise AssertionError("the folded 16^3 flagship left the direct "
+                             "schedule")
+    del sim, ker
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import shutil
     import torch
@@ -1596,7 +1948,7 @@ def main() -> int:
 
 
 def run_phases(twins) -> int:
-    """Phases 1-11 (the module docstring); `twins`: start_cpu_twins()."""
+    """Phases 1-12 (the module docstring); `twins`: start_cpu_twins()."""
     import numpy as np
     import torch
     import meep_nl_tpu_torch as mp
@@ -1915,12 +2267,14 @@ def run_phases(twins) -> int:
           flush=True)
 
     del sim, st
-    k3, k4, modes = phase_resident(mp, dev, card, blank)
+    k3, k4, modes, ring_series = phase_resident(mp, dev, card, blank)
     phase_use_pallas(mp, dev, card, fluxes["k2"], k5)
     launches, err = phase_fused_probed(mp, dev, card)
     k1["launches"] += launches
     k1["max_abs_err"] = max(k1["max_abs_err"], err)
     phase_monitors(mp, dev, card, modes, main_ms, k1, k3, twins)
+    phase_mirror(mp, dev, card, main_ms, (ring_series, modes),
+                 (k1, k2, k3, k4), twins)
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))

@@ -27,7 +27,9 @@ from .models.simulation import (Simulation, PML, FluxRegion, ForceRegion,
                                 get_energy_freqs, get_ldos_freqs,
                                 get_near2far_freqs,
                                 Ex, Ey, Ez, Hx, Hy, Hz, Dx, Dy, Dz,
-                                Bx, By, Bz, X, Y, Z, ALL)
+                                Bx, By, Bz, X, Y, Z, ALL, Low, High,
+                                Metallic, Magnetic, Symmetry, Identity,
+                                Mirror, Rotate2, Rotate4)
 
 inf = float("inf")
 

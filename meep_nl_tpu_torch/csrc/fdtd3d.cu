@@ -40,7 +40,8 @@
 // are several (tile, chunk) items for each SM.  What the stencil reads
 // across threads lives in a ring of planes in dynamic shared memory:
 //   K_B  the E planes i and i+1 with a +1 halo in y and z;
-//   K_D  the H planes i-1 and i with a -1 halo;
+//   K_D  the H planes i-1 and i with a -1 halo (the fold ghost of a y or z
+//        node mirror in the halo below plane 0, ring_issue);
 //   K_E  D and each P of the planes i-1, i, i+1 with a +-1 halo, on the
 //        planes of tiles that meet a nonlinear support box only.
 // The next plane comes in by cp.async while this one computes; each thread
@@ -82,7 +83,10 @@
 // has its own register budget (min_blocks).  A plan with
 // the standard uPML layout (PML on every axis: which partners, axes and
 // chains each component has, u_ax1 ...) runs launches built with that
-// layout as compile-time values (U); any other plan the general ones.
+// layout as compile-time values (U); any other plan the general ones.  A
+// plan with a y or z node mirror runs D launches built with the fold ghost
+// (MIR), every other plan D launches built without it: built into every
+// D launch, the ghost cost registers and spills (PERF.md).
 //
 // Left on the table: the compact D/B layout (E/H recomputed as u D outside
 // the W slabs), P and PP stored on the dispersive box only, several steps
@@ -143,6 +147,11 @@ struct K1Args {
                                       // ring index of E's D
   int p_of[NCOMP][MAXPOL];            // K_E: ring index of each P (-1)
   int nring, S0, S1, S2, nty, ntz, ch, nch;
+  // K_D: node mirrors (bit a - 1: a mirror plane at index 0 of axis a, 1 y
+  // or 2 z) and, per ring array and axis, the fold ghost's row k0 and sign
+  // (step.mirror_ghost): the halo row below plane 0 holds sign * g[k0]
+  int mir;
+  int mk0[MAXRING][2], msg[MAXRING][2];
 };
 
 #ifdef MNT_CUDA_STUB
@@ -345,14 +354,16 @@ __device__ __forceinline__ void load_tables(const K1Args& A, T* tab, int i0,
 }
 
 // a thread's ring positions: their offsets in a ring plane and in a
-// storage plane, and whether they lie inside the storage
+// storage plane, whether they lie inside the storage, and (K_D) whether
+// they hold a mirror's fold ghost (0: no, 1 + a: the ghost of axis 1 + a)
 template <int KIND>
 struct RingPos {
   int o[Ring<KIND>::NPOS], g[Ring<KIND>::NPOS];
   bool ok[Ring<KIND>::NPOS];
+  int gh[Ring<KIND>::NPOS];
 };
 
-template <int KIND>
+template <int KIND, bool MIR>
 __device__ __forceinline__ void ring_setup(const K1Args& A,
                                            RingPos<KIND>& rp, int tid,
                                            int j0, int k0) {
@@ -365,12 +376,20 @@ __device__ __forceinline__ void ring_setup(const K1Args& A,
     rp.o[u] = o < G::PW ? o : -1;
     rp.ok[u] = o < G::PW && j >= 0 && j < A.S1 && k >= 0 && k < A.S2;
     rp.g[u] = j * A.S2 + k;
+    if constexpr (MIR) {
+      rp.gh[u] = 0;
+      if ((A.mir & 1) && j == -1 && k >= 0 && k < A.S2) rp.gh[u] = 1;
+      if ((A.mir & 2) && k == -1 && j >= 0 && j < A.S1) rp.gh[u] = 2;
+    }
   }
 }
 
 // issue the copies of plane p of every ring array into its slot; sites
-// outside the storage read zero (the plain version's zero fill)
-template <typename T, int KIND>
+// outside the storage read zero (the plain version's zero fill), except
+// the halo row below a mirror plane (K_D), which reads the fold ghost
+// sign * g[k0] of the same plane, stored directly (the slot is read after
+// the plane's barrier).  Only the tiles at a plane have such positions.
+template <typename T, int KIND, bool MIR>
 __device__ __forceinline__ void ring_issue(const K1Args& A,
                                            const RingPos<KIND>& rp, T* ring,
                                            int p) {
@@ -384,8 +403,15 @@ __device__ __forceinline__ void ring_issue(const K1Args& A,
 #pragma unroll
     for (int u = 0; u < G::NPOS; ++u) {
       if (rp.o[u] < 0) continue;
-      if (pin && rp.ok[u]) cp_async<T>(dst + rp.o[u], src + rp.g[u]);
-      else dst[rp.o[u]] = T(0);
+      if (pin && rp.ok[u]) {
+        cp_async<T>(dst + rp.o[u], src + rp.g[u]);
+      } else if (MIR && pin && rp.gh[u]) {
+        const int a = rp.gh[u] - 1;
+        dst[rp.o[u]] = T(A.msg[r][a]) *
+                       src[rp.g[u] + (1 + A.mk0[r][a]) * (a ? 1 : A.S2)];
+      } else {
+        dst[rp.o[u]] = T(0);
+      }
     }
   }
 }
@@ -726,7 +752,7 @@ __device__ __forceinline__ void e_site(const K1Args& A, const T* tab,
 // K_B reads the ring planes i and i+1 (and brings in i+2), K_D the planes
 // i-1 and i (brings in i+1); the own-site operands of plane i+1 are loaded
 // after plane i's site work
-template <typename T, int KIND, int NP, bool U>
+template <typename T, int KIND, int NP, bool U, bool MIR>
 __device__ __forceinline__ void march_curl(const K1Args& A, const T* tab,
                                            T* ring, const Site<T>* s,
                                            Own<T, NP>* ow,
@@ -734,15 +760,15 @@ __device__ __forceinline__ void march_curl(const K1Args& A, const T* tab,
                                            int i0, int i1) {
   constexpr int AHEAD = KIND == K_B ? 2 : 1;
   const int last = KIND == K_B ? i1 : i1 - 1;     // the last plane read
-  ring_issue<T, KIND>(A, rp, ring, i0 + AHEAD - 2);
+  ring_issue<T, KIND, MIR>(A, rp, ring, i0 + AHEAD - 2);
   cp_commit();
-  ring_issue<T, KIND>(A, rp, ring, i0 + AHEAD - 1);
+  ring_issue<T, KIND, MIR>(A, rp, ring, i0 + AHEAD - 1);
   cp_commit();
 #pragma unroll
   for (int m = 0; m < SPT; ++m)
     if (s[m].ok) own_load<T, KIND, NP, U>(A, s[m], i0, tile, ow[m]);
   for (int i = i0; i < i1; ++i) {
-    if (i + AHEAD <= last) ring_issue<T, KIND>(A, rp, ring, i + AHEAD);
+    if (i + AHEAD <= last) ring_issue<T, KIND, MIR>(A, rp, ring, i + AHEAD);
     cp_commit();
     cp_wait1();
     __syncthreads();
@@ -780,7 +806,7 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
   }
   if (xa < xb) {
     for (int p = xa - 1; p <= xa + 1; ++p) {
-      ring_issue<T, K_E>(A, rp, ring, p);
+      ring_issue<T, K_E, false>(A, rp, ring, p);
       cp_commit();
     }
   }
@@ -791,7 +817,7 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
   for (int i = i0; i < i1; ++i) {
     const bool nlp = i >= xa && i < xb;
     if (nlp) {
-      if (i + 2 <= xb) ring_issue<T, K_E>(A, rp, ring, i + 2);
+      if (i + 2 <= xb) ring_issue<T, K_E, false>(A, rp, ring, i + 2);
       cp_commit();
       cp_wait1();
       __syncthreads();
@@ -822,7 +848,7 @@ constexpr int min_blocks() {
 // NL (K_E only): the nonlinear code is compiled in, for plans with a
 // nonlinear box; NP: the polarizations a site holds (K_E: 1 or MAXPOL);
 // U: the plan has the standard uPML layout (u_ax1 ...)
-template <typename T, int KIND, bool NL, int NP, bool U>
+template <typename T, int KIND, bool NL, int NP, bool U, bool MIR>
 __global__ void __launch_bounds__(NTHR, (min_blocks<KIND, NL>()))
 k1_kernel(const __grid_constant__ K1Args A) {
   T* tab = (T*)K1_SMEM;
@@ -858,11 +884,12 @@ k1_kernel(const __grid_constant__ K1Args A) {
 #pragma unroll
     for (int m = 0; m < SPT; ++m)
       site_setup<T, KIND, U>(A, s[m], sv, tid + m * NTHR, j0, k0);
-    ring_setup<KIND>(A, rp, tid, j0, k0);
+    ring_setup<KIND, MIR>(A, rp, tid, j0, k0);
     if constexpr (KIND == K_E)
       march_e<T, NL, NP, U>(A, tab, ring, s, ow, rp, i0, i1, j0, k0);
     else
-      march_curl<T, KIND, NP, U>(A, tab, ring, s, ow, rp, ty * A.ntz + tz,
+      march_curl<T, KIND, NP, U, MIR>(A, tab, ring, s, ow, rp,
+                                      ty * A.ntz + tz,
                                  i0, i1);
   }
 }
@@ -876,12 +903,12 @@ static size_t smem_bytes(const K1Args& A) {
          sizeof(T);
 }
 
-template <typename T, int KIND, bool NL, int NP, bool U>
+template <typename T, int KIND, bool NL, int NP, bool U, bool MIR>
 static int launch_kind(const K1Args* a, cudaStream_t s) {
   const size_t smem = smem_bytes<T, KIND, NL>(*a);
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
-        k1_kernel<T, KIND, NL, NP, U>,
+        k1_kernel<T, KIND, NL, NP, U, MIR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
@@ -889,7 +916,7 @@ static int launch_kind(const K1Args* a, cudaStream_t s) {
   int head;
   const unsigned grid = (unsigned)item_count<KIND, NL>(*a, &head);
   if (grid == 0) return 0;
-  cudaError_t rc = cudaLaunchKernel(k1_kernel<T, KIND, NL, NP, U>,
+  cudaError_t rc = cudaLaunchKernel(k1_kernel<T, KIND, NL, NP, U, MIR>,
                                     dim3(grid), dim3(NTHR), args, smem, s);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
@@ -900,10 +927,11 @@ static bool upml_layout(const K1Args& A, int kind) {
          (kind == K_D || upml_eh(A.ec, (int)A.P.neh));
 }
 
-template <typename T, int KIND, bool NL, int NP>
+template <typename T, int KIND, bool NL, int NP, bool MIR = false>
 static int launch_u(const K1Args* a, cudaStream_t s) {
-  return upml_layout(*a, KIND) ? launch_kind<T, KIND, NL, NP, true>(a, s)
-                               : launch_kind<T, KIND, NL, NP, false>(a, s);
+  return upml_layout(*a, KIND)
+             ? launch_kind<T, KIND, NL, NP, true, MIR>(a, s)
+             : launch_kind<T, KIND, NL, NP, false, MIR>(a, s);
 }
 
 template <typename T>
@@ -918,7 +946,10 @@ static int launch(const K1Args* a, int kind, cudaStream_t s) {
       if (has_nl(a->P)) return (int)cudaErrorInvalidValue;
       return launch_u<T, K_B, false, 1>(a, s);
     case K_D:
-      return launch_u<T, K_D, false, 1>(a, s);
+      // the fold ghosts (MIR) only in the variants of mirrored plans: built
+      // into every variant, they cost the launch registers and spills
+      return a->mir ? launch_u<T, K_D, false, 1, true>(a, s)
+                    : launch_u<T, K_D, false, 1, false>(a, s);
     case K_E:
       if (nl)
         return one ? launch_u<T, K_E, true, 1>(a, s)

@@ -99,7 +99,8 @@
 // K2_TY x K2_TZ that fits.  Variants: fp32 / fp64 (T), nonlinear or
 // linear items (NL), the standard uPML layout as compile-time values or
 // not (U), one pole or up to MAXPOL (NP), the linear register budget
-// (MINB).  PERF.md records tiles, shared memory and ptxas's registers and
+// (MINB), the fold ghosts of a y or z node mirror or not (MIR).  PERF.md
+// records tiles, shared memory and ptxas's registers and
 // spills for the driven plans.
 
 // Host emulation: the site loops are block-stride loops, every cp.async
@@ -201,6 +202,11 @@ struct K2Args {
   int nitems[2];                      // items of each class
   int pair;                           // linear blocks: two an SM (1) or one
   int depth, S0, S1, S2, nsrc;
+  // node mirrors (bit a - 1: a mirror plane at index 0 of axis a, 1 y or
+  // 2 z) and, per H component and axis, the fold ghost's row k0 and sign
+  // (step.mirror_ghost)
+  int mir;
+  int mk0[NCOMP][2], msg[NCOMP][2];
 };
 
 struct Item {
@@ -553,6 +559,31 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
   }
 }
 
+// The fold ghosts of a y or z node mirror for the D sub-update of a
+// stage at plane p over the region (ys, zs): where the region starts at
+// the plane, the H ring's row below it (j or k = -1, zero otherwise, as
+// sites outside the storage are) gets sign * H[k0] of this stage, which
+// b_plane has just written.  d_plane's backward difference then reads the
+// ghost there, as the plain version's `mirror_ghost`.
+template <typename T>
+__device__ __forceinline__ void ghost_plane(const K2Args& A,
+                                            const Rings<T>& R, int tid,
+                                            int p, Span ys, Span zs) {
+  const int pH = R.plane(R_H, p);
+  for (int a = 0; a < 2; ++a) {
+    if (!((A.mir >> a) & 1) || (a == 0 ? ys.lo : zs.lo) > 0) continue;
+    const Span sp = a == 0 ? zs : ys;
+    const int n = sp.hi - sp.lo, st = a == 0 ? R.row(G_B) : 1;
+    for (int e = tid; e < A.pb.neh * n; e += K2_NTHR) {
+      const int q = e / n, u = sp.lo + e % n;
+      if (!R.has(R_H, q)) continue;
+      T* h = R.at(R_H, q, pH);
+      const int o = a == 0 ? R.pos(G_B, -1, u) : R.pos(G_B, u, -1);
+      h[o] = T(A.msg[q][a]) * h[o + (1 + A.mk0[q][a]) * st];
+    }
+  }
+}
+
 // D <- curl H with the chains and the D-family sources; on nonlinear
 // items also D - P (of the stage before) into its ring
 template <typename T, bool NL, bool U>
@@ -882,7 +913,7 @@ __device__ __forceinline__ Span clip(int lo, int hi, int n) {
 // region, so grown, holds a chi2/chi3 site in its edge layer there, so
 // nothing reads D - P beyond it (ops/fdtd3d_t2.py::side_widths, regions,
 // march_order).
-template <typename T, bool NL, bool U, int NP>
+template <typename T, bool NL, bool U, int NP, bool MIR>
 __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
                                       const Item& I, T* sm, int tid) {
   constexpr int h = NL ? 2 : 1, n = h - 1, L = h;
@@ -926,9 +957,16 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
       }
       if (b >= xlo - ga[0] + 1 && b < xhi + gb[0] - 1 && b >= 0 &&
           b < A.S0) {
-        d_plane<T, NL, U>(A, R, I, tid, s, b,
-                          clip(ylo - ga[1] + 1, yhi + gb[1] - 1, A.S1),
-                          clip(zlo - ga[2] + 1, zhi + gb[2] - 1, A.S2));
+        const Span dys = clip(ylo - ga[1] + 1, yhi + gb[1] - 1, A.S1);
+        const Span dzs = clip(zlo - ga[2] + 1, zhi + gb[2] - 1, A.S2);
+        // a block-uniform test: only items whose region meets a plane
+        if constexpr (MIR) {
+          if ((dys.lo == 0 && (A.mir & 1)) || (dzs.lo == 0 && (A.mir & 2))) {
+            ghost_plane<T>(A, R, tid, b, dys, dzs);
+            __syncthreads();
+          }
+        }
+        d_plane<T, NL, U>(A, R, I, tid, s, b, dys, dzs);
         // a linear E reads D only at its own site, which the same thread
         // updated (the D and E regions coincide)
         if (NL) __syncthreads();
@@ -949,14 +987,14 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
 // site holds (a compile-time bound on P.npol: 1 or MAXPOL); MINB: the
 // blocks an SM should hold by their registers (2: at most 64 registers a
 // thread; the linear class's variant when two blocks' rings fit an SM)
-template <typename T, bool NL, bool U, int NP, int MINB>
+template <typename T, bool NL, bool U, int NP, int MINB, bool MIR>
 __global__ void __launch_bounds__(K2_NTHR, MINB)
 k2_kernel(const __grid_constant__ K2Args A) {
   T* sm = (T*)K2_SMEM;
   const int* it =
       (const int*)A.items + 8 * ((NL ? A.nitems[0] : 0) + blockIdx.x);
   const Item I = {it[0], it[1], it[2], it[3], it[4], it[5], it[6]};
-  march<T, NL, U, NP>(A, A.cls[NL ? 1 : 0], I, sm, threadIdx.x);
+  march<T, NL, U, NP, MIR>(A, A.cls[NL ? 1 : 0], I, sm, threadIdx.x);
 }
 
 // whether the plan has the standard uPML layout (u_ax1 ...) in both
@@ -975,20 +1013,28 @@ static bool upml_layout(const K2Args& A) {
   return true;
 }
 
-template <typename T, bool NL, bool U, int NP, int MINB>
-static int launch_v(const K2Args* a, cudaStream_t s) {
+template <typename T, bool NL, bool U, int NP, int MINB, bool MIR>
+static int launch_m(const K2Args* a, cudaStream_t s) {
   const size_t smem = (size_t)a->cls[NL ? 1 : 0].words * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
-        k2_kernel<T, NL, U, NP, MINB>,
+        k2_kernel<T, NL, U, NP, MINB, MIR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   void* args[] = {(void*)a};
-  cudaError_t rc = cudaLaunchKernel(k2_kernel<T, NL, U, NP, MINB>,
+  cudaError_t rc = cudaLaunchKernel(k2_kernel<T, NL, U, NP, MINB, MIR>,
                                     dim3((unsigned)a->nitems[NL ? 1 : 0]),
                                     dim3(K2_NTHR), args, smem, s);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+// the fold ghosts (MIR) only in the variants of mirrored plans: built into
+// every variant, they cost the march registers (and spills) on every plan
+template <typename T, bool NL, bool U, int NP, int MINB>
+static int launch_v(const K2Args* a, cudaStream_t s) {
+  return a->mir ? launch_m<T, NL, U, NP, MINB, true>(a, s)
+                : launch_m<T, NL, U, NP, MINB, false>(a, s);
 }
 
 // Launch the variant of item class NL for the plan: the uPML layout as

@@ -177,6 +177,11 @@ struct ResArgs {
   double dt;
   i64 nsteps, nsrc, ndft;
   i64 e_local;          // 1: E from D reads no neighbour (fusable)
+  // the D curl's node-mirror fold ghosts (ops/resident.py::set_ghosts):
+  // for D component q and partner m (0 gp, 1 gm) the row k0 and the sign
+  // (0: none) of sign * g[k0], read below plane 0 of the partner's axis
+  i64 gk[NCOMP][2];
+  double gs[NCOMP][2];
 };
 
 // the box a block stages in a pass: origin and extents in the grid
@@ -196,6 +201,9 @@ struct CurlT {
   int sig_ax, sigu_ax;      // chain axes (-1: none)
   int kap, sig, siginv, kapu, sigu, siginvu;   // staged vectors
   int alive[3];             // -1: all 1
+  int gop, gom;             // a fold ghost below plane 0 of ap / am: its
+  float gsp, gsm;           //   row's local offset k0 * st and sign (0:
+                            //   none: the box does not start at a plane)
 };
 
 struct EhT {
@@ -241,7 +249,7 @@ __device__ __forceinline__ int lstride(const Box& b, i64 ax) {
 // piece `w` (0-2: curl component, 3-5: E/H component, 6: scalars) of the
 // descriptor of parameter block P on box b
 __device__ void build_fam(FamT& F, const Params& P, int w, const Box& b,
-                          const Tiling& tl) {
+                          const Tiling& tl, const ResArgs* ghosts) {
   const int vol = (int)tl.vol;
   if (w < 3 && w < P.ncurl) {
     const CurlP& c = P.curl[w];
@@ -263,6 +271,19 @@ __device__ void build_fam(FamT& F, const Params& P, int w, const Box& b,
     t.sigu = vec_of(c.sigu, tl);
     t.siginvu = vec_of(c.siginvu, tl);
     for (int ax = 0; ax < 3; ++ax) t.alive[ax] = vec_of(c.alive[ax], tl);
+    // the D family's fold ghosts, where this box starts at a mirror plane
+    t.gop = t.gom = 0;
+    t.gsp = t.gsm = 0.0f;
+    if (ghosts) {
+      if (c.gp && b.o[c.ap] == 0 && ghosts->gs[w][0] != 0.0) {
+        t.gsp = (float)ghosts->gs[w][0];
+        t.gop = (int)ghosts->gk[w][0] * t.stp;
+      }
+      if (c.gm && b.o[c.am] == 0 && ghosts->gs[w][1] != 0.0) {
+        t.gsm = (float)ghosts->gs[w][1];
+        t.gom = (int)ghosts->gk[w][1] * t.stm;
+      }
+    }
   } else if (w >= 3 && w < 6 && w - 3 < P.neh) {
     const EhP& e = P.eh[w - 3];
     EhT& t = F.eh[w - 3];
@@ -371,12 +392,19 @@ __device__ __forceinline__ float mask_t(const int* alive, const float* sm,
 }
 
 // diff (fdtd3d_site.cuh) of the staged array at offset g: the box's edge
-// is the grid's wherever the schedule computes a site
+// is the grid's wherever the schedule computes a site; below a node
+// mirror's plane a backward difference reads the fold ghost gsg * g[k0]
+// (gog = k0 * st; gsg = 0: the zero fill), refreshed at every step since
+// it reads the staged array as it stands
 template <bool IS_D>
 __device__ __forceinline__ float diff_t(const float* sm, int g, int ax,
-                                        int st, const Box& b, const Loc& x) {
+                                        int st, int gog, float gsg,
+                                        const Box& b, const Loc& x) {
   const int c = coord_of(ax, x);
-  if (IS_D) return sm[g + x.l] - (c > 0 ? sm[g + x.l - st] : 0.0f);
+  if (IS_D)
+    return sm[g + x.l] -
+           (c > 0 ? sm[g + x.l - st]
+                  : (gsg != 0.0f ? gsg * sm[g + x.l + gog] : 0.0f));
   return (c < b.n[ax] - 1 ? sm[g + x.l + st] : 0.0f) - sm[g + x.l];
 }
 
@@ -385,8 +413,10 @@ template <bool IS_D>
 __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
                                        const Box& b, const Loc& x) {
   float dp = 0.0f, dm = 0.0f;
-  if (c.gp >= 0) dp = diff_t<IS_D>(sm, c.gp, c.ap, c.stp, b, x);
-  if (c.gm >= 0) dm = diff_t<IS_D>(sm, c.gm, c.am, c.stm, b, x);
+  if (c.gp >= 0)
+    dp = diff_t<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x);
+  if (c.gm >= 0)
+    dm = diff_t<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x);
   const float dfl = curl_delta<float>(c.gp >= 0, dp, c.gm >= 0, dm, csgn);
   const float f = sm[c.f + x.l];
   float kap = 0.0f, sig = 0.0f, siginv = 0.0f;
@@ -838,7 +868,8 @@ __device__ __forceinline__ void describe_box(const ResArgs& A,
   for (unsigned w = threadIdx.x; w < 28; w += blockDim.x) {
     const unsigned fp = w / 7;
     const Params& P = fp < 2 ? A.pb[fp] : A.pd[fp - 2];
-    build_fam(tf[fp / 2][fp % 2], P, (int)(w % 7), b, A.tl);
+    build_fam(tf[fp / 2][fp % 2], P, (int)(w % 7), b, A.tl,
+              fp < 2 ? nullptr : &A);
   }
   mine.q = -1;
   if (PROBED) {

@@ -26,8 +26,15 @@ each route took, the kernel objects' own counters say which kernel ran.
 `run` takes the step-function DSL of models/run_control.py (at_every,
 at_beginning, at_end, during_sources, after_sources, Harminv and
 FieldProbe collectors, stop_when_fields_decayed).
-Symmetries, k-points, 1D and cylindrical cells wait for later slices
-(ROADMAP A5, A8, A9); each raises NotImplementedError naming its item.
+`symmetries=[Mirror(...)]` halves the cell along each mirrored axis as
+the reference does (simulation.py:455-611): the retained half is the high
+one, the plane its low face, which becomes a metal wall (phase -1, even
+cell count), a magnetic wall (phase +1, odd count; the cell grows by dx/2)
+or, for phase +1 on an even count, no wall but the node-mirror ghost of
+the stepper and the kernels (plan.mirror_node).  Sources, monitors, probes
+and the getters fold and unfold through the plane.  Rotate2 / Rotate4,
+k-points, 1D and cylindrical cells wait for later slices (ROADMAP A5, A8,
+A9); each raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -55,6 +62,57 @@ Dx, Dy, Dz = "dx", "dy", "dz"
 Bx, By, Bz = "bx", "by", "bz"
 X, Y, Z = "x", "y", "z"
 ALL = "all"
+Low, High = "low", "high"
+Metallic, Magnetic = "metal", "magnetic"
+
+
+class Symmetry:
+    """Base symmetry declaration (python/simulation.py Symmetry)."""
+
+
+@dataclasses.dataclass
+class Identity(Symmetry):
+    """The trivial symmetry (accepted and ignored, as in the reference)."""
+    direction: str = "x"
+    phase: int = 1
+
+
+@dataclasses.dataclass
+class Mirror(Symmetry):
+    """Mirror-symmetry declaration (python/simulation.py Mirror;
+    src/symmetry.cpp mirror_symmetry).  The cell is halved along
+    `direction` about the plane through its centre: phase -1 needs an even
+    cell count there (the plane on whole sites becomes a PEC wall); phase
+    +1 on an odd count puts the plane on half-offset sites (a PMC wall), on
+    an even count on whole sites (no wall: the stepper reads the mirror
+    ghost across it).  Sources in the dropped half fold onto the retained
+    half with the component's parity times `phase`; get_array unfolds."""
+    direction: str = "y"
+    phase: int = 1
+
+
+@dataclasses.dataclass
+class Rotate2(Symmetry):
+    """C2 rotational-symmetry declaration (python/simulation.py Rotate2);
+    the port does not run it yet (ROADMAP A5)."""
+    direction: str = "z"
+    phase: int = 1
+
+
+@dataclasses.dataclass
+class Rotate4(Symmetry):
+    """C4 rotational-symmetry declaration (python/simulation.py Rotate4);
+    the port does not run it yet (ROADMAP A5)."""
+    direction: str = "z"
+    phase: int = 1
+
+
+def _mirror_parity(comp: str, d: str) -> float:
+    """Intrinsic sign of component `comp` under a mirror in direction `d`
+    (vec.hpp:1189 symmetry::transform: E is a vector, H a pseudovector)."""
+    if comp[0] in ("e", "d"):
+        return -1.0 if comp[1] == d else 1.0
+    return 1.0 if comp[1] == d else -1.0
 
 
 @dataclasses.dataclass
@@ -113,6 +171,8 @@ class _N2FHandle:
     eps: float = 1.0          # ambient medium at the near surface
     mu: float = 1.0
     sim: Any = None
+    mirrors: tuple = ()       # (axis, letter, phase): images the far-field
+                              # sum adds
 
 
 @dataclasses.dataclass
@@ -157,10 +217,6 @@ class Simulation:
                  use_fused: bool = True,
                  symmetries: Sequence = (),
                  device=None):
-        if symmetries:
-            raise NotImplementedError(
-                "symmetries (Mirror, Rotate2, Rotate4) and the monitors' "
-                "fold branches are not ported yet (ROADMAP A5, symmetries)")
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
         if dimensions == 1 or (cs.x == 0 and cs.y == 0 and cs.z > 0):
@@ -189,7 +245,17 @@ class Simulation:
         #: stepper
         self.use_fused = use_fused
         self.device = resolve_device(device)
-        self.gv = G.GridVolume.create(dim, size, self.resolution)
+        #: (direction letter, 'low'|'high') -> 'metal' | 'magnetic' |
+        #: 'none': the mirror walls and set_boundary's conditions
+        self._boundaries: Dict[Any, str] = {}
+        #: (axis index, direction letter, phase) of each Mirror
+        self._mirrors: List[Any] = []
+        #: axes whose mirror plane lies on whole sites (the ghost, no wall)
+        self._mirror_node = set()
+        self.symmetries = list(symmetries)
+        origin = self._fold_cell(dim, size)
+        self.gv = G.GridVolume.create(dim, size, self.resolution,
+                                      origin=origin)
         self._dft_specs: List[DftSpec] = []
         self._handles: List[Any] = []
         #: the LDOS monitor's handle: its specs are made in init_sim, from
@@ -202,6 +268,69 @@ class Simulation:
         #: "hybrid": K2/K1, "fused_probed": K1 with probe series,
         #: "half_step": the stepper through K5, "eager": the plain stepper)
         self.routes = collections.Counter()
+
+    def _fold_cell(self, dim, size):
+        """Halve `size` (in place) along each Mirror's axis and record its
+        wall or ghost (simulation.py:455-611, mirror branches); returns the
+        grid origin, or None for the centred cell."""
+        if not self.symmetries:
+            return None
+        axes = G._DIM_AXES[dim]
+        dx = 1.0 / self.resolution
+        origin = [-sz / 2 for sz in size]
+        for sym in self.symmetries:
+            if isinstance(sym, (Rotate2, Rotate4)):
+                raise NotImplementedError(
+                    f"{type(sym).__name__} symmetry is not ported yet "
+                    "(ROADMAP A5, Rotate2 / Rotate4)")
+            if isinstance(sym, Identity):
+                continue
+            if not isinstance(sym, Mirror):
+                raise NotImplementedError(
+                    "only Mirror symmetries are ported (ROADMAP A5)")
+            d = sym.direction
+            if d not in axes:
+                raise ValueError(f"no grid axis {d} in {dim}")
+            ax = axes.index(d)
+            n_full = int(round(size[ax] * self.resolution))
+            if sym.phase == -1:
+                if n_full % 2:
+                    raise ValueError(
+                        f"Mirror({d}, phase=-1) needs an even cell count "
+                        f"along {d} (have {n_full}) so the symmetry plane "
+                        "lands on a whole grid site")
+                size[ax] = size[ax] / 2
+                origin[ax] = 0.0
+                self._boundaries[(d, "low")] = "metal"
+            elif n_full % 2 == 0:
+                # the plane on whole sites: no wall, the stepper reads the
+                # mirror ghost across it (plan.mirror_node)
+                size[ax] = size[ax] / 2
+                origin[ax] = 0.0
+                self._boundaries[(d, "low")] = "none"
+                self._mirror_node.add(ax)
+            else:
+                size[ax] = size[ax] / 2 + dx / 2
+                origin[ax] = -dx / 2
+                self._boundaries[(d, "low")] = "magnetic"
+            self._mirrors.append((ax, d, int(sym.phase)))
+        return origin
+
+    def set_boundary(self, side, direction, condition):
+        """Set the wall condition on one cell face (meep.hpp:1776
+        set_boundary; simulation.py:623-641): `side` Low / High (or -1 /
+        +1), `direction` X / Y / Z (or 0-2), `condition` Metallic or
+        Magnetic (or 0 / 1).  Before the plan is compiled."""
+        if self._plan is not None:
+            raise RuntimeError("set_boundary must precede init_sim()")
+        sd = side if isinstance(side, str) else ("low" if side < 0 else "high")
+        d = direction if isinstance(direction, str) else "xyz"[direction]
+        cond = condition if isinstance(condition, str) else \
+            ("metal" if condition == 0 else "magnetic")
+        cond = {"metallic": "metal"}.get(cond.lower(), cond.lower())
+        if cond not in ("metal", "magnetic", "none"):
+            raise ValueError(f"unknown boundary condition {condition}")
+        self._boundaries[(d, sd.lower())] = cond
 
     # ------------------------------------------------------------------ setup
     @property
@@ -238,13 +367,22 @@ class Simulation:
         over the component sites inside, with monitor-style weights."""
         out = []
         gv = self.gv
+        mirror_axes = {ax for ax, _, _ in self._mirrors}
         for s in self.sources:
+            s = self._fold_source(s)
             comp = s.component
             center = _vec_to_axes(gv, s.center)
             size = _vec_to_axes(gv, s.size) if s.size is not None else \
                 [0.0] * gv.ndim
             if all(sz == 0 for sz in size):
                 pts = gv.interp_weights(comp, center)
+                if mirror_axes:
+                    # a weight on the below-plane row (the half-offset
+                    # alignment keeps one at -dx/2) belongs to the image
+                    # the symmetry already supplies: drop it
+                    pts = [(p, w) for p, w in pts if all(
+                        gv.comp_coords(comp, ax)[p[ax]] > -1e-9
+                        for ax in mirror_axes)]
                 idx = np.array([p for p, w in pts], np.int32)
                 amps = np.array([w * s.amplitude for p, w in pts],
                                 np.complex128)
@@ -258,6 +396,20 @@ class Simulation:
                     if w == 0:
                         continue
                     gidx = tuple(b + i for b, i in zip(base, ind))
+                    if mirror_axes:
+                        drop = False
+                        for ax in mirror_axes:
+                            cv = gv.comp_coords(comp, ax)[gidx[ax]]
+                            if cv < -1e-9:
+                                drop = True            # the below-plane row
+                            elif cv <= 1e-9 and \
+                                    center[ax] - size[ax] / 2 < -1e-9:
+                                # the plane row of a source that reaches
+                                # below the plane: the clip gave it the edge
+                                # weight, the full cell's row is interior
+                                w = w * 2.0
+                        if drop:
+                            continue
                     amp = s.amplitude * w
                     if s.amp_func is not None:
                         # meep convention: amp_func receives the point
@@ -280,6 +432,28 @@ class Simulation:
                                                         "is_integrated",
                                                         False)))
         return out
+
+    def _fold_source(self, s):
+        """A source in the dropped half of a mirrored cell, reflected onto
+        the retained half with phase * the component's mirror parity
+        (simulation.py:736-823, mirror branch); one that straddles a plane
+        asymmetrically raises."""
+        for ax, d, phase in self._mirrors:
+            i = "xyz".index(d)
+            c = list(_v3(s.center))
+            sz = list(_v3(s.size)) if s.size is not None else [0.0] * 3
+            if abs(c[i]) > 1e-12 and sz[i] > 2 * abs(c[i]) + 1e-12:
+                raise ValueError(
+                    f"source straddles the {d} mirror plane asymmetrically; "
+                    "place it in the retained half (or symmetrically about "
+                    "the plane)")
+            if c[i] < -1e-12:
+                c[i] = -c[i]
+                s = dataclasses.replace(
+                    s, center=Vector3(*c),
+                    amplitude=s.amplitude * phase
+                    * _mirror_parity(s.component, d))
+        return s
 
     def init_sim(self):
         """Rasterize the scene and compile the plan (simulation.py:1262)."""
@@ -305,11 +479,19 @@ class Simulation:
                     region=tuple((int(a), int(b)) for a, b in zip(lo, hi)),
                     weights=w, freqs=self._ldos.freqs, centered=False))
         pmls = []
+        mirror_dirs = {d for _, d, _ in self._mirrors}
         for bl in self.boundary_layers:
             dirs = list(self.gv.axes) if bl.direction == ALL \
                 else [bl.direction]
             for d in dirs:
-                pmls.append(PMLSpec(d, bl.thickness, side=bl.side,
+                # a mirrored axis keeps its plane at the low side: PML on
+                # the high side only (simulation.py:1315-1340)
+                side = bl.side
+                if d in mirror_dirs:
+                    if side == -1:
+                        continue
+                    side = +1
+                pmls.append(PMLSpec(d, bl.thickness, side=side,
                                     r_asymptotic=bl.r_asymptotic,
                                     mean_stretch=bl.mean_stretch,
                                     pml_profile_power=bl.pml_profile_power))
@@ -317,6 +499,9 @@ class Simulation:
             self.gv, mat, pmls=pmls, sources=srcs,
             dfts=self._dft_specs, courant=self.courant, dtype=self.dtype,
             live_e=live_e, live_h=live_h,
+            boundaries=self._boundaries or None,
+            mirror_node=tuple(m for m in self._mirrors
+                              if m[0] in self._mirror_node),
             # 3D x storage padded to a multiple of 8 like the JAX package
             # (simulation.py:1407), so both compile the same plan
             pad_to_multiple=(8, 1, 1) if self.gv.dim == "3d" else 1,
@@ -357,6 +542,80 @@ class Simulation:
         zero_axes = [self.gv.axes[i] for i, sz in enumerate(size) if sz == 0]
         return zero_axes[0] if zero_axes else self.gv.axes[0]
 
+    def _fold_region(self, center, size, parity_fn):
+        """Fold a DFT monitor's region onto the retained half of a mirrored
+        cell (simulation.py:853-950, mirror branch): (center, size, factor,
+        axes).  `parity_fn(d)` is the parity of the monitored product
+        under the mirror in d.  A region symmetric about the plane is
+        clipped to the retained half, factor 1 + parity; one wholly in the
+        dropped half maps to its image, factor parity; an asymmetric
+        straddle raises.  `axes`: the half-offset-aligned axes folded
+        symmetrically, whose plane row `_mirror_fix_dft_specs` reweights."""
+        center, size = list(center), list(size)
+        factor = 1.0
+        sym_axes = set()
+        for ax, d, phase in self._mirrors:
+            lo = center[ax] - 0.5 * size[ax]
+            hi = center[ax] + 0.5 * size[ax]
+            if lo >= -1e-9:
+                continue                          # in the retained half
+            par = parity_fn(d)
+            if hi <= 1e-9:                        # wholly in the dropped half
+                center[ax] = -center[ax]
+                factor *= par
+            elif abs(center[ax]) < 1e-9:          # symmetric about the plane
+                lo2 = 0.0
+                if phase == -1 or ax in self._mirror_node:
+                    # the plane on whole sites lies midway between centred
+                    # columns: reach just inside -dx/2 so the first retained
+                    # column keeps its interior weight
+                    lo2 = -0.5 * self.gv.dx * (1.0 - 1e-6)
+                else:
+                    # half-offset alignment: the plane is centred row 0;
+                    # lo2 = 0 gives it the edge weight, restored with the
+                    # component parity by _mirror_fix_dft_specs
+                    sym_axes.add(ax)
+                center[ax] = 0.5 * (lo2 + hi)
+                size[ax] = hi - lo2
+                factor *= 1.0 + par
+            else:
+                raise ValueError(
+                    f"DFT region straddles the {d} mirror plane "
+                    "asymmetrically; use a symmetric region or place it in "
+                    "one half of the cell")
+        return center, size, factor, sym_axes
+
+    def _mirror_fix_dft_specs(self, specs, sym_axes):
+        """On a half-offset-aligned mirror the first centred row of a
+        symmetrically folded region lies on the plane, and its centred
+        average saw the zero row below the wall: weight it x(1 + s) with s
+        = phase * the component's parity (simulation.py:825-851)."""
+        for spec in specs:
+            if not spec.centered:
+                continue
+            for ax, d, phase in self._mirrors:
+                if ax not in sym_axes or spec.region[ax][0] != 0:
+                    continue
+                sgn = phase * _mirror_parity(spec.component, d)
+                w = np.array(spec.weights, dtype=float)
+                sl = [slice(None)] * w.ndim
+                sl[ax] = slice(0, 1)
+                w[tuple(sl)] *= 1.0 + sgn
+                spec.weights = w
+        return specs
+
+    def _fold_point(self, component, c):
+        """(axes coordinates, factor) of a point folded into the retained
+        half (simulation.py:3494-3540, mirror branch):
+        F_component(pt) == factor * F_component(pt')."""
+        c = list(c)
+        fac = 1.0
+        for ax, d, phase in self._mirrors:
+            if c[ax] < -1e-12:
+                c[ax] = -c[ax]
+                fac *= phase * _mirror_parity(component, d)
+        return c, fac
+
     def _live(self) -> List[str]:
         live_e, live_h = self._live_components()
         return live_e + live_h
@@ -367,11 +626,15 @@ class Simulation:
         for ri, reg in enumerate(regions):
             center = _vec_to_axes(self.gv, reg.center)
             size = _vec_to_axes(self.gv, reg.size)
-            self._dft_specs += M.flux_specs(
-                self.gv, f"{name}:{ri}", self._normal(size, reg.direction),
-                center, size, freqs, weight=reg.weight, live=self._live(),
+            normal = self._normal(size, reg.direction)
+            # the flux density S_n is odd under a mirror along n, else even
+            center, size, fac, sym = self._fold_region(
+                center, size, lambda d: -1.0 if d == normal else 1.0)
+            self._dft_specs += self._mirror_fix_dft_specs(M.flux_specs(
+                self.gv, f"{name}:{ri}", normal, center, size, freqs,
+                weight=reg.weight * fac, live=self._live(),
                 decimation=self._resolve_decimation(decimation_factor,
-                                                    freqs))
+                                                    freqs)), sym)
         h = _FluxHandle(name, freqs, len(regions), self)
         self._handles.append(h)
         return h
@@ -459,6 +722,14 @@ class Simulation:
         c_ax = _vec_to_axes(self.gv, center)
         s_ax = _vec_to_axes(self.gv, size)
         dec = self._resolve_decimation(decimation_factor, freqs)
+        for ax, _, _ in self._mirrors:
+            if c_ax[ax] - s_ax[ax] / 2 < -1e-9:
+                # per-site DTFTs have no scalar fold factor
+                raise ValueError(
+                    "add_dft_fields region extends into the dropped half of "
+                    f"the mirrored {self.gv.axes[ax]} axis; restrict it to "
+                    "the retained half (get_dft_array values there equal "
+                    "the full cell's)")
         for c in components:
             self._dft_specs += M.field_specs(self.gv, f"{name}:{c}", c, c_ax,
                                              s_ax, freqs, decimation=dec)
@@ -489,10 +760,14 @@ class Simulation:
         name = f"en{len(self._handles)}"
         dec = self._resolve_decimation(decimation_factor, freqs)
         for ri, reg in enumerate(regions):
-            self._dft_specs += M.energy_specs(
-                self.gv, f"{name}:{ri}", _vec_to_axes(self.gv, reg.center),
-                _vec_to_axes(self.gv, reg.size), freqs, live=self._live(),
-                decimation=dec, weight=reg.weight)
+            # the energy density is even under any mirror
+            center, size, fac, sym = self._fold_region(
+                _vec_to_axes(self.gv, reg.center),
+                _vec_to_axes(self.gv, reg.size), lambda d: 1.0)
+            self._dft_specs += self._mirror_fix_dft_specs(M.energy_specs(
+                self.gv, f"{name}:{ri}", center, size, freqs,
+                live=self._live(), decimation=dec,
+                weight=reg.weight * fac), sym)
         h = _FluxHandle(name, freqs, len(regions), self)
         self._handles.append(h)
         return h
@@ -525,9 +800,14 @@ class Simulation:
             center = _vec_to_axes(self.gv, reg.center)
             size = _vec_to_axes(self.gv, reg.size)
             normal = self._normal(size)
-            self._dft_specs += M.force_specs(
-                self.gv, f"{name}:{ri}", reg.direction or normal, normal,
-                center, size, freqs, weight=reg.weight, live=self._live())
+            fd = reg.direction or normal
+            # the stress tensor T_fn has parity (-1)^([f == d] + [n == d])
+            center, size, fac, sym = self._fold_region(
+                center, size, lambda d: (-1.0 if fd == d else 1.0)
+                * (-1.0 if normal == d else 1.0))
+            self._dft_specs += self._mirror_fix_dft_specs(M.force_specs(
+                self.gv, f"{name}:{ri}", fd, normal, center, size, freqs,
+                weight=reg.weight * fac, live=self._live()), sym)
         h = _FluxHandle(name, freqs, len(regions), self)
         self._handles.append(h)
         return h
@@ -589,9 +869,30 @@ class Simulation:
         for ri, reg in enumerate(regions):
             center = _vec_to_axes(self.gv, reg.center)
             size = _vec_to_axes(self.gv, reg.size)
+            normal = self._normal(size, reg.direction)
+            clipped = self._fold_near2far(center, size)
+            if clipped is None:
+                continue
             specs, surfs = M.near2far_specs(
-                self.gv, f"{name}:{ri}", self._normal(size, reg.direction),
-                center, size, freqs, weight=reg.weight, live=self._live())
+                self.gv, f"{name}:{ri}", normal, center, size, freqs,
+                weight=reg.weight, live=self._live())
+            for ax, d in clipped:
+                # the first row on the clipped edge of a component that is
+                # half-offset along d got the split edge weight against the
+                # absent row below the plane; its image covers the pair, so
+                # it keeps its interior weight (simulation.py:1620-1643)
+                for spec in specs:
+                    if spec.region[ax][0] != 0 or not G.yee_shift(
+                            spec.component, self.gv.dim).get(d, 0):
+                        continue
+                    w = np.array(spec.weights)
+                    if w.shape[ax] < 2:
+                        continue
+                    sl0 = [slice(None)] * w.ndim
+                    sl1 = [slice(None)] * w.ndim
+                    sl0[ax], sl1[ax] = 0, 1
+                    w[tuple(sl0)] = w[tuple(sl1)]
+                    spec.weights = w
             self._dft_specs += specs
             surfaces += surfs
         # the ambient medium at the first region's centre (the reference
@@ -604,16 +905,45 @@ class Simulation:
                                      self.default_material)
             eps_amb = float(scene._eps_of(idx, self.geometry,
                                           self.default_material, 2)[0])
-        h = _N2FHandle(name, freqs, surfaces, eps=eps_amb, sim=self)
+        h = _N2FHandle(name, freqs, surfaces, eps=eps_amb, sim=self,
+                       mirrors=tuple(self._mirrors))
         self._handles.append(h)
         return h
+
+    def _fold_near2far(self, center, size):
+        """Clip a near2far surface (in place) to the retained half of each
+        mirror whose plane it crosses symmetrically: [(axis, letter)] of
+        those mirrors; None for a surface wholly in the dropped half, whose
+        contribution is the image of the partner face the far-field sum
+        adds (simulation.py:1595-1619)."""
+        clipped = []
+        for ax, d, phase in self._mirrors:
+            lo = center[ax] - 0.5 * size[ax]
+            hi = center[ax] + 0.5 * size[ax]
+            if lo >= -1e-9:
+                continue
+            if not (phase == -1 or ax in self._mirror_node):
+                raise ValueError(
+                    f"near2far on a half-offset-aligned {d} mirror is not "
+                    "supported; use an even cell count (the plane then "
+                    "lands on a grid site)")
+            if hi <= 1e-9:
+                return None
+            if abs(center[ax]) > 1e-9:
+                raise ValueError(f"near2far region straddles the {d} mirror "
+                                 "plane asymmetrically")
+            center[ax] = hi / 2
+            size[ax] = hi
+            clipped.append((ax, d))
+        return clipped
 
     def get_farfield_axes(self, handle, x_axes) -> np.ndarray:
         """(6, nfreq) = (Ex, Ey, Ez, Hx, Hy, Hz)(w) at a far point given
         in grid-axis coordinates (dft_near2far::farfield)."""
         from ..analysis.near2far import farfield
         return farfield(handle.surfaces, self._state, handle.freqs, x_axes,
-                        self.gv.dim, eps=handle.eps, mu=handle.mu)
+                        self.gv.dim, eps=handle.eps, mu=handle.mu,
+                        mirrors=handle.mirrors)
 
     def get_farfield(self, handle, pt) -> np.ndarray:
         """(6, nfreq) far fields at the point `pt`."""
@@ -765,11 +1095,13 @@ class Simulation:
             fn(self)
 
     def _point_probe(self, name, component, pt) -> S.ProbeSpec:
-        """A probe of `component` interpolated at point `pt`."""
-        pts = self.gv.interp_weights(component, _vec_to_axes(self.gv, pt))
+        """A probe of `component` interpolated at point `pt`, folded into
+        the retained half (simulation.py:2735-2760)."""
+        axc, fac = self._fold_point(component, _vec_to_axes(self.gv, pt))
+        pts = self.gv.interp_weights(component, axc)
         return S.ProbeSpec(name, component,
                            np.array([p for p, w in pts], np.int32),
-                           np.array([w for p, w in pts]))
+                           np.array([fac * w for p, w in pts]))
 
     def _run_steps_inner(self, nsteps, probes=(), series=None):
         """Route a stretch as the reference does (simulation.py:2876-2928).
@@ -858,12 +1190,14 @@ class Simulation:
         return self._t * self.dt
 
     def get_field_point(self, component, pt) -> complex:
-        """The component interpolated at point `pt` (simulation.py:3456,
-        without derived quantities and symmetry folds)."""
+        """The component interpolated at point `pt`, folded into the
+        retained half of a mirrored cell (simulation.py:3456, without
+        derived quantities)."""
         self.init_sim()
-        pts = self.gv.interp_weights(component, _vec_to_axes(self.gv, pt))
+        axc, fac = self._fold_point(component, _vec_to_axes(self.gv, pt))
+        pts = self.gv.interp_weights(component, axc)
         arr = self._state["f"][component]
-        return sum(w * complex(arr[tuple(idx)]) for idx, w in pts)
+        return fac * sum(w * complex(arr[tuple(idx)]) for idx, w in pts)
 
     def get_array(self, component=None, center=None, size=None,
                   snap: bool = False) -> np.ndarray:
@@ -893,6 +1227,7 @@ class Simulation:
                     cs = coords[ax]
                     coords[ax] = np.concatenate(
                         [cs - 0.5 * self.gv.dx, [cs[-1] + 0.5 * self.gv.dx]])
+        arr, coords = self._unfold(component, arr, coords)
         if center is None and size is None:
             return arr
         c_ax = _vec_to_axes(self.gv, center)
@@ -906,25 +1241,71 @@ class Simulation:
             sl.append(slice(i0, max(i1, i0 + 1)))
         return arr[tuple(sl)]
 
+    def _unfold(self, component, arr, coords):
+        """The full mirrored cell from the retained half (simulation.py:
+        3171-3330, mirror branch): rows above each plane reflect with sign
+        phase * the component's mirror parity ("eps": 1), rows on the plane
+        are shared, the one row below a half-offset plane is dropped.  On
+        a whole-site plane the centred row of a half-offset component was
+        averaged with a zero ghost: the true ghost is its image, s * itself.
+        The reference restores that row on node mirrors only, so on a metal
+        wall (phase -1) it returns half the full cell's value there for the
+        components with s = +1 (ROADMAP C.3); the port restores it on both.
+        Returns (array, coordinates)."""
+        for ax, d, phase in self._mirrors:
+            s = 1.0 if component == "eps" else \
+                phase * _mirror_parity(component, d)
+            c_ax = coords[ax]
+            pos = np.where(c_ax > 1e-12)[0]
+            onp = np.where(np.abs(c_ax) <= 1e-12)[0]
+            if ax in self._mirror_node:
+                # the image reaches down to the full cell's low edge only: a
+                # half-offset site past the fold extent has no partner
+                pos_im = pos[c_ax[pos] <= self.gv.num[ax] * self.gv.dx + 1e-9]
+            else:
+                pos_im = pos
+            parts = [s * np.flip(np.take(arr, pos_im, axis=ax), axis=ax)]
+            cparts = [-np.flip(c_ax[pos_im])]
+            if len(onp):
+                a_on = np.take(arr, onp, axis=ax)
+                whole_site = phase == -1 or ax in self._mirror_node
+                if whole_site and component != "eps" and \
+                        G.yee_shift(component, self.gv.dim).get(d, 0):
+                    a_on = a_on * (1.0 + s)
+                parts.append(a_on)
+                cparts.append(c_ax[onp])
+            parts.append(np.take(arr, pos, axis=ax))
+            cparts.append(c_ax[pos])
+            arr = np.concatenate(parts, axis=ax)
+            coords = list(coords)
+            coords[ax] = np.concatenate(cparts)
+        return arr, coords
+
     def _inverse_u(self, specs, default) -> np.ndarray:
         """1 / u (the plan's inverse epsilon or mu) on the lattice of the
-        first live component of `specs`; ones where the plan keeps no u."""
+        first live component of `specs`, unfolded over a mirrored cell;
+        ones where the plan keeps no u."""
         c = specs[0].ec if specs else default
         u = self._plan.coefs.get(f"{c}:u")
         if u is None:
-            return np.ones(self.gv.shape)
-        u = u.detach().cpu().numpy().astype(np.float64)
-        u = u[tuple(slice(0, n + 1) for n in self.gv.num)]
-        return 1.0 / np.maximum(u, 1e-300)
+            inv = np.ones(self.gv.shape)
+        else:
+            u = u.detach().cpu().numpy().astype(np.float64)
+            u = u[tuple(slice(0, n + 1) for n in self.gv.num)]
+            inv = 1.0 / np.maximum(u, 1e-300)
+        coords = [np.asarray(self.gv.comp_coords(c, ax))
+                  for ax in range(self.gv.ndim)]
+        return self._unfold("eps", inv, coords)[0]
 
     def get_epsilon(self) -> np.ndarray:
         """Permittivity on the first live E component's lattice
-        (simulation.py:3388, without the symmetry unfold)."""
+        (simulation.py:3388)."""
         return self._inverse_u(self.plan.eh_specs_e, "ez")
 
     def get_mu(self) -> np.ndarray:
         """Permeability on the first live H component's lattice
-        (simulation.py:3420)."""
+        (simulation.py:3420), unfolded like get_epsilon (the reference
+        returns the retained half)."""
         return self._inverse_u(self.plan.eh_specs_h, "hz")
 
     @property

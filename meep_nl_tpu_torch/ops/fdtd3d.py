@@ -24,7 +24,7 @@ import torch
 
 from ..core.device import torch_dtype
 from ..stepper.step import (NR_ITERS, alive_vectors, build_xs, make_step,
-                            source_index, xs_rows)
+                            mirror_ghost, source_index, xs_rows)
 
 MAXPOL = 4
 NCOMP = 3
@@ -45,16 +45,21 @@ def supported(plan) -> bool:
     Lorentzian/Drude with diagonal sigma and no noise, no conductivity, no
     off-diagonal u, no periodicity, no cylindrical m, no BFAST, no
     integrated sources, no rot2/rot4/x-mirror, plane-representable masks.
+    Node mirrors on y and z run as the reference's do (`mirror_yz_info`,
+    fdtd3d.py:206): the D launch reads the fold ghost where the plain
+    version's zero fill would be; an x mirror is declined (fdtd3d.py:121:
+    the plan then runs on the eager stepper).
 
     Differences, all deliberate: the TPU-only conditions (the block depth
     bx, the VMEM budgets, the x-interior dispersive window of `_Layout`)
-    are dropped, since this kernel has no x-blocks; y/z node mirrors, which
-    the JAX kernel admits, are declined because the port's stepper does
-    not run symmetry folds yet; at most MAXPOL polarizations."""
+    are dropped, since this kernel has no x-blocks; at most MAXPOL
+    polarizations."""
     gv = plan.gv
     if gv.dim != "3d" or plan.complex_fields or plan.bfast_k is not None:
         return False
-    if plan.rot2 is not None or plan.rot4 is not None or plan.mirror_node:
+    if plan.rot2 is not None or plan.rot4 is not None:
+        return False
+    if any(mn[0] == 0 for mn in plan.mirror_node):
         return False
     if plan.pol_specs_h or len(plan.pol_specs_e) > MAXPOL:
         return False
@@ -163,7 +168,27 @@ class _K1Args(ctypes.Structure):
                    ("d_of", ctypes.c_int * NCOMP),
                    ("p_of", (ctypes.c_int * MAXPOL) * NCOMP)]
                 + [(n, ctypes.c_int) for n in ("nring", "S0", "S1", "S2",
-                                               "nty", "ntz", "ch", "nch")])
+                                               "nty", "ntz", "ch", "nch",
+                                               "mir")]
+                + [("mk0", (ctypes.c_int * 2) * MAXRING),
+                   ("msg", (ctypes.c_int * 2) * MAXRING)])
+
+
+def set_mirror(A, plan, names):
+    """The D launch's fold ghosts in an argument block (K1Args or K2Args),
+    the reference's `mirror_yz_info` (fdtd3d.py:206): A.mir bit a - 1 on
+    for a node mirror along axis a (1 y, 2 z), and for each H array
+    `names[r]` of the launch's ring the ghost's (k0, sign) there
+    (step.mirror_ghost): the backward difference at plane 0 reads
+    sign * g[k0]."""
+    A.mir = 0
+    for (ax, d, phase) in plan.mirror_node:
+        if ax == 0:
+            continue
+        A.mir |= 1 << (ax - 1)
+        for r, g in enumerate(names):
+            k0, sign = mirror_ghost(g, d, phase, plan.gv.dim)
+            A.mk0[r][ax - 1], A.msg[r][ax - 1] = k0, int(sign)
 
 
 def _lib():
@@ -609,6 +634,8 @@ class Fdtd3dKernel:
             q_of = {s.c: q for q, s in enumerate(curls)}
             for q, s in enumerate(plan.eh_specs_h):
                 A.d_of[q] = q_of[s.dc]
+        else:
+            set_mirror(A, plan, names)
         return [("f", g) for g in names]
 
     def _launch(self, lib, A, kind):

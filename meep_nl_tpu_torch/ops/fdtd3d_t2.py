@@ -39,7 +39,7 @@ import torch
 
 from . import fdtd3d
 from .fdtd3d import (_Box, _CurlC, _EhC, _Params, _box, _rule, _set_box,
-                     build_params)
+                     build_params, set_mirror)
 from ..stepper.step import build_xs, source_index, xs_rows
 
 NCOMP = fdtd3d.NCOMP
@@ -517,7 +517,9 @@ class _K2Args(ctypes.Structure):
                    ("hb_of", _I * NCOMP), ("ed_of", _I * NCOMP),
                    ("cls", _K2Class * 2), ("nitems", _I * 2),
                    ("pair", _I)]
-                + [(n, _I) for n in ("depth", "S0", "S1", "S2", "nsrc")])
+                + [(n, _I) for n in ("depth", "S0", "S1", "S2", "nsrc",
+                                     "mir")]
+                + [("mk0", (_I * 2) * NCOMP), ("msg", (_I * 2) * NCOMP)])
 
 
 def _lib():
@@ -820,6 +822,7 @@ class Fdtd3dT2Kernel:
         A.dt = plan.dt
         A.nsrc = len(plan.sources)
         self._compact(A)
+        set_mirror(A, plan, [s.ec for s in plan.eh_specs_h])
         items, lays, ch, counts = self._items(lib, A)
         A.nitems[0], A.nitems[1] = counts
         for ci, lay in enumerate(lays):

@@ -41,8 +41,11 @@ MAXSRC = K1.MAXSRC
 def pallas_supported(plan) -> bool:
     """The envelope of the reference's pallas_supported (fused.py:37): 3D,
     real fields, diagonal (or vacuum) media, uPML, no conductivity,
-    dispersion, nonlinearity, BFAST, periodic axes or symmetry folds, and
-    every mask a list of dead planes."""
+    dispersion, nonlinearity, BFAST, periodic axes, node mirrors
+    (plan.mirror_node, fused.py:40-41) or rotational folds, and every mask
+    a list of dead planes.  A Mirror with a wall (metal or magnetic: its
+    plane is a dead plane of the masks) and one-sided PML run as any other
+    plan."""
     if plan.rot2 is not None or plan.rot4 is not None or plan.mirror_node:
         return False
     if plan.gv.dim != "3d" or plan.complex_fields or plan.bfast_k is not None:

@@ -30,7 +30,10 @@ there is no compiled runner to cache.
 
 Unlike the JAX package this driver does not catch build or launch errors:
 on CUDA a failure raises.  The eager route is taken only for plans that
-both kernels decline (or stretches too short to fuse).
+both kernels decline (or stretches too short to fuse).  Mirror folds route
+as in the reference (hybrid.py:71): y/z node mirrors run every route above
+(K1 and K2 read the fold ghost), a 3D plan with an x mirror is declined by
+both kernels and runs on the eager stepper.
 """
 
 from __future__ import annotations

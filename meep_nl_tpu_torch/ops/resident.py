@@ -55,7 +55,8 @@ import torch
 
 from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
-from ..stepper.step import ProbeSpec, build_xs, check_supported, run
+from ..stepper.step import (ProbeSpec, build_xs, check_supported,
+                            mirror_ghost, run)
 
 #: the reference's VMEM budget for 2x state (resident.py:50); on the H100
 #: the state lives in device memory, so this is a routing rule, not a limit
@@ -387,14 +388,31 @@ class _ResArgs(ctypes.Structure):
                 ("dft", _P),
                 ("cur", _P),
                 ("flags", _P), ("dt", ctypes.c_double)] + \
-        [(n, _I) for n in ("nsteps", "nsrc", "ndft", "e_local")]
+        [(n, _I) for n in ("nsteps", "nsrc", "ndft", "e_local")] + \
+        [("gk", (_I * 2) * fdtd3d.NCOMP),
+         ("gs", (ctypes.c_double * 2) * fdtd3d.NCOMP)]
+
+
+def set_ghosts(A, plan):
+    """The D curl's fold ghosts in a K3/K4 argument block: for D component
+    q and its partner m (0: g_plus, 1: g_minus) differentiated along a
+    node mirror's axis, the ghost's row k0 (A.gk) and sign (A.gs; 0: no
+    ghost), as step.mirror_ghost; on every axis, x included."""
+    for q, spec in enumerate(plan.curl_specs_d):
+        for m, (g, ax) in enumerate(((spec.g_plus, spec.plus_axis),
+                                     (spec.g_minus, spec.minus_axis))):
+            A.gk[q][m], A.gs[q][m] = 0, 0.0
+            for (mx, d, phase) in plan.mirror_node:
+                if g is not None and mx == ax:
+                    A.gk[q][m], A.gs[q][m] = mirror_ghost(g, d, phase,
+                                                          plan.gv.dim)
 
 
 #: the kernel's static shared memory: its argument block, 16-byte aligned,
 #: and the tile's four parameter-block descriptors (csrc/resident.cu FamT,
-#: 688 bytes each; bind() checks the sum against the library's
+#: 736 bytes each; bind() checks the sum against the library's
 #: mnt_k3_static_smem, a card test against the card's figure)
-STATIC_SMEM = -(-ctypes.sizeof(_ResArgs) // 16) * 16 + 4 * 688
+STATIC_SMEM = -(-ctypes.sizeof(_ResArgs) // 16) * 16 + 4 * 736
 
 
 def bind(lib):
@@ -1043,6 +1061,7 @@ class ResidentKernel:
         A.dt = rp.dt
         A.nsteps = n
         A.e_local = int(tl["c"] == 1)
+        set_ghosts(A, rp)
         args = up_table(A)
         rc = lib.mnt_k3_launch(ctypes.byref(A), args, blocks, tl["smem"],
                                torch.cuda.current_stream().cuda_stream)

@@ -50,8 +50,8 @@ def check_supported(plan: Plan) -> None:
         why = "cylindrical / special_kz cells (ROADMAP A9)"
     elif plan.bfast_k is not None:
         why = "BFAST (ROADMAP A9)"
-    elif plan.rot2 is not None or plan.rot4 is not None or plan.mirror_node:
-        why = "symmetry folds (ROADMAP A9)"
+    elif plan.rot2 is not None or plan.rot4 is not None:
+        why = "Rotate2 / Rotate4 folds (ROADMAP A5)"
     elif plan.complex_fields or plan.real_pair:
         why = "complex fields (ROADMAP A8/A9)"
     elif any(s.has_cond or s.folded_cond
@@ -153,22 +153,51 @@ def init_state(plan: Plan) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def mirror_ghost(gname: str, d_letter: str, phase: int, dim: str):
+    """(k0, sign) of the node-mirror fold ghost of component `gname` for a
+    mirror in direction `d_letter` (step.py:251 `_mirror_node_ghost`,
+    vec.hpp:1189 mirror_symmetry): a backward difference across a mirror
+    plane that lies on the whole sites at index 0 reads, below plane 0,
+
+        g(-1) = sign * g(k0),   sign = phase * P_g(d)
+
+    with P_g the vector / pseudovector parity (E_d and H_t odd, E_t and H_d
+    even).  k0 is 1 - yee_shift: a half-offset component's plane 0 sits at
+    +dx/2 and reflects onto -dx/2 (k0 = 0), a node component's plane 1
+    reflects onto -dx (k0 = 1).  The kernels read the same table."""
+    if gname[0] in ("e", "d"):
+        sign = phase * (-1.0 if gname[1] == d_letter else 1.0)
+    else:
+        sign = phase * (1.0 if gname[1] == d_letter else -1.0)
+    return 1 - G.yee_shift(gname, dim)[d_letter], float(sign)
+
+
 def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any]):
     """dfl such that the no-PML update is f += dfl (step_generic.cpp:39-67).
 
     D components: +Courant * (bwd-diff g_plus - bwd-diff g_minus)
-    B components: -Courant * (fwd-diff g_plus - fwd-diff g_minus)"""
+    B components: -Courant * (fwd-diff g_plus - fwd-diff g_minus)
 
-    def diff(g, a):
-        if spec.is_d:
-            return g - _sh(plan, g, a, -1)
-        return _sh(plan, g, a, +1) - g
+    A node-aligned mirror (plan.mirror_node) replaces the zero fill of the
+    backward difference along its axis by the fold ghost (`mirror_ghost`,
+    step.py:361-383); nothing else of the step reads across the plane."""
+
+    def diff(g, a, gname):
+        if not spec.is_d:
+            return _sh(plan, g, a, +1) - g
+        sh = _sh(plan, g, a, -1)
+        for (ax, d, phase) in plan.mirror_node:
+            if ax == a:
+                k0, sign = mirror_ghost(gname, d, phase, plan.gv.dim)
+                sh = torch.cat([sign * g.narrow(a, k0, 1),
+                                sh.narrow(a, 1, sh.shape[a] - 1)], dim=a)
+        return g - sh
 
     total = None
     if spec.g_plus is not None:
-        total = diff(f[spec.g_plus], spec.plus_axis)
+        total = diff(f[spec.g_plus], spec.plus_axis, spec.g_plus)
     if spec.g_minus is not None:
-        t2 = diff(f[spec.g_minus], spec.minus_axis)
+        t2 = diff(f[spec.g_minus], spec.minus_axis, spec.g_minus)
         total = -t2 if total is None else total - t2
     if total is None:
         return torch.zeros_like(f[spec.c])

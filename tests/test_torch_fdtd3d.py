@@ -58,8 +58,10 @@ ENVELOPE = {
     "flagship_16": (dict(ball=True, pol=True, nr=True), "tpu_layout"),
     # TPU-only condition: 17 x-sites give no block depth bx >= 2
     "unpadded_x": (dict(pad=1), "tpu_bx"),
-    # the port declines node mirrors until its stepper runs symmetry folds
-    "mirror_y": (dict(mirror_node=((1, "y", 1),)), "port_no_symmetry"),
+    # node mirrors: y and z run (the fold ghost in the D launch), x is
+    # declined by both (it would change the reference's x-block topology)
+    "mirror_y": (dict(mirror_node=((1, "y", 1),)), None),
+    "mirror_x": (dict(mirror_node=((0, "x", 1),)), None),
 }
 
 

@@ -133,7 +133,10 @@ def test_kernel_refuses_bad_tensors_on_cuda():
 #: "pml-xz-only" lacks the y chains, so K1 runs its general layout, the
 #: others its uPML one; "many-sources" has more current sources in each
 #: family than a launch takes waveforms by value (MAXSRC), so K1 reads
-#: them from a device table
+#: them from a device table; "mirror-yz" (node mirrors on y, phase +1,
+#: and z, phase -1: fold ghosts of both signs) and "mirror-y" put the
+#: fold ghost in the D launch's halo, with the PML on the high side of
+#: the mirrored axes only
 CASES = {
     "flagship": dict(ch=7),
     "flagship-padded-full-chains": dict(pad=(8, 8, 1), slab=False),
@@ -143,13 +146,15 @@ CASES = {
     "pml-xz-only": dict(pml_axes="xz", ch=6),
     "tiny": dict(cells=(6, 5, 4), pml=0.25, ball=False, sources="hv"),
     "many-sources": dict(ball=False, sources="m", ch=5),
+    "mirror-yz": dict(mirror={"y": 1, "z": -1}, ch=7),
+    "mirror-y": dict(mirror={"y": 1}, sources="hv", ch=5),
 }
 T0, NSTEP_CASE = 40, 3
 
 
 def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
             ball=True, chi3=False, drude=False, poles=1, sources="p", pad=1,
-            slab=True, dtype=np.float32, ch=None):
+            slab=True, dtype=np.float32, ch=None, mirror=None):
     """A K1 plan from numpy inputs: uPML on the faces of `pml_axes`;
     `ball` an eps=4 sphere of radius min(size)/4 at the centre with a
     Lorentz (or Drude) pole (`poles` 2: and a Drude pole on the half x > 0
@@ -159,7 +164,8 @@ def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
     two of those sites (repeated sites within and across sources), "m"
     TF.MAXSRC + 1 Ez and as many Hz point sources, each with its own
     frequency and a complex phase, at 11 spots (repeated sites across
-    sources).  Returns
+    sources); `mirror` {axis letter: phase} node mirrors at index 0 of
+    those axes (no wall there, the PML on their high side only).  Returns
     (plan, ch)."""
     size = [n / res for n in cells]
     gv = TG.GridVolume.create("3d", size, res)
@@ -211,10 +217,14 @@ def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
                       mp.GaussianSource(frequency=1.0 + 0.01 * i, fwidth=1.0),
                       np.exp(0.3j * i))
                 for i in range(TF.MAXSRC + 1) for comp in ("ez", "hz")]
-    plan = TP.compile_plan(gv, mat,
-                           pmls=[TP.PMLSpec(d, pml) for d in pml_axes],
-                           sources=srcs, pad_to_multiple=pad, dtype=dtype,
-                           device=device)
+    mirror = mirror or {}
+    plan = TP.compile_plan(
+        gv, mat, pmls=[TP.PMLSpec(d, pml, side=+1 if d in mirror else 0)
+                       for d in pml_axes],
+        sources=srcs, pad_to_multiple=pad, dtype=dtype, device=device,
+        boundaries={(d, "low"): "none" for d in mirror} or None,
+        mirror_node=tuple(("xyz".index(d), d, ph)
+                          for d, ph in mirror.items()))
     plan.slab_opt = slab
     return plan, ch
 

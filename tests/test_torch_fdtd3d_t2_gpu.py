@@ -55,7 +55,12 @@ def _plan(scene, device, dtype=np.float32, src=mp.Ez):
     """A 32x24x24 cell with PML on every face; scene "flagship" adds the
     eps=4 ball with a Lorentz pole and full-tensor chi2, "mu" a mu=2 ball
     (has_u on the H specs), "poles" a ball with a Lorentz and a Drude
-    pole; `src` as `_sources`."""
+    pole; `src` as `_sources`.  A suffix "+y" / "+yz" declares Mirror(Y)
+    (and Mirror(Z)) with phase +1: the cell is halved there, the planes on
+    whole sites (node mirrors, the fold ghost in the D sub-update), the
+    PML on the high side only, the ball's nonlinear box on the planes."""
+    scene, _, mirrors = scene.partition("+")
+    symmetries = [mp.Mirror(d) for d in mirrors]
     geometry = []
     if scene == "flagship":
         med = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
@@ -73,7 +78,8 @@ def _plan(scene, device, dtype=np.float32, src=mp.Ez):
     sim = mp.Simulation(
         cell_size=mp.Vector3(4, 3, 3), resolution=8, geometry=geometry,
         sources=_sources(src), boundary_layers=[mp.PML(0.5)],
-        eps_averaging=False, device=device, dtype=dtype)
+        eps_averaging=False, device=device, dtype=dtype,
+        symmetries=symmetries)
     sim.init_sim()
     sim.plan.slab_opt = True
     return sim.plan
@@ -115,7 +121,9 @@ def _host(st):
 #: on x = 0 and S0 - 1) or "chunk" (also on both sides of every chunk edge
 #: of `ch` = 5); every capture plane crosses the tile edges in y and z.
 #: The flagship scenes have a nonlinear box, so their items split into the
-#: two classes (h = 2 around the ball, h = 1 elsewhere).
+#: two classes (h = 2 around the ball, h = 1 elsewhere).  The "mirror"
+#: cases fold the cell on y and z (or y): their items' halo stages cross
+#: the planes, each stage reading its own fold ghost.
 CASES = {
     "upml-d2": ("vacuum", 2, None, np.float32, mp.Ez, None),
     "upml-d3-caps": ("vacuum", 3, "mon", np.float32, mp.Ez, None),
@@ -132,6 +140,10 @@ CASES = {
                                  4),
     "chunk-edges-d3-caps": ("flagship", 3, "chunk", np.float32, mp.Ez, 5),
     "two-poles-d3-caps": ("poles", 3, "mon", np.float32, mp.Ez, 7),
+    "mirror-yz-flagship-d3-caps": ("flagship+yz", 3, "mon", np.float32,
+                                   mp.Ex, None),
+    "mirror-y-flagship-d2": ("flagship+y", 2, None, np.float32, mp.Ex, 5),
+    "mirror-yz-upml-d3": ("vacuum+yz", 3, None, np.float32, mp.Ex, None),
 }
 
 

@@ -250,6 +250,41 @@ def test_flux_data_round_trips(tm, tmp_path):
     np.testing.assert_array_equal(sim.get_forces(h["force"]), before)
 
 
+def test_flux_data_loads_across_monitor_numbers():
+    """The normalization recipe when the second run numbers its monitors
+    differently (an add_dft_fields first, so its flux monitor is "flux1",
+    the normalization run's "flux0"): load_minus_flux_data matches a
+    snapshot's keys by what follows the monitor's name, so the reflected
+    fluxes equal those of a second run whose monitor has the same name
+    (ROADMAP C.2; the reference matches whole keys, C.3 item 3)."""
+    def sim_of(extra):
+        sim = mtt.Simulation(cell_size=mtt.Vector3(6, 5), resolution=10,
+                             sources=_src(mtt, mtt.Ez,
+                                          mtt.Vector3(-1.5, 0.1)),
+                             boundary_layers=[mtt.PML(0.8)], device="cpu")
+        if extra:
+            sim.add_dft_fields([mtt.Ez], 0.5, 0.4, 1, center=mtt.Vector3(),
+                               size=mtt.Vector3(1, 1))
+        refl = sim.add_flux(0.5, 0.4, 3, mtt.FluxRegion(
+            center=mtt.Vector3(-1.0, 0), size=mtt.Vector3(0, 3)))
+        return sim, refl
+
+    norm, n_refl = sim_of(False)
+    norm.run(until=10.05)
+    data = norm.get_flux_data(n_refl)
+    out = {}
+    for extra in (False, True):
+        sim, refl = sim_of(extra)
+        assert refl.name == ("flux1" if extra else "flux0")
+        sim.load_minus_flux_data(refl, data)
+        sim.run(until=10.05)
+        out[extra] = sim.get_fluxes(refl)
+    np.testing.assert_array_equal(out[True], out[False])
+    # the incident flux is subtracted: what is left is far below it
+    assert np.abs(out[True]).max() < 1e-2 * np.abs(norm.get_fluxes(
+        n_refl)).max()
+
+
 # ---------------------------------------------------------------------------
 # the routes against the port's eager stepper
 # ---------------------------------------------------------------------------
@@ -379,8 +414,8 @@ def test_unported_monitor_features_raise(case, item):
     kw = dict(cell_size=mtt.Vector3(4, 4), resolution=8,
               sources=_src(mtt, mtt.Ez, mtt.Vector3()), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        if case == "symmetries":       # test_force_ldos / test_near2far
-            mtt.Simulation(symmetries=[("mirror", "y")], **kw)
+        if case == "symmetries":       # the rotational folds
+            mtt.Simulation(symmetries=[mtt.Rotate2(mtt.Z)], **kw)
         elif case == "cylindrical":    # test_near2far's cylindrical cases
             mtt.Simulation(**{**kw, "cell_size": mtt.Vector3(3, 0, 4)},
                            dimensions=-2)

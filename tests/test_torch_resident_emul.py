@@ -65,7 +65,10 @@ def scene(kind, device="cpu", res=10):
     H Lorentz poles in that grid (99 staged arrays, more than
     MAXSLOT); ldos / ldos-te: tm / te with the DFT monitors of the LDOS
     (complex weights, uncentred), energy (D/B beside E/H) and dft fields
-    kinds."""
+    kinds.  A suffix "+x", "+xy", ... declares a phase +1 Mirror on each
+    axis named: every cell count here is even, so each is a node mirror
+    (the fold ghost in the D curl), the cell halved there."""
+    kind, _, mirrors = kind.partition("+")
     src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Ez,
                      center=mp.Vector3(-2, 0.1))]
     geom = [mp.Cylinder(radius=1.0, material=mp.Medium(epsilon=12))]
@@ -112,7 +115,8 @@ def scene(kind, device="cpu", res=10):
     pml = 0.5 if kind in ("nl3d", "poles3d") else 0.8
     sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
                         sources=src, boundary_layers=[mp.PML(pml)],
-                        device=device)
+                        device=device,
+                        symmetries=[mp.Mirror(d) for d in mirrors])
     sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
         center=mp.Vector3(0.4 if pml == 0.5 else 0.9, 0, 0), size=flux_size))
     if kind.startswith("ldos"):
@@ -193,7 +197,15 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "ldos-k4-tiles-seams": ("ldos", True, 13, 5, ((13, 13, 1), 3, 3, 7)),
          "ldos-te-k4": ("ldos-te", True, 13, 8192, None),
          "ldos-te-k3-direct-seams": ("ldos-te", False, 13, 5,
-                                     (None, 1, 4, 7))}
+                                     (None, 1, 4, 7)),
+         # node mirrors: the fold ghost below the planes of x and y (2D),
+         # of x and z (3D) and of y on the direct schedule
+         "mirror-xy-tm-k4": ("tm+xy", True, 13, 8192, None),
+         "mirror-y-tm-k3-tiles-seams": ("tm+y", False, 13, 5,
+                                        ((10, 5, 1), 3, 4, 7)),
+         "mirror-xz-3d-k4-seams": ("3d+xz", True, 9, 4, None),
+         "mirror-y-nl3d-k3-direct": ("nl3d+y", False, 9, 8192,
+                                     (None, 1, 3, 1))}
 
 
 def h100_schedule(ker, host_lib):
@@ -233,6 +245,7 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(R.ResidentKernel, "_check", _own)
     plan = scene(kind)
+    kind = kind.partition("+")[0]
     st0 = random_state(plan, 4)
     comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3

@@ -46,17 +46,21 @@ def _err(a, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
 @pytest.mark.parametrize("kind", ["flag-tm", "flag-te", "tm-many", "3d",
-                                  "nl3d", "poles3d", "ldos", "ldos-te"])
+                                  "nl3d", "poles3d", "ldos", "ldos-te",
+                                  "tm+xy", "3d+xz", "nl3d+y"])
 def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     monkeypatch.setattr(R, "MAX_CHUNK", 17)
     plan = scene(kind, device=cuda, res=16)
     st0 = random_state(plan, 8)
-    comp = COMP.get(kind, "ez")
-    pt = {"3d": [20, 20, 10], "nl3d": [5, 12, 7],
-          "poles3d": [5, 12, 7]}.get(kind, [20, 20])
-    # 20 probes of two points each; on the small 3D grids in two rows
-    at = [(0, i) if kind not in ("nl3d", "poles3d") else (i // 10 * 3, i % 10)
+    # 20 probes of two points each; on the small 3D grids in two rows, on
+    # the folded 3D grids in five
+    pt = {"3d": [20, 20, 10], "nl3d": [5, 12, 7], "poles3d": [5, 12, 7],
+          "3d+xz": [5, 20, 5], "nl3d+y": [3, 6, 7]}.get(kind, [20, 20])
+    at = [(i // 4, i % 4) if kind in ("3d+xz", "nl3d+y") else (0, i)
+          if kind not in ("nl3d", "poles3d") else (i // 10 * 3, i % 10)
           for i in range(20)]
+    kind = kind.partition("+")[0]          # the mirrors' fold ghosts aside
+    comp = COMP.get(kind, "ez")
     probes = [TS.ProbeSpec(f"p{i}", comp,
                            np.array([[pt[0] + dx, pt[1] - dy] + pt[2:],
                                      [pt[0] + dx + 1, pt[1] - dy] + pt[2:]]),
@@ -101,6 +105,7 @@ def test_tile_seams_match_plain_on_cuda(case, cuda, monkeypatch):
     kind, probed, nsteps, chunk, (tile, T, _, _) = CASES[case]
     monkeypatch.setattr(R, "MAX_CHUNK", chunk)
     plan = scene(kind, device=cuda)
+    kind = kind.partition("+")[0]
     st0 = random_state(plan, 4)
     comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3
