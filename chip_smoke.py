@@ -7,8 +7,8 @@ Every call runs every phase; a failing phase exits non-zero, and no phase
 falls back to the CPU or to a plain version:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every kernel source in meep_nl_tpu_torch/csrc with nvcc, all
-     sources started together, and print ptxas's report on K1's, K2's and
-     K5's kernels (registers, stack, spills);
+     sources started together, and print ptxas's report on K1's, K2's,
+     K3/K4's and K5's kernels (registers, stack, spills);
   3. the kernels against their plain versions on the card, from a seeded
      random state at 64^3, on the flagship material plan (eps=4 ball,
      Lorentz pole, chi2 Newton-Raphson) and a vacuum uPML plan: K1 over 20
@@ -127,7 +127,38 @@ falls back to the CPU or to a plain version:
      1e-4; K3 bit for bit on phase 7's 767^2
      with Mirror(Y) (odd: a magnetic wall) and its flux line, on a 768^2
      disk folded on x and y (node mirrors) and on the 16^3 flagship
-     folded on y (the direct schedule).
+     folded on y (the direct schedule);
+ 13. Rotate2 / Rotate4 and 1D cells: bench.py::run_resident's disk at
+     768^2 (its source moved into the retained quadrant, a flux line
+     there) folded by Rotate2("z") (384x768 cells) and Rotate4("z", phase
+     -1) (384x384) and, unfolded, carrying the source's C2 / C4 images:
+     1000 steps each through K3 (counters; the folds on the direct
+     schedule's variant with the rotational ghosts), K3 bit for bit from
+     each run's end state and a seeded random one (K4 too on the folds,
+     with a probe folded from the dropped part), ms/step and GCells/s
+     of each cell's own cells, fluxes and unfolded Ez of the folds against
+     the full cells (1e-6 and 3e-6 of their maximum; Ez 5e-6 for Rotate4,
+     whose full cell is C4-symmetric only to fp32 round-off: the same
+     comparison in fp64 on the eager stepper must read 1e-12); Meep's
+     ring.py with
+     Rotate2("z") at phases +1 and -1: Harminv through K4 (counters, K4 bit
+     for bit from the end state, the Q > 50 modes against the same run on
+     the CPU to 1e-4), the decay stop at the CPU's step; the 16^3 linear
+     flagship (no chi2: a rotation refuses it) folded by Rotate2 and
+     Rotate4 through K3 against its plain version and the CPU; the 128^3
+     linear flagship folded by Rotate4 (64x64x128 cells, square x-y
+     storage 65x65x129: its doubled state fits the resident budget, so
+     K3's direct schedule takes it, as the reference's resident kernel
+     would) and by Rotate2 (64x128x128, above the budget: the eager
+     stepper, since K1, K2 and K5 decline rotations as the reference's
+     do), 60 steps each after 6 of warm-up, timed (K3 also by CUDA
+     events, and bit for bit from the run's end state and a seeded random
+     one), unfolded Ez against the full cell on the hybrid route (3e-6);
+     and a 1D cell: thg_amplitude's Kerr scene (resolution 40, f0 = 1/3,
+     chi3) in a cell of 100 (4000 cells) on the eager stepper, the DTFT of
+     Ex at f0 and 3 f0 and the flux against the CPU (1e-4 of each
+     frequency's own magnitude), the third harmonic doubling with chi3
+     (5 %).
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -180,16 +211,16 @@ def ptxas(build, name) -> str:
 
 
 def build_all():
-    """One nvcc per csrc/*.cu source and one for each of K1's, K2's and K5's
-    ptxas reports, all started together; returns (names, seconds,
-    {source: report})."""
+    """One nvcc per csrc/*.cu source and one for each of K1's, K2's, K3/K4's
+    and K5's ptxas reports, all started together; returns (names,
+    seconds, {source: report})."""
     from meep_nl_tpu_torch.ops import _build
     names = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                    if f.endswith(".cu"))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names) + 3) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 4) as ex:
         reports = {n: ex.submit(ptxas, _build, n)
-                   for n in ("fdtd3d", "fdtd3d_t2", "fused")}
+                   for n in ("fdtd3d", "fdtd3d_t2", "fused", "resident")}
         list(ex.map(_build.build, names))
         reports = {n: r.result() for n, r in reports.items()}
     return names, time.perf_counter() - t0, reports
@@ -375,6 +406,26 @@ def cpu_twins(path) -> int:
     sim = ring_sim(mp, 10, "cpu", symmetries=[mp.Mirror(mp.Y)])
     sim.run(until_after_sources=ring_decay(mp))
     out["ring_m_stop"] = sim._t
+    # phase 13's twins: the 1D third-harmonic scene, the ring folded by
+    # Rotate2 (Harminv at phases +1 and -1, the decay stop), the 16^3
+    # linear flagship folded by Rotate2 and Rotate4
+    out["thg_amp"], out["thg_flux"], sim, _ = thg_run(mp, "cpu",
+                                                      THG["chi3"])
+    out["thg_steps"] = sim._t
+    for phase in (1, -1):
+        sim = ring_sim(mp, 10, "cpu", symmetries=[mp.Rotate2(mp.Z, phase)])
+        h = mp.Harminv(mp.Ez, mp.Vector3(1.1), 0.15, 0.1)
+        sim.run(mp.after_sources(h), until_after_sources=300)
+        out[f"ring_r2{phase}_modes"] = np.array(
+            [(m.freq, m.Q, m.amp) for m in h.modes]).reshape(-1, 3)
+    sim = ring_sim(mp, 10, "cpu", symmetries=[mp.Rotate2(mp.Z)])
+    sim.run(until_after_sources=ring_decay(mp))
+    out["ring_r2_stop"] = sim._t
+    for kind in ("rot2", "rot4"):
+        sim, fl = rot_flagship(mp, 16, 8.0, "cpu", kind, True, pml=0.25)
+        sim.run(until=200 * sim.dt)
+        out[f"{kind}16:flux"] = sim.get_fluxes(fl)
+        out[f"{kind}16:ez"] = sim.get_array(mp.Ez)
     np.savez(path, **out)
     return 0
 
@@ -443,7 +494,9 @@ def schedule_text(ker, nsteps, probed):
     blocks and grid barriers a step."""
     d = ker.describe(nsteps, probed)
     if d["direct"]:
-        return (f"direct schedule (tiles would give no temporal reuse): "
+        why = "a rotational fold's ghosts" if d["direct"] == 2 else \
+            "tiles would give no temporal reuse"
+        return (f"direct schedule ({why}): "
                 f"the whole grid in place, {d['blocks']} blocks, T 1, "
                 f"{d['barriers'][0]}-{d['barriers'][1]} grid barriers a "
                 f"step, {d['passes']} steps per {nsteps}-step stretch")
@@ -791,6 +844,14 @@ def rel_diff(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
+def rel_each(a, b):
+    """The largest of |a - b| / |b| taken element by element."""
+    import numpy as np
+    b = np.asarray(b)
+    return float((np.abs(np.asarray(a) - b)
+                  / np.maximum(np.abs(b), 1e-30)).max())
+
+
 def resident_run_counted(sim, *step_funcs, nsteps=None, **run_kw):
     """sim.run with the resident kernel's counters set to 0 just before;
     returns (wall seconds, K3 launches, K4 launches), read just after.
@@ -1058,7 +1119,7 @@ def phase_resident(mp, dev, card, blank):
 
 def start_cpu_twins():
     """cpu_twins in a process of its own (no card; it lowers its own
-    priority): it runs from the start of main() and phase 11 reads its
+    priority): it runs from the start of main() and phases 11-13 read its
     results.  Returns (the process, the .npz path, its directory)."""
     import tempfile
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1627,12 +1688,12 @@ def phase_fused_probed(mp, dev, card):
     return launches, max(err, serr)
 
 
-def resident_counted_check(sim, what, card, k3, nsteps):
-    """Phase 12's K3 runs: sim.run for nsteps on the resident route (K3
-    launches counted into the table entry k3), then K3 against its plain
-    version over 20 steps from the run's end state and from a seeded random
-    state, state and accumulators bit for bit.  Returns the kernel
-    object."""
+def resident_counted_check(sim, what, card, k3, nsteps, tag="12"):
+    """Phases 12's and 13's (`tag`) K3 runs: sim.run for nsteps on the
+    resident route (K3 launches counted into the table entry k3), then K3
+    against its plain version over 20 steps from the run's end state and
+    from a seeded random state, state and accumulators bit for bit.
+    Returns (the kernel object, the run's wall seconds)."""
     sim.init_sim()
     from meep_nl_tpu_torch.ops import resident as R
     R._kernel(sim.plan)
@@ -1642,22 +1703,25 @@ def resident_counted_check(sim, what, card, k3, nsteps):
                              f"routes {dict(sim.routes)}")
     k3["launches"] += launches
     ker = sim.plan._resident_kernel
-    print(f"[12] {what} ({sim.plan.storage_shape}, node mirrors "
-          f"{sim.plan.mirror_node}): {nsteps} steps in {wall:.3f} s = "
+    folds = f"rot2 {sim.plan.rot2}" if sim.plan.rot2 else \
+        f"rot4 {sim.plan.rot4}" if sim.plan.rot4 else \
+        f"node mirrors {sim.plan.mirror_node}"
+    print(f"[{tag}] {what} ({sim.plan.storage_shape}, {folds}): "
+          f"{nsteps} steps in {wall:.3f} s = "
           f"{wall / nsteps * 1e3:.4f} ms/step, K3 launches {launches}, "
           f"routes {dict(sim.routes)}; {schedule_text(ker, nsteps, False)} "
           f"({card})", flush=True)
     for label, st0 in (("the run's state", sim.fields_state),
                        ("a random state", random_state(sim.plan, 17,
-                                                       "cuda"))):
+                                                       sim.plan.device))):
         err, rel, drel, _ = compare_resident(ker, st0, sim._t, 20)
-        print(f"[12] K3 vs plain, {what}, from {label}, 20 steps: state "
+        print(f"[{tag}] K3 vs plain, {what}, from {label}, 20 steps: state "
               f"and accumulators max abs {err:.3e} (DTFT max rel "
               f"{drel:.3e})", flush=True)
         if not err == 0.0:
             raise AssertionError(f"K3 is not bit for bit ({what}, from "
                                  f"{label}): max abs {err:.3e}")
-    return ker
+    return ker, wall
 
 
 def phase_mirror(mp, dev, card, main_ms, ring8, kers, twins):
@@ -1899,7 +1963,7 @@ def phase_mirror(mp, dev, card, main_ms, ring8, kers, twins):
                                                    "magnetic"}:
         raise AssertionError("767^2 with Mirror(Y) is not the magnetic wall")
     sim.run(until=24 * sim.dt)                       # warm-up: tables
-    ker = resident_counted_check(
+    ker, _ = resident_counted_check(
         sim, "767^2 disk, Mirror(Y) (magnetic wall), flux line", card,
         k3, 1000)
     kms, call_ms = time_resident(
@@ -1920,13 +1984,397 @@ def phase_mirror(mp, dev, card, main_ms, ring8, kers, twins):
     del sim
     sim, _ = flagship_sim(mp, 16, 8.0, dev, pml=0.25,
                           symmetries=[mp.Mirror(mp.Y)])
-    ker = resident_counted_check(
+    ker, _ = resident_counted_check(
         sim, "16^3 flagship folded on y (node mirror)", card, k3, 200)
     if not ker.schedule[1]["direct"]:
         raise AssertionError("the folded 16^3 flagship left the direct "
                              "schedule")
     del sim, ker
     torch.cuda.empty_cache()
+
+
+#: phase 13's 1D scene: thg_amplitude's Kerr medium and source
+#: (tests/test_nonlinear.py; Meep's python/tests/test_3rd_harm_1d.py) in a
+#: cell lengthened from 12 to 100 (4000 cells at resolution 40)
+THG = dict(length=100.0, res=40.0, f0=1.0 / 3.0, chi3=1e-3, pml=2.0)
+
+
+def thg_sim(mp, device, chi3):
+    """The 1D third-harmonic scene through the public Simulation: a cell
+    size along z only (a 1D cell), PML 2, an Ex Gaussian pump (f0 = 1/3,
+    fwidth f0 / 20) at z = -4 in a chi3 medium, the DTFT of Ex at z = 4 at
+    f0 and 3 f0 (add_dft_fields at a point) and a flux point there."""
+    f0 = THG["f0"]
+    src = mp.GaussianSource(f0, fwidth=f0 / 20)
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(0, 0, THG["length"]), resolution=THG["res"],
+        default_material=mp.Medium(chi3=chi3),
+        sources=[mp.Source(src, mp.Ex, center=mp.Vector3(0, 0, -4))],
+        boundary_layers=[mp.PML(THG["pml"])], device=device)
+    h = {"dft": sim.add_dft_fields([mp.Ex], 2 * f0, 2 * f0, 2,
+                                   center=mp.Vector3(0, 0, 4),
+                                   size=mp.Vector3()),
+         "flux": sim.add_flux(2 * f0, 2 * f0, 2,
+                              mp.FluxRegion(center=mp.Vector3(0, 0, 4)))}
+    return sim, h, src.last_time() + 20
+
+
+def thg_run(mp, device, chi3):
+    """thg_sim run to 20 after the pump: (|DTFT of Ex| at f0 and 3 f0,
+    the fluxes, the simulation, its wall seconds)."""
+    import numpy as np
+    import torch
+    sim, h, until = thg_sim(mp, device, chi3)
+    sim.init_sim()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(until=until)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    amp = np.abs(sim.get_dft_array(h["dft"], mp.Ex).reshape(-1, 2).sum(0))
+    return amp, np.asarray(sim.get_fluxes(h["flux"])), sim, wall
+
+
+def rot_sym(mp, kind, phase):
+    return (mp.Rotate2 if kind == "rot2" else mp.Rotate4)(mp.Z, phase=phase)
+
+
+def rot_images(kind, phase, p):
+    """The point p = (x, y, ...) and its C2 (kind "rot2") or C4 images
+    about z, with phase^k (an Ez source's amplitude)."""
+    x, y, rest = p[0], p[1], tuple(p[2:])
+    pts = [(x, y), (-x, -y)] if kind == "rot2" else \
+        [(x, y), (-y, x), (-x, -y), (y, -x)]
+    return [((px, py) + rest, float(phase) ** k)
+            for k, (px, py) in enumerate(pts)]
+
+
+def rot_disk_sim(mp, n, device, kind, phase, folded, **sim_kw):
+    """bench.py::run_resident's scene (resident_sim) at an even count n,
+    the disk's radius 1e-9 larger (at n = 768 the surface passes exactly
+    through sites, whose smoothed eps would round differently on the two
+    sides), its Ez source moved into the retained quadrant off the fold
+    planes, (L / 3, L / 24), and a flux line in the quadrant; folded by
+    Rotate2 / Rotate4("z", phase), or the full cell carrying the source's
+    C2 or C4 images with phase^k."""
+    res = 16.0
+    L = n / res
+    imgs = rot_images(kind, phase, (L / 3, L / 24))
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(L, L), resolution=res,
+        geometry=[mp.Cylinder(radius=L / 6 + 1e-9,
+                              material=mp.Medium(epsilon=12))],
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
+                           component=mp.Ez, center=mp.Vector3(*c),
+                           amplitude=a)
+                 for c, a in (imgs[:1] if folded else imgs)],
+        boundary_layers=[mp.PML(1.0)], device=device,
+        symmetries=[rot_sym(mp, kind, phase)] if folded else [], **sim_kw)
+    fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
+        center=mp.Vector3(0.4 * L, L / 6), size=mp.Vector3(0, L / 4)))
+    sim.init_sim()
+    return sim, fl
+
+
+def rot_flagship(mp, n, res, device, kind, folded, pml=1.0):
+    """The linear flagship (the eps=4 ball without its pole and chi2: a
+    rotation refuses chi2/chi3) with its Ez source at (0.15, 0.1, 0.02) L
+    in the retained quadrant and an x-normal flux plane in it (x = 0.3 L,
+    y from 0.1 L to 0.4 L); folded by Rotate2 / Rotate4("z"), or the full
+    cell carrying the source's C2 or C4 images."""
+    L = n / res
+    imgs = rot_images(kind, 1, (0.15 * L, 0.1 * L, 0.02 * L))
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(L, L, L), resolution=res,
+        geometry=[mp.Sphere(radius=L / 4, material=mp.Medium(epsilon=4.0))],
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
+                           component=mp.Ez, center=mp.Vector3(*c),
+                           amplitude=a)
+                 for c, a in (imgs[:1] if folded else imgs)],
+        boundary_layers=[mp.PML(pml)], eps_averaging=False, device=device,
+        symmetries=[rot_sym(mp, kind, 1)] if folded else [])
+    fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
+        center=mp.Vector3(0.3 * L, 0.25 * L, 0),
+        size=mp.Vector3(0, 0.3 * L, 0.4 * L)))
+    sim.init_sim()
+    return sim, fl
+
+
+def rot4_fp64(mp, n, dev, phase, nsteps, card):
+    """The n^2 disk folded by Rotate4 against its full cell in fp64 (the
+    eager stepper: K3 is fp32 only), nsteps steps.  A C4 turn swaps the
+    roles of the x and y PML chains, so in fp32 the full cell is
+    C4-symmetric only to round-off, which grows with the steps (the fp32
+    gate of 13.1 is 5e-6 at 1024 steps, not 3e-6); in fp64 the same
+    comparison must read round-off of fp64 (gate 1e-12), which shows that
+    the fp32 difference is round-off and not a fault of the fold."""
+    import numpy as np
+    out = {}
+    for folded in (False, True):
+        sim, fl = rot_disk_sim(mp, n, dev, "rot4", phase, folded,
+                               dtype=np.float64)
+        sim.run(until=nsteps * sim.dt)
+        if set(sim.routes) != {"eager"}:
+            raise AssertionError(f"fp64 {n}^2 rot4: routes {dict(sim.routes)}")
+        out[folded] = (np.asarray(sim.get_fluxes(fl)), sim.get_array(mp.Ez))
+        del sim
+    dflux = rel_diff(out[True][0], out[False][0])
+    dez = rel_diff(out[True][1], out[False][1])
+    print(f"[13] {n}^2 rot4 phase {phase} in fp64 (eager), folded vs full "
+          f"cell ({nsteps} steps): fluxes max rel {dflux:.3e}, unfolded Ez "
+          f"max abs over max {dez:.3e} ({card})", flush=True)
+    if not (dflux <= 1e-12 and dez <= 1e-12):
+        raise AssertionError(f"fp64 {n}^2 rot4: folded and full cells "
+                             f"differ: flux {dflux:.3e}, Ez {dez:.3e}")
+
+
+def phase_rotate(mp, dev, card, kers, twins):
+    """Phase 13: Rotate2 / Rotate4 folds and 1D cells.  `kers`: the K3 and
+    K4 table entries, to which the phase adds its launches; `twins`: the
+    CPU runs (start_cpu_twins), which phase 11 has waited for."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import resident as R
+    k3, k4 = kers
+    # ---- 13.1: the 768^2 disk folded by Rotate2 and Rotate4 ------------
+    n, nsteps = 768, 1000
+    for kind, phase in (("rot2", 1), ("rot4", -1)):
+        out = {}
+        for folded in (False, True):
+            sim, fl = rot_disk_sim(mp, n, dev, kind, phase, folded)
+            what = (f"768^2 disk, {kind} phase {phase}, "
+                    f"{'folded' if folded else 'full cell, its images'}")
+            sim.run(until=24 * sim.dt)               # warm-up: tables
+            ker, wall = resident_counted_check(sim, what, card, k3, nsteps,
+                                               tag="13")
+            if folded and ker.schedule[1]["direct"] != 2:
+                raise AssertionError(f"{what}: schedule {ker.schedule[1]}")
+            if folded:
+                # K4 on the fold too: a probe in the dropped part (folded
+                # onto the wedge), from the run's end state
+                probe = [sim._point_probe("p", mp.Ez, mp.Vector3(
+                    -n / 80, n / 70))]
+                err, _, _, serr = compare_resident(ker, sim.fields_state,
+                                                   sim._t, 20, probe)
+                print(f"[13] K4 vs plain, {what}, a probe at "
+                      f"{probe[0].indices.tolist()}, 20 steps: state max abs "
+                      f"{err:.3e}, series max abs {serr:.3e}", flush=True)
+                if not (err == 0.0 and serr == 0.0):
+                    raise AssertionError(f"K4 is not bit for bit ({what}): "
+                                         f"{err:.3e}, series {serr:.3e}")
+            kms, call_ms = time_resident(
+                lambda s_, n_: ker._run(s_, n_, sim._t, ()),
+                sim.fields_state, nsteps)
+            cells = int(np.prod(sim.gv.num))
+            print(f"[13] K3 at the {what} ({sim.gv.num} cells): {kms:.4f} "
+                  f"ms/step = {cells / kms / 1e6:.3f} GCells/s of its own "
+                  f"cells (the wrapper's call {call_ms:.4f}; Simulation.run "
+                  f"{wall / nsteps * 1e3:.4f} ms/step); bound "
+                  f"{bound(R.step_cost(sim.plan, nsteps))[0] / nsteps:.6f} "
+                  f"ms/step; {schedule_text(ker, nsteps, False)} ({card})",
+                  flush=True)
+            out[folded] = (sim.get_fluxes(fl), sim.get_array(mp.Ez))
+            del sim, ker
+        dflux = rel_diff(out[True][0], out[False][0])
+        dez = rel_diff(out[True][1], out[False][1])
+        print(f"[13] 768^2 {kind} phase {phase}, folded vs full cell "
+              f"({nsteps + 24} steps): fluxes max rel {dflux:.3e} "
+              f"({out[False][0].tolist()}), unfolded Ez max abs over max "
+              f"{dez:.3e}", flush=True)
+        if not (dflux <= 1e-6 and dez <= (5e-6 if kind == "rot4" else 3e-6)
+                and out[True][1].shape == out[False][1].shape):
+            raise AssertionError(f"768^2 {kind}: folded and full cells "
+                                 f"differ: flux {dflux:.3e}, Ez {dez:.3e}")
+        if kind == "rot4":
+            rot4_fp64(mp, n, dev, phase, nsteps + 24, card)
+    torch.cuda.empty_cache()
+
+    # ---- 13.2: Meep's ring with Rotate2 at phases +1 and -1 (K4) -------
+    child, path, _ = twins
+    if child.wait(timeout=900) != 0:
+        raise AssertionError("the CPU runs failed")
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    for phase in (1, -1):
+        sim = ring_sim(mp, 10, dev, symmetries=[mp.Rotate2(mp.Z, phase)])
+        h = mp.Harminv(mp.Ez, mp.Vector3(1.1), 0.15, 0.1)
+        sim.init_sim()
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(
+            sim, mp.after_sources(h), until_after_sources=300)
+        if launches or probed != sim.routes["resident"] or not probed:
+            raise AssertionError(f"ring rot2 {phase}: K3 {launches}, K4 "
+                                 f"{probed}, routes {dict(sim.routes)}")
+        k4["launches"] += probed
+        ker = sim.plan._resident_kernel
+        modes = np.array([(m.freq, m.Q, m.amp) for m in h.modes])
+        cpu = want[f"ring_r2{phase}_modes"]
+        worst = 0.0
+        for f, q, a in cpu:
+            if q > 50:
+                g = min(modes[:, 0], key=lambda v: abs(v - f))
+                worst = max(worst, abs(g - f) / abs(f))
+        sched = schedule_text(ker, 1024, True)
+        print(f"[13] ring.py with Rotate2(z, phase={phase}) "
+              f"({sim.plan.storage_shape}): {sim._t} steps in {wall:.3f} s "
+              f"= {wall / sim._t * 1e3:.4f} ms/step, K4 launches {probed}, "
+              f"routes {dict(sim.routes)}; Q > 50 modes against the CPU: "
+              f"frequencies max rel {worst:.3e}; {sched} ({card})",
+              flush=True)
+        print("[13] modes (freq, Q, amp): " + ", ".join(
+            f"({m.freq:.8f}, {m.Q:.1f}, {m.amp:.3e})" for m in h.modes),
+            flush=True)
+        if not (worst <= 1e-4 and np.any(cpu[:, 1] > 50)):
+            raise AssertionError(f"ring rot2 {phase}: modes differ from the "
+                                 f"CPU's by {worst:.3e}")
+        st, t_end = sim.fields_state, sim._t
+        probe = [sim._point_probe("hm0", mp.Ez, mp.Vector3(1.1))]
+        err, _, _, serr = compare_resident(ker, st, t_end, 20, probe)
+        print(f"[13] K4 vs plain at the Rotate2({phase}) ring's end state, 20"
+              f" steps: state max abs {err:.3e}, series max abs {serr:.3e}",
+              flush=True)
+        if not (err == 0.0 and serr == 0.0):
+            raise AssertionError(f"K4 is not bit for bit on the Rotate2 "
+                                 f"ring: {err:.3e}, series {serr:.3e}")
+        ms, call_ms = time_resident(
+            lambda s_, n_: ker._run(s_, n_, t_end, probe), st, 1024)
+        print(f"[13] K4 at the Rotate2({phase}) ring: {ms:.4f} ms/step over "
+              f"1024-step launches (the wrapper's call: {call_ms:.4f}); "
+              f"bound {bound(R.step_cost(sim.plan, 1024))[0] / 1024:.6f} "
+              f"ms/step ({card})", flush=True)
+        del sim, st
+    sim = ring_sim(mp, 10, dev, symmetries=[mp.Rotate2(mp.Z)])
+    sim.init_sim()
+    R._kernel(sim.plan)
+    wall, launches, probed = resident_run_counted(
+        sim, until_after_sources=ring_decay(mp))
+    if launches or probed != sim.routes["resident"] or probed < 2:
+        raise AssertionError(f"rot2 ring decay: K3 {launches}, K4 {probed}"
+                             f", routes {dict(sim.routes)}")
+    k4["launches"] += probed
+    print(f"[13] Rotate2 ring, stop_when_fields_decayed: stopped after "
+          f"{sim._t} steps in {wall:.3f} s = {wall / sim._t * 1e3:.4f} "
+          f"ms/step, K4 launches {probed}; the CPU twin stopped after "
+          f"{int(want['ring_r2_stop'])} ({card})", flush=True)
+    if sim._t != int(want["ring_r2_stop"]):
+        raise AssertionError(f"Rotate2 ring decay stops at {sim._t} on the "
+                             f"card, {int(want['ring_r2_stop'])} on the CPU")
+    del sim
+
+    # ---- 13.3: the 16^3 linear flagship folded (K3 in 3D) ---------------
+    for kind in ("rot2", "rot4"):
+        sim, fl = rot_flagship(mp, 16, 8.0, dev, kind, True, pml=0.25)
+        ker, _ = resident_counted_check(
+            sim, f"16^3 linear flagship, {kind}", card, k3, 200, tag="13")
+        if ker.schedule[1]["direct"] != 2:
+            raise AssertionError(f"16^3 {kind}: schedule {ker.schedule[1]}")
+        dflux = rel_diff(sim.get_fluxes(fl), want[f"{kind}16:flux"])
+        dez = rel_diff(sim.get_array(mp.Ez), want[f"{kind}16:ez"])
+        print(f"[13] 16^3 {kind}, card vs CPU: flux max rel {dflux:.3e}, "
+              f"unfolded Ez {dez:.3e}", flush=True)
+        if not (dflux <= 1e-4 and dez <= 1e-4):
+            raise AssertionError(f"16^3 {kind}: card and CPU differ: flux "
+                                 f"{dflux:.3e}, Ez {dez:.3e}")
+        del sim, ker
+
+    # ---- 13.4: 128^3 linear flagship folded: K3, or the eager stepper ---
+    n, res, nwarm, nsteps = 128, 16.0, 6, 60
+    for kind, route in (("rot4", "resident"), ("rot2", "eager")):
+        ez, ms = {}, {}
+        for folded in (True, False):
+            sim, fl = rot_flagship(mp, n, res, dev, kind, folded)
+            sim.run(until=nwarm * sim.dt)        # warm-up: builds, tables
+            what = f"128^3 linear flagship, {kind}"
+            if not folded:
+                wall, _ = timed_run(sim, nsteps)
+            elif route == "resident":
+                ker, wall = resident_counted_check(sim, what, card, k3,
+                                                   nsteps, tag="13")
+                if ker.schedule[1]["direct"] != 2:
+                    raise AssertionError(f"{what}: schedule "
+                                         f"{ker.schedule[1]}")
+                kms, call_ms = time_resident(
+                    lambda s_, n_: ker._run(s_, n_, sim._t, ()),
+                    sim.fields_state, nsteps)
+                print(f"[13] K3 at the {what} ({sim.gv.num} cells): "
+                      f"{kms:.4f} ms/step (the wrapper's call {call_ms:.4f}; "
+                      f"Simulation.run {wall / nsteps * 1e3:.4f}); bound "
+                      f"{bound(R.step_cost(sim.plan, nsteps))[0] / nsteps:.6f}"
+                      f" ms/step; {schedule_text(ker, nsteps, False)} "
+                      f"({card})", flush=True)
+                del ker
+            else:
+                sim.routes.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim.run(until=nsteps * sim.dt)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if set(sim.routes) != {route}:
+                    raise AssertionError(f"{what}: routes {dict(sim.routes)}")
+            ms[folded] = wall / nsteps * 1e3
+            if folded:
+                plan = sim.plan
+                shape = plan.storage_shape or plan.gv.shape
+                cells = int(np.prod(sim.gv.num))
+                print(f"[13] {what} ({sim.gv.num} cells, storage "
+                      f"{tuple(shape)}, doubled state "
+                      f"{2 * R._state_bytes(plan) / 2 ** 20:.1f} MiB against "
+                      f"the resident budget {R.VMEM_BUDGET / 2 ** 20:.0f}): "
+                      f"routes {dict(sim.routes)}; hybrid applicable "
+                      f"{HY.hybrid_applicable(plan)}", flush=True)
+            L = n / res
+            ez[folded] = sim.get_array(mp.Ez, center=mp.Vector3(),
+                                       size=mp.Vector3(L, L, L))
+            del sim
+            torch.cuda.empty_cache()
+        dez = rel_diff(ez[True], ez[False])
+        print(f"[13] 128^3 {kind}, {nsteps} steps after {nwarm} of warm-up: "
+              f"{route} route {ms[True]:.4f} ms/step = "
+              f"{cells / ms[True] / 1e6:.3f} GCells/s of its {cells} cells; "
+              f"the full cell on the hybrid route {ms[False]:.4f} ms/step; "
+              f"unfolded Ez against the full cell max abs over max "
+              f"{dez:.3e} ({card})", flush=True)
+        if not (dez <= 3e-6 and ez[True].shape == ez[False].shape):
+            raise AssertionError(f"128^3 {kind}: folded and full cells "
+                                 f"differ by {dez:.3e}")
+        del ez
+
+    # ---- 13.5: a 1D cell, third-harmonic generation (eager) ------------
+    amps = {}
+    for chi3 in (THG["chi3"], 2 * THG["chi3"]):
+        amp, flux, sim, wall = thg_run(mp, dev, chi3)
+        amps[chi3] = amp
+        if dict(sim.routes).keys() != {"eager"}:
+            raise AssertionError(f"1D: routes {dict(sim.routes)}")
+        print(f"[13] 1D Kerr third harmonic ({sim.gv.shape[0]} sites, "
+              f"chi3 {chi3}): {sim._t} steps in {wall:.3f} s = "
+              f"{wall / sim._t * 1e3:.4f} ms/step, routes "
+              f"{dict(sim.routes)}; |DTFT Ex| at f0, 3 f0 {amp.tolist()}, "
+              f"flux {flux.tolist()} ({card})", flush=True)
+        if chi3 == THG["chi3"]:
+            if sim._t != int(want["thg_steps"]):
+                raise AssertionError("1D: the card ran another step count")
+            # each frequency against its own magnitude: the 3 f0 harmonic
+            # is ~1e-3 of the pump
+            damp = rel_each(amp, want["thg_amp"])
+            dflux = rel_each(flux, want["thg_flux"])
+            print(f"[13] 1D, card vs CPU, at f0 and 3 f0 each against its "
+                  f"own magnitude: |DTFT| max rel {damp:.3e}, flux max rel "
+                  f"{dflux:.3e}", flush=True)
+            if not (damp <= 1e-4 and dflux <= 1e-4):
+                raise AssertionError(f"1D: card and CPU differ: {damp:.3e},"
+                                     f" flux {dflux:.3e}")
+        del sim
+    a1, a2 = amps[THG["chi3"]], amps[2 * THG["chi3"]]
+    ratio = a2[1] / a1[1]
+    print(f"[13] 1D third harmonic with chi3 doubled: x {ratio:.4f} (pump "
+          f"x {a2[0] / a1[0]:.6f})", flush=True)
+    if not (abs(ratio - 2.0) <= 0.1 and abs(a2[0] / a1[0] - 1) <= 1e-3):
+        raise AssertionError(f"1D: the third harmonic scales by {ratio:.4f}")
 
 
 def main() -> int:
@@ -1937,10 +2385,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     twins = start_cpu_twins()
+    child, _, tmp = twins
     try:
         return run_phases(twins)
     finally:
-        child, _, tmp = twins
         if child.poll() is None:
             child.kill()
             child.wait()
@@ -1948,7 +2396,8 @@ def main() -> int:
 
 
 def run_phases(twins) -> int:
-    """Phases 1-12 (the module docstring); `twins`: start_cpu_twins()."""
+    """Phases 1-13 (the module docstring); `twins`: the CPU runs
+    (start_cpu_twins)."""
     import numpy as np
     import torch
     import meep_nl_tpu_torch as mp
@@ -1959,6 +2408,7 @@ def run_phases(twins) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
@@ -1985,7 +2435,7 @@ def run_phases(twins) -> int:
           f"a block, tiles up to {lib2.mnt_tile}; shared memory: "
           f"{smem[0]} bytes a block at most, {smem[1]} an SM", flush=True)
     for name, what in (("fdtd3d", "K1"), ("fdtd3d_t2", "K2"),
-                       ("fused", "K5")):
+                       ("resident", "K3/K4"), ("fused", "K5")):
         print(f"[2] nvcc -Xptxas -v, csrc/{name}.cu ({what}):\n"
               f"{reports[name]}", flush=True)
 
@@ -2275,6 +2725,9 @@ def run_phases(twins) -> int:
     phase_monitors(mp, dev, card, modes, main_ms, k1, k3, twins)
     phase_mirror(mp, dev, card, main_ms, (ring_series, modes),
                  (k1, k2, k3, k4), twins)
+    phase_rotate(mp, dev, card, (k3, k4), twins)
+    print(f"[13] phases 1-13 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))

@@ -76,6 +76,17 @@
 //     whole grid), the whole grid is one tile whose sites the grid's
 //     threads share, and the step's sub-updates run in place with a grid
 //     barrier where a tile pass has a block barrier (2-7 a step).
+//   * Fold ghosts: below a fold plane on whole sites the D curl's backward
+//     difference reads a ghost instead of the zero fill.  A node mirror's
+//     is sign * g[k0] on the partner's own column, inside any staged box
+//     (gk / gs, every schedule).  A rotational fold's reads across the
+//     grid -- C2: the partner flipped over the flip axis's live extent at
+//     row k0; C4: the x<->y-swapped component, transposed -- so rotational
+//     plans take the direct schedule, where every H value is visible when
+//     the D curl runs, in its ROT variant (Tiling.direct = 2), whose D
+//     curl reads gs * base[gsrc slot][site + goff + j * gmul] (j the
+//     site's index along gax, zero where j >= glim); the other variants
+//     are compiled without it.
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -182,6 +193,12 @@ struct ResArgs {
   // (0: none) of sign * g[k0], read below plane 0 of the partner's axis
   i64 gk[NCOMP][2];
   double gs[NCOMP][2];
+  // the rotational fold ghosts (the ROT variant of the direct schedule,
+  // whose box is the grid; set_ghosts): the ghost below plane 0 is
+  // gs * the array of slot token gsrc (0: none) at the site's offset +
+  // goff + j * gmul, j the site's index along axis gax, 0 where j >= glim
+  i64 gsrc[NCOMP][2], goff[NCOMP][2], gmul[NCOMP][2], gax[NCOMP][2],
+      glim[NCOMP][2];
 };
 
 // the box a block stages in a pass: origin and extents in the grid
@@ -408,15 +425,43 @@ __device__ __forceinline__ float diff_t(const float* sm, int g, int ax,
   return (c < b.n[ax] - 1 ? sm[g + x.l + st] : 0.0f) - sm[g + x.l];
 }
 
-// step._curl_update of one component at one site
-template <bool IS_D>
+// the D curl's backward difference of the staged array at offset g in the
+// ROT variant (direct schedule: the box is the grid): below plane 0 of
+// axis ax it reads partner m of component q's rotational ghost (A.gsrc,
+// ...; step.rot2_ghost / rot4_ghost)
+__device__ __forceinline__ float diff_rot(const float* sm, int g, int ax,
+                                          int st, const ResArgs& A, int vol,
+                                          int q, int m, const Loc& x) {
+  float lo = 0.0f;
+  if (coord_of(ax, x) > 0) {
+    lo = sm[g + x.l - st];
+  } else if (A.gsrc[q][m]) {
+    const int j = A.gax[q][m] >= 0 ? coord_of((int)A.gax[q][m], x) : 0;
+    if (j < A.glim[q][m])
+      lo = (float)A.gs[q][m] *
+           sm[((int)A.gsrc[q][m] - 1) * vol + x.l + (int)A.goff[q][m] +
+              j * (int)A.gmul[q][m]];
+  }
+  return sm[g + x.l] - lo;
+}
+
+// step._curl_update of one component (q of its family) at one site; ROT:
+// the D curl reads the rotational ghosts of A
+template <bool IS_D, bool ROT>
 __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
-                                       const Box& b, const Loc& x) {
+                                       const Box& b, const Loc& x,
+                                       const ResArgs& A, int q) {
   float dp = 0.0f, dm = 0.0f;
-  if (c.gp >= 0)
-    dp = diff_t<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x);
-  if (c.gm >= 0)
-    dm = diff_t<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x);
+  if (IS_D && ROT) {
+    const int vol = (int)A.tl.vol;
+    if (c.gp >= 0) dp = diff_rot(sm, c.gp, c.ap, c.stp, A, vol, q, 0, x);
+    if (c.gm >= 0) dm = diff_rot(sm, c.gm, c.am, c.stm, A, vol, q, 1, x);
+  } else {
+    if (c.gp >= 0)
+      dp = diff_t<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x);
+    if (c.gm >= 0)
+      dm = diff_t<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x);
+  }
   const float dfl = curl_delta<float>(c.gp >= 0, dp, c.gm >= 0, dm, csgn);
   const float f = sm[c.f + x.l];
   float kap = 0.0f, sig = 0.0f, siginv = 0.0f;
@@ -538,15 +583,16 @@ __device__ __forceinline__ void eh_t(const FamT& F, const EhT& e,
 
 // the curl of every component of family F over [lo, hi), component by
 // component (each one's descriptor in registers)
-template <bool IS_D>
+template <bool IS_D, bool ROT>
 __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
                                          const Box& b, const int* lo,
-                                         const int* hi, const Team& tm) {
+                                         const int* hi, const Team& tm,
+                                         const ResArgs& A) {
   const float csgn = F.s.csgn;
   for (int q = 0; q < F.s.ncurl; ++q) {
     const CurlT c = F.curl[q];
     over(b, lo, hi, tm,
-         [&](const Loc& x) { curl_t<IS_D>(c, csgn, sm, b, x); });
+         [&](const Loc& x) { curl_t<IS_D, ROT>(c, csgn, sm, b, x, A, q); });
   }
 }
 
@@ -781,8 +827,9 @@ __device__ __forceinline__ void copy_box(const void* const* grid, float* sm,
 
 // the Tp steps of pass `pass` on box b (staged in sm, or the grid itself
 // in the direct schedule), interior [lo, hi); `tf` the descriptors on b,
-// `mine` the thread's first probe point
-template <bool NL, bool PROBED, bool DIRECT>
+// `mine` the thread's first probe point; ROT: the rotational ghosts (direct
+// schedule only)
+template <bool NL, bool PROBED, bool DIRECT, bool ROT>
 __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
                            float* sm, const Box& b, const int* lo,
                            const int* hi, int tile, i64 pass, int Tp,
@@ -810,7 +857,7 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
       ehi[ax] = min(S[ax], hi[ax] + H - 1 - nl);
     }
     // B curl (+ H)
-    curl_all<false>(FB, sm, b, blo, bhi, tm);
+    curl_all<false, false>(FB, sm, b, blo, bhi, tm, A);
     if (!bsrc) eh_all<false>(FB, sm, b, blo, bhi, tm);
     bar<DIRECT>();
     if (bsrc) {
@@ -821,7 +868,7 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
     }
     // D curl (+ E)
     const bool fused = A.e_local && !dsrc;
-    curl_all<true>(FD, sm, b, dlo, bhi, tm);
+    curl_all<true, ROT>(FD, sm, b, dlo, bhi, tm, A);
     if (fused) eh_all<NL>(FD, sm, b, dlo, bhi, tm);
     bar<DIRECT>();
     if (!fused) {
@@ -908,7 +955,8 @@ __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
       sm[tl.nslot * vol + u] = ((const float*)vt[2 * v])[b.o[ax] + m];
   }
   __syncthreads();
-  pass_steps<NL, PROBED, false>(A, tf, sm, b, lo, hi, tile, pass, Tp, mine);
+  pass_steps<NL, PROBED, false, false>(A, tf, sm, b, lo, hi, tile, pass, Tp,
+                                       mine);
   // the interior into the set this pass writes
   copy_box<false>(A.set[(pass + 1) & 1], sm, vol, (int)tl.nstate, b, lo, n,
                   S1, S2);
@@ -917,8 +965,9 @@ __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
 
 // NL: the E family carries chi3 / chi2-NR coefficients; PROBED: K4; DIRECT:
 // the direct schedule (one tile, the whole grid, stepped in place in A.base
-// by all the grid's threads, T = 1)
-template <bool NL, bool PROBED, bool DIRECT>
+// by all the grid's threads, T = 1); ROT (with DIRECT): the rotational fold
+// ghosts
+template <bool NL, bool PROBED, bool DIRECT, bool ROT>
 __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     k3_kernel(const ResArgs* gA) {
   __shared__ __align__(16) ResArgs A;
@@ -942,8 +991,8 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     // the probe products)
     for (i64 p = 0; p < npass; ++p) {
       if (PROBED && p > 0) probe_sums(A, p - 1);
-      pass_steps<NL, PROBED, true>(A, tf, (float*)A.base, b, lo, hi, 0, p, 1,
-                                   mine);
+      pass_steps<NL, PROBED, true, ROT>(A, tf, (float*)A.base, b, lo, hi, 0,
+                                        p, 1, mine);
     }
   } else {
     cg::grid_group grid = cg::this_grid();
@@ -964,11 +1013,17 @@ static int threads_of(int nl) { return nl ? NTHR / 2 : NTHR; }
 
 template <bool NL, bool PROBED>
 static const void* kernel_dir(int direct) {
-  return direct ? (const void*)k3_kernel<NL, PROBED, true>
-                : (const void*)k3_kernel<NL, PROBED, false>;
+  return direct ? (const void*)k3_kernel<NL, PROBED, true, false>
+                : (const void*)k3_kernel<NL, PROBED, false, false>;
 }
 
+// the variant; direct 2: the direct schedule with the rotational ghosts
+// (linear plans only: a fold declines chi2/chi3), else nullptr
 static const void* kernel_of(int nl, int probed, int direct) {
+  if (direct == 2)
+    return nl ? nullptr
+              : (probed ? (const void*)k3_kernel<false, true, true, true>
+                        : (const void*)k3_kernel<false, false, true, true>);
   if (nl)
     return probed ? kernel_dir<true, true>(direct)
                   : kernel_dir<true, false>(direct);
@@ -1018,12 +1073,14 @@ int mnt_k3_sms(void) {
   return e == cudaSuccess ? sms : -(int)e;
 }
 
-// the largest co-resident grid of the variant (nl, probed, direct) with
+// the largest co-resident grid of the variant (nl, probed, direct: 0 tiles,
+// 1 the direct schedule, 2 with the rotational ghosts) with
 // `smem` bytes of dynamic shared memory on the current device, after
 // allowing the variant that much there; or -cudaError.  The wrapper asks
 // once per device, variant and smem, and launches at most that many blocks.
 int mnt_k3_max_blocks(int nl, int probed, int direct, int smem) {
-  const void* fn = kernel_of(nl != 0, probed != 0, direct != 0);
+  const void* fn = kernel_of(nl != 0, probed != 0, direct);
+  if (!fn) return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1062,7 +1119,13 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
     }
   }
   const Tiling& tl = host->tl;
-  const int direct = tl.direct ? 1 : 0;
+  const int direct = (int)tl.direct;
+  if (direct < 0 || direct > 2) return (int)cudaErrorInvalidValue;
+  // rotational ghosts only in their variant, which has them
+  bool rot = false;
+  for (int q = 0; q < NCOMP; ++q)
+    for (int m = 0; m < 2; ++m) rot = rot || host->gsrc[q][m] != 0;
+  if (rot != (direct == 2)) return (int)cudaErrorInvalidValue;
   if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const i64 ntile = tl.nt[0] * tl.nt[1] * tl.nt[2];
@@ -1070,6 +1133,7 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
     return (int)cudaErrorInvalidValue;
   const int nl = has_nl(host->pd[0]) ? 1 : 0;
   const int probed = host->pr.nprobe > 0 ? 1 : 0;
+  if (!kernel_of(nl, probed, direct)) return (int)cudaErrorInvalidValue;
   void* kargs[] = {(void*)&args};
   cudaError_t e = cudaLaunchCooperativeKernel(
       kernel_of(nl, probed, direct), dim3((unsigned)blocks),

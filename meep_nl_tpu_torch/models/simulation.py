@@ -31,10 +31,16 @@ the reference does (simulation.py:455-611): the retained half is the high
 one, the plane its low face, which becomes a metal wall (phase -1, even
 cell count), a magnetic wall (phase +1, odd count; the cell grows by dx/2)
 or, for phase +1 on an even count, no wall but the node-mirror ghost of
-the stepper and the kernels (plan.mirror_node).  Sources, monitors, probes
-and the getters fold and unfold through the plane.  Rotate2 / Rotate4,
-k-points, 1D and cylindrical cells wait for later slices (ROADMAP A5, A8,
-A9); each raises NotImplementedError naming its item.
+the stepper and the kernels (plan.mirror_node).  `Rotate2(w)` halves the
+cell along the first axis perpendicular to w, `Rotate4(w)` quarters a
+square cell in the plane perpendicular to w (even counts; the rotation
+axis on whole sites, no wall): the stepper and K3/K4 read the C2 / C4
+ghost across the fold planes (plan.rot2 / plan.rot4).  Sources,
+monitors, probes and the getters fold and unfold through the planes.
+1D cells (a cell size along z only) carry both transverse polarizations
+and run on the eager stepper, as on the reference's jnp path.  k-points
+and cylindrical cells wait for later slices (ROADMAP A8, A9); each raises
+NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -93,16 +99,23 @@ class Mirror(Symmetry):
 
 @dataclasses.dataclass
 class Rotate2(Symmetry):
-    """C2 rotational-symmetry declaration (python/simulation.py Rotate2);
-    the port does not run it yet (ROADMAP A5)."""
+    """C2 rotational-symmetry declaration (python/simulation.py Rotate2;
+    vec.hpp:1189-1232 rotate2): a half turn about `direction`.  The cell
+    is halved along the first perpendicular axis (even count there), the
+    rotation axis on whole sites at its low face; a source in the dropped
+    half maps to its C2 image with phase * the component's two mirror
+    parities."""
     direction: str = "z"
     phase: int = 1
 
 
 @dataclasses.dataclass
 class Rotate4(Symmetry):
-    """C4 rotational-symmetry declaration (python/simulation.py Rotate4);
-    the port does not run it yet (ROADMAP A5)."""
+    """C4 rotational-symmetry declaration (python/simulation.py Rotate4;
+    vec.hpp:1189-1232 rotate4): a quarter turn about `direction`, phase
+    +1 or -1.  A square cell is quartered (even counts on both
+    perpendicular axes), the rotation axis at the retained quadrant's
+    low corner; sources outside it turn into it by quarter turns."""
     direction: str = "z"
     phase: int = 1
 
@@ -220,9 +233,8 @@ class Simulation:
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
         if dimensions == 1 or (cs.x == 0 and cs.y == 0 and cs.z > 0):
-            raise NotImplementedError(
-                "1D cells are not ported yet (ROADMAP A5)")
-        if dimensions in (None, 2) and cs.z == 0 and cs.x > 0 and cs.y > 0:
+            dim, size = "1d", [cs.z]
+        elif dimensions in (None, 2) and cs.z == 0 and cs.x > 0 and cs.y > 0:
             dim, size = "2d", [cs.x, cs.y]
         elif dimensions in (-2, "cyl", "CYLINDRICAL"):
             raise NotImplementedError(
@@ -252,6 +264,11 @@ class Simulation:
         self._mirrors: List[Any] = []
         #: axes whose mirror plane lies on whole sites (the ghost, no wall)
         self._mirror_node = set()
+        #: the C2 fold (fold axis, flip axis, rotation axis letter, phase)
+        #: and the C4 fold (ax1, ax2, rotation axis letter, phase), as
+        #: plan.rot2 / plan.rot4
+        self._rot2 = None
+        self._rot4 = None
         self.symmetries = list(symmetries)
         origin = self._fold_cell(dim, size)
         self.gv = G.GridVolume.create(dim, size, self.resolution,
@@ -271,8 +288,9 @@ class Simulation:
 
     def _fold_cell(self, dim, size):
         """Halve `size` (in place) along each Mirror's axis and record its
-        wall or ghost (simulation.py:455-611, mirror branches); returns the
-        grid origin, or None for the centred cell."""
+        wall or ghost, or halve / quarter it for a rotation
+        (simulation.py:455-611); returns the grid origin, or None for the
+        centred cell."""
         if not self.symmetries:
             return None
         axes = G._DIM_AXES[dim]
@@ -280,14 +298,17 @@ class Simulation:
         origin = [-sz / 2 for sz in size]
         for sym in self.symmetries:
             if isinstance(sym, (Rotate2, Rotate4)):
-                raise NotImplementedError(
-                    f"{type(sym).__name__} symmetry is not ported yet "
-                    "(ROADMAP A5, Rotate2 / Rotate4)")
+                self._fold_rotation(sym, dim, size, origin)
+                continue
             if isinstance(sym, Identity):
                 continue
             if not isinstance(sym, Mirror):
                 raise NotImplementedError(
-                    "only Mirror symmetries are ported (ROADMAP A5)")
+                    "only Mirror/Rotate2/Rotate4 symmetries are supported")
+            if self._rot2 is not None or self._rot4 is not None:
+                raise NotImplementedError(
+                    "rotational symmetries combined with Mirror are not "
+                    "supported")
             d = sym.direction
             if d not in axes:
                 raise ValueError(f"no grid axis {d} in {dim}")
@@ -315,6 +336,59 @@ class Simulation:
                 self._boundaries[(d, "low")] = "magnetic"
             self._mirrors.append((ax, d, int(sym.phase)))
         return origin
+
+    def _fold_rotation(self, sym, dim, size, origin):
+        """The rotational branches of the constructor's fold
+        (simulation.py:494-561): Rotate4 quarters a square cell, Rotate2
+        halves the fold axis; even counts put the rotation axis on whole
+        sites, whose low faces become "none" (the ghost, no wall)."""
+        name = type(sym).__name__
+        if dim not in ("2d", "3d"):
+            raise NotImplementedError(f"{name} needs a 2d/3d cartesian cell")
+        axes = G._DIM_AXES[dim]
+        w = sym.direction
+        perp = [d for d in ("x", "y", "z") if d != w]
+        if any(d not in axes for d in perp):
+            raise ValueError(f"{name}({w}) needs both {perp[0]} and "
+                             f"{perp[1]} as grid axes")
+        if self._mirrors or self._rot2 is not None \
+                or self._rot4 is not None:
+            raise NotImplementedError(
+                f"{name} combined with other symmetries is not supported")
+        if isinstance(sym, Rotate4):
+            if sym.phase not in (1, -1):
+                raise NotImplementedError(
+                    "Rotate4 phase must be +1/-1 (the +/-i irreps need "
+                    "complex fields)")
+            folded = [axes.index(perp[0]), axes.index(perp[1])]
+            if abs(size[folded[0]] - size[folded[1]]) > 1e-12:
+                raise ValueError(f"Rotate4({w}) needs a square cell in the "
+                                 f"{perp[0]}{perp[1]} plane")
+        else:
+            folded = [axes.index(perp[0])]
+        for ax in folded:
+            n_full = int(round(size[ax] * self.resolution))
+            if n_full % 2:
+                raise ValueError(
+                    f"{name}({w}) needs an even cell count along {axes[ax]} "
+                    f"(have {n_full}) so the rotation axis lands on a whole "
+                    "grid site")
+            size[ax] = size[ax] / 2
+            origin[ax] = 0.0
+            self._boundaries[(axes[ax], "low")] = "none"
+        if isinstance(sym, Rotate4):
+            self._rot4 = (folded[0], folded[1], w, int(sym.phase))
+        else:
+            self._rot2 = (folded[0], axes.index(perp[1]), w, int(sym.phase))
+
+    def _folded_axes(self):
+        """The axes each of whose low face is a symmetry plane."""
+        out = {ax for ax, _, _ in self._mirrors}
+        if self._rot2 is not None:
+            out.add(self._rot2[0])
+        if self._rot4 is not None:
+            out.update(self._rot4[:2])
+        return out
 
     def set_boundary(self, side, direction, condition):
         """Set the wall condition on one cell face (meep.hpp:1776
@@ -435,9 +509,13 @@ class Simulation:
 
     def _fold_source(self, s):
         """A source in the dropped half of a mirrored cell, reflected onto
-        the retained half with phase * the component's mirror parity
-        (simulation.py:736-823, mirror branch); one that straddles a plane
-        asymmetrically raises."""
+        the retained half with phase * the component's mirror parity; one
+        that straddles a plane asymmetrically raises; on a rotational fold,
+        its image in the retained wedge (simulation.py:736-823)."""
+        if self._rot4 is not None:
+            return self._fold_source_rot4(s)
+        if self._rot2 is not None:
+            return self._fold_source_rot2(s)
         for ax, d, phase in self._mirrors:
             i = "xyz".index(d)
             c = list(_v3(s.center))
@@ -453,6 +531,65 @@ class Simulation:
                     s, center=Vector3(*c),
                     amplitude=s.amplitude * phase
                     * _mirror_parity(s.component, d))
+        return s
+
+    def _fold_source_rot4(self, s):
+        """A source outside the retained quadrant turned into it by quarter
+        turns R^-1: (x, y) -> (y, -x), its amplitude times phase per turn
+        (F_w(R r) = phase F_w(r)); a source straddling a fold plane, or an
+        in-plane component outside the quadrant (its fold swaps the
+        component), raises (simulation.py:742-782)."""
+        a1, a2, w, phase = self._rot4
+        i, j = "xyz".index(self.gv.axes[a1]), "xyz".index(self.gv.axes[a2])
+        c = list(_v3(s.center))
+        sz = list(_v3(s.size)) if s.size is not None else [0.0] * 3
+        lo_i, hi_i = c[i] - 0.5 * sz[i], c[i] + 0.5 * sz[i]
+        lo_j, hi_j = c[j] - 0.5 * sz[j], c[j] + 0.5 * sz[j]
+        if lo_i >= -1e-12 and lo_j >= -1e-12:
+            return s
+        if (lo_i < -1e-12 and hi_i > 1e-12) or \
+                (lo_j < -1e-12 and hi_j > 1e-12):
+            raise ValueError("source straddles a Rotate4 fold plane; place "
+                             "it in one quadrant")
+        if s.component[1] != w:
+            raise ValueError(
+                f"in-plane-component source ({s.component}) outside the "
+                "retained Rotate4 quadrant: its fold swaps the component; "
+                "place it in the retained quadrant")
+        amp = s.amplitude
+        for _ in range(3):
+            if c[i] >= -1e-12 and c[j] >= -1e-12:
+                break
+            c[i], c[j] = c[j], -c[i]
+            sz[i], sz[j] = sz[j], sz[i]
+            amp = amp * phase
+        return dataclasses.replace(s, center=Vector3(*c), size=Vector3(*sz),
+                                   amplitude=amp)
+
+    def _fold_source_rot2(self, s):
+        """A source in the dropped half mapped to its C2 image (both
+        perpendicular coordinates negated) with phase times the
+        component's parities under the two perpendicular mirrors; one
+        straddling the fold plane is kept only when centred on the
+        rotation axis (its dropped part's image is the retained part), else
+        raises (simulation.py:783-807)."""
+        fax, lax, _, phase = self._rot2
+        axes = self.gv.axes
+        i, j = "xyz".index(axes[fax]), "xyz".index(axes[lax])
+        c = list(_v3(s.center))
+        sz = list(_v3(s.size)) if s.size is not None else [0.0] * 3
+        if c[i] - 0.5 * sz[i] < -1e-12 and c[i] + 0.5 * sz[i] > 1e-12:
+            if abs(c[i]) > 1e-12 or abs(c[j]) > 1e-12:
+                raise ValueError(
+                    "source straddles the Rotate2 fold plane; center it on "
+                    "the rotation axis or place it in one half")
+            return s
+        if c[i] < -1e-12:
+            c[i], c[j] = -c[i], -c[j]
+            s = dataclasses.replace(
+                s, center=Vector3(*c), amplitude=s.amplitude * phase
+                * _mirror_parity(s.component, axes[fax])
+                * _mirror_parity(s.component, axes[lax]))
         return s
 
     def init_sim(self):
@@ -479,7 +616,8 @@ class Simulation:
                     region=tuple((int(a), int(b)) for a, b in zip(lo, hi)),
                     weights=w, freqs=self._ldos.freqs, centered=False))
         pmls = []
-        mirror_dirs = {d for _, d, _ in self._mirrors}
+        # a folded axis keeps its symmetry plane at the low side
+        mirror_dirs = {self.gv.axes[ax] for ax in self._folded_axes()}
         for bl in self.boundary_layers:
             dirs = list(self.gv.axes) if bl.direction == ALL \
                 else [bl.direction]
@@ -502,12 +640,44 @@ class Simulation:
             boundaries=self._boundaries or None,
             mirror_node=tuple(m for m in self._mirrors
                               if m[0] in self._mirror_node),
+            rot2=self._rot2, rot4=self._rot4,
             # 3D x storage padded to a multiple of 8 like the JAX package
-            # (simulation.py:1407), so both compile the same plan
-            pad_to_multiple=(8, 1, 1) if self.gv.dim == "3d" else 1,
+            # (simulation.py:1407), so both compile the same plan; a C4
+            # fold keeps its rotation plane's storage square (its ghost is
+            # a transposed read)
+            pad_to_multiple=(8, 1, 1) if self.gv.dim == "3d"
+            and self._rot4 is None else 1,
             device=self.device)
+        self._check_rotation_plan()
         self._plan.use_pallas = self.use_pallas
         self._state = S.init_state(self._plan)
+
+    def _check_rotation_plan(self):
+        """What the reference rejects on a rotational fold once the plan is
+        compiled (simulation.py:1409-1440): chi2/chi3 media (their
+        neighbour sums do not fold), and for Rotate4 also anisotropic
+        epsilon/mu (their neighbour averages cross the fold); BFAST,
+        cylindrical and complex-field runs."""
+        if self._rot2 is None and self._rot4 is None:
+            return
+        p = self._plan
+        name = "Rotate4" if self._rot4 is not None else "Rotate2"
+        specs = p.eh_specs_e + p.eh_specs_h
+        why = None
+        if any(sp.has_chi3 or sp.has_nr for sp in specs):
+            why = "chi2/chi3 nonlinear media (the NL neighbor sums do not " \
+                "fold)"
+        elif self._rot4 is not None and any(sp.has_u1 or sp.has_u2
+                                            for sp in specs):
+            why = "anisotropic epsilon (the OFFDIAG neighbor averages " \
+                "cross the fold)"
+        elif p.bfast_k is not None or p.m:
+            why = "BFAST/cylindrical runs"
+        elif self._rot4 is not None and p.complex_fields:
+            why = "complex fields (phase +/-1 irreps need real fields)"
+        if why is not None:
+            self._plan = None
+            raise NotImplementedError(f"{name} with {why} is not supported")
 
     # -------------------------------------------------------------- monitors
     def _resolve_decimation(self, decimation_factor, freqs):
@@ -550,8 +720,11 @@ class Simulation:
         clipped to the retained half, factor 1 + parity; one wholly in the
         dropped half maps to its image, factor parity; an asymmetric
         straddle raises.  `axes`: the half-offset-aligned axes folded
-        symmetrically, whose plane row `_mirror_fix_dft_specs` reweights."""
+        symmetrically, whose plane row `_mirror_fix_dft_specs` reweights.
+        On a rotational fold see `_fold_region_rot`."""
         center, size = list(center), list(size)
+        if self._rot2 is not None or self._rot4 is not None:
+            return self._fold_region_rot(center, size, parity_fn)
         factor = 1.0
         sym_axes = set()
         for ax, d, phase in self._mirrors:
@@ -585,6 +758,49 @@ class Simulation:
                     "one half of the cell")
         return center, size, factor, sym_axes
 
+    def _fold_region_rot(self, center, size, parity_fn):
+        """`_fold_region` on a rotational fold (simulation.py:871-900).
+        Rotate4: a region must lie in the retained quadrant (its images are
+        rotated surfaces with swapped components, which no weight
+        represents).  Rotate2: the product's C2 parity is its parities
+        under the two perpendicular mirrors, without the phase (the
+        monitored products are quadratic in the fields, so the phase
+        squares away; the reference multiplies by it, which flips an
+        imaged flux and zeroes a centred energy at phase -1, ROADMAP C.3);
+        a region wholly in the dropped half maps to its C2 image with that
+        factor, one centred on the rotation axis is clipped to the
+        retained half with factor 1 + parity, its edge just inside -dx/2
+        (the fold plane lies midway between centred columns, so the first
+        retained column keeps its interior weight); any other straddle
+        raises."""
+        if self._rot4 is not None:
+            for ax in self._rot4[:2]:
+                if center[ax] - 0.5 * size[ax] < -1e-9:
+                    raise ValueError(
+                        "DFT region extends outside the retained Rotate4 "
+                        "quadrant; place monitors in the quadrant (their "
+                        "images are rotated surfaces with swapped "
+                        "components, not representable by a weight)")
+            return center, size, 1.0, set()
+        fax, lax, _, _ = self._rot2
+        par = parity_fn(self.gv.axes[fax]) * parity_fn(self.gv.axes[lax])
+        lo = center[fax] - 0.5 * size[fax]
+        hi = center[fax] + 0.5 * size[fax]
+        if lo >= -1e-9:
+            return center, size, 1.0, set()
+        if hi <= 1e-9:
+            center[fax], center[lax] = -center[fax], -center[lax]
+            return center, size, par, set()
+        if abs(center[fax]) < 1e-9 and abs(center[lax]) < 1e-9:
+            lo2 = -0.5 * self.gv.dx * (1.0 - 1e-6)
+            center[fax] = 0.5 * (lo2 + hi)
+            size[fax] = hi - lo2
+            return center, size, 1.0 + par, set()
+        raise ValueError(
+            "DFT region straddles the Rotate2 fold plane asymmetrically; "
+            "center it on the rotation axis or place it in one half of the "
+            "cell")
+
     def _mirror_fix_dft_specs(self, specs, sym_axes):
         """On a half-offset-aligned mirror the first centred row of a
         symmetrically folded region lies on the plane, and its centred
@@ -605,16 +821,43 @@ class Simulation:
         return specs
 
     def _fold_point(self, component, c):
-        """(axes coordinates, factor) of a point folded into the retained
-        half (simulation.py:3494-3540, mirror branch):
-        F_component(pt) == factor * F_component(pt')."""
+        """(component', axes coordinates', factor) of a point folded into
+        the retained half or wedge (simulation.py:3494-3560):
+        F_component(pt) == factor * F_component'(pt').  Mirrors reflect with
+        phase * the component's parity; Rotate2 maps through the C2 image
+        (both perpendicular coordinates negated, the two parities);
+        Rotate4 turns the point by quarter turns, each swapping an in-plane
+        component with its partner, with the rotation-matrix signs of
+        step.rot4_ghost."""
         c = list(c)
         fac = 1.0
+        axes = self.gv.axes
         for ax, d, phase in self._mirrors:
             if c[ax] < -1e-12:
                 c[ax] = -c[ax]
                 fac *= phase * _mirror_parity(component, d)
-        return c, fac
+        if self._rot2 is not None:
+            fax, lax, _, phase = self._rot2
+            if c[fax] < -1e-12:
+                c[fax], c[lax] = -c[fax], -c[lax]
+                fac *= phase * _mirror_parity(component, axes[fax]) \
+                    * _mirror_parity(component, axes[lax])
+        if self._rot4 is not None:
+            a1, a2, w, phase = self._rot4
+            l1, l2 = axes[a1], axes[a2]
+            for _ in range(3):
+                if c[a1] >= -1e-12 and c[a2] >= -1e-12:
+                    break
+                c[a1], c[a2] = c[a2], -c[a1]
+                if component[1] == l1:
+                    fac *= -phase
+                    component = component[0] + l2
+                elif component[1] == l2:
+                    fac *= phase
+                    component = component[0] + l1
+                else:
+                    fac *= phase
+        return component, c, fac
 
     def _live(self) -> List[str]:
         live_e, live_h = self._live_components()
@@ -722,12 +965,12 @@ class Simulation:
         c_ax = _vec_to_axes(self.gv, center)
         s_ax = _vec_to_axes(self.gv, size)
         dec = self._resolve_decimation(decimation_factor, freqs)
-        for ax, _, _ in self._mirrors:
+        for ax in sorted(self._folded_axes()):
             if c_ax[ax] - s_ax[ax] / 2 < -1e-9:
                 # per-site DTFTs have no scalar fold factor
                 raise ValueError(
                     "add_dft_fields region extends into the dropped half of "
-                    f"the mirrored {self.gv.axes[ax]} axis; restrict it to "
+                    f"the folded {self.gv.axes[ax]} axis; restrict it to "
                     "the retained half (get_dft_array values there equal "
                     "the full cell's)")
         for c in components:
@@ -915,7 +1158,14 @@ class Simulation:
         mirror whose plane it crosses symmetrically: [(axis, letter)] of
         those mirrors; None for a surface wholly in the dropped half, whose
         contribution is the image of the partner face the far-field sum
-        adds (simulation.py:1595-1619)."""
+        adds (simulation.py:1595-1619).  On a rotational fold the surface
+        must lie in the retained wedge (simulation.py:1584-1595)."""
+        if self._rot2 is not None or self._rot4 is not None:
+            for ax in sorted(self._folded_axes()):
+                if center[ax] - 0.5 * size[ax] < -1e-9:
+                    raise ValueError("near2far with a rotational fold needs "
+                                     "the near surface in the retained "
+                                     "wedge")
         clipped = []
         for ax, d, phase in self._mirrors:
             lo = center[ax] - 0.5 * size[ax]
@@ -1097,7 +1347,8 @@ class Simulation:
     def _point_probe(self, name, component, pt) -> S.ProbeSpec:
         """A probe of `component` interpolated at point `pt`, folded into
         the retained half (simulation.py:2735-2760)."""
-        axc, fac = self._fold_point(component, _vec_to_axes(self.gv, pt))
+        component, axc, fac = self._fold_point(component,
+                                               _vec_to_axes(self.gv, pt))
         pts = self.gv.interp_weights(component, axc)
         return S.ProbeSpec(name, component,
                            np.array([p for p, w in pts], np.int32),
@@ -1194,7 +1445,12 @@ class Simulation:
         retained half of a mirrored cell (simulation.py:3456, without
         derived quantities)."""
         self.init_sim()
-        axc, fac = self._fold_point(component, _vec_to_axes(self.gv, pt))
+        asked = component
+        component, axc, fac = self._fold_point(component,
+                                               _vec_to_axes(self.gv, pt))
+        if component != asked and component not in self._state["f"]:
+            # a Rotate4 fold swapped in a partner the cell does not carry
+            return 0j
         pts = self.gv.interp_weights(component, axc)
         arr = self._state["f"][component]
         return fac * sum(w * complex(arr[tuple(idx)]) for idx, w in pts)
@@ -1206,12 +1462,18 @@ class Simulation:
         Default (snap=False): interpolated from the Yee sites onto the
         cell's integer lattice; along axes where the component sits at
         half-integer sites, 2-point averages with zero ghosts at both ends.
-        snap=True returns the raw component-lattice array."""
+        snap=True returns the raw component-lattice array.  On a Rotate4
+        fold an in-plane component unfolds on its raw lattice first (its
+        rotated quadrants carry the swapped component,
+        `_unfold_rot4_inplane`), then collapses on the full cell."""
         self.init_sim()
-        arr = self._state["f"][component].detach().cpu().numpy()
-        arr = arr[tuple(slice(0, n + 1) for n in self.gv.num)]
+        arr = self._field_np(component)
         coords = [self.gv.comp_coords(component, ax)
                   for ax in range(self.gv.ndim)]
+        rot4_inplane = self._rot4 is not None and \
+            component[1] != self._rot4[2]
+        if rot4_inplane:
+            arr, coords = self._unfold_rot4_inplane(component, arr, coords)
         if not snap:
             ys = G.yee_shift(component, self.gv.dim)
             for ax, d in enumerate(self.gv.axes):
@@ -1227,7 +1489,8 @@ class Simulation:
                     cs = coords[ax]
                     coords[ax] = np.concatenate(
                         [cs - 0.5 * self.gv.dx, [cs[-1] + 0.5 * self.gv.dx]])
-        arr, coords = self._unfold(component, arr, coords)
+        if not rot4_inplane:
+            arr, coords = self._unfold(component, arr, coords)
         if center is None and size is None:
             return arr
         c_ax = _vec_to_axes(self.gv, center)
@@ -1241,6 +1504,168 @@ class Simulation:
             sl.append(slice(i0, max(i1, i0 + 1)))
         return arr[tuple(sl)]
 
+    def _field_np(self, component) -> np.ndarray:
+        """A component's live storage as a host array."""
+        live = tuple(slice(0, n + 1) for n in self.gv.num)
+        return self._state["f"][component].detach().cpu().numpy()[live]
+
+    def _wedge_images(self, coords):
+        """The full cell's coordinates on a Rotate4 fold's two axes and,
+        per full site, the retained-wedge site it turns into by quarter
+        turns R^-1: (x, y) -> (y, -x): (full1, full2, X, Y, turns).  Sites
+        past the live high edge (phantom rows of a half-offset lattice)
+        have no image inside the cell: only the live span is mirrored."""
+        a1, a2 = self._rot4[:2]
+        cw1, cw2 = coords[a1], coords[a2]
+        dx = self.gv.dx
+        full = []
+        for cw, ax in ((cw1, a1), (cw2, a2)):
+            hi = self.gv.num[ax] * dx
+            full.append(np.concatenate(
+                [-np.flip(cw[(cw > 1e-12) & (cw <= hi + 1e-9)]), cw]))
+        X = full[0][:, None] + 0 * full[1][None, :]
+        Y = 0 * full[0][:, None] + full[1][None, :]
+        turns = np.zeros(X.shape, dtype=int)
+        for _ in range(3):
+            neg = (X < -1e-12) | (Y < -1e-12)
+            if not np.any(neg):
+                break
+            X, Y = np.where(neg, Y, X), np.where(neg, -X, Y)
+            turns = turns + neg
+        return full[0], full[1], X, Y, turns
+
+    def _wedge_take(self, arr, cw1, cw2, X, Y):
+        """arr (wedge lattice with coordinates cw1, cw2 on the fold axes)
+        at the sites (X, Y), the fold axes moved to the front, and the
+        largest distance of a site from its lattice point."""
+        a1, a2 = self._rot4[:2]
+        dx = self.gv.dx
+        i1 = np.clip(np.round((X - cw1[0]) / dx).astype(int), 0, len(cw1) - 1)
+        i2 = np.clip(np.round((Y - cw2[0]) / dx).astype(int), 0, len(cw2) - 1)
+        err = np.maximum(np.abs(X - (cw1[0] + i1 * dx)),
+                         np.abs(Y - (cw2[0] + i2 * dx)))
+        take = np.moveaxis(np.asarray(arr), (a1, a2), (0, 1))
+        return take[i1, i2], err
+
+    def _wedge_place(self, out, full1, full2, coords):
+        """`out` (fold axes in front) back in axis order, with the full
+        cell's coordinates."""
+        a1, a2 = self._rot4[:2]
+        coords = list(coords)
+        coords[a1], coords[a2] = full1, full2
+        return np.moveaxis(out, (0, 1), (a1, a2)), coords
+
+    def _unfold_rot4_inplane(self, component, arr, coords):
+        """The full cell of an in-plane component on a Rotate4 fold, on its
+        raw lattice (simulation.py:3081-3170): a full-cell site turned into
+        the wedge by k quarter turns reads the component itself (k even)
+        or its x<->y-swapped partner (k odd), each turn's sign -p for an
+        ax1-directed and +p for an ax2-directed component, as
+        step.rot4_ghost.  The turns map the two in-plane lattices onto
+        each other exactly; a site that lands off its lattice raises."""
+        a1, a2, _, phase = self._rot4
+        l1, l2 = self.gv.axes[a1], self.gv.axes[a2]
+        partner = component[0] + (l2 if component[1] == l1 else l1)
+        coords2 = [self.gv.comp_coords(partner, ax)
+                   for ax in range(self.gv.ndim)]
+        full1, full2, X, Y, turns = self._wedge_images(coords)
+        # the sign of each turn: the component it starts from is
+        # ax1-directed on even turns of an ax1 component
+        sgn = np.ones(X.shape)
+        base1 = component[1] == l1
+        for k in range(1, 4):
+            cur1 = ((k - 1) % 2 == 0) == base1
+            sgn = np.where(turns >= k, sgn * (-phase if cur1 else phase),
+                           sgn)
+        out_c, err_c = self._wedge_take(arr, coords[a1], coords[a2], X, Y)
+        # a partner the cell does not carry reads zero
+        arr_p = self._field_np(partner) if partner in self._state["f"] \
+            else np.zeros_like(arr)
+        out_p, err_p = self._wedge_take(arr_p,
+                                        coords2[a1], coords2[a2], X, Y)
+        even = turns % 2 == 0
+        if np.where(even, err_c, err_p).max() > self.gv.dx / 4:
+            raise AssertionError("rot4 in-plane unfold: a mapped site lies "
+                                 "off its lattice")
+        trail = (1,) * (out_c.ndim - 2)
+        out = np.where(even.reshape(even.shape + trail), out_c, out_p) \
+            * sgn.reshape(sgn.shape + trail)
+        return self._wedge_place(out, full1, full2, coords)
+
+    def _unfold_rot4(self, component, arr, coords):
+        """The full cell of the rotation-axis component (or "eps") on a
+        Rotate4 fold (simulation.py:3177-3230): each full site turned into
+        the wedge by k quarter turns, times phase^k.  A component
+        half-offset on both fold axes (Hz-like) was averaged on the wedge's
+        fold-edge rows with a zero ghost: the missing half is the C4 image
+        of the other fold edge's row (hz(-dx/2, y) = p hz(y, dx/2)), and
+        the shared corner completes to the (1 + p)^2 quadruple image.
+        That repair applies to the centred lattice only, whose first row
+        lies on the plane: the raw lattice (get_array(snap=True)) has no
+        such row, and the reference's repair there adds the image to the
+        first half-site row (ROADMAP C.3)."""
+        a1, a2, _, phase = self._rot4
+        p = 1.0 if component == "eps" else float(phase)
+        if component != "eps" and abs(coords[a1][0]) <= 1e-12 and \
+                G.yee_shift(component, self.gv.dim)[self.gv.axes[a1]]:
+            arr = np.array(arr)
+            T = np.swapaxes(arr, a1, a2).copy()
+            for ax in (a1, a2):
+                sl = [slice(None)] * arr.ndim
+                sl[ax] = 0
+                arr[tuple(sl)] += p * T[tuple(sl)]
+            sl = [slice(None)] * arr.ndim
+            sl[a1] = sl[a2] = 0
+            arr[tuple(sl)] += p * p * T[tuple(sl)]
+        full1, full2, X, Y, turns = self._wedge_images(coords)
+        out, _ = self._wedge_take(arr, coords[a1], coords[a2], X, Y)
+        sgn = p ** turns
+        out = out * sgn.reshape(sgn.shape + (1,) * (out.ndim - 2))
+        return self._wedge_place(out, full1, full2, coords)
+
+    def _unfold_rot2(self, component, arr, coords):
+        """The full cell from a Rotate2 fold's retained half
+        (simulation.py:3231-3290): f(-x, y) = s f(x, -y), s = phase times
+        the component's two mirror parities ("eps": 1), the flip over the
+        flip axis's symmetric live span (phantom rows past it have no
+        image and read 0).  A component half-offset along the fold axis
+        had its centred plane row averaged with a zero ghost: the true
+        ghost is the C2 image of the first half-site, s times the flip of
+        that row."""
+        fax, lax, _, phase = self._rot2
+        axes = self.gv.axes
+        s = 1.0 if component == "eps" else phase \
+            * _mirror_parity(component, axes[fax]) \
+            * _mirror_parity(component, axes[lax])
+        c_ax, c_fl = coords[fax], coords[lax]
+        k_sym = int(np.sum(c_fl <= -c_fl[0] + 1e-9))
+
+        def flip_l(a):
+            out = np.zeros_like(a)
+            sl = [slice(None)] * a.ndim
+            sl[lax] = slice(0, k_sym)
+            out[tuple(sl)] = np.flip(a[tuple(sl)], axis=lax)
+            return out
+
+        pos = np.where(c_ax > 1e-12)[0]
+        onp = np.where(np.abs(c_ax) <= 1e-12)[0]
+        pos_im = pos[c_ax[pos] <= self.gv.num[fax] * self.gv.dx + 1e-9]
+        parts = [s * np.flip(flip_l(np.take(arr, pos_im, axis=fax)),
+                             axis=fax)]
+        cparts = [-np.flip(c_ax[pos_im])]
+        if len(onp):
+            a_on = np.take(arr, onp, axis=fax)
+            if component != "eps" and \
+                    G.yee_shift(component, self.gv.dim)[axes[fax]]:
+                a_on = a_on + s * flip_l(a_on)
+            parts.append(a_on)
+            cparts.append(c_ax[onp])
+        parts.append(np.take(arr, pos, axis=fax))
+        cparts.append(c_ax[pos])
+        coords = list(coords)
+        coords[fax] = np.concatenate(cparts)
+        return np.concatenate(parts, axis=fax), coords
+
     def _unfold(self, component, arr, coords):
         """The full mirrored cell from the retained half (simulation.py:
         3171-3330, mirror branch): rows above each plane reflect with sign
@@ -1251,7 +1676,12 @@ class Simulation:
         The reference restores that row on node mirrors only, so on a metal
         wall (phase -1) it returns half the full cell's value there for the
         components with s = +1 (ROADMAP C.3); the port restores it on both.
-        Returns (array, coordinates)."""
+        Rotational folds: `_unfold_rot2`, `_unfold_rot4`.  Returns
+        (array, coordinates)."""
+        if self._rot4 is not None:
+            return self._unfold_rot4(component, arr, coords)
+        if self._rot2 is not None:
+            return self._unfold_rot2(component, arr, coords)
         for ax, d, phase in self._mirrors:
             s = 1.0 if component == "eps" else \
                 phase * _mirror_parity(component, d)
@@ -1283,9 +1713,20 @@ class Simulation:
 
     def _inverse_u(self, specs, default) -> np.ndarray:
         """1 / u (the plan's inverse epsilon or mu) on the lattice of the
-        first live component of `specs`, unfolded over a mirrored cell;
-        ones where the plan keeps no u."""
+        first live component of `specs`, unfolded over a folded cell;
+        ones where the plan keeps no u.  A Rotate4 fold permutes its two
+        axes, so it unfolds only a lattice whole on both (the rotation-axis
+        component, preferred; simulation.py:3392-3415) and else returns
+        the retained quadrant, as the reference's get_epsilon does for 2D
+        TE."""
         c = specs[0].ec if specs else default
+        unfold = True
+        if self._rot4 is not None:
+            good = [sp.ec for sp in specs
+                    if not any(G.yee_shift(sp.ec, self.gv.dim)[
+                        self.gv.axes[ax]] for ax in self._rot4[:2])]
+            unfold = bool(good)
+            c = good[0] if good else c
         u = self._plan.coefs.get(f"{c}:u")
         if u is None:
             inv = np.ones(self.gv.shape)
@@ -1293,6 +1734,8 @@ class Simulation:
             u = u.detach().cpu().numpy().astype(np.float64)
             u = u[tuple(slice(0, n + 1) for n in self.gv.num)]
             inv = 1.0 / np.maximum(u, 1e-300)
+        if not unfold:
+            return inv
         coords = [np.asarray(self.gv.comp_coords(c, ax))
                   for ax in range(self.gv.ndim)]
         return self._unfold("eps", inv, coords)[0]

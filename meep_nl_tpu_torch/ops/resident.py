@@ -11,7 +11,9 @@ per pass, one grid barrier per pass (`tiling` picks the tile and T,
 `boxes` gives the regions each step computes), or, where tiles give no
 temporal reuse (T = 1 only, no tile fits, more than MAXSLOT arrays), the
 direct schedule: the whole grid stepped in place in one device buffer, a
-grid barrier per sub-update (`direct_tiling`).  What it computes is the
+grid barrier per sub-update (`direct_tiling`); rotational folds (C2 and
+C4) always take the direct schedule, whose D curl reads their ghosts
+anywhere on the grid.  What it computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
 the DTFT accumulated in the loop in the frequency-major layout; K4 adds the
@@ -36,9 +38,12 @@ Not carried over from the reference, each on purpose:
     names what the kernel reads;
   * `validate_lowering` (:450), which only applies to Mosaic.
 The envelope is the reference's (2D and 3D, fp32, real fields, no noisy
-media, a doubled state within VMEM_BUDGET) intersected with what the
-port's eager stepper and this kernel run: no periodic axis (ROADMAP A8),
-masks made of dead planes, no H-family chi2/chi3.  Monitors read any
+media, a doubled state within VMEM_BUDGET; 1D declined) intersected with
+what the port's eager stepper and this kernel run: no periodic axis
+(ROADMAP A8), masks made of dead planes, no H-family chi2/chi3, no
+chi2/chi3 on a rotational fold (no Simulation makes one: it rejects them,
+as the reference's does).  Folds: node mirrors on every axis, Rotate2 and
+Rotate4.  Monitors read any
 field of the state (E/H, and D/B for the energy monitors), centred or on
 their own lattice, with real or complex weights (the LDOS monitors'
 conj(amplitude)).
@@ -56,7 +61,7 @@ import torch
 from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
 from ..stepper.step import (ProbeSpec, build_xs, check_supported,
-                            mirror_ghost, run)
+                            mirror_ghost, rot2_ghost, rot4_ghost, run)
 
 #: the reference's VMEM budget for 2x state (resident.py:50); on the H100
 #: the state lives in device memory, so this is a routing rule, not a limit
@@ -127,6 +132,10 @@ def _state_bytes(plan) -> int:
     return n * np.dtype(plan.dtype).itemsize + 4
 
 
+def _rotational(plan) -> bool:
+    return plan.rot2 is not None or plan.rot4 is not None
+
+
 def resident_supported(plan) -> bool:
     """The static envelope (resident.py:158-182, see the module docstring):
     plans outside it are declined, never raised on."""
@@ -143,6 +152,9 @@ def resident_supported(plan) -> bool:
     if max(len(plan.pol_specs_e), len(plan.pol_specs_h)) > fdtd3d.MAXPOL:
         return False
     if any(s.has_chi3 or s.has_nr for s in plan.eh_specs_h):
+        return False
+    if _rotational(plan) and any(s.has_chi3 or s.has_nr
+                                 for s in plan.eh_specs_e):
         return False
     if any(planes is None for planes in (plan.mask_planes or {}).values()):
         return False
@@ -298,15 +310,17 @@ def tiling(shape, nslot: int, nstate: int, c: int, e, nloops: int,
     return result((int(t0[k]), int(t1[k]), int(t2[k])), int(Tg[k]))
 
 
-def direct_tiling(shape, c: int, e) -> Dict[str, Any]:
+def direct_tiling(shape, c: int, e, rot: bool = False) -> Dict[str, Any]:
     """The direct schedule in tiling()'s terms: one tile, the whole grid
     (`shape`, 3 extents), T = 1, no shared memory; its "vol" and "gvec"
     lay out the device buffer the kernel steps in (nslot arrays of vol
-    floats, then the per-axis vectors, gvec floats each)."""
+    floats, then the per-axis vectors, gvec floats each).  "direct" is 2
+    for a rotational fold (the kernel's variant with its ghosts), else
+    True."""
     shape = tuple(int(s) for s in shape)
     return {"t": shape, "nt": (1, 1, 1), "e": tuple(int(v) for v in e),
             "T": 1, "c": c, "vol": int(np.prod(shape)), "gvec": max(shape),
-            "smem": 0, "ntile": 1, "direct": True}
+            "smem": 0, "ntile": 1, "direct": 2 if rot else True}
 
 
 def staged_boxes(tl, shape, Tp: int):
@@ -390,22 +404,49 @@ class _ResArgs(ctypes.Structure):
                 ("flags", _P), ("dt", ctypes.c_double)] + \
         [(n, _I) for n in ("nsteps", "nsrc", "ndft", "e_local")] + \
         [("gk", (_I * 2) * fdtd3d.NCOMP),
-         ("gs", (ctypes.c_double * 2) * fdtd3d.NCOMP)]
+         ("gs", (ctypes.c_double * 2) * fdtd3d.NCOMP)] + \
+        [(n, (_I * 2) * fdtd3d.NCOMP)
+         for n in ("gsrc", "goff", "gmul", "gax", "glim")]
 
 
-def set_ghosts(A, plan):
-    """The D curl's fold ghosts in a K3/K4 argument block: for D component
+def set_ghosts(A, plan, slot):
+    """The D curl's fold ghosts in a K3/K4 argument block, for D component
     q and its partner m (0: g_plus, 1: g_minus) differentiated along a
-    node mirror's axis, the ghost's row k0 (A.gk) and sign (A.gs; 0: no
-    ghost), as step.mirror_ghost; on every axis, x included."""
+    fold axis; A.gs the sign (0: no ghost).  A node mirror's (every axis,
+    x included): the row k0 (A.gk), as step.mirror_ghost.  A rotational
+    fold's (the direct schedule, whose box is the grid; `slot`: state path
+    -> slot): the ghost below plane 0 reads the array of slot token
+    A.gsrc at the site's offset + A.goff + j * A.gmul, j the site's index
+    along axis A.gax, and is 0 where j >= A.glim -- C2's flip over the
+    live extent nl (step.rot2_ghost), C4's transposed read of the swapped
+    component (step.rot4_ghost)."""
+    shape = tuple(plan.storage_shape or plan.gv.shape)
+    shape = shape + (1,) * (3 - len(shape))
+    st = (shape[1] * shape[2], shape[2], 1)
     for q, spec in enumerate(plan.curl_specs_d):
         for m, (g, ax) in enumerate(((spec.g_plus, spec.plus_axis),
                                      (spec.g_minus, spec.minus_axis))):
             A.gk[q][m], A.gs[q][m] = 0, 0.0
+            A.gsrc[q][m] = A.goff[q][m] = A.gmul[q][m] = 0
+            A.gax[q][m], A.glim[q][m] = -1, 0
+            if g is None:
+                continue
             for (mx, d, phase) in plan.mirror_node:
-                if g is not None and mx == ax:
+                if mx == ax:
                     A.gk[q][m], A.gs[q][m] = mirror_ghost(g, d, phase,
                                                           plan.gv.dim)
+            if plan.rot2 is not None and ax == plan.rot2[0]:
+                k0, sign, nl = rot2_ghost(g, plan)
+                fl = plan.rot2[1]
+                A.gs[q][m], A.gsrc[q][m] = sign, slot[("f", g)] + 1
+                A.goff[q][m] = k0 * st[ax] + (nl - 1) * st[fl]
+                A.gmul[q][m], A.gax[q][m], A.glim[q][m] = -2 * st[fl], fl, nl
+            if plan.rot4 is not None and ax in plan.rot4[:2]:
+                g2, k0, sign, other = rot4_ghost(g, ax, plan)
+                A.gs[q][m], A.gsrc[q][m] = sign, slot[("f", g2)] + 1
+                A.goff[q][m] = k0 * st[other]
+                A.gmul[q][m] = st[ax] - st[other]
+                A.gax[q][m], A.glim[q][m] = other, shape[other]
 
 
 #: the kernel's static shared memory: its argument block, 16-byte aligned,
@@ -717,9 +758,10 @@ class ResidentKernel:
     def _tiling(self, lib):
         """The schedule of this plan on the current device: tiling()'s
         choice on the card's shared memory, or the direct schedule
-        (`direct_tiling`) where tiles give no temporal reuse: more staged
-        arrays than MAXSLOT, no tile that fits, or only T = 1.  Asked of the
-        card once per device."""
+        (`direct_tiling`) where tiles give no temporal reuse (more staged
+        arrays than MAXSLOT, no tile that fits, or only T = 1) and for a
+        rotational fold, whose ghost reads lie outside any tile.  Asked of
+        the card once per device."""
         key = self._device_key()
         if self.schedule is not None and self.schedule[0] == key:
             return self.schedule[1]
@@ -751,11 +793,11 @@ class ResidentKernel:
                      + rp.eh_specs_e)
         nslot = len(paths) + len(coef)
         tl = None
-        if nslot <= MAXSLOT:
+        if nslot <= MAXSLOT and not _rotational(rp):
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
         if tl is None or tl["T"] == 1:
-            tl = direct_tiling(shape, c, e)
+            tl = direct_tiling(shape, c, e, rot=_rotational(rp))
         self.schedule = (key, tl)
         return tl
 
@@ -1061,7 +1103,7 @@ class ResidentKernel:
         A.dt = rp.dt
         A.nsteps = n
         A.e_local = int(tl["c"] == 1)
-        set_ghosts(A, rp)
+        set_ghosts(A, rp, slot)
         args = up_table(A)
         rc = lib.mnt_k3_launch(ctypes.byref(A), args, blocks, tl["smem"],
                                torch.cuda.current_stream().cuda_stream)

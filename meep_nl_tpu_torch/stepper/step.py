@@ -50,8 +50,6 @@ def check_supported(plan: Plan) -> None:
         why = "cylindrical / special_kz cells (ROADMAP A9)"
     elif plan.bfast_k is not None:
         why = "BFAST (ROADMAP A9)"
-    elif plan.rot2 is not None or plan.rot4 is not None:
-        why = "Rotate2 / Rotate4 folds (ROADMAP A5)"
     elif plan.complex_fields or plan.real_pair:
         why = "complex fields (ROADMAP A8/A9)"
     elif any(s.has_cond or s.folded_cond
@@ -61,6 +59,11 @@ def check_supported(plan: Plan) -> None:
         why = "off-diagonal epsilon/mu (ROADMAP A9)"
     elif any(s.is_integrated for s in plan.sources):
         why = "integrated sources (ROADMAP A9)"
+    elif gv.dim == "1d" and any(s.has_nr for s in plan.eh_specs_e):
+        # the neighbour averages of the Newton step run along the
+        # component's own direction, which is no grid axis in 1D (the
+        # reference's step fails there with a TypeError, ROADMAP C.3)
+        why = "full-tensor chi2 in 1D cells (ROADMAP A9)"
     else:
         for p in plan.pol_specs_e + plan.pol_specs_h:
             if p.kind != "lorentzian":
@@ -172,25 +175,85 @@ def mirror_ghost(gname: str, d_letter: str, phase: int, dim: str):
     return 1 - G.yee_shift(gname, dim)[d_letter], float(sign)
 
 
+def rot2_ghost(gname: str, plan: Plan):
+    """(k0, sign, nl) of the C2-fold ghost of component `gname` (step.py:
+    277 `_rot2_ghost`, vec.hpp:1189-1232 rotate2): a backward difference
+    along the fold axis across the rotation-axis plane at site 0 reads,
+    below plane 0,
+
+        g(-1, j) = sign * g(k0, nl - 1 - j)   (j < nl; 0 beyond)
+
+    with sign = phase * (+1 if g points along the rotation axis, else -1)
+    (a proper rotation: E and H alike), k0 = 1 - yee_shift along the fold
+    axis and the flip over the live flip-axis extent nl = num + (1 if g
+    has no offset along the flip axis).  The kernels read the same
+    table."""
+    fold_ax, flip_ax, w_letter, phase = plan.rot2
+    gv = plan.gv
+    ys = G.yee_shift(gname, gv.dim)
+    sign = float(phase) * (1.0 if gname[1] == w_letter else -1.0)
+    nl = gv.num[flip_ax] + (1 if ys[gv.axes[flip_ax]] == 0 else 0)
+    return 1 - ys[gv.axes[fold_ax]], sign, nl
+
+
+def rot4_ghost(gname: str, a: int, plan: Plan):
+    """(g2, k0, sign, other) of the C4-fold ghost of component `gname`
+    across the fold plane of axis `a` (step.py:308 `_rot4_ghost`,
+    vec.hpp:1189-1232 rotate4): with R the quarter turn taking ax1 into
+    ax2, the ghost below plane 0 of `a` is a transposed read of the
+    x<->y-swapped component g2 at row k0 = 1 - yee_shift(g, a) of the
+    other folded axis:
+
+        ghost(index j along `other`) = sign * g2(index j along a, k0
+                                                 along other)
+
+    with the rotation-matrix signs (-p, +p, +p) of (F_ax1, F_ax2, F_w)
+    for the ax1 ghost and (+p, -p, +p) for the ax2 ghost."""
+    ax1, ax2, w_letter, phase = plan.rot4
+    gv = plan.gv
+    l1, l2 = gv.axes[ax1], gv.axes[ax2]
+    g2 = gname[0] + {l1: l2, l2: l1}.get(gname[1], gname[1])
+    if gname[1] == w_letter or (gname[1] == l1) != (a == ax1):
+        sign = float(phase)
+    else:
+        sign = -float(phase)
+    k0 = 1 - G.yee_shift(gname, gv.dim)[gv.axes[a]]
+    return g2, k0, sign, (ax2 if a == ax1 else ax1)
+
+
 def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any]):
     """dfl such that the no-PML update is f += dfl (step_generic.cpp:39-67).
 
     D components: +Courant * (bwd-diff g_plus - bwd-diff g_minus)
     B components: -Courant * (fwd-diff g_plus - fwd-diff g_minus)
 
-    A node-aligned mirror (plan.mirror_node) replaces the zero fill of the
-    backward difference along its axis by the fold ghost (`mirror_ghost`,
-    step.py:361-383); nothing else of the step reads across the plane."""
+    A fold through a plane on whole sites replaces the zero fill of the
+    backward difference along its axis by the fold ghost, plane 0 of the
+    shifted array (step.py:361-391): a node-aligned mirror's
+    (plan.mirror_node, `mirror_ghost`), C2's (plan.rot2, `rot2_ghost`) or
+    C4's (plan.rot4, `rot4_ghost`); nothing else of the step reads across
+    the plane."""
 
     def diff(g, a, gname):
         if not spec.is_d:
             return _sh(plan, g, a, +1) - g
         sh = _sh(plan, g, a, -1)
+        ghost = None
         for (ax, d, phase) in plan.mirror_node:
             if ax == a:
                 k0, sign = mirror_ghost(gname, d, phase, plan.gv.dim)
-                sh = torch.cat([sign * g.narrow(a, k0, 1),
-                                sh.narrow(a, 1, sh.shape[a] - 1)], dim=a)
+                ghost = sign * g.narrow(a, k0, 1)
+        if plan.rot2 is not None and a == plan.rot2[0]:
+            k0, sign, nl = rot2_ghost(gname, plan)
+            fl = plan.rot2[1]
+            rev = torch.flip(g.narrow(a, k0, 1).narrow(fl, 0, nl), (fl,))
+            pad = [0, 0] * (g.ndim - 1 - fl) + [0, g.shape[fl] - nl]
+            ghost = sign * torch.nn.functional.pad(rev, pad)
+        if plan.rot4 is not None and a in plan.rot4[:2]:
+            g2, k0, sign, other = rot4_ghost(gname, a, plan)
+            ghost = sign * f[g2].narrow(other, k0, 1).transpose(a, other)
+        if ghost is not None:
+            sh = torch.cat([ghost, sh.narrow(a, 1, sh.shape[a] - 1)], dim=a)
         return g - sh
 
     total = None

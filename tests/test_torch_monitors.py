@@ -408,14 +408,16 @@ def test_use_pallas_step_with_monitors_matches_eager():
 
 
 @pytest.mark.parametrize("case,item", [("nperiods", "A8"),
-                                       ("symmetries", "A5"),
-                                       ("cylindrical", "A9")])
+                                       ("symmetries", "complex fields"),
+                                       ("cylindrical", "A9")],
+                         ids=["nperiods-A8", "symmetries-A5",
+                              "cylindrical-A9"])
 def test_unported_monitor_features_raise(case, item):
     kw = dict(cell_size=mtt.Vector3(4, 4), resolution=8,
               sources=_src(mtt, mtt.Ez, mtt.Vector3()), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        if case == "symmetries":       # the rotational folds
-            mtt.Simulation(symmetries=[mtt.Rotate2(mtt.Z)], **kw)
+        if case == "symmetries":       # the +-i irreps of a C4 fold
+            mtt.Simulation(symmetries=[mtt.Rotate4(mtt.Z, phase=1j)], **kw)
         elif case == "cylindrical":    # test_near2far's cylindrical cases
             mtt.Simulation(**{**kw, "cell_size": mtt.Vector3(3, 0, 4)},
                            dimensions=-2)

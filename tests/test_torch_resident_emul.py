@@ -65,9 +65,16 @@ def scene(kind, device="cpu", res=10):
     H Lorentz poles in that grid (99 staged arrays, more than
     MAXSLOT); ldos / ldos-te: tm / te with the DFT monitors of the LDOS
     (complex weights, uncentred), energy (D/B beside E/H) and dft fields
-    kinds.  A suffix "+x", "+xy", ... declares a phase +1 Mirror on each
-    axis named: every cell count here is even, so each is a node mirror
-    (the fold ghost in the D curl), the cell halved there."""
+    kinds; te-lin: te without its chi2 (a rotation declines chi2/chi3).
+    A suffix "+x", "+xy", ... declares a phase +1 Mirror on each axis
+    named: every cell count here is even, so each is a node mirror (the
+    fold ghost in the D curl), the cell halved there.  A suffix "@r2" or
+    "@r4" (phase -1 with a trailing "-") declares Rotate2("z") or
+    Rotate4("z") (the C2 / C4 ghosts, the direct schedule): the cell is
+    made square for Rotate4, the flux line moved into the retained
+    quadrant and the line source dropped (an in-plane source outside the
+    quadrant is refused)."""
+    kind, _, rot = kind.partition("@")
     kind, _, mirrors = kind.partition("+")
     src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Ez,
                      center=mp.Vector3(-2, 0.1))]
@@ -86,9 +93,10 @@ def scene(kind, device="cpu", res=10):
             epsilon=3, chi2=0.2, chi2_full_tensor=True,
             E_susceptibilities=[mp.LorentzianSusceptibility(
                 frequency=1.1, gamma=0.1, sigma=0.4)]))]
-    elif kind in ("te", "ldos-te"):
+    elif kind in ("te", "ldos-te", "te-lin"):
         geom = [mp.Cylinder(radius=1.0, material=mp.Medium(
-            epsilon=4, chi2=0.1, chi2_full_tensor=True))]
+            epsilon=4, chi2=0.1, chi2_full_tensor=True)
+            if kind != "te-lin" else mp.Medium(epsilon=4))]
         src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Hz,
                          center=mp.Vector3(-2, 0.3)),
                mp.Source(mp.GaussianSource(0.6, fwidth=0.2), mp.Ex,
@@ -113,12 +121,21 @@ def scene(kind, device="cpu", res=10):
                          center=mp.Vector3(-0.45, 0.05, 0))]
         cell, res, flux_size = mp.Vector3(2, 2, 2), 7, mp.Vector3(0, 1, 1)
     pml = 0.5 if kind in ("nl3d", "poles3d") else 0.8
+    syms = [mp.Mirror(d) for d in mirrors]
+    flux_y = 0.0
+    if rot:
+        syms = [(mp.Rotate4 if rot.startswith("r4") else mp.Rotate2)(
+            "z", phase=-1 if rot.endswith("-") else 1)]
+        if rot.startswith("r4"):
+            cell = mp.Vector3(cell.x, cell.x, cell.z)
+        src = [s for s in src if s.size is None]
+        flux_y = 0.8
     sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
                         sources=src, boundary_layers=[mp.PML(pml)],
-                        device=device,
-                        symmetries=[mp.Mirror(d) for d in mirrors])
+                        device=device, symmetries=syms)
     sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
-        center=mp.Vector3(0.4 if pml == 0.5 else 0.9, 0, 0), size=flux_size))
+        center=mp.Vector3(0.4 if pml == 0.5 else 0.9, flux_y, 0),
+        size=flux_size))
     if kind.startswith("ldos"):
         # a complex amplitude: the weights conj(amplitude) have both parts
         for s in sim.sources:
@@ -138,7 +155,12 @@ def scene(kind, device="cpu", res=10):
 
 
 #: the component each scene's probes read (else ez)
-COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz"}
+COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz"}
+
+
+def base_kind(kind):
+    """A scene's kind without its symmetries' suffixes."""
+    return kind.partition("@")[0].partition("+")[0]
 
 
 def random_state(plan, seed):
@@ -205,7 +227,16 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
                                         ((10, 5, 1), 3, 4, 7)),
          "mirror-xz-3d-k4-seams": ("3d+xz", True, 9, 4, None),
          "mirror-y-nl3d-k3-direct": ("nl3d+y", False, 9, 8192,
-                                     (None, 1, 3, 1))}
+                                     (None, 1, 3, 1)),
+         # rotational folds: the C2 / C4 ghosts on the direct schedule
+         # (TM and TE, phase +1 and -1, 2D and 3D), with the wrapper's
+         # choice and with several blocks in shuffled order
+         "rot2-tm-k3": ("tm@r2", False, 13, 8192, None),
+         "rot2-te-k4-seams": ("te-lin@r2-", True, 13, 5, (None, 1, 3, 7)),
+         "rot4-tm-k4": ("tm@r4", True, 13, 8192, (None, 1, 4, 1)),
+         "rot4-te-k3-seams": ("te-lin@r4-", False, 13, 5, None),
+         "rot4-3d-k4": ("3d@r4", True, 9, 8192, (None, 1, 3, 7)),
+         "rot2-3d-k3-seams": ("3d@r2-", False, 9, 4, None)}
 
 
 def h100_schedule(ker, host_lib):
@@ -245,7 +276,8 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(R.ResidentKernel, "_check", _own)
     plan = scene(kind)
-    kind = kind.partition("+")[0]
+    rotational = "@" in kind
+    kind = base_kind(kind)
     st0 = random_state(plan, 4)
     comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3
@@ -283,8 +315,9 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         ((nlaunch, 0) if probed else (0, nlaunch))
     assert int(sk["t"]) == int(sr["t"]) == nsteps
     tl = ker.schedule[1]
-    assert tl["direct"] == (kind in ("nl3d", "poles3d")
-                            or (sched is not None and sched[0] is None))
+    assert tl["direct"] == (2 if rotational else (
+        kind in ("nl3d", "poles3d") or (sched is not None
+                                        and sched[0] is None)))
     if sched is not None and tl["direct"]:
         assert tl["T"] == 1 and tl["ntile"] == 1
     elif sched is not None:

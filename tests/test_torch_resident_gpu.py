@@ -12,8 +12,9 @@ neighbours), the TM plan with 26 flux lines (52 DTFT monitors), a 24^3
 plan and the two 3D plans that take the direct schedule (the flagship
 material, whose tiles would fit only at T = 1; 4 E and 4 H poles, more
 staged arrays than MAXSLOT), the TM and TE plans with the LDOS (complex
-weights), energy and dft-fields monitors, with flux monitors and (K4) 20
-probes, over
+weights), energy and dft-fields monitors, node-mirror folds and the
+rotational folds (Rotate2 / Rotate4: the direct schedule's variant with
+their ghosts), with flux monitors and (K4) 20 probes, over
 two chunks, with the wrapper's own schedule; and
 test_torch_resident_emul.py's schedule cases (small forced tiles, a
 source, probe points and the flux line on tile seams, T not dividing the
@@ -29,7 +30,8 @@ import torch
 from meep_nl_tpu_torch.ops import resident as R
 from meep_nl_tpu_torch.stepper import step as TS
 
-from test_torch_resident_emul import COMP, CASES, force, random_state, scene
+from test_torch_resident_emul import (COMP, CASES, base_kind, force,
+                                      random_state, scene)
 
 
 @pytest.fixture
@@ -47,7 +49,8 @@ def _err(a, b):
 @pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
 @pytest.mark.parametrize("kind", ["flag-tm", "flag-te", "tm-many", "3d",
                                   "nl3d", "poles3d", "ldos", "ldos-te",
-                                  "tm+xy", "3d+xz", "nl3d+y"])
+                                  "tm+xy", "3d+xz", "nl3d+y", "tm@r2",
+                                  "te-lin@r4-", "3d@r4"])
 def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     monkeypatch.setattr(R, "MAX_CHUNK", 17)
     plan = scene(kind, device=cuda, res=16)
@@ -55,11 +58,14 @@ def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     # 20 probes of two points each; on the small 3D grids in two rows, on
     # the folded 3D grids in five
     pt = {"3d": [20, 20, 10], "nl3d": [5, 12, 7], "poles3d": [5, 12, 7],
-          "3d+xz": [5, 20, 5], "nl3d+y": [3, 6, 7]}.get(kind, [20, 20])
-    at = [(i // 4, i % 4) if kind in ("3d+xz", "nl3d+y") else (0, i)
+          "3d+xz": [5, 20, 5], "nl3d+y": [3, 6, 7],
+          "3d@r4": [2, 10, 10]}.get(kind, [20, 20])
+    at = [(i // 4, i % 4) if kind in ("3d+xz", "nl3d+y", "3d@r4")
+          else (0, i)
           if kind not in ("nl3d", "poles3d") else (i // 10 * 3, i % 10)
           for i in range(20)]
-    kind = kind.partition("+")[0]          # the mirrors' fold ghosts aside
+    rotational = "@" in kind
+    kind = base_kind(kind)                 # the folds' ghosts aside
     comp = COMP.get(kind, "ez")
     probes = [TS.ProbeSpec(f"p{i}", comp,
                            np.array([[pt[0] + dx, pt[1] - dy] + pt[2:],
@@ -75,7 +81,8 @@ def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (ker.probed_launches if probed else ker.launches) == 2
     assert ker.plain_steps == 0
-    assert ker.schedule[1]["direct"] == (kind in ("nl3d", "poles3d"))
+    assert ker.schedule[1]["direct"] == (
+        2 if rotational else kind in ("nl3d", "poles3d"))
     _agree(sk, yk, sr, yr)
     assert int(sk["t"]) == 30
 
@@ -105,7 +112,7 @@ def test_tile_seams_match_plain_on_cuda(case, cuda, monkeypatch):
     kind, probed, nsteps, chunk, (tile, T, _, _) = CASES[case]
     monkeypatch.setattr(R, "MAX_CHUNK", chunk)
     plan = scene(kind, device=cuda)
-    kind = kind.partition("+")[0]
+    kind = base_kind(kind)
     st0 = random_state(plan, 4)
     comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3
@@ -150,6 +157,10 @@ def test_shared_memory_rule_matches_the_card(cuda):
     for nl in (0, 1):
         for probed in (0, 1):
             assert lib.mnt_k3_max_blocks(nl, probed, 1, 0) >= sms
+    # the rotational folds' variant (linear plans only)
+    for probed in (0, 1):
+        assert lib.mnt_k3_max_blocks(0, probed, 2, 0) >= sms
+        assert lib.mnt_k3_max_blocks(1, probed, 2, 0) < 0
 
 
 @pytest.mark.gpu

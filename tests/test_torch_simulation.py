@@ -137,9 +137,88 @@ def test_simulation_resident_route_matches_jax():
 
 
 @pytest.mark.parametrize("cell,kw,item", [
-    ((0, 0, 2), {}, "ROADMAP A5"),
+    ((0, 0, 2), {"symmetries": [mtt.Rotate2("x")]}, "2d/3d"),
     ((2, 0, 2), {"dimensions": -2}, "ROADMAP A9")], ids=["1d", "cylindrical"])
 def test_simulation_rejects_1d_and_cylindrical(cell, kw, item):
+    """Cylindrical cells wait for ROADMAP A9; a 1D cell runs, but not with
+    a rotational symmetry (the reference refuses it too)."""
     with pytest.raises(NotImplementedError, match=item):
         mtt.Simulation(cell_size=mtt.Vector3(*cell), resolution=8,
                        device="cpu", **kw)
+
+
+#: the third-harmonic scene's pump frequency (tests/test_nonlinear.py
+#: thg_amplitude, Meep's python/tests/test_3rd_harm_1d.py)
+F0 = 1.0 / 3.0
+
+
+def thg_sim(mp, chi3, fwidth, res=20, **kw):
+    """thg_amplitude's Kerr medium through the public Simulation: a cell
+    size along z only (a 1D cell, inferred), PML 2, an Ex pump at z = -4 in
+    a chi3 medium; an Ey source at z = -3 too, unless `fwidth` is None
+    (the other polarization, Ey/Hx); a flux point and the DTFT of Ex at
+    z = 4, at f0 and 3 f0."""
+    src = mp.GaussianSource(F0, fwidth=fwidth or F0 / 4)
+    sources = [mp.Source(src, mp.Ex, center=mp.Vector3(0, 0, -4))]
+    if fwidth is not None:
+        sources.append(mp.Source(mp.GaussianSource(0.5, fwidth=0.4), mp.Ey,
+                                 center=mp.Vector3(0, 0, -3),
+                                 amplitude=0.7))
+    sim = mp.Simulation(cell_size=mp.Vector3(0, 0, 12), resolution=res,
+                        default_material=mp.Medium(chi3=chi3),
+                        sources=sources, boundary_layers=[mp.PML(2.0)],
+                        **kw)
+    h = {"dft": sim.add_dft_fields([mp.Ex], 2 * F0, 2 * F0, 2,
+                                   center=mp.Vector3(0, 0, 4),
+                                   size=mp.Vector3()),
+         "flux": sim.add_flux(2 * F0, 2 * F0, 2,
+                              mp.FluxRegion(center=mp.Vector3(0, 0, 4)))}
+    return sim, h
+
+
+def test_1d_matches_jax():
+    """A 1D cell (the dimension inferred from a cell size along z only)
+    with both transverse polarizations (an Ex and an Ey source), chi3, a
+    flux point: 601 steps on the eager stepper (K3/K4 decline 1D, as the
+    reference's do), fields and fluxes to 1e-4 of their maximum."""
+    sj, hj = thg_sim(mnt, 1e-2, F0 / 2)
+    st, ht = thg_sim(mtt, 1e-2, F0 / 2, device="cpu")
+    assert st.gv.dim == sj.gv.dim == "1d" and st.gv.shape == (241,)
+    for sim in (sj, st):
+        sim.run(until=15.025)
+    assert st._t == sj._t == 601 and dict(st.routes) == {"eager": 1}
+    assert not R.resident_supported(st.plan)
+    assert set(st.fields_state["f"]) == {"dx", "dy", "bx", "by", "ex", "ey",
+                                          "hx", "hy"}
+    for c in ("ex", "ey", "hx", "hy"):
+        _close(st.get_array(c), sj.get_array(c), c)
+    _close(st.get_fluxes(ht["flux"]), sj.get_fluxes(hj["flux"]), "flux")
+
+
+def test_1d_full_tensor_chi2_is_refused():
+    """The Newton step's neighbour averages run along a component's own
+    direction, which is no grid axis in a 1D cell: the port refuses the
+    plan (the reference's step fails there with a TypeError, ROADMAP
+    C.3); the scalar chi2 runs (test_1d_matches_jax's chi3 path)."""
+    sim = mtt.Simulation(
+        cell_size=mtt.Vector3(0, 0, 4), resolution=10, device="cpu",
+        default_material=mtt.Medium(chi2=0.05, chi2_full_tensor=True),
+        sources=[mtt.Source(mtt.GaussianSource(F0, fwidth=F0), mtt.Ex,
+                            center=mtt.Vector3())])
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        sim.init_sim()
+
+
+def test_1d_third_harmonic_scales_with_chi3():
+    """Third-harmonic generation in the Kerr medium (thg_amplitude, Meep's
+    test_3rd_harm_1d.py) through the port's 1D Simulation: the DTFT of Ex
+    at 3 f0 doubles with chi3 within 5 %, the pump's barely moves."""
+    amp = []
+    for chi3 in (1e-3, 2e-3):
+        sim, h = thg_sim(mtt, chi3, None, device="cpu")
+        sim.run(until_after_sources=20)
+        amp.append(np.abs(sim.get_dft_array(h["dft"], mtt.Ex)
+                          .reshape(-1, 2).sum(0)))
+    np.testing.assert_allclose(amp[1][0], amp[0][0], rtol=1e-3)
+    assert amp[0][1] > 1e-4 * amp[0][0]
+    np.testing.assert_allclose(amp[1][1] / amp[0][1], 2.0, rtol=0.05)

@@ -352,9 +352,10 @@ def test_alignment_and_straddle_errors():
     with pytest.raises(ValueError, match="dropped half"):
         sim.add_dft_fields([mtt.Ez], 0.5, 0.2, 1, center=mtt.Vector3(),
                            size=mtt.Vector3(1, 1))
+    # the rotations' alignment: the rotation axis on whole sites
     for rot in (mtt.Rotate2, mtt.Rotate4):
-        with pytest.raises(NotImplementedError, match="A5"):
-            mtt.Simulation(cell_size=mtt.Vector3(8, 8),
+        with pytest.raises(ValueError, match="even cell count"):
+            mtt.Simulation(cell_size=mtt.Vector3(8.1, 8.1),
                            symmetries=[rot(mtt.Z)], **kw)
 
 
