@@ -158,7 +158,30 @@ falls back to the CPU or to a plain version:
      chi3) in a cell of 100 (4000 cells) on the eager stepper, the DTFT of
      Ex at f0 and 3 f0 and the flux against the CPU (1e-4 of each
      frequency's own magnitude), the third harmonic doubling with chi3
-     (5 %).
+     (5 %);
+ 14. Bloch-periodic cells with real phases (k_point): Meep's
+     binary_grating.py at its published size (resolution 60, 510x600,
+     PML on x, k_point=Vector3(), without its Mirror(Y): a mirror on a
+     wrapped axis is refused), the substrate-only normalization run
+     (until_after_sources=100) and the grating run (300) through K3's
+     direct schedule with the wrap (counters, K3 bit for bit from the
+     grating's end state and a seeded random state), the transmittance of
+     its 21 frequencies, the same two runs at resolution 12 against the
+     CPU (each frequency to 1e-4 of its own magnitude), and K3 on the
+     grating timed beside the same cell without the wrap on tiles;
+     holey-wvg-bands.py at the band edges (resolution 20, 1x12,
+     Mirror(Y, phase=-1), PML on y): run_k_points(300, [Vector3(0),
+     Vector3(0.5)]) through K4 at phase +1 and -1 (counters, K4 bit for
+     bit from each end state and a seeded random state, the modes with
+     Q > 20 against the CPU's to 1e-4); phase 4's 128^3 flagship made x-periodic (PML on y and z,
+     k_x = 0 and the zone edge 1/16: phase -1), after 12 steps of
+     warm-up 60 steps without the flux plane (the ghost ring: K2 at depth
+     3 on the extended plan, counters) and 602 with it (K1's x wrap every
+     step, the full-state cycle), each against the eager stepper on the
+     card with the same slab-local PML chains (state on the live planes,
+     fluxes: 1e-6), K2 on the extended plan and K1's x wrap bit for bit
+     against their plain versions from the end states, timed; its 16^3
+     form (K3's wrap) against the CPU (1e-4).
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -228,7 +251,7 @@ def build_all():
 
 def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
                  pml=1.0, linear=False, decimation=0, monitors=False,
-                 src_comp=None, src_y=0.01, **sim_kw):
+                 src_comp=None, src_y=0.01, kx=None, **sim_kw):
     """The flagship scene: an eps=4 ball (radius a quarter of the cell)
     with a Lorentz pole and full-tensor chi2 (the NR solve), uPML on every
     face, a Gaussian Ez point source off the ball and an x-normal flux
@@ -238,7 +261,9 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
     the DFT monitor family (`monitor_family`) and returns its handles, the
     flux plane's under "flux", in place of the flux handle; `src_comp`
     (default Ez) and `src_y` (y over the cell side) move the source;
-    `sim_kw` goes to Simulation (use_pallas, use_fused, symmetries)."""
+    `kx` makes the cell Bloch-periodic along x (k_point=Vector3(kx), the
+    PML on y and z only); `sim_kw` goes to Simulation (use_pallas,
+    use_fused, symmetries)."""
     L = n_cells / res
     geometry = []
     if ball:
@@ -252,8 +277,10 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
         sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
                            component=src_comp or mp.Ez,
                            center=mp.Vector3(-0.35 * L, src_y * L, 0))],
-        boundary_layers=[mp.PML(pml)], eps_averaging=False, device=device,
-        **sim_kw)
+        boundary_layers=[mp.PML(pml)] if kx is None else
+        [mp.PML(pml, direction=mp.Y), mp.PML(pml, direction=mp.Z)],
+        k_point=None if kx is None else mp.Vector3(kx),
+        eps_averaging=False, device=device, **sim_kw)
     fl = None
     if flux:
         fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
@@ -426,8 +453,100 @@ def cpu_twins(path) -> int:
         sim.run(until=200 * sim.dt)
         out[f"{kind}16:flux"] = sim.get_fluxes(fl)
         out[f"{kind}16:ez"] = sim.get_array(mp.Ez)
+    # phase 14's twins: the grating at resolution GRATING_TWIN_RES, the
+    # holey waveguide's band edges, the 16^3 flagship x-periodic at the
+    # zone edge
+    out["grating_T"], _ = grating_T(mp, GRATING_TWIN_RES, "cpu")
+    for i, k in enumerate(HOLEY_K):
+        freqs = holey_sim(mp, "cpu").run_k_points(300, [mp.Vector3(k)])[0]
+        out[f"holey{i}"] = np.array(freqs, np.complex128)
+    sim, fl = flagship_sim(mp, 16, 8.0, "cpu", pml=0.25, kx=0.25)
+    sim.run(until=200 * sim.dt)
+    out["p16:flux"], out["p16:ez"] = sim.get_fluxes(fl), sim.get_array(mp.Ez)
     np.savez(path, **out)
     return 0
+
+
+#: Meep's binary_grating.py (python/examples/binary_grating.py): PML,
+#: substrate, padding, period, height and duty cycle of the grating, the
+#: wavelengths 0.4-0.6 (their frequency band), 21 frequencies; the
+#: resolutions of the card's run (the tutorial's) and of the CPU twin
+GRATING = dict(dpml=1.0, dsub=3.0, dpad=3.0, gp=10.0, gh=0.5, gdc=0.5,
+               wvl=(0.4, 0.6), nfreq=21)
+GRATING_RES, GRATING_TWIN_RES = 60, 12
+#: holey-wvg-bands.py's band edges (its 19 interior k points have complex
+#: Bloch phases: ROADMAP A9)
+HOLEY_K = (0.0, 0.5)
+
+
+def grating_sim(mp, res, device, grating, wrap=True):
+    """binary_grating.py's 8.5 x 10 cell at resolution `res`: PML on x
+    only, k_point=Vector3() (periodic in y, phase +1; `wrap` False: no
+    k_point, metal y walls), a Gaussian Ez line source over the period in
+    the substrate, the 21-frequency flux line over the period in the air;
+    without `grating` the normalization run's homogeneous glass (n =
+    1.5), with it the substrate and the grating's teeth in air.  The
+    tutorial's Mirror(Y) is left out: the reference refuses a mirror on a
+    wrapped axis (simulation.py:566-585)."""
+    g = GRATING
+    sx = 2 * g["dpml"] + g["dsub"] + g["gh"] + g["dpad"]
+    sy = g["gp"]
+    fmin, fmax = 1 / g["wvl"][1], 1 / g["wvl"][0]
+    fcen, df = 0.5 * (fmin + fmax), fmax - fmin
+    glass = mp.Medium(index=1.5)
+    geometry = [
+        mp.Block(material=glass,
+                 size=mp.Vector3(g["dpml"] + g["dsub"], mp.inf, mp.inf),
+                 center=mp.Vector3(-0.5 * sx + 0.5 * (g["dpml"] + g["dsub"]))),
+        mp.Block(material=glass,
+                 size=mp.Vector3(g["gh"], g["gdc"] * g["gp"], mp.inf),
+                 center=mp.Vector3(-0.5 * sx + g["dpml"] + g["dsub"]
+                                   + 0.5 * g["gh"]))] if grating else []
+    sim = mp.Simulation(
+        resolution=res, cell_size=mp.Vector3(sx, sy),
+        boundary_layers=[mp.PML(g["dpml"], direction=mp.X)],
+        geometry=geometry, k_point=mp.Vector3() if wrap else None,
+        default_material=mp.Medium() if grating else glass,
+        sources=[mp.Source(mp.GaussianSource(fcen, fwidth=df), mp.Ez,
+                           center=mp.Vector3(-0.5 * sx + g["dpml"]
+                                             + 0.5 * g["dsub"]),
+                           size=mp.Vector3(0, sy))], device=device)
+    fl = sim.add_flux(fcen, df, g["nfreq"], mp.FluxRegion(
+        center=mp.Vector3(0.5 * sx - g["dpml"] - 0.5 * g["dpad"]),
+        size=mp.Vector3(0, sy)))
+    sim.init_sim()
+    return sim, fl
+
+
+def grating_T(mp, res, device, run=None):
+    """binary_grating.py's two runs: the substrate-only normalization
+    (until_after_sources=100), then the grating (until_after_sources=300);
+    returns (the transmittance per frequency, the two (simulation, flux)
+    pairs); `run(sim, **kw)` runs a simulation (default sim.run)."""
+    import numpy as np
+    run = run or (lambda sim, **kw: sim.run(**kw))
+    s0, f0 = grating_sim(mp, res, device, False)
+    run(s0, until_after_sources=100)
+    s1, f1 = grating_sim(mp, res, device, True)
+    run(s1, until_after_sources=300)
+    return (np.array(s1.get_fluxes(f1)) / np.array(s0.get_fluxes(f0)),
+            ((s0, f0), (s1, f1)))
+
+
+def holey_sim(mp, device):
+    """Meep's holey-wvg-bands.py (python/examples/holey-wvg-bands.py): a
+    1 x 12 cell at resolution 20, an eps=13 guide of width 1.2 with a hole
+    of radius 0.36, an Hz Gaussian source (0.25, fwidth 1.5) at
+    (0.1234, 0), Mirror(Y, phase=-1), PML 1 on y."""
+    return mp.Simulation(
+        cell_size=mp.Vector3(1, 12), resolution=20,
+        geometry=[mp.Block(mp.Vector3(mp.inf, 1.2, mp.inf),
+                           material=mp.Medium(epsilon=13)),
+                  mp.Cylinder(0.36)],
+        sources=[mp.Source(mp.GaussianSource(0.25, fwidth=1.5), mp.Hz,
+                           center=mp.Vector3(0.1234))],
+        symmetries=[mp.Mirror(mp.Y, phase=-1)],
+        boundary_layers=[mp.PML(1, direction=mp.Y)], device=device)
 
 
 def fold_main(mp):
@@ -494,8 +613,9 @@ def schedule_text(ker, nsteps, probed):
     blocks and grid barriers a step."""
     d = ker.describe(nsteps, probed)
     if d["direct"]:
-        why = "a rotational fold's ghosts" if d["direct"] == 2 else \
-            "tiles would give no temporal reuse"
+        why = {2: "a rotational fold's ghosts",
+               3: "the Bloch wrap's reads"}.get(
+            d["direct"], "tiles would give no temporal reuse")
         return (f"direct schedule ({why}): "
                 f"the whole grid in place, {d['blocks']} blocks, T 1, "
                 f"{d['barriers'][0]}-{d['barriers'][1]} grid barriers a "
@@ -2377,6 +2497,349 @@ def phase_rotate(mp, dev, card, kers, twins):
         raise AssertionError(f"1D: the third harmonic scales by {ratio:.4f}")
 
 
+def _entry(name, source, replaces, blank):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **blank, "launches": 0,
+            "max_abs_err": 0.0}
+
+
+def _live_error(a, b, n):
+    """(max abs, max abs over the field maximum) of two states on the
+    live x-planes [0, n) of every array."""
+    err = scale = 0.0
+    for key in ("f", "f_u", "f_w"):
+        for c, t in b[key].items():
+            err = max(err, float((a[key][c][:n] - t[:n]).abs().max()))
+            if key == "f":
+                scale = max(scale, float(t[:n].abs().max()))
+    for pa, pb in zip(a["pol"], b["pol"]):
+        for k in ("p", "pp"):
+            for c, t in pb[k].items():
+                err = max(err, float((pa[k][c][:n] - t[:n]).abs().max()))
+    return err, err / max(scale, 1e-30)
+
+
+def phase_periodic(mp, dev, card, main_ms, blank, twins):
+    """Phase 14: Bloch-periodic cells with real phases.  `main_ms`: phase
+    4's ms/step; `twins`: the CPU runs (start_cpu_twins), which phase 11
+    has waited for.  Returns the kernel table entries of K1's x wrap, K2
+    on the ghost ring's extended plan and K3/K4's wrap variant."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import fdtd3d, fdtd3d_t2
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import periodicx as PX
+    from meep_nl_tpu_torch.ops import resident as R
+    from meep_nl_tpu_torch.stepper.step import build_xs, xs_rows
+    k1x = _entry("fdtd3d_k1_xwrap", "meep_nl_tpu_torch/csrc/fdtd3d.cu",
+                 K1_REPLACES, blank)
+    k2g = _entry("fdtd3d_t2_k2_ghost_ring",
+                 "meep_nl_tpu_torch/csrc/fdtd3d_t2.cu", K2_REPLACES, blank)
+    k3w = _entry("resident_k3_wrap", "meep_nl_tpu_torch/csrc/resident.cu",
+                 K3_REPLACES, blank)
+    k4w = _entry("resident_k4_wrap", "meep_nl_tpu_torch/csrc/resident.cu",
+                 K4_REPLACES, blank)
+    with np.load(twins[1]) as z:
+        want = {k: z[k] for k in z.files}
+
+    # ---- 14.1: binary_grating.py at its published size (K3) -------------
+    def counted(sim, **kw):
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(sim, **kw)
+        ker = sim.plan._resident_kernel
+        if probed or launches != sim.routes["resident"] or not launches \
+                or ker.schedule[1]["direct"] != R.DIRECT_WRAP:
+            raise AssertionError(f"grating run: K3 launches {launches}, K4 "
+                                 f"{probed}, routes {dict(sim.routes)}, "
+                                 f"schedule {ker.schedule[1]}")
+        k3w["launches"] += launches
+        print(f"[14] grating at resolution {sim.resolution:.0f} "
+              f"({sim.plan.storage_shape}, periodic {sim.plan.periodic}): "
+              f"{kw}, {sim._t} steps in {wall:.3f} s = "
+              f"{wall / sim._t * 1e3:.4f} ms/step = "
+              f"{np.prod(sim.gv.num) * sim._t / wall / 1e9:.3f} GCells/s; "
+              f"K3 launches {launches}, routes {dict(sim.routes)} ({card})",
+              flush=True)
+
+    T, runs = {}, {}
+    for res in (GRATING_RES, GRATING_TWIN_RES):
+        T[res], runs[res] = grating_T(mp, res, dev, counted)
+        if not (np.all(np.isfinite(T[res])) and np.all(T[res] > 0)):
+            raise AssertionError(f"grating T at {res}: {T[res]}")
+    print(f"[14] grating transmittance at resolution {GRATING_RES} (21 "
+          f"frequencies, wavelengths 0.4-0.6): {T[GRATING_RES].tolist()}",
+          flush=True)
+    d = rel_each(T[GRATING_TWIN_RES], want["grating_T"])
+    print(f"[14] grating at resolution {GRATING_TWIN_RES}, card vs CPU: "
+          f"transmittance max rel (each frequency against its own "
+          f"magnitude) {d:.3e}; resolution {GRATING_RES} against "
+          f"{GRATING_TWIN_RES}: {rel_each(T[GRATING_RES], want['grating_T']):.3e}",
+          flush=True)
+    if not d <= 1e-4:
+        raise AssertionError(f"grating T: card and CPU differ by {d:.3e}")
+    # K3 on the published grating, from its run's end state and a seeded
+    # random state (48 steps: the window holds DTFT sample steps of the
+    # decimated monitor), bit for bit; timed, beside tiles
+    (s0, _), (s1, _) = runs[GRATING_RES]
+    ker = s1.plan._resident_kernel
+    for label, st0 in (("the run's state", s1.fields_state),
+                       ("a random state", random_state(s1.plan, 23, dev))):
+        err, rel, drel, _ = compare_resident(ker, st0, s1._t, 48)
+        print(f"[14] K3 vs plain, grating, from {label}, 48 steps: state "
+              f"and accumulators max abs {err:.3e} (DTFT max rel "
+              f"{drel:.3e})", flush=True)
+        if not err == 0.0:
+            raise AssertionError(f"K3's wrap is not bit for bit (grating, "
+                                 f"from {label}): {err:.3e}")
+        k3w["max_abs_err"] = max(k3w["max_abs_err"], err)
+    nsteps, st, t_end = 1000, s1.fields_state, s1._t
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, ()), st, nsteps)
+    ref = R.resident_ref(s1.plan)
+    _, plain_ms = time_resident(lambda s_, n_: ref(s_, n_, t_end), st, 20,
+                                reps=1)
+    cost = R.step_cost(s1.plan, nsteps)
+    b_ms, b_by = bound({"bytes": cost["bytes"] / nsteps,
+                        "ops": cost["ops"] / nsteps})
+    k3w.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    sn, _ = grating_sim(mp, GRATING_RES, dev, True, wrap=False)
+    sn.run(until=24 * sn.dt)
+    kn = sn.plan._resident_kernel
+    ms_t, _ = time_resident(
+        lambda s_, n_: kn._run(s_, n_, sn._t, ()), sn.fields_state, nsteps)
+    cells = int(np.prod(s1.gv.num))
+    print(f"[14] K3 at the grating ({cells} cells): {ms:.4f} ms/step = "
+          f"{cells / ms / 1e6:.3f} GCells/s ({schedule_text(ker, nsteps, False)}"
+          f"); the wrapper's call {call_ms:.4f}; plain {plain_ms:.4f} "
+          f"ms/step; bound {b_ms:.5f} ms/step ({b_by}); the same cell "
+          f"without the wrap (metal y walls): {ms_t:.4f} ms/step "
+          f"({schedule_text(kn, nsteps, False)}) ({card})", flush=True)
+    del s0, s1, sn, st, ker, kn, runs
+    torch.cuda.empty_cache()
+
+    # ---- 14.2: holey-wvg-bands.py at the band edges (K4) -----------------
+    sim = holey_sim(mp, dev)
+    for i, k in enumerate(HOLEY_K):
+        sim.routes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        freqs = sim.run_k_points(300, [mp.Vector3(k)])[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ker = sim.plan._resident_kernel
+        if dict(sim.routes) != {"resident": ker.probed_launches} \
+                or ker.launches or ker.plain_steps \
+                or not ker.probed_launches \
+                or ker.schedule[1]["direct"] != R.DIRECT_WRAP:
+            raise AssertionError(f"holey k {k}: routes {dict(sim.routes)}, "
+                                 f"K3 {ker.launches}, K4 "
+                                 f"{ker.probed_launches}, plain "
+                                 f"{ker.plain_steps}")
+        k4w["launches"] += ker.probed_launches
+        phase = sim.plan.bloch_phase[0]
+        cpu = want[f"holey{i}"]
+        worst, good = 0.0, [f for f in freqs
+                            if abs(f.real) > 40 * abs(f.imag)]
+        for f in good:
+            near = cpu[np.argmin(np.abs(cpu - f))]
+            worst = max(worst, abs(near - f) / abs(f))
+        print(f"[14] holey waveguide, k_x = {k} (phase {phase}, "
+              f"{sim.plan.storage_shape}): run_k_points(300) {sim._t} steps "
+              f"in {wall:.3f} s = {wall / sim._t * 1e3:.4f} ms/step; K4 "
+              f"launches {ker.probed_launches}, routes {dict(sim.routes)}; "
+              f"modes (Q > 20) {[f'{f.real:.6f}' for f in good]}, against "
+              f"the CPU's max rel {worst:.3e} ({card})", flush=True)
+        if not (good and worst <= 1e-4):
+            raise AssertionError(f"holey k {k}: modes differ from the CPU's "
+                                 f"by {worst:.3e} ({len(good)} modes)")
+        probe = [sim._point_probe("hm0", mp.Hz, mp.Vector3(0.1234))]
+        st, t_end = sim.fields_state, sim._t
+        for label, st0 in (("the end state", st),
+                           ("a random state",
+                            random_state(sim.plan, 29 + i, dev))):
+            err, rel, _, serr = compare_resident(ker, st0, t_end, 20, probe)
+            print(f"[14] K4 vs plain, holey k_x = {k}, from {label}, 20 "
+                  f"steps: state max abs {err:.3e}, series max abs "
+                  f"{serr:.3e}", flush=True)
+            if not (err == 0.0 and serr == 0.0):
+                raise AssertionError(f"K4's wrap is not bit for bit (holey "
+                                     f"k {k}, from {label}): {err:.3e}, "
+                                     f"series {serr:.3e}")
+            k4w["max_abs_err"] = max(k4w["max_abs_err"], err, serr)
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, probe), st, 1024)
+    ref = R.resident_ref(sim.plan)
+    _, plain_ms = time_resident(lambda s_, n_: ref(s_, n_, t_end, probe), st,
+                                20, reps=1)
+    cost = R.step_cost(sim.plan, 1024)
+    b_ms, b_by = bound({"bytes": cost["bytes"] / 1024,
+                        "ops": cost["ops"] / 1024})
+    k4w.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[14] K4 at the holey waveguide: {ms:.4f} ms/step "
+          f"({schedule_text(ker, 1024, True)}); the wrapper's call "
+          f"{call_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.6f} ms/step "
+          f"({b_by}) ({card})", flush=True)
+    del sim, st, ker
+
+    # ---- 14.3: the 128^3 flagship made x-periodic -----------------------
+    res, n = 16.0, 128
+    for kx in (0.0, 1 / 16):
+        nsteps = 60
+        # without the flux plane: the ghost ring (K2 on the extended plan)
+        sim, _ = flagship_sim(mp, n, res, dev, flux=False, kx=kx)
+        plan = sim.plan
+        sim.run(until=12 * sim.dt)                  # warm-up: builds
+        ring = plan._t2_kernel
+        if not (isinstance(ring, PX.PeriodicGhostT2Kernel) and ring.k3):
+            raise AssertionError(f"128^3 x-periodic: kernel {ring}")
+        kers = [ring.ker, ring.k3.ker, ring.ker._k1]
+        for k in kers:
+            k.launches = k.plain_steps = 0
+        sim.routes.clear()
+        HY.hybrid_routes(plan).clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(until=nsteps * sim.dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3_per = ring.k3.ker.launches_per_call
+        got = [k.launches for k in kers]
+        if dict(sim.routes) != {"hybrid": 1} \
+                or dict(HY.hybrid_routes(plan)) != {"no_sample": 1} \
+                or got != [0, nsteps // 3 * k3_per, 0] \
+                or any(k.plain_steps for k in kers):
+            raise AssertionError(f"128^3 x-periodic ghost ring: routes "
+                                 f"{dict(sim.routes)}, "
+                                 f"{dict(HY.hybrid_routes(plan))}, "
+                                 f"launches {got}")
+        k2g["launches"] += got[1]
+        phase = plan.bloch_phase[0]
+        ext = ring.ext_plan.storage_shape
+        print(f"[14] 128^3 flagship x-periodic (phase {phase}), no monitor: "
+              f"{nsteps} steps in {wall:.3f} s = {wall / nsteps * 1e3:.4f} "
+              f"ms/step (phase 4's capture route {main_ms:.4f}); the ghost "
+              f"ring, extended storage {ext}: {got[1]} K2 launches at depth "
+              f"3 ({k3_per} a call), routes {dict(sim.routes)} ({card})",
+              flush=True)
+        # the stepper with the hybrid route's slab-local PML chains
+        se, _ = flagship_sim(mp, n, res, dev, flux=False, kx=kx,
+                             use_fused=False)
+        se.plan.slab_opt = True
+        se.run(until=(nsteps + 12) * se.dt)
+        err, rel = _live_error(sim.fields_state, se.fields_state,
+                               plan.gv.num[0])
+        print(f"[14] ghost ring vs the eager stepper on the card after "
+              f"{nsteps + 12} steps (phase {phase}): live planes max abs "
+              f"{err:.3e}, over the field maximum {rel:.3e} (gate 1e-6)",
+              flush=True)
+        if not rel <= 1e-6:
+            raise AssertionError(f"ghost ring differs from the stepper: "
+                                 f"{rel:.3e}")
+        # K2 on the extended plan against its plain version, timed
+        st = ring._refresh(ring.from_full(sim.fields_state))
+        for d, rk in ((2, ring), (3, ring.k3)):
+            err, rel, _, _, _ = compare_k2(ring.ext_plan, d, 2, st, sim._t,
+                                           None)
+            print(f"[14] K2 depth {d} vs plain on the extended plan "
+                  f"(phase {phase}), 2 calls from the run's state: max abs "
+                  f"{err:.3e}", flush=True)
+            if not err == 0.0:
+                raise AssertionError(f"K2 on the extended plan is not bit "
+                                     f"for bit: {err:.3e}")
+            k2g["max_abs_err"] = max(k2g["max_abs_err"], err)
+        rows = xs_rows(ring.ext_plan, build_xs(ring.ext_plan, 36, sim._t))
+        ms, _ = time_steps(ring.k3.step, clone_state(st), rows, per=3)
+        if kx:
+            plain = fdtd3d_t2.steps_ref(ring.ext_plan, 3)
+            p_ms, _ = time_steps(lambda s_, r_: plain(s_, r_)[0],
+                                 clone_state(st), rows[:12], per=3)
+            b_ms, b_by = bound(fdtd3d_t2.step_cost(ring.ext_plan, 3))
+            k2g.update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"[14] K2 depth 3 on the extended plan, its refresh "
+                  f"included: {ms:.4f} ms/call = {ms / 3:.4f} ms/step; plain "
+                  f"{p_ms:.4f} ms/call; bound {b_ms:.4f} ms/call ({b_by}) "
+                  f"({card})", flush=True)
+        del sim, se, st, ring, kers
+        # with phase 4's flux plane, phase 4's 602 steps (the pulse
+        # reaches the plane): K1's x wrap every step
+        nsteps = 602
+        sim, fl = flagship_sim(mp, n, res, dev, kx=kx)
+        plan = sim.plan
+        sim.run(until=12 * sim.dt)
+        k1 = plan._t2_kernel._k1
+        if not isinstance(k1, PX.PeriodicXKernel):
+            raise AssertionError(f"128^3 x-periodic monitored: K1 {k1}")
+        k1.launches = k1.plain_steps = 0
+        sim.routes.clear()
+        HY.hybrid_routes(plan).clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(until=nsteps * sim.dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if dict(sim.routes) != {"hybrid": 1} \
+                or dict(HY.hybrid_routes(plan)) != {"full_state": 1} \
+                or k1.launches != nsteps * K1_LAUNCHES or k1.plain_steps:
+            raise AssertionError(f"128^3 x-periodic monitored: routes "
+                                 f"{dict(sim.routes)}, "
+                                 f"{dict(HY.hybrid_routes(plan))}, K1 "
+                                 f"launches {k1.launches}")
+        k1x["launches"] += k1.launches
+        flux = sim.get_fluxes(fl)
+        se, fe = flagship_sim(mp, n, res, dev, kx=kx, use_fused=False)
+        se.plan.slab_opt = True
+        se.run(until=(nsteps + 12) * se.dt)
+        fd = rel_diff(flux, se.get_fluxes(fe))
+        err, rel = _live_error(sim.fields_state, se.fields_state,
+                               plan.gv.num[0])
+        print(f"[14] 128^3 flagship x-periodic (phase {phase}) with the flux "
+              f"plane: {nsteps} steps in {wall:.3f} s = "
+              f"{wall / nsteps * 1e3:.4f} ms/step (phase 4's {main_ms:.4f}); "
+              f"K1's x wrap every step (the full-state cycle), launches "
+              f"{k1.launches}; against the eager stepper on the card: "
+              f"fluxes max rel {fd:.3e}, live planes max abs {err:.3e} "
+              f"(over the maximum {rel:.3e}; gates 1e-6); flux "
+              f"{flux.tolist()} ({card})", flush=True)
+        if not (fd <= 1e-6 and rel <= 1e-6 and np.abs(flux).max() > 1e-8):
+            raise AssertionError(f"K1's x wrap differs from the stepper: "
+                                 f"fluxes {fd:.3e}, state {rel:.3e}")
+        st, t_end = sim.fields_state, sim._t
+        err, rel = compare_k1_from(plan, k1, st, t_end)
+        print(f"[14] K1's x wrap vs plain (phase {phase}), 5 steps from the "
+              f"run's state: max abs {err:.3e}", flush=True)
+        if not err == 0.0:
+            raise AssertionError(f"K1's x wrap is not bit for bit: "
+                                 f"{err:.3e}")
+        k1x["max_abs_err"] = max(k1x["max_abs_err"], err)
+        if kx:
+            rows = xs_rows(plan, build_xs(plan, 13, t_end))
+            k1x["ms"], _ = time_steps(k1.step, clone_state(st), rows)
+            k1x["plain_ms"], _ = time_steps(fdtd3d.step_ref(plan),
+                                            clone_state(st), rows)
+            k1x["bound_ms"], k1x["bound_by"] = bound(fdtd3d.step_cost(plan))
+            print(f"[14] K1's x wrap at 128^3: {k1x['ms']:.4f} ms/step, "
+                  f"plain {k1x['plain_ms']:.4f}, bound "
+                  f"{k1x['bound_ms']:.4f} ms ({k1x['bound_by']}) ({card})",
+                  flush=True)
+        del sim, se, st
+        torch.cuda.empty_cache()
+
+    # ---- 14.4: the 16^3 form on the resident route (K3's wrap) ----------
+    s2, f2 = flagship_sim(mp, 16, 8.0, dev, pml=0.25, kx=0.25)
+    ker, _ = resident_counted_check(s2, "16^3 flagship x-periodic, zone "
+                                    "edge", card, k3w, 200, tag="14")
+    if ker.schedule[1]["direct"] != R.DIRECT_WRAP:
+        raise AssertionError(f"16^3 x-periodic: schedule {ker.schedule[1]}")
+    for what, got, ref_ in (("flux", s2.get_fluxes(f2), want["p16:flux"]),
+                            ("ez", s2.get_array(mp.Ez), want["p16:ez"])):
+        d = rel_diff(got, ref_)
+        print(f"[14] 16^3 x-periodic, card vs CPU {what}: max rel {d:.3e}",
+              flush=True)
+        if not d <= 1e-4:
+            raise AssertionError(f"16^3 x-periodic {what}: {d:.3e}")
+    return [k1x, k2g, k3w, k4w]
+
+
 def main() -> int:
     import shutil
     import torch
@@ -2396,7 +2859,7 @@ def main() -> int:
 
 
 def run_phases(twins) -> int:
-    """Phases 1-13 (the module docstring); `twins`: the CPU runs
+    """Phases 1-14 (the module docstring); `twins`: the CPU runs
     (start_cpu_twins)."""
     import numpy as np
     import torch
@@ -2726,11 +3189,12 @@ def run_phases(twins) -> int:
     phase_mirror(mp, dev, card, main_ms, (ring_series, modes),
                  (k1, k2, k3, k4), twins)
     phase_rotate(mp, dev, card, (k3, k4), twins)
-    print(f"[13] phases 1-13 took {time.perf_counter() - t_start:.1f} s",
+    wrap = phase_periodic(mp, dev, card, main_ms, blank, twins)
+    print(f"[14] phases 1-14 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -86,7 +86,16 @@
 // layout as compile-time values (U); any other plan the general ones.  A
 // plan with a y or z node mirror runs D launches built with the fold ghost
 // (MIR), every other plan D launches built without it: built into every
-// D launch, the ghost cost registers and spills (PERF.md).
+// D launch, the ghost cost registers and spills (PERF.md).  A plan
+// Bloch-periodic along x with a real phase ph (ops/periodicx.py) runs B
+// and D launches built with the wrap (WRAP): the K_B ring's plane num is
+// loaded as ph E(0), the K_D ring's plane -1 as (1 / ph) H(num - 1), where
+// num is the live extent (step._sh).  Their chunks end at num, so those
+// planes are loaded only where the last live plane reads forward or plane
+// 0 backward; the dead planes num.. form chunks of their own, where K_D
+// reads plane num - 1 as zero (the plain version's wrap fills the dead
+// planes' neighbours with zeros) and K_B reads only dead planes, which the
+// masks keep zero.
 //
 // Left on the table: the compact D/B layout (E/H recomputed as u D outside
 // the W slabs), P and PP stored on the dispersive box only, several steps
@@ -152,6 +161,10 @@ struct K1Args {
   // (step.mirror_ghost): the halo row below plane 0 holds sign * g[k0]
   int mir;
   int mk0[MAXRING][2], msg[MAXRING][2];
+  // K_B / K_D of an x-periodic plan (WRAP): the live extent along x (0:
+  // no wrap) and the scale of the wrapped plane (K_B: ph, K_D: 1 / ph)
+  int wnum, wpad;
+  double wsc;
 };
 
 #ifdef MNT_CUDA_STUB
@@ -389,21 +402,33 @@ __device__ __forceinline__ void ring_setup(const K1Args& A,
 // the halo row below a mirror plane (K_D), which reads the fold ghost
 // sign * g[k0] of the same plane, stored directly (the slot is read after
 // the plane's barrier).  Only the tiles at a plane have such positions.
-template <typename T, int KIND, bool MIR>
+// WRAP: in a live chunk K_B's plane num is wsc * plane 0 and K_D's plane
+// -1 is wsc * plane num - 1, stored directly; in a dead chunk (`dead`)
+// K_D's plane num - 1 is zero.
+template <typename T, int KIND, bool MIR, bool WRAP>
 __device__ __forceinline__ void ring_issue(const K1Args& A,
                                            const RingPos<KIND>& rp, T* ring,
-                                           int p) {
+                                           int p, bool dead) {
   typedef Ring<KIND> G;
   T* slot = ring + ((p + G::NSLOT) % G::NSLOT) * A.nring * G::PW;
-  const bool pin = p >= 0 && p < A.S0;
-  const int base = p * A.S1 * A.S2;
+  int q = p;
+  bool wrapped = false, zero = false;
+  if (WRAP) {
+    if (KIND == K_B && !dead && p == A.wnum) q = 0, wrapped = true;
+    if (KIND == K_D && !dead && p == -1) q = A.wnum - 1, wrapped = true;
+    if (KIND == K_D && dead && p == A.wnum - 1) zero = true;
+  }
+  const bool pin = !zero && q >= 0 && q < A.S0;
+  const int base = q * A.S1 * A.S2;
   for (int r = 0; r < A.nring; ++r) {
     const T* src = (const T*)A.ring[r] + base;
     T* dst = slot + r * G::PW;
 #pragma unroll
     for (int u = 0; u < G::NPOS; ++u) {
       if (rp.o[u] < 0) continue;
-      if (pin && rp.ok[u]) {
+      if (WRAP && wrapped && rp.ok[u]) {
+        dst[rp.o[u]] = T(A.wsc) * src[rp.g[u]];
+      } else if (pin && rp.ok[u]) {
         cp_async<T>(dst + rp.o[u], src + rp.g[u]);
       } else if (MIR && pin && rp.gh[u]) {
         const int a = rp.gh[u] - 1;
@@ -752,7 +777,7 @@ __device__ __forceinline__ void e_site(const K1Args& A, const T* tab,
 // K_B reads the ring planes i and i+1 (and brings in i+2), K_D the planes
 // i-1 and i (brings in i+1); the own-site operands of plane i+1 are loaded
 // after plane i's site work
-template <typename T, int KIND, int NP, bool U, bool MIR>
+template <typename T, int KIND, int NP, bool U, bool MIR, bool WRAP>
 __device__ __forceinline__ void march_curl(const K1Args& A, const T* tab,
                                            T* ring, const Site<T>* s,
                                            Own<T, NP>* ow,
@@ -760,15 +785,17 @@ __device__ __forceinline__ void march_curl(const K1Args& A, const T* tab,
                                            int i0, int i1) {
   constexpr int AHEAD = KIND == K_B ? 2 : 1;
   const int last = KIND == K_B ? i1 : i1 - 1;     // the last plane read
-  ring_issue<T, KIND, MIR>(A, rp, ring, i0 + AHEAD - 2);
+  const bool dead = WRAP && i0 >= A.wnum;
+  ring_issue<T, KIND, MIR, WRAP>(A, rp, ring, i0 + AHEAD - 2, dead);
   cp_commit();
-  ring_issue<T, KIND, MIR>(A, rp, ring, i0 + AHEAD - 1);
+  ring_issue<T, KIND, MIR, WRAP>(A, rp, ring, i0 + AHEAD - 1, dead);
   cp_commit();
 #pragma unroll
   for (int m = 0; m < SPT; ++m)
     if (s[m].ok) own_load<T, KIND, NP, U>(A, s[m], i0, tile, ow[m]);
   for (int i = i0; i < i1; ++i) {
-    if (i + AHEAD <= last) ring_issue<T, KIND, MIR>(A, rp, ring, i + AHEAD);
+    if (i + AHEAD <= last)
+      ring_issue<T, KIND, MIR, WRAP>(A, rp, ring, i + AHEAD, dead);
     cp_commit();
     cp_wait1();
     __syncthreads();
@@ -806,7 +833,7 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
   }
   if (xa < xb) {
     for (int p = xa - 1; p <= xa + 1; ++p) {
-      ring_issue<T, K_E, false>(A, rp, ring, p);
+      ring_issue<T, K_E, false, false>(A, rp, ring, p, false);
       cp_commit();
     }
   }
@@ -817,7 +844,8 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
   for (int i = i0; i < i1; ++i) {
     const bool nlp = i >= xa && i < xb;
     if (nlp) {
-      if (i + 2 <= xb) ring_issue<T, K_E, false>(A, rp, ring, i + 2);
+      if (i + 2 <= xb)
+        ring_issue<T, K_E, false, false>(A, rp, ring, i + 2, false);
       cp_commit();
       cp_wait1();
       __syncthreads();
@@ -845,10 +873,28 @@ constexpr int min_blocks() {
   return KIND == K_B ? 3 : (KIND == K_D ? 5 : (NL ? 3 : 4));
 }
 
+// the x-planes [i0, i1) of chunk c: WRAP (K_B, K_D of an x-periodic plan)
+// cuts the live planes [0, wnum) and the dead ones [wnum, S0) into chunks
+// of their own
+template <bool WRAP>
+__device__ __forceinline__ void chunk_planes(const K1Args& A, int c,
+                                             int* i0, int* i1) {
+  int lo = 0, hi = A.S0, cc = c;
+  if (WRAP) {
+    const int nlive = (A.wnum + A.ch - 1) / A.ch;
+    if (c < nlive) hi = A.wnum;
+    else lo = A.wnum, cc = c - nlive;
+  }
+  *i0 = lo + cc * A.ch;
+  *i1 = *i0 + A.ch < hi ? *i0 + A.ch : hi;
+}
+
 // NL (K_E only): the nonlinear code is compiled in, for plans with a
 // nonlinear box; NP: the polarizations a site holds (K_E: 1 or MAXPOL);
-// U: the plan has the standard uPML layout (u_ax1 ...)
-template <typename T, int KIND, bool NL, int NP, bool U, bool MIR>
+// U: the plan has the standard uPML layout (u_ax1 ...); MIR (K_D): the
+// node-mirror ghost; WRAP (K_B, K_D): the x Bloch wrap
+template <typename T, int KIND, bool NL, int NP, bool U, bool MIR,
+          bool WRAP>
 __global__ void __launch_bounds__(NTHR, (min_blocks<KIND, NL>()))
 k1_kernel(const __grid_constant__ K1Args A) {
   T* tab = (T*)K1_SMEM;
@@ -877,7 +923,8 @@ k1_kernel(const __grid_constant__ K1Args A) {
           ty < rc.ty1 && tz >= rc.tz0 && tz < rc.tz1)
         continue;
     }
-    const int i0 = c * A.ch, i1 = i0 + A.ch < A.S0 ? i0 + A.ch : A.S0;
+    int i0, i1;
+    chunk_planes<WRAP>(A, c, &i0, &i1);
     const int j0 = ty * TY, k0 = tz * TZ;
     __syncthreads();                  // the last item's readers are done
     load_tables<T, KIND>(A, tab, i0, tid);
@@ -888,9 +935,8 @@ k1_kernel(const __grid_constant__ K1Args A) {
     if constexpr (KIND == K_E)
       march_e<T, NL, NP, U>(A, tab, ring, s, ow, rp, i0, i1, j0, k0);
     else
-      march_curl<T, KIND, NP, U, MIR>(A, tab, ring, s, ow, rp,
-                                      ty * A.ntz + tz,
-                                 i0, i1);
+      march_curl<T, KIND, NP, U, MIR, WRAP>(A, tab, ring, s, ow, rp,
+                                            ty * A.ntz + tz, i0, i1);
   }
 }
 
@@ -903,12 +949,13 @@ static size_t smem_bytes(const K1Args& A) {
          sizeof(T);
 }
 
-template <typename T, int KIND, bool NL, int NP, bool U, bool MIR>
+template <typename T, int KIND, bool NL, int NP, bool U, bool MIR,
+          bool WRAP>
 static int launch_kind(const K1Args* a, cudaStream_t s) {
   const size_t smem = smem_bytes<T, KIND, NL>(*a);
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
-        k1_kernel<T, KIND, NL, NP, U, MIR>,
+        k1_kernel<T, KIND, NL, NP, U, MIR, WRAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
@@ -916,7 +963,7 @@ static int launch_kind(const K1Args* a, cudaStream_t s) {
   int head;
   const unsigned grid = (unsigned)item_count<KIND, NL>(*a, &head);
   if (grid == 0) return 0;
-  cudaError_t rc = cudaLaunchKernel(k1_kernel<T, KIND, NL, NP, U, MIR>,
+  cudaError_t rc = cudaLaunchKernel(k1_kernel<T, KIND, NL, NP, U, MIR, WRAP>,
                                     dim3(grid), dim3(NTHR), args, smem, s);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
@@ -927,16 +974,21 @@ static bool upml_layout(const K1Args& A, int kind) {
          (kind == K_D || upml_eh(A.ec, (int)A.P.neh));
 }
 
-template <typename T, int KIND, bool NL, int NP, bool MIR = false>
+template <typename T, int KIND, bool NL, int NP, bool MIR = false,
+          bool WRAP = false>
 static int launch_u(const K1Args* a, cudaStream_t s) {
   return upml_layout(*a, KIND)
-             ? launch_kind<T, KIND, NL, NP, true, MIR>(a, s)
-             : launch_kind<T, KIND, NL, NP, false, MIR>(a, s);
+             ? launch_kind<T, KIND, NL, NP, true, MIR, WRAP>(a, s)
+             : launch_kind<T, KIND, NL, NP, false, MIR, WRAP>(a, s);
 }
 
 template <typename T>
 static int launch(const K1Args* a, int kind, cudaStream_t s) {
   if (a->S0 < 1 || a->ch < 1 || a->nring > MAXRING || a->P.npol > MAXPOL)
+    return (int)cudaErrorInvalidValue;
+  // the wrap: B and D launches, a live extent inside the storage, no
+  // mirror ghost beside it
+  if (a->wnum && (kind == K_E || a->wnum < 1 || a->wnum >= a->S0 || a->mir))
     return (int)cudaErrorInvalidValue;
   const bool nl = has_nl(a->P);
   const bool one = a->P.npol <= 1;
@@ -944,10 +996,12 @@ static int launch(const K1Args* a, int kind, cudaStream_t s) {
     case K_B:
       // only the E family may carry chi3 / chi2-NR coefficients
       if (has_nl(a->P)) return (int)cudaErrorInvalidValue;
-      return launch_u<T, K_B, false, 1>(a, s);
+      return a->wnum ? launch_u<T, K_B, false, 1, false, true>(a, s)
+                     : launch_u<T, K_B, false, 1>(a, s);
     case K_D:
       // the fold ghosts (MIR) only in the variants of mirrored plans: built
       // into every variant, they cost the launch registers and spills
+      if (a->wnum) return launch_u<T, K_D, false, 1, false, true>(a, s);
       return a->mir ? launch_u<T, K_D, false, 1, true>(a, s)
                     : launch_u<T, K_D, false, 1, false>(a, s);
     case K_E:

@@ -87,6 +87,13 @@
 //     curl reads gs * base[gsrc slot][site + goff + j * gmul] (j the
 //     site's index along gax, zero where j >= glim); the other variants
 //     are compiled without it.
+//   * The Bloch wrap: on a periodic axis of live extent n (A.wn, real
+//     phase ph = A.wph), the B curl's forward difference at plane n - 1
+//     reads ph g(0), the D curl's backward difference at plane 0 reads
+//     (1 / ph) g(n - 1), the centred DTFT's read past plane n - 1 is
+//     ph times plane 0, and a dead plane's read across the axis is zero
+//     (step._sh).  These reads cross the grid, so periodic plans take the
+//     direct schedule in its WRAP variant (Tiling.direct = 3).
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -199,7 +206,16 @@ struct ResArgs {
   // goff + j * gmul, j the site's index along axis gax, 0 where j >= glim
   i64 gsrc[NCOMP][2], goff[NCOMP][2], gmul[NCOMP][2], gax[NCOMP][2],
       glim[NCOMP][2];
+  // the Bloch wrap (the WRAP variant of the direct schedule; set_ghosts):
+  // per axis the live extent n (0: not periodic), the phase and its
+  // inverse
+  i64 wn[3];
+  double wph[3], wphi[3];
 };
+
+// the direct schedule's ghost reads: none, the rotational folds' (ROT),
+// the Bloch wrap's (WRAP)
+enum { GK_NONE = 0, GK_ROT = 1, GK_WRAP = 2 };
 
 // the box a block stages in a pass: origin and extents in the grid
 struct Box {
@@ -445,17 +461,47 @@ __device__ __forceinline__ float diff_rot(const float* sm, int g, int ax,
   return sm[g + x.l] - lo;
 }
 
-// step._curl_update of one component (q of its family) at one site; ROT:
-// the D curl reads the rotational ghosts of A
-template <bool IS_D, bool ROT>
+// diff_t in the WRAP variant (direct schedule: the box is the grid):
+// across a periodic axis of live extent n the B curl's forward difference
+// at plane n - 1 reads wph * g(0), the D curl's backward difference at
+// plane 0 reads wphi * g(n - 1), and a site of a dead plane (n and up)
+// reads zero across the axis, as step._sh shifts
+template <bool IS_D>
+__device__ __forceinline__ float diff_w(const float* sm, int g, int ax,
+                                        int st, int gog, float gsg,
+                                        const Box& b, const Loc& x,
+                                        const ResArgs& A) {
+  const int n = (int)A.wn[ax];
+  if (n == 0) return diff_t<IS_D>(sm, g, ax, st, gog, gsg, b, x);
+  const int c = coord_of(ax, x);
+  const float v = sm[g + x.l];
+  if (IS_D)
+    return v - (c == 0 ? (float)A.wphi[ax] * sm[g + x.l + (n - 1) * st]
+                       : (c < n ? sm[g + x.l - st] : 0.0f));
+  return (c < n - 1 ? sm[g + x.l + st]
+                    : (c == n - 1 ? (float)A.wph[ax] *
+                                        sm[g + x.l - (n - 1) * st]
+                                  : 0.0f)) -
+         v;
+}
+
+// step._curl_update of one component (q of its family) at one site; GK:
+// the D curl reads the rotational ghosts of A (GK_ROT), both curls read
+// across the Bloch wrap (GK_WRAP)
+template <bool IS_D, int GK>
 __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
                                        const Box& b, const Loc& x,
                                        const ResArgs& A, int q) {
   float dp = 0.0f, dm = 0.0f;
-  if (IS_D && ROT) {
+  if (IS_D && GK == GK_ROT) {
     const int vol = (int)A.tl.vol;
     if (c.gp >= 0) dp = diff_rot(sm, c.gp, c.ap, c.stp, A, vol, q, 0, x);
     if (c.gm >= 0) dm = diff_rot(sm, c.gm, c.am, c.stm, A, vol, q, 1, x);
+  } else if (GK == GK_WRAP) {
+    if (c.gp >= 0)
+      dp = diff_w<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x, A);
+    if (c.gm >= 0)
+      dm = diff_w<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x, A);
   } else {
     if (c.gp >= 0)
       dp = diff_t<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x);
@@ -583,7 +629,7 @@ __device__ __forceinline__ void eh_t(const FamT& F, const EhT& e,
 
 // the curl of every component of family F over [lo, hi), component by
 // component (each one's descriptor in registers)
-template <bool IS_D, bool ROT>
+template <bool IS_D, int GK>
 __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
                                          const Box& b, const int* lo,
                                          const int* hi, const Team& tm,
@@ -592,7 +638,7 @@ __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
   for (int q = 0; q < F.s.ncurl; ++q) {
     const CurlT c = F.curl[q];
     over(b, lo, hi, tm,
-         [&](const Loc& x) { curl_t<IS_D, ROT>(c, csgn, sm, b, x, A, q); });
+         [&](const Loc& x) { curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q); });
   }
 }
 
@@ -654,22 +700,38 @@ __device__ void sources_at(const ResArgs& A, const SrcFam& sf, const FamT& F,
 
 // the monitor's field value at the site: the centred average folded over
 // its axes in order, 0.5 * (lower + upper) per axis, zero past the grid
-// (step._region_values); f: the component's staged array
+// (step._region_values); f: the component's staged array.  WRAP (direct
+// schedule, the box is the grid): on a periodic axis of live extent n the
+// upper read of plane n - 1 is wph * plane 0, that of a dead plane zero
+template <int GK>
 __device__ __forceinline__ float region_value(const DftM& d, const float* f,
-                                              const Box& b, const Loc& x) {
+                                              const Box& b, const Loc& x,
+                                              const ResArgs& A) {
   float v[8];
   const int nc = 1 << d.navg;
   for (int c = 0; c < nc; ++c) {
     int ci = x.i, cj = x.j, ck = x.k;
+    float sc = 1.0f;
+    bool in = true;
     for (int m = 0; m < d.navg; ++m) {
       if (!((c >> m) & 1)) continue;
-      if (d.avg[m] == 0) ++ci;
-      else if (d.avg[m] == 1) ++cj;
-      else ++ck;
+      const int ax = (int)d.avg[m];
+      const int cur = ax == 0 ? ci : (ax == 1 ? cj : ck);
+      const int n = GK == GK_WRAP ? (int)A.wn[ax] : 0;
+      int nxt = cur + 1;
+      if (n == 0) {
+        in = in && nxt < (ax == 0 ? b.n[0] : (ax == 1 ? b.n[1] : b.n[2]));
+      } else if (cur == n - 1) {
+        nxt = 0;
+        sc = sc * (float)A.wph[ax];
+      } else if (cur >= n) {
+        in = false;
+      }
+      if (ax == 0) ci = nxt;
+      else if (ax == 1) cj = nxt;
+      else ck = nxt;
     }
-    v[c] = (ci < b.n[0] && cj < b.n[1] && ck < b.n[2])
-               ? f[(ci * b.n[1] + cj) * b.n[2] + ck]
-               : 0.0f;
+    v[c] = in ? sc * f[(ci * b.n[1] + cj) * b.n[2] + ck] : 0.0f;
   }
   for (int m = 1; m <= d.navg; ++m)
     for (int c = 0; c < (nc >> m); ++c)
@@ -679,6 +741,7 @@ __device__ __forceinline__ float region_value(const DftM& d, const float* f,
 
 // the DTFT update (acc += ph * w * fv, re and im rows) at the region sites
 // of the tile's interior [lo, hi)
+template <int GK>
 __device__ void dtft(const ResArgs& A, float* sm, int vol, const Box& b,
                      const int* lo, const int* hi, i64 s, const Team& tm) {
   for (int m = 0; m < A.ndft; ++m) {
@@ -698,7 +761,7 @@ __device__ void dtft(const ResArgs& A, float* sm, int vol, const Box& b,
                      (x.j + b.o[1] - (int)d.lo[1])) *
                         (int)d.n[2] +
                     (x.k + b.o[2] - (int)d.lo[2]);
-      const float fv = region_value(d, f, b, x);
+      const float fv = region_value<GK>(d, f, b, x, A);
       const float cr = ((const float*)d.w)[r] * fv;
       // complex weights (LDOS): c = cr + i ci, acc += ph c
       const float ci = cplx ? ((const float*)d.wi)[r] * fv : 0.0f;
@@ -827,9 +890,9 @@ __device__ __forceinline__ void copy_box(const void* const* grid, float* sm,
 
 // the Tp steps of pass `pass` on box b (staged in sm, or the grid itself
 // in the direct schedule), interior [lo, hi); `tf` the descriptors on b,
-// `mine` the thread's first probe point; ROT: the rotational ghosts (direct
-// schedule only)
-template <bool NL, bool PROBED, bool DIRECT, bool ROT>
+// `mine` the thread's first probe point; GK: the rotational ghosts or the
+// Bloch wrap (direct schedule only)
+template <bool NL, bool PROBED, bool DIRECT, int GK>
 __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
                            float* sm, const Box& b, const int* lo,
                            const int* hi, int tile, i64 pass, int Tp,
@@ -857,7 +920,8 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
       ehi[ax] = min(S[ax], hi[ax] + H - 1 - nl);
     }
     // B curl (+ H)
-    curl_all<false, false>(FB, sm, b, blo, bhi, tm, A);
+    curl_all<false, GK == GK_WRAP ? GK_WRAP : GK_NONE>(FB, sm, b, blo, bhi,
+                                                      tm, A);
     if (!bsrc) eh_all<false>(FB, sm, b, blo, bhi, tm);
     bar<DIRECT>();
     if (bsrc) {
@@ -868,7 +932,7 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
     }
     // D curl (+ E)
     const bool fused = A.e_local && !dsrc;
-    curl_all<true, ROT>(FD, sm, b, dlo, bhi, tm, A);
+    curl_all<true, GK>(FD, sm, b, dlo, bhi, tm, A);
     if (fused) eh_all<NL>(FD, sm, b, dlo, bhi, tm);
     bar<DIRECT>();
     if (!fused) {
@@ -881,7 +945,7 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
     }
     // DTFT and probe products at the interior's sites
     const bool dft = fl & STEP_DFT;
-    if (dft) dtft(A, sm, vol, b, lo, hi, s, tm);
+    if (dft) dtft<GK>(A, sm, vol, b, lo, hi, s, tm);
     if (PROBED)
       probe_products(A, sm, vol, b, tile, pass, r, S[1], S[2], mine, tm);
     if (dft || PROBED) bar<DIRECT>();
@@ -955,8 +1019,8 @@ __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
       sm[tl.nslot * vol + u] = ((const float*)vt[2 * v])[b.o[ax] + m];
   }
   __syncthreads();
-  pass_steps<NL, PROBED, false, false>(A, tf, sm, b, lo, hi, tile, pass, Tp,
-                                       mine);
+  pass_steps<NL, PROBED, false, GK_NONE>(A, tf, sm, b, lo, hi, tile, pass,
+                                          Tp, mine);
   // the interior into the set this pass writes
   copy_box<false>(A.set[(pass + 1) & 1], sm, vol, (int)tl.nstate, b, lo, n,
                   S1, S2);
@@ -965,9 +1029,9 @@ __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
 
 // NL: the E family carries chi3 / chi2-NR coefficients; PROBED: K4; DIRECT:
 // the direct schedule (one tile, the whole grid, stepped in place in A.base
-// by all the grid's threads, T = 1); ROT (with DIRECT): the rotational fold
-// ghosts
-template <bool NL, bool PROBED, bool DIRECT, bool ROT>
+// by all the grid's threads, T = 1); GK (with DIRECT): the rotational fold
+// ghosts or the Bloch wrap
+template <bool NL, bool PROBED, bool DIRECT, int GK>
 __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     k3_kernel(const ResArgs* gA) {
   __shared__ __align__(16) ResArgs A;
@@ -991,8 +1055,8 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     // the probe products)
     for (i64 p = 0; p < npass; ++p) {
       if (PROBED && p > 0) probe_sums(A, p - 1);
-      pass_steps<NL, PROBED, true, ROT>(A, tf, (float*)A.base, b, lo, hi, 0,
-                                        p, 1, mine);
+      pass_steps<NL, PROBED, true, GK>(A, tf, (float*)A.base, b, lo, hi, 0,
+                                       p, 1, mine);
     }
   } else {
     cg::grid_group grid = cg::this_grid();
@@ -1013,17 +1077,19 @@ static int threads_of(int nl) { return nl ? NTHR / 2 : NTHR; }
 
 template <bool NL, bool PROBED>
 static const void* kernel_dir(int direct) {
-  return direct ? (const void*)k3_kernel<NL, PROBED, true, false>
-                : (const void*)k3_kernel<NL, PROBED, false, false>;
+  if (direct == 3) return (const void*)k3_kernel<NL, PROBED, true, GK_WRAP>;
+  return direct ? (const void*)k3_kernel<NL, PROBED, true, GK_NONE>
+                : (const void*)k3_kernel<NL, PROBED, false, GK_NONE>;
 }
 
 // the variant; direct 2: the direct schedule with the rotational ghosts
-// (linear plans only: a fold declines chi2/chi3), else nullptr
+// (linear plans only: a fold declines chi2/chi3), else nullptr; direct 3:
+// the direct schedule with the Bloch wrap
 static const void* kernel_of(int nl, int probed, int direct) {
   if (direct == 2)
     return nl ? nullptr
-              : (probed ? (const void*)k3_kernel<false, true, true, true>
-                        : (const void*)k3_kernel<false, false, true, true>);
+              : (probed ? (const void*)k3_kernel<false, true, true, GK_ROT>
+                        : (const void*)k3_kernel<false, false, true, GK_ROT>);
   if (nl)
     return probed ? kernel_dir<true, true>(direct)
                   : kernel_dir<true, false>(direct);
@@ -1074,7 +1140,8 @@ int mnt_k3_sms(void) {
 }
 
 // the largest co-resident grid of the variant (nl, probed, direct: 0 tiles,
-// 1 the direct schedule, 2 with the rotational ghosts) with
+// 1 the direct schedule, 2 with the rotational ghosts, 3 with the Bloch
+// wrap) with
 // `smem` bytes of dynamic shared memory on the current device, after
 // allowing the variant that much there; or -cudaError.  The wrapper asks
 // once per device, variant and smem, and launches at most that many blocks.
@@ -1120,12 +1187,15 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
   }
   const Tiling& tl = host->tl;
   const int direct = (int)tl.direct;
-  if (direct < 0 || direct > 2) return (int)cudaErrorInvalidValue;
-  // rotational ghosts only in their variant, which has them
-  bool rot = false;
+  if (direct < 0 || direct > 3) return (int)cudaErrorInvalidValue;
+  // rotational ghosts and the Bloch wrap only in their variants, which
+  // have them
+  bool rot = false, wrap = false;
   for (int q = 0; q < NCOMP; ++q)
     for (int m = 0; m < 2; ++m) rot = rot || host->gsrc[q][m] != 0;
-  if (rot != (direct == 2)) return (int)cudaErrorInvalidValue;
+  for (int ax = 0; ax < 3; ++ax) wrap = wrap || host->wn[ax] != 0;
+  if (rot != (direct == 2) || wrap != (direct == 3))
+    return (int)cudaErrorInvalidValue;
   if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const i64 ntile = tl.nt[0] * tl.nt[1] * tl.nt[2];

@@ -38,9 +38,15 @@ axis on whole sites, no wall): the stepper and K3/K4 read the C2 / C4
 ghost across the fold planes (plan.rot2 / plan.rot4).  Sources,
 monitors, probes and the getters fold and unfold through the planes.
 1D cells (a cell size along z only) carry both transverse polarizations
-and run on the eager stepper, as on the reference's jnp path.  k-points
-and cylindrical cells wait for later slices (ROADMAP A8, A9); each raises
-NotImplementedError naming its item.
+and run on the eager stepper, as on the reference's jnp path.
+`k_point=Vector3(...)` makes the cell Bloch-periodic (simulation.py:646):
+every axis wraps with the phase exp(2 pi i k L) unless k is zero along it
+and both its ends carry an absorbing layer.  Real phases (k = 0 or the
+zone edge) run on the kernels as in the reference (K3/K4 with their wrap
+ghosts; x-periodic 3D cells on the hybrid driver's periodic drivers,
+ops/periodicx.py); complex phases and a 2D k.z (special_kz) need complex
+fields and raise NotImplementedError naming ROADMAP A9, as do
+cylindrical cells.
 """
 
 from __future__ import annotations
@@ -186,6 +192,8 @@ class _N2FHandle:
     sim: Any = None
     mirrors: tuple = ()       # (axis, letter, phase): images the far-field
                               # sum adds
+    periodic: tuple = ()      # (axis, nper, phase per period, period):
+                              # the Bloch lattice images
 
 
 @dataclasses.dataclass
@@ -229,6 +237,7 @@ class Simulation:
                  use_pallas: bool = False,
                  use_fused: bool = True,
                  symmetries: Sequence = (),
+                 k_point=None,
                  device=None):
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
@@ -246,6 +255,8 @@ class Simulation:
         self.sources = list(sources)
         self.boundary_layers = list(boundary_layers)
         self.default_material = default_material or Medium()
+        #: the Bloch wave vector (units of 2 pi / a), or None: no wrap
+        self.k_point = k_point
         self.courant = Courant
         self.eps_averaging = eps_averaging
         self.subpixel_n = subpixel_n
@@ -297,6 +308,12 @@ class Simulation:
         dx = 1.0 / self.resolution
         origin = [-sz / 2 for sz in size]
         for sym in self.symmetries:
+            if isinstance(sym, (Rotate2, Rotate4)) and \
+                    self.k_point is not None:
+                raise ValueError(
+                    "rotational symmetries with k_point are not supported "
+                    "(the rotation maps k onto its image; only k=0 is "
+                    "invariant)")
             if isinstance(sym, (Rotate2, Rotate4)):
                 self._fold_rotation(sym, dim, size, origin)
                 continue
@@ -312,6 +329,15 @@ class Simulation:
             d = sym.direction
             if d not in axes:
                 raise ValueError(f"no grid axis {d} in {dim}")
+            if self.k_point is not None and (
+                    tuple(_v3(self.k_point))["xyz".index(d)] != 0.0
+                    or not self._absorbing_both_sides(d)):
+                # the fold wall replaces the Bloch wrap: only an axis
+                # without k whose ends absorb (so it is not wrapped,
+                # `_periodic`) folds (simulation.py:566-585)
+                raise ValueError(
+                    f"Mirror({d}) with k_point requires k.{d} == 0 and "
+                    f"absorbing layers on both {d} sides")
             ax = axes.index(d)
             n_full = int(round(size[ax] * self.resolution))
             if sym.phase == -1:
@@ -380,6 +406,27 @@ class Simulation:
             self._rot4 = (folded[0], folded[1], w, int(sym.phase))
         else:
             self._rot2 = (folded[0], axes.index(perp[1]), w, int(sym.phase))
+
+    def _absorbing_both_sides(self, d) -> bool:
+        """Whether absorbing layers cover both ends of direction `d`."""
+        lo = hi = False
+        for bl in self.boundary_layers:
+            if bl.direction == ALL or bl.direction == d:
+                lo = lo or bl.side in (0, -1)
+                hi = hi or bl.side in (0, +1)
+        return lo and hi
+
+    def _periodic(self):
+        """The Bloch-periodic axes (simulation.py:646-675): with a k_point
+        every axis wraps, except one whose k component is zero and whose
+        ends both carry an absorbing layer (the wrap there is inert below
+        the PML floor, and the zero fill keeps the plan inside the kernels'
+        envelopes)."""
+        if self.k_point is None:
+            return (False,) * self.gv.ndim
+        kv = _vec_to_axes(self.gv, self.k_point)
+        return tuple(not (kv[ax] == 0.0 and self._absorbing_both_sides(d))
+                     for ax, d in enumerate(self.gv.axes))
 
     def _folded_axes(self):
         """The axes each of whose low face is a symmetry plane."""
@@ -604,7 +651,10 @@ class Simulation:
         srcs = self._build_sources()
         if self._ldos is not None:
             # per source the DTFT of its component at its sites, weighted
-            # by conj(amplitude) (dft_ldos.cpp; simulation.py:1372-1387)
+            # by conj(amplitude) (dft_ldos.cpp; simulation.py:1372-1387);
+            # a recompiled plan (change_k_point) makes them anew
+            self._dft_specs = [m for m in self._dft_specs if not
+                               m.name.startswith(self._ldos.name + ":")]
             for si, sv in enumerate(srcs):
                 lo = sv.indices.min(axis=0)
                 hi = sv.indices.max(axis=0) + 1
@@ -633,8 +683,17 @@ class Simulation:
                                     r_asymptotic=bl.r_asymptotic,
                                     mean_stretch=bl.mean_stretch,
                                     pml_profile_power=bl.pml_profile_power))
+        bloch_k, beta = None, 0.0
+        if self.k_point is not None:
+            kv = _v3(self.k_point)
+            bloch_k = _vec_to_axes(self.gv, kv)
+            if self.gv.dim == "2d" and kv.z != 0.0:
+                # special_kz: the out-of-plane wavenumber (simulation.py:
+                # 1368-1371); the stepper refuses it (ROADMAP A9)
+                beta = 2.0 * np.pi * float(kv.z)
         self._plan = compile_plan(
             self.gv, mat, pmls=pmls, sources=srcs,
+            periodic=self._periodic(), bloch_k=bloch_k, beta=beta,
             dfts=self._dft_specs, courant=self.courant, dtype=self.dtype,
             live_e=live_e, live_h=live_h,
             boundaries=self._boundaries or None,
@@ -649,6 +708,12 @@ class Simulation:
             and self._rot4 is None else 1,
             device=self.device)
         self._check_rotation_plan()
+        try:
+            # complex Bloch phases and special_kz need complex fields
+            S.check_supported(self._plan)
+        except NotImplementedError:
+            self._plan = None
+            raise
         self._plan.use_pallas = self.use_pallas
         self._state = S.init_state(self._plan)
 
@@ -1101,14 +1166,17 @@ class Simulation:
                      nperiods=1):
         """Record near-surface DTFTs for far-field transforms
         (add_dft_near2far, near2far.cpp:558): the equivalent-current
-        components on their own Yee lattices, sampled every step."""
-        if nperiods > 1:
-            raise NotImplementedError(
-                "near2far lattice images (nperiods > 1) need Bloch-periodic "
-                "cells, which wait for the periodic drivers (ROADMAP A8)")
+        components on their own Yee lattices, sampled every step.  With
+        nperiods > 1 on a Bloch-periodic cell the far-field sum adds
+        2 nperiods + 1 lattice images of each surface that spans the cell
+        along a wrapped tangential axis, each with its Bloch phase
+        (near2far.cpp:609-622, simulation.py:1562-1680)."""
         freqs = self._freqs(fcen, df, nfreq)
         name = f"n2f{len(self._handles)}"
         surfaces = []
+        periodic = []
+        per = self._periodic()
+        kv = _vec_to_axes(self.gv, self.k_point)
         for ri, reg in enumerate(regions):
             center = _vec_to_axes(self.gv, reg.center)
             size = _vec_to_axes(self.gv, reg.size)
@@ -1138,6 +1206,13 @@ class Simulation:
                     spec.weights = w
             self._dft_specs += specs
             surfaces += surfs
+            if nperiods > 1:
+                n_ax = self.gv.axes.index(normal)
+                for ax in range(self.gv.ndim):
+                    width = self.gv.num[ax] * self.gv.dx
+                    if ax != n_ax and per[ax] and size[ax] >= width - 1e-9:
+                        periodic.append((ax, int(nperiods),
+                                         2 * np.pi * kv[ax] * width, width))
         # the ambient medium at the first region's centre (the reference
         # requires a homogeneous surface medium, near2far.cpp:576)
         eps_amb = 1.0
@@ -1149,7 +1224,8 @@ class Simulation:
             eps_amb = float(scene._eps_of(idx, self.geometry,
                                           self.default_material, 2)[0])
         h = _N2FHandle(name, freqs, surfaces, eps=eps_amb, sim=self,
-                       mirrors=tuple(self._mirrors))
+                       mirrors=tuple(self._mirrors),
+                       periodic=tuple(periodic))
         self._handles.append(h)
         return h
 
@@ -1193,7 +1269,7 @@ class Simulation:
         from ..analysis.near2far import farfield
         return farfield(handle.surfaces, self._state, handle.freqs, x_axes,
                         self.gv.dim, eps=handle.eps, mu=handle.mu,
-                        mirrors=handle.mirrors)
+                        periodic=handle.periodic, mirrors=handle.mirrors)
 
     def get_farfield(self, handle, pt) -> np.ndarray:
         """(6, nfreq) far fields at the point `pt`."""
@@ -1409,6 +1485,73 @@ class Simulation:
         self.init_sim()
         self._state = self._stepper_run(nsteps)
         self._t += nsteps
+
+    # -- k-point sweeps (simulation.py:3832-4030) ---------------------------
+    def change_k_point(self, k):
+        """Change the Bloch wave vector (simulation.py:3923); the fields
+        restart, since the wrapped axes and the phases make another
+        plan."""
+        self.k_point = k
+        if self._plan is not None:
+            self._plan = None
+            self._state = None
+            self._t = 0
+
+    def restart_fields(self):
+        """Zero the fields and the clock, keeping the DFT accumulators
+        (simulation.py:3937)."""
+        if self._state is None:
+            self.init_sim()
+            return
+        st = self._state
+        self._state = {
+            **st, "t": 0,
+            **{k: {c: torch.zeros_like(v) for c, v in st[k].items()}
+               for k in ("f", "f_u", "f_cond", "f_w")},
+            "pol": [{k: {c: torch.zeros_like(v) for c, v in e[k].items()}
+                     for k in ("p", "pp")} for e in st["pol"]]}
+        self._t = 0
+
+    def run_k_point(self, t: float = None, k=None):
+        """One Bloch run at k (simulation.py:3986): the fields restart,
+        then Harminv at the first source's point and component over the
+        union of the sources' bandwidths, `t` time units after the sources
+        (50 by default); returns the Harminv collector."""
+        from ..analysis.harminv import Harminv
+        from .run_control import after_sources
+        if not self.sources:
+            raise ValueError("run_k_point needs at least one source")
+        lo, hi = [], []
+        for s in self.sources:
+            f0 = getattr(s.src, "frequency", None)
+            w = getattr(s.src, "fwidth", None)
+            if f0 is None or w is None:
+                continue
+            lo.append(f0 - w / 2)
+            hi.append(f0 + w / 2)
+        fmin, fmax = min(lo), max(hi)
+        self.change_k_point(k)
+        h = Harminv(self.sources[0].component, self.sources[0].center,
+                    0.5 * (fmin + fmax), fmax - fmin)
+        self.run(after_sources(h),
+                 until_after_sources=t if t is not None else 50.0)
+        return h
+
+    def run_k_points(self, t: float = None, k_points=None):
+        """Harminv's complex frequencies per Bloch k (simulation.py:4005):
+        a list over `k_points`, each printed as the reference's freqs: /
+        freqs-im: lines."""
+        all_freqs = []
+        for k_index, k in enumerate(k_points or [], start=1):
+            h = self.run_k_point(t, k)
+            freqs = [complex(m.freq, m.decay) for m in h.modes]
+            kk = ", ".join(str(v) for v in tuple(_v3(k)))
+            print(f"freqs:, {k_index}, {kk}, "
+                  + ", ".join(str(f.real) for f in freqs))
+            print(f"freqs-im:, {k_index}, {kk}, "
+                  + ", ".join(str(f.imag) for f in freqs))
+            all_freqs.append(freqs)
+        return all_freqs
 
     def _finish_collectors(self, sf, series):
         """Hand each collector its series (after_sources ones from the step

@@ -39,7 +39,38 @@ SMS = 132
 ITEMS_PER_SM = 16
 
 
-def supported(plan) -> bool:
+def material_boxes(plan, pols: bool = True):
+    """The support boxes of the E family's chi3 / chi2 / nrchi2
+    coefficients and (`pols`) its polarization sigmas, as ((lo, hi) per
+    axis, ...), empty supports left out; None when one of them has no
+    recorded box (its support is the whole grid)."""
+    keys = []
+    for s in plan.eh_specs_e:
+        keys += [f"{s.ec}:chi3", f"{s.ec}:chi2"] if s.has_chi3 else []
+        keys += [f"{s.ec}:nrchi2"] if s.has_nr else []
+    if pols:
+        keys += [f"pol{pi}:{c}:{d}" for pi, p in enumerate(plan.pol_specs_e)
+                 for (c, d) in p.sigma]
+    got = [(plan.support_boxes or {}).get(k, "full") for k in keys]
+    if any(b == "full" for b in got):
+        return None
+    return [b for b in got if b is not None]
+
+
+def _nl_clear_of_wrap(plan) -> bool:
+    """The chi3 / chi2-NR support boxes at least 3 sites clear of both x
+    wrap ends (the reference's periodicx._nl_clear_of_wrap :54-73), and the
+    dispersive window (those boxes and the polarizations') a plane clear
+    of them (periodic_supported :95-105)."""
+    num0 = plan.gv.num[0]
+    nl, disp = material_boxes(plan, pols=False), material_boxes(plan)
+    if nl is None or disp is None:
+        return False
+    return all(b[0][0] >= 3 and b[0][1] <= num0 - 3 for b in nl) \
+        and all(b[0][0] >= 1 and b[0][1] <= num0 - 1 for b in disp)
+
+
+def supported(plan, allow_periodic_x: bool = False) -> bool:
     """The semantic envelope of the JAX package's fdtd3d.supported
     (fdtd3d.py:105-197): 3D, real fields, no H polarizations, E-family
     Lorentzian/Drude with diagonal sigma and no noise, no conductivity, no
@@ -48,7 +79,12 @@ def supported(plan) -> bool:
     Node mirrors on y and z run as the reference's do (`mirror_yz_info`,
     fdtd3d.py:206): the D launch reads the fold ghost where the plain
     version's zero fill would be; an x mirror is declined (fdtd3d.py:121:
-    the plan then runs on the eager stepper).
+    the plan then runs on the eager stepper).  `allow_periodic_x` admits
+    the reference's periodic_supported (periodicx.py:82-106): periodic
+    along x only with a real phase, no node mirror, the nonlinear boxes 3
+    sites and the dispersive window a plane clear of the wrap
+    (`_nl_clear_of_wrap`); the B and D launches then read across the wrap
+    (WRAP in csrc/fdtd3d.cu).
 
     Differences, all deliberate: the TPU-only conditions (the block depth
     bx, the VMEM budgets, the x-interior dispersive window of `_Layout`)
@@ -68,8 +104,13 @@ def supported(plan) -> bool:
             return False
         if any(d != c[1] for (c, d) in p.sigma):
             return False
-    if any(plan.periodic) or plan.m:
+    if plan.m or any(plan.periodic[1:]):
         return False
+    if plan.periodic[0]:
+        if not allow_periodic_x or plan.mirror_node \
+                or isinstance(plan.bloch_phase[0], complex) \
+                or not _nl_clear_of_wrap(plan):
+            return False
     if any(s.has_cond or s.folded_cond
            for s in plan.curl_specs_d + plan.curl_specs_b):
         return False
@@ -171,7 +212,9 @@ class _K1Args(ctypes.Structure):
                                                "nty", "ntz", "ch", "nch",
                                                "mir")]
                 + [("mk0", (ctypes.c_int * 2) * MAXRING),
-                   ("msg", (ctypes.c_int * 2) * MAXRING)])
+                   ("msg", (ctypes.c_int * 2) * MAXRING),
+                   ("wnum", ctypes.c_int), ("wpad", ctypes.c_int),
+                   ("wsc", ctypes.c_double)])
 
 
 def set_mirror(A, plan, names):
@@ -383,12 +426,18 @@ class Fdtd3dKernel:
     sources, E with the ADE).  `ch` sets the x-planes per chunk (default
     `chunk_planes`).  The launch geometry, the source lists and the
     static parts of the argument blocks are made at the first CUDA step,
-    for the tile of the loaded library."""
+    for the tile of the loaded library.  `allow_periodic_x` takes an
+    x-periodic plan (`supported`): its B and D launches read across the
+    wrap, and leave the dead planes from num on to themselves (the plain
+    version keeps them zero)."""
 
-    def __init__(self, plan, ch=None):
-        if not supported(plan):
+    def __init__(self, plan, ch=None, allow_periodic_x: bool = False):
+        if not supported(plan, allow_periodic_x):
             raise ValueError("plan outside the fdtd3d kernel envelope")
         self.plan = plan
+        #: the x wrap: (live extent, phase), or None
+        self.wrap = (plan.gv.num[0], float(np.real(plan.bloch_phase[0]))) \
+            if plan.periodic[0] else None
         self.shape = tuple(plan.storage_shape or plan.gv.shape)
         if int(np.prod(self.shape)) >= 2 ** 31:
             raise ValueError(f"fdtd3d: a storage of {self.shape} has 2^31 "
@@ -437,6 +486,13 @@ class Fdtd3dKernel:
                 A.P = P
                 self._ring_keys[kind] = self._roles(A, kind, fam, state)
                 compact(A)
+                if self.wrap is not None and kind != K_E:
+                    # the live planes and the dead ones in chunks of
+                    # their own; the wrapped plane's scale ph (B), 1/ph (D)
+                    num, ph = self.wrap
+                    A.wnum = num
+                    A.wsc = ph if kind == K_B else 1.0 / ph
+                    A.nch = -(-num // self.ch) + -(-(S0 - num) // self.ch)
                 self._static[kind] = A
 
     def _source_lists(self, family):

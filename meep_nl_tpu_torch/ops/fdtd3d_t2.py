@@ -556,10 +556,16 @@ def side_stream(device):
 def k1_of(plan) -> fdtd3d.Fdtd3dKernel:
     """The plan's one K1 kernel object (the residue step of every K2 kernel
     of the plan and the hybrid driver's one-step calls share it, so its
-    counters see every K1 step of the plan)."""
+    counters see every K1 step of the plan); for an x-periodic plan K1's
+    x-wrap variant (periodicx.PeriodicXKernel)."""
     ker = plan.__dict__.get("_k1_kernel")
     if ker is None:
-        ker = plan._k1_kernel = fdtd3d.Fdtd3dKernel(plan)
+        if plan.periodic[0]:
+            from .periodicx import PeriodicXKernel
+            ker = PeriodicXKernel(plan)
+        else:
+            ker = fdtd3d.Fdtd3dKernel(plan)
+        plan._k1_kernel = ker
     return ker
 
 

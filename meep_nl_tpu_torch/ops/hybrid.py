@@ -33,7 +33,12 @@ on CUDA a failure raises.  The eager route is taken only for plans that
 both kernels decline (or stretches too short to fuse).  Mirror folds route
 as in the reference (hybrid.py:71): y/z node mirrors run every route above
 (K1 and K2 read the fold ghost), a 3D plan with an x mirror is declined by
-both kernels and runs on the eager stepper.
+both kernels and runs on the eager stepper.  A plan Bloch-periodic along x
+with a real phase takes the periodic drivers of ops/periodicx.py in the
+reference's order (hybrid.py:79-113): the ghost ring (K2 on an extended
+aperiodic plan, with its depth-3 companion) where it applies, else K1's x
+wrap behind the two-step adapter; a plan periodic along y or z runs on the
+eager stepper, as in the reference.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import fdtd3d, fdtd3d_t2
+from . import fdtd3d, fdtd3d_t2, periodicx
 from ..core import grid as G
 from ..core.device import torch_dtype
 from ..stepper.step import (_dft_update, _region_values, build_xs,
@@ -97,6 +102,10 @@ def hybrid_routes(plan) -> collections.Counter:
 
 
 def hybrid_applicable(plan) -> bool:
+    """Whether a kernel of this driver covers the plan (hybrid.py:174-191):
+    for an x-periodic plan K1's x-wrap envelope."""
+    if any(plan.periodic):
+        return periodicx.periodic_supported(plan)
     return fdtd3d_t2.supported(plan) or fdtd3d.supported(plan)
 
 
@@ -122,10 +131,19 @@ class _K1Adapter:
 def _get_kernel(plan):
     """The deepest fused kernel covering this plan: K2 at depth 2 with a
     depth-3 companion `k3` where the plan admits it, else K1 behind the
-    two-step adapter (hybrid.py:119-141).  Cached on the plan."""
+    two-step adapter (hybrid.py:119-141); for an x-periodic plan the ghost
+    ring at depth 2 with its depth-3 companion, else K1's x wrap behind
+    the adapter (hybrid.py:79-113).  Cached on the plan."""
     ker = plan.__dict__.get("_t2_kernel")
     if ker is None:
-        if fdtd3d_t2.supported(plan, depth=2):
+        if any(plan.periodic):
+            if periodicx.periodic_ghost_supported(plan, depth=2):
+                ker = periodicx.PeriodicGhostT2Kernel(plan, depth=2)
+                if periodicx.periodic_ghost_supported(plan, depth=3):
+                    ker.k3 = periodicx.PeriodicGhostT2Kernel(plan, depth=3)
+            else:
+                ker = _K1Adapter(fdtd3d_t2.k1_of(plan))
+        elif fdtd3d_t2.supported(plan, depth=2):
             ker = fdtd3d_t2.Fdtd3dT2Kernel(plan, depth=2)
             if fdtd3d_t2.supported(plan, depth=3):
                 ker.k3 = fdtd3d_t2.Fdtd3dT2Kernel(plan, depth=3)
@@ -295,6 +313,10 @@ def fused_probed_run(plan, state: Dict[str, Any], nsteps: int, t0: int,
     fields, conductivity (ROADMAP A6), plans outside the kernels' envelope,
     a probe component outside the state, or complex probe weights.
 
+    An x-periodic plan whose kernel is the ghost ring has no K1 here
+    (periodicx), so its probed stretches run on the stepper, as the
+    reference's.
+
     In the full-state layout E is stored, so a probe reads state["f"][c]
     directly (no e_eff_plane).  The products of every step go into one
     preallocated (nsteps, npts) device tensor, with no host sync in the
@@ -351,7 +373,10 @@ def hybrid_run(plan, state: Dict[str, Any], nsteps: int, t0: int
     # test_slab_opt in the JAX package)
     plan.slab_opt = True
     ker = _get_kernel(plan)
-    k1 = ker._k1
+    # the ghost ring has no K1 (its kernels step against the extended
+    # plan's coefficients, hybrid.py:513); its envelope has no monitors,
+    # so it takes only the no-sample route
+    k1 = getattr(ker, "_k1", None)
     deep = ker.k3 if ker.k3 is not None else ker
     C = plan.coefs
     if not np.any(_sample_steps(plan, t0, nsteps)):

@@ -12,8 +12,9 @@ per pass, one grid barrier per pass (`tiling` picks the tile and T,
 temporal reuse (T = 1 only, no tile fits, more than MAXSLOT arrays), the
 direct schedule: the whole grid stepped in place in one device buffer, a
 grid barrier per sub-update (`direct_tiling`); rotational folds (C2 and
-C4) always take the direct schedule, whose D curl reads their ghosts
-anywhere on the grid.  What it computes is the
+C4) and Bloch-periodic plans always take the direct schedule, whose D
+curl reads the fold ghosts, and whose curls and centred DTFT read the
+wrap planes, anywhere on the grid.  What it computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
 the DTFT accumulated in the loop in the frequency-major layout; K4 adds the
@@ -39,11 +40,13 @@ Not carried over from the reference, each on purpose:
   * `validate_lowering` (:450), which only applies to Mosaic.
 The envelope is the reference's (2D and 3D, fp32, real fields, no noisy
 media, a doubled state within VMEM_BUDGET; 1D declined) intersected with
-what the port's eager stepper and this kernel run: no periodic axis
-(ROADMAP A8), masks made of dead planes, no H-family chi2/chi3, no
-chi2/chi3 on a rotational fold (no Simulation makes one: it rejects them,
-as the reference's does).  Folds: node mirrors on every axis, Rotate2 and
-Rotate4.  Monitors read any
+what the port's eager stepper and this kernel run: masks made of dead
+planes, no H-family chi2/chi3, no chi2/chi3 on a rotational fold (no
+Simulation makes one: it rejects them, as the reference's does), and on a
+Bloch-periodic axis (real phases: k = 0 or the zone edge; complex ones
+need complex fields, ROADMAP A9) chi2/chi3 support boxes clear of the
+wrap planes (their neighbour sums do not wrap here, ROADMAP B3).  Folds:
+node mirrors on every axis, Rotate2 and Rotate4.  Monitors read any
 field of the state (E/H, and D/B for the energy monitors), centred or on
 their own lattice, with real or complex weights (the LDOS monitors'
 conj(amplitude)).
@@ -136,12 +139,27 @@ def _rotational(plan) -> bool:
     return plan.rot2 is not None or plan.rot4 is not None
 
 
+def _nl_clear_of_wrap(plan) -> bool:
+    """Whether every chi2/chi3 support box lies a site clear of both ends
+    of each Bloch-periodic axis: the four-site sums of a site in the box
+    then read no wrapped plane (step._sum4 shifts through the wrap).  The
+    H family carries none here (resident_supported)."""
+    nl = fdtd3d.material_boxes(plan, pols=False)
+    return nl is not None and all(
+        b[ax][0] >= 1 and b[ax][1] <= plan.gv.num[ax] - 1
+        for b in nl for ax, per in enumerate(plan.periodic) if per)
+
+
 def resident_supported(plan) -> bool:
     """The static envelope (resident.py:158-182, see the module docstring):
     plans outside it are declined, never raised on."""
     if plan.gv.ndim < 2 or plan.dtype != np.float32:
         return False
-    if plan.complex_fields or plan.real_pair or any(plan.periodic):
+    if plan.complex_fields or plan.real_pair:
+        return False
+    if any(plan.periodic) and (
+            any(isinstance(ph, complex) for ph in plan.bloch_phase)
+            or not _nl_clear_of_wrap(plan)):
         return False
     try:
         check_supported(plan)
@@ -310,17 +328,31 @@ def tiling(shape, nslot: int, nstate: int, c: int, e, nloops: int,
     return result((int(t0[k]), int(t1[k]), int(t2[k])), int(Tg[k]))
 
 
-def direct_tiling(shape, c: int, e, rot: bool = False) -> Dict[str, Any]:
+#: the direct schedule's variants (Tiling.direct): plain, with the
+#: rotational fold ghosts, with the Bloch wrap
+DIRECT, DIRECT_ROT, DIRECT_WRAP = 1, 2, 3
+
+
+def direct_tiling(shape, c: int, e, variant: int = DIRECT
+                  ) -> Dict[str, Any]:
     """The direct schedule in tiling()'s terms: one tile, the whole grid
     (`shape`, 3 extents), T = 1, no shared memory; its "vol" and "gvec"
     lay out the device buffer the kernel steps in (nslot arrays of vol
-    floats, then the per-axis vectors, gvec floats each).  "direct" is 2
-    for a rotational fold (the kernel's variant with its ghosts), else
-    True."""
+    floats, then the per-axis vectors, gvec floats each).  "direct" is
+    the kernel's variant: DIRECT_ROT for a rotational fold (its ghosts),
+    DIRECT_WRAP for a Bloch-periodic plan (the wrap reads), else
+    DIRECT."""
     shape = tuple(int(s) for s in shape)
     return {"t": shape, "nt": (1, 1, 1), "e": tuple(int(v) for v in e),
             "T": 1, "c": c, "vol": int(np.prod(shape)), "gvec": max(shape),
-            "smem": 0, "ntile": 1, "direct": 2 if rot else True}
+            "smem": 0, "ntile": 1, "direct": variant}
+
+
+def direct_variant(plan) -> int:
+    """The direct schedule's variant a plan needs."""
+    if _rotational(plan):
+        return DIRECT_ROT
+    return DIRECT_WRAP if any(plan.periodic) else DIRECT
 
 
 def staged_boxes(tl, shape, Tp: int):
@@ -406,7 +438,9 @@ class _ResArgs(ctypes.Structure):
         [("gk", (_I * 2) * fdtd3d.NCOMP),
          ("gs", (ctypes.c_double * 2) * fdtd3d.NCOMP)] + \
         [(n, (_I * 2) * fdtd3d.NCOMP)
-         for n in ("gsrc", "goff", "gmul", "gax", "glim")]
+         for n in ("gsrc", "goff", "gmul", "gax", "glim")] + \
+        [("wn", _I * 3), ("wph", ctypes.c_double * 3),
+         ("wphi", ctypes.c_double * 3)]
 
 
 def set_ghosts(A, plan, slot):
@@ -419,7 +453,20 @@ def set_ghosts(A, plan, slot):
     A.gsrc at the site's offset + A.goff + j * A.gmul, j the site's index
     along axis A.gax, and is 0 where j >= A.glim -- C2's flip over the
     live extent nl (step.rot2_ghost), C4's transposed read of the swapped
-    component (step.rot4_ghost)."""
+    component (step.rot4_ghost).
+
+    The Bloch wrap of a periodic axis (the direct schedule's WRAP variant,
+    step._sh): A.wn[ax] its live extent n (0: not wrapped), A.wph /
+    A.wphi the phase and its inverse.  The B curl's forward difference at
+    plane n - 1 reads wph * g(0), the D curl's backward difference at
+    plane 0 reads wphi * g(n - 1), the centred DTFT's read past plane n - 1
+    is wph * plane 0, and every read from a dead plane's site (index n and
+    up) across the axis is zero."""
+    for ax in range(3):
+        per = ax < len(plan.periodic) and plan.periodic[ax]
+        ph = float(np.real(plan.bloch_phase[ax])) if per else 1.0
+        A.wn[ax] = plan.gv.num[ax] if per else 0
+        A.wph[ax], A.wphi[ax] = ph, 1.0 / ph
     shape = tuple(plan.storage_shape or plan.gv.shape)
     shape = shape + (1,) * (3 - len(shape))
     st = (shape[1] * shape[2], shape[2], 1)
@@ -759,9 +806,9 @@ class ResidentKernel:
         """The schedule of this plan on the current device: tiling()'s
         choice on the card's shared memory, or the direct schedule
         (`direct_tiling`) where tiles give no temporal reuse (more staged
-        arrays than MAXSLOT, no tile that fits, or only T = 1) and for a
-        rotational fold, whose ghost reads lie outside any tile.  Asked of
-        the card once per device."""
+        arrays than MAXSLOT, no tile that fits, or only T = 1), and for a
+        rotational fold or a Bloch-periodic plan, whose ghost and wrap
+        reads lie outside any tile.  Asked of the card once per device."""
         key = self._device_key()
         if self.schedule is not None and self.schedule[0] == key:
             return self.schedule[1]
@@ -793,11 +840,12 @@ class ResidentKernel:
                      + rp.eh_specs_e)
         nslot = len(paths) + len(coef)
         tl = None
-        if nslot <= MAXSLOT and not _rotational(rp):
+        variant = direct_variant(rp)
+        if nslot <= MAXSLOT and variant == DIRECT:
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
         if tl is None or tl["T"] == 1:
-            tl = direct_tiling(shape, c, e, rot=_rotational(rp))
+            tl = direct_tiling(shape, c, e, variant)
         self.schedule = (key, tl)
         return tl
 

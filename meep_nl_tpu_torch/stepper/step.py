@@ -51,7 +51,7 @@ def check_supported(plan: Plan) -> None:
     elif plan.bfast_k is not None:
         why = "BFAST (ROADMAP A9)"
     elif plan.complex_fields or plan.real_pair:
-        why = "complex fields (ROADMAP A8/A9)"
+        why = "complex fields (ROADMAP A9)"
     elif any(s.has_cond or s.folded_cond
              for s in plan.curl_specs_d + plan.curl_specs_b):
         why = "conductivity (ROADMAP A6)"
@@ -565,21 +565,35 @@ def _region_values(plan: Plan, m, arr):
     """Region slice of component m.component, centered-averaged when the
     monitor asks for it (dft.cpp:277 avg1/avg2).  The average needs one
     plane past the region along each averaged axis, so only the region and
-    that halo are read; the values equal averaging the full array first."""
+    that halo are read; the values equal averaging the full array first
+    (the reference's `_centered_avg`, step.py:1281).  On a Bloch-periodic
+    axis the plane past the last live one is the phase times plane 0 and
+    the dead planes' neighbours are zero (`_sh`), so that axis is read
+    whole and shifted as the stepper shifts it."""
     gv = plan.gv
     if not m.centered:
         return arr[tuple(slice(a, b) for a, b in m.region)]
     ys = G.yee_shift(m.component, gv.dim)
     avg = [ax for ax, d in enumerate(gv.axes) if ys[d] == 0]
+    wrap = {ax for ax in avg if plan.periodic[ax]}
     sl = []
     for ax, (a, b) in enumerate(m.region):
-        sl.append(slice(a, min(b + 1, arr.shape[ax])) if ax in avg
-                  else slice(a, b))
+        if ax in wrap:
+            sl.append(slice(None))
+        elif ax in avg:
+            sl.append(slice(a, min(b + 1, arr.shape[ax])))
+        else:
+            sl.append(slice(a, b))
     out = arr[tuple(sl)]
     # the full-array form is out = 0.5*(out + shift(out, ax, +1)) axis by
     # axis; each pass consumes its own axis's halo plane
     for ax in avg:
-        n = m.region[ax][1] - m.region[ax][0]
+        a, b = m.region[ax]
+        n = b - a
+        if ax in wrap:
+            out = 0.5 * (out.narrow(ax, a, n)
+                         + _sh(plan, out, ax, +1).narrow(ax, a, n))
+            continue
         if out.shape[ax] < n + 1:              # past the storage: zero fill
             pad = [0, 0] * out.ndim
             pad[2 * (out.ndim - 1 - ax) + 1] = 1

@@ -136,7 +136,11 @@ def test_kernel_refuses_bad_tensors_on_cuda():
 #: them from a device table; "mirror-yz" (node mirrors on y, phase +1,
 #: and z, phase -1: fold ghosts of both signs) and "mirror-y" put the
 #: fold ghost in the D launch's halo, with the PML on the high side of
-#: the mirrored axes only
+#: the mirrored axes only; "wrap-x" (phase +1, storage padded past the
+#: dead plane to 32 x-planes, so two chunks of dead planes) and
+#: "wrap-x-edge" (phase -1 at the zone edge) are Bloch-periodic along x
+#: (the WRAP launches), with the PML on y and z and without the ball
+#: (whose boxes here reach the wrap: K1's x-wrap envelope declines them)
 CASES = {
     "flagship": dict(ch=7),
     "flagship-padded-full-chains": dict(pad=(8, 8, 1), slab=False),
@@ -148,13 +152,15 @@ CASES = {
     "many-sources": dict(ball=False, sources="m", ch=5),
     "mirror-yz": dict(mirror={"y": 1, "z": -1}, ch=7),
     "mirror-y": dict(mirror={"y": 1}, sources="hv", ch=5),
+    "wrap-x": dict(wrap=1, ball=False, pad=(8, 1, 1), ch=5),
+    "wrap-x-edge": dict(wrap=-1, ball=False, sources="hv", ch=7),
 }
 T0, NSTEP_CASE = 40, 3
 
 
 def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
             ball=True, chi3=False, drude=False, poles=1, sources="p", pad=1,
-            slab=True, dtype=np.float32, ch=None, mirror=None):
+            slab=True, dtype=np.float32, ch=None, mirror=None, wrap=None):
     """A K1 plan from numpy inputs: uPML on the faces of `pml_axes`;
     `ball` an eps=4 sphere of radius min(size)/4 at the centre with a
     Lorentz (or Drude) pole (`poles` 2: and a Drude pole on the half x > 0
@@ -165,8 +171,9 @@ def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
     TF.MAXSRC + 1 Ez and as many Hz point sources, each with its own
     frequency and a complex phase, at 11 spots (repeated sites across
     sources); `mirror` {axis letter: phase} node mirrors at index 0 of
-    those axes (no wall there, the PML on their high side only).  Returns
-    (plan, ch)."""
+    those axes (no wall there, the PML on their high side only); `wrap`
+    the Bloch phase (+1 or -1) of an x-periodic cell, the PML then on y
+    and z only.  Returns (plan, ch)."""
     size = [n / res for n in cells]
     gv = TG.GridVolume.create("3d", size, res)
     XX, YY, ZZ = np.meshgrid(*[gv.comp_coords("ez", ax) - 0.5 * size[ax]
@@ -218,11 +225,15 @@ def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
                       np.exp(0.3j * i))
                 for i in range(TF.MAXSRC + 1) for comp in ("ez", "hz")]
     mirror = mirror or {}
+    if wrap is not None:
+        pml_axes = pml_axes.replace("x", "")
     plan = TP.compile_plan(
         gv, mat, pmls=[TP.PMLSpec(d, pml, side=+1 if d in mirror else 0)
                        for d in pml_axes],
         sources=srcs, pad_to_multiple=pad, dtype=dtype, device=device,
         boundaries={(d, "low"): "none" for d in mirror} or None,
+        periodic=(True, False, False) if wrap is not None else None,
+        bloch_k=(0.0 if wrap == 1 else 0.5 / size[0], 0.0, 0.0),
         mirror_node=tuple(("xyz".index(d), d, ph)
                           for d, ph in mirror.items()))
     plan.slab_opt = slab
@@ -239,7 +250,9 @@ def hold_case(case, device, step):
     order."""
     plan, ch = k1_plan(device, **CASES[case])
     ref_plan, _ = k1_plan("cpu", **CASES[case])
-    ker, ref = TF.Fdtd3dKernel(plan, ch=ch), TF.step_ref(ref_plan)
+    ker = TF.Fdtd3dKernel(plan, ch=ch,
+                          allow_periodic_x=bool(plan.periodic[0]))
+    ref = TF.step_ref(ref_plan)
     assert ker.launches_per_step == 3
     xs = TS.build_xs(plan, NSTEP_CASE, T0)
     assert all(np.all(xs[f"src{si}:cur_re"] != 0)

@@ -235,6 +235,56 @@ def test_run_takes_the_residue_through_k1_on_cuda():
         assert torch.equal(got["pol"][0]["p"][c], t)
 
 
+def _periodic_plan(device, kx):
+    """A 3 x 2.5 x 2.5 cell at resolution 8 (24 x 20 x 20), Bloch-periodic
+    along x (k_x = 0: phase +1; 1/6: -1), PML 0.5 on y and z, the flagship
+    material on a ball of radius 0.5 at the centre, an Ez point source."""
+    med = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
+                    E_susceptibilities=[mp.LorentzianSusceptibility(
+                        frequency=2.0, gamma=0.05, sigma=0.2)])
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(3, 2.5, 2.5), resolution=8,
+        geometry=[mp.Sphere(0.5, material=med)],
+        sources=[mp.Source(mp.GaussianSource(1.0, fwidth=0.8), mp.Ez,
+                           center=mp.Vector3(-0.9, 0.1, 0))],
+        boundary_layers=[mp.PML(0.5, direction=mp.Y),
+                         mp.PML(0.5, direction=mp.Z)],
+        k_point=mp.Vector3(kx), eps_averaging=False, device=device)
+    sim.init_sim()
+    sim.plan.slab_opt = True
+    return sim.plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kx", [0.0, 1 / 6], ids=["k0", "zone-edge"])
+def test_ghost_ring_matches_plain_on_cuda(kx):
+    """The ghost ring (ops/periodicx.py: K2 at depth 2 and 3 on the
+    extended aperiodic plan, its ghost zones re-seeded times the phase
+    before every call, the residue through the extended plan's K1) on the
+    card against the same driver on the host, where K2 and K1 run their
+    plain versions: 11 steps from a seeded random state, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from meep_nl_tpu_torch.ops import periodicx as PX
+    st0 = _random_state(_periodic_plan("cuda", kx), 3)
+    for depth in (2, 3):
+        ring = PX.PeriodicGhostT2Kernel(_periodic_plan("cuda", kx), depth)
+        host = PX.PeriodicGhostT2Kernel(_periodic_plan("cpu", kx), depth)
+        got = _host(ring.run(_clone(st0), 11, t0=T0))
+        want = host.run(_host(st0), 11, t0=T0)
+        torch.cuda.synchronize()
+        assert ring.ker.launches == 11 // depth * ring.ker.launches_per_call
+        assert ring.ker._k1.launches == 11 % depth * 3
+        assert ring.ker.plain_steps == 0
+        for key in ("f", "f_u", "f_w"):
+            for c, t in want[key].items():
+                assert torch.equal(got[key][c], t), f"{key}[{c}]"
+        for pg, pw in zip(got["pol"], want["pol"]):
+            for k in ("p", "pp"):
+                for c, t in pw[k].items():
+                    assert torch.equal(pg[k][c], t), f"pol {k}[{c}]"
+
+
 @pytest.mark.gpu
 def test_out_of_place_hands_the_input_over_on_cuda():
     """A call returns new tensors and leaves its input untouched; the next

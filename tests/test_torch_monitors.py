@@ -407,7 +407,7 @@ def test_use_pallas_step_with_monitors_matches_eager():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case,item", [("nperiods", "A8"),
+@pytest.mark.parametrize("case,item", [("nperiods", "A9"),
                                        ("symmetries", "complex fields"),
                                        ("cylindrical", "A9")],
                          ids=["nperiods-A8", "symmetries-A5",
@@ -421,11 +421,13 @@ def test_unported_monitor_features_raise(case, item):
         elif case == "cylindrical":    # test_near2far's cylindrical cases
             mtt.Simulation(**{**kw, "cell_size": mtt.Vector3(3, 0, 4)},
                            dimensions=-2)
-        else:
-            mtt.Simulation(**kw).add_near2far(
+        else:                          # lattice images at a complex phase
+            sim = mtt.Simulation(k_point=mtt.Vector3(0, 0.1), **kw)
+            sim.add_near2far(
                 0.5, 0.2, 1, mtt.Near2FarRegion(
                     center=mtt.Vector3(1, 0), size=mtt.Vector3(0, 4)),
                 nperiods=3)
+            sim.init_sim()
 
 
 def test_near2far_module_matches_reference():

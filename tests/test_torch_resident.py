@@ -162,7 +162,9 @@ def test_envelope_declines(monkeypatch):
     _, pt, _ = both("tm")
     assert R.resident_supported(pt)
     pt.periodic = (True, False)
-    assert not R.resident_supported(pt)       # periodic: ROADMAP A8
+    assert R.resident_supported(pt)           # a real Bloch phase
+    pt.bloch_phase = (complex(0.8, 0.6), 1.0)
+    assert not R.resident_supported(pt)       # a complex one: ROADMAP A9
     # a state the hybrid route stepped (slab-local chains) stays off it
     _, pt, _ = both("tm")
     ker = R.ResidentKernel(pt)

@@ -73,7 +73,13 @@ def scene(kind, device="cpu", res=10):
     Rotate4("z") (the C2 / C4 ghosts, the direct schedule): the cell is
     made square for Rotate4, the flux line moved into the retained
     quadrant and the line source dropped (an in-plane source outside the
-    quadrant is refused)."""
+    quadrant is refused).  A suffix "~y", "~xy-", ... makes the axes named
+    Bloch-periodic through k_point (phase +1, or -1 at the zone edge with
+    a trailing "-"; the direct schedule's WRAP variant): the PML stays on
+    the other axes, and a second flux monitor spans the periodic axes
+    (its centred average reads across the wrap)."""
+    kind, _, per = kind.partition("~")
+    per_axes = per.rstrip("-")
     kind, _, rot = kind.partition("@")
     kind, _, mirrors = kind.partition("+")
     src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Ez,
@@ -130,12 +136,26 @@ def scene(kind, device="cpu", res=10):
             cell = mp.Vector3(cell.x, cell.x, cell.z)
         src = [s for s in src if s.size is None]
         flux_y = 0.8
+    axes = "xyz" if cell.z else "xy"
+    layers, k = [mp.PML(pml)], None
+    if per:
+        layers = [mp.PML(pml, direction=d) for d in axes
+                  if d not in per_axes]
+        edge = per.endswith("-")
+        k = mp.Vector3(*[0.5 / getattr(cell, d) if edge and d in per_axes
+                         else 0.0 for d in "xyz"])
     sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
-                        sources=src, boundary_layers=[mp.PML(pml)],
-                        device=device, symmetries=syms)
+                        sources=src, boundary_layers=layers,
+                        device=device, symmetries=syms, k_point=k)
     sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
         center=mp.Vector3(0.4 if pml == 0.5 else 0.9, flux_y, 0),
         size=flux_size))
+    if per:
+        normal = ([d for d in axes if d not in per_axes] + ["y"])[0]
+        sim.add_flux(0.5, 0.2, 2, mp.FluxRegion(
+            center=mp.Vector3(**{normal: 0.3}),
+            size=mp.Vector3(**{d: 0 if d == normal else getattr(cell, d)
+                               for d in axes})))
     if kind.startswith("ldos"):
         # a complex amplitude: the weights conj(amplitude) have both parts
         for s in sim.sources:
@@ -159,8 +179,9 @@ COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz"}
 
 
 def base_kind(kind):
-    """A scene's kind without its symmetries' suffixes."""
-    return kind.partition("@")[0].partition("+")[0]
+    """A scene's kind without its symmetries' and periodic axes'
+    suffixes."""
+    return kind.partition("~")[0].partition("@")[0].partition("+")[0]
 
 
 def random_state(plan, seed):
@@ -236,7 +257,17 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "rot4-tm-k4": ("tm@r4", True, 13, 8192, (None, 1, 4, 1)),
          "rot4-te-k3-seams": ("te-lin@r4-", False, 13, 5, None),
          "rot4-3d-k4": ("3d@r4", True, 9, 8192, (None, 1, 3, 7)),
-         "rot2-3d-k3-seams": ("3d@r2-", False, 9, 4, None)}
+         "rot2-3d-k3-seams": ("3d@r2-", False, 9, 4, None),
+         # Bloch-periodic plans: the wrap reads of both curls and of the
+         # centred DTFT on the direct schedule's WRAP variant, at phase +1
+         # and -1, beside a node mirror, in 2D and 3D, with chi2
+         "wrap-y-tm-k3": ("tm~y", False, 13, 8192, None),
+         "wrap-y-tm-k4-seams": ("tm~y-", True, 13, 5, (None, 1, 3, 7)),
+         "wrap-xy-te-k4": ("te~xy-", True, 13, 8192, None),
+         "wrap-y-mirror-x-tm-k3": ("tm+x~y-", False, 13, 8192,
+                                   (None, 1, 4, 1)),
+         "wrap-x-3d-k4-seams": ("3d~x-", True, 9, 4, None),
+         "wrap-x-nl3d-k3": ("nl3d~x", False, 9, 8192, None)}
 
 
 def h100_schedule(ker, host_lib):
@@ -276,7 +307,7 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(R.ResidentKernel, "_check", _own)
     plan = scene(kind)
-    rotational = "@" in kind
+    rotational, periodic = "@" in kind, "~" in kind
     kind = base_kind(kind)
     st0 = random_state(plan, 4)
     comp = COMP.get(kind, "ez")
@@ -315,7 +346,7 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         ((nlaunch, 0) if probed else (0, nlaunch))
     assert int(sk["t"]) == int(sr["t"]) == nsteps
     tl = ker.schedule[1]
-    assert tl["direct"] == (2 if rotational else (
+    assert tl["direct"] == (2 if rotational else 3 if periodic else (
         kind in ("nl3d", "poles3d") or (sched is not None
                                         and sched[0] is None)))
     if sched is not None and tl["direct"]:

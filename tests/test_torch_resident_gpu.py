@@ -14,7 +14,8 @@ material, whose tiles would fit only at T = 1; 4 E and 4 H poles, more
 staged arrays than MAXSLOT), the TM and TE plans with the LDOS (complex
 weights), energy and dft-fields monitors, node-mirror folds and the
 rotational folds (Rotate2 / Rotate4: the direct schedule's variant with
-their ghosts), with flux monitors and (K4) 20 probes, over
+their ghosts), Bloch-periodic plans (the direct schedule's WRAP variant,
+phase +1 and -1, beside a node mirror, with chi2), with flux monitors and (K4) 20 probes, over
 two chunks, with the wrapper's own schedule; and
 test_torch_resident_emul.py's schedule cases (small forced tiles, a
 source, probe points and the flux line on tile seams, T not dividing the
@@ -50,7 +51,8 @@ def _err(a, b):
 @pytest.mark.parametrize("kind", ["flag-tm", "flag-te", "tm-many", "3d",
                                   "nl3d", "poles3d", "ldos", "ldos-te",
                                   "tm+xy", "3d+xz", "nl3d+y", "tm@r2",
-                                  "te-lin@r4-", "3d@r4"])
+                                  "te-lin@r4-", "3d@r4", "tm~y-",
+                                  "te+x~y", "3d~x-", "nl3d~x"])
 def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     monkeypatch.setattr(R, "MAX_CHUNK", 17)
     plan = scene(kind, device=cuda, res=16)
@@ -59,12 +61,14 @@ def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     # the folded 3D grids in five
     pt = {"3d": [20, 20, 10], "nl3d": [5, 12, 7], "poles3d": [5, 12, 7],
           "3d+xz": [5, 20, 5], "nl3d+y": [3, 6, 7],
-          "3d@r4": [2, 10, 10]}.get(kind, [20, 20])
+          "3d@r4": [2, 10, 10], "3d~x-": [20, 20, 10],
+          "nl3d~x": [5, 12, 7], "te+x~y": [5, 20]}.get(kind, [20, 20])
     at = [(i // 4, i % 4) if kind in ("3d+xz", "nl3d+y", "3d@r4")
           else (0, i)
-          if kind not in ("nl3d", "poles3d") else (i // 10 * 3, i % 10)
+          if base_kind(kind) not in ("nl3d", "poles3d")
+          else (i // 10 * 3, i % 10)
           for i in range(20)]
-    rotational = "@" in kind
+    rotational, periodic = "@" in kind, "~" in kind
     kind = base_kind(kind)                 # the folds' ghosts aside
     comp = COMP.get(kind, "ez")
     probes = [TS.ProbeSpec(f"p{i}", comp,
@@ -82,7 +86,7 @@ def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     assert (ker.probed_launches if probed else ker.launches) == 2
     assert ker.plain_steps == 0
     assert ker.schedule[1]["direct"] == (
-        2 if rotational else kind in ("nl3d", "poles3d"))
+        2 if rotational else 3 if periodic else kind in ("nl3d", "poles3d"))
     _agree(sk, yk, sr, yr)
     assert int(sk["t"]) == 30
 
@@ -157,10 +161,12 @@ def test_shared_memory_rule_matches_the_card(cuda):
     for nl in (0, 1):
         for probed in (0, 1):
             assert lib.mnt_k3_max_blocks(nl, probed, 1, 0) >= sms
-    # the rotational folds' variant (linear plans only)
+    # the rotational folds' variant (linear plans only), the Bloch wrap's
     for probed in (0, 1):
         assert lib.mnt_k3_max_blocks(0, probed, 2, 0) >= sms
         assert lib.mnt_k3_max_blocks(1, probed, 2, 0) < 0
+        for nl in (0, 1):
+            assert lib.mnt_k3_max_blocks(nl, probed, 3, 0) >= sms
 
 
 @pytest.mark.gpu
