@@ -181,7 +181,31 @@ falls back to the CPU or to a plain version:
      card with the same slab-local PML chains (state on the live planes,
      fluxes: 1e-6), K2 on the extended plan and K1's x wrap bit for bit
      against their plain versions from the end states, timed; its 16^3
-     form (K3's wrap) against the CPU (1e-4).
+     form (K3's wrap) against the CPU (1e-4);
+ 15. complex fields on the card, in real-pair storage (the CPU runs of
+     this phase in a second process of their own, --cpu-twins15):
+     holey-wvg-bands.py as published, run_k_points(300,
+     interpolate(19, [Vector3(0), Vector3(0.5)])): 21 k points, the 19
+     interior ones (complex phases) through K4's pair layout (counters),
+     the band edges through its real wrap; at k_x = 0.1, 0.25 and 0.4 the
+     Q > 20 modes against the CPU's native complex run to 1e-4 of each
+     frequency; K4's pair layout bit for bit against its plain version
+     from the end state and a seeded random state, timed.  The oblique
+     binary grating (binary_grating_oblique.py's setup at 10 degrees:
+     k_point=Vector3(0, fcen sin 10), the line source's amp_func
+     exp(2 pi i k.r)) at 510x600: the normalization and grating runs
+     through K3's pair layout (counters), the transmittance of its 21
+     frequencies from the flux line, the same runs at resolution 12
+     against the CPU (1e-4 of each frequency), K3's pair layout bit for
+     bit from the end state and a seeded random state, timed.  Phase 14's
+     128^3 x-periodic flagship without its chi2 (pair fields refuse it;
+     the Lorentz pole stays) at k_x = 0.23: 60 steps without the flux
+     plane (the pair ghost ring: K2 at depth 3 on both channels) and 602
+     with it (K1's pair wrap every step), each after 12 steps of warm-up
+     and against the eager pair stepper on the card (live planes and
+     fluxes to 1e-6); K2 on the pair ring (each channel) and K1's pair
+     wrap bit for bit against their plain versions from the end states
+     and seeded random states, timed.
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -251,7 +275,7 @@ def build_all():
 
 def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
                  pml=1.0, linear=False, decimation=0, monitors=False,
-                 src_comp=None, src_y=0.01, kx=None, **sim_kw):
+                 src_comp=None, src_y=0.01, kx=None, chi2=True, **sim_kw):
     """The flagship scene: an eps=4 ball (radius a quarter of the cell)
     with a Lorentz pole and full-tensor chi2 (the NR solve), uPML on every
     face, a Gaussian Ez point source off the ball and an x-normal flux
@@ -262,15 +286,17 @@ def flagship_sim(mp, n_cells, res, device, flux=True, ball=True,
     flux plane's under "flux", in place of the flux handle; `src_comp`
     (default Ez) and `src_y` (y over the cell side) move the source;
     `kx` makes the cell Bloch-periodic along x (k_point=Vector3(kx), the
-    PML on y and z only); `sim_kw` goes to Simulation (use_pallas,
-    use_fused, symmetries)."""
+    PML on y and z only); `chi2` False drops the chi2 and keeps the pole;
+    `sim_kw` goes to Simulation (use_pallas, use_fused, symmetries)."""
     L = n_cells / res
     geometry = []
     if ball:
+        pole = [mp.LorentzianSusceptibility(frequency=2.0, gamma=0.05,
+                                            sigma=0.2)]
         med = mp.Medium(epsilon=4.0) if linear else mp.Medium(
             epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
-            E_susceptibilities=[mp.LorentzianSusceptibility(
-                frequency=2.0, gamma=0.05, sigma=0.2)])
+            E_susceptibilities=pole) if chi2 else mp.Medium(
+            epsilon=4.0, E_susceptibilities=pole)
         geometry = [mp.Sphere(radius=L / 4, material=med)]
     sim = mp.Simulation(
         cell_size=mp.Vector3(L, L, L), resolution=res, geometry=geometry,
@@ -467,6 +493,27 @@ def cpu_twins(path) -> int:
     return 0
 
 
+def cpu_twins15(path) -> int:
+    """Phase 15's runs on the CPU (native complex fields, the eager
+    stepper), saved to `path` (.npz): holey-wvg-bands.py's modes at
+    HOLEY_CHECK_K, the oblique grating's transmittance at resolution
+    GRATING_TWIN_RES.  chip_smoke.py runs this in a second process
+    (--cpu-twins15 PATH) from its start."""
+    import numpy as np
+    import torch
+    import meep_nl_tpu_torch as mp
+    os.nice(10)
+    torch.set_num_threads(3)
+    out = {}
+    for k in HOLEY_CHECK_K:
+        freqs = holey_sim(mp, "cpu").run_k_points(300, [mp.Vector3(k)])[0]
+        out[f"holey{k}"] = np.array(freqs, np.complex128)
+    out["oblique_T"], _ = grating_T(mp, GRATING_TWIN_RES, "cpu",
+                                    oblique=True)
+    np.savez(path, **out)
+    return 0
+
+
 #: Meep's binary_grating.py (python/examples/binary_grating.py): PML,
 #: substrate, padding, period, height and duty cycle of the grating, the
 #: wavelengths 0.4-0.6 (their frequency band), 21 frequencies; the
@@ -474,12 +521,18 @@ def cpu_twins(path) -> int:
 GRATING = dict(dpml=1.0, dsub=3.0, dpad=3.0, gp=10.0, gh=0.5, gdc=0.5,
                wvl=(0.4, 0.6), nfreq=21)
 GRATING_RES, GRATING_TWIN_RES = 60, 12
-#: holey-wvg-bands.py's band edges (its 19 interior k points have complex
-#: Bloch phases: ROADMAP A9)
+#: holey-wvg-bands.py's band edges (phase 14); its path of 21 k points and
+#: the interior ones held against the CPU (phase 15)
 HOLEY_K = (0.0, 0.5)
+HOLEY_PATH_N = 19
+HOLEY_CHECK_K = (0.1, 0.25, 0.4)
+#: the angle of incidence of phase 15's oblique grating (degrees) and the
+#: k_x of its 128^3 pair scene
+OBLIQUE_DEG = 10.0
+PAIR_KX = 0.23
 
 
-def grating_sim(mp, res, device, grating, wrap=True):
+def grating_sim(mp, res, device, grating, wrap=True, oblique=False):
     """binary_grating.py's 8.5 x 10 cell at resolution `res`: PML on x
     only, k_point=Vector3() (periodic in y, phase +1; `wrap` False: no
     k_point, metal y walls), a Gaussian Ez line source over the period in
@@ -487,7 +540,11 @@ def grating_sim(mp, res, device, grating, wrap=True):
     without `grating` the normalization run's homogeneous glass (n =
     1.5), with it the substrate and the grating's teeth in air.  The
     tutorial's Mirror(Y) is left out: the reference refuses a mirror on a
-    wrapped axis (simulation.py:566-585)."""
+    wrapped axis (simulation.py:566-585).  `oblique`: binary_grating_
+    oblique.py's setup at OBLIQUE_DEG, k_point=Vector3(0, fcen sin theta)
+    and the line source's amp_func exp(2 pi i k.r) (complex fields)."""
+    import cmath
+    import math
     g = GRATING
     sx = 2 * g["dpml"] + g["dsub"] + g["gh"] + g["dpad"]
     sy = g["gp"]
@@ -502,15 +559,24 @@ def grating_sim(mp, res, device, grating, wrap=True):
                  size=mp.Vector3(g["gh"], g["gdc"] * g["gp"], mp.inf),
                  center=mp.Vector3(-0.5 * sx + g["dpml"] + g["dsub"]
                                    + 0.5 * g["gh"]))] if grating else []
+    k = mp.Vector3() if wrap else None
+    amp_func = None
+    if oblique:
+        ky = fcen * math.sin(math.radians(OBLIQUE_DEG))
+        k = mp.Vector3(0, ky)
+
+        def amp_func(r):
+            return cmath.exp(2j * math.pi * ky * r.y)
     sim = mp.Simulation(
         resolution=res, cell_size=mp.Vector3(sx, sy),
         boundary_layers=[mp.PML(g["dpml"], direction=mp.X)],
-        geometry=geometry, k_point=mp.Vector3() if wrap else None,
+        geometry=geometry, k_point=k,
         default_material=mp.Medium() if grating else glass,
         sources=[mp.Source(mp.GaussianSource(fcen, fwidth=df), mp.Ez,
                            center=mp.Vector3(-0.5 * sx + g["dpml"]
                                              + 0.5 * g["dsub"]),
-                           size=mp.Vector3(0, sy))], device=device)
+                           size=mp.Vector3(0, sy), amp_func=amp_func)],
+        device=device)
     fl = sim.add_flux(fcen, df, g["nfreq"], mp.FluxRegion(
         center=mp.Vector3(0.5 * sx - g["dpml"] - 0.5 * g["dpad"]),
         size=mp.Vector3(0, sy)))
@@ -518,16 +584,16 @@ def grating_sim(mp, res, device, grating, wrap=True):
     return sim, fl
 
 
-def grating_T(mp, res, device, run=None):
+def grating_T(mp, res, device, run=None, oblique=False):
     """binary_grating.py's two runs: the substrate-only normalization
     (until_after_sources=100), then the grating (until_after_sources=300);
     returns (the transmittance per frequency, the two (simulation, flux)
     pairs); `run(sim, **kw)` runs a simulation (default sim.run)."""
     import numpy as np
     run = run or (lambda sim, **kw: sim.run(**kw))
-    s0, f0 = grating_sim(mp, res, device, False)
+    s0, f0 = grating_sim(mp, res, device, False, oblique=oblique)
     run(s0, until_after_sources=100)
-    s1, f1 = grating_sim(mp, res, device, True)
+    s1, f1 = grating_sim(mp, res, device, True, oblique=oblique)
     run(s1, until_after_sources=300)
     return (np.array(s1.get_fluxes(f1)) / np.array(s0.get_fluxes(f0)),
             ((s0, f0), (s1, f1)))
@@ -830,6 +896,20 @@ def phase_nine_sources(mp, dev):
         raise AssertionError(f"the nine-source scene failed: routes "
                              f"{dict(sim.routes)}, launches {launches}, "
                              f"rel {rel:.3e}")
+
+
+def ring_plain(ring):
+    """The plain version of `ring.step` (a ghost ring, ops/periodicx.py):
+    the refresh, then K2's plain version on each channel's extended plan,
+    channel 1 reading the swapped waveform rows."""
+    from meep_nl_tpu_torch.ops import fdtd3d_t2
+    plains = [fdtd3d_t2.steps_ref(p, ring.depth) for p in ring.ext_plans]
+
+    def call(states, rows):
+        states = ring._refresh(states)
+        return [f(s, r)[0] for f, s, r in
+                zip(plains, states, (rows, ring._rows_im(rows)))]
+    return call
 
 
 def time_steps(fn, state, rows, per=1, nwarm=3):
@@ -1235,6 +1315,17 @@ def phase_resident(mp, dev, card, blank):
         raise AssertionError(f"decay run stops at step {stop_at[dev]} on the "
                              f"card, {stop_at['cpu']} on the CPU")
     return k3, k4, h_modes, ser[dev]
+
+
+def start_cpu_twins15(tmp):
+    """cpu_twins15 in a process of its own beside start_cpu_twins' (no
+    card, lower priority); phase 15 reads its results.  Returns (the
+    process, the .npz path)."""
+    path = os.path.join(tmp, "cpu_twins15.npz")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-twins15", path],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return child, path
 
 
 def start_cpu_twins():
@@ -2736,7 +2827,7 @@ def phase_periodic(mp, dev, card, main_ms, blank, twins):
             raise AssertionError(f"ghost ring differs from the stepper: "
                                  f"{rel:.3e}")
         # K2 on the extended plan against its plain version, timed
-        st = ring._refresh(ring.from_full(sim.fields_state))
+        st = ring._refresh(ring.from_full(sim.fields_state))[0]
         for d, rk in ((2, ring), (3, ring.k3)):
             err, rel, _, _, _ = compare_k2(ring.ext_plan, d, 2, st, sim._t,
                                            None)
@@ -2748,16 +2839,15 @@ def phase_periodic(mp, dev, card, main_ms, blank, twins):
                                      f"for bit: {err:.3e}")
             k2g["max_abs_err"] = max(k2g["max_abs_err"], err)
         rows = xs_rows(ring.ext_plan, build_xs(ring.ext_plan, 36, sim._t))
-        ms, _ = time_steps(ring.k3.step, clone_state(st), rows, per=3)
+        ms, _ = time_steps(ring.k3.step, [clone_state(st)], rows, per=3)
         if kx:
-            plain = fdtd3d_t2.steps_ref(ring.ext_plan, 3)
-            p_ms, _ = time_steps(lambda s_, r_: plain(s_, r_)[0],
-                                 clone_state(st), rows[:12], per=3)
+            p_ms, _ = time_steps(ring_plain(ring.k3), [clone_state(st)],
+                                 rows[:12], per=3)
             b_ms, b_by = bound(fdtd3d_t2.step_cost(ring.ext_plan, 3))
             k2g.update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
             print(f"[14] K2 depth 3 on the extended plan, its refresh "
                   f"included: {ms:.4f} ms/call = {ms / 3:.4f} ms/step; plain "
-                  f"{p_ms:.4f} ms/call; bound {b_ms:.4f} ms/call ({b_by}) "
+                  f"(the refresh and K2's plain version) {p_ms:.4f} ms/call; bound {b_ms:.4f} ms/call ({b_by}) "
                   f"({card})", flush=True)
         del sim, se, st, ring, kers
         # with phase 4's flux plane, phase 4's 602 steps (the pulse
@@ -2840,6 +2930,361 @@ def phase_periodic(mp, dev, card, main_ms, blank, twins):
     return [k1x, k2g, k3w, k4w]
 
 
+def _pair_live_error(a, b, n):
+    """_live_error of two real-pair states: (max abs, over the field
+    maximum) on the live x-planes [0, n) of both channels."""
+    err = scale = 0.0
+    for key in ("f", "f_u", "f_w"):
+        for c, t in b[key].items():
+            err = max(err, float((a[key][c][:, :n] - t[:, :n]).abs().max()))
+            if key == "f":
+                scale = max(scale, float(t[:, :n].abs().max()))
+    for pa, pb in zip(a["pol"], b["pol"]):
+        for k in ("p", "pp"):
+            for c, t in pb[k].items():
+                err = max(err, float((pa[k][c][:, :n] - t[:, :n])
+                                     .abs().max()))
+    return err, err / max(scale, 1e-30)
+
+
+def _modes_against(got, cpu):
+    """(the card's Q > 20 modes, the largest relative distance of one of
+    them to the nearest of the CPU's)."""
+    import numpy as np
+    good = [f for f in got if abs(f.real) > 40 * abs(f.imag)]
+    worst = 0.0
+    for f in good:
+        near = cpu[np.argmin(np.abs(cpu - f))]
+        worst = max(worst, abs(near - f) / abs(f))
+    return good, worst
+
+
+def phase_complex(mp, dev, card, main_ms, blank, twins15):
+    """Phase 15: complex fields in real-pair storage.  `main_ms`: phase
+    4's ms/step; `twins15`: (process, .npz path) of cpu_twins15.  Returns
+    the kernel table entries of K1's pair wrap, K2 on the pair ghost ring
+    and K3/K4's pair layout."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import fdtd3d, fdtd3d_t2
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import periodicx as PX
+    from meep_nl_tpu_torch.ops import resident as R
+    from meep_nl_tpu_torch.stepper.step import build_xs, xs_rows
+    k1p = _entry("fdtd3d_k1_pair_wrap", "meep_nl_tpu_torch/csrc/fdtd3d.cu",
+                 K1_REPLACES, blank)
+    k2p = _entry("fdtd3d_t2_k2_pair_ghost_ring",
+                 "meep_nl_tpu_torch/csrc/fdtd3d_t2.cu", K2_REPLACES, blank)
+    k3p = _entry("resident_k3_pair", "meep_nl_tpu_torch/csrc/resident.cu",
+                 K3_REPLACES, blank)
+    k4p = _entry("resident_k4_pair", "meep_nl_tpu_torch/csrc/resident.cu",
+                 K4_REPLACES, blank)
+    child, path = twins15
+    rc = child.wait()
+    if rc != 0:
+        raise AssertionError(f"phase 15's CPU runs exited with {rc}")
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+
+    # ---- 15.1: holey-wvg-bands.py's band diagram (K4's pair layout) ------
+    sim = holey_sim(mp, dev)
+    kpts = mp.interpolate(HOLEY_PATH_N, [mp.Vector3(0), mp.Vector3(0.5)])
+    got, npair, walls, keep = {}, 0, [], None
+    for k in kpts:
+        sim.routes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        freqs = sim.run_k_points(300, [k])[0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        plan = sim.plan
+        ker = plan._resident_kernel
+        pair = plan.real_pair and plan.complex_fields
+        direct = R.DIRECT_PAIR if pair else R.DIRECT_WRAP
+        if dict(sim.routes) != {"resident": ker.probed_launches} \
+                or ker.launches or ker.plain_steps \
+                or not ker.probed_launches \
+                or ker.schedule[1]["direct"] != direct:
+            raise AssertionError(f"holey k {k.x}: routes "
+                                 f"{dict(sim.routes)}, K3 {ker.launches}, "
+                                 f"K4 {ker.probed_launches}, plain "
+                                 f"{ker.plain_steps}, schedule "
+                                 f"{ker.schedule[1]}")
+        if pair:
+            k4p["launches"] += ker.probed_launches
+            npair += 1
+        got[round(k.x, 9)] = freqs
+        good, _ = _modes_against(freqs, np.array(freqs))
+        print(f"[15] holey k_x = {k.x:.4f} (phase "
+              f"{complex(plan.bloch_phase[0]):.4f}, "
+              f"{'pair' if pair else 'real'}): {sim._t} steps in "
+              f"{walls[-1]:.3f} s, K4 launches {ker.probed_launches}; "
+              f"modes (Q > 20) {[round(f.real, 6) for f in good]}",
+              flush=True)
+        if abs(k.x - 0.25) < 1e-9:
+            keep = (plan, ker, sim.fields_state, sim._t)
+    if npair != len(kpts) - 2:
+        raise AssertionError(f"holey: {npair} of {len(kpts)} k points on "
+                             f"the pair layout")
+    print(f"[15] holey-wvg-bands.py, 21 k points: {sum(walls):.3f} s "
+          f"({card})", flush=True)
+    for k in HOLEY_CHECK_K:
+        good, worst = _modes_against(got[round(k, 9)], want[f"holey{k}"])
+        print(f"[15] holey k_x = {k}: card (pair, K4) vs CPU (native "
+              f"complex): {len(good)} modes with Q > 20, max rel "
+              f"{worst:.3e}", flush=True)
+        if not (good and worst <= 1e-4):
+            raise AssertionError(f"holey k {k}: modes differ from the CPU's "
+                                 f"by {worst:.3e} ({len(good)} modes)")
+    plan, ker, st, t_end = keep
+    probe = [sim._point_probe("hm0", mp.Hz, mp.Vector3(0.1234))]
+    for label, st0 in (("the end state", st),
+                       ("a random state", random_state(plan, 41, dev))):
+        err, rel, _, serr = compare_resident(ker, st0, t_end, 20, probe)
+        print(f"[15] K4 pair vs plain, holey k_x = 0.25, from {label}, 20 "
+              f"steps: state max abs {err:.3e}, series max abs {serr:.3e}",
+              flush=True)
+        if not (err == 0.0 and serr == 0.0):
+            raise AssertionError(f"K4's pair layout is not bit for bit "
+                                 f"(from {label}): {err:.3e}, series "
+                                 f"{serr:.3e}")
+        k4p["max_abs_err"] = max(k4p["max_abs_err"], err, serr)
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, probe), st, 1024)
+    ref = R.resident_ref(plan)
+    _, plain_ms = time_resident(lambda s_, n_: ref(s_, n_, t_end, probe), st,
+                                20, reps=1)
+    cost = R.step_cost(plan, 1024)
+    b_ms, b_by = bound({"bytes": cost["bytes"] / 1024,
+                        "ops": cost["ops"] / 1024})
+    k4p.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[15] K4 pair at the holey waveguide (k_x = 0.25): {ms:.4f} "
+          f"ms/step ({schedule_text(ker, 1024, True)}); the wrapper's call "
+          f"{call_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.6f} ms/step "
+          f"({b_by}) ({card})", flush=True)
+    del sim, st, ker, keep, plan
+
+    # ---- 15.2: the oblique binary grating (K3's pair layout) ------------
+    def counted(sim, **kw):
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(sim, **kw)
+        ker = sim.plan._resident_kernel
+        if probed or launches != sim.routes["resident"] or not launches \
+                or ker.schedule[1]["direct"] != R.DIRECT_PAIR:
+            raise AssertionError(f"oblique grating: K3 launches {launches}, "
+                                 f"K4 {probed}, routes {dict(sim.routes)}, "
+                                 f"schedule {ker.schedule[1]}")
+        k3p["launches"] += launches
+        print(f"[15] oblique grating at resolution {sim.resolution:.0f} "
+              f"({sim.plan.storage_shape}, phases "
+              f"{[complex(p) for p in sim.plan.bloch_phase]}): {kw}, "
+              f"{sim._t} steps in {wall:.3f} s = "
+              f"{wall / sim._t * 1e3:.4f} ms/step; K3 launches {launches} "
+              f"({card})", flush=True)
+
+    T, runs = {}, {}
+    for res in (GRATING_RES, GRATING_TWIN_RES):
+        T[res], runs[res] = grating_T(mp, res, dev, counted, oblique=True)
+        if not (np.all(np.isfinite(T[res])) and T[res].max() > 0):
+            raise AssertionError(f"oblique grating T at {res}: {T[res]}")
+    print(f"[15] oblique grating ({OBLIQUE_DEG} degrees) transmittance at "
+          f"resolution {GRATING_RES}: {T[GRATING_RES].tolist()}", flush=True)
+    d = rel_each(T[GRATING_TWIN_RES], want["oblique_T"])
+    print(f"[15] oblique grating at resolution {GRATING_TWIN_RES}, card "
+          f"(pair, K3) vs CPU (native complex): max rel {d:.3e}", flush=True)
+    if not d <= 1e-4:
+        raise AssertionError(f"oblique grating T: card and CPU differ by "
+                             f"{d:.3e}")
+    (s0, _), (s1, _) = runs[GRATING_RES]
+    ker = s1.plan._resident_kernel
+    for label, st0 in (("the run's state", s1.fields_state),
+                       ("a random state", random_state(s1.plan, 43, dev))):
+        err, rel, drel, _ = compare_resident(ker, st0, s1._t, 48)
+        print(f"[15] K3 pair vs plain, oblique grating, from {label}, 48 "
+              f"steps: state and accumulators max abs {err:.3e} (DTFT max "
+              f"rel {drel:.3e})", flush=True)
+        if not err == 0.0:
+            raise AssertionError(f"K3's pair layout is not bit for bit "
+                                 f"(from {label}): {err:.3e}")
+        k3p["max_abs_err"] = max(k3p["max_abs_err"], err)
+    nsteps, st, t_end = 1000, s1.fields_state, s1._t
+    ms, call_ms = time_resident(
+        lambda s_, n_: ker._run(s_, n_, t_end, ()), st, nsteps)
+    ref = R.resident_ref(s1.plan)
+    _, plain_ms = time_resident(lambda s_, n_: ref(s_, n_, t_end), st, 20,
+                                reps=1)
+    cost = R.step_cost(s1.plan, nsteps)
+    b_ms, b_by = bound({"bytes": cost["bytes"] / nsteps,
+                        "ops": cost["ops"] / nsteps})
+    k3p.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    cells = int(np.prod(s1.gv.num))
+    print(f"[15] K3 pair at the oblique grating ({cells} cells): {ms:.4f} "
+          f"ms/step = {cells / ms / 1e6:.3f} GCells/s "
+          f"({schedule_text(ker, nsteps, False)}); the wrapper's call "
+          f"{call_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.5f} ms/step "
+          f"({b_by}) ({card})", flush=True)
+    del s0, s1, st, ker, runs
+    torch.cuda.empty_cache()
+
+    # ---- 15.3: the 128^3 flagship, k_x = PAIR_KX ------------------------
+    res, n, kx = 16.0, 128, PAIR_KX
+    nsteps = 60
+    sim, _ = flagship_sim(mp, n, res, dev, flux=False, kx=kx, chi2=False)
+    plan = sim.plan
+    if not (plan.real_pair and isinstance(plan.bloch_phase[0], complex)):
+        raise AssertionError(f"128^3 k_x {kx}: not a real pair")
+    sim.run(until=12 * sim.dt)                  # warm-up: builds
+    ring = plan._t2_kernel
+    if not (isinstance(ring, PX.PeriodicGhostT2Kernel) and ring.pair
+            and ring.k3):
+        raise AssertionError(f"128^3 pair: kernel {ring}")
+    kers = ring.kers + ring.k3.kers + [k._k1 for k in ring.kers]
+    for k in kers:
+        k.launches = k.plain_steps = 0
+    sim.routes.clear()
+    HY.hybrid_routes(plan).clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(until=nsteps * sim.dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per = ring.k3.kers[0].launches_per_call
+    launches = [k.launches for k in kers]
+    if dict(sim.routes) != {"hybrid": 1} \
+            or dict(HY.hybrid_routes(plan)) != {"no_sample": 1} \
+            or launches != [0, 0] + [nsteps // 3 * per] * 2 + [0, 0] \
+            or any(k.plain_steps for k in kers):
+        raise AssertionError(f"128^3 pair ghost ring: routes "
+                             f"{dict(sim.routes)}, "
+                             f"{dict(HY.hybrid_routes(plan))}, launches "
+                             f"{launches}")
+    k2p["launches"] += sum(launches)
+    phase = complex(plan.bloch_phase[0])
+    print(f"[15] 128^3 flagship without chi2, k_x = {kx} (phase "
+          f"{phase:.4f}), no monitor: {nsteps} steps in {wall:.3f} s = "
+          f"{wall / nsteps * 1e3:.4f} ms/step (phase 4's {main_ms:.4f}); the "
+          f"pair ghost ring, extended storage "
+          f"{ring.ext_plans[0].storage_shape}: {sum(launches)} K2 launches "
+          f"at depth 3 ({per} a call and channel), routes "
+          f"{dict(sim.routes)} ({card})", flush=True)
+    se, _ = flagship_sim(mp, n, res, dev, flux=False, kx=kx, chi2=False,
+                         use_fused=False)
+    se.plan.slab_opt = True
+    se.run(until=(nsteps + 12) * se.dt)
+    err, rel = _pair_live_error(sim.fields_state, se.fields_state,
+                                plan.gv.num[0])
+    print(f"[15] pair ghost ring vs the eager pair stepper on the card after "
+          f"{nsteps + 12} steps: live planes max abs {err:.3e}, over the "
+          f"field maximum {rel:.3e} (gate 1e-6)", flush=True)
+    if not rel <= 1e-6:
+        raise AssertionError(f"pair ghost ring differs from the stepper: "
+                             f"{rel:.3e}")
+    states = ring._refresh(ring.from_full(sim.fields_state))
+    for label, chans in (("the run's state", states),
+                         ("a random state",
+                          [random_state(ring.ext_plans[0], 47 + c, dev)
+                           for c in (0, 1)])):
+        for c in (0, 1):
+            for d, rk in ((2, ring), (3, ring.k3)):
+                err, _, _, _, _ = compare_k2(rk.ext_plans[c], d, 2, chans[c],
+                                             sim._t, None)
+                print(f"[15] K2 depth {d} vs plain on the pair ring, "
+                      f"channel {c}, from {label}, 2 calls: max abs "
+                      f"{err:.3e}", flush=True)
+                if not err == 0.0:
+                    raise AssertionError(f"K2 on the pair ring is not bit "
+                                         f"for bit: {err:.3e}")
+                k2p["max_abs_err"] = max(k2p["max_abs_err"], err)
+    ext = ring.ext_plans[0]
+    rows = xs_rows(ext, build_xs(ext, 36, sim._t))
+
+    def ring_call(sts, r_):
+        return ring.k3.step(sts, r_)
+
+    ms, _ = time_steps(ring_call, [clone_state(x) for x in states], rows,
+                       per=3)
+    # the plain version of the same call: the refresh, then K2's plain
+    # version on each channel (channel 1's rows swapped)
+    p_ms, _ = time_steps(ring_plain(ring.k3),
+                         [clone_state(x) for x in states], rows[:12], per=3)
+    b_ms, b_by = bound(fdtd3d_t2.step_cost(ext, 3))
+    # both channels: twice one channel's bound
+    k2p.update(ms=ms, plain_ms=p_ms, bound_ms=2 * b_ms, bound_by=b_by)
+    print(f"[15] K2 depth 3 on the pair ring, both channels and the refresh: "
+          f"{ms:.4f} ms/call = {ms / 3:.4f} ms/step; plain (the refresh and "
+          f"K2's plain version on both channels) {p_ms:.4f} ms/call; bound "
+          f"{2 * b_ms:.4f} ms/call ({b_by}) ({card})", flush=True)
+    del sim, se, states, ring, kers
+    torch.cuda.empty_cache()
+    # with the flux plane, 602 steps: K1's pair wrap every step
+    nsteps = 602
+    sim, fl = flagship_sim(mp, n, res, dev, kx=kx, chi2=False)
+    plan = sim.plan
+    sim.run(until=12 * sim.dt)
+    k1 = plan._t2_kernel._k1
+    if not isinstance(k1, PX.PairPeriodicXKernel):
+        raise AssertionError(f"128^3 pair monitored: K1 {k1}")
+    k1.launches = k1.plain_steps = 0
+    sim.routes.clear()
+    HY.hybrid_routes(plan).clear()
+    # without chi2 the monitor decimates: the cycles' steps run K1, the
+    # stretch's prefix and suffix the eager step
+    prefix, d, ncyc, suffix = HY.cycle_structure(plan, sim._t, nsteps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(until=nsteps * sim.dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if dict(sim.routes) != {"hybrid": 1} \
+            or dict(HY.hybrid_routes(plan)) != {"full_state": 1} \
+            or k1.launches != ncyc * d * K1_LAUNCHES or k1.plain_steps:
+        raise AssertionError(f"128^3 pair monitored: routes "
+                             f"{dict(sim.routes)}, "
+                             f"{dict(HY.hybrid_routes(plan))}, K1 launches "
+                             f"{k1.launches}")
+    k1p["launches"] += k1.launches
+    flux = sim.get_fluxes(fl)
+    se, fe = flagship_sim(mp, n, res, dev, kx=kx, chi2=False,
+                          use_fused=False)
+    se.plan.slab_opt = True
+    se.run(until=(nsteps + 12) * se.dt)
+    fd = rel_diff(flux, se.get_fluxes(fe))
+    err, rel = _pair_live_error(sim.fields_state, se.fields_state,
+                                plan.gv.num[0])
+    print(f"[15] 128^3 k_x = {kx} with the flux plane: {nsteps} steps in "
+          f"{wall:.3f} s = {wall / nsteps * 1e3:.4f} ms/step; K1's pair wrap "
+          f"every step of {ncyc} cycles of {d} (the full-state cycle; "
+          f"{prefix} + {suffix} eager), launches {k1.launches}; "
+          f"against the eager pair stepper on the card: fluxes max rel "
+          f"{fd:.3e}, live planes max abs {err:.3e} (over the maximum "
+          f"{rel:.3e}; gates 1e-6); flux {np.asarray(flux).tolist()} "
+          f"({card})", flush=True)
+    if not (fd <= 1e-6 and rel <= 1e-6 and np.abs(flux).max() > 1e-8):
+        raise AssertionError(f"K1's pair wrap differs from the stepper: "
+                             f"fluxes {fd:.3e}, state {rel:.3e}")
+    st, t_end = sim.fields_state, sim._t
+    for label, st0 in (("the run's state", st),
+                       ("a random state", random_state(plan, 53, dev))):
+        err, rel = compare_k1_from(plan, k1, st0, t_end)
+        print(f"[15] K1's pair wrap vs plain, from {label}, 5 steps: max "
+              f"abs {err:.3e}", flush=True)
+        if not err == 0.0:
+            raise AssertionError(f"K1's pair wrap is not bit for bit: "
+                                 f"{err:.3e}")
+        k1p["max_abs_err"] = max(k1p["max_abs_err"], err)
+    rows = xs_rows(plan, build_xs(plan, 13, t_end))
+    k1p["ms"], _ = time_steps(k1.step, clone_state(st), rows)
+    k1p["plain_ms"], _ = time_steps(fdtd3d.step_ref(plan), clone_state(st),
+                                    rows)
+    k1p["bound_ms"], k1p["bound_by"] = bound(fdtd3d.step_cost(plan))
+    print(f"[15] K1's pair wrap at 128^3: {k1p['ms']:.4f} ms/step, plain "
+          f"{k1p['plain_ms']:.4f}, bound {k1p['bound_ms']:.4f} ms "
+          f"({k1p['bound_by']}) ({card})", flush=True)
+    del sim, se, st
+    torch.cuda.empty_cache()
+    return [k1p, k2p, k3p, k4p]
+
+
 def main() -> int:
     import shutil
     import torch
@@ -2849,18 +3294,20 @@ def main() -> int:
         return 2
     twins = start_cpu_twins()
     child, _, tmp = twins
+    twins15 = start_cpu_twins15(tmp)
     try:
-        return run_phases(twins)
+        return run_phases(twins, twins15)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for c in (child, twins15[0]):
+            if c.poll() is None:
+                c.kill()
+                c.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_phases(twins) -> int:
-    """Phases 1-14 (the module docstring); `twins`: the CPU runs
-    (start_cpu_twins)."""
+def run_phases(twins, twins15) -> int:
+    """Phases 1-15 (the module docstring); `twins`, `twins15`: the CPU
+    runs (start_cpu_twins, start_cpu_twins15)."""
     import numpy as np
     import torch
     import meep_nl_tpu_torch as mp
@@ -3190,11 +3637,12 @@ def run_phases(twins) -> int:
                  (k1, k2, k3, k4), twins)
     phase_rotate(mp, dev, card, (k3, k4), twins)
     wrap = phase_periodic(mp, dev, card, main_ms, blank, twins)
-    print(f"[14] phases 1-14 took {time.perf_counter() - t_start:.1f} s",
+    pair = phase_complex(mp, dev, card, main_ms, blank, twins15)
+    print(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap + pair}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3204,4 +3652,6 @@ def run_phases(twins) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-twins"] and len(sys.argv) == 3:
         sys.exit(cpu_twins(sys.argv[2]))
+    if sys.argv[1:2] == ["--cpu-twins15"] and len(sys.argv) == 3:
+        sys.exit(cpu_twins15(sys.argv[2]))
     sys.exit(main())

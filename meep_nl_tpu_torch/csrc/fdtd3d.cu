@@ -95,7 +95,17 @@
 // 0 backward; the dead planes num.. form chunks of their own, where K_D
 // reads plane num - 1 as zero (the plain version's wrap fills the dead
 // planes' neighbours with zeros) and K_B reads only dead planes, which the
-// masks keep zero.
+// masks keep zero.  Complex fields stored as a real pair (a leading (re,
+// im) channel axis; ops/periodicx.py's PairPeriodicXKernel) run the
+// kernels built with the pair (PAIR): the channel is the grid's second
+// dimension, channel 1 a storage's length past channel 0 in every state
+// array (the coefficients are the channels' both), so one launch per
+// sub-update steps both.  Where the B / D ring loads the wrapped plane, a
+// complex phase ph = a + i b (A.wsc, A.wsci; 1 / ph for K_D) mixes the
+// channels: channel 0 reads a own - b other, channel 1 b other + a own,
+// other the partner channel's value (step._sh's rotation); channel 1's
+// sources read the waveform rows swapped, (w_re, w_im) -> (w_im, -w_re),
+// which gives Im(w amp).
 //
 // Left on the table: the compact D/B layout (E/H recomputed as u D outside
 // the W slabs), P and PP stored on the dispersive box only, several steps
@@ -162,9 +172,10 @@ struct K1Args {
   int mir;
   int mk0[MAXRING][2], msg[MAXRING][2];
   // K_B / K_D of an x-periodic plan (WRAP): the live extent along x (0:
-  // no wrap) and the scale of the wrapped plane (K_B: ph, K_D: 1 / ph)
-  int wnum, wpad;
-  double wsc;
+  // no wrap) and the scale of the wrapped plane (K_B: ph, K_D: 1 / ph),
+  // with its imaginary part (a real pair); wpair: a real pair's launch
+  int wnum, wpair;
+  double wsc, wsci;
 };
 
 #ifdef MNT_CUDA_STUB
@@ -404,11 +415,14 @@ __device__ __forceinline__ void ring_setup(const K1Args& A,
 // the plane's barrier).  Only the tiles at a plane have such positions.
 // WRAP: in a live chunk K_B's plane num is wsc * plane 0 and K_D's plane
 // -1 is wsc * plane num - 1, stored directly; in a dead chunk (`dead`)
-// K_D's plane num - 1 is zero.
-template <typename T, int KIND, bool MIR, bool WRAP>
+// K_D's plane num - 1 is zero.  PAIR: the arrays of channel `ch`, co
+// elements on; the wrapped plane times the complex wsc + i wsci, whose
+// product mixes in the partner channel
+template <typename T, int KIND, bool MIR, bool WRAP, bool PAIR = false>
 __device__ __forceinline__ void ring_issue(const K1Args& A,
                                            const RingPos<KIND>& rp, T* ring,
-                                           int p, bool dead) {
+                                           int p, bool dead, int co = 0,
+                                           int ch = 0) {
   typedef Ring<KIND> G;
   T* slot = ring + ((p + G::NSLOT) % G::NSLOT) * A.nring * G::PW;
   int q = p;
@@ -421,12 +435,17 @@ __device__ __forceinline__ void ring_issue(const K1Args& A,
   const bool pin = !zero && q >= 0 && q < A.S0;
   const int base = q * A.S1 * A.S2;
   for (int r = 0; r < A.nring; ++r) {
-    const T* src = (const T*)A.ring[r] + base;
+    const T* src = (const T*)A.ring[r] + base + (PAIR ? co : 0);
     T* dst = slot + r * G::PW;
 #pragma unroll
     for (int u = 0; u < G::NPOS; ++u) {
       if (rp.o[u] < 0) continue;
-      if (WRAP && wrapped && rp.ok[u]) {
+      if (PAIR && WRAP && wrapped && rp.ok[u] && A.wsci != 0.0) {
+        const int po = ch ? -A.S0 * A.S1 * A.S2 : A.S0 * A.S1 * A.S2;
+        const T own = src[rp.g[u]], other = src[rp.g[u] + po];
+        const T a = T(A.wsc), b = T(A.wsci);
+        dst[rp.o[u]] = ch ? b * other + a * own : a * own - b * other;
+      } else if (WRAP && wrapped && rp.ok[u]) {
         dst[rp.o[u]] = T(A.wsc) * src[rp.g[u]];
       } else if (pin && rp.ok[u]) {
         cp_async<T>(dst + rp.o[u], src + rp.g[u]);
@@ -465,11 +484,15 @@ __device__ __forceinline__ bool w_on(const EhC& ec, int wax, bool won_yz,
   return wax > 0 && won_yz;
 }
 
+// co: a real pair's channel offset of the state arrays (the coefficients
+// are the channels' both)
 template <typename T, int KIND, int NP, bool U>
 __device__ __forceinline__ void own_load(const K1Args& A, const Site<T>& s,
-                                         int i, int tile, Own<T, NP>& o) {
+                                         int i, int tile, Own<T, NP>& o,
+                                         int co = 0) {
   const Params& P = A.P;
   const int n = i * A.S1 * A.S2 + s.n0;
+  const int ns = n + co;
   if (KIND != K_E) {
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
@@ -483,8 +506,8 @@ __device__ __forceinline__ void own_load(const K1Args& A, const Site<T>& s,
       else if (has && uax > 0)
         uon = s.uon[q];
       o.uon[q] = uon;
-      o.f[q] = has ? ((const T*)c.f)[n] : T(0);
-      o.fu[q] = uon ? ((const T*)c.fu)[n] : T(0);
+      o.f[q] = has ? ((const T*)c.f)[ns] : T(0);
+      o.fu[q] = uon ? ((const T*)c.fu)[ns] : T(0);
     }
   }
   if (KIND != K_D) {
@@ -496,16 +519,16 @@ __device__ __forceinline__ void own_load(const K1Args& A, const Site<T>& s,
       const bool won = has && w_on(ec, U ? q : ec.wax, s.won[q], i);
       o.won[q] = won;
       o.u[q] = has && ec.has_u ? ((const T*)e.u)[n] : T(1);
-      o.wf[q] = won ? ((const T*)e.f)[n] : T(0);
-      o.ww[q] = won ? ((const T*)e.fw)[n] : T(0);
+      o.wf[q] = won ? ((const T*)e.f)[ns] : T(0);
+      o.ww[q] = won ? ((const T*)e.fw)[ns] : T(0);
       if (KIND == K_E) {
-        o.f[q] = has ? ((const T*)e.d)[n] : T(0);
+        o.f[q] = has ? ((const T*)e.d)[ns] : T(0);
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
           const PolC& pc = e.pol[p];
           const bool on = has && ((ec.pols >> p) & 1);
-          o.p[q][p] = on ? ((const T*)pc.p)[n] : T(0);
-          o.pp[q][p] = on ? ((const T*)pc.pp)[n] : T(0);
+          o.p[q][p] = on ? ((const T*)pc.p)[ns] : T(0);
+          o.pp[q][p] = on ? ((const T*)pc.pp)[ns] : T(0);
           o.sg[q][p] = on && in_box(A.pol[q][p], i, s.j, s.k)
                            ? ((const T*)pc.sigma)[n]
                            : T(0);
@@ -524,10 +547,12 @@ __device__ __forceinline__ void own_load(const K1Args& A, const Site<T>& s,
 
 // the current sources of entries [a, b) (the site's tile plane) at site
 // (jj, kk) into the new D/B values f[q]: f - current * dt per entry, in
-// plan.sources order
+// plan.sources order; im: a real pair's channel 1, the waveform rows
+// swapped, (w_re, w_im) -> (w_im, -w_re)
 template <typename T>
 __device__ __forceinline__ void add_sources(const K1Args& A, int a, int b,
-                                            int jj, int kk, T* f) {
+                                            int jj, int kk, T* f,
+                                            bool im = false) {
   if (a == b) return;
   const int* key = (const int*)A.src_key;
   const int me = (jj * TZ + kk) << 2;
@@ -541,8 +566,9 @@ __device__ __forceinline__ void add_sources(const K1Args& A, int a, int b,
   const double* wv = A.wave_dev ? (const double*)A.wave_dev : A.wave;
   for (int e = lo; e < b && (key[e] & ~3) == me; ++e) {
     const int s = ((const int*)A.src_id)[e];
-    const T add = -source_amp<T>(amp, amp + 1, 2 * e, T(wv[2 * s]),
-                                 T(wv[2 * s + 1]), T(A.dt));
+    const T wre = im ? T(wv[2 * s + 1]) : T(wv[2 * s]);
+    const T wim = im ? -T(wv[2 * s]) : T(wv[2 * s + 1]);
+    const T add = -source_amp<T>(amp, amp + 1, 2 * e, wre, wim, T(A.dt));
     const int q = key[e] & 3;
 #pragma unroll
     for (int qq = 0; qq < NCOMP; ++qq)
@@ -593,11 +619,12 @@ template <typename T, int KIND, int NP, bool U>
 __device__ __forceinline__ void curl_site_k1(const K1Args& A, const T* tab,
                                              const T* ring, const Site<T>& s,
                                              const Own<T, NP>& ow, int i,
-                                             int xl, int sh, int sx) {
+                                             int xl, int sh, int sx,
+                                             int co = 0, int ch = 0) {
   typedef Ring<KIND> G;
   const Params& P = A.P;
   const int L = A.ch;
-  const int n = i * A.S1 * A.S2 + s.n0;
+  const int n = i * A.S1 * A.S2 + s.n0 + co;
   const int o = (s.jj + G::LO) * G::RW + s.kk + G::LO;
   const T* here = ring + sh * A.nring * G::PW + o;
   const T* xnb = ring + sx * A.nring * G::PW + o;
@@ -625,7 +652,7 @@ __device__ __forceinline__ void curl_site_k1(const K1Args& A, const T* tab,
                             ow.uon[q], kmsu, sivu, ow.fu[q], &fun[q]) *
               (tq[6 * L + xl] * s.mc(q));
   }
-  add_sources<T>(A, ow.sa, ow.sb, s.jj, s.kk, fnew);
+  add_sources<T>(A, ow.sa, ow.sb, s.jj, s.kk, fnew, ch != 0);
   T lin[NCOMP];
   WIn<T> w[NCOMP];
   if (KIND == K_B) {
@@ -693,11 +720,12 @@ template <typename T, bool NL, int NP, bool U>
 __device__ __forceinline__ void e_site(const K1Args& A, const T* tab,
                                        const T* ring, const Site<T>& s,
                                        const Own<T, NP>& ow, bool nlp, int i,
-                                       int xl) {
+                                       int xl, int co = 0) {
   typedef Ring<K_E> G;
   const Params& P = A.P;
   const int L = A.ch;
   const int n = i * A.S1 * A.S2 + s.n0;
+  const int ns = n + co;
   const int o = (s.jj + 1) * G::RW + s.kk + 1;
   const int j = s.j, k = s.k;
   T lin[NCOMP], fnew[NCOMP];
@@ -754,8 +782,8 @@ __device__ __forceinline__ void e_site(const K1Args& A, const T* tab,
 #pragma unroll
   for (int q = 0; q < NCOMP; ++q) {
     if (q >= P.neh) continue;
-    if (w[q].on) ((T*)P.eh[q].fw)[n] = lin[q];
-    ((T*)P.eh[q].f)[n] = fnew[q];
+    if (w[q].on) ((T*)P.eh[q].fw)[ns] = lin[q];
+    ((T*)P.eh[q].f)[ns] = fnew[q];
   }
   // the ADE into the PP buffers
 #pragma unroll
@@ -766,7 +794,7 @@ __device__ __forceinline__ void e_site(const K1Args& A, const T* tab,
       if (q >= P.neh || !((A.ec[q].pols >> p) & 1)) continue;
       const PolC& pc = P.eh[q].pol[p];
       const T W = (U || A.ec[q].wax >= 0) ? lin[q] : fnew[q];
-      ((T*)pc.pp)[n] =
+      ((T*)pc.pp)[ns] =
           ade_value<T>(P, p, W, ow.sg[q][p], ow.p[q][p], ow.pp[q][p]);
     }
   }
@@ -776,26 +804,32 @@ __device__ __forceinline__ void e_site(const K1Args& A, const T* tab,
 
 // K_B reads the ring planes i and i+1 (and brings in i+2), K_D the planes
 // i-1 and i (brings in i+1); the own-site operands of plane i+1 are loaded
-// after plane i's site work
-template <typename T, int KIND, int NP, bool U, bool MIR, bool WRAP>
+// after plane i's site work; PAIR: channel `ch` of a real pair, whose
+// state arrays lie co elements on
+template <typename T, int KIND, int NP, bool U, bool MIR, bool WRAP,
+          bool PAIR = false>
 __device__ __forceinline__ void march_curl(const K1Args& A, const T* tab,
                                            T* ring, const Site<T>* s,
                                            Own<T, NP>* ow,
                                            const RingPos<KIND>& rp, int tile,
-                                           int i0, int i1) {
+                                           int i0, int i1, int co = 0,
+                                           int ch = 0) {
   constexpr int AHEAD = KIND == K_B ? 2 : 1;
   const int last = KIND == K_B ? i1 : i1 - 1;     // the last plane read
   const bool dead = WRAP && i0 >= A.wnum;
-  ring_issue<T, KIND, MIR, WRAP>(A, rp, ring, i0 + AHEAD - 2, dead);
+  ring_issue<T, KIND, MIR, WRAP, PAIR>(A, rp, ring, i0 + AHEAD - 2, dead,
+                                       co, ch);
   cp_commit();
-  ring_issue<T, KIND, MIR, WRAP>(A, rp, ring, i0 + AHEAD - 1, dead);
+  ring_issue<T, KIND, MIR, WRAP, PAIR>(A, rp, ring, i0 + AHEAD - 1, dead,
+                                       co, ch);
   cp_commit();
 #pragma unroll
   for (int m = 0; m < SPT; ++m)
-    if (s[m].ok) own_load<T, KIND, NP, U>(A, s[m], i0, tile, ow[m]);
+    if (s[m].ok) own_load<T, KIND, NP, U>(A, s[m], i0, tile, ow[m], co);
   for (int i = i0; i < i1; ++i) {
     if (i + AHEAD <= last)
-      ring_issue<T, KIND, MIR, WRAP>(A, rp, ring, i + AHEAD, dead);
+      ring_issue<T, KIND, MIR, WRAP, PAIR>(A, rp, ring, i + AHEAD, dead, co,
+                                           ch);
     cp_commit();
     cp_wait1();
     __syncthreads();
@@ -805,11 +839,12 @@ __device__ __forceinline__ void march_curl(const K1Args& A, const T* tab,
     for (int m = 0; m < SPT; ++m)
       if (s[m].ok)
         curl_site_k1<T, KIND, NP, U>(A, tab, ring, s[m], ow[m], i, i - i0,
-                                     sh, sx);
+                                     sh, sx, co, ch);
     if (i + 1 < i1) {
 #pragma unroll
       for (int m = 0; m < SPT; ++m)
-        if (s[m].ok) own_load<T, KIND, NP, U>(A, s[m], i + 1, tile, ow[m]);
+        if (s[m].ok)
+          own_load<T, KIND, NP, U>(A, s[m], i + 1, tile, ow[m], co);
     }
     __syncthreads();
   }
@@ -822,7 +857,7 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
                                         T* ring, const Site<T>* s,
                                         Own<T, NP>* ow,
                                         const RingPos<K_E>& rp, int i0,
-                                        int i1, int j0, int k0) {
+                                        int i1, int j0, int k0, int co = 0) {
   int xa = i1, xb = i1;
   const Box& b = A.nl;
   if (NL && b.lo[1] < j0 + TY && b.hi[1] > j0 && b.lo[2] < k0 + TZ &&
@@ -839,7 +874,7 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
   }
 #pragma unroll
   for (int m = 0; m < SPT; ++m)
-    if (s[m].ok) own_load<T, K_E, NP, U>(A, s[m], i0, 0, ow[m]);
+    if (s[m].ok) own_load<T, K_E, NP, U>(A, s[m], i0, 0, ow[m], co);
   __syncthreads();                              // the tables
   for (int i = i0; i < i1; ++i) {
     const bool nlp = i >= xa && i < xb;
@@ -853,11 +888,11 @@ __device__ __forceinline__ void march_e(const K1Args& A, const T* tab,
 #pragma unroll
     for (int m = 0; m < SPT; ++m)
       if (s[m].ok) e_site<T, NL, NP, U>(A, tab, ring, s[m], ow[m], nlp, i,
-                                        i - i0);
+                                        i - i0, co);
     if (i + 1 < i1) {
 #pragma unroll
       for (int m = 0; m < SPT; ++m)
-        if (s[m].ok) own_load<T, K_E, NP, U>(A, s[m], i + 1, 0, ow[m]);
+        if (s[m].ok) own_load<T, K_E, NP, U>(A, s[m], i + 1, 0, ow[m], co);
     }
     if (nlp) __syncthreads();
   }
@@ -892,11 +927,12 @@ __device__ __forceinline__ void chunk_planes(const K1Args& A, int c,
 // NL (K_E only): the nonlinear code is compiled in, for plans with a
 // nonlinear box; NP: the polarizations a site holds (K_E: 1 or MAXPOL);
 // U: the plan has the standard uPML layout (u_ax1 ...); MIR (K_D): the
-// node-mirror ghost; WRAP (K_B, K_D): the x Bloch wrap
+// node-mirror ghost; WRAP (K_B, K_D): the x Bloch wrap; PAIR: channel
+// `pch` of a real pair (k1_pair_kernel)
 template <typename T, int KIND, bool NL, int NP, bool U, bool MIR,
-          bool WRAP>
-__global__ void __launch_bounds__(NTHR, (min_blocks<KIND, NL>()))
-k1_kernel(const __grid_constant__ K1Args A) {
+          bool WRAP, bool PAIR>
+__device__ __forceinline__ void k1_body(const K1Args& A, int pch) {
+  const int co = PAIR ? pch * A.S0 * A.S1 * A.S2 : 0;
   T* tab = (T*)K1_SMEM;
   T* sv = tab + ntab<KIND>() * A.ch;
   T* ring = sv + site_words<KIND>();
@@ -933,11 +969,27 @@ k1_kernel(const __grid_constant__ K1Args A) {
       site_setup<T, KIND, U>(A, s[m], sv, tid + m * NTHR, j0, k0);
     ring_setup<KIND, MIR>(A, rp, tid, j0, k0);
     if constexpr (KIND == K_E)
-      march_e<T, NL, NP, U>(A, tab, ring, s, ow, rp, i0, i1, j0, k0);
+      march_e<T, NL, NP, U>(A, tab, ring, s, ow, rp, i0, i1, j0, k0, co);
     else
-      march_curl<T, KIND, NP, U, MIR, WRAP>(A, tab, ring, s, ow, rp,
-                                            ty * A.ntz + tz, i0, i1);
+      march_curl<T, KIND, NP, U, MIR, WRAP, PAIR>(
+          A, tab, ring, s, ow, rp, ty * A.ntz + tz, i0, i1, co, pch);
   }
+}
+
+template <typename T, int KIND, bool NL, int NP, bool U, bool MIR,
+          bool WRAP>
+__global__ void __launch_bounds__(NTHR, (min_blocks<KIND, NL>()))
+k1_kernel(const __grid_constant__ K1Args A) {
+  k1_body<T, KIND, NL, NP, U, MIR, WRAP, false>(A, 0);
+}
+
+// a real pair's launch: the channel is blockIdx.y; K_B and K_D read across
+// the x wrap (the pair drivers are x-periodic), nothing is nonlinear
+template <typename T, int KIND, int NP, bool U>
+__global__ void __launch_bounds__(NTHR, (min_blocks<KIND, false>()))
+k1_pair_kernel(const __grid_constant__ K1Args A) {
+  k1_body<T, KIND, false, NP, U, false, KIND != K_E, true>(A,
+                                                           (int)blockIdx.y);
 }
 
 // dynamic shared memory of a launch: the x tables and the ring
@@ -974,6 +1026,32 @@ static bool upml_layout(const K1Args& A, int kind) {
          (kind == K_D || upml_eh(A.ec, (int)A.P.neh));
 }
 
+// a real pair's launch (k1_pair_kernel): both channels, the grid's second
+// dimension
+template <typename T, int KIND, int NP, bool U>
+static int launch_pair_kind(const K1Args* a, cudaStream_t s) {
+  const size_t smem = smem_bytes<T, KIND, false>(*a);
+  if (smem > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        k1_pair_kernel<T, KIND, NP, U>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  void* args[] = {(void*)a};
+  int head;
+  const unsigned grid = (unsigned)item_count<KIND, false>(*a, &head);
+  if (grid == 0) return 0;
+  cudaError_t rc = cudaLaunchKernel(k1_pair_kernel<T, KIND, NP, U>,
+                                    dim3(grid, 2), dim3(NTHR), args, smem, s);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+template <typename T, int KIND, int NP>
+static int launch_pair(const K1Args* a, cudaStream_t s) {
+  return upml_layout(*a, KIND) ? launch_pair_kind<T, KIND, NP, true>(a, s)
+                               : launch_pair_kind<T, KIND, NP, false>(a, s);
+}
+
 template <typename T, int KIND, bool NL, int NP, bool MIR = false,
           bool WRAP = false>
 static int launch_u(const K1Args* a, cudaStream_t s) {
@@ -992,6 +1070,22 @@ static int launch(const K1Args* a, int kind, cudaStream_t s) {
     return (int)cudaErrorInvalidValue;
   const bool nl = has_nl(a->P);
   const bool one = a->P.npol <= 1;
+  if (a->wpair) {
+    // a real pair: linear, x-periodic (B and D wrap), no mirror ghost
+    if (nl || a->mir || (kind != K_E && !a->wnum))
+      return (int)cudaErrorInvalidValue;
+    switch (kind) {
+      case K_B:
+        return launch_pair<T, K_B, 1>(a, s);
+      case K_D:
+        return launch_pair<T, K_D, 1>(a, s);
+      case K_E:
+        return one ? launch_pair<T, K_E, 1>(a, s)
+                   : launch_pair<T, K_E, MAXPOL>(a, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (kind) {
     case K_B:
       // only the E family may carry chi3 / chi2-NR coefficients

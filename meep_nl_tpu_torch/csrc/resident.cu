@@ -94,6 +94,22 @@
 //     ph times plane 0, and a dead plane's read across the axis is zero
 //     (step._sh).  These reads cross the grid, so periodic plans take the
 //     direct schedule in its WRAP variant (Tiling.direct = 3).
+//   * Complex fields as a real pair (plan.real_pair): the direct schedule
+//     in its PAIR variant (Tiling.direct = 4, linear plans only: pair
+//     fields refuse chi2/chi3).  The buffer holds the single-channel
+//     layout twice, channel 0 (re) at A.base and channel 1 (im) A.half
+//     floats on, the coefficients and vectors copied into both halves, so
+//     a channel is the one-channel kernel on its half and the two share
+//     every descriptor.  They meet where the Bloch wrap reads across the
+//     grid with a complex phase ph = a + i b (A.wph / A.wphim, 1 / ph in
+//     A.wphi / A.wphii): the wrapped read of channel 0 is a own - b other,
+//     of channel 1 b other + a own (other: the partner channel's value,
+//     step._sh's rotation); channel 1's sources read the waveform rows
+//     swapped, (w_re, w_im) -> (w_im, -w_re), which gives Im(w amp); the
+//     DTFT accumulates the complex field times the complex weight, the
+//     centred average's wrapped read rotated axis by axis as the plain
+//     version's passes; K4's products and series are (re, im) pairs of the
+//     complex weights (interleaved in A.pr.w) times the complex field.
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -211,11 +227,16 @@ struct ResArgs {
   // inverse
   i64 wn[3];
   double wph[3], wphi[3];
+  // the PAIR variant (direct schedule): the imaginary parts of the phase
+  // and of its inverse, and the floats from channel 0's half of the
+  // buffer to channel 1's
+  double wphim[3], wphii[3];
+  i64 half;
 };
 
 // the direct schedule's ghost reads: none, the rotational folds' (ROT),
-// the Bloch wrap's (WRAP)
-enum { GK_NONE = 0, GK_ROT = 1, GK_WRAP = 2 };
+// the Bloch wrap's (WRAP), the Bloch wrap of a real pair (PAIR)
+enum { GK_NONE = 0, GK_ROT = 1, GK_WRAP = 2, GK_PAIR = 3 };
 
 // the box a block stages in a pass: origin and extents in the grid
 struct Box {
@@ -485,15 +506,56 @@ __device__ __forceinline__ float diff_w(const float* sm, int g, int ax,
          v;
 }
 
+// the wrapped read of a real pair's channel `ch` at staged offset `at`
+// times the complex phase a + i b: channel 0 a own - b other, channel 1
+// b other + a own (step._sh's rotation; a real phase scales both)
+__device__ __forceinline__ float wrap_pair(const float* sm, int at,
+                                           const ResArgs& A, int ch, float a,
+                                           float bb) {
+  const float own = sm[at];
+  if (bb == 0.0f) return a * own;
+  const float other = sm[at + (ch ? -(int)A.half : (int)A.half)];
+  return ch ? bb * other + a * own : a * own - bb * other;
+}
+
+// diff_w of channel `ch` of a real pair (the PAIR variant): the wrapped
+// plane's read takes the complex phase as a rotation of the channels
+template <bool IS_D>
+__device__ __forceinline__ float diff_p(const float* sm, int g, int ax,
+                                        int st, int gog, float gsg,
+                                        const Box& b, const Loc& x,
+                                        const ResArgs& A, int ch) {
+  const int n = (int)A.wn[ax];
+  if (n == 0) return diff_t<IS_D>(sm, g, ax, st, gog, gsg, b, x);
+  const int c = coord_of(ax, x);
+  const float v = sm[g + x.l];
+  if (IS_D)
+    return v - (c == 0 ? wrap_pair(sm, g + x.l + (n - 1) * st, A, ch,
+                                   (float)A.wphi[ax], (float)A.wphii[ax])
+                       : (c < n ? sm[g + x.l - st] : 0.0f));
+  return (c < n - 1 ? sm[g + x.l + st]
+                    : (c == n - 1 ? wrap_pair(sm, g + x.l - (n - 1) * st, A,
+                                              ch, (float)A.wph[ax],
+                                              (float)A.wphim[ax])
+                                  : 0.0f)) -
+         v;
+}
+
 // step._curl_update of one component (q of its family) at one site; GK:
 // the D curl reads the rotational ghosts of A (GK_ROT), both curls read
-// across the Bloch wrap (GK_WRAP)
+// across the Bloch wrap (GK_WRAP), channel `ch` of a real pair's across it
+// (GK_PAIR; sm is the channel's half of the buffer)
 template <bool IS_D, int GK>
 __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
                                        const Box& b, const Loc& x,
-                                       const ResArgs& A, int q) {
+                                       const ResArgs& A, int q, int ch = 0) {
   float dp = 0.0f, dm = 0.0f;
-  if (IS_D && GK == GK_ROT) {
+  if (GK == GK_PAIR) {
+    if (c.gp >= 0)
+      dp = diff_p<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x, A, ch);
+    if (c.gm >= 0)
+      dm = diff_p<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x, A, ch);
+  } else if (IS_D && GK == GK_ROT) {
     const int vol = (int)A.tl.vol;
     if (c.gp >= 0) dp = diff_rot(sm, c.gp, c.ap, c.stp, A, vol, q, 0, x);
     if (c.gm >= 0) dm = diff_rot(sm, c.gm, c.am, c.stm, A, vol, q, 1, x);
@@ -633,12 +695,13 @@ template <bool IS_D, int GK>
 __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
                                          const Box& b, const int* lo,
                                          const int* hi, const Team& tm,
-                                         const ResArgs& A) {
+                                         const ResArgs& A, int ch = 0) {
   const float csgn = F.s.csgn;
   for (int q = 0; q < F.s.ncurl; ++q) {
     const CurlT c = F.curl[q];
-    over(b, lo, hi, tm,
-         [&](const Loc& x) { curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q); });
+    over(b, lo, hi, tm, [&](const Loc& x) {
+      curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q, ch);
+    });
   }
 }
 
@@ -670,7 +733,10 @@ __device__ __forceinline__ int local_of(int off, const Box& b, int S1,
   return (li * b.n[1] + lj) * b.n[2] + lk;
 }
 
-// the family's sources at the tile's staged sites, in source order per site
+// the family's sources at the tile's staged sites, in source order per
+// site; IM: a real pair's channel 1, which reads the waveform rows swapped,
+// (w_re, w_im) -> (w_im, -w_re): w amp's imaginary part
+template <bool IM = false>
 __device__ void sources_at(const ResArgs& A, const SrcFam& sf, const FamT& F,
                            float* sm, const Box& b, int tile, i64 s, int S1,
                            int S2, const Team& tm) {
@@ -691,7 +757,8 @@ __device__ void sources_at(const ResArgs& A, const SrcFam& sf, const FamT& F,
     float* f = sm + F.curl[sq[t]].f + l;
     float v = *f;
     for (int c = start[t]; c < start[t + 1]; ++c) {
-      const float wre = cur[2 * csrc[c]], wim = cur[2 * csrc[c] + 1];
+      const float wre = IM ? cur[2 * csrc[c] + 1] : cur[2 * csrc[c]];
+      const float wim = IM ? -cur[2 * csrc[c]] : cur[2 * csrc[c] + 1];
       v = v - (wre * cre[c] - wim * cim[c]) * dt;
     }
     *f = v;
@@ -790,6 +857,116 @@ __device__ void dtft(const ResArgs& A, float* sm, int vol, const Box& b,
   }
 }
 
+// region_value of a real pair (the PAIR variant, direct schedule): the
+// corners' (re, im) from both channels (f0: channel 0's array, channel 1's
+// A.half on), averaged axis by axis in the plain version's order, the
+// upper read across a wrapped axis at plane n - 1 rotated by that axis's
+// phase before its average (step._region_values through step._sh)
+__device__ __forceinline__ void region_value_pair(const DftM& d,
+                                                  const float* f0,
+                                                  const Box& b, const Loc& x,
+                                                  const ResArgs& A, float* vr,
+                                                  float* vi) {
+  float re[8], im[8];
+  const int nc = 1 << d.navg;
+  bool wraps[3];
+  for (int m = 0; m < d.navg; ++m) {
+    const int ax = (int)d.avg[m], n = (int)A.wn[ax];
+    wraps[m] = n > 0 && coord_of(ax, x) == n - 1;
+  }
+  for (int c = 0; c < nc; ++c) {
+    int ci = x.i, cj = x.j, ck = x.k;
+    bool in = true;
+    for (int m = 0; m < d.navg; ++m) {
+      if (!((c >> m) & 1)) continue;
+      const int ax = (int)d.avg[m];
+      const int cur = ax == 0 ? ci : (ax == 1 ? cj : ck);
+      const int n = (int)A.wn[ax];
+      int nxt = cur + 1;
+      if (n == 0) {
+        in = in && nxt < (ax == 0 ? b.n[0] : (ax == 1 ? b.n[1] : b.n[2]));
+      } else if (cur == n - 1) {
+        nxt = 0;
+      } else if (cur >= n) {
+        in = false;
+      }
+      if (ax == 0) ci = nxt;
+      else if (ax == 1) cj = nxt;
+      else ck = nxt;
+    }
+    const int l = (ci * b.n[1] + cj) * b.n[2] + ck;
+    re[c] = in ? f0[l] : 0.0f;
+    im[c] = in ? f0[l + A.half] : 0.0f;
+  }
+  for (int m = 0; m < d.navg; ++m) {
+    const int ax = (int)d.avg[m];
+    const float a = (float)A.wph[ax], bb = (float)A.wphim[ax];
+    for (int c = 0; c < (nc >> (m + 1)); ++c) {
+      float ur = re[2 * c + 1], ui = im[2 * c + 1];
+      if (wraps[m]) {
+        if (bb == 0.0f) {
+          ur = a * ur;
+          ui = a * ui;
+        } else {
+          const float r = a * ur - bb * ui, i2 = bb * ur + a * ui;
+          ur = r;
+          ui = i2;
+        }
+      }
+      re[c] = 0.5f * (re[2 * c] + ur);
+      im[c] = 0.5f * (im[2 * c] + ui);
+    }
+  }
+  *vr = re[0];
+  *vi = im[0];
+}
+
+// the DTFT update of a real pair (the PAIR variant): c = w fv with the
+// complex field fv = fr + i fi and the weight w = wr (+ i wi), cr = wr fr
+// (- wi fi), ci = wr fi (+ wi fr), then acc += ph c (step._dft_update)
+__device__ void dtft_pair(const ResArgs& A, float* sm, int vol,
+                          const Box& b, const int* lo, const int* hi, i64 s,
+                          const Team& tm) {
+  for (int m = 0; m < A.ndft; ++m) {
+    const DftM& d = A.dft[m];
+    int rlo[3], rhi[3];
+    for (int ax = 0; ax < 3; ++ax) {
+      rlo[ax] = max(lo[ax], (int)d.lo[ax]);
+      rhi[ax] = min(hi[ax], (int)(d.lo[ax] + d.n[ax]));
+    }
+    const float* f = sm + off_of(d.f, vol);
+    const float* phr = (const float*)d.phr + s * d.nfreq;
+    const float* phi = (const float*)d.phi + s * d.nfreq;
+    float* acc = (float*)d.acc;
+    over(b, rlo, rhi, tm, [&](const Loc& x) {
+      const int r = ((x.i + b.o[0] - (int)d.lo[0]) * (int)d.n[1] +
+                     (x.j + b.o[1] - (int)d.lo[1])) *
+                        (int)d.n[2] +
+                    (x.k + b.o[2] - (int)d.lo[2]);
+      float fr, fi;
+      if (d.navg) {
+        region_value_pair(d, f, b, x, A, &fr, &fi);
+      } else {
+        fr = f[x.l];
+        fi = f[x.l + A.half];
+      }
+      const float wr = ((const float*)d.w)[r];
+      float cr = wr * fr, ci = wr * fi;
+      if (d.wi) {
+        const float wi = ((const float*)d.wi)[r];
+        cr = cr - wi * fi;
+        ci = ci + wi * fr;
+      }
+      for (int q = 0; q < d.nfreq; ++q) {
+        const float re = acc[(2 * q) * d.R + r];
+        const float im = acc[(2 * q + 1) * d.R + r];
+        acc[(2 * q) * d.R + r] = re + (phr[q] * cr - phi[q] * ci);
+        acc[(2 * q + 1) * d.R + r] = im + (phi[q] * cr + phr[q] * ci);
+      }
+    });
+  }
+}
+
 // K4: the tile's probe points, resolved once per pass: the team's thread t
 // holds the t-th point of the tile (and the t + size-th, ...) as its index
 // q, the component's staged offset plus the local site, and its weight
@@ -846,6 +1023,42 @@ __device__ void probe_sums(const ResArgs& A, i64 pass) {
     float v = 0.0f;
     for (int q = start[p]; q < start[p + 1]; ++q) v = v + row[q];
     ((float*)pr.series)[p * A.nsteps + s0 + r] = v;
+  }
+}
+
+// K4 of a real pair (the PAIR variant, direct schedule: T = 1, one tile):
+// per point the complex product w f, (fr wr - fi wi, fr wi + fi wr), the
+// weights interleaved (re, im) in A.pr.w, into the (2, npt, 2) buffer by
+// step parity
+__device__ void probe_products_pair(const ResArgs& A, const float* sm,
+                                    int vol, const Box& b, i64 s, int S1,
+                                    int S2, const Team& tm) {
+  const Probes& pr = A.pr;
+  float* out = (float*)pr.prod + (s & 1) * pr.npt * 2;
+  const float* w = (const float*)pr.w;
+  for (unsigned u = tm.rank; u < (unsigned)pr.npt; u += tm.size) {
+    const int at = (((const int*)pr.tok)[u] - 1) * vol +
+                   local_of(((const int*)pr.off)[u], b, S1, S2);
+    const float fr = sm[at], fi = sm[at + A.half];
+    const float wr = w[2 * u], wi = w[2 * u + 1];
+    out[2 * u] = fr * wr - fi * wi;
+    out[2 * u + 1] = fr * wi + fi * wr;
+  }
+}
+
+// K4 of a real pair: step s's (re, im) series rows, each probe's products
+// summed in point order from 0.0f, into (nprobe, nsteps, 2)
+__device__ void probe_sums_pair(const ResArgs& A, i64 s) {
+  const Probes& pr = A.pr;
+  const float* row = (const float*)pr.prod + (s & 1) * pr.npt * 2;
+  const int* start = (const int*)pr.start;
+  const unsigned n = (unsigned)(pr.nprobe * 2);
+  for (unsigned w = blockIdx.x * blockDim.x + threadIdx.x; w < n;
+       w += gridDim.x * blockDim.x) {
+    const int p = (int)(w / 2), part = (int)(w % 2);
+    float v = 0.0f;
+    for (int q = start[p]; q < start[p + 1]; ++q) v = v + row[2 * q + part];
+    ((float*)pr.series)[(p * A.nsteps + s) * 2 + part] = v;
   }
 }
 
@@ -952,6 +1165,67 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
   }
 }
 
+// one step s of a real pair in the PAIR variant (direct schedule: the box
+// is the grid, sm = A.base): each sub-update runs channel 0 on sm and
+// channel 1 on sm + A.half before the grid barrier that ends it, with the
+// barriers of pass_steps; the step's K4 series row after the next
+// barrier
+template <bool PROBED>
+__device__ void pair_step(const ResArgs& A, const FamT (&tf)[2][2],
+                          float* sm, const Box& b, const int* lo,
+                          const int* hi, i64 s) {
+  const Tiling& tl = A.tl;
+  const Team tm = team_of<true>();
+  const int S[3] = {(int)A.pb[0].S0, (int)A.pb[0].S1, (int)A.pb[0].S2};
+  const int vol = (int)tl.vol;
+  float* sm1 = sm + A.half;
+  const FamT& FB = tf[0][s & 1];
+  const FamT& FD = tf[1][s & 1];
+  const int fl = ((const int*)A.flags)[s];
+  const bool bsrc = fl & STEP_BSRC, dsrc = fl & STEP_DSRC;
+  int bhi[3], dlo[3];
+  for (int ax = 0; ax < 3; ++ax) {
+    bhi[ax] = min(S[ax], hi[ax] + (int)tl.e[ax]);
+    dlo[ax] = max(0, lo[ax]);
+  }
+  // B curl (+ H)
+  curl_all<false, GK_PAIR>(FB, sm, b, lo, bhi, tm, A, 0);
+  curl_all<false, GK_PAIR>(FB, sm1, b, lo, bhi, tm, A, 1);
+  if (!bsrc) {
+    eh_all<false>(FB, sm, b, lo, bhi, tm);
+    eh_all<false>(FB, sm1, b, lo, bhi, tm);
+  }
+  bar<true>();
+  if (bsrc) {
+    sources_at<false>(A, A.src[0], FB, sm, b, 0, s, S[1], S[2], tm);
+    sources_at<true>(A, A.src[0], FB, sm1, b, 0, s, S[1], S[2], tm);
+    bar<true>();
+    eh_all<false>(FB, sm, b, lo, bhi, tm);
+    eh_all<false>(FB, sm1, b, lo, bhi, tm);
+    bar<true>();
+  }
+  // D curl (+ E: site-local, pair fields carry no chi2/chi3)
+  curl_all<true, GK_PAIR>(FD, sm, b, dlo, bhi, tm, A, 0);
+  curl_all<true, GK_PAIR>(FD, sm1, b, dlo, bhi, tm, A, 1);
+  if (!dsrc) {
+    eh_all<false>(FD, sm, b, dlo, bhi, tm);
+    eh_all<false>(FD, sm1, b, dlo, bhi, tm);
+  }
+  bar<true>();
+  if (dsrc) {
+    sources_at<false>(A, A.src[1], FD, sm, b, 0, s, S[1], S[2], tm);
+    sources_at<true>(A, A.src[1], FD, sm1, b, 0, s, S[1], S[2], tm);
+    bar<true>();
+    eh_all<false>(FD, sm, b, dlo, bhi, tm);
+    eh_all<false>(FD, sm1, b, dlo, bhi, tm);
+    bar<true>();
+  }
+  const bool dft = fl & STEP_DFT;
+  if (dft) dtft_pair(A, sm, vol, b, lo, hi, s, tm);
+  if (PROBED) probe_products_pair(A, sm, vol, b, s, S[1], S[2], tm);
+  if (dft || PROBED) bar<true>();
+}
+
 // tile `tile`'s interior [lo, hi) and its staged box b in a pass of Tp
 // steps
 __device__ __forceinline__ void tile_box(const ResArgs& A, int tile, int Tp,
@@ -1044,6 +1318,20 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
   }
   __syncthreads();
   const i64 npass = (A.nsteps + A.tl.T - 1) / A.tl.T;
+  if (DIRECT && GK == GK_PAIR) {
+    int lo[3], hi[3];
+    Box b;
+    tile_box(A, 0, 1, lo, hi, b);
+    Pts mine;
+    describe_box<false, true>(A, tf, b, 0, mine);
+    __syncthreads();
+    for (i64 s = 0; s < A.nsteps; ++s) {
+      if (PROBED && s > 0) probe_sums_pair(A, s - 1);
+      pair_step<PROBED>(A, tf, (float*)A.base, b, lo, hi, s);
+    }
+    if (PROBED) probe_sums_pair(A, A.nsteps - 1);
+    return;
+  }
   if (DIRECT) {
     int lo[3], hi[3];
     Box b;
@@ -1084,8 +1372,13 @@ static const void* kernel_dir(int direct) {
 
 // the variant; direct 2: the direct schedule with the rotational ghosts
 // (linear plans only: a fold declines chi2/chi3), else nullptr; direct 3:
-// the direct schedule with the Bloch wrap
+// the direct schedule with the Bloch wrap; direct 4: the direct schedule
+// of a real pair (linear plans only: pair fields refuse chi2/chi3)
 static const void* kernel_of(int nl, int probed, int direct) {
+  if (direct == 4)
+    return nl ? nullptr
+              : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIR>
+                        : (const void*)k3_kernel<false, false, true, GK_PAIR>);
   if (direct == 2)
     return nl ? nullptr
               : (probed ? (const void*)k3_kernel<false, true, true, GK_ROT>
@@ -1187,15 +1480,17 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
   }
   const Tiling& tl = host->tl;
   const int direct = (int)tl.direct;
-  if (direct < 0 || direct > 3) return (int)cudaErrorInvalidValue;
+  if (direct < 0 || direct > 4) return (int)cudaErrorInvalidValue;
   // rotational ghosts and the Bloch wrap only in their variants, which
-  // have them
+  // have them (the pair's with or without a wrap); the pair's channel 1
+  // past channel 0's half of the buffer
   bool rot = false, wrap = false;
   for (int q = 0; q < NCOMP; ++q)
     for (int m = 0; m < 2; ++m) rot = rot || host->gsrc[q][m] != 0;
   for (int ax = 0; ax < 3; ++ax) wrap = wrap || host->wn[ax] != 0;
-  if (rot != (direct == 2) || wrap != (direct == 3))
+  if (rot != (direct == 2) || (direct != 4 && wrap != (direct == 3)))
     return (int)cudaErrorInvalidValue;
+  if ((direct == 4) != (host->half > 0)) return (int)cudaErrorInvalidValue;
   if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const i64 ntile = tl.nt[0] * tl.nt[1] * tl.nt[2];

@@ -4,7 +4,10 @@ port, as numpy arrays.
 The JAX package's state pytree and coefficient dict are handed over with
 ``np.asarray`` applied to each leaf; these helpers turn such a tree into the
 port's tensors (and back), so that both packages can be stepped from one
-identical state.  Nothing here imports the JAX package.
+identical state.  Dtypes and shapes are kept: complex64 fields of a
+native complex state, and a real pair's (2, ...) float32 fields, whose
+leading axis is the (re, im) channel in both packages.  Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations

@@ -284,3 +284,23 @@ class Block(GeometricObject):
             sgn = np.where(proj >= 0, 1.0, -1.0)
             normal = np.where(closer[..., None], sgn[..., None] * e, normal)
         return normal if np.isfinite(best).any() else None
+
+
+def interpolate(n: int, nums) -> list:
+    """Insert n linearly interpolated values between each pair of `nums`
+    (Vector3s or numbers; the reference's geom.py:998, Meep's
+    python/simulation.py interpolate): the k-point paths of band
+    diagrams."""
+    out = []
+    items = list(nums)
+    for a, b in zip(items[:-1], items[1:]):
+        va = np.asarray(list(_v3(a)) if isinstance(a, Vector3) else
+                        np.atleast_1d(a), float)
+        vb = np.asarray(list(_v3(b)) if isinstance(b, Vector3) else
+                        np.atleast_1d(b), float)
+        for i in range(n + 1):
+            v = va + (vb - va) * (i / (n + 1))
+            out.append(Vector3(*v) if isinstance(a, Vector3)
+                       else (v[0] if v.size == 1 else v))
+    out.append(items[-1])
+    return out

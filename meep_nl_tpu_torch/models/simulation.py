@@ -44,9 +44,14 @@ every axis wraps with the phase exp(2 pi i k L) unless k is zero along it
 and both its ends carry an absorbing layer.  Real phases (k = 0 or the
 zone edge) run on the kernels as in the reference (K3/K4 with their wrap
 ghosts; x-periodic 3D cells on the hybrid driver's periodic drivers,
-ops/periodicx.py); complex phases and a 2D k.z (special_kz) need complex
-fields and raise NotImplementedError naming ROADMAP A9, as do
-cylindrical cells.
+ops/periodicx.py).  Any other k has complex phases and so complex fields,
+as does `force_complex_fields=True` (simulation.py:1392, :1439-1448):
+native complex64 on the CPU, the real pair (plan.real_pair: a leading
+(re, im) channel axis, real arithmetic) on the card, where the kernels
+take the pair as the reference's do; MNT_REAL_PAIR=1 asks for the pair
+on the CPU too and MNT_COMPLEX_NATIVE=1 for native complex everywhere.
+Getters return complex values then.  A 2D k.z (special_kz) and
+cylindrical cells raise NotImplementedError naming ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -238,6 +243,7 @@ class Simulation:
                  use_fused: bool = True,
                  symmetries: Sequence = (),
                  k_point=None,
+                 force_complex_fields: bool = False,
                  device=None):
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
@@ -257,6 +263,8 @@ class Simulation:
         self.default_material = default_material or Medium()
         #: the Bloch wave vector (units of 2 pi / a), or None: no wrap
         self.k_point = k_point
+        #: step complex fields even where the phases are real
+        self.force_complex_fields = force_complex_fields
         self.courant = Courant
         self.eps_averaging = eps_averaging
         self.subpixel_n = subpixel_n
@@ -697,6 +705,7 @@ class Simulation:
             dfts=self._dft_specs, courant=self.courant, dtype=self.dtype,
             live_e=live_e, live_h=live_h,
             boundaries=self._boundaries or None,
+            complex_fields=True if self.force_complex_fields else None,
             mirror_node=tuple(m for m in self._mirrors
                               if m[0] in self._mirror_node),
             rot2=self._rot2, rot4=self._rot4,
@@ -708,14 +717,24 @@ class Simulation:
             and self._rot4 is None else 1,
             device=self.device)
         self._check_rotation_plan()
+        if self._plan.complex_fields:
+            # the real pair: compulsory on the card (its kernels run real
+            # arithmetic), asked for on the CPU by MNT_REAL_PAIR=1; native
+            # complex everywhere with MNT_COMPLEX_NATIVE=1
+            # (simulation.py:1439-1448)
+            if os.environ.get("MNT_COMPLEX_NATIVE") != "1" and (
+                    torch.device(self.device).type != "cpu"
+                    or os.environ.get("MNT_REAL_PAIR") == "1"):
+                self._plan.real_pair = True
         try:
-            # complex Bloch phases and special_kz need complex fields
+            # special_kz and cylindrical cells; pair fields with chi2/chi3
+            # or multilevel media (init_state)
             S.check_supported(self._plan)
+            self._plan.use_pallas = self.use_pallas
+            self._state = S.init_state(self._plan)
         except NotImplementedError:
             self._plan = None
             raise
-        self._plan.use_pallas = self.use_pallas
-        self._state = S.init_state(self._plan)
 
     def _check_rotation_plan(self):
         """What the reference rejects on a rotational fold once the plan is
@@ -1455,7 +1474,11 @@ class Simulation:
                 out = self._stepper_run(nsteps, probes)
             self._state, ys = out
             for k in series:
-                series[k].append(ys[k].detach().cpu().numpy())
+                arr = ys[k].detach().cpu().numpy()
+                if self._plan.real_pair and arr.ndim == 2:
+                    # a real pair's (re, im) rows (simulation.py:2902)
+                    arr = arr[:, 0] + 1j * arr[:, 1]
+                series[k].append(arr)
         else:
             if self.use_fused:
                 out = resident_run(self._plan, self._state, nsteps, self._t)
@@ -1574,7 +1597,7 @@ class Simulation:
         """Per-stretch NaN/Inf abort (step.cpp:138): one mid-plane of the
         first stepped component, summed on the device, one scalar read."""
         arr = next(iter(self._state["f"].values()))
-        v = float(arr[arr.shape[0] // 2].sum())
+        v = complex(arr[arr.shape[0] // 2].sum())
         if not np.isfinite(v):
             raise RuntimeError(
                 "simulation fields are NaN or Inf (step.cpp:138 abort)")
@@ -1582,6 +1605,20 @@ class Simulation:
     # ------------------------------------------------------------- accessors
     def meep_time(self) -> float:
         return self._t * self.dt
+
+    def using_real_fields(self) -> bool:
+        """Whether this run steps real fields (simulation.py:3736-3748):
+        not with force_complex_fields, a complex symmetry phase, or a
+        nonzero k_point (a 2D cell's k along z alone counts as zero)."""
+        cond2 = any(complex(getattr(s, "phase", 1)).imag
+                    for s in self.symmetries if hasattr(s, "phase"))
+        kp = _v3(self.k_point) if self.k_point is not None else None
+        cond3 = kp is None
+        cond4 = (kp is not None and self.gv.dim == "2d"
+                 and kp.x == 0 and kp.y == 0)
+        cond5 = not (cond3 or cond4 or (kp is not None and tuple(kp)
+                                        == (0.0, 0.0, 0.0)))
+        return not (self.force_complex_fields or cond2 or cond5)
 
     def get_field_point(self, component, pt) -> complex:
         """The component interpolated at point `pt`, folded into the
@@ -1596,6 +1633,10 @@ class Simulation:
             return 0j
         pts = self.gv.interp_weights(component, axc)
         arr = self._state["f"][component]
+        if arr.ndim == self.gv.ndim + 1:       # a real pair (re, im)
+            return fac * sum(w * complex(float(arr[(0,) + tuple(idx)]),
+                                         float(arr[(1,) + tuple(idx)]))
+                             for idx, w in pts)
         return fac * sum(w * complex(arr[tuple(idx)]) for idx, w in pts)
 
     def get_array(self, component=None, center=None, size=None,
@@ -1648,9 +1689,13 @@ class Simulation:
         return arr[tuple(sl)]
 
     def _field_np(self, component) -> np.ndarray:
-        """A component's live storage as a host array."""
+        """A component's live storage as a host array, complex for complex
+        fields (a real pair's channels recombined, simulation.py:3434)."""
         live = tuple(slice(0, n + 1) for n in self.gv.num)
-        return self._state["f"][component].detach().cpu().numpy()[live]
+        arr = self._state["f"][component].detach().cpu().numpy()
+        if arr.ndim == self.gv.ndim + 1:
+            return arr[(0,) + live] + 1j * arr[(1,) + live]
+        return arr[live]
 
     def _wedge_images(self, coords):
         """The full cell's coordinates on a Rotate4 fold's two axes and,

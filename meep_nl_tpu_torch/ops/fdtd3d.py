@@ -16,6 +16,7 @@ version `step_ref` instead.  Each kernel object counts its CUDA launches
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Any, Dict
 
@@ -23,8 +24,8 @@ import numpy as np
 import torch
 
 from ..core.device import torch_dtype
-from ..stepper.step import (NR_ITERS, alive_vectors, build_xs, make_step,
-                            mirror_ghost, source_index, xs_rows)
+from ..stepper.step import (NR_ITERS, _is_pair, alive_vectors, build_xs,
+                            make_step, mirror_ghost, source_index, xs_rows)
 
 MAXPOL = 4
 NCOMP = 3
@@ -124,6 +125,17 @@ def supported(plan, allow_periodic_x: bool = False) -> bool:
     return not any(s.is_integrated for s in plan.sources)
 
 
+def real_view(plan):
+    """The single-channel view of a real-pair plan whose only complex part
+    is the x Bloch phase (the reference's periodicx._real_view :231-241):
+    every coefficient is real, so each channel steps as a real plan, and
+    the phase, set to 1 here, enters only where a driver mixes the
+    channels."""
+    return dataclasses.replace(
+        plan, complex_fields=False, real_pair=False,
+        bloch_phase=(1.0,) + tuple(plan.bloch_phase[1:]))
+
+
 def step_ref(plan):
     """The plain version: the eager make_step without the DTFT update
     (whatever plan.use_pallas says)."""
@@ -213,8 +225,8 @@ class _K1Args(ctypes.Structure):
                                                "mir")]
                 + [("mk0", (ctypes.c_int * 2) * MAXRING),
                    ("msg", (ctypes.c_int * 2) * MAXRING),
-                   ("wnum", ctypes.c_int), ("wpad", ctypes.c_int),
-                   ("wsc", ctypes.c_double)])
+                   ("wnum", ctypes.c_int), ("wpair", ctypes.c_int),
+                   ("wsc", ctypes.c_double), ("wsci", ctypes.c_double)])
 
 
 def set_mirror(A, plan, names):
@@ -429,14 +441,21 @@ class Fdtd3dKernel:
     for the tile of the loaded library.  `allow_periodic_x` takes an
     x-periodic plan (`supported`): its B and D launches read across the
     wrap, and leave the dead planes from num on to themselves (the plain
-    version keeps them zero)."""
+    version keeps them zero).  `pair` takes a real-pair plan whose
+    `real_view` is in that envelope (ops/periodicx.py's
+    PairPeriodicXKernel): each launch steps both channels (the PAIR
+    kernels), its plain version is the eager pair step."""
 
-    def __init__(self, plan, ch=None, allow_periodic_x: bool = False):
-        if not supported(plan, allow_periodic_x):
+    def __init__(self, plan, ch=None, allow_periodic_x: bool = False,
+                 pair: bool = False):
+        if not supported(real_view(plan) if pair else plan,
+                         allow_periodic_x):
             raise ValueError("plan outside the fdtd3d kernel envelope")
         self.plan = plan
+        self.pair = pair
         #: the x wrap: (live extent, phase), or None
-        self.wrap = (plan.gv.num[0], float(np.real(plan.bloch_phase[0]))) \
+        ph = complex(plan.bloch_phase[0])
+        self.wrap = (plan.gv.num[0], ph if pair else ph.real) \
             if plan.periodic[0] else None
         self.shape = tuple(plan.storage_shape or plan.gv.shape)
         if int(np.prod(self.shape)) >= 2 ** 31:
@@ -486,12 +505,14 @@ class Fdtd3dKernel:
                 A.P = P
                 self._ring_keys[kind] = self._roles(A, kind, fam, state)
                 compact(A)
+                A.wpair = int(self.pair)
                 if self.wrap is not None and kind != K_E:
                     # the live planes and the dead ones in chunks of
                     # their own; the wrapped plane's scale ph (B), 1/ph (D)
                     num, ph = self.wrap
                     A.wnum = num
-                    A.wsc = ph if kind == K_B else 1.0 / ph
+                    sc = ph if kind == K_B else 1.0 / ph
+                    A.wsc, A.wsci = float(np.real(sc)), float(np.imag(sc))
                     A.nch = -(-num // self.ch) + -(-(S0 - num) // self.ch)
                 self._static[kind] = A
 
@@ -617,11 +638,12 @@ class Fdtd3dKernel:
                     seen.add(t.data_ptr())
 
     def _check_one(self, t, what):
+        shape = (2,) + self.shape if self.pair else self.shape
         if t.device.type != "cuda" or t.dtype != self.dtype \
-                or tuple(t.shape) != self.shape or not t.is_contiguous():
+                or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
                 f"fdtd3d: {what} must be a contiguous {self.dtype} CUDA "
-                f"tensor of shape {self.shape}; got {t.dtype} "
+                f"tensor of shape {shape}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
     def launch_args(self, state, x_t):
@@ -736,7 +758,9 @@ def step_cost(plan) -> Dict[str, float]:
     B curl everywhere), polarizations and material windows (nreps with
     nrchi2) only over the support boxes the plan recorded.  `ops` is a per-site count of the arithmetic
     in csrc/fdtd3d.cu (curl + chains ~12, E/H update ~6, the NR solve ~150
-    per nonlinear site and component, the ADE ~8)."""
+    per nonlinear site and component, the ADE ~8).  A real pair (K1's pair
+    wrap) moves and steps both channels of every state array; it reads
+    the coefficients once."""
     shape = tuple(plan.storage_shape or plan.gv.shape)
     N = int(np.prod(shape))
     item = np.dtype(plan.dtype).itemsize
@@ -747,7 +771,8 @@ def step_cost(plan) -> Dict[str, float]:
         return (lo + hi) * plane[ax]
 
     has_pols = bool(plan.pol_specs_e)
-    elems = 0
+    elems = 0                                            # state arrays
+    coef = 0                                             # coefficients
     for s in plan.curl_specs_b + plan.curl_specs_d:
         elems += 2 * N                                   # D/B read + write
         if s.dsigu_axis is not None:
@@ -762,12 +787,12 @@ def step_cost(plan) -> Dict[str, float]:
             elems += 2 * n                               # f_w in and out
         elems += N + (N if s.ec[0] == "e" else n)        # E/H out, old in
         if s.has_u:
-            elems += N
+            coef += N
         if s.has_nr:
-            elems += 2 * _box_sites(plan, f"{s.ec}:nrchi2", shape)
+            coef += 2 * _box_sites(plan, f"{s.ec}:nrchi2", shape)
         if s.has_chi3:
-            elems += (_box_sites(plan, f"{s.ec}:chi3", shape)
-                      + _box_sites(plan, f"{s.ec}:chi2", shape))
+            coef += (_box_sites(plan, f"{s.ec}:chi3", shape)
+                     + _box_sites(plan, f"{s.ec}:chi2", shape))
     nl_sites = 0
     for s in plan.eh_specs_e:
         if s.has_nr:
@@ -776,11 +801,14 @@ def step_cost(plan) -> Dict[str, float]:
     for pi, p in enumerate(plan.pol_specs_e):
         for (c, d) in p.sigma:
             n = _box_sites(plan, f"pol{pi}:{c}:{d}", shape)
-            elems += 4 * n                    # sigma, P, PP read; new P
+            elems += 3 * n                    # P, PP read; new P
+            coef += n                         # sigma
             pol_sites += n
     ncomp = len(plan.curl_specs_b + plan.curl_specs_d)
     ops = 12 * ncomp * N + 6 * ncomp * N + 150 * nl_sites + 8 * pol_sites
-    return {"bytes": float(elems * item), "ops": float(ops)}
+    nch = 2 if _is_pair(plan) else 1
+    return {"bytes": float((nch * elems + coef) * item),
+            "ops": float(nch * ops)}
 
 
 def launch_cost(plan) -> Dict[str, float]:

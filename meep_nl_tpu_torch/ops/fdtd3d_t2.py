@@ -557,12 +557,14 @@ def k1_of(plan) -> fdtd3d.Fdtd3dKernel:
     """The plan's one K1 kernel object (the residue step of every K2 kernel
     of the plan and the hybrid driver's one-step calls share it, so its
     counters see every K1 step of the plan); for an x-periodic plan K1's
-    x-wrap variant (periodicx.PeriodicXKernel)."""
+    x-wrap variant (periodicx.PeriodicXKernel), its pair wrap for complex
+    fields (periodicx.PairPeriodicXKernel)."""
     ker = plan.__dict__.get("_k1_kernel")
     if ker is None:
         if plan.periodic[0]:
-            from .periodicx import PeriodicXKernel
-            ker = PeriodicXKernel(plan)
+            from .periodicx import PairPeriodicXKernel, PeriodicXKernel
+            ker = PairPeriodicXKernel(plan) if plan.complex_fields \
+                else PeriodicXKernel(plan)
         else:
             ker = fdtd3d.Fdtd3dKernel(plan)
         plan._k1_kernel = ker

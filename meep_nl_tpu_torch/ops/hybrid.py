@@ -38,7 +38,12 @@ with a real phase takes the periodic drivers of ops/periodicx.py in the
 reference's order (hybrid.py:79-113): the ghost ring (K2 on an extended
 aperiodic plan, with its depth-3 companion) where it applies, else K1's x
 wrap behind the two-step adapter; a plan periodic along y or z runs on the
-eager stepper, as in the reference.
+eager stepper, as in the reference.  Complex fields (real-pair storage,
+an arbitrary x phase) take the pair drivers first, in the reference's
+order (hybrid.py:93-104): the pair ghost ring with its depth-3 companion,
+then K1's pair wrap; their monitored stretches read the DTFT from the
+full state (`_dft_plane_meta` and `fused_probed_run` decline complex
+plans, as the reference's do).
 """
 
 from __future__ import annotations
@@ -103,8 +108,11 @@ def hybrid_routes(plan) -> collections.Counter:
 
 def hybrid_applicable(plan) -> bool:
     """Whether a kernel of this driver covers the plan (hybrid.py:174-191):
-    for an x-periodic plan K1's x-wrap envelope."""
+    for an x-periodic plan K1's x-wrap envelope, its pair wrap's for
+    complex fields (hybrid.py:186-190)."""
     if any(plan.periodic):
+        if plan.complex_fields:
+            return periodicx.pair_periodic_supported(plan)
         return periodicx.periodic_supported(plan)
     return fdtd3d_t2.supported(plan) or fdtd3d.supported(plan)
 
@@ -133,7 +141,9 @@ def _get_kernel(plan):
     depth-3 companion `k3` where the plan admits it, else K1 behind the
     two-step adapter (hybrid.py:119-141); for an x-periodic plan the ghost
     ring at depth 2 with its depth-3 companion, else K1's x wrap behind
-    the adapter (hybrid.py:79-113).  Cached on the plan."""
+    the adapter (hybrid.py:79-113), for complex fields the same on the
+    pair (the ring with two channels, K1's pair wrap).  Cached on the
+    plan."""
     ker = plan.__dict__.get("_t2_kernel")
     if ker is None:
         if any(plan.periodic):

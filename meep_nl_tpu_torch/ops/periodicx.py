@@ -1,5 +1,6 @@
-"""The hybrid route's drivers for 3D cells Bloch-periodic along x with a
-real phase ph = +-1 (k_x = 0 or the zone edge).
+"""The hybrid route's drivers for 3D cells Bloch-periodic along x: with a
+real phase ph = +-1 (k_x = 0 or the zone edge), and with any phase on
+complex fields in real-pair storage.
 
 The port of ``meep_nl_tpu/ops/pallas/periodicx.py``; `hybrid._get_kernel`
 picks them in the reference's order (hybrid.py:79-113):
@@ -27,7 +28,29 @@ never written (there is no ghost residue to kill: `to_full` is the
 identity, as K1's).  `PeriodicXT2Kernel` (:540-655), the reference's
 choice for linear monitored plans, needs K2's periodic mode (ROADMAP
 B1.2); this port takes K1's x wrap there, which is exact (ROADMAP C.2).
-Complex phases wait for complex fields (ROADMAP A9).
+
+Complex phases ride the real pair (the reference's :225-420, :929-1127):
+every coefficient is real, so the (re, im) channels step as two real
+problems of the single-channel view (`fdtd3d.real_view`), and the phase
+mixes them only across the wrap:
+
+  * the ghost ring with two channels (`PeriodicGhostT2Kernel` on a pair
+    plan), for plans without DFT monitors: two single-channel states on
+    the ghost ring's extended plan, whose source
+    images carry the complex phase (`ghost_ring_ext(img_ph=ph)`); before
+    each K2 call the ghost zones are re-seeded as 2x2 rotations of the
+    interior's channels (left: conj(ph) F, right: ph F), and channel 1's
+    calls read the waveform rows swapped, (w_re, w_im) -> (w_im, -w_re),
+    which gives Im(w amp);
+  * `PairPeriodicXKernel`, for everything else in K1's x-wrap envelope:
+    K1's PAIR launches step both channels and rotate the wrapped planes
+    (csrc/fdtd3d.cu).  As for the real wrap, the reference's ghost refresh
+    and carry recompute are not needed.
+
+The pair ring agrees with the eager pair stepper to fp32 round-off, not
+bit for bit: its ghosts are stepped as interior planes from their
+rotated seeds, where the stepper rotates at every read (the rotation
+does not commute with rounding; at ph = +-1 it is exact).
 """
 
 from __future__ import annotations
@@ -69,12 +92,42 @@ class PeriodicXKernel(fdtd3d.Fdtd3dKernel):
         super().__init__(plan, ch=ch, allow_periodic_x=True)
 
 
+def _unit_x_phase(plan) -> bool:
+    """A real-pair 3D plan periodic along x with a phase on the unit
+    circle (an arbitrary k_x)."""
+    return bool(plan.real_pair and plan.complex_fields) \
+        and plan.gv.dim == "3d" and bool(plan.periodic[0]) \
+        and abs(abs(complex(plan.bloch_phase[0])) - 1.0) <= 1e-9
+
+
+def pair_periodic_supported(plan) -> bool:
+    """K1's pair wrap envelope (periodicx.py:243-256): a real-pair plan
+    whose only complex coupling is the x Bloch phase, and whose
+    single-channel view K1's x wrap takes."""
+    return _unit_x_phase(plan) \
+        and periodic_supported(fdtd3d.real_view(plan))
+
+
+class PairPeriodicXKernel(fdtd3d.Fdtd3dKernel):
+    """K1 on a real-pair x-periodic plan with any phase (periodicx.py:
+    257-420): three launches a step, each stepping both channels, the B
+    and D launches rotating the wrapped plane's channels by ph (B) and
+    1 / ph (D); channel 1's sources read the waveform rows swapped.  Its
+    plain version is the eager pair step."""
+
+    def __init__(self, plan, ch=None):
+        if not pair_periodic_supported(plan):
+            raise ValueError("plan outside the pair-periodic envelope")
+        super().__init__(plan, ch=ch, allow_periodic_x=True, pair=True)
+
+
 # ---------------------------------------------------------------------------
 # the ghost ring
 # ---------------------------------------------------------------------------
 
 
-def ghost_ring_ext(plan, margin: int = MARGIN) -> Optional[tuple]:
+def ghost_ring_ext(plan, margin: int = MARGIN, img_ph=None
+                   ) -> Optional[tuple]:
     """(ext_plan, Gl, Gr, N, ph) of the ghost-ring layout, or None (the
     reference's _ghost_ring_ext, periodicx.py:657-769).
 
@@ -91,7 +144,9 @@ def ghost_ring_ext(plan, margin: int = MARGIN) -> Optional[tuple]:
     mirrors, complex fields, DFT monitors, PML chains along x, an x mask
     plane inside the period, a margin of N or more (ROADMAP C.3 item 5:
     the right ghosts must be interior planes), a dispersive or nonlinear
-    window within WINDOW_CLEAR planes of x = 0 or x = N (C.3 item 4)."""
+    window within WINDOW_CLEAR planes of x = 0 or x = N (C.3 item 4).
+    `img_ph` (a real pair's complex phase, on its single-channel view)
+    replaces the plan's phase in the source images."""
     gv = plan.gv
     if gv.dim != "3d" or not plan.periodic[0] or any(plan.periodic[1:]):
         return None
@@ -151,16 +206,17 @@ def ghost_ring_ext(plan, margin: int = MARGIN) -> Optional[tuple]:
         idx, amps = idx[keep], amps[keep]
         rows = [np.concatenate([idx[:, :1] + Gl, idx[:, 1:]], 1)]
         arows = [amps]
+        iph = ph if img_ph is None else img_ph
         left = idx[:, 0] >= N - Gl
         im = idx[left].copy()
         im[:, 0] += Gl - N
         rows.append(im)
-        arows.append(amps[left] * np.conj(ph))
+        arows.append(amps[left] * np.conj(iph))
         right = idx[:, 0] < Gr
         im = idx[right].copy()
         im[:, 0] += Gl + N
         rows.append(im)
-        arows.append(amps[right] * ph)
+        arows.append(amps[right] * iph)
         s2 = dataclasses.replace(s, indices=np.concatenate(rows).astype(
             np.int32), amps=np.concatenate(arows))
         sources.append(s2)
@@ -180,24 +236,33 @@ def ghost_ring_ext(plan, margin: int = MARGIN) -> Optional[tuple]:
 
 
 def _ext_of(plan):
-    """ghost_ring_ext(plan), made once per plan."""
+    """ghost_ring_ext(plan), made once per plan; of a real pair with a
+    complex x phase, of its single-channel view with the phase in the
+    source images."""
     if "_ghost_ring_ext" not in plan.__dict__:
-        plan._ghost_ring_ext = ghost_ring_ext(plan)
+        plan._ghost_ring_ext = ghost_ring_ext(
+            fdtd3d.real_view(plan), img_ph=complex(plan.bloch_phase[0])) \
+            if _unit_x_phase(plan) else ghost_ring_ext(plan)
     return plan._ghost_ring_ext
 
 
 def periodic_ghost_supported(plan, depth: int = 2) -> bool:
     """The ghost ring's envelope: `ghost_ring_ext` and K2 at `depth` on the
-    extended plan (periodicx.py:772-783)."""
+    extended plan (periodicx.py:772-783, for a pair :929-940)."""
     p = _ext_of(plan)
     return p is not None and fdtd3d_t2.supported(p[0], depth)
 
 
 class PeriodicGhostT2Kernel:
     """K2 at `depth` on the ghost ring's extended plan, for one x-periodic
-    plan (periodicx.py:786-927).  `step` takes and returns the extended
-    layout (`from_full` / `to_full` convert), re-seeding the ghost zones
-    from the interior times ph before each K2 call; `run` takes the
+    plan (periodicx.py:786-927; for a real pair :943-1127).  The state is
+    a list of channel states in the extended layout: one for a real
+    phase, two single-channel states (re, im) for a pair, each with a K2
+    kernel object of its own (on a copy of the extended plan, so each
+    keeps its own second state set).  `step` takes and returns that list
+    (`from_full` / `to_full` convert), re-seeding the ghost zones before
+    each K2 call as the interior times ph, which rotates a pair's
+    channels; channel 1 reads the waveform rows swapped.  `run` takes the
     plan's own state.  Like the reference's it has no `_k1`: the hybrid
     driver's cycle and probed routes would step the extended plan's K1
     without the refresh (its envelope has no DFT monitors, and
@@ -207,83 +272,137 @@ class PeriodicGhostT2Kernel:
         if not periodic_ghost_supported(plan, depth):
             raise ValueError("plan outside the ghost-ring envelope")
         self.plan = plan
-        self.ext_plan, self.Gl, self.Gr, self.N, self.ph = _ext_of(plan)
+        self.pair = _unit_x_phase(plan)
+        ext, self.Gl, self.Gr, self.N, _ = _ext_of(plan)
+        self.ext_plans = (ext, dataclasses.replace(ext)) if self.pair \
+            else (ext,)
         self.depth = depth
         self.k3 = None
-        self.ker = fdtd3d_t2.Fdtd3dT2Kernel(self.ext_plan, depth=depth)
+        self.kers = [fdtd3d_t2.Fdtd3dT2Kernel(p, depth=depth)
+                     for p in self.ext_plans]
+        ph = complex(plan.bloch_phase[0])
+        self._a, self._b = float(ph.real), float(ph.imag)
+
+    @property
+    def ext_plan(self):
+        return self.ext_plans[0]
+
+    @property
+    def ker(self):
+        return self.kers[0]
+
+    @staticmethod
+    def _arrays(st):
+        return [t for k in ("f", "f_u", "f_w") for t in st[k].values()] + \
+            [t for e in st["pol"] for k in ("p", "pp") for t in e[k].values()]
+
+    @staticmethod
+    def _map(st, fn):
+        return {**st, **{k: {c: fn(t) for c, t in st[k].items()}
+                         for k in ("f", "f_u", "f_w")},
+                "pol": [{k: {c: fn(t) for c, t in e[k].items()}
+                         for k in ("p", "pp")} for e in st["pol"]]}
+
+    def _rot(self, parts, inv):
+        """The channels `parts` times ph (inv: times conj(ph) = 1 / ph)."""
+        a, b = self._a, (-self._b if inv else self._b)
+        if len(parts) == 1:
+            return [a * parts[0]]
+        re, im = parts
+        return [a * re - b * im, b * re + a * im]
 
     def from_full(self, full):
-        """The plan's state in the extended layout: each x-leading array
-        wrapped, its ghost zones the period's ends times ph."""
-        Gl, Gr, N, ph = self.Gl, self.Gr, self.N, self.ph
-        S0 = tuple(self.plan.storage_shape or self.plan.gv.shape)[0]
+        """The plan's state as the channels' extended states, the ghost
+        zones the ends of the period times ph (left: its last Gl planes
+        times conj(ph), right: its first Gr times ph)."""
+        Gl, Gr, N = self.Gl, self.Gr, self.N
 
         def ext(t):
-            if t.ndim == 3 and t.shape[0] == S0:
-                live = t[:N]
-                return torch.cat([ph * live[N - Gl:], live, ph * live[:Gr]],
-                                 0).contiguous()
-            return t
+            live = [c[:N] for c in (t if self.pair else (t,))]
+            left = self._rot([c[N - Gl:] for c in live], True)
+            right = self._rot([c[:Gr] for c in live], False)
+            return [torch.cat(p, 0).contiguous()
+                    for p in zip(left, live, right)]
 
-        return {**full,
-                **{k: {c: ext(t) for c, t in full[k].items()}
-                   for k in ("f", "f_u", "f_w")},
-                "pol": [{k: {c: ext(t) for c, t in e[k].items()}
-                         for k in ("p", "pp")} for e in full["pol"]]}
+        flat = {}
+        for t in self._arrays(full):
+            flat[t.data_ptr()] = ext(t)
+        return [self._map(full, lambda t, c=c: flat[t.data_ptr()][c])
+                for c in range(len(self.kers))]
 
-    def to_full(self, state):
-        """The interior planes in the plan's layout, the dead planes from N
-        on zero (the stepper keeps them so)."""
+    def to_full(self, states):
+        """The channels' interior planes in the plan's layout (a pair's
+        stacked on its channel axis), the dead planes from N on zero (the
+        stepper keeps them so)."""
         Gl, N = self.Gl, self.N
         S0 = tuple(self.plan.storage_shape or self.plan.gv.shape)[0]
+        flat = {}
+        for ts in zip(*[self._arrays(s) for s in states]):
+            t = ts[0]
+            out = torch.zeros((len(ts), S0) + tuple(t.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            for o, c in zip(out, ts):
+                o[:N] = c[Gl:Gl + N]
+            flat[t.data_ptr()] = out if self.pair else out[0]
+        return self._map(states[0], lambda t: flat[t.data_ptr()])
 
-        def cut(t):
-            out = torch.zeros((S0,) + tuple(t.shape[1:]), dtype=t.dtype,
-                              device=t.device)
-            out[:N] = t[Gl:Gl + N]
-            return out
-
-        return {**state,
-                **{k: {c: cut(t) for c, t in state[k].items()}
-                   for k in ("f", "f_u", "f_w")},
-                "pol": [{k: {c: cut(t) for c, t in e[k].items()}
-                         for k in ("p", "pp")} for e in state["pol"]]}
-
-    def _refresh(self, state):
-        """Re-seed the ghost zones in place: left = ph * planes [N, N + Gl)
-        (the period's last Gl), right = ph * planes [Gl, Gl + Gr) (its
-        first Gr), in every state array."""
-        Gl, Gr, N, ph = self.Gl, self.Gr, self.N, self.ph
-        arrays = [t for k in ("f", "f_u", "f_w") for t in state[k].values()]
-        arrays += [t for e in state["pol"] for k in ("p", "pp")
-                   for t in e[k].values()]
+    def _refresh(self, states):
+        """Re-seed every channel's ghost zones in place: left = conj(ph)
+        times planes [N, N + Gl) (the period's last Gl), right = ph times
+        planes [Gl, Gl + Gr) (its first Gr), in every state array."""
+        Gl, Gr, N = self.Gl, self.Gr, self.N
         done = set()
-        for t in arrays:
-            if t.data_ptr() in done:
+        for ts in zip(*[self._arrays(s) for s in states]):
+            if ts[0].data_ptr() in done:
                 continue
-            done.add(t.data_ptr())
-            torch.mul(t[N:N + Gl], ph, out=t[:Gl])
-            torch.mul(t[Gl:Gl + Gr], ph, out=t[Gl + N:])
-        return state
+            done.add(ts[0].data_ptr())
+            if not self.pair:
+                torch.mul(ts[0][N:N + Gl], self._a, out=ts[0][:Gl])
+                torch.mul(ts[0][Gl:Gl + Gr], self._a, out=ts[0][Gl + N:])
+                continue
+            left = self._rot([c[N:N + Gl] for c in ts], True)
+            right = self._rot([c[Gl:Gl + Gr] for c in ts], False)
+            for c, lo, hi in zip(ts, left, right):
+                c[:Gl], c[Gl + N:] = lo, hi
+        return states
 
-    def step(self, state, rows):
-        """`depth` steps on the extended layout: the refresh, one K2 call
-        (out of place on the card: use only the returned state)."""
-        self.ext_plan.slab_opt = self.plan.slab_opt
-        return self.ker.step(self._refresh(state), rows)
+    @staticmethod
+    def _rows_im(rows):
+        """Channel 1's rows: every source's (w_re, w_im) -> (w_im, -w_re)."""
+        out = []
+        for r in rows:
+            r = dict(r)
+            for k in [k for k in r if k.endswith(":cur_re")]:
+                ki = k[:-2] + "im"
+                r[k], r[ki] = r[ki], -r[k]
+            out.append(r)
+        return out
+
+    def step(self, states, rows):
+        """`depth` steps of every channel: the refresh, one K2 call each
+        (out of place on the card: use only the returned states)."""
+        for p in self.ext_plans:
+            p.slab_opt = self.plan.slab_opt
+        states = self._refresh(states)
+        return [k.step(s, r) for k, s, r in
+                zip(self.kers, states, (rows, self._rows_im(rows)))]
 
     def run(self, state, nsteps: int, t0: int = 0):
         """The plan's state advanced by nsteps: nsteps // depth refreshed
         K2 calls, the residue as refreshed steps of the extended plan's
-        K1 (periodicx.py:897-927)."""
-        self.ext_plan.slab_opt = self.plan.slab_opt
+        K1 per channel (periodicx.py:897-927)."""
+        for p in self.ext_plans:
+            p.slab_opt = self.plan.slab_opt
         rows = xs_rows(self.ext_plan, build_xs(self.ext_plan, nsteps, t0))
-        st = self.from_full(state)
+        states = self.from_full(state)
         ncall = nsteps // self.depth
         for c in range(ncall):
-            st = self.step(st, rows[c * self.depth:(c + 1) * self.depth])
-        k1 = self.ker._k1
+            states = self.step(states,
+                               rows[c * self.depth:(c + 1) * self.depth])
         for i in range(ncall * self.depth, nsteps):
-            st = k1.step(self._refresh(st), rows[i] if rows else {})
-        return {**self.to_full(st), "dft": state["dft"],
+            r = [rows[i] if rows else {}]
+            states = [k._k1.step(s, rr[0]) for k, s, rr in
+                      zip(self.kers, self._refresh(states),
+                          (r, self._rows_im(r)))]
+        return {**self.to_full(states), "dft": state["dft"],
                 "t": state["t"] + nsteps}

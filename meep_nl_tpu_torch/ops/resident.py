@@ -14,7 +14,10 @@ direct schedule: the whole grid stepped in place in one device buffer, a
 grid barrier per sub-update (`direct_tiling`); rotational folds (C2 and
 C4) and Bloch-periodic plans always take the direct schedule, whose D
 curl reads the fold ghosts, and whose curls and centred DTFT read the
-wrap planes, anywhere on the grid.  What it computes is the
+wrap planes, anywhere on the grid; complex fields in real-pair storage
+take the direct schedule's PAIR variant, both channels in one buffer,
+the channels mixed where the wrap's complex phase rotates them.  What it
+computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
 the DTFT accumulated in the loop in the frequency-major layout; K4 adds the
@@ -38,15 +41,19 @@ Not carried over from the reference, each on purpose:
   * `_CoefRecorder` / `_used_coef_keys` (:119-155): the parameter block
     names what the kernel reads;
   * `validate_lowering` (:450), which only applies to Mosaic.
-The envelope is the reference's (2D and 3D, fp32, real fields, no noisy
-media, a doubled state within VMEM_BUDGET; 1D declined) intersected with
+The envelope is the reference's (2D and 3D, fp32, real fields or the real
+pair, no noisy media, a doubled state within VMEM_BUDGET; 1D and native
+complex storage declined) intersected with
 what the port's eager stepper and this kernel run: masks made of dead
 planes, no H-family chi2/chi3, no chi2/chi3 on a rotational fold (no
 Simulation makes one: it rejects them, as the reference's does), and on a
 Bloch-periodic axis (real phases: k = 0 or the zone edge; complex ones
-need complex fields, ROADMAP A9) chi2/chi3 support boxes clear of the
-wrap planes (their neighbour sums do not wrap here, ROADMAP B3).  Folds:
-node mirrors on every axis, Rotate2 and Rotate4.  Monitors read any
+take the real pair, which has no chi2/chi3) chi2/chi3 support boxes clear
+of the wrap planes (their neighbour sums do not wrap here, ROADMAP B3).
+Folds: node mirrors on every axis, Rotate2 and Rotate4; a real pair with
+a rotational fold (force_complex_fields and Rotate2; the kernel builds
+the rotational ghosts without the pair) is declined and runs on the
+stepper.  Monitors read any
 field of the state (E/H, and D/B for the energy monitors), centred or on
 their own lattice, with real or complex weights (the LDOS monitors'
 conj(amplitude)).
@@ -63,7 +70,7 @@ import torch
 
 from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
-from ..stepper.step import (ProbeSpec, build_xs, check_supported,
+from ..stepper.step import (ProbeSpec, _is_pair, build_xs, check_supported,
                             mirror_ghost, rot2_ghost, rot4_ghost, run)
 
 #: the reference's VMEM budget for 2x state (resident.py:50); on the H100
@@ -119,9 +126,10 @@ def resident_plan(plan):
 
 def _state_bytes(plan) -> int:
     """Bytes of the stepper state of `plan` (as step.init_state makes it,
-    with its 4-byte step counter), from the shapes alone."""
+    with its 4-byte step counter; a real pair's fields twice), from the
+    shapes alone."""
     shape = tuple(plan.storage_shape or plan.gv.shape)
-    N = int(np.prod(shape))
+    N = int(np.prod(shape)) * (2 if _is_pair(plan) else 1)
     curls = plan.curl_specs_d + plan.curl_specs_b
     ehs = plan.eh_specs_e + plan.eh_specs_h
     n = N * (len(curls) + len(ehs))
@@ -155,11 +163,14 @@ def resident_supported(plan) -> bool:
     plans outside it are declined, never raised on."""
     if plan.gv.ndim < 2 or plan.dtype != np.float32:
         return False
-    if plan.complex_fields or plan.real_pair:
+    if plan.complex_fields and not plan.real_pair:
+        return False                     # native complex storage
+    if _is_pair(plan) and _rotational(plan):
         return False
-    if any(plan.periodic) and (
-            any(isinstance(ph, complex) for ph in plan.bloch_phase)
-            or not _nl_clear_of_wrap(plan)):
+    if not _is_pair(plan) and any(isinstance(ph, complex)
+                                  for ph in plan.bloch_phase):
+        return False                     # the WRAP variant's phases are real
+    if any(plan.periodic) and not _nl_clear_of_wrap(plan):
         return False
     try:
         check_supported(plan)
@@ -200,13 +211,16 @@ def _from_front(state):
 
 def _probe_table(plan, probes: Sequence[ProbeSpec]):
     """Per probe (name, component, flat int32 offsets, float32 weights):
-    the weights in the kernel's type, the offsets into the storage."""
+    the weights in the kernel's type (a real pair's interleaved (re, im)),
+    the offsets into the storage."""
     shape = tuple(plan.storage_shape or plan.gv.shape)
     out = []
     for p in probes:
         idx = np.asarray(p.indices, np.int64).reshape(-1, len(shape))
         w = np.asarray(p.weights)
-        if np.iscomplexobj(w):
+        if _is_pair(plan):
+            w = np.stack([np.real(w), np.imag(w)], -1).reshape(-1)
+        elif np.iscomplexobj(w):
             if np.abs(w.imag).max() > 0:
                 raise ValueError("complex probe weights need complex fields")
             w = w.real
@@ -329,8 +343,9 @@ def tiling(shape, nslot: int, nstate: int, c: int, e, nloops: int,
 
 
 #: the direct schedule's variants (Tiling.direct): plain, with the
-#: rotational fold ghosts, with the Bloch wrap
-DIRECT, DIRECT_ROT, DIRECT_WRAP = 1, 2, 3
+#: rotational fold ghosts, with the Bloch wrap, a real pair (with or
+#: without the wrap)
+DIRECT, DIRECT_ROT, DIRECT_WRAP, DIRECT_PAIR = 1, 2, 3, 4
 
 
 def direct_tiling(shape, c: int, e, variant: int = DIRECT
@@ -350,6 +365,8 @@ def direct_tiling(shape, c: int, e, variant: int = DIRECT
 
 def direct_variant(plan) -> int:
     """The direct schedule's variant a plan needs."""
+    if _is_pair(plan):
+        return DIRECT_PAIR
     if _rotational(plan):
         return DIRECT_ROT
     return DIRECT_WRAP if any(plan.periodic) else DIRECT
@@ -440,7 +457,8 @@ class _ResArgs(ctypes.Structure):
         [(n, (_I * 2) * fdtd3d.NCOMP)
          for n in ("gsrc", "goff", "gmul", "gax", "glim")] + \
         [("wn", _I * 3), ("wph", ctypes.c_double * 3),
-         ("wphi", ctypes.c_double * 3)]
+         ("wphi", ctypes.c_double * 3), ("wphim", ctypes.c_double * 3),
+         ("wphii", ctypes.c_double * 3), ("half", _I)]
 
 
 def set_ghosts(A, plan, slot):
@@ -455,18 +473,21 @@ def set_ghosts(A, plan, slot):
     live extent nl (step.rot2_ghost), C4's transposed read of the swapped
     component (step.rot4_ghost).
 
-    The Bloch wrap of a periodic axis (the direct schedule's WRAP variant,
-    step._sh): A.wn[ax] its live extent n (0: not wrapped), A.wph /
-    A.wphi the phase and its inverse.  The B curl's forward difference at
+    The Bloch wrap of a periodic axis (the direct schedule's WRAP and PAIR
+    variants, step._sh): A.wn[ax] its live extent n (0: not wrapped),
+    A.wph / A.wphi the phase and its inverse, A.wphim / A.wphii their
+    imaginary parts (a complex phase: the PAIR variant).  The B curl's forward difference at
     plane n - 1 reads wph * g(0), the D curl's backward difference at
     plane 0 reads wphi * g(n - 1), the centred DTFT's read past plane n - 1
     is wph * plane 0, and every read from a dead plane's site (index n and
     up) across the axis is zero."""
     for ax in range(3):
         per = ax < len(plan.periodic) and plan.periodic[ax]
-        ph = float(np.real(plan.bloch_phase[ax])) if per else 1.0
+        ph = plan.bloch_phase[ax] if per else 1.0
+        inv = 1.0 / ph
         A.wn[ax] = plan.gv.num[ax] if per else 0
-        A.wph[ax], A.wphi[ax] = ph, 1.0 / ph
+        A.wph[ax], A.wphi[ax] = float(np.real(ph)), float(np.real(inv))
+        A.wphim[ax], A.wphii[ax] = float(np.imag(ph)), float(np.imag(inv))
     shape = tuple(plan.storage_shape or plan.gv.shape)
     shape = shape + (1,) * (3 - len(shape))
     st = (shape[1] * shape[2], shape[2], 1)
@@ -678,13 +699,19 @@ class ResidentKernel:
             raise RuntimeError("resident: the plan's coefficients are not on "
                                "a CUDA device")
         seen = set()
+        pair = _is_pair(self.plan)
+        shape = (2,) + self.shape if pair else self.shape
 
         def own(t, what):
+            # a real pair's channels contiguous each (the direct schedule's
+            # views are two halves of its buffer)
             if t.device.type != "cuda" or t.dtype != torch.float32 \
-                    or tuple(t.shape) != self.shape or not t.is_contiguous():
+                    or tuple(t.shape) != shape or not (
+                        t[0].is_contiguous() and t[1].is_contiguous()
+                        if pair else t.is_contiguous()):
                 raise ValueError(
                     f"resident: {what} must be a contiguous float32 CUDA "
-                    f"tensor of shape {self.shape}; got {t.dtype} "
+                    f"tensor of shape {shape}; got {t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
             if t.data_ptr() in seen:
                 t = t.clone()
@@ -844,7 +871,7 @@ class ResidentKernel:
         if nslot <= MAXSLOT and variant == DIRECT:
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
-        if tl is None or tl["T"] == 1:
+        if tl is None or tl["T"] == 1 or variant == DIRECT_PAIR:
             tl = direct_tiling(shape, c, e, variant)
         self.schedule = (key, tl)
         return tl
@@ -987,7 +1014,7 @@ class ResidentKernel:
                 "start": up(np.cumsum([0] + [len(o) for _, _, o, _ in table]),
                             np.int32),
                 "tstart": up(tstart, np.int32), "tpt": up(order, np.int32),
-                "prod": torch.empty(2 * tl["T"] * len(off),
+                "prod": torch.empty(2 * tl["T"] * len(w),
                                     dtype=torch.float32, device=dev),
                 "names": [name for name, _, _, _ in table],
                 "npt": len(off)}
@@ -1015,14 +1042,24 @@ class ResidentKernel:
         handed over); any other state is copied into a new buffer, so no
         state the caller still holds is written."""
         N, ns = tl["vol"], len(ins)
+        pair = _is_pair(self.plan)
         got = [t.data_ptr() for t in ins]
+
+        def fill(buf, half):
+            # the state's arrays (a real pair's channel 1 in the second
+            # half of the buffer)
+            # (through a copy: the arrays may be views of this buffer)
+            for ch in range(2 if pair else 1):
+                buf[ch * half:ch * half + ns * N].copy_(torch.cat(
+                    [(t[ch] if pair else t).reshape(-1) for t in ins]))
+
         if self._buf is not None:
             buf, views = self._buf
             mine = [t.data_ptr() for t in views]
             if got == mine:
                 return self._buf
             if sorted(got) == sorted(mine):
-                buf[:ns * N].copy_(torch.cat([t.reshape(-1) for t in ins]))
+                fill(buf, self._half)
                 return self._buf
         if self._const is None:
             _, _, _, coef, vecs, _ = self._layout()
@@ -1033,12 +1070,21 @@ class ResidentKernel:
                                            (0, gv - t.numel()))
                    for t, _ in vecs]
                 + [torch.zeros(0, device=self.plan.device)])
-        buf = torch.empty(ns * N + self._const.numel(), dtype=torch.float32,
+        half = ns * N + self._const.numel()
+        buf = torch.empty((2 if pair else 1) * half, dtype=torch.float32,
                           device=self.plan.device)
-        torch.cat([t.reshape(-1) for t in ins], out=buf[:ns * N])
-        buf[ns * N:].copy_(self._const)
-        self._buf = (buf, [buf[k * N:(k + 1) * N].view(self.shape)
-                           for k in range(ns)])
+        fill(buf, half)
+        for ch in range(2 if pair else 1):
+            buf[ch * half + ns * N:(ch + 1) * half].copy_(self._const)
+        self._half = half
+        if pair:
+            st = tuple(torch.empty(self.shape, device="meta").stride())
+            views = [buf.as_strided((2,) + self.shape, (half,) + st, k * N)
+                     for k in range(ns)]
+        else:
+            views = [buf[k * N:(k + 1) * N].view(self.shape)
+                     for k in range(ns)]
+        self._buf = (buf, views)
         return self._buf
 
     def _launch(self, state, n, t0, probes):
@@ -1068,9 +1114,11 @@ class ResidentKernel:
             A.pb[par], A.pd[par] = pb[par], pd[par]
         ins = [_get(state, p) for p in paths]
         blocks = self._blocks(lib, tl, bool(probes))
+        pair = _is_pair(rp)
         if tl["direct"]:
             buf, views = self._direct_set(ins, tl)
             A.base = buf.data_ptr()
+            A.half = self._half if pair else 0
         else:
             spare = self._pair(ins)
             for k, (a, b) in enumerate(zip(ins, spare)):
@@ -1143,8 +1191,9 @@ class ResidentKernel:
             pr = A.pr
             for key in ("off", "tok", "w", "start", "tstart", "tpt", "prod"):
                 setattr(pr, key, tabs[key].data_ptr())
-            out = torch.empty((len(tabs["names"]), n), dtype=torch.float32,
-                              device=dev)
+            out = torch.empty((len(tabs["names"]), n) + ((2,) if pair
+                                                         else ()),
+                              dtype=torch.float32, device=dev)
             pr.series = out.data_ptr()
             pr.nprobe, pr.npt = len(tabs["names"]), tabs["npt"]
             series = {name: out[i] for i, name in enumerate(tabs["names"])}
@@ -1264,11 +1313,15 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
               for pi, p in enumerate(rp.pol_specs_e + rp.pol_specs_h)
               for (c, d) in p.sigma)
     # per region site: the weight product(s), then per frequency 2
-    # products and 2 sums, or with a complex weight 4 products and 4 sums
+    # products and 2 sums, or with a complex weight or a real pair's
+    # complex field 4 products and 4 sums; a real pair steps every field
+    # twice
+    pair = _is_pair(rp)
     region = sum(int(np.prod([b - a for a, b in m.region])) * (
-        (4 + 4 * len(m.freqs)) if f"dft{mi}:w" in rp.coefs
+        (4 + 4 * len(m.freqs)) if f"dft{mi}:w" in rp.coefs and not pair
         else (5 + 8 * len(m.freqs))) for mi, m in enumerate(rp.dfts))
-    ops_step = 18 * ncomp * N + 150 * nl + 8 * pol + region
+    ch = 2 if pair else 1
+    ops_step = ch * (18 * ncomp * N + 8 * pol) + 150 * nl + region
     return {"bytes": float(2 * state + coef + table),
             "ops": float(nsteps * ops_step),
             "stream_bytes": float(2 * state + coef)}

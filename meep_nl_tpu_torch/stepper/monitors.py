@@ -28,7 +28,9 @@ from .plan import DftSpec, Plan
 
 def _dv(arr) -> np.ndarray:
     """Host complex view of a real-pair (..., nfreq, 2) DFT accumulator
-    (a tensor on any device, or an array)."""
+    (a tensor on any device, or an array): the reference's step.dft_view
+    (step.py:1292-1299), whose accumulators are real pairs in every field
+    storage, as the port's are."""
     if hasattr(arr, "detach"):
         arr = arr.detach().cpu().numpy()
     arr = np.asarray(arr)

@@ -1,7 +1,8 @@
 """The FDTD timestep as a plain PyTorch `state -> state` function.
 
-The torch counterpart of ``meep_nl_tpu/stepper/step.py`` for the real
-Cartesian subset (2D and 3D cells): the eager stepper is the plain version
+The torch counterpart of ``meep_nl_tpu/stepper/step.py`` for the
+Cartesian subset (1D, 2D and 3D cells, real or complex fields): the eager
+stepper is the plain version
 of the whole step and the port's own oracle (the K1, K2 and resident
 kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
 
@@ -19,6 +20,16 @@ The state is a dict of tensors: {"f", "f_u", "f_cond", "f_w": {comp:
 tensor}, "pol": [{"p": {...}, "pp": {...}}], "dft": {name: (..., nfreq,
 2)}, "t": int}.  The step is functional (it returns new tensors and leaves
 its input untouched), like the JAX stepper it mirrors.
+
+Complex fields (plan.complex_fields: a complex Bloch phase, or
+Simulation(force_complex_fields=True)) come in the reference's two
+storages (step.py:38-60, :134-160): native complex64, and the real pair
+(plan.real_pair), where every field, auxiliary and polarization carries
+a leading (re, im) channel axis and all arithmetic stays real -- the
+coefficients are real, so the channels evolve apart except where the
+Bloch wrap multiplies by a complex phase (`_sh`: a 2x2 rotation of the
+channels) and where a complex source current enters (`_apply_sources`).
+The DTFT accumulators and the step tables are real in both.
 """
 
 from __future__ import annotations
@@ -50,8 +61,6 @@ def check_supported(plan: Plan) -> None:
         why = "cylindrical / special_kz cells (ROADMAP A9)"
     elif plan.bfast_k is not None:
         why = "BFAST (ROADMAP A9)"
-    elif plan.complex_fields or plan.real_pair:
-        why = "complex fields (ROADMAP A9)"
     elif any(s.has_cond or s.folded_cond
              for s in plan.curl_specs_d + plan.curl_specs_b):
         why = "conductivity (ROADMAP A6)"
@@ -74,10 +83,25 @@ def check_supported(plan: Plan) -> None:
         raise NotImplementedError(f"the torch stepper does not run {why} yet")
 
 
+def _is_pair(plan: Plan) -> bool:
+    """Complex fields in real-pair storage: a leading (re, im) channel axis
+    on every field, auxiliary and polarization array (step.py:38-43)."""
+    return bool(plan.real_pair and plan.complex_fields)
+
+
+def _off(plan: Plan, arr) -> int:
+    """Leading axes of `arr` before the grid's (the pair's channel)."""
+    return arr.ndim - plan.gv.ndim
+
+
 def _sh(plan: Plan, arr, axis: int, by: int):
-    """Plan-bound shift: PEC zero-fill or Bloch wrap with the live extent."""
-    return shift(arr, axis, by, plan.periodic[axis], plan.bloch_phase[axis],
-                 nlive=plan.gv.num[axis])
+    """Plan-bound shift: PEC zero-fill or Bloch wrap with the live extent.
+    `axis` is the grid axis; a real pair's channel axis is offset here and
+    takes a complex wrap phase as a rotation (step.py:46-54)."""
+    off = _off(plan, arr)
+    return shift(arr, axis + off, by, plan.periodic[axis],
+                 plan.bloch_phase[axis], nlive=plan.gv.num[axis],
+                 pair=_is_pair(plan) and off == 1)
 
 
 def _apply_mask(plan: Plan, C: Dict[str, Any], c: str, arr):
@@ -121,12 +145,31 @@ def alive_vectors(plan: Plan, c: str, dtype, device) -> Dict[int, Any]:
 
 
 def init_state(plan: Plan) -> Dict[str, Any]:
-    """Zero fields, PML auxiliaries, polarizations and DFT accumulators."""
+    """Zero fields, PML auxiliaries, polarizations and DFT accumulators;
+    complex fields as complex64 (complex128 for fp64 plans) or, with
+    plan.real_pair, as real pairs (2, ...) (step.py:134-160, :216).  Pair
+    fields refuse multilevel atoms and chi2/chi3 media, as the
+    reference's do; the accumulators are real in every storage."""
     check_supported(plan)
     shape = tuple(plan.storage_shape or plan.gv.shape)
     dtype = torch_dtype(plan.dtype)
+    acc_dtype = dtype
+    fshape = shape
+    if _is_pair(plan):
+        if any(p.kind == "multilevel"
+               for p in plan.pol_specs_e + plan.pol_specs_h):
+            raise NotImplementedError(
+                "multilevel atoms with real-pair complex fields")
+        if any(s.has_chi3 or s.has_nr
+               for s in plan.eh_specs_e + plan.eh_specs_h):
+            raise NotImplementedError(
+                "nonlinear media require real fields (as in the reference)")
+        fshape = (2,) + shape
+    elif plan.complex_fields:
+        dtype = torch.complex128 if plan.dtype == np.float64 \
+            else torch.complex64
 
-    def zeros(s=shape):
+    def zeros(s=fshape):
         return torch.zeros(s, dtype=dtype, device=plan.device)
 
     f = {}
@@ -146,7 +189,8 @@ def init_state(plan: Plan) -> Dict[str, Any]:
     dft = {}
     for m in plan.dfts:
         ext = tuple(b - a for a, b in m.region)
-        dft[m.name] = zeros(ext + (len(m.freqs), 2))
+        dft[m.name] = torch.zeros(ext + (len(m.freqs), 2), dtype=acc_dtype,
+                                  device=plan.device)
     return {"f": f, "f_u": f_u, "f_cond": {}, "f_w": f_w, "pol": pol,
             "dft": dft, "t": 0}
 
@@ -239,21 +283,25 @@ def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any]):
             return _sh(plan, g, a, +1) - g
         sh = _sh(plan, g, a, -1)
         ghost = None
+        o = _off(plan, g)                      # a real pair's channel axis
+        ga = a + o
         for (ax, d, phase) in plan.mirror_node:
             if ax == a:
                 k0, sign = mirror_ghost(gname, d, phase, plan.gv.dim)
-                ghost = sign * g.narrow(a, k0, 1)
+                ghost = sign * g.narrow(ga, k0, 1)
         if plan.rot2 is not None and a == plan.rot2[0]:
             k0, sign, nl = rot2_ghost(gname, plan)
-            fl = plan.rot2[1]
-            rev = torch.flip(g.narrow(a, k0, 1).narrow(fl, 0, nl), (fl,))
+            fl = plan.rot2[1] + o
+            rev = torch.flip(g.narrow(ga, k0, 1).narrow(fl, 0, nl), (fl,))
             pad = [0, 0] * (g.ndim - 1 - fl) + [0, g.shape[fl] - nl]
             ghost = sign * torch.nn.functional.pad(rev, pad)
         if plan.rot4 is not None and a in plan.rot4[:2]:
             g2, k0, sign, other = rot4_ghost(gname, a, plan)
-            ghost = sign * f[g2].narrow(other, k0, 1).transpose(a, other)
+            ghost = sign * f[g2].narrow(other + o, k0, 1).transpose(
+                ga, other + o)
         if ghost is not None:
-            sh = torch.cat([ghost, sh.narrow(a, 1, sh.shape[a] - 1)], dim=a)
+            sh = torch.cat([ghost, sh.narrow(ga, 1, sh.shape[ga] - 1)],
+                           dim=ga)
         return g - sh
 
     total = None
@@ -309,31 +357,35 @@ def _curl_update(plan: Plan, C: Dict[str, Any], spec: CurlSpec,
         kapu, sigu, siginvu = (C[f"{c}:kapu"], C[f"{c}:sigu"],
                                C[f"{c}:siginvu"])
 
+    # (a real pair's channel axis leads the field arrays' slices; the
+    # reference runs its pairs on the full-grid chains, step.py:458, which
+    # give the same fields)
     if plan.slab_opt and (has_sig or has_sigu):
-        ndim = f.ndim
+        ndim = plan.gv.ndim
+        lead = (slice(None),) * _off(plan, f)
         base = f + dfl
         if has_sig:
             n_sites = plan.gv.num[spec.dsig_axis] + 1
             for sl in _slab_slices(spec.dsig_slabs, spec.dsig_axis,
                                    n_sites, ndim):
-                k = _vsl(kap, sl)
-                base[sl] = ((kap[k] - sig[k]) * f[sl] + dfl[sl]) * siginv[k]
+                k, fs = _vsl(kap, sl), lead + sl
+                base[fs] = ((kap[k] - sig[k]) * f[fs] + dfl[fs]) * siginv[k]
         if has_sigu:
             fu_full = state["f_u"][c]
             new_fu = fu_full.clone()
             n_sites = plan.gv.num[spec.dsigu_axis] + 1
             for sl in _slab_slices(spec.dsigu_slabs, spec.dsigu_axis,
                                    n_sites, ndim):
-                ku = _vsl(kapu, sl)
-                fu_old = fu_full[sl]
+                ku, fs = _vsl(kapu, sl), lead + sl
+                fu_old = fu_full[fs]
                 if has_sig:
                     k = _vsl(kap, sl)
-                    fu_new = ((kap[k] - sig[k]) * fu_old + dfl[sl]) * siginv[k]
+                    fu_new = ((kap[k] - sig[k]) * fu_old + dfl[fs]) * siginv[k]
                 else:
-                    fu_new = fu_old + dfl[sl]
-                base[sl] = siginvu[ku] * ((kapu[ku] - sigu[ku]) * f[sl]
+                    fu_new = fu_old + dfl[fs]
+                base[fs] = siginvu[ku] * ((kapu[ku] - sigu[ku]) * f[fs]
                                           + fu_new - fu_old)
-                new_fu[sl] = fu_new
+                new_fu[fs] = fu_new
             new_state = {**new_state, "f_u": {**state["f_u"], c: new_fu}}
         f_new = _apply_mask(plan, C, c, base)
         return {**new_state, "f": {**new_state["f"], c: f_new}}
@@ -469,12 +521,13 @@ def _eh_update(plan: Plan, C: Dict[str, Any], spec: EhSpec,
             f_new = lin.clone()
             new_fw = fw.clone()
             n_sites = plan.gv.num[spec.dsigw_axis] + 1
+            lead = (slice(None),) * _off(plan, lin)
             for sl in _slab_slices(spec.dsigw_slabs, spec.dsigw_axis,
-                                   n_sites, lin.ndim):
-                k = _vsl(kapw, sl)
-                f_new[sl] = (f_old[sl] + (kapw[k] + sigw[k]) * lin[sl]
-                             - (kapw[k] - sigw[k]) * fw[sl])
-                new_fw[sl] = lin[sl]
+                                   n_sites, plan.gv.ndim):
+                k, fs = _vsl(kapw, sl), lead + sl
+                f_new[fs] = (f_old[fs] + (kapw[k] + sigw[k]) * lin[fs]
+                             - (kapw[k] - sigw[k]) * fw[fs])
+                new_fw[fs] = lin[fs]
         else:
             f_new = f_old + (kapw + sigw) * lin - (kapw - sigw) * fw
             new_fw = lin
@@ -540,9 +593,13 @@ def source_index(plan: Plan, si: int):
 def _apply_sources(plan: Plan, C: Dict[str, Any], ft2: str,
                    state: Dict[str, Any], xs: Dict[str, Any]
                    ) -> Dict[str, Any]:
-    """Current sources into D/B: f -= current * dt (step.cpp:296-319)."""
+    """Current sources into D/B: f -= current * dt (step.cpp:296-319).
+    Real fields take the real part of the complex current w * amp; complex
+    fields take all of it, natively or as the (re, im) channels of a real
+    pair (step.py:1224-1262)."""
     f = dict(state["f"])
     dt = plan.dt
+    pair = _is_pair(plan)
     for si, s in enumerate(plan.sources):
         ftc = "d" if s.component[0] == "e" else "b"
         if ftc != ft2:
@@ -553,11 +610,30 @@ def _apply_sources(plan: Plan, C: Dict[str, Any], ft2: str,
             # dense-source mode (the resident route, ops/resident.py): the
             # amplitude pattern pre-scattered into full-grid arrays, the
             # injection a multiply-add everywhere (step.py:1228-1246)
-            f[dc] = f[dc] - (w_re * C[f"src{si}:dense_re"]
-                             - w_im * C[f"src{si}:dense_im"]) * dt
+            dre, dim_ = C[f"src{si}:dense_re"], C[f"src{si}:dense_im"]
+            if pair:
+                delta = torch.stack([(w_re * dre - w_im * dim_) * dt,
+                                     (w_re * dim_ + w_im * dre) * dt])
+            elif plan.complex_fields:
+                delta = complex(w_re, w_im) * torch.complex(dre, dim_) * dt
+            else:
+                delta = (w_re * dre - w_im * dim_) * dt
+            f[dc] = f[dc] - delta
             continue
-        A = (w_re * C[f"src{si}:amp_re"] - w_im * C[f"src{si}:amp_im"]) * dt
-        f[dc] = f[dc].index_put(source_index(plan, si), -A, accumulate=True)
+        a_re, a_im = C[f"src{si}:amp_re"], C[f"src{si}:amp_im"]
+        idx = source_index(plan, si)
+        if pair:
+            A_re = (w_re * a_re - w_im * a_im) * dt
+            A_im = (w_re * a_im + w_im * a_re) * dt
+            f[dc] = torch.stack([
+                f[dc][0].index_put(idx, -A_re, accumulate=True),
+                f[dc][1].index_put(idx, -A_im, accumulate=True)])
+            continue
+        if plan.complex_fields:
+            A = complex(w_re, w_im) * torch.complex(a_re, a_im) * dt
+        else:
+            A = (w_re * a_re - w_im * a_im) * dt
+        f[dc] = f[dc].index_put(idx, -A, accumulate=True)
     return {**state, "f": f}
 
 
@@ -571,17 +647,19 @@ def _region_values(plan: Plan, m, arr):
     the dead planes' neighbours are zero (`_sh`), so that axis is read
     whole and shifted as the stepper shifts it."""
     gv = plan.gv
+    o = _off(plan, arr)                    # a real pair's channel axis
     if not m.centered:
-        return arr[tuple(slice(a, b) for a, b in m.region)]
+        return arr[(slice(None),) * o
+                   + tuple(slice(a, b) for a, b in m.region)]
     ys = G.yee_shift(m.component, gv.dim)
     avg = [ax for ax, d in enumerate(gv.axes) if ys[d] == 0]
     wrap = {ax for ax in avg if plan.periodic[ax]}
-    sl = []
+    sl = [slice(None)] * o
     for ax, (a, b) in enumerate(m.region):
         if ax in wrap:
             sl.append(slice(None))
         elif ax in avg:
-            sl.append(slice(a, min(b + 1, arr.shape[ax])))
+            sl.append(slice(a, min(b + 1, arr.shape[ax + o])))
         else:
             sl.append(slice(a, b))
     out = arr[tuple(sl)]
@@ -590,25 +668,26 @@ def _region_values(plan: Plan, m, arr):
     for ax in avg:
         a, b = m.region[ax]
         n = b - a
+        oa = ax + o
         if ax in wrap:
-            out = 0.5 * (out.narrow(ax, a, n)
-                         + _sh(plan, out, ax, +1).narrow(ax, a, n))
+            out = 0.5 * (out.narrow(oa, a, n)
+                         + _sh(plan, out, ax, +1).narrow(oa, a, n))
             continue
-        if out.shape[ax] < n + 1:              # past the storage: zero fill
+        if out.shape[oa] < n + 1:              # past the storage: zero fill
             pad = [0, 0] * out.ndim
-            pad[2 * (out.ndim - 1 - ax) + 1] = 1
+            pad[2 * (out.ndim - 1 - oa) + 1] = 1
             out = torch.nn.functional.pad(out, pad)
-        out = 0.5 * (out.narrow(ax, 0, n) + out.narrow(ax, 1, n))
+        out = 0.5 * (out.narrow(oa, 0, n) + out.narrow(oa, 1, n))
     return out
 
 
 def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
                 xs: Dict[str, Any], fv_of=None) -> Dict[str, Any]:
     """DTFT accumulator update (dft.cpp:265 in-step sampling), in the real
-    (re, im) pair layout: with c = w fv = cr + i ci (ci only for complex
-    weights, the LDOS monitors' conj(amplitude)),
-    acc_re += cr ph_re - ci ph_im, acc_im += cr ph_im + ci ph_re
-    (step.py:1335-1375; the fields are real).
+    (re, im) pair layout: with c = w fv = cr + i ci (ci for complex
+    weights, the LDOS monitors' conj(amplitude), or complex fields, native
+    or a real pair's channels), acc_re += cr ph_re - ci ph_im, acc_im +=
+    cr ph_im + ci ph_re (step.py:1325-1375).
 
     `fv_of(mi, m)` optionally supplies monitor mi's region-sliced,
     centered-averaged field values (the hybrid driver samples x-planes that
@@ -621,10 +700,23 @@ def _dft_update(plan: Plan, C: Dict[str, Any], state: Dict[str, Any],
             fv = _region_values(plan, m, state["f"][m.component])
         phr = xs[f"dft{mi}:ph_re"]
         phi = xs[f"dft{mi}:ph_im"]
-        if f"dft{mi}:w" in C:
-            cr, ci = C[f"dft{mi}:w"] * fv, None
+        if fv.ndim > len(m.region):          # a real pair's (2, ...) slice
+            fr, fi = fv[0], fv[1]
+        elif fv.is_complex():
+            fr, fi = fv.real, fv.imag
         else:
-            cr, ci = C[f"dft{mi}:wre"] * fv, C[f"dft{mi}:wim"] * fv
+            fr, fi = fv, None
+        wi = None
+        if f"dft{mi}:w" in C:
+            wr = C[f"dft{mi}:w"]
+        else:
+            wr, wi = C[f"dft{mi}:wre"], C[f"dft{mi}:wim"]
+        cr = wr * fr
+        ci = wr * fi if fi is not None else None
+        if wi is not None:
+            if fi is not None:
+                cr = cr - wi * fi
+            ci = ci + wi * fr if ci is not None else wi * fr
         if plan.dft_front:
             # frequency-major accumulators (nfreq, 2, region...), the
             # resident route's layout (step.py:1357-1371)
@@ -782,35 +874,58 @@ class ProbeSpec:
 def run(plan: Plan, state: Dict[str, Any], nsteps: int,
         t0: Optional[int] = None, probes: Sequence[ProbeSpec] = ()):
     """Advance the state by nsteps eager steps (the inner loop of
-    Simulation.run).  With `probes`, returns (state, {name: (nsteps,)
-    tensor}): each probe's weighted sum after every step, the analog of
-    the scan-emitted probe series of step.py:1590-1663, summed point by
-    point from 0.0 in the state's type (the resident probed kernel's
-    order, ops/pallas/resident.py:336-339)."""
+    Simulation.run).  With `probes`, returns (state, {name: series}): each
+    probe's weighted sum after every step, the analog of the scan-emitted
+    probe series of step.py:1590-1663, summed point by point from 0.0 in
+    the state's type (the resident probed kernel's order,
+    ops/pallas/resident.py:336-339).  A series is (nsteps,), complex for
+    native complex fields, and (nsteps, 2) (re, im) rows for a real pair,
+    each point's product (fr wr - fi wi, fr wi + fi wr)."""
     if t0 is None:
         t0 = int(state["t"])
     step = make_step(plan)
     rows = xs_rows(plan, build_xs(plan, nsteps, t0))
     dtype = torch_dtype(plan.dtype)
+    pair = _is_pair(plan)
     pidx = {p.name: tuple(torch.as_tensor(np.asarray(p.indices, np.int64),
                                           device=plan.device).unbind(1))
             for p in probes}
-    pw = {p.name: torch.as_tensor(np.asarray(p.weights), dtype=dtype,
-                                  device=plan.device) for p in probes}
+    if pair:
+        pw = {p.name: tuple(torch.as_tensor(np.array(part(p.weights)),
+                                            dtype=dtype, device=plan.device)
+                            for part in (np.real, np.imag))
+              for p in probes}
+    elif plan.complex_fields:
+        pw = {p.name: torch.as_tensor(
+            np.asarray(p.weights, np.complex128),
+            dtype=state["f"][p.component].dtype, device=plan.device)
+            for p in probes}
+    else:
+        pw = {p.name: torch.as_tensor(np.asarray(p.weights), dtype=dtype,
+                                      device=plan.device) for p in probes}
     prods = {p.name: [] for p in probes}
     for i in range(nsteps):
         state = step(state, rows[i] if rows else {})
         for p in probes:
-            prods[p.name].append(
-                state["f"][p.component][pidx[p.name]] * pw[p.name])
+            v = state["f"][p.component]
+            if pair:
+                fr, fi = v[0][pidx[p.name]], v[1][pidx[p.name]]
+                wr, wi = pw[p.name]
+                prods[p.name].append(torch.stack([fr * wr - fi * wi,
+                                                  fr * wi + fi * wr], -1))
+            else:
+                prods[p.name].append(v[pidx[p.name]] * pw[p.name])
     if not probes:
         return state
     series = {}
-    for name, v in prods.items():
-        acc = torch.zeros(nsteps, dtype=dtype, device=plan.device)
+    for p in probes:
+        v = prods[p.name]
+        acc = torch.zeros((nsteps, 2) if pair else (nsteps,),
+                          dtype=pw[p.name][0].dtype if pair
+                          else pw[p.name].dtype, device=plan.device)
         if v:
-            pv = torch.stack(v)
+            pv = torch.stack(v)              # (nsteps, points[, 2])
             for q in range(pv.shape[1]):
                 acc = acc + pv[:, q]
-        series[name] = acc
+        series[p.name] = acc
     return state, series

@@ -7,8 +7,8 @@
 // with the arguments unpacked, blockIdx set and its dynamic shared memory a
 // zeroed host buffer (stub_dynamic_smem, which a source reads in place of
 // its `extern __shared__` array when MNT_CUDA_STUB is defined), in the
-// order stub_set_block_order chose: forward, reversed or a seeded shuffle.
-// A cooperative launch (the resident kernel's: one pointer argument) runs
+// order stub_set_block_order chose: forward, reversed or a seeded shuffle
+// (a grid's rows, blockIdx.y, one after another).  A cooperative launch (the resident kernel's: one pointer argument) runs
 // each block on a host thread of its own, one at a time: the blocks take
 // turns in that order, and grid.sync() hands the turn to the next block
 // (cooperative_groups.h), so every block reaches a barrier before any
@@ -204,12 +204,13 @@ cudaError_t cudaLaunchKernel(void (*fn)(A...), dim3 grid, dim3, void** args,
     std::reverse(blocks.begin(), blocks.end());
   else if (order != 0)
     std::shuffle(blocks.begin(), blocks.end(), std::mt19937(order));
-  gridDim = dim3(grid.x);
-  for (unsigned b : blocks) {
-    blockIdx = dim3(b);
-    stub_smem_buffer().assign(smem + 16, 0);
-    stub_call(fn, args, std::index_sequence_for<A...>{});
-  }
+  gridDim = dim3(grid.x, grid.y);
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned b : blocks) {
+      blockIdx = dim3(b, y);
+      stub_smem_buffer().assign(smem + 16, 0);
+      stub_call(fn, args, std::index_sequence_for<A...>{});
+    }
   gridDim = dim3();
   blockIdx = dim3(0, 0, 0);
   return 0;

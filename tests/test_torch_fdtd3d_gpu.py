@@ -20,6 +20,7 @@ import torch
 import meep_nl_tpu_torch as mp
 from meep_nl_tpu_torch.core import grid as TG
 from meep_nl_tpu_torch.ops import fdtd3d as TF
+from meep_nl_tpu_torch.ops import periodicx as PX
 from meep_nl_tpu_torch.stepper import plan as TP
 from meep_nl_tpu_torch.stepper import step as TS
 
@@ -140,7 +141,11 @@ def test_kernel_refuses_bad_tensors_on_cuda():
 #: dead plane to 32 x-planes, so two chunks of dead planes) and
 #: "wrap-x-edge" (phase -1 at the zone edge) are Bloch-periodic along x
 #: (the WRAP launches), with the PML on y and z and without the ball
-#: (whose boxes here reach the wrap: K1's x-wrap envelope declines them)
+#: (whose boxes here reach the wrap: K1's x-wrap envelope declines them);
+#: "pair-wrap-x" (k_x = 0.13 / the period: a complex phase, storage padded
+#: to two chunks of dead planes) and "pair-wrap-x-lorentz" (a Lorentz pole
+#: on a block clear of the wrap) carry complex fields as a real pair: the
+#: PAIR launches, both channels a launch, the wrapped planes rotated
 CASES = {
     "flagship": dict(ch=7),
     "flagship-padded-full-chains": dict(pad=(8, 8, 1), slab=False),
@@ -154,13 +159,18 @@ CASES = {
     "mirror-y": dict(mirror={"y": 1}, sources="hv", ch=5),
     "wrap-x": dict(wrap=1, ball=False, pad=(8, 1, 1), ch=5),
     "wrap-x-edge": dict(wrap=-1, ball=False, sources="hv", ch=7),
+    "pair-wrap-x": dict(wrap="pair", ball=False, sources="hv", pad=(8, 1, 1),
+                        ch=5),
+    "pair-wrap-x-lorentz": dict(wrap="pair", ball=False, block=True,
+                                sources="m", ch=7),
 }
 T0, NSTEP_CASE = 40, 3
 
 
 def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
             ball=True, chi3=False, drude=False, poles=1, sources="p", pad=1,
-            slab=True, dtype=np.float32, ch=None, mirror=None, wrap=None):
+            slab=True, dtype=np.float32, ch=None, mirror=None, wrap=None,
+            block=False):
     """A K1 plan from numpy inputs: uPML on the faces of `pml_axes`;
     `ball` an eps=4 sphere of radius min(size)/4 at the centre with a
     Lorentz (or Drude) pole (`poles` 2: and a Drude pole on the half x > 0
@@ -173,13 +183,24 @@ def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
     sources); `mirror` {axis letter: phase} node mirrors at index 0 of
     those axes (no wall there, the PML on their high side only); `wrap`
     the Bloch phase (+1 or -1) of an x-periodic cell, the PML then on y
-    and z only.  Returns (plan, ch)."""
+    and z only, or "pair": k_x = 0.13 / the period, complex fields as a
+    real pair; `block` an eps=3 block with a Lorentz pole on the x-planes
+    [6, 14).  Returns (plan, ch)."""
     size = [n / res for n in cells]
     gv = TG.GridVolume.create("3d", size, res)
     XX, YY, ZZ = np.meshgrid(*[gv.comp_coords("ez", ax) - 0.5 * size[ax]
                                for ax in range(3)], indexing="ij")
     inside = (XX ** 2 + YY ** 2 + ZZ ** 2 < (min(size) / 4) ** 2) & ball
     mat = TP.MaterialSpec(chi1inv={})
+    if block:
+        comps = ("ex", "ey", "ez")
+        blk = np.zeros(XX.shape, bool)
+        blk[6:14] = True
+        mat = TP.MaterialSpec(
+            chi1inv={c: {c[1]: np.where(blk, 1 / 3, 1.0)} for c in comps},
+            pols=[TP.PolSpec(field_type="e", omega0=1.5, gamma=0.1,
+                             sigma={(c, c[1]): 0.3 * blk.astype(float)
+                                    for c in comps})])
     if ball:
         comps = ("ex", "ey", "ez")
         mat = TP.MaterialSpec(
@@ -233,9 +254,12 @@ def k1_plan(device, cells=(24, 20, 18), res=8.0, pml=0.5, pml_axes="xyz",
         sources=srcs, pad_to_multiple=pad, dtype=dtype, device=device,
         boundaries={(d, "low"): "none" for d in mirror} or None,
         periodic=(True, False, False) if wrap is not None else None,
-        bloch_k=(0.0 if wrap == 1 else 0.5 / size[0], 0.0, 0.0),
+        bloch_k=(0.0 if wrap == 1 else 0.13 / size[0] if wrap == "pair"
+                 else 0.5 / size[0], 0.0, 0.0),
+        complex_fields=True if wrap == "pair" else None,
         mirror_node=tuple(("xyz".index(d), d, ph)
                           for d, ph in mirror.items()))
+    plan.real_pair = wrap == "pair"
     plan.slab_opt = slab
     return plan, ch
 
@@ -250,8 +274,9 @@ def hold_case(case, device, step):
     order."""
     plan, ch = k1_plan(device, **CASES[case])
     ref_plan, _ = k1_plan("cpu", **CASES[case])
-    ker = TF.Fdtd3dKernel(plan, ch=ch,
-                          allow_periodic_x=bool(plan.periodic[0]))
+    ker = PX.PairPeriodicXKernel(plan, ch=ch) if plan.real_pair else \
+        TF.Fdtd3dKernel(plan, ch=ch,
+                        allow_periodic_x=bool(plan.periodic[0]))
     ref = TF.step_ref(ref_plan)
     assert ker.launches_per_step == 3
     xs = TS.build_xs(plan, NSTEP_CASE, T0)

@@ -11,14 +11,17 @@ wrapped axis (exact), a 2D grating-like cell periodic in y at phase +1 and
 maximum), a 2D zone-edge cell's probe series (5e-6) and run_k_points'
 modes (1e-4), a 3D x-periodic cell with the flagship material at phase +1
 and -1 (fluxes and get_array to 1e-4), and a JAX periodic state carried
-into the port (interop) and stepped on by both (1e-5).  Further cases hold
-the ghost ring's and K1's x-wrap plain versions against the port's eager
-stepper (bit for bit on the live planes), the refusals and the routes."""
+into the port (interop) and stepped on by both (1e-5), and the cell of a
+complex phase (k = (0, 0.1): complex fields, tests/test_torch_complex.py
+holds the rest of them) to 1e-4.  Further cases hold the ghost ring's and
+K1's x-wrap plain versions against the port's eager stepper (bit for bit
+on the live planes), the refusals and the routes."""
 
 import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import meep_nl_tpu as mnt
 import meep_nl_tpu_torch as mtt
@@ -183,7 +186,10 @@ def test_run_k_points_matches_jax():
     res = []
     for mp, kw in ((mnt, {}), (mtt, {"device": "cpu"})):
         sim = holey(mp, **kw)
-        res.append(sim.run_k_points(100, [mp.Vector3(0), mp.Vector3(0.5)]))
+        # one BLAS thread for Harminv's SVD (a minute on loaded CPUs else)
+        with threadpool_limits(limits=1, user_api="blas"):
+            res.append(sim.run_k_points(100, [mp.Vector3(0),
+                                              mp.Vector3(0.5)]))
     for fa, fb in zip(*res):
         good = [f for f in fa if abs(f.real / (2 * f.imag)) > 10]
         assert good
@@ -363,19 +369,42 @@ def test_periodic_envelopes_decline():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["complex-phase", "special-kz"])
+def _kz_cell(mp, k, **kw):
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(4, 2), resolution=8,
+        sources=[mp.Source(mp.GaussianSource(1.0, fwidth=0.5), mp.Ez,
+                           center=mp.Vector3())],
+        boundary_layers=[mp.PML(0.5, direction=mp.X)], k_point=k, **kw)
+    fl = sim.add_flux(1.0, 0.5, 3, mp.FluxRegion(
+        center=mp.Vector3(1.2, 0), size=mp.Vector3(0, 2)))
+    return sim, fl
+
+
+@pytest.mark.parametrize("case", ["special-kz"])
 def test_complex_fields_are_refused(case):
-    k = mtt.Vector3(0, 0.1) if case == "complex-phase" \
-        else mtt.Vector3(0, 0, 0.3)
-    sim = mtt.Simulation(
-        cell_size=mtt.Vector3(4, 2), resolution=8,
-        sources=[mtt.Source(mtt.GaussianSource(1.0, fwidth=0.5), mtt.Ez,
-                            center=mtt.Vector3())],
-        boundary_layers=[mtt.PML(0.5, direction=mtt.X)], k_point=k,
-        device="cpu")
+    """A 2D cell with k along z (special_kz) still needs the stepper's
+    out-of-plane coupling (ROADMAP A9); complex phases run
+    (test_complex_phase_matches_jax)."""
+    sim, _ = _kz_cell(mtt, mtt.Vector3(0, 0, 0.3), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         sim.init_sim()
     assert sim._plan is None
+
+
+def test_complex_phase_matches_jax():
+    """The cell the port used to refuse, k = (0, 0.1): a complex phase on
+    y, complex fields (native on the CPU), 93 steps: get_array(Ez) and the
+    fluxes equal the JAX package's to 1e-4 of their maximum."""
+    out = []
+    for mp, kw in ((mnt, {}), (mtt, {"device": "cpu"})):
+        sim, fl = _kz_cell(mp, mp.Vector3(0, 0.1), **kw)
+        sim.run(until=93 * sim.dt)
+        out.append((np.asarray(sim.get_array(mp.Ez)),
+                    np.asarray(sim.get_fluxes(fl)), sim))
+    (ea, fa, _), (eb, fb, sim) = out
+    assert sim.plan.complex_fields and np.abs(eb.imag).max() > 0
+    _close(eb, ea, "ez")
+    _close(fb, fa, "flux")
 
 
 def test_symmetries_with_k_point_are_refused():

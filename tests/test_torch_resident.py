@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import meep_nl_tpu as mnt
 from meep_nl_tpu.analysis import harminv as JH
@@ -330,7 +331,9 @@ def test_ring_harminv_matches_jax():
     for name, mp, kw in (("jax", mnt, {}), ("port", mtt, {"device": "cpu"})):
         sim = ring(mp, 5, **kw)
         h = mp.Harminv(mp.Ez, mp.Vector3(1.1), 0.15, 0.1)
-        sim.run(mp.after_sources(h), until_after_sources=150)
+        # one BLAS thread for Harminv's SVD (slow on loaded CPUs else)
+        with threadpool_limits(limits=1, user_api="blas"):
+            sim.run(mp.after_sources(h), until_after_sources=150)
         out[name] = (np.asarray(h.data), h.modes)
     assert dict(sim.routes) == {"resident": -(-sim._t // 1024)}
     assert sim.plan._resident_kernel.plain_steps == sim._t
@@ -371,8 +374,9 @@ def test_harminv_matches_reference():
     sig = (np.exp((2j * np.pi * 0.16 - 0.002) * t).real
            + 0.5 * np.exp((2j * np.pi * 0.19 - 0.01) * t).real
            + 1e-6 * rng.standard_normal(len(t)))
-    want = JH.harminv(sig, 0.1, 0.1, 0.25)
-    got = TH.harminv(sig, 0.1, 0.1, 0.25)
+    with threadpool_limits(limits=1, user_api="blas"):
+        want = JH.harminv(sig, 0.1, 0.1, 0.25)
+        got = TH.harminv(sig, 0.1, 0.1, 0.25)
     assert [m.freq for m in got] == [m.freq for m in want]
     assert [m.Q for m in got] == [m.Q for m in want]
     assert min(abs(m.freq - 0.16) for m in got) < 1e-6

@@ -77,7 +77,12 @@ def scene(kind, device="cpu", res=10):
     Bloch-periodic through k_point (phase +1, or -1 at the zone edge with
     a trailing "-"; the direct schedule's WRAP variant): the PML stays on
     the other axes, and a second flux monitor spans the periodic axes
-    (its centred average reads across the wrap)."""
+    (its centred average reads across the wrap).  A trailing "*" asks for
+    complex fields in real-pair storage (the PAIR variant): with "~", k =
+    0.13 / the cell along the axes named (a complex phase), without, the
+    cell keeps its PML and takes force_complex_fields."""
+    pair = kind.endswith("*")
+    kind = kind.rstrip("*")
     kind, _, per = kind.partition("~")
     per_axes = per.rstrip("-")
     kind, _, rot = kind.partition("@")
@@ -142,11 +147,13 @@ def scene(kind, device="cpu", res=10):
         layers = [mp.PML(pml, direction=d) for d in axes
                   if d not in per_axes]
         edge = per.endswith("-")
-        k = mp.Vector3(*[0.5 / getattr(cell, d) if edge and d in per_axes
-                         else 0.0 for d in "xyz"])
+        kw = 0.13 if pair else 0.5 if edge else 0.0
+        k = mp.Vector3(*[kw / getattr(cell, d) if d in per_axes else 0.0
+                         for d in "xyz"])
     sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
                         sources=src, boundary_layers=layers,
-                        device=device, symmetries=syms, k_point=k)
+                        device=device, symmetries=syms, k_point=k,
+                        force_complex_fields=pair)
     sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
         center=mp.Vector3(0.4 if pml == 0.5 else 0.9, flux_y, 0),
         size=flux_size))
@@ -170,7 +177,16 @@ def scene(kind, device="cpu", res=10):
         for i in range(25):
             sim.add_flux(0.5, 0.2, 2, mp.FluxRegion(
                 center=mp.Vector3(-1.8 + 0.15 * i, 0), size=flux_size))
-    sim.init_sim()
+    old = os.environ.get("MNT_REAL_PAIR")
+    os.environ["MNT_REAL_PAIR"] = "1"
+    try:
+        sim.init_sim()
+    finally:
+        if old is None:
+            del os.environ["MNT_REAL_PAIR"]
+        else:
+            os.environ["MNT_REAL_PAIR"] = old
+    assert sim.plan.real_pair == pair and sim.plan.complex_fields == pair
     return sim.plan
 
 
@@ -179,9 +195,10 @@ COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz"}
 
 
 def base_kind(kind):
-    """A scene's kind without its symmetries' and periodic axes'
+    """A scene's kind without its symmetries', periodic axes' and pair
     suffixes."""
-    return kind.partition("~")[0].partition("@")[0].partition("+")[0]
+    return kind.rstrip("*").partition("~")[0].partition("@")[0] \
+        .partition("+")[0]
 
 
 def random_state(plan, seed):
@@ -267,7 +284,18 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "wrap-y-mirror-x-tm-k3": ("tm+x~y-", False, 13, 8192,
                                    (None, 1, 4, 1)),
          "wrap-x-3d-k4-seams": ("3d~x-", True, 9, 4, None),
-         "wrap-x-nl3d-k3": ("nl3d~x", False, 9, 8192, None)}
+         "wrap-x-nl3d-k3": ("nl3d~x", False, 9, 8192, None),
+         # complex fields as a real pair: the PAIR variant, both curls and
+         # the centred DTFT reading across a wrap with a complex phase (2D
+         # on one and two axes, 3D), the channels' sources, complex probe
+         # weights, LDOS weights on complex fields, and a pair without a
+         # wrap (force_complex_fields)
+         "pair-y-tm-k3": ("tm~y*", False, 13, 8192, None),
+         "pair-y-tm-k4-seams": ("tm~y*", True, 13, 5, (None, 1, 3, 7)),
+         "pair-xy-te-k4": ("te-lin~xy*", True, 13, 8192, None),
+         "pair-x-3d-k4-seams": ("3d~x*", True, 9, 4, (None, 1, 4, 1)),
+         "pair-y-ldos-k3-seams": ("ldos~y*", False, 13, 5, None),
+         "pair-tm-k4": ("tm*", True, 13, 8192, None)}
 
 
 def h100_schedule(ker, host_lib):
@@ -308,6 +336,7 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
     monkeypatch.setattr(R.ResidentKernel, "_check", _own)
     plan = scene(kind)
     rotational, periodic = "@" in kind, "~" in kind
+    pair = kind.endswith("*")
     kind = base_kind(kind)
     st0 = random_state(plan, 4)
     comp = COMP.get(kind, "ez")
@@ -318,7 +347,8 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         pt = [sched[0][0], sched[0][1] + 1] + ([5] if is3d else [])
     probes = [TS.ProbeSpec("p0", comp, np.array([[pt[0] - 1] + pt[1:],
                                                  pt]),
-                           np.array([0.6, 0.4])),
+                           np.array([0.6 + 0.2j, 0.4]) if pair
+                           else np.array([0.6, 0.4])),
               TS.ProbeSpec("p1", comp, np.array([pt]), np.array([1.0]))] \
         if probed else []
     if kind == "tm-many":                  # tables of any length
@@ -346,9 +376,10 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         ((nlaunch, 0) if probed else (0, nlaunch))
     assert int(sk["t"]) == int(sr["t"]) == nsteps
     tl = ker.schedule[1]
-    assert tl["direct"] == (2 if rotational else 3 if periodic else (
-        kind in ("nl3d", "poles3d") or (sched is not None
-                                        and sched[0] is None)))
+    assert tl["direct"] == (4 if pair else 2 if rotational else 3
+                            if periodic else (
+                                kind in ("nl3d", "poles3d")
+                                or (sched is not None and sched[0] is None)))
     if sched is not None and tl["direct"]:
         assert tl["T"] == 1 and tl["ntile"] == 1
     elif sched is not None:
@@ -375,7 +406,8 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
                 assert torch.equal(pk[k][c], t), f"pol {k}[{c}]"
     assert set(yk) == set(yr) == {p.name for p in probes}
     for k, t in yr.items():
-        assert t.shape == (nsteps,) and torch.equal(yk[k], t), k
+        assert t.shape == ((nsteps, 2) if pair else (nsteps,))
+        assert torch.equal(yk[k], t), k
     assert float((sr["f"][comp] - st0["f"][comp]).abs().max()) > 0
 
 
