@@ -206,6 +206,26 @@ falls back to the CPU or to a plain version:
      fluxes to 1e-6); K2 on the pair ring (each channel) and K1's pair
      wrap bit for bit against their plain versions from the end states
      and seeded random states, timed.
+ 16. monitored x-periodic cells two steps a call, then BFAST: phase 5's
+     linear flagship (the eps=4 ball without chi2 and pole) at 128^3 made
+     x-periodic (PML on y and z, k_x = 0 and the zone edge 1/16) with its
+     flux plane at DTFT decimation WRAP_DEC, 602 steps after 12 of
+     warm-up: the hybrid driver's PeriodicXT2Kernel (K2's x-wrap variant,
+     2 calls and 1 K1 step a cycle of 5, counters), fluxes and the live
+     planes against the eager stepper on the card with the same slab
+     chains (1e-6), K2's x wrap bit for bit against its plain version from
+     the end state and a seeded random state, its ms/call beside twice K1's
+     x wrap and the bound, the run's ms/step beside the same cell forced
+     onto K1's x wrap; Meep's refl_angular_bfast as published (cell
+     0.1x0.1x10 at resolution 20, BFAST scaled k (0.5, 0, 0), Courant
+     (1 - 0.5) / sqrt(3)): the normalization run (until=60) and the
+     interface run (until=100) through K3's PAIR_BFAST variant (counters),
+     R(f) at its 5 frequencies beside Fresnel's p-pol, the same runs at
+     resolution 10 against the port on the CPU (native complex, the eager
+     stepper, in the --cpu-twins15 process: each frequency to 1e-4), a
+     probed stretch of the cell through K4, K3 and K4 with BFAST bit for
+     bit from the end state and a seeded random state, and K3 with BFAST
+     timed beside the same cell without BFAST (real fields, K3's wrap).
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -497,7 +517,8 @@ def cpu_twins15(path) -> int:
     """Phase 15's runs on the CPU (native complex fields, the eager
     stepper), saved to `path` (.npz): holey-wvg-bands.py's modes at
     HOLEY_CHECK_K, the oblique grating's transmittance at resolution
-    GRATING_TWIN_RES.  chip_smoke.py runs this in a second process
+    GRATING_TWIN_RES, refl_angular_bfast's R(f) at BFAST_TWIN_RES (phase
+    16).  chip_smoke.py runs this in a second process
     (--cpu-twins15 PATH) from its start."""
     import numpy as np
     import torch
@@ -510,6 +531,7 @@ def cpu_twins15(path) -> int:
         out[f"holey{k}"] = np.array(freqs, np.complex128)
     out["oblique_T"], _ = grating_T(mp, GRATING_TWIN_RES, "cpu",
                                     oblique=True)
+    out["bfast_R"], _ = bfast_R(mp, BFAST_TWIN_RES, "cpu")
     np.savez(path, **out)
     return 0
 
@@ -526,6 +548,14 @@ GRATING_RES, GRATING_TWIN_RES = 60, 12
 HOLEY_K = (0.0, 0.5)
 HOLEY_PATH_N = 19
 HOLEY_CHECK_K = (0.1, 0.25, 0.4)
+#: phase 16's DTFT decimation of the x-periodic linear flagship's flux plane
+#: (a cycle of 5 steps: 2 calls of K2's x wrap and 1 K1 step)
+WRAP_DEC = 5
+#: refl_angular_bfast.py (examples/): sin of the angle, the glass index, the
+#: source's centre and width, the frequencies, the published resolution
+#: and that of the CPU twin
+BFAST = dict(S=0.5, n2=1.5, fcen=1.0, df=0.5, nf=5)
+BFAST_RES, BFAST_TWIN_RES = 20, 10
 #: the angle of incidence of phase 15's oblique grating (degrees) and the
 #: k_x of its 128^3 pair scene
 OBLIQUE_DEG = 10.0
@@ -597,6 +627,63 @@ def grating_T(mp, res, device, run=None, oblique=False):
     run(s1, until_after_sources=300)
     return (np.array(s1.get_fluxes(f1)) / np.array(s0.get_fluxes(f0)),
             ((s0, f0), (s1, f1)))
+
+
+def bfast_sim(mp, res, device, interface, bfast=True):
+    """Meep's refl_angular_bfast.py as published: a 0.1 x 0.1 x 10 cell
+    (Bloch-periodic across x and y at k = 0), PML 1 on z, glass (n = 1.5)
+    filling z > 0 when `interface`, an Ex plane source at z = -3 (Gaussian,
+    f 1, width 0.5), the reflection flux plane at z = -2 (5 frequencies),
+    BFAST with scaled k (0.5, 0, 0) at Courant (1 - 0.5) / sqrt(3);
+    `bfast` False drops BFAST (real fields)."""
+    import numpy as np
+    b = BFAST
+    geom = [mp.Block(center=mp.Vector3(0, 0, 2.5),
+                     size=mp.Vector3(mp.inf, mp.inf, 5.0),
+                     material=mp.Medium(epsilon=b["n2"] ** 2))] \
+        if interface else []
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(0.1, 0.1, 10), resolution=res,
+        Courant=(1 - b["S"]) / np.sqrt(3), geometry=geom,
+        sources=[mp.Source(mp.GaussianSource(frequency=b["fcen"],
+                                             fwidth=b["df"]),
+                           component=mp.Ex, center=mp.Vector3(0, 0, -3.0),
+                           size=mp.Vector3(0.1, 0.1, 0))],
+        boundary_layers=[mp.PML(1.0, direction=mp.Z)],
+        k_point=mp.Vector3(0, 0, 0),
+        bfast_scaled_k=mp.Vector3(b["S"], 0, 0) if bfast else None,
+        eps_averaging=False, device=device)
+    refl = sim.add_flux(b["fcen"], b["df"], b["nf"], mp.FluxRegion(
+        center=mp.Vector3(0, 0, -2.0), size=mp.Vector3(0.1, 0.1, 0)))
+    sim.init_sim()
+    return sim, refl
+
+
+def bfast_R(mp, res, device, run=None):
+    """refl_angular_bfast's two runs: the normalization run to until=60,
+    then the interface run with its flux data subtracted to until=100
+    (`run(sim, until=...)`: sim.run by default); returns (R(f), the two
+    simulations)."""
+    import numpy as np
+    run = run or (lambda sim, **kw: sim.run(**kw))
+    s0, r0 = bfast_sim(mp, res, device, False)
+    run(s0, until=60)
+    inc = np.asarray(s0.get_fluxes(r0))
+    s1, r1 = bfast_sim(mp, res, device, True)
+    s1.load_minus_flux_data(r1, s0.get_flux_data(r0))
+    run(s1, until=100)
+    return -np.asarray(s1.get_fluxes(r1)) / inc, (s0, s1)
+
+
+def fresnel_p(f):
+    """|r_p|^2 of the air-glass interface at the scene's fixed angle."""
+    import numpy as np
+    b = BFAST
+    w = 2 * np.pi * np.asarray(f)
+    kz1 = np.sqrt(w ** 2 - (b["S"] * w) ** 2)
+    kz2 = np.sqrt((b["n2"] * w) ** 2 - (b["S"] * w) ** 2)
+    rp = (b["n2"] ** 2 * kz1 - kz2) / (b["n2"] ** 2 * kz1 + kz2)
+    return np.abs(rp) ** 2
 
 
 def holey_sim(mp, device):
@@ -740,19 +827,24 @@ def random_state(plan, seed, device, scale=1e-2):
                for c, t in st["f"].items()}
     st["f_u"] = {c: rnd(t) for c, t in st["f_u"].items()}
     st["f_w"] = {c: rnd(t) for c, t in st["f_w"].items()}
+    if "f_bfast" in st:
+        st["f_bfast"] = {c: rnd(t) for c, t in st["f_bfast"].items()}
     st["pol"] = [{k: {c: rnd(t) for c, t in e[k].items()}
                   for k in ("p", "pp")} for e in st["pol"]]
     return st
 
 
 def clone_state(st):
-    return {"f": {c: t.clone() for c, t in st["f"].items()},
-            "f_u": {c: t.clone() for c, t in st["f_u"].items()},
-            "f_cond": {}, "f_w": {c: t.clone() for c, t in st["f_w"].items()},
-            "pol": [{k: {c: t.clone() for c, t in e[k].items()}
-                     for k in ("p", "pp")} for e in st["pol"]],
-            "dft": {c: t.clone() for c, t in st["dft"].items()},
-            "t": st["t"]}
+    out = {"f": {c: t.clone() for c, t in st["f"].items()},
+           "f_u": {c: t.clone() for c, t in st["f_u"].items()},
+           "f_cond": {}, "f_w": {c: t.clone() for c, t in st["f_w"].items()},
+           "pol": [{k: {c: t.clone() for c, t in e[k].items()}
+                    for k in ("p", "pp")} for e in st["pol"]],
+           "dft": {c: t.clone() for c, t in st["dft"].items()},
+           "t": st["t"]}
+    if "f_bfast" in st:
+        out["f_bfast"] = {c: t.clone() for c, t in st["f_bfast"].items()}
+    return out
 
 
 def state_error(a, b):
@@ -760,8 +852,8 @@ def state_error(a, b):
     import torch
     err = 0.0
     scale = 0.0
-    for key in ("f", "f_u", "f_w"):
-        for c in b[key]:
+    for key in ("f", "f_u", "f_w", "f_bfast"):
+        for c in b.get(key, {}):
             err = max(err, float((a[key][c] - b[key][c]).abs().max()))
             scale = max(scale, float(b[key][c].abs().max()))
     for ea, eb in zip(a["pol"], b["pol"]):
@@ -3285,6 +3377,248 @@ def phase_complex(mp, dev, card, main_ms, blank, twins15):
     return [k1p, k2p, k3p, k4p]
 
 
+def compare_k2w(plan, st0, t0, ncall):
+    """K2's x wrap (a PeriodicXT2Kernel of its own: these launches are not
+    counted on the path's object) against steps_ref over `ncall` calls
+    from state st0 at step t0; returns (abs, rel) over every plane, the
+    dead ones too."""
+    from meep_nl_tpu_torch.ops import fdtd3d_t2
+    from meep_nl_tpu_torch.ops import periodicx as PX
+    from meep_nl_tpu_torch.stepper.step import build_xs, xs_rows
+    ker = PX.PeriodicXT2Kernel(plan)
+    ref = fdtd3d_t2.steps_ref(plan, 2)
+    rows = xs_rows(plan, build_xs(plan, 2 * ncall, t0))
+    sk, sr = clone_state(st0), clone_state(st0)
+    for c in range(ncall):
+        xc = rows[2 * c:2 * c + 2]
+        sk = ker.step(sk, xc)
+        sr, _ = ref(sr, xc)
+    if ker.launches != ncall or ker.plain_steps:
+        raise AssertionError(f"K2's x wrap: launches {ker.launches}")
+    return state_error(sk, sr)
+
+
+def phase_wrap_bfast(mp, dev, card, blank, twins15):
+    """Phase 16: monitored x-periodic cells two steps a call (K2's x wrap
+    behind PeriodicXT2Kernel), then BFAST (K3/K4's PAIR_BFAST variant).
+    `twins15`: (process, .npz path) of cpu_twins15, which phase 15 has
+    waited for.  Returns the kernel table entries of K2's x wrap and K3
+    and K4 with BFAST."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import fdtd3d, fdtd3d_t2
+    from meep_nl_tpu_torch.ops import hybrid as HY
+    from meep_nl_tpu_torch.ops import periodicx as PX
+    from meep_nl_tpu_torch.ops import resident as R
+    from meep_nl_tpu_torch.stepper.step import build_xs, xs_rows
+    k2w = _entry("fdtd3d_t2_k2_xwrap", "meep_nl_tpu_torch/csrc/fdtd3d_t2.cu",
+                 K2_REPLACES, blank)
+    k3b = _entry("resident_k3_bfast", "meep_nl_tpu_torch/csrc/resident.cu",
+                 K3_REPLACES, blank)
+    k4b = _entry("resident_k4_bfast", "meep_nl_tpu_torch/csrc/resident.cu",
+                 K4_REPLACES, blank)
+    with np.load(twins15[1]) as z:
+        want = {k: z[k] for k in z.files}
+
+    # ---- 16.1: the linear flagship x-periodic with its flux plane -------
+    res, n, nsteps = 16.0, 128, 602
+    for kx in (0.0, 1 / 16):
+        sim, fl = flagship_sim(mp, n, res, dev, linear=True, kx=kx,
+                               decimation=WRAP_DEC)
+        plan = sim.plan
+        sim.run(until=12 * sim.dt)                  # warm-up: builds
+        ker = plan._t2_kernel
+        if not (isinstance(ker, PX.PeriodicXT2Kernel) and ker.k3 is None):
+            raise AssertionError(f"128^3 linear x-periodic monitored: "
+                                 f"kernel {ker}")
+        k1 = ker._k1
+        for k in (ker, k1):
+            k.launches = k.plain_steps = 0
+        sim.routes.clear()
+        HY.hybrid_routes(plan).clear()
+        prefix, d, ncyc, suffix = HY.cycle_structure(plan, sim._t, nsteps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(until=nsteps * sim.dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want_k2 = ncyc * (d // 2) * ker.launches_per_call
+        want_k1 = ncyc * (d % 2) * K1_LAUNCHES
+        if dict(sim.routes) != {"hybrid": 1} \
+                or dict(HY.hybrid_routes(plan)) != {"full_state": 1} \
+                or d < 3 or ker.launches != want_k2 \
+                or k1.launches != want_k1 or ker.plain_steps \
+                or k1.plain_steps:
+            raise AssertionError(f"128^3 linear x-periodic monitored: "
+                                 f"routes {dict(sim.routes)}, "
+                                 f"{dict(HY.hybrid_routes(plan))}, cycle "
+                                 f"{d}, K2 launches {ker.launches} (want "
+                                 f"{want_k2}), K1 {k1.launches} (want "
+                                 f"{want_k1})")
+        k2w["launches"] += ker.launches
+        phase = plan.bloch_phase[0]
+        flux = sim.get_fluxes(fl)
+        se, fe = flagship_sim(mp, n, res, dev, linear=True, kx=kx,
+                              decimation=WRAP_DEC, use_fused=False)
+        se.plan.slab_opt = True
+        se.run(until=(nsteps + 12) * se.dt)
+        fd = rel_diff(flux, se.get_fluxes(fe))
+        err, rel = _live_error(sim.fields_state, se.fields_state,
+                               plan.gv.num[0])
+        print(f"[16] 128^3 linear flagship x-periodic (phase {phase}) with "
+              f"the flux plane at DTFT decimation {d}: {nsteps} steps in "
+              f"{wall:.3f} s = {wall / nsteps * 1e3:.4f} ms/step; "
+              f"PeriodicXT2Kernel: {ncyc} cycles of {d} steps ({d // 2} K2 "
+              f"x-wrap calls and {d % 2} K1 step a cycle; {prefix} + "
+              f"{suffix} eager), K2 launches {ker.launches}, K1 "
+              f"{k1.launches}, routes {dict(sim.routes)}; against the eager "
+              f"stepper on the card: fluxes max rel {fd:.3e}, live planes "
+              f"max abs {err:.3e} (over the maximum {rel:.3e}; gates 1e-6); "
+              f"flux {np.asarray(flux).tolist()} ({card})", flush=True)
+        if not (fd <= 1e-6 and rel <= 1e-6 and np.abs(flux).max() > 1e-8):
+            raise AssertionError(f"K2's x wrap route differs from the "
+                                 f"stepper: fluxes {fd:.3e}, state "
+                                 f"{rel:.3e}")
+        st, t_end = sim.fields_state, sim._t
+        for label, st0 in (("the run's state", st),
+                           ("a random state",
+                            random_state(plan, 59, dev))):
+            err, rel = compare_k2w(plan, st0, t_end, 3)
+            print(f"[16] K2's x wrap vs plain (phase {phase}), from "
+                  f"{label}, 3 calls: max abs {err:.3e}", flush=True)
+            if not err == 0.0:
+                raise AssertionError(f"K2's x wrap is not bit for bit: "
+                                     f"{err:.3e}")
+            k2w["max_abs_err"] = max(k2w["max_abs_err"], err)
+        rows = xs_rows(plan, build_xs(plan, 24, t_end))
+        ms, _ = time_steps(ker.step, clone_state(st), rows, per=2)
+        k1_ms, _ = time_steps(k1.step, clone_state(st), rows)
+        ref = fdtd3d_t2.steps_ref(plan, 2)
+        p_ms, _ = time_steps(lambda s_, r_: ref(s_, r_)[0], clone_state(st),
+                             rows[:10], per=2)
+        b_ms, b_by = bound(fdtd3d_t2.step_cost(plan, 2))
+        if kx:
+            k2w.update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        del se, st
+        # the same cell forced onto K1's x wrap (one K1 step a step)
+        sf, _ = flagship_sim(mp, n, res, dev, linear=True, kx=kx,
+                             decimation=WRAP_DEC)
+        force_k1_route(sf)
+        sf.run(until=12 * sf.dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sf.run(until=nsteps * sf.dt)
+        torch.cuda.synchronize()
+        f_wall = time.perf_counter() - t0
+        print(f"[16] K2's x wrap at 128^3 (phase {phase}): {ms:.4f} ms/call "
+              f"= {ms / 2:.4f} ms/step; K1's x wrap {k1_ms:.4f} ms/step (x 2 "
+              f"= {2 * k1_ms:.4f}); plain {p_ms:.4f} ms/call; bound "
+              f"{b_ms:.4f} ms/call ({b_by}); {k2_items(ker)}; the whole run "
+              f"{wall / nsteps * 1e3:.4f} ms/step against "
+              f"{f_wall / nsteps * 1e3:.4f} forced onto K1's x wrap "
+              f"({card})", flush=True)
+        del sim, sf
+        torch.cuda.empty_cache()
+
+    # ---- 16.2: refl_angular_bfast.py as published (K3 and K4, BFAST) ----
+    def counted(sim, **kw):
+        R._kernel(sim.plan)
+        wall, launches, probed = resident_run_counted(sim, **kw)
+        ker = sim.plan._resident_kernel
+        if probed or launches != sim.routes["resident"] or not launches \
+                or ker.schedule[1]["direct"] != R.DIRECT_PAIR_BFAST:
+            raise AssertionError(f"BFAST run: K3 launches {launches}, K4 "
+                                 f"{probed}, routes {dict(sim.routes)}, "
+                                 f"schedule {ker.schedule[1]}")
+        k3b["launches"] += launches
+        print(f"[16] refl_angular_bfast at resolution {sim.resolution:.0f} "
+              f"({sim.plan.storage_shape}, periodic {sim.plan.periodic}, "
+              f"real pair {sim.plan.real_pair}): {kw}, {sim._t} steps in "
+              f"{wall:.3f} s = {wall / sim._t * 1e3:.4f} ms/step; K3 "
+              f"launches {launches}, routes {dict(sim.routes)} ({card})",
+              flush=True)
+
+    Rf, sims = bfast_R(mp, BFAST_RES, dev, counted)
+    freqs = np.linspace(BFAST["fcen"] - BFAST["df"] / 2,
+                        BFAST["fcen"] + BFAST["df"] / 2, BFAST["nf"])
+    print(f"[16] refl_angular_bfast R(f) at 30 degrees, resolution "
+          f"{BFAST_RES}: " + "; ".join(
+              f"f {f:.3f}: R {r:.5f} (Fresnel p-pol {fr:.5f})"
+              for f, r, fr in zip(freqs, Rf, fresnel_p(freqs))),
+          flush=True)
+    if not (np.all(np.isfinite(Rf)) and np.all(Rf > 0)):
+        raise AssertionError(f"BFAST R(f): {Rf}")
+    R10, _ = bfast_R(mp, BFAST_TWIN_RES, dev, counted)
+    d = rel_each(R10, want["bfast_R"])
+    print(f"[16] refl_angular_bfast at resolution {BFAST_TWIN_RES}, card "
+          f"(K3 on the real pair) vs CPU (native complex, the eager "
+          f"stepper): R(f) max rel (each frequency against its own) "
+          f"{d:.3e} (gate 1e-4); card {R10.tolist()}", flush=True)
+    if not d <= 1e-4:
+        raise AssertionError(f"BFAST R(f): card and CPU differ by {d:.3e}")
+    s1 = sims[1]
+    ker = s1.plan._resident_kernel
+    # a probed stretch of the cell: K4 with BFAST
+    ker.launches = ker.probed_launches = ker.plain_steps = 0
+    s1.routes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1.run(mp.FieldProbe(mp.Ex, mp.Vector3(0, 0, -2.5)),
+           until=600 * s1.dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if dict(s1.routes) != {"resident": ker.probed_launches} \
+            or ker.launches or ker.plain_steps or not ker.probed_launches:
+        raise AssertionError(f"BFAST probed: routes {dict(s1.routes)}, K3 "
+                             f"{ker.launches}, K4 {ker.probed_launches}")
+    k4b["launches"] += ker.probed_launches
+    print(f"[16] refl_angular_bfast probed (FieldProbe(Ex)), 600 steps: "
+          f"{wall:.3f} s, K4 launches {ker.probed_launches}, routes "
+          f"{dict(s1.routes)} ({card})", flush=True)
+    probe = [s1._point_probe("pb", mp.Ex, mp.Vector3(0, 0, -2.5))]
+    st, t_end = s1.fields_state, s1._t
+    for label, st0 in (("the end state", st),
+                       ("a random state", random_state(s1.plan, 61, dev))):
+        for what, prb, entry in (("K3", (), k3b), ("K4", probe, k4b)):
+            err, rel, drel, serr = compare_resident(ker, st0, t_end, 48, prb)
+            print(f"[16] {what} with BFAST vs plain, from {label}, 48 "
+                  f"steps: state, F and accumulators max abs {err:.3e}, "
+                  f"series max abs {serr:.3e}", flush=True)
+            if not (err == 0.0 and serr == 0.0):
+                raise AssertionError(f"{what} with BFAST is not bit for bit "
+                                     f"(from {label}): {err:.3e}, series "
+                                     f"{serr:.3e}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err, serr)
+    nsteps = 1000
+    ref = R.resident_ref(s1.plan)
+    for what, prb, entry in (("K3", (), k3b), ("K4", probe, k4b)):
+        ms, call_ms = time_resident(
+            lambda s_, n_: ker._run(s_, n_, t_end, prb), st, nsteps)
+        _, plain_ms = time_resident(
+            lambda s_, n_: ref(s_, n_, t_end, prb), st, 20, reps=1)
+        cost = R.step_cost(s1.plan, nsteps)
+        b_ms, b_by = bound({"bytes": cost["bytes"] / nsteps,
+                            "ops": cost["ops"] / nsteps})
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"[16] {what} with BFAST at refl_angular_bfast "
+              f"({s1.plan.storage_shape}): {ms:.4f} ms/step "
+              f"({schedule_text(ker, nsteps, bool(prb))}); the wrapper's "
+              f"call {call_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.6f} "
+              f"ms/step ({b_by}) ({card})", flush=True)
+    sn, _ = bfast_sim(mp, BFAST_RES, dev, True, bfast=False)
+    sn.run(until=24 * sn.dt)
+    kn = sn.plan._resident_kernel
+    ms_n, _ = time_resident(
+        lambda s_, n_: kn._run(s_, n_, sn._t, ()), sn.fields_state, nsteps)
+    print(f"[16] the same cell without BFAST (real fields, "
+          f"{sn.plan.storage_shape}): K3 {ms_n:.4f} ms/step "
+          f"({schedule_text(kn, nsteps, False)}) against {k3b['ms']:.4f} "
+          f"with BFAST ({card})", flush=True)
+    del sims, s1, sn, st, ker, kn
+    torch.cuda.empty_cache()
+    return [k2w, k3b, k4b]
+
+
 def main() -> int:
     import shutil
     import torch
@@ -3306,7 +3640,7 @@ def main() -> int:
 
 
 def run_phases(twins, twins15) -> int:
-    """Phases 1-15 (the module docstring); `twins`, `twins15`: the CPU
+    """Phases 1-16 (the module docstring); `twins`, `twins15`: the CPU
     runs (start_cpu_twins, start_cpu_twins15)."""
     import numpy as np
     import torch
@@ -3638,11 +3972,13 @@ def run_phases(twins, twins15) -> int:
     phase_rotate(mp, dev, card, (k3, k4), twins)
     wrap = phase_periodic(mp, dev, card, main_ms, blank, twins)
     pair = phase_complex(mp, dev, card, main_ms, blank, twins15)
-    print(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s",
+    wrap2 = phase_wrap_bfast(mp, dev, card, blank, twins15)
+    print(f"[16] phases 1-16 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap + pair}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap + pair
+                      + wrap2}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

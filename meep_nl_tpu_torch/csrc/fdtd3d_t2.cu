@@ -99,9 +99,26 @@
 // K2_TY x K2_TZ that fits.  Variants: fp32 / fp64 (T), nonlinear or
 // linear items (NL), the standard uPML layout as compile-time values or
 // not (U), one pole or up to MAXPOL (NP), the linear register budget
-// (MINB), the fold ghosts of a y or z node mirror or not (MIR).  PERF.md
-// records tiles, shared memory and ptxas's registers and
-// spills for the driven plans.
+// (MINB), the fold ghosts of a y or z node mirror or not (MIR), the x
+// Bloch wrap or not (W).  PERF.md records tiles, shared memory and
+// ptxas's registers and spills for the driven plans.
+//
+// The x Bloch wrap (W; ops/periodicx.py::PeriodicXT2Kernel: linear items,
+// a real phase ph, live extent wn along x): the wrapper cuts the live
+// planes [0, wn) and the dead ones [wn, S0) into items of their own.  A
+// live item's region is not clipped along x: its halo planes p < 0 and
+// p >= wn are images, read from storage plane p mod wn times 1 / ph
+// (p < 0) or ph (p >= wn) wherever a stage reads the input state (E by
+// plain scaled loads, the other arrays at the site), its coefficients at
+// p mod wn without the phase, and no source or capture lands on an image
+// (the envelope keeps the sources two planes clear of the wrap).  So the
+// halo-in-time recompute runs across the wrap on chip, with no carry from
+// the host: the reference's stage-1 plane-0 E save and its wrap carries
+// (fdtd3d_t2.py:1627-1668, periodicx.py:447-505) are not needed.  A dead
+// item is clipped to [wn, S0) and reads zero across x (step._sh fills a
+// dead plane's x-neighbours with zeros).  The variant is built only for
+// linear items without a mirror (the envelope); the others are built
+// without it.
 
 // Host emulation: the site loops are block-stride loops, every cp.async
 // has a plain-copy twin, and tests/cuda_stub runs each block as one thread,
@@ -207,6 +224,10 @@ struct K2Args {
   // (step.mirror_ghost)
   int mir;
   int mk0[NCOMP][2], msg[NCOMP][2];
+  // the x Bloch wrap (W): the live extent along x (0: none), the phase
+  // and its inverse
+  int wn;
+  double wph, wphi;
 };
 
 struct Item {
@@ -231,6 +252,13 @@ struct Rings {
   __device__ __forceinline__ int plane(int role, int p) const {
     return (p % C->ns[role]) * C->pw[kind_of(role)];
   }
+  // the same for the planes of a wrapped item, which may be negative
+  template <bool W>
+  __device__ __forceinline__ int planew(int role, int p) const {
+    if (!W) return plane(role, p);
+    const int ns = C->ns[role], m = p % ns;
+    return (m < 0 ? m + ns : m) * C->pw[kind_of(role)];
+  }
   __device__ __forceinline__ T* at(int role, int c, int pl) const {
     return sm + C->off[role][c] + pl;
   }
@@ -252,6 +280,45 @@ struct Rings {
 
 __device__ __forceinline__ int coord3(int ax, int i, int j, int k) {
   return ax == 0 ? i : (ax == 1 ? j : k);
+}
+
+// where plane p of item I lies in the storage (W: the x Bloch wrap): its
+// storage plane px, whether it is an image across the wrap (virt: a live
+// item's plane p < 0 or p >= wn) and the scale of the input's values
+// there (1 / ph below, ph above, else 1); live: the item is a live one
+// (its x-neighbours exist), not a dead one (they read zero)
+template <typename T>
+struct XAt {
+  int px;
+  bool virt, live;
+  T sc;
+};
+
+template <typename T, bool W>
+__device__ __forceinline__ XAt<T> x_at(const K2Args& A, const Item& I,
+                                       int p) {
+  XAt<T> x = {p, false, true, T(1)};
+  if (W) {
+    x.live = I.i1 <= A.wn;
+    if (x.live && p < 0) {
+      x.px = p + A.wn;
+      x.virt = true;
+      x.sc = T(A.wphi);
+    } else if (x.live && p >= A.wn) {
+      x.px = p - A.wn;
+      x.virt = true;
+      x.sc = T(A.wph);
+    }
+  }
+  return x;
+}
+
+// the input state's value of array `a` at storage offset n (W: times the
+// plane's scale)
+template <typename T, bool W>
+__device__ __forceinline__ T ldx(const void* a, int n, T sc) {
+  const T v = ((const T*)a)[n];
+  return W ? sc * v : v;
 }
 
 // ---- sources and captures --------------------------------------------
@@ -437,7 +504,7 @@ __device__ __forceinline__ void fill_rows(const K2Args& A,
 
 // B <- curl E with the chains and the B-family sources, H <- W(u B); stage
 // s at plane p on the region (ys, zs)
-template <typename T, bool U>
+template <typename T, bool U, bool W>
 __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
                                         const Item& I, int tid, int s, int p,
                                         Span ys, Span zs) {
@@ -446,14 +513,21 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
   const bool last = s == A.depth;
   const bool xo = p >= I.i0 && p < I.i1;
   const T csgn = T(P.csgn);
-  const int pE = R.plane(R_E, p), pE1 = R.plane(R_E, p + 1);
-  const int pH = R.plane(R_H, p), pB = R.plane(R_B, p);
-  const Range sr = plane_range(A.src_ptr[0], p);
-  const Range cr = plane_range(A.cap_ptr, ((s - 1) * 2) * A.S0 + p);
+  const XAt<T> xa = x_at<T, W>(A, I, p);
+  const int px = xa.px;
+  const int pE = R.template planew<W>(R_E, p),
+            pE1 = R.template planew<W>(R_E, p + 1);
+  const int pH = R.template planew<W>(R_H, p),
+            pB = R.template planew<W>(R_B, p);
+  const Range none = {0, 0};
+  const Range sr = W && xa.virt ? none : plane_range(A.src_ptr[0], p);
+  const Range cr = W && xa.virt
+                       ? none
+                       : plane_range(A.cap_ptr, ((s - 1) * 2) * A.S0 + p);
   const int nz = zs.hi - zs.lo, cnt = (ys.hi - ys.lo) * nz;
   for (int r = tid; r < cnt; r += K2_NTHR) {
     const int j = ys.lo + r / nz, k = zs.lo + r % nz;
-    const int n = (p * S1 + j) * S2 + k;
+    const int n = (px * S1 + j) * S2 + k;
     const int oe = R.pos(G_E, j, k), o = R.pos(G_B, j, k);
     const bool own = last && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
                      k < I.k1;
@@ -472,10 +546,10 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
       uon[q] = false;
       if (!U && q >= P.ncurl) continue;
       const CurlP& c = P.curl[q];
-      uon[q] = u_on<U>(A.cb[q], q, p, j, k);
-      fo[q] = s == 1 ? ((const T*)c.f)[n] : R.at(R_B, q, pB)[o];
+      uon[q] = u_on<U>(A.cb[q], q, px, j, k);
+      fo[q] = s == 1 ? ldx<T, W>(c.f, n, xa.sc) : R.at(R_B, q, pB)[o];
       if (uon[q])
-        fuo[q] = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUB, q, pB)[o];
+        fuo[q] = s == 1 ? ldx<T, W>(c.fu, n, xa.sc) : R.at(R_FUB, q, pB)[o];
     }
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
@@ -484,10 +558,11 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
       const EhP& e = P.eh[q];
       const EhC& ec = A.eh[q];
       if (ec.has_u) us[q] = ((const T*)e.u)[n];
-      w[q] = w_of<T, U>(R, e, ec, q, q, p, j, k);
+      w[q] = w_of<T, U>(R, e, ec, q, q, px, j, k);
       if (w[q].on) {
-        w[q].f = s == 1 ? ((const T*)e.f)[n] : R.at(R_H, q, pH)[o];
-        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWH, q, pB)[o];
+        w[q].f = s == 1 ? ldx<T, W>(e.f, n, xa.sc) : R.at(R_H, q, pH)[o];
+        w[q].fw =
+            s == 1 ? ldx<T, W>(e.fw, n, xa.sc) : R.at(R_FWH, q, pB)[o];
       }
     }
     T f[NCOMP], fun[NCOMP];
@@ -510,13 +585,14 @@ __device__ __forceinline__ void b_plane(const K2Args& A, const Rings<T>& R,
         if (!hv[m]) continue;
         const T* here = R.at(R_E, g, pE);
         T nb;
-        if (ax == 0) nb = p + 1 < A.S0 ? R.at(R_E, g, pE1)[oe] : T(0);
+        if (ax == 0)
+          nb = (W ? xa.live : p + 1 < A.S0) ? R.at(R_E, g, pE1)[oe] : T(0);
         else nb = here[oe + (ax == 1 ? R.row(G_E) : 1)];
         dd[m] = nb - here[oe];
       }
       const T dfl = curl_delta<T>(hv[0], dd[0], hv[1], dd[1], csgn);
-      f[q] = chain<T, U>(R, c, cc, q, q, p, j, k, fo[q], dfl, uon[q], fuo[q],
-                         &fun[q]);
+      f[q] = chain<T, U>(R, c, cc, q, q, px, j, k, fo[q], dfl, uon[q],
+                         fuo[q], &fun[q]);
     }
     add_sources<T>(A, 0, s, sr, j, k, f);
     // H from the new B
@@ -586,7 +662,7 @@ __device__ __forceinline__ void ghost_plane(const K2Args& A,
 
 // D <- curl H with the chains and the D-family sources; on nonlinear
 // items also D - P (of the stage before) into its ring
-template <typename T, bool NL, bool U>
+template <typename T, bool NL, bool U, bool W>
 __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
                                         const Item& I, int tid, int s, int p,
                                         Span ys, Span zs) {
@@ -595,14 +671,21 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
   const bool last = s == A.depth;
   const bool xo = p >= I.i0 && p < I.i1;
   const T csgn = T(P.csgn);
-  const int pH = R.plane(R_H, p), pH0 = p > 0 ? R.plane(R_H, p - 1) : 0;
-  const int pD = R.plane(R_D, p), pF = R.plane(R_P, p);
+  const XAt<T> xa = x_at<T, W>(A, I, p);
+  const int px = xa.px;
+  // (W: the plane below exists on a live item, across the wrap too)
+  const int pH = R.template planew<W>(R_H, p),
+            pH0 = (W ? xa.live : p > 0) ? R.template planew<W>(R_H, p - 1)
+                                        : 0;
+  const int pD = R.template planew<W>(R_D, p),
+            pF = R.template planew<W>(R_P, p);
   const int pM = NL ? R.plane(R_M, p) : 0;
-  const Range sr = plane_range(A.src_ptr[1], p);
+  const Range none = {0, 0};
+  const Range sr = W && xa.virt ? none : plane_range(A.src_ptr[1], p);
   const int nz = zs.hi - zs.lo, cnt = (ys.hi - ys.lo) * nz;
   for (int r = tid; r < cnt; r += K2_NTHR) {
     const int j = ys.lo + r / nz, k = zs.lo + r % nz;
-    const int n = (p * S1 + j) * S2 + k;
+    const int n = (px * S1 + j) * S2 + k;
     const int ob = R.pos(G_B, j, k), o = R.pos(G_D, j, k);
     const bool own = last && xo && j >= I.j0 && j < I.j1 && k >= I.k0 &&
                      k < I.k1;
@@ -617,10 +700,10 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
       uon[q] = false;
       if (!U && q >= P.ncurl) continue;
       const CurlP& c = P.curl[q];
-      uon[q] = u_on<U>(A.cd[q], q, p, j, k);
-      fo[q] = s == 1 ? ((const T*)c.f)[n] : R.at(R_D, q, pD)[o];
+      uon[q] = u_on<U>(A.cd[q], q, px, j, k);
+      fo[q] = s == 1 ? ldx<T, W>(c.f, n, xa.sc) : R.at(R_D, q, pD)[o];
       if (uon[q])
-        fuo[q] = s == 1 ? ((const T*)c.fu)[n] : R.at(R_FUD, q, pD)[o];
+        fuo[q] = s == 1 ? ldx<T, W>(c.fu, n, xa.sc) : R.at(R_FUD, q, pD)[o];
     }
 #pragma unroll
     for (int q = 0; q < NCOMP; ++q) {
@@ -629,7 +712,7 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
         pv[q][pi] = T(0);
         if (!NL || (!U && q >= P.neh)) continue;
         if (pi < P.npol && ((A.ee[q].pols >> pi) & 1))
-          pv[q][pi] = s == 1 ? ((const T*)P.eh[q].pol[pi].p)[n]
+          pv[q][pi] = s == 1 ? ldx<T, W>(P.eh[q].pol[pi].p, n, xa.sc)
                              : R.at(R_P, q * MAXPOL + pi, pF)[R.pos(G_F, j,
                                                                     k)];
       }
@@ -654,12 +737,13 @@ __device__ __forceinline__ void d_plane(const K2Args& A, const Rings<T>& R,
         if (!hv[m]) continue;
         const T* here = R.at(R_H, g, pH);
         T nb;
-        if (ax == 0) nb = p > 0 ? R.at(R_H, g, pH0)[ob] : T(0);
+        if (ax == 0)
+          nb = (W ? xa.live : p > 0) ? R.at(R_H, g, pH0)[ob] : T(0);
         else nb = here[ob - (ax == 1 ? R.row(G_B) : 1)];
         dd[m] = here[ob] - nb;
       }
       const T dfl = curl_delta<T>(hv[0], dd[0], hv[1], dd[1], csgn);
-      f[q] = chain<T, U>(R, c, cc, q, 3 + q, p, j, k, fo[q], dfl, uon[q],
+      f[q] = chain<T, U>(R, c, cc, q, 3 + q, px, j, k, fo[q], dfl, uon[q],
                          fuo[q], &fun[q]);
     }
     add_sources<T>(A, 1, s, sr, j, k, f);
@@ -717,7 +801,7 @@ __device__ __forceinline__ T ring_sum4(const K2Args& A, const Rings<T>& R,
 
 // E <- chi1inv (D - P) with the chi3 Pade factor and the chi2 NR solve in
 // their boxes (nonlinear items), the W chain, the mask, the ADE
-template <typename T, bool NL, bool U, int NP>
+template <typename T, bool NL, bool U, int NP, bool W>
 __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
                                         const Item& I, int tid, int s, int p,
                                         Span ys, Span zs) {
@@ -725,16 +809,22 @@ __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
   const int S1 = A.S1, S2 = A.S2;
   const bool last = s == A.depth;
   const bool xo = p >= I.i0 && p < I.i1;
-  const int pE = R.plane(R_E, p), pD = R.plane(R_D, p);
-  const int pF = R.plane(R_P, p);
+  const XAt<T> xa = x_at<T, W>(A, I, p);
+  const int px = xa.px;
+  const int pE = R.template planew<W>(R_E, p),
+            pD = R.template planew<W>(R_D, p);
+  const int pF = R.template planew<W>(R_P, p);
   const int pm0 = NL && p > 0 ? R.plane(R_M, p - 1) : 0;
   const int pm1 = NL ? R.plane(R_M, p) : 0;
   const int pm2 = NL ? R.plane(R_M, p + 1) : 0;
-  const Range cr = plane_range(A.cap_ptr, ((s - 1) * 2 + 1) * A.S0 + p);
+  const Range none = {0, 0};
+  const Range cr =
+      W && xa.virt ? none
+                   : plane_range(A.cap_ptr, ((s - 1) * 2 + 1) * A.S0 + p);
   const int nz = zs.hi - zs.lo, cnt = (ys.hi - ys.lo) * nz;
   for (int r = tid; r < cnt; r += K2_NTHR) {
     const int j = ys.lo + r / nz, k = zs.lo + r % nz;
-    const int n = (p * S1 + j) * S2 + k;
+    const int n = (px * S1 + j) * S2 + k;
     const int oe = R.pos(G_E, j, k), od = R.pos(G_D, j, k),
               o = R.pos(G_F, j, k);
     const bool mine = xo && j >= I.j0 && j < I.j1 && k >= I.k0 && k < I.k1;
@@ -760,12 +850,12 @@ __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
       const EhC& ec = A.ee[q];
       if (ec.has_u) us[q] = ((const T*)e.u)[n];
       if (NL) {
-        in3[q] = e.chi3 && in_box(A.nl3[q], p, j, k);
+        in3[q] = e.chi3 && in_box(A.nl3[q], px, j, k);
         if (in3[q]) {
           x2[q] = ((const T*)e.chi2)[n];
           x3[q] = ((const T*)e.chi3)[n];
         }
-        innr[q] = e.nrchi2 && in_box(A.nlnr[q], p, j, k);
+        innr[q] = e.nrchi2 && in_box(A.nlnr[q], px, j, k);
         if (innr[q]) {
           nrc[q] = ((const T*)e.nrchi2)[n];
           nre[q] = ((const T*)e.nreps)[n];
@@ -774,17 +864,18 @@ __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
 #pragma unroll
       for (int pi = 0; pi < NP; ++pi) {
         if (pi >= P.npol || !((ec.pols >> pi) & 1)) continue;
-        pcur[q][pi] = s == 1 ? ((const T*)e.pol[pi].p)[n]
+        pcur[q][pi] = s == 1 ? ldx<T, W>(e.pol[pi].p, n, xa.sc)
                              : R.at(R_P, q * MAXPOL + pi, pF)[o];
-        pp[q][pi] = s == 1 ? ((const T*)e.pol[pi].pp)[n]
+        pp[q][pi] = s == 1 ? ldx<T, W>(e.pol[pi].pp, n, xa.sc)
                            : R.at(R_PP, q * MAXPOL + pi, pF)[o];
-        if (in_box(A.pol[q][pi], p, j, k))
+        if (in_box(A.pol[q][pi], px, j, k))
           sg[q][pi] = ((const T*)e.pol[pi].sigma)[n];
       }
-      w[q] = w_of<T, U>(R, e, ec, q, 3 + q, p, j, k);
+      w[q] = w_of<T, U>(R, e, ec, q, 3 + q, px, j, k);
       if (w[q].on) {
         w[q].f = R.at(R_E, q, pE)[oe];
-        w[q].fw = s == 1 ? ((const T*)e.fw)[n] : R.at(R_FWE, q, pF)[o];
+        w[q].fw =
+            s == 1 ? ldx<T, W>(e.fw, n, xa.sc) : R.at(R_FWE, q, pF)[o];
       }
     }
     // lin: chi1inv (D - P), the Pade factor in the chi3 box; on nonlinear
@@ -843,10 +934,10 @@ __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
       fnew[q] = T(0);
       if (!U && q >= P.neh) continue;
       fnew[q] = w_value<T>(lin[q], w[q]);
-      const T W = (U || A.ee[q].wax >= 0) ? lin[q] : fnew[q];
+      const T Wd = (U || A.ee[q].wax >= 0) ? lin[q] : fnew[q];
 #pragma unroll
       for (int pi = 0; pi < NP; ++pi)
-        pn[q][pi] = ade_value<T>(P, pi, W, sg[q][pi], pcur[q][pi],
+        pn[q][pi] = ade_value<T>(P, pi, Wd, sg[q][pi], pcur[q][pi],
                                  pp[q][pi]);
     }
     // the stores
@@ -879,22 +970,30 @@ __device__ __forceinline__ void e_plane(const K2Args& A, const Rings<T>& R,
 // ---- the x-march of one item -----------------------------------------
 
 // bring plane p of the input's E (every component) into its ring slot;
-// sites outside the storage read zero
-template <typename T>
+// sites outside the storage read zero; `in`: p is one of the item's
+// planes (W: an image across the wrap by plain loads times the plane's
+// scale)
+template <typename T, bool W>
 __device__ __forceinline__ void e_issue(const K2Args& A, const Rings<T>& R,
-                                        int tid, int p, int plo, int phi) {
-  if (p < plo || p >= phi || p < 0 || p >= A.S0) return;
+                                        const Item& I, int tid, int p,
+                                        int plo, int phi, bool in) {
+  if (p < plo || p >= phi || !in) return;
+  const XAt<T> xa = x_at<T, W>(A, I, p);
   const int rz = R.C->rz[G_E], pw = R.C->pw[G_E], below = R.C->below[G_E];
-  const int base = p * A.S1 * A.S2, pl = R.plane(R_E, p);
+  const int base = xa.px * A.S1 * A.S2, pl = R.template planew<W>(R_E, p);
   for (int q = 0; q < A.pd.neh; ++q) {
     const T* src = (const T*)A.pd.eh[q].f + base;
     T* dst = R.at(R_E, q, pl);
     for (int o = tid; o < pw; o += K2_NTHR) {
       const int j = R.j0 - below + o / rz, k = R.k0 - below + o % rz;
-      if (j >= 0 && j < A.S1 && k >= 0 && k < A.S2)
-        cp_async<T>(dst + o, src + j * A.S2 + k);
-      else
+      if (j >= 0 && j < A.S1 && k >= 0 && k < A.S2) {
+        if (W && xa.virt)
+          dst[o] = xa.sc * src[j * A.S2 + k];
+        else
+          cp_async<T>(dst + o, src + j * A.S2 + k);
+      } else {
         dst[o] = T(0);
+      }
     }
   }
 }
@@ -913,7 +1012,7 @@ __device__ __forceinline__ Span clip(int lo, int hi, int n) {
 // region, so grown, holds a chi2/chi3 site in its edge layer there, so
 // nothing reads D - P beyond it (ops/fdtd3d_t2.py::side_widths, regions,
 // march_order).
-template <typename T, bool NL, bool U, int NP, bool MIR>
+template <typename T, bool NL, bool U, int NP, bool MIR, bool W>
 __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
                                       const Item& I, T* sm, int tid) {
   constexpr int h = NL ? 2 : 1, n = h - 1, L = h;
@@ -934,12 +1033,19 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
   __syncthreads();
   const int plo = I.i0 - d * ga[0], phi = I.i1 + d * gb[0];
   const int t0 = plo, t1 = I.i1 + n + (d - 1) * L;
-  e_issue<T>(A, R, tid, t0, plo, phi);
+  // the x-planes the item may compute: the storage's; W: a live item's
+  // region is not clipped (its planes outside [0, wn) are images across
+  // the wrap), a dead item's is [wn, S0)
+  const bool live = W && I.i1 <= A.wn;
+  const auto inx = [&](int p) {
+    return W ? live || (p >= A.wn && p < A.S0) : p >= 0 && p < A.S0;
+  };
+  e_issue<T, W>(A, R, I, tid, t0, plo, phi, inx(t0));
   cp_commit();
-  e_issue<T>(A, R, tid, t0 + 1, plo, phi);
+  e_issue<T, W>(A, R, I, tid, t0 + 1, plo, phi, inx(t0 + 1));
   cp_commit();
   for (int t = t0; t < t1; ++t) {
-    e_issue<T>(A, R, tid, t + 2, plo, phi);
+    e_issue<T, W>(A, R, I, tid, t + 2, plo, phi, inx(t + 2));
     cp_commit();
     cp_wait1();
     __syncthreads();
@@ -949,14 +1055,13 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
       const int xlo = I.i0 - e * ga[0], xhi = I.i1 + e * gb[0];
       const int ylo = I.j0 - e * ga[1], yhi = I.j1 + e * gb[1];
       const int zlo = I.k0 - e * ga[2], zhi = I.k1 + e * gb[2];
-      if (b >= xlo - ga[0] && b < xhi + gb[0] - 1 && b >= 0 && b < A.S0) {
-        b_plane<T, U>(A, R, I, tid, s, b,
+      if (b >= xlo - ga[0] && b < xhi + gb[0] - 1 && inx(b)) {
+        b_plane<T, U, W>(A, R, I, tid, s, b,
                       clip(ylo - ga[1], yhi + gb[1] - 1, A.S1),
                       clip(zlo - ga[2], zhi + gb[2] - 1, A.S2));
         __syncthreads();
       }
-      if (b >= xlo - ga[0] + 1 && b < xhi + gb[0] - 1 && b >= 0 &&
-          b < A.S0) {
+      if (b >= xlo - ga[0] + 1 && b < xhi + gb[0] - 1 && inx(b)) {
         const Span dys = clip(ylo - ga[1] + 1, yhi + gb[1] - 1, A.S1);
         const Span dzs = clip(zlo - ga[2] + 1, zhi + gb[2] - 1, A.S2);
         // a block-uniform test: only items whose region meets a plane
@@ -966,14 +1071,14 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
             __syncthreads();
           }
         }
-        d_plane<T, NL, U>(A, R, I, tid, s, b, dys, dzs);
+        d_plane<T, NL, U, W>(A, R, I, tid, s, b, dys, dzs);
         // a linear E reads D only at its own site, which the same thread
         // updated (the D and E regions coincide)
         if (NL) __syncthreads();
       }
       const int pe = b - n;
-      if (pe >= xlo && pe < xhi && pe >= 0 && pe < A.S0) {
-        e_plane<T, NL, U, NP>(A, R, I, tid, s, pe, clip(ylo, yhi, A.S1),
+      if (pe >= xlo && pe < xhi && inx(pe)) {
+        e_plane<T, NL, U, NP, W>(A, R, I, tid, s, pe, clip(ylo, yhi, A.S1),
                               clip(zlo, zhi, A.S2));
         __syncthreads();
       }
@@ -987,14 +1092,14 @@ __device__ __forceinline__ void march(const K2Args& A, const K2Class& C,
 // site holds (a compile-time bound on P.npol: 1 or MAXPOL); MINB: the
 // blocks an SM should hold by their registers (2: at most 64 registers a
 // thread; the linear class's variant when two blocks' rings fit an SM)
-template <typename T, bool NL, bool U, int NP, int MINB, bool MIR>
+template <typename T, bool NL, bool U, int NP, int MINB, bool MIR, bool W>
 __global__ void __launch_bounds__(K2_NTHR, MINB)
 k2_kernel(const __grid_constant__ K2Args A) {
   T* sm = (T*)K2_SMEM;
   const int* it =
       (const int*)A.items + 8 * ((NL ? A.nitems[0] : 0) + blockIdx.x);
   const Item I = {it[0], it[1], it[2], it[3], it[4], it[5], it[6]};
-  march<T, NL, U, NP, MIR>(A, A.cls[NL ? 1 : 0], I, sm, threadIdx.x);
+  march<T, NL, U, NP, MIR, W>(A, A.cls[NL ? 1 : 0], I, sm, threadIdx.x);
 }
 
 // whether the plan has the standard uPML layout (u_ax1 ...) in both
@@ -1013,17 +1118,18 @@ static bool upml_layout(const K2Args& A) {
   return true;
 }
 
-template <typename T, bool NL, bool U, int NP, int MINB, bool MIR>
+template <typename T, bool NL, bool U, int NP, int MINB, bool MIR,
+          bool W = false>
 static int launch_m(const K2Args* a, cudaStream_t s) {
   const size_t smem = (size_t)a->cls[NL ? 1 : 0].words * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
-        k2_kernel<T, NL, U, NP, MINB, MIR>,
+        k2_kernel<T, NL, U, NP, MINB, MIR, W>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   void* args[] = {(void*)a};
-  cudaError_t rc = cudaLaunchKernel(k2_kernel<T, NL, U, NP, MINB, MIR>,
+  cudaError_t rc = cudaLaunchKernel(k2_kernel<T, NL, U, NP, MINB, MIR, W>,
                                     dim3((unsigned)a->nitems[NL ? 1 : 0]),
                                     dim3(K2_NTHR), args, smem, s);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
@@ -1051,6 +1157,14 @@ static int launch_c(const K2Args* a, cudaStream_t s) {
                : launch_v<T, NL, false, MAXPOL, 1>(a, s);
   } else {
     const bool two = a->pair != 0;
+    if (a->wn) {
+      // the x Bloch wrap: linear items, at most one pole, no mirror
+      if (u)
+        return two ? launch_m<T, NL, true, 1, 2, false, true>(a, s)
+                   : launch_m<T, NL, true, 1, 1, false, true>(a, s);
+      return two ? launch_m<T, NL, false, 1, 2, false, true>(a, s)
+                 : launch_m<T, NL, false, 1, 1, false, true>(a, s);
+    }
     if (u) {
       if (one)
         return two ? launch_v<T, NL, true, 1, 2>(a, s)
@@ -1092,14 +1206,16 @@ int mnt_k2_smem(int* out) {
 }
 
 // Launch item class `nl` (0 linear, 1 nonlinear) on `stream`, with the
-// uPML layout as compile-time values when the plan has it; the wrapper
+// uPML layout as compile-time values when the plan has it, the x Bloch
+// wrap's variant for an x-periodic plan (linear items only); the wrapper
 // puts the nonlinear class on a stream of higher priority, forked from and
 // joined back to the caller's, so that its few long blocks take SMs first
 // and the linear ones fill the rest.  Returns the cudaError, else 0.
 int mnt_k2_launch(const K2Args* a, int nl, int fp64, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (a->depth < 2 || a->depth > 3 || a->pd.npol > MAXPOL || has_nl(a->pb) ||
-      a->nitems[nl ? 1 : 0] == 0)
+      a->nitems[nl ? 1 : 0] == 0 ||
+      (a->wn && (nl || a->mir || a->pd.npol > 1)))
     return (int)cudaErrorInvalidValue;
   return fp64 ? (nl ? launch_c<double, true>(a, s)
                     : launch_c<double, false>(a, s))

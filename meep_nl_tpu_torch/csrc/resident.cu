@@ -110,6 +110,19 @@
 //     centred average's wrapped read rotated axis by axis as the plain
 //     version's passes; K4's products and series are (re, im) pairs of the
 //     complex weights (interleaved in A.pr.w) times the complex field.
+//   * BFAST (the fork's fixed-angle broadband term, step._bfast_update):
+//     a BFAST plan has complex fields, so it runs as a real pair, in the
+//     PAIR variant with the term compiled in (Tiling.direct = 5).  Right
+//     after a two-partner curl component's update at a site, the same
+//     thread updates its flip-flop auxiliary F (a state slot) and adds the
+//     change to f (and f_u) through the chains, channel by channel: A =
+//     (k1 pair(g+) - k2 pair(g-)) bftap, F_new = A - gam F_prev, delta =
+//     F_new - F_prev, pair(g) the partner plus its neighbour read as the
+//     curl reads it (across the wrap, zero off the grid), bftap a per-site
+//     coefficient slot, gam the chains' decay (kap - sig) siginv or,
+//     without a chain, the E/H component's W chain's (kapw - sigw) /
+//     (kapw + sigw) (A.bf, A.bt, A.bw, A.bk).  The term reads only the partners (not updated in this
+//     half) and the site's own arrays, so no barrier is added.
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -232,11 +245,19 @@ struct ResArgs {
   // buffer to channel 1's
   double wphim[3], wphii[3];
   i64 half;
+  // BFAST (the PAIR variant with the term, Tiling.direct 5; ops/resident.py
+  // _bfast_table): per family (0 B, 1 D) and curl component the slot
+  // tokens of F and of the taper (0: none; F 0: no term), the E/H
+  // component whose W chain gives the decay where the curl has no chain
+  // (-1: none), and k1, k2
+  i64 bf[2][NCOMP], bt[2][NCOMP], bw[2][NCOMP];
+  double bk[2][NCOMP][2];
 };
 
 // the direct schedule's ghost reads: none, the rotational folds' (ROT),
-// the Bloch wrap's (WRAP), the Bloch wrap of a real pair (PAIR)
-enum { GK_NONE = 0, GK_ROT = 1, GK_WRAP = 2, GK_PAIR = 3 };
+// the Bloch wrap's (WRAP), the Bloch wrap of a real pair (PAIR), the same
+// with BFAST's term (PAIRBF)
+enum { GK_NONE = 0, GK_ROT = 1, GK_WRAP = 2, GK_PAIR = 3, GK_PAIRBF = 4 };
 
 // the box a block stages in a pass: origin and extents in the grid
 struct Box {
@@ -541,16 +562,75 @@ __device__ __forceinline__ float diff_p(const float* sm, int g, int ax,
          v;
 }
 
+// BFAST's pair(g) of channel `ch` of a real pair (the PAIRBF variant):
+// the staged array at offset g plus its neighbour along ax, below it (D)
+// or above it (B), read as step._sh shifts: across a wrap of live extent
+// A.wn[ax] the far end times the phase (rotating the channels), zero off
+// the grid and from a dead plane
+template <bool IS_D>
+__device__ __forceinline__ float pair_p(const float* sm, int g, int ax,
+                                        int st, const Box& b, const Loc& x,
+                                        const ResArgs& A, int ch) {
+  const int n = (int)A.wn[ax];
+  const int c = coord_of(ax, x);
+  const float v = sm[g + x.l];
+  float nb;
+  if (IS_D) {
+    if (n == 0)
+      nb = c > 0 ? sm[g + x.l - st] : 0.0f;
+    else
+      nb = c == 0 ? wrap_pair(sm, g + x.l + (n - 1) * st, A, ch,
+                              (float)A.wphi[ax], (float)A.wphii[ax])
+                  : (c < n ? sm[g + x.l - st] : 0.0f);
+    return v + nb;
+  }
+  if (n == 0)
+    nb = c < b.n[ax] - 1 ? sm[g + x.l + st] : 0.0f;
+  else
+    nb = c < n - 1 ? sm[g + x.l + st]
+                   : (c == n - 1 ? wrap_pair(sm, g + x.l - (n - 1) * st, A,
+                                             ch, (float)A.wph[ax],
+                                             (float)A.wphim[ax])
+                                 : 0.0f);
+  return nb + v;
+}
+
+// one curl component's BFAST term (PAIRBF): offsets of F and the taper
+// (-1: none; F -1: no term), the W chain's vectors and axis (wax -1: no
+// decay from it), k1, k2
+struct BfT {
+  int F, tap, kw, sw, wax;
+  float k1, k2;
+};
+
+template <bool IS_D>
+__device__ __forceinline__ BfT bfast_of(const FamT& F, const ResArgs& A,
+                                        int q) {
+  const int fam = IS_D ? 1 : 0, vol = (int)A.tl.vol;
+  BfT t;
+  t.F = A.bf[fam][q] ? ((int)A.bf[fam][q] - 1) * vol : -1;
+  t.tap = A.bt[fam][q] ? ((int)A.bt[fam][q] - 1) * vol : -1;
+  const int w = (int)A.bw[fam][q];
+  t.wax = w >= 0 ? F.eh[w].w_ax : -1;
+  t.kw = w >= 0 ? F.eh[w].kapw : 0;
+  t.sw = w >= 0 ? F.eh[w].sigw : 0;
+  t.k1 = (float)A.bk[fam][q][0];
+  t.k2 = (float)A.bk[fam][q][1];
+  return t;
+}
+
 // step._curl_update of one component (q of its family) at one site; GK:
 // the D curl reads the rotational ghosts of A (GK_ROT), both curls read
 // across the Bloch wrap (GK_WRAP), channel `ch` of a real pair's across it
-// (GK_PAIR; sm is the channel's half of the buffer)
+// (GK_PAIR; sm is the channel's half of the buffer), and then adds
+// BFAST's term `bt` (GK_PAIRBF: step._bfast_update, in its order)
 template <bool IS_D, int GK>
 __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
                                        const Box& b, const Loc& x,
-                                       const ResArgs& A, int q, int ch = 0) {
+                                       const ResArgs& A, int q, int ch = 0,
+                                       const BfT* bt = nullptr) {
   float dp = 0.0f, dm = 0.0f;
-  if (GK == GK_PAIR) {
+  if (GK == GK_PAIR || GK == GK_PAIRBF) {
     if (c.gp >= 0)
       dp = diff_p<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x, A, ch);
     if (c.gm >= 0)
@@ -591,6 +671,38 @@ __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
   const float base = curl_value<float>(f, dfl, sig_on, sig_on, kap - sig,
                                        siginv, sigu_on, kapu - sigu, siginvu,
                                        fuo, &fun);
+  if (GK == GK_PAIRBF && bt->F >= 0) {
+    const float m = mask_t(c.alive, sm, x);
+    float a = 0.0f;
+    if (bt->k1 != 0.0f)
+      a = a + bt->k1 * pair_p<IS_D>(sm, c.gp, c.ap, c.stp, b, x, A, ch);
+    if (bt->k2 != 0.0f)
+      a = a - bt->k2 * pair_p<IS_D>(sm, c.gm, c.am, c.stm, b, x, A, ch);
+    if (bt->tap >= 0) a = a * sm[bt->tap + x.l];
+    // the decay (1 where nothing decays: 1 * F is F exactly)
+    float gam = 1.0f;
+    if (sig_on) gam = (kap - sig) * siginv;
+    if (sigu_on) {
+      const float g2 = (kapu - sigu) * siginvu;
+      gam = sig_on ? gam * g2 : g2;
+    }
+    if (!sig_on && !sigu_on && bt->wax >= 0) {
+      const int cw = coord_of(bt->wax, x);
+      const float kw = sm[bt->kw + cw], sw = sm[bt->sw + cw];
+      gam = (kw - sw) / (kw + sw);
+    }
+    const float fp = sm[bt->F + x.l];
+    const float fn = a - gam * fp;
+    float delta = fn - fp;
+    sm[bt->F + x.l] = fn;
+    if (sig_on) delta = delta * siginv;
+    if (sigu_on) {
+      sm[c.fu + x.l] = fun + delta;
+      delta = delta * siginvu;
+    }
+    sm[c.f + x.l] = (base * m + delta) * m;
+    return;
+  }
   if (sigu_on) sm[c.fu + x.l] = fun;
   sm[c.f + x.l] = base * mask_t(c.alive, sm, x);
 }
@@ -699,6 +811,13 @@ __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
   const float csgn = F.s.csgn;
   for (int q = 0; q < F.s.ncurl; ++q) {
     const CurlT c = F.curl[q];
+    if (GK == GK_PAIRBF) {
+      const BfT bt = bfast_of<IS_D>(F, A, q);
+      over(b, lo, hi, tm, [&](const Loc& x) {
+        curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q, ch, &bt);
+      });
+      continue;
+    }
     over(b, lo, hi, tm, [&](const Loc& x) {
       curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q, ch);
     });
@@ -1169,8 +1288,8 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
 // is the grid, sm = A.base): each sub-update runs channel 0 on sm and
 // channel 1 on sm + A.half before the grid barrier that ends it, with the
 // barriers of pass_steps; the step's K4 series row after the next
-// barrier
-template <bool PROBED>
+// barrier; GK: GK_PAIR, or GK_PAIRBF with BFAST's term after each curl
+template <bool PROBED, int GK>
 __device__ void pair_step(const ResArgs& A, const FamT (&tf)[2][2],
                           float* sm, const Box& b, const int* lo,
                           const int* hi, i64 s) {
@@ -1189,8 +1308,8 @@ __device__ void pair_step(const ResArgs& A, const FamT (&tf)[2][2],
     dlo[ax] = max(0, lo[ax]);
   }
   // B curl (+ H)
-  curl_all<false, GK_PAIR>(FB, sm, b, lo, bhi, tm, A, 0);
-  curl_all<false, GK_PAIR>(FB, sm1, b, lo, bhi, tm, A, 1);
+  curl_all<false, GK>(FB, sm, b, lo, bhi, tm, A, 0);
+  curl_all<false, GK>(FB, sm1, b, lo, bhi, tm, A, 1);
   if (!bsrc) {
     eh_all<false>(FB, sm, b, lo, bhi, tm);
     eh_all<false>(FB, sm1, b, lo, bhi, tm);
@@ -1205,8 +1324,8 @@ __device__ void pair_step(const ResArgs& A, const FamT (&tf)[2][2],
     bar<true>();
   }
   // D curl (+ E: site-local, pair fields carry no chi2/chi3)
-  curl_all<true, GK_PAIR>(FD, sm, b, dlo, bhi, tm, A, 0);
-  curl_all<true, GK_PAIR>(FD, sm1, b, dlo, bhi, tm, A, 1);
+  curl_all<true, GK>(FD, sm, b, dlo, bhi, tm, A, 0);
+  curl_all<true, GK>(FD, sm1, b, dlo, bhi, tm, A, 1);
   if (!dsrc) {
     eh_all<false>(FD, sm, b, dlo, bhi, tm);
     eh_all<false>(FD, sm1, b, dlo, bhi, tm);
@@ -1318,7 +1437,7 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
   }
   __syncthreads();
   const i64 npass = (A.nsteps + A.tl.T - 1) / A.tl.T;
-  if (DIRECT && GK == GK_PAIR) {
+  if (DIRECT && (GK == GK_PAIR || GK == GK_PAIRBF)) {
     int lo[3], hi[3];
     Box b;
     tile_box(A, 0, 1, lo, hi, b);
@@ -1327,7 +1446,7 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     __syncthreads();
     for (i64 s = 0; s < A.nsteps; ++s) {
       if (PROBED && s > 0) probe_sums_pair(A, s - 1);
-      pair_step<PROBED>(A, tf, (float*)A.base, b, lo, hi, s);
+      pair_step<PROBED, GK>(A, tf, (float*)A.base, b, lo, hi, s);
     }
     if (PROBED) probe_sums_pair(A, A.nsteps - 1);
     return;
@@ -1373,8 +1492,14 @@ static const void* kernel_dir(int direct) {
 // the variant; direct 2: the direct schedule with the rotational ghosts
 // (linear plans only: a fold declines chi2/chi3), else nullptr; direct 3:
 // the direct schedule with the Bloch wrap; direct 4: the direct schedule
-// of a real pair (linear plans only: pair fields refuse chi2/chi3)
+// of a real pair (linear plans only: pair fields refuse chi2/chi3); direct
+// 5: the same with BFAST's term
 static const void* kernel_of(int nl, int probed, int direct) {
+  if (direct == 5)
+    return nl ? nullptr
+              : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIRBF>
+                        : (const void*)k3_kernel<false, false, true,
+                                                 GK_PAIRBF>);
   if (direct == 4)
     return nl ? nullptr
               : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIR>
@@ -1434,7 +1559,7 @@ int mnt_k3_sms(void) {
 
 // the largest co-resident grid of the variant (nl, probed, direct: 0 tiles,
 // 1 the direct schedule, 2 with the rotational ghosts, 3 with the Bloch
-// wrap) with
+// wrap, 4 a real pair, 5 a real pair with BFAST) with
 // `smem` bytes of dynamic shared memory on the current device, after
 // allowing the variant that much there; or -cudaError.  The wrapper asks
 // once per device, variant and smem, and launches at most that many blocks.
@@ -1480,17 +1605,21 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
   }
   const Tiling& tl = host->tl;
   const int direct = (int)tl.direct;
-  if (direct < 0 || direct > 4) return (int)cudaErrorInvalidValue;
-  // rotational ghosts and the Bloch wrap only in their variants, which
-  // have them (the pair's with or without a wrap); the pair's channel 1
-  // past channel 0's half of the buffer
-  bool rot = false, wrap = false;
+  if (direct < 0 || direct > 5) return (int)cudaErrorInvalidValue;
+  // rotational ghosts, the Bloch wrap and BFAST only in their variants,
+  // which have them (the pair's with or without a wrap); the pair's
+  // channel 1 past channel 0's half of the buffer
+  bool rot = false, wrap = false, bfast = false;
   for (int q = 0; q < NCOMP; ++q)
     for (int m = 0; m < 2; ++m) rot = rot || host->gsrc[q][m] != 0;
   for (int ax = 0; ax < 3; ++ax) wrap = wrap || host->wn[ax] != 0;
-  if (rot != (direct == 2) || (direct != 4 && wrap != (direct == 3)))
+  for (int fam = 0; fam < 2; ++fam)
+    for (int q = 0; q < NCOMP; ++q) bfast = bfast || host->bf[fam][q] != 0;
+  const bool pair = direct == 4 || direct == 5;
+  if (rot != (direct == 2) || (!pair && wrap != (direct == 3)) ||
+      bfast != (direct == 5))
     return (int)cudaErrorInvalidValue;
-  if ((direct == 4) != (host->half > 0)) return (int)cudaErrorInvalidValue;
+  if (pair != (host->half > 0)) return (int)cudaErrorInvalidValue;
   if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const i64 ntile = tl.nt[0] * tl.nt[1] * tl.nt[2];

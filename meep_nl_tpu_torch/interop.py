@@ -34,12 +34,16 @@ def coefs_to_numpy(coefs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def state_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     """A numpy state tree ({"f", "f_u", "f_cond", "f_w": {comp: arr},
-    "pol": [{"p": {...}, "pp": {...}}], "dft": {...}, "t"}) -> the port's
-    state: tensors on `device` and an integer step counter."""
+    "pol": [{"p": {...}, "pp": {...}}], "dft": {...}, "t"}, and a BFAST
+    run's "f_bfast": {comp: arr}) -> the port's state: tensors on `device`
+    and an integer step counter."""
     out: Dict[str, Any] = {}
     for key in ("f", "f_u", "f_cond", "f_w", "dft"):
         out[key] = {c: _to_tensor(v, device)
                     for c, v in tree.get(key, {}).items()}
+    if "f_bfast" in tree:
+        out["f_bfast"] = {c: _to_tensor(v, device)
+                          for c, v in tree["f_bfast"].items()}
     out["pol"] = [{"p": {c: _to_tensor(v, device) for c, v in e["p"].items()},
                    "pp": {c: _to_tensor(v, device)
                           for c, v in e["pp"].items()}}
@@ -54,7 +58,8 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
         return v.detach().cpu().numpy()
 
     out: Dict[str, Any] = {key: {c: arr(v) for c, v in state[key].items()}
-                           for key in ("f", "f_u", "f_cond", "f_w", "dft")}
+                           for key in ("f", "f_u", "f_cond", "f_w", "dft",
+                                       "f_bfast") if key in state}
     out["pol"] = [{"p": {c: arr(v) for c, v in e["p"].items()},
                    "pp": {c: arr(v) for c, v in e["pp"].items()}}
                   for e in state["pol"]]

@@ -50,8 +50,14 @@ native complex64 on the CPU, the real pair (plan.real_pair: a leading
 (re, im) channel axis, real arithmetic) on the card, where the kernels
 take the pair as the reference's do; MNT_REAL_PAIR=1 asks for the pair
 on the CPU too and MNT_COMPLEX_NATIVE=1 for native complex everywhere.
-Getters return complex values then.  A 2D k.z (special_kz) and
-cylindrical cells raise NotImplementedError naming ROADMAP A9.
+Getters return complex values then.  `bfast_scaled_k=Vector3(...)`
+(simulation.py:370) runs the fork's BFAST: broadband oblique incidence at
+a fixed angle in one run (the stepper's flip-flop auxiliary f_bfast,
+step._bfast_update); its plan has complex fields, so on the card it runs
+as a real pair, on K3/K4's direct schedule where the resident route takes
+it (K1, K2 and K5 decline BFAST, as the reference's do).  A 2D k.z
+(special_kz) and cylindrical cells raise NotImplementedError naming
+ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -244,6 +250,7 @@ class Simulation:
                  symmetries: Sequence = (),
                  k_point=None,
                  force_complex_fields: bool = False,
+                 bfast_scaled_k=None,
                  device=None):
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
@@ -265,6 +272,9 @@ class Simulation:
         self.k_point = k_point
         #: step complex fields even where the phases are real
         self.force_complex_fields = force_complex_fields
+        #: BFAST's scaled transverse k (sin of the angle, per axis), or
+        #: None: off
+        self.bfast_scaled_k = bfast_scaled_k
         self.courant = Courant
         self.eps_averaging = eps_averaging
         self.subpixel_n = subpixel_n
@@ -706,6 +716,8 @@ class Simulation:
             live_e=live_e, live_h=live_h,
             boundaries=self._boundaries or None,
             complex_fields=True if self.force_complex_fields else None,
+            bfast_scaled_k=(tuple(_v3(self.bfast_scaled_k))
+                            if self.bfast_scaled_k is not None else None),
             mirror_node=tuple(m for m in self._mirrors
                               if m[0] in self._mirror_node),
             rot2=self._rot2, rot4=self._rot4,
@@ -1530,7 +1542,8 @@ class Simulation:
         self._state = {
             **st, "t": 0,
             **{k: {c: torch.zeros_like(v) for c, v in st[k].items()}
-               for k in ("f", "f_u", "f_cond", "f_w")},
+               for k in ("f", "f_u", "f_cond", "f_w", "f_bfast")
+               if k in st},
             "pol": [{k: {c: torch.zeros_like(v) for c, v in e[k].items()}
                      for k in ("p", "pp")} for e in st["pol"]]}
         self._t = 0

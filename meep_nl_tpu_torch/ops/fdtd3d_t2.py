@@ -67,11 +67,16 @@ ITEMS_PER_BLOCK = 4
 SMEM_H100 = 232448
 
 
-def supported(plan, depth: int = 2) -> bool:
+def supported(plan, depth: int = 2, allow_periodic_x: bool = False) -> bool:
     """The semantic envelope of the JAX package's fdtd3d_t2.supported
     (fdtd3d_t2.py:129-172): K1's envelope (`fdtd3d.supported`), `depth` 2 or
     3, at least two x-planes per stage, and the rings of the smallest item
-    within the card's shared memory.
+    within the card's shared memory.  `allow_periodic_x` admits an
+    x-periodic plan in K1's x-wrap envelope whose items are all linear
+    (no chi2/chi3 box), with at most one pole and at least 6 live x-planes
+    (more than a call's halo): the kernel's x-wrap variant (W in
+    csrc/fdtd3d_t2.cu), the reference's `periodic` mode of _build_call2
+    (fdtd3d_t2.py:204-214) as `periodicx.PeriodicXT2Kernel` drives it.
 
     Differences, all deliberate.  Dropped, because they describe the TPU
     kernel's blocking and not the function: the VMEM budgets of `_pick_bx`
@@ -85,7 +90,11 @@ def supported(plan, depth: int = 2) -> bool:
     stage lacks the full mu-inverse; every stage here reads the coefficient
     arrays at the site's true index, so mu != 1 runs.  The number of
     sources is not limited, as in the reference."""
-    if depth not in (2, 3) or not fdtd3d.supported(plan):
+    if depth not in (2, 3) or not fdtd3d.supported(plan, allow_periodic_x):
+        return False
+    if plan.periodic[0] and (_nl_box(plan) is not None
+                             or len(plan.pol_specs_e) > 1
+                             or plan.gv.num[0] < 6):
         return False
     S0 = tuple(plan.storage_shape or plan.gv.shape)[0]
     if S0 < 2 * depth:
@@ -376,7 +385,8 @@ def _tiles(most):
     return sorted(cand, key=lambda t: (-t[0] * t[1], t[0] + t[1]))
 
 
-def plan_items(plan, depth: int, most, budgets, ch=None, blocks=1):
+def plan_items(plan, depth: int, most, budgets, ch=None, blocks=1,
+               xcut=None):
     """The items of one call and the two classes' layouts: y-z tiles of at
     most `most` sites cut as evenly as the storage allows, x-chunks of `ch`
     planes (default: ITEMS_PER_BLOCK items for each of the `blocks` linear
@@ -390,7 +400,9 @@ def plan_items(plan, depth: int, most, budgets, ch=None, blocks=1):
     spread all of these evenly over the card's SMs (one nonlinear block an
     SM), the planes before and after linear items in chunks.  Each class
     takes the largest tile whose rings fit its budget (bytes; `budgets` =
-    (linear, nonlinear)).  Returns (items as an (n, 8) int32 array, the
+    (linear, nonlinear)).  `xcut` (an x-periodic plan's live extent): no
+    item spans it, the live planes and the dead ones are cut into chunks
+    of their own.  Returns (items as an (n, 8) int32 array, the
     linear ones first, [linear layout or None, nonlinear layout or None],
     chunk length, items per class, the linear tile)."""
     shape = tuple(plan.storage_shape or plan.gv.shape)
@@ -417,8 +429,10 @@ def plan_items(plan, depth: int, most, budgets, ch=None, blocks=1):
         else:
             chunk = int(ch)
         cols = {(y, z): hot(y, z) for y in ys for z in zs}
+        spans = [(0, shape[0])] if xcut is None else \
+            [(0, xcut), (xcut, shape[0])]
         lin0 = [(x, *c) for c, h in cols.items() if h is None
-                for x in _splits_in((0, shape[0]), chunk)]
+                for span in spans for x in _splits_in(span, chunk)]
         cands = [t for t in _tiles(tl) if t[0] <= tl[0] and t[1] <= tl[1]]
         hot_cols = [(c, h) for c, h in cols.items() if h is not None]
         for tn in (cands if hot_cols else [tl]):
@@ -519,7 +533,9 @@ class _K2Args(ctypes.Structure):
                    ("pair", _I)]
                 + [(n, _I) for n in ("depth", "S0", "S1", "S2", "nsrc",
                                      "mir")]
-                + [("mk0", (_I * 2) * NCOMP), ("msg", (_I * 2) * NCOMP)])
+                + [("mk0", (_I * 2) * NCOMP), ("msg", (_I * 2) * NCOMP),
+                   ("wn", _I), ("wph", ctypes.c_double),
+                   ("wphi", ctypes.c_double)])
 
 
 def _lib():
@@ -628,13 +644,18 @@ class Fdtd3dT2Kernel:
     """`depth` steps per call for one plan (the counterpart of the JAX
     package's Fdtd3dT2Kernel).  `cap_planes`: [(comp, x)] monitor planes
     whose intermediate stages `capture_step` returns; `ch`: x-planes per
-    item (default: `plan_items`' choice)."""
+    item (default: `plan_items`' choice); `allow_periodic_x`: take an
+    x-periodic plan (`supported`), whose calls read across the wrap."""
 
-    def __init__(self, plan, depth: int = 2, cap_planes=None, ch=None):
-        if not supported(plan, depth):
+    def __init__(self, plan, depth: int = 2, cap_planes=None, ch=None,
+                 allow_periodic_x: bool = False):
+        if not supported(plan, depth, allow_periodic_x):
             raise ValueError("plan outside the fdtd3d_t2 kernel envelope")
         self.plan = plan
         self.depth = depth
+        #: the x wrap: (live extent, real phase), or None
+        self.wrap = (plan.gv.num[0], float(np.real(plan.bloch_phase[0]))) \
+            if plan.periodic[0] else None
         self.k3 = None                    # hybrid.py: the depth-3 companion
         self._k1 = k1_of(plan)
         self.shape = self._k1.shape
@@ -805,8 +826,9 @@ class Fdtd3dT2Kernel:
         for pair, lin in ((0, one), (1, two)):
             A.pair = pair
             try:
-                plans[pair] = plan_items(self.plan, self.depth, lib.mnt_tile,
-                                         (lin, one), self.ch, 1 + pair)
+                plans[pair] = plan_items(
+                    self.plan, self.depth, lib.mnt_tile, (lin, one), self.ch,
+                    1 + pair, xcut=self.wrap[0] if self.wrap else None)
             except ValueError:
                 if pair == 0:
                     raise
@@ -831,6 +853,9 @@ class Fdtd3dT2Kernel:
         A.nsrc = len(plan.sources)
         self._compact(A)
         set_mirror(A, plan, [s.ec for s in plan.eh_specs_h])
+        if self.wrap is not None:
+            A.wn, ph = self.wrap
+            A.wph, A.wphi = ph, 1.0 / ph
         items, lays, ch, counts = self._items(lib, A)
         A.nitems[0], A.nitems[1] = counts
         for ci, lay in enumerate(lays):

@@ -36,9 +36,11 @@ as in the reference (hybrid.py:71): y/z node mirrors run every route above
 both kernels and runs on the eager stepper.  A plan Bloch-periodic along x
 with a real phase takes the periodic drivers of ops/periodicx.py in the
 reference's order (hybrid.py:79-113): the ghost ring (K2 on an extended
-aperiodic plan, with its depth-3 companion) where it applies, else K1's x
-wrap behind the two-step adapter; a plan periodic along y or z runs on the
-eager stepper, as in the reference.  Complex fields (real-pair storage,
+aperiodic plan, with its depth-3 companion) where it applies, then
+PeriodicXT2Kernel (K2's x-wrap variant at depth 2: a monitored linear
+plan runs d // 2 of its calls and d % 2 K1 steps a cycle of d steps),
+else K1's x wrap behind the two-step adapter; a plan periodic along y or
+z runs on the eager stepper, as in the reference.  Complex fields (real-pair storage,
 an arbitrary x phase) take the pair drivers first, in the reference's
 order (hybrid.py:93-104): the pair ghost ring with its depth-3 companion,
 then K1's pair wrap; their monitored stretches read the DTFT from the
@@ -140,10 +142,10 @@ def _get_kernel(plan):
     """The deepest fused kernel covering this plan: K2 at depth 2 with a
     depth-3 companion `k3` where the plan admits it, else K1 behind the
     two-step adapter (hybrid.py:119-141); for an x-periodic plan the ghost
-    ring at depth 2 with its depth-3 companion, else K1's x wrap behind
-    the adapter (hybrid.py:79-113), for complex fields the same on the
-    pair (the ring with two channels, K1's pair wrap).  Cached on the
-    plan."""
+    ring at depth 2 with its depth-3 companion, then PeriodicXT2Kernel
+    (K2's x wrap at depth 2), else K1's x wrap behind the adapter
+    (hybrid.py:79-113), for complex fields the ring with two channels or
+    K1's pair wrap.  Cached on the plan."""
     ker = plan.__dict__.get("_t2_kernel")
     if ker is None:
         if any(plan.periodic):
@@ -151,6 +153,8 @@ def _get_kernel(plan):
                 ker = periodicx.PeriodicGhostT2Kernel(plan, depth=2)
                 if periodicx.periodic_ghost_supported(plan, depth=3):
                     ker.k3 = periodicx.PeriodicGhostT2Kernel(plan, depth=3)
+            elif periodicx.periodic_t2_supported(plan):
+                ker = periodicx.PeriodicXT2Kernel(plan)
             else:
                 ker = _K1Adapter(fdtd3d_t2.k1_of(plan))
         elif fdtd3d_t2.supported(plan, depth=2):

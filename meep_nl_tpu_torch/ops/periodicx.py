@@ -15,19 +15,25 @@ picks them in the reference's order (hybrid.py:79-113):
     right: its first).  A K2 call of depth d moves the corruption from the
     extended grid's edges at most a few planes a step, which dies inside
     the margin;
+  * `PeriodicXT2Kernel` (:540-655), for linear plans the ghost ring
+    declines (those with DFT monitors: the usual periodic 3D run, a
+    grating or metasurface with a flux plane) within
+    `periodic_t2_supported` (:507-537): K2 at depth 2 in its x-wrap
+    variant (W in csrc/fdtd3d_t2.cu), a chunk at the wrap reading its
+    halo across it, the odd step through K1's x wrap;
   * K1's x-wrap variant (`PeriodicXKernel`, :109-228) behind the two-step
     adapter, for everything else in its envelope (`periodic_supported`,
     :82-106): the B launch reads plane num as ph E(0), the D launch plane
     -1 as (1 / ph) H(num - 1) (WRAP in csrc/fdtd3d.cu).
 
 Not copied: the reference's ghost-plane refresh and wrap carry of the
-x-wrap driver (`fused_mesh.carry_plane`, `boundary_statics`, `strip.py`):
-K1 runs B, D and E as separate launches, so the D launch reads the
-H(num - 1) the B launch has written, and the dead planes from num on are
-never written (there is no ghost residue to kill: `to_full` is the
-identity, as K1's).  `PeriodicXT2Kernel` (:540-655), the reference's
-choice for linear monitored plans, needs K2's periodic mode (ROADMAP
-B1.2); this port takes K1's x wrap there, which is exact (ROADMAP C.2).
+x-wrap drivers (`fused_mesh.carry_plane`, `boundary_statics`, `strip.py`,
+`wrap2_carries` :447-505): K1 runs B, D and E as separate launches, so
+the D launch reads the H(num - 1) the B launch has written; K2's items
+recompute their halo planes across the wrap from the input state (the
+halo-in-time pattern, done on chip), so no carry comes from the host; and
+the dead planes from num on are stepped as the stepper steps them (there
+is no ghost residue to kill: `to_full` is the identity, as K1's).
 
 Complex phases ride the real pair (the reference's :225-420, :929-1127):
 every coefficient is real, so the (re, im) channels step as two real
@@ -79,6 +85,53 @@ def periodic_supported(plan) -> bool:
     plan."""
     return plan.gv.dim == "3d" and bool(plan.periodic[0]) \
         and fdtd3d.supported(plan, allow_periodic_x=True)
+
+
+def _has_disp(plan) -> bool:
+    """Dispersive or nonlinear media (the reference's fdtd3d._has_disp)."""
+    return bool(plan.pol_specs_e or plan.pol_specs_h
+                or any(s.has_chi3 or s.has_nr
+                       for s in plan.eh_specs_e + plan.eh_specs_h))
+
+
+def periodic_t2_supported(plan) -> bool:
+    """The envelope of `PeriodicXT2Kernel` (the reference's
+    periodic_t2_supported, periodicx.py:507-537): K1's x-wrap envelope
+    (3D, periodic along x only with a real phase, no node mirror), linear
+    (no pole, no chi2/chi3), no mu != 1 on the H family (has_u), every
+    source entry at least 2 planes clear of both wrap planes (a halo plane
+    across the wrap is an image of the state, which carries no source),
+    and K2's envelope with the x wrap (`fdtd3d_t2.supported(plan, 2,
+    allow_periodic_x=True)`, which asks for at least 6 live x-planes).  Dropped, as
+    they describe the TPU kernel's blocking: `lo_blocks`, `hi_block0`, at
+    least two x-blocks and `_pick_bx`; K2's items cut the live planes and
+    the dead ones apart whatever the chunk length."""
+    if not periodic_supported(plan) or _has_disp(plan):
+        return False
+    if any(s.has_u for s in plan.eh_specs_h):
+        return False
+    num0 = plan.gv.num[0]
+    for s in plan.sources:
+        idx = np.asarray(s.indices)
+        if np.any((idx[:, 0] < 2) | (idx[:, 0] > num0 - 3)):
+            return False
+    return fdtd3d_t2.supported(plan, 2, allow_periodic_x=True)
+
+
+class PeriodicXT2Kernel(fdtd3d_t2.Fdtd3dT2Kernel):
+    """Two steps a call across an x-Bloch wrap with a real phase
+    (periodicx.py:540-655): K2 at depth 2 in its x-wrap variant, the live
+    planes [0, num) and the dead ones in items of their own, an item at
+    the wrap recomputing its halo planes as images of the far end times
+    the phase.  `run` takes the residue of an odd count through K1's x
+    wrap (`_k1`, the reference's `_k1` too); `k3` is None (no depth-3
+    companion, as the reference's).  Its plain version is `steps_ref`:
+    two eager steps, which wrap through step._sh."""
+
+    def __init__(self, plan, ch=None):
+        if not periodic_t2_supported(plan):
+            raise ValueError("plan outside the periodic t2 envelope")
+        super().__init__(plan, depth=2, ch=ch, allow_periodic_x=True)
 
 
 class PeriodicXKernel(fdtd3d.Fdtd3dKernel):

@@ -16,7 +16,9 @@ C4) and Bloch-periodic plans always take the direct schedule, whose D
 curl reads the fold ghosts, and whose curls and centred DTFT read the
 wrap planes, anywhere on the grid; complex fields in real-pair storage
 take the direct schedule's PAIR variant, both channels in one buffer,
-the channels mixed where the wrap's complex phase rotates them.  What it
+the channels mixed where the wrap's complex phase rotates them, and a BFAST
+plan (always complex, so a pair on the card) its PAIR_BFAST variant, which
+adds the flip-flop term after each curl.  What it
 computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
@@ -50,6 +52,9 @@ Simulation makes one: it rejects them, as the reference's does), and on a
 Bloch-periodic axis (real phases: k = 0 or the zone edge; complex ones
 take the real pair, which has no chi2/chi3) chi2/chi3 support boxes clear
 of the wrap planes (their neighbour sums do not wrap here, ROADMAP B3).
+BFAST runs only as a real pair (the PAIR_BFAST variant; K1, K2 and K5
+decline it, as the reference's do, so a BFAST plan above the budget runs on
+the eager stepper).
 Folds: node mirrors on every axis, Rotate2 and Rotate4; a real pair with
 a rotational fold (force_complex_fields and Rotate2; the kernel builds
 the rotational ghosts without the pair) is declined and runs on the
@@ -70,8 +75,9 @@ import torch
 
 from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
-from ..stepper.step import (ProbeSpec, _is_pair, build_xs, check_supported,
-                            mirror_ghost, rot2_ghost, rot4_ghost, run)
+from ..stepper.step import (ProbeSpec, _is_pair, bfast_ks, bfast_specs,
+                            build_xs, check_supported, mirror_ghost,
+                            rot2_ghost, rot4_ghost, run)
 
 #: the reference's VMEM budget for 2x state (resident.py:50); on the H100
 #: the state lives in device memory, so this is a routing rule, not a limit
@@ -89,7 +95,8 @@ def resident_plan(plan):
     """A shallow clone of `plan` prepared for in-kernel stepping
     (resident.py:60-97): full-grid chain updates, dense pre-scattered source
     arrays (built in float64, then cast), frequency-major DTFT
-    accumulators.  Cached on the plan."""
+    accumulators, BFAST's tapers expanded to the grid (the kernel reads
+    them per site; the values are the plan's).  Cached on the plan."""
     cached = plan.__dict__.get("_resident_plan")
     if cached is not None:
         return cached
@@ -119,6 +126,8 @@ def resident_plan(plan):
         for key, arr in (("dense_re", dre), ("dense_im", dim_)):
             coefs[f"src{si}:{key}"] = torch.as_tensor(
                 arr.astype(plan.dtype), device=plan.device)
+    for key in [k for k in coefs if k.endswith(":bftap")]:
+        coefs[key] = coefs[key].expand(shape).contiguous()
     p.coefs = coefs
     plan._resident_plan = p
     return p
@@ -135,6 +144,8 @@ def _state_bytes(plan) -> int:
     n = N * (len(curls) + len(ehs))
     n += N * sum(1 for s in curls if s.dsigu_axis is not None)
     n += N * sum(1 for s in ehs if s.dsigw_axis is not None)
+    if plan.bfast_k is not None:
+        n += N * len(bfast_specs(plan))
     for p in plan.pol_specs_e + plan.pol_specs_h:
         comps = {c for (c, d) in p.sigma if d == G.component_direction(c)}
         n += 2 * N * len(comps)
@@ -165,6 +176,8 @@ def resident_supported(plan) -> bool:
         return False
     if plan.complex_fields and not plan.real_pair:
         return False                     # native complex storage
+    if plan.bfast_k is not None and not _is_pair(plan):
+        return False                     # BFAST's term: the pair's variant
     if _is_pair(plan) and _rotational(plan):
         return False
     if not _is_pair(plan) and any(isinstance(ph, complex)
@@ -344,8 +357,9 @@ def tiling(shape, nslot: int, nstate: int, c: int, e, nloops: int,
 
 #: the direct schedule's variants (Tiling.direct): plain, with the
 #: rotational fold ghosts, with the Bloch wrap, a real pair (with or
-#: without the wrap)
-DIRECT, DIRECT_ROT, DIRECT_WRAP, DIRECT_PAIR = 1, 2, 3, 4
+#: without the wrap), a real pair with BFAST's term
+DIRECT, DIRECT_ROT, DIRECT_WRAP, DIRECT_PAIR, DIRECT_PAIR_BFAST = \
+    1, 2, 3, 4, 5
 
 
 def direct_tiling(shape, c: int, e, variant: int = DIRECT
@@ -366,7 +380,7 @@ def direct_tiling(shape, c: int, e, variant: int = DIRECT
 def direct_variant(plan) -> int:
     """The direct schedule's variant a plan needs."""
     if _is_pair(plan):
-        return DIRECT_PAIR
+        return DIRECT_PAIR if plan.bfast_k is None else DIRECT_PAIR_BFAST
     if _rotational(plan):
         return DIRECT_ROT
     return DIRECT_WRAP if any(plan.periodic) else DIRECT
@@ -458,7 +472,9 @@ class _ResArgs(ctypes.Structure):
          for n in ("gsrc", "goff", "gmul", "gax", "glim")] + \
         [("wn", _I * 3), ("wph", ctypes.c_double * 3),
          ("wphi", ctypes.c_double * 3), ("wphim", ctypes.c_double * 3),
-         ("wphii", ctypes.c_double * 3), ("half", _I)]
+         ("wphii", ctypes.c_double * 3), ("half", _I)] + \
+        [(n, (_I * fdtd3d.NCOMP) * 2) for n in ("bf", "bt", "bw")] + \
+        [("bk", ((ctypes.c_double * 2) * fdtd3d.NCOMP) * 2)]
 
 
 def set_ghosts(A, plan, slot):
@@ -575,13 +591,15 @@ class _Tok:
 
 def state_paths(plan):
     """The state arrays K3/K4 stage, in slot order: ("f", c), ("f_u", c),
-    ("f_w", c), ("pol", index, "p" or "pp", c) -- the keys of
-    step.init_state's state."""
+    ("f_w", c), ("f_bfast", c), ("pol", index, "p" or "pp", c) -- the
+    keys of step.init_state's state."""
     curls = plan.curl_specs_d + plan.curl_specs_b
     ehs = plan.eh_specs_e + plan.eh_specs_h
     paths = [("f", s.c) for s in curls] + [("f", s.ec) for s in ehs]
     paths += [("f_u", s.c) for s in curls if s.dsigu_axis is not None]
     paths += [("f_w", s.ec) for s in ehs if s.dsigw_axis is not None]
+    if plan.bfast_k is not None:
+        paths += [("f_bfast", s.c) for s in bfast_specs(plan)]
     for pi, p in enumerate(plan.pol_specs_e + plan.pol_specs_h):
         comps = sorted({c for (c, d) in p.sigma
                         if d == G.component_direction(c)})
@@ -596,8 +614,8 @@ def _get(state, path):
 
 def _with(state, paths, tensors):
     """`state` with the arrays at `paths` replaced by `tensors`."""
-    out = {**state, "f": dict(state["f"]), "f_u": dict(state["f_u"]),
-           "f_w": dict(state["f_w"]),
+    out = {**state, **{key: dict(state[key]) for key in _KEYS
+                       if key in state},
            "pol": [{k: dict(e[k]) for k in ("p", "pp")}
                    for e in state["pol"]]}
     for path, t in zip(paths, tensors):
@@ -606,6 +624,10 @@ def _with(state, paths, tensors):
         else:
             out[path[0]][path[1]] = t
     return out
+
+
+#: the state's dicts of per-component arrays a launch reads and writes
+_KEYS = ("f", "f_u", "f_w", "f_bfast")
 
 
 def _swap_pols(state):
@@ -719,7 +741,7 @@ class ResidentKernel:
             return t
 
         out = {**state}
-        for key in ("f", "f_u", "f_w"):
+        for key in [k for k in _KEYS if k in state]:
             out[key] = {c: own(t, f"{key}[{c}]")
                         for c, t in state[key].items()}
         out["pol"] = [{k: {c: own(t, f"pol[{pi}][{k}][{c}]")
@@ -743,7 +765,7 @@ class ResidentKernel:
         paths = state_paths(rp)
         tok = {p: _Tok(k) for k, p in enumerate(paths)}
         npol = len(rp.pol_specs_e + rp.pol_specs_h)
-        view = {"f": {}, "f_u": {}, "f_w": {},
+        view = {"f": {}, "f_u": {}, "f_w": {}, "f_bfast": {},
                 "pol": [{"p": {}, "pp": {}} for _ in range(npol)]}
         for p in paths:
             if p[0] == "pol":
@@ -781,6 +803,8 @@ class ResidentKernel:
                     for ax in range(3):
                         cp.alive[ax] = self._vec_tok(cp.alive[ax], ax, vecs)
                 out.append(P)
+        self._bfast = self._bfast_table({p: k for k, p in enumerate(paths)},
+                                        coef)
         # the tensors behind the addresses the parameter blocks hold
         known = list(rp.coefs.values()) + [
             t for vv in rp.__dict__.get("_alive_cache", {}).values()
@@ -801,6 +825,39 @@ class ResidentKernel:
                                 device=self.plan.device)
         self._layout_ = (paths, pb, pd, coef, vec_t, table)
         return self._layout_
+
+    def _bfast_table(self, slot, coef):
+        """BFAST's terms for the argument block (the PAIR_BFAST variant):
+        per family (0 B, 1 D) and curl component q, [slot token of F, slot
+        token of the taper (0: none), the E/H component whose W chain gives
+        the decay where the curl has no chain (-1: none), k1, k2];
+        components without a term get zeros (step._bfast_update)."""
+        rp = self.rplan
+        out = {}
+        if rp.bfast_k is None:
+            return out
+        two = {s.c for s in bfast_specs(rp)}
+        for fam, specs, ehs in ((0, rp.curl_specs_b, rp.eh_specs_h),
+                                (1, rp.curl_specs_d, rp.eh_specs_e)):
+            for q, spec in enumerate(specs):
+                if spec.c not in two:
+                    continue
+                k1, k2 = bfast_ks(rp, spec)
+                if k1 == 0.0 and k2 == 0.0:
+                    continue
+                c = spec.c
+                tap = 0
+                if f"{c}:bftap" in rp.coefs:
+                    tap = self._coef_tok(rp.coefs[f"{c}:bftap"].data_ptr(),
+                                         len(slot), coef)
+                w = -1
+                if spec.dsig_axis is None and spec.dsigu_axis is None:
+                    ec = ("e" if c[0] == "d" else "h") + c[1]
+                    if f"{ec}:sigw" in rp.coefs:
+                        w = [s.ec for s in ehs].index(ec)
+                out[fam, q] = (slot[("f_bfast", c)] + 1, tap, w,
+                               float(k1), float(k2))
+        return out
 
     @staticmethod
     def _vec_tok(addr, ax, vecs):
@@ -871,7 +928,8 @@ class ResidentKernel:
         if nslot <= MAXSLOT and variant == DIRECT:
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
-        if tl is None or tl["T"] == 1 or variant == DIRECT_PAIR:
+        if tl is None or tl["T"] == 1 or variant in (DIRECT_PAIR,
+                                                     DIRECT_PAIR_BFAST):
             tl = direct_tiling(shape, c, e, variant)
         self.schedule = (key, tl)
         return tl
@@ -1201,6 +1259,11 @@ class ResidentKernel:
         A.nsteps = n
         A.e_local = int(tl["c"] == 1)
         set_ghosts(A, rp, slot)
+        for fam in (0, 1):
+            for q in range(fdtd3d.NCOMP):
+                A.bf[fam][q], A.bt[fam][q], A.bw[fam][q], k1, k2 = \
+                    self._bfast.get((fam, q), (0, 0, -1, 0.0, 0.0))
+                A.bk[fam][q][0], A.bk[fam][q][1] = k1, k2
         args = up_table(A)
         rc = lib.mnt_k3_launch(ctypes.byref(A), args, blocks, tl["smem"],
                                torch.cuda.current_stream().cuda_stream)
@@ -1286,8 +1349,8 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     once and written once, the coefficients and per-step tables read once
     (`bytes`); per site and step the arithmetic of the per-site functions
     (curl + chains ~12 per D/B component, E/H update ~6 per component, the
-    NR solve ~150 and the ADE ~8 per material site), the sources and the
-    DTFT (`ops`).  `stream_bytes` is what a kernel that kept nothing on
+    NR solve ~150 and the ADE ~8 per material site, BFAST's term ~16 per
+    component that has one), the sources and the DTFT (`ops`).  `stream_bytes` is what a kernel that kept nothing on
     chip between steps would move per step: the state read and written and
     the coefficients read."""
     rp = resident_plan(plan)
@@ -1321,7 +1384,12 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
         (4 + 4 * len(m.freqs)) if f"dft{mi}:w" in rp.coefs and not pair
         else (5 + 8 * len(m.freqs))) for mi, m in enumerate(rp.dfts))
     ch = 2 if pair else 1
-    ops_step = ch * (18 * ncomp * N + 8 * pol) + 150 * nl + region
+    # BFAST: two partner sums, two scaled terms, the taper, the decay and
+    # the flip-flop, the chains' scaling of the change, f and f_u
+    nbf = 0 if rp.bfast_k is None else sum(
+        1 for s in bfast_specs(rp) if any(bfast_ks(rp, s)))
+    ops_step = ch * (18 * ncomp * N + 8 * pol + 16 * nbf * N) + 150 * nl \
+        + region
     return {"bytes": float(2 * state + coef + table),
             "ops": float(nsteps * ops_step),
             "stream_bytes": float(2 * state + coef)}

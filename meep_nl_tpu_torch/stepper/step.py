@@ -11,6 +11,7 @@ kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
   * step_update_EDHB               -> `_eh_update` (step_generic.cpp:576-906)
   * Pade Kerr factor               -> `_nonlinear_u` (step_generic.cpp:546)
   * fork's chi2 Newton-Raphson     -> `_nr_solve` (newton_raphson.cpp:93)
+  * fork's BFAST step_bfast        -> `_bfast_update` (step_generic.cpp:339)
   * lorentzian_susceptibility::update_P -> `_pol_update_lorentzian`
   * dft_chunk::update_dft          -> `_dft_update` (dft.cpp:265-306)
   * step_source                    -> `_apply_sources` (step.cpp:296-319)
@@ -18,8 +19,10 @@ kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
 
 The state is a dict of tensors: {"f", "f_u", "f_cond", "f_w": {comp:
 tensor}, "pol": [{"p": {...}, "pp": {...}}], "dft": {name: (..., nfreq,
-2)}, "t": int}.  The step is functional (it returns new tensors and leaves
-its input untouched), like the JAX stepper it mirrors.
+2)}, "t": int}, and for a BFAST plan "f_bfast": {comp: tensor}, the
+flip-flop auxiliary of each curl component with both partners.  The step
+is functional (it returns new tensors and leaves its input untouched),
+like the JAX stepper it mirrors.
 
 Complex fields (plan.complex_fields: a complex Bloch phase, or
 Simulation(force_complex_fields=True)) come in the reference's two
@@ -59,8 +62,6 @@ def check_supported(plan: Plan) -> None:
     why = None
     if gv.dim == "cyl" or plan.m or plan.beta:
         why = "cylindrical / special_kz cells (ROADMAP A9)"
-    elif plan.bfast_k is not None:
-        why = "BFAST (ROADMAP A9)"
     elif any(s.has_cond or s.folded_cond
              for s in plan.curl_specs_d + plan.curl_specs_b):
         why = "conductivity (ROADMAP A6)"
@@ -191,8 +192,14 @@ def init_state(plan: Plan) -> Dict[str, Any]:
         ext = tuple(b - a for a, b in m.region)
         dft[m.name] = torch.zeros(ext + (len(m.freqs), 2), dtype=acc_dtype,
                                   device=plan.device)
-    return {"f": f, "f_u": f_u, "f_cond": {}, "f_w": f_w, "pol": pol,
-            "dft": dft, "t": 0}
+    out = {"f": f, "f_u": f_u, "f_cond": {}, "f_w": f_w, "pol": pol,
+           "dft": dft, "t": 0}
+    if plan.bfast_k is not None:
+        # the flip-flop auxiliary of every curl with both partners, the
+        # only ones _bfast_update steps (step.py:174-176 makes one for
+        # every curl; the others stay zero there)
+        out["f_bfast"] = {s.c: zeros() for s in bfast_specs(plan)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +411,89 @@ def _curl_update(plan: Plan, C: Dict[str, Any], spec: CurlSpec,
         f_new = inner_update(f)
     f_new = f_new * C[f"mask:{c}"]
     return {**new_state, "f": {**new_state["f"], c: f_new}}
+
+
+def bfast_specs(plan: Plan):
+    """The curl specs with both partners: BFAST's (step.py:560-567)."""
+    return [s for s in plan.curl_specs_d + plan.curl_specs_b
+            if s.g_plus is not None and s.g_minus is not None]
+
+
+def bfast_ks(plan: Plan, spec: CurlSpec):
+    """(k1, k2) of BFAST's two terms of a two-partner curl spec: the scaled
+    k along each partner's differentiation axis, negated for the D family
+    (step.py:568-572); both zero: no term."""
+    kidx = {"x": 0, "y": 1, "z": 2}
+    axes = plan.gv.axes
+    k1 = plan.bfast_k[kidx[axes[spec.plus_axis]]]
+    k2 = plan.bfast_k[kidx[axes[spec.minus_axis]]]
+    return (-k1, -k2) if spec.is_d else (k1, k2)
+
+
+def _bfast_update(plan: Plan, C: Dict[str, Any], spec: CurlSpec,
+                  state: Dict[str, Any]) -> Dict[str, Any]:
+    """BFAST fixed-angle broadband terms (the fork's step_bfast,
+    step_generic.cpp:339-537; the reference's step.py:543-641), after the
+    curl update of `spec`.
+
+    The flip-flop auxiliary F multiplies by i tan(w dt / 2), an effective
+    transverse k_x(w) = scaled_k w, which makes oblique incidence
+    broadband at a fixed angle: A = (k1 pair(g+) - k2 pair(g-)) bftap,
+    F_new = A - gam F_prev, and delta = F_new - F_prev goes through the PML
+    chains into f (and f_u), additively like step_beta.  pair(g) is g plus
+    its neighbour along the partner's axis (below it for D, above for B),
+    shifted as the curl shifts (the Bloch wrap, zero off the grid).  gam is
+    the per-site decay the fields see, (kap - sig) / (kap + sig) of each
+    chain, or of the component's E/H W chain where it has none ({ec}:sigw),
+    1 elsewhere.  Only two-partner curls take the terms, as in the
+    reference.  Conductivity is refused (ROADMAP A6), so the reference's
+    has_cond branches are not here.  Both storages: the real pair's
+    channels alike (their wrap read through _sh)."""
+    if plan.bfast_k is None:
+        return state
+    if spec.g_plus is None or spec.g_minus is None:
+        return state
+    k1, k2 = bfast_ks(plan, spec)
+    if k1 == 0.0 and k2 == 0.0:
+        return state
+    c = spec.c
+
+    def pair(g, a):
+        if spec.is_d:
+            return g + _sh(plan, g, a, -1)
+        return _sh(plan, g, a, +1) + g
+
+    f = state["f"]
+    A = 0.0
+    if k1 != 0.0:
+        A = A + k1 * pair(f[spec.g_plus], spec.plus_axis)
+    if k2 != 0.0:
+        A = A - k2 * pair(f[spec.g_minus], spec.minus_axis)
+    if f"{c}:bftap" in C:
+        A = A * C[f"{c}:bftap"]
+    F_prev = state["f_bfast"][c]
+    gam = None
+    if spec.dsig_axis is not None:
+        gam = (C[f"{c}:kap"] - C[f"{c}:sig"]) * C[f"{c}:siginv"]
+    if spec.dsigu_axis is not None:
+        g2 = (C[f"{c}:kapu"] - C[f"{c}:sigu"]) * C[f"{c}:siginvu"]
+        gam = g2 if gam is None else gam * g2
+    if gam is None:
+        ec = ("e" if c[0] == "d" else "h") + c[1]
+        if f"{ec}:sigw" in C:
+            gam = (C[f"{ec}:kapw"] - C[f"{ec}:sigw"]) \
+                / (C[f"{ec}:kapw"] + C[f"{ec}:sigw"])
+    F_new = A - (gam * F_prev if gam is not None else F_prev)
+    delta = F_new - F_prev
+    new_state = {**state, "f_bfast": {**state["f_bfast"], c: F_new}}
+    if spec.dsig_axis is not None:
+        delta = delta * C[f"{c}:siginv"]
+    if spec.dsigu_axis is not None:
+        fu = new_state["f_u"][c]
+        new_state = {**new_state, "f_u": {**new_state["f_u"], c: fu + delta}}
+        delta = delta * C[f"{c}:siginvu"]
+    fc = _apply_mask(plan, C, c, f[c] + delta)
+    return {**new_state, "f": {**f, c: fc}}
 
 
 def _nonlinear_u(Dsqr, Di, u, chi2, chi3):
@@ -784,6 +874,7 @@ def make_step(plan: Plan, dft: bool = True,
         # --- B half ---------------------------------------------------------
         for spec in plan.curl_specs_b:
             state = _curl_update(plan, C, spec, state)
+            state = _bfast_update(plan, C, spec, state)
         state = _apply_sources(plan, C, "b", state, xs)
         dmp_h = _compute_fmp(plan, "h", state)
         for spec in plan.eh_specs_h:
@@ -795,6 +886,7 @@ def make_step(plan: Plan, dft: bool = True,
         # --- D half ---------------------------------------------------------
         for spec in plan.curl_specs_d:
             state = _curl_update(plan, C, spec, state)
+            state = _bfast_update(plan, C, spec, state)
         state = _apply_sources(plan, C, "d", state, xs)
         dmp_e = _compute_fmp(plan, "e", state)
         for spec in plan.eh_specs_e:

@@ -58,10 +58,21 @@ def _plan(scene, device, dtype=np.float32, src=mp.Ez):
     pole; `src` as `_sources`.  A suffix "+y" / "+yz" declares Mirror(Y)
     (and Mirror(Z)) with phase +1: the cell is halved there, the planes on
     whole sites (node mirrors, the fold ghost in the D sub-update), the
-    PML on the high side only, the ball's nonlinear box on the planes."""
+    PML on the high side only, the ball's nonlinear box on the planes.
+    "wrap" / "wrap-edge": a 4 x 2 x 2 cell Bloch-periodic along x (k_x =
+    0: phase +1; 1/8: -1; 32 live planes, 8 dead ones) with PML on y and z
+    only and an eps=4 ball: K2's x-wrap variant."""
     scene, _, mirrors = scene.partition("+")
     symmetries = [mp.Mirror(d) for d in mirrors]
     geometry = []
+    kw = {"boundary_layers": [mp.PML(0.5)]}
+    cell = mp.Vector3(4, 3, 3)
+    if scene.startswith("wrap"):
+        cell = mp.Vector3(4, 2, 2)
+        kw = {"boundary_layers": [mp.PML(0.5, direction=mp.Y),
+                                  mp.PML(0.5, direction=mp.Z)],
+              "k_point": mp.Vector3(0.125 if scene == "wrap-edge" else 0.0)}
+        geometry = [mp.Sphere(0.6, material=mp.Medium(epsilon=4.0))]
     if scene == "flagship":
         med = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
                         E_susceptibilities=[mp.LorentzianSusceptibility(
@@ -76,10 +87,9 @@ def _plan(scene, device, dtype=np.float32, src=mp.Ez):
             mp.DrudeSusceptibility(frequency=1.5, gamma=0.1, sigma=0.1)])
         geometry = [mp.Sphere(0.6, material=med)]
     sim = mp.Simulation(
-        cell_size=mp.Vector3(4, 3, 3), resolution=8, geometry=geometry,
-        sources=_sources(src), boundary_layers=[mp.PML(0.5)],
-        eps_averaging=False, device=device, dtype=dtype,
-        symmetries=symmetries)
+        cell_size=cell, resolution=8, geometry=geometry,
+        sources=_sources(src), eps_averaging=False, device=device,
+        dtype=dtype, symmetries=symmetries, **kw)
     sim.init_sim()
     sim.plan.slab_opt = True
     return sim.plan
@@ -123,7 +133,11 @@ def _host(st):
 #: The flagship scenes have a nonlinear box, so their items split into the
 #: two classes (h = 2 around the ball, h = 1 elsewhere).  The "mirror"
 #: cases fold the cell on y and z (or y): their items' halo stages cross
-#: the planes, each stage reading its own fold ghost.
+#: the planes, each stage reading its own fold ghost.  The "wrap" cases
+#: are x-periodic (K2's x-wrap variant, depth 2 as PeriodicXT2Kernel
+#: drives it): the chunks next to x = 0 and x = 32 read their halo across
+#: the wrap at phase +1 and -1, the dead planes 32-39 form chunks of their
+#: own, and `ch` puts chunk edges on both sides of the wrap.
 CASES = {
     "upml-d2": ("vacuum", 2, None, np.float32, mp.Ez, None),
     "upml-d3-caps": ("vacuum", 3, "mon", np.float32, mp.Ez, None),
@@ -144,6 +158,9 @@ CASES = {
                                    mp.Ex, None),
     "mirror-y-flagship-d2": ("flagship+y", 2, None, np.float32, mp.Ex, 5),
     "mirror-yz-upml-d3": ("vacuum+yz", 3, None, np.float32, mp.Ex, None),
+    "wrap-x-edge-d2-ch5": ("wrap-edge", 2, None, np.float32, mp.Ez, 5),
+    "wrap-x-edge-d2-fp64-ch3": ("wrap-edge", 2, None, np.float64, mp.Ez, 3),
+    "wrap-x-d2-many-ch4": ("wrap", 2, None, np.float32, "many", 4),
 }
 
 
@@ -169,7 +186,8 @@ def hold_case(case, device, capture_step):
     plan = _plan(scene, device, dtype, src)
     ref_plan = _plan(scene, "cpu", dtype, src)
     planes = case_planes(kind, plan, ch)
-    ker = T2.Fdtd3dT2Kernel(plan, depth=depth, cap_planes=planes, ch=ch)
+    ker = T2.Fdtd3dT2Kernel(plan, depth=depth, cap_planes=planes, ch=ch,
+                            allow_periodic_x=bool(plan.periodic[0]))
     ref = T2.steps_ref(ref_plan, depth, planes)
     xs = TS.build_xs(plan, NCALL * depth, T0)
     rows, ref_rows = TS.xs_rows(plan, xs), TS.xs_rows(ref_plan, xs)

@@ -10,8 +10,10 @@ wrapped axis (exact), a 2D grating-like cell periodic in y at phase +1 and
 -1 (fluxes, get_array and near2far with nperiods=3 to 1e-4 of their
 maximum), a 2D zone-edge cell's probe series (5e-6) and run_k_points'
 modes (1e-4), a 3D x-periodic cell with the flagship material at phase +1
-and -1 (fluxes and get_array to 1e-4), and a JAX periodic state carried
-into the port (interop) and stepped on by both (1e-5), and the cell of a
+and -1 (fluxes and get_array to 1e-4), a JAX periodic state carried
+into the port (interop) and stepped on by both (1e-5), PeriodicXT2Kernel's
+run (K2's x wrap two steps a call, its plain version on the CPU) on the
+reference's periodic test plan against the jnp run (1e-5), and the cell of a
 complex phase (k = (0, 0.1): complex fields, tests/test_torch_complex.py
 holds the rest of them) to 1e-4.  Further cases hold the ghost ring's and
 K1's x-wrap plain versions against the port's eager stepper (bit for bit
@@ -28,11 +30,13 @@ import meep_nl_tpu_torch as mtt
 from meep_nl_tpu.stepper import step as JS
 from meep_nl_tpu_torch import interop
 from meep_nl_tpu_torch.ops import fdtd3d as TF
+from meep_nl_tpu_torch.ops import fdtd3d_t2 as T2
 from meep_nl_tpu_torch.ops import hybrid as HY
 from meep_nl_tpu_torch.ops import periodicx as PX
 from meep_nl_tpu_torch.ops import resident as R
 from meep_nl_tpu_torch.stepper import step as TS
 
+from test_torch_plan import JAX, PORT
 from test_torch_step import assert_states_close
 
 torch.set_num_threads(2)
@@ -224,15 +228,16 @@ def test_restart_fields_keeps_the_accumulators():
 # ---------------------------------------------------------------------------
 
 
-def flagship3d(mp, kx, flux=True, **kw):
+def flagship3d(mp, kx, flux=True, linear=False, **kw):
     """A 3 x 2.5 x 2.5 cell at resolution 8 (24 x 20 x 20) with PML 0.5 on
     y and z, periodic in x (k_x = 0: phase +1, 1/6: -1), the flagship
-    material (eps=4, a Lorentz pole, full-tensor chi2 0.05) on a ball of
-    radius 0.5 at the centre, a Gaussian Ez point source and (`flux`) an
-    x-normal flux plane."""
-    med = mp.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
-                    E_susceptibilities=[mp.LorentzianSusceptibility(
-                        frequency=2.0, gamma=0.05, sigma=0.2)])
+    material (eps=4, a Lorentz pole, full-tensor chi2 0.05; `linear`: eps=4
+    alone) on a ball of radius 0.5 at the centre, a Gaussian Ez point
+    source and (`flux`) an x-normal flux plane."""
+    med = mp.Medium(epsilon=4.0) if linear else mp.Medium(
+        epsilon=4.0, chi2=0.05, chi2_full_tensor=True,
+        E_susceptibilities=[mp.LorentzianSusceptibility(
+            frequency=2.0, gamma=0.05, sigma=0.2)])
     sim = mp.Simulation(
         cell_size=mp.Vector3(3, 2.5, 2.5), resolution=8,
         geometry=[mp.Sphere(0.5, material=med)],
@@ -278,6 +283,66 @@ def test_interop_carries_a_periodic_state():
                                   JS.run(sj._plan, sj._state, 9, t0=11))
     assert_states_close(interop.state_to_numpy(got), want, 1e-5,
                         keys=("f", "f_u", "f_w"))
+
+
+def _reference_periodic_plan(pkg, kx, device=None):
+    """The JAX package's periodic test plan (tests/test_periodic_fused.py:
+    24-48) compiled by `pkg` (test_torch_plan.JAX or PORT) from numpy
+    inputs: 24 x 16 x 16 at resolution 8, Bloch-periodic along x with
+    k_x = kx, PML 0.5 on y and z, eps = 4 on the slab |x - cx| < L / 6, an
+    Ez point source at x = 0.3; slab-local PML chains."""
+    res, cells = 8.0, (24, 16, 16)
+    size = [n / res for n in cells]
+    gv = pkg.G.GridVolume.create("3d", size, res)
+    chi1inv = {}
+    x = gv.comp_coords("ez", 0)
+    cx = 0.5 * (x[0] + x[-1])
+    for c in ("ex", "ey", "ez"):
+        e = np.ones(gv.shape)
+        xx = gv.comp_coords(c, 0)
+        e[np.abs(xx - cx) < size[0] / 6, :, :] = 4.0
+        chi1inv[c] = {c[1]: 1.0 / e}
+    pts = gv.interp_weights("ez", [0.3, 0.0, 0.0])
+    src = pkg.P.SrcVolSpec(
+        "ez", np.array([p for p, w in pts], np.int32),
+        np.array([w for p, w in pts], np.complex128),
+        pkg.Gaussian(frequency=1.0, fwidth=0.5))
+    extra = {} if device is None else {"device": device}
+    plan = pkg.P.compile_plan(
+        gv, pkg.P.MaterialSpec(chi1inv=chi1inv),
+        pmls=[pkg.P.PMLSpec(d, 0.5) for d in "yz"],
+        periodic=(True, False, False), bloch_k=(kx, 0.0, 0.0),
+        sources=[src], pad_to_multiple=(8, 1, 1), **extra)
+    plan.slab_opt = True
+    return plan
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["k0", "zone-edge"])
+def test_periodic_t2_kernel_matches_jax(edge):
+    """PeriodicXT2Kernel (K2's x wrap at depth 2, the residue through K1's
+    x wrap; on the CPU their plain versions) on the reference's periodic
+    test plan at phase +1 and -1, against the JAX package's jnp run from
+    zero fields: 11 steps (five calls and a K1 step) and 22 (eleven
+    calls), fields and PML auxiliaries to 1e-5 of the field maximum, the
+    pulse across the wrap by then."""
+    kx = 0.5 / 3.0 if edge else 0.0
+    pj = _reference_periodic_plan(JAX, kx)
+    pt = _reference_periodic_plan(PORT, kx, device="cpu")
+    assert pt.bloch_phase[0] == (-1.0 if edge else 1.0)
+    assert PX.periodic_t2_supported(pt)
+    sj = JS.init_state(pj)
+    for n in (11, 22):
+        sj = JS.run(pj, sj, 11, t0=n - 11)
+        ker = PX.PeriodicXT2Kernel(pt)
+        k1_before = ker._k1.plain_steps           # the plan's one K1
+        got = ker.run(TS.init_state(pt), n)
+        assert ker.plain_steps == 2 * (n // 2)
+        assert ker._k1.plain_steps - k1_before == n % 2
+        want = jax.tree_util.tree_map(np.asarray, sj)
+        assert_states_close(interop.state_to_numpy(got), want, 1e-5,
+                            keys=("f", "f_u", "f_w"))
+    ez = want["f"]["ez"]
+    assert np.abs(ez[:2]).max() > 1e-5 * np.abs(ez).max()
 
 
 def _live_equal(got, want, n):
@@ -334,13 +399,23 @@ def test_periodic_envelopes_decline():
     """K1's x wrap declines material within 3 sites of the wrap (the
     ghost ring within WINDOW_CLEAR planes), node mirrors, y/z periodicity
     and complex phases; K3/K4 decline chi2 at a wrap plane; the ghost ring
-    declines monitored plans."""
+    declines monitored plans; PeriodicXT2Kernel declines dispersive media
+    and sources within 2 planes of the wrap."""
     sim, _ = flagship3d(mtt, 0.0, device="cpu")
     sim.init_sim()
     plan = sim.plan
     assert PX.periodic_supported(plan) and R.resident_supported(plan)
     assert not PX.periodic_ghost_supported(plan)          # the flux plane
     assert not TF.supported(plan)                 # without allow_periodic_x
+    assert not PX.periodic_t2_supported(plan)             # dispersive
+    lin, _ = flagship3d(mtt, 0.0, linear=True, device="cpu")
+    lin.init_sim()
+    assert PX.periodic_t2_supported(lin.plan)
+    assert not T2.supported(lin.plan)             # without allow_periodic_x
+    lin, _ = flagship3d(mtt, 0.0, linear=True, device="cpu")
+    lin.sources[0].center = mtt.Vector3(-1.4, 0.1, 0)      # planes 0, 1
+    lin.init_sim()
+    assert not PX.periodic_t2_supported(lin.plan)
     med = mtt.Medium(epsilon=4.0, chi2=0.05, chi2_full_tensor=True)
     for cx, k1, ring, res in ((-1.3, False, False, False),
                               (-0.8, True, False, True)):
@@ -427,10 +502,12 @@ def test_symmetries_with_k_point_are_refused():
 def test_routes(monkeypatch):
     """2D and small 3D periodic plans run on the resident route; a 3D
     x-periodic plan above its budget on the hybrid route, through the
-    ghost ring without monitors and K1's x wrap with them (a probed
-    stretch of the ghost ring's plan on the stepper, as the reference's
-    fused_probed_run needs a K1); a 3D plan periodic on y above the
-    budget, and a 1D one, on the eager stepper.
+    ghost ring without monitors (a probed stretch of the ghost ring's plan
+    on the stepper, as the reference's fused_probed_run needs a K1), with
+    monitors through PeriodicXT2Kernel where the plan is linear (d // 2
+    K2 calls and d % 2 K1 steps a cycle of d steps) and K1's x wrap where
+    it is dispersive; a 3D plan periodic on y above the budget, and a 1D
+    one, on the eager stepper.
     No route raises on a real phase."""
     def routes(sim, steps=5):
         sim.run(until=steps * sim.dt)
@@ -456,8 +533,19 @@ def test_routes(monkeypatch):
     assert dict(s3.routes) == {"eager": 1}
     s3, _ = flagship3d(mtt, 1 / 6, device="cpu")
     assert routes(s3) == {"hybrid": 1}
+    assert isinstance(s3.plan._t2_kernel, HY._K1Adapter)
     assert isinstance(s3.plan._t2_kernel._k1, PX.PeriodicXKernel)
     assert HY.hybrid_routes(s3.plan) == {"full_state": 1}
+    for kx in (0.0, 1 / 6):
+        s3, _ = flagship3d(mtt, kx, linear=True, device="cpu")
+        assert routes(s3, 21) == {"hybrid": 1}
+        ker = s3.plan._t2_kernel
+        assert isinstance(ker, PX.PeriodicXT2Kernel) and ker.k3 is None
+        assert HY.hybrid_routes(s3.plan) == {"full_state": 1}
+        prefix, d, ncyc, suffix = HY.cycle_structure(s3.plan, 0, 21)
+        assert d >= 2 and ncyc >= 1
+        assert ker.plain_steps == ncyc * 2 * (d // 2)
+        assert ker._k1.plain_steps == ncyc * (d % 2)
     s3, _ = flagship3d(mtt, 0.0, flux=False, device="cpu")
     s3.k_point = mtt.Vector3(0, 0.2)
     assert routes(s3) == {"eager": 1}

@@ -80,7 +80,14 @@ def scene(kind, device="cpu", res=10):
     (its centred average reads across the wrap).  A trailing "*" asks for
     complex fields in real-pair storage (the PAIR variant): with "~", k =
     0.13 / the cell along the axes named (a complex phase), without, the
-    cell keeps its PML and takes force_complex_fields."""
+    cell keeps its PML and takes force_complex_fields.  bf: BFAST
+    (bfast_scaled_k (0.5, 0, 0), refl_angular_bfast's setup cut down): a
+    0.25 x 0.25 x 3 cell at resolution 8 (two sites across each periodic
+    axis, k = 0 on x and y), PML on z, glass on the upper half, an Ex plane
+    source and a z-normal flux plane; bf-pml: BFAST (0.3, 0.2, 0) in a
+    1 x 1 x 2 cell with PML on every face and an eps=4 ball (no wrap; both
+    of a curl's terms, the decay of both chains).  Both are complex, so
+    they take the PAIR_BFAST variant (written with the trailing "*")."""
     pair = kind.endswith("*")
     kind = kind.rstrip("*")
     kind, _, per = kind.partition("~")
@@ -143,6 +150,25 @@ def scene(kind, device="cpu", res=10):
         flux_y = 0.8
     axes = "xyz" if cell.z else "xy"
     layers, k = [mp.PML(pml)], None
+    bfast = None
+    if kind.startswith("bf"):
+        src = [mp.Source(mp.GaussianSource(0.8, fwidth=0.4), mp.Ex,
+                         center=mp.Vector3(0, 0, -0.5),
+                         size=mp.Vector3(0.25, 0.25, 0))]
+        if kind == "bf":
+            cell, res, flux_size = mp.Vector3(0.25, 0.25, 3), 8, \
+                mp.Vector3(0.25, 0.25, 0)
+            geom = [mp.Block(center=mp.Vector3(0, 0, 0.75),
+                             size=mp.Vector3(mp.inf, mp.inf, 1.5),
+                             material=mp.Medium(epsilon=2.25))]
+            layers, k = [mp.PML(0.5, direction=mp.Z)], mp.Vector3()
+            bfast = mp.Vector3(0.5, 0, 0)
+        else:
+            cell, res, flux_size = mp.Vector3(1, 1, 2), 8, mp.Vector3(0.5,
+                                                                    0.5, 0)
+            geom = [mp.Sphere(radius=0.3, material=mp.Medium(epsilon=4))]
+            layers, bfast = [mp.PML(0.25)], mp.Vector3(0.3, 0.2, 0)
+        axes = "xyz"
     if per:
         layers = [mp.PML(pml, direction=d) for d in axes
                   if d not in per_axes]
@@ -150,13 +176,17 @@ def scene(kind, device="cpu", res=10):
         kw = 0.13 if pair else 0.5 if edge else 0.0
         k = mp.Vector3(*[kw / getattr(cell, d) if d in per_axes else 0.0
                          for d in "xyz"])
+    kw = {}
+    if bfast is not None:
+        kw = {"bfast_scaled_k": bfast,
+              "Courant": (1 - max(abs(v) for v in bfast)) / np.sqrt(3)}
     sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
                         sources=src, boundary_layers=layers,
                         device=device, symmetries=syms, k_point=k,
-                        force_complex_fields=pair)
+                        force_complex_fields=pair, **kw)
     sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
-        center=mp.Vector3(0.4 if pml == 0.5 else 0.9, flux_y, 0),
-        size=flux_size))
+        center=mp.Vector3(0.4 if pml == 0.5 else 0.9, flux_y, 0)
+        if bfast is None else mp.Vector3(0, 0, -0.3), size=flux_size))
     if per:
         normal = ([d for d in axes if d not in per_axes] + ["y"])[0]
         sim.add_flux(0.5, 0.2, 2, mp.FluxRegion(
@@ -211,8 +241,9 @@ def random_state(plan, seed):
 
     st["f"] = {c: TS._apply_mask(plan, plan.coefs, c, rnd(t))
                for c, t in st["f"].items()}
-    for key in ("f_u", "f_w"):
-        st[key] = {c: rnd(t) for c, t in st[key].items()}
+    for key in ("f_u", "f_w", "f_bfast"):
+        if key in st:
+            st[key] = {c: rnd(t) for c, t in st[key].items()}
     st["pol"] = [{k: {c: rnd(t) for c, t in e[k].items()}
                   for k in ("p", "pp")} for e in st["pol"]]
     return st
@@ -221,7 +252,7 @@ def random_state(plan, seed):
 def _own(self, st):
     """The wrapper's check, on host tensors: private copies of the state."""
     return {**st, **{k: {c: t.clone() for c, t in st[k].items()}
-                     for k in ("f", "f_u", "f_w")},
+                     for k in ("f", "f_u", "f_w", "f_bfast") if k in st},
             "pol": [{k: {c: t.clone() for c, t in e[k].items()}
                      for k in ("p", "pp")} for e in st["pol"]]}
 
@@ -295,7 +326,14 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "pair-xy-te-k4": ("te-lin~xy*", True, 13, 8192, None),
          "pair-x-3d-k4-seams": ("3d~x*", True, 9, 4, (None, 1, 4, 1)),
          "pair-y-ldos-k3-seams": ("ldos~y*", False, 13, 5, None),
-         "pair-tm-k4": ("tm*", True, 13, 8192, None)}
+         "pair-tm-k4": ("tm*", True, 13, 8192, None),
+         # BFAST on the PAIR_BFAST variant: the flip-flop term after each
+         # curl, across a wrap of two sites (refl_angular_bfast's cell) and
+         # without a wrap, with the PML chains' decay and the W chain's
+         "bfast-k3": ("bf*", False, 13, 8192, None),
+         "bfast-k4-seams": ("bf*", True, 13, 5, (None, 1, 3, 7)),
+         "bfast-pml-k3-seams": ("bf-pml*", False, 9, 4, (None, 1, 4, 1)),
+         "bfast-pml-k4": ("bf-pml*", True, 9, 8192, None)}
 
 
 def h100_schedule(ker, host_lib):
@@ -342,6 +380,8 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
     comp = COMP.get(kind, "ez")
     is3d = plan.gv.ndim == 3
     pt = [10, 10] + ([10] if is3d else [])
+    if kind.startswith("bf"):              # two sites across x and y
+        pt = [1, 1, 9]
     if sched is not None and sched[0] is not None:
         # probe points across an x seam
         pt = [sched[0][0], sched[0][1] + 1] + ([5] if is3d else [])
@@ -376,7 +416,8 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         ((nlaunch, 0) if probed else (0, nlaunch))
     assert int(sk["t"]) == int(sr["t"]) == nsteps
     tl = ker.schedule[1]
-    assert tl["direct"] == (4 if pair else 2 if rotational else 3
+    assert tl["direct"] == (5 if kind.startswith("bf") else 4 if pair
+                            else 2 if rotational else 3
                             if periodic else (
                                 kind in ("nl3d", "poles3d")
                                 or (sched is not None and sched[0] is None)))
@@ -396,8 +437,8 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         assert _straddles(lo[0], lo[1], tile[0]) \
             or _straddles(hi[0], hi[1] - 1, tile[1])
         assert _straddles(pt[0] - 1, pt[0], tile[0])
-    for key in ("f", "f_u", "f_w", "dft"):
-        for c, t in sr[key].items():
+    for key in ("f", "f_u", "f_w", "dft", "f_bfast"):
+        for c, t in sr.get(key, {}).items():
             assert torch.equal(sk[key][c], t), f"{key}[{c}]"
             assert key != "dft" or float(t.abs().max()) > 0
     for pk, pr in zip(sk["pol"], sr["pol"]):

@@ -16,7 +16,9 @@ weights), energy and dft-fields monitors, node-mirror folds and the
 rotational folds (Rotate2 / Rotate4: the direct schedule's variant with
 their ghosts), Bloch-periodic plans (the direct schedule's WRAP variant,
 phase +1 and -1, beside a node mirror, with chi2), with flux monitors and (K4) 20 probes, over
-two chunks, with the wrapper's own schedule; and
+two chunks, with the wrapper's own schedule; BFAST plans (the PAIR_BFAST
+variant: refl_angular_bfast's cell cut down, and a cell with PML on every
+face), F included; and
 test_torch_resident_emul.py's schedule cases (small forced tiles, a
 source, probe points and the flux line on tile seams, T not dividing the
 stretch; the direct schedule forced on 2D plans).  Tolerance
@@ -91,10 +93,32 @@ def test_kernel_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     assert int(sk["t"]) == 30
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("kind", ["bf*", "bf-pml*"])
+def test_bfast_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
+    """BFAST's term on the card (Tiling.direct 5) from a seeded random
+    state, F included, over two chunks; K4 with a complex-weighted probe
+    of two points."""
+    monkeypatch.setattr(R, "MAX_CHUNK", 17)
+    plan = scene(kind, device=cuda)
+    st0 = random_state(plan, 8)
+    probes = [TS.ProbeSpec("p0", "ex", np.array([[0, 1, 9], [1, 1, 9]]),
+                           np.array([0.6 + 0.2j, 0.4]))] if probed else []
+    sr, yr = R.resident_ref(plan)(st0, 30, 40, probes)
+    ker = R.ResidentKernel(plan)
+    sk, yk = ker._run(st0, 30, 40, probes)
+    torch.cuda.synchronize()
+    assert (ker.probed_launches if probed else ker.launches) == 2
+    assert ker.plain_steps == 0
+    assert ker.schedule[1]["direct"] == R.DIRECT_PAIR_BFAST
+    _agree(sk, yk, sr, yr)
+
+
 def _agree(sk, yk, sr, yr):
     scale = max(float(t.abs().max()) for t in sr["f"].values())
-    for key in ("f", "f_u", "f_w"):
-        for c, t in sr[key].items():
+    for key in ("f", "f_u", "f_w", "f_bfast"):
+        for c, t in sr.get(key, {}).items():
             assert _err(sk[key][c], t) <= 1e-5 * scale, f"{key}[{c}]"
     for pk, pr in zip(sk["pol"], sr["pol"]):
         for k in ("p", "pp"):
@@ -122,6 +146,8 @@ def test_tile_seams_match_plain_on_cuda(case, cuda, monkeypatch):
     is3d = plan.gv.ndim == 3
     pt = ([10, 10] if tile is None else [tile[0], tile[1] + 1]) \
         + ([5] if is3d else [])
+    if kind.startswith("bf"):              # two sites across x and y
+        pt = [1, 1, 9]
     probes = [TS.ProbeSpec("p0", comp, np.array([[pt[0] - 1] + pt[1:], pt]),
                            np.array([0.6, 0.4])),
               TS.ProbeSpec("p1", comp, np.array([pt]), np.array([1.0]))] \
