@@ -174,6 +174,10 @@ def resident_supported(plan) -> bool:
     plans outside it are declined, never raised on."""
     if plan.gv.ndim < 2 or plan.dtype != np.float32:
         return False
+    if plan.gv.dim == "cyl" or plan.beta != 0.0:
+        # the kernel has no r-weighted curl, no i m / r or i beta term and
+        # no axis ring yet
+        return False
     if plan.complex_fields and not plan.real_pair:
         return False                     # native complex storage
     if plan.bfast_k is not None and not _is_pair(plan):
