@@ -123,6 +123,26 @@
 //     without a chain, the E/H component's W chain's (kapw - sigw) /
 //     (kapw + sigw) (A.bf, A.bt, A.bw, A.bk).  The term reads only the partners (not updated in this
 //     half) and the site's own arrays, so no barrier is added.
+//   * Cylindrical cells and 2D cells with an out-of-plane wavenumber beta
+//     (special_kz; step._curl, step._axis_specials): the direct schedule
+//     in its CYL variants, real fields (m = 0: Tiling.direct = 6) or a
+//     real pair (m != 0, beta, or complex m = 0: Tiling.direct = 7, the
+//     PAIR variant's reads across a wrap included).  Per curl component the
+//     wrapper's table A.cyl (CylP, ops/resident.py::_cyl_table) names the
+//     r-profiles, per-axis vectors along r (axis 0) staged like the PML
+//     profiles: a z component's r-weighted difference rfinv(r) * diff(rg *
+//     g) (rg at the partner's r, the backward difference zero at r = 0 as
+//     step._sh fills), and the phi term i (phi_sign sgn Courant) imr f[phi]
+//     (imr = m dx / r, or beta dx as a constant), which on a pair is a
+//     channel rotation of the partner at the same site, (re, im) -> (-s im,
+//     s re) times imr, added to the curl's delta before the chains.  Then,
+//     at the r = 0 site, after its chains and the mask, the thread that
+//     updated the component adds the reference's axis correction (the
+//     partner at ring 0 or 1 times a real or, on the pair, an imaginary
+//     factor) to f only, never to f_u / f_w, and applies the mask again.
+//     The corrections read only the other family's fields (H in the D
+//     half, E ring 1 for br in the B half), which no thread writes in that
+//     sub-update, so they need no barrier of their own.
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -252,12 +272,39 @@ struct ResArgs {
   // (-1: none), and k1, k2
   i64 bf[2][NCOMP], bt[2][NCOMP], bw[2][NCOMP];
   double bk[2][NCOMP][2];
+  // the CYL variants (Tiling.direct 6, 7): the (2, NCOMP) CylP table in
+  // device memory, per family (0 B, 1 D) and curl component; null in
+  // every other variant
+  const void* cyl;
+};
+
+// one curl component's cylindrical / beta terms (ops/resident.py
+// _cyl_table; every member 8 bytes): vector tokens (vector + 1, 0: none)
+// of rg and rfinv (the r-weighted difference of gp) and imr; the slot
+// token of the phi partner (0: none), its factor ps = phi_sign sgn Courant
+// and imr's constant where it has no vector (beta dx); the axis
+// correction at r = 0: the slot token of its partner (0: none), the
+// partner's ring and the factor are + i aim
+struct CylP {
+  i64 rg, rfinv, imr, phi;
+  double ps, imc;
+  i64 ag, ar;
+  double are, aim;
 };
 
 // the direct schedule's ghost reads: none, the rotational folds' (ROT),
 // the Bloch wrap's (WRAP), the Bloch wrap of a real pair (PAIR), the same
-// with BFAST's term (PAIRBF)
-enum { GK_NONE = 0, GK_ROT = 1, GK_WRAP = 2, GK_PAIR = 3, GK_PAIRBF = 4 };
+// with BFAST's term (PAIRBF), the cylindrical / beta terms on real
+// fields (CYL) and on a real pair (PAIRCYL, with the PAIR variant's wrap)
+enum {
+  GK_NONE = 0,
+  GK_ROT = 1,
+  GK_WRAP = 2,
+  GK_PAIR = 3,
+  GK_PAIRBF = 4,
+  GK_CYL = 5,
+  GK_PAIRCYL = 6
+};
 
 // the box a block stages in a pass: origin and extents in the grid
 struct Box {
@@ -619,6 +666,62 @@ __device__ __forceinline__ BfT bfast_of(const FamT& F, const ResArgs& A,
   return t;
 }
 
+// one curl component's CylP on the direct schedule's buffer: offsets of
+// the vectors and of the phi and axis partners (-1: none), the axis
+// partner's ring as an offset along r
+struct CylT {
+  int rg, rfinv, imr, phi, ag, aro;
+  float ps, imc, are, aim;
+};
+
+template <bool IS_D>
+__device__ __forceinline__ CylT cyl_of(const ResArgs& A, int q,
+                                       const Box& b) {
+  const CylP& p = ((const CylP*)A.cyl)[(IS_D ? NCOMP : 0) + q];
+  const int vol = (int)A.tl.vol;
+  CylT t;
+  t.rg = vec_of((const void*)p.rg, A.tl);
+  t.rfinv = vec_of((const void*)p.rfinv, A.tl);
+  t.imr = vec_of((const void*)p.imr, A.tl);
+  t.phi = p.phi ? ((int)p.phi - 1) * vol : -1;
+  t.ag = p.ag ? ((int)p.ag - 1) * vol : -1;
+  t.aro = (int)p.ar * lstride(b, 0);
+  t.ps = (float)p.ps;
+  t.imc = (float)p.imc;
+  t.are = (float)p.are;
+  t.aim = (float)p.aim;
+  return t;
+}
+
+// the r-weighted difference (1/r) d(r g)/dr of the staged array at offset
+// g (step._curl: rfinv * diff(rg * g) along r, axis 0, stride st): the
+// products rg * g at the site and its neighbour, backward (D) with zero
+// below r = 0, forward (B) with zero past the grid
+template <bool IS_D>
+__device__ __forceinline__ float diff_r(const float* sm, int g, int st,
+                                        const CylT& cy, const Box& b,
+                                        const Loc& x) {
+  const float v = sm[cy.rg + x.i] * sm[g + x.l];
+  if (IS_D)
+    return sm[cy.rfinv + x.i] *
+           (v - (x.i > 0 ? sm[cy.rg + x.i - 1] * sm[g + x.l - st] : 0.0f));
+  return sm[cy.rfinv + x.i] *
+         ((x.i < b.n[0] - 1 ? sm[cy.rg + x.i + 1] * sm[g + x.l + st]
+                            : 0.0f) -
+          v);
+}
+
+// (re + i im) times a real pair's value at staged offset `at`, channel
+// `ch` (stencil.cmul_pair: channel 0 re own - im other, channel 1 im
+// other + re own; sm the channel's half of the buffer)
+__device__ __forceinline__ float cmul_ch(const float* sm, int at,
+                                         const ResArgs& A, int ch, float re,
+                                         float im) {
+  const float own = sm[at];
+  const float other = sm[at + (ch ? -(int)A.half : (int)A.half)];
+  return ch ? im * other + re * own : re * own - im * other;
+}
+
 // step._curl_update of one component (q of its family) at one site; GK:
 // the D curl reads the rotational ghosts of A (GK_ROT), both curls read
 // across the Bloch wrap (GK_WRAP), channel `ch` of a real pair's across it
@@ -628,9 +731,20 @@ template <bool IS_D, int GK>
 __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
                                        const Box& b, const Loc& x,
                                        const ResArgs& A, int q, int ch = 0,
-                                       const BfT* bt = nullptr) {
+                                       const BfT* bt = nullptr,
+                                       const CylT* cy = nullptr) {
+  constexpr bool CYL = GK == GK_CYL || GK == GK_PAIRCYL;
   float dp = 0.0f, dm = 0.0f;
-  if (GK == GK_PAIR || GK == GK_PAIRBF) {
+  if (CYL && cy->rg >= 0) {
+    // the r-weighted partner (a z component's gp), then gm as the
+    // variant reads it
+    dp = diff_r<IS_D>(sm, c.gp, c.stp, *cy, b, x);
+    if (c.gm >= 0)
+      dm = GK == GK_PAIRCYL
+               ? diff_p<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x, A,
+                              ch)
+               : diff_t<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x);
+  } else if (GK == GK_PAIR || GK == GK_PAIRBF || GK == GK_PAIRCYL) {
     if (c.gp >= 0)
       dp = diff_p<IS_D>(sm, c.gp, c.ap, c.stp, c.gop, c.gsp, b, x, A, ch);
     if (c.gm >= 0)
@@ -650,7 +764,13 @@ __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
     if (c.gm >= 0)
       dm = diff_t<IS_D>(sm, c.gm, c.am, c.stm, c.gom, c.gsm, b, x);
   }
-  const float dfl = curl_delta<float>(c.gp >= 0, dp, c.gm >= 0, dm, csgn);
+  float dfl = curl_delta<float>(c.gp >= 0, dp, c.gm >= 0, dm, csgn);
+  if (GK == GK_PAIRCYL && cy->phi >= 0) {
+    // i (ps) imr f[phi]: imr times the partner rotated by i ps
+    const float imr = cy->imr >= 0 ? sm[cy->imr + x.i] : cy->imc;
+    const float t = imr * cmul_ch(sm, cy->phi + x.l, A, ch, 0.0f, cy->ps);
+    dfl = (c.gp >= 0 || c.gm >= 0) ? dfl + t : t;
+  }
   const float f = sm[c.f + x.l];
   float kap = 0.0f, sig = 0.0f, siginv = 0.0f;
   float kapu = 0.0f, sigu = 0.0f, siginvu = 0.0f, fuo = 0.0f, fun = 0.0f;
@@ -704,6 +824,17 @@ __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
     return;
   }
   if (sigu_on) sm[c.fu + x.l] = fun;
+  if (CYL && cy->ag >= 0 && x.i == 0) {
+    // the axis correction at r = 0 (step._axis_specials), into f only,
+    // then the mask again
+    const float m = mask_t(c.alive, sm, x);
+    const int at = cy->ag + x.l + cy->aro;
+    const float add = GK == GK_PAIRCYL && cy->aim != 0.0f
+                          ? cmul_ch(sm, at, A, ch, cy->are, cy->aim)
+                          : cy->are * sm[at];
+    sm[c.f + x.l] = (base * m + add) * m;
+    return;
+  }
   sm[c.f + x.l] = base * mask_t(c.alive, sm, x);
 }
 
@@ -815,6 +946,13 @@ __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
       const BfT bt = bfast_of<IS_D>(F, A, q);
       over(b, lo, hi, tm, [&](const Loc& x) {
         curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q, ch, &bt);
+      });
+      continue;
+    }
+    if (GK == GK_CYL || GK == GK_PAIRCYL) {
+      const CylT cy = cyl_of<IS_D>(A, q, b);
+      over(b, lo, hi, tm, [&](const Loc& x) {
+        curl_t<IS_D, GK>(c, csgn, sm, b, x, A, q, ch, nullptr, &cy);
       });
       continue;
     }
@@ -1252,8 +1390,8 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
       ehi[ax] = min(S[ax], hi[ax] + H - 1 - nl);
     }
     // B curl (+ H)
-    curl_all<false, GK == GK_WRAP ? GK_WRAP : GK_NONE>(FB, sm, b, blo, bhi,
-                                                      tm, A);
+    curl_all<false, GK == GK_WRAP || GK == GK_CYL ? GK : GK_NONE>(
+        FB, sm, b, blo, bhi, tm, A);
     if (!bsrc) eh_all<false>(FB, sm, b, blo, bhi, tm);
     bar<DIRECT>();
     if (bsrc) {
@@ -1437,7 +1575,7 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
   }
   __syncthreads();
   const i64 npass = (A.nsteps + A.tl.T - 1) / A.tl.T;
-  if (DIRECT && (GK == GK_PAIR || GK == GK_PAIRBF)) {
+  if (DIRECT && (GK == GK_PAIR || GK == GK_PAIRBF || GK == GK_PAIRCYL)) {
     int lo[3], hi[3];
     Box b;
     tile_box(A, 0, 1, lo, hi, b);
@@ -1493,8 +1631,19 @@ static const void* kernel_dir(int direct) {
 // (linear plans only: a fold declines chi2/chi3), else nullptr; direct 3:
 // the direct schedule with the Bloch wrap; direct 4: the direct schedule
 // of a real pair (linear plans only: pair fields refuse chi2/chi3); direct
-// 5: the same with BFAST's term
+// 5: the same with BFAST's term; direct 6: the direct schedule of a
+// cylindrical plan on real fields, 7: of a cylindrical or beta plan on a
+// real pair (linear plans only: the wrapper declines chi2/chi3 there)
 static const void* kernel_of(int nl, int probed, int direct) {
+  if (direct == 7)
+    return nl ? nullptr
+              : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIRCYL>
+                        : (const void*)k3_kernel<false, false, true,
+                                                 GK_PAIRCYL>);
+  if (direct == 6)
+    return nl ? nullptr
+              : (probed ? (const void*)k3_kernel<false, true, true, GK_CYL>
+                        : (const void*)k3_kernel<false, false, true, GK_CYL>);
   if (direct == 5)
     return nl ? nullptr
               : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIRBF>
@@ -1559,7 +1708,8 @@ int mnt_k3_sms(void) {
 
 // the largest co-resident grid of the variant (nl, probed, direct: 0 tiles,
 // 1 the direct schedule, 2 with the rotational ghosts, 3 with the Bloch
-// wrap, 4 a real pair, 5 a real pair with BFAST) with
+// wrap, 4 a real pair, 5 a real pair with BFAST, 6 cylindrical, 7 a
+// cylindrical or beta real pair) with
 // `smem` bytes of dynamic shared memory on the current device, after
 // allowing the variant that much there; or -cudaError.  The wrapper asks
 // once per device, variant and smem, and launches at most that many blocks.
@@ -1605,7 +1755,7 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
   }
   const Tiling& tl = host->tl;
   const int direct = (int)tl.direct;
-  if (direct < 0 || direct > 5) return (int)cudaErrorInvalidValue;
+  if (direct < 0 || direct > 7) return (int)cudaErrorInvalidValue;
   // rotational ghosts, the Bloch wrap and BFAST only in their variants,
   // which have them (the pair's with or without a wrap); the pair's
   // channel 1 past channel 0's half of the buffer
@@ -1615,9 +1765,10 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
   for (int ax = 0; ax < 3; ++ax) wrap = wrap || host->wn[ax] != 0;
   for (int fam = 0; fam < 2; ++fam)
     for (int q = 0; q < NCOMP; ++q) bfast = bfast || host->bf[fam][q] != 0;
-  const bool pair = direct == 4 || direct == 5;
+  const bool pair = direct == 4 || direct == 5 || direct == 7;
   if (rot != (direct == 2) || (!pair && wrap != (direct == 3)) ||
-      bfast != (direct == 5))
+      bfast != (direct == 5) ||
+      (host->cyl != nullptr) != (direct == 6 || direct == 7))
     return (int)cudaErrorInvalidValue;
   if (pair != (host->half > 0)) return (int)cudaErrorInvalidValue;
   if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)

@@ -55,9 +55,17 @@ Getters return complex values then.  `bfast_scaled_k=Vector3(...)`
 a fixed angle in one run (the stepper's flip-flop auxiliary f_bfast,
 step._bfast_update); its plan has complex fields, so on the card it runs
 as a real pair, on K3/K4's direct schedule where the resident route takes
-it (K1, K2 and K5 decline BFAST, as the reference's do).  A 2D k.z
-(special_kz) and cylindrical cells raise NotImplementedError naming
-ROADMAP A9.
+it (K1, K2 and K5 decline BFAST, as the reference's do).
+`dimensions=CYLINDRICAL` (or "cyl", -2) makes an (r, z) cell of size
+(cell_size.x, cell_size.z) with the axis at r = 0 and the fields' e^{i m
+phi} dependence set by `m` (simulation.py:444-446): m = 0 steps real
+fields, m != 0 complex ones (the real pair on the card); PML in r goes on
+the high side only.  A 2D cell with a k_point whose z component is nonzero
+(special_kz, simulation.py:377-425, :1366-1371) steps the exact e^{i beta
+z} dependence, beta = 2 pi k.z, with every component live and complex
+fields.  Both run on K3/K4 (their CYL variants) where the resident
+route takes the plan, else on the eager stepper; K1, K2 and K5 decline
+them.
 """
 
 from __future__ import annotations
@@ -80,6 +88,11 @@ from .geom import Medium, Vector3, _v3
 from .source import Source
 
 Ex, Ey, Ez = "ex", "ey", "ez"
+Er, Ep = "er", "ep"
+Hr, Hp = "hr", "hp"
+Dr, Dp = "dr", "dp"
+Br, Bp = "br", "bp"
+CYLINDRICAL = "cyl"
 Hx, Hy, Hz = "hx", "hy", "hz"
 Dx, Dy, Dz = "dx", "dy", "dz"
 Bx, By, Bz = "bx", "by", "bz"
@@ -200,6 +213,7 @@ class _N2FHandle:
     surfaces: list
     eps: float = 1.0          # ambient medium at the near surface
     mu: float = 1.0
+    m: float = 0.0            # cylindrical azimuthal number
     sim: Any = None
     mirrors: tuple = ()       # (axis, letter, phase): images the far-field
                               # sum adds
@@ -225,10 +239,15 @@ class _DftFieldsHandle:
     sim: Any = None
 
 
+#: the Vector3 slot of each grid direction: a cylindrical cell's r is x
+_SLOT = {"x": 0, "y": 1, "z": 2, "r": 0, "p": 1}
+
+
 def _vec_to_axes(gv: G.GridVolume, v) -> List[float]:
-    """Map a Vector3-like to grid-axis coordinates."""
+    """Map a Vector3-like to grid-axis coordinates (cylindrical: (r, z) =
+    (v.x, v.z), simulation.py:299-308)."""
     v = _v3(v if v is not None else Vector3())
-    return [tuple(v)[{"x": 0, "y": 1, "z": 2}[d]] for d in gv.axes]
+    return [tuple(v)[_SLOT[d]] for d in gv.axes]
 
 
 class Simulation:
@@ -251,6 +270,8 @@ class Simulation:
                  k_point=None,
                  force_complex_fields: bool = False,
                  bfast_scaled_k=None,
+                 m: float = 0.0,
+                 kz_2d: str = "complex",
                  device=None):
         self.cell_size = cs = _v3(cell_size)
         # infer dimensionality as the reference does (simulation.py:438-442)
@@ -259,11 +280,20 @@ class Simulation:
         elif dimensions in (None, 2) and cs.z == 0 and cs.x > 0 and cs.y > 0:
             dim, size = "2d", [cs.x, cs.y]
         elif dimensions in (-2, "cyl", "CYLINDRICAL"):
-            raise NotImplementedError(
-                "cylindrical cells are not ported yet (ROADMAP A9)")
+            dim, size = "cyl", [cs.x, cs.z]
         else:
             dim, size = "3d", [cs.x, cs.y, cs.z]
         self.resolution = float(resolution)
+        #: the inferred dimensionality: "1d", "2d", "3d" or "cyl"
+        self.dim = dim
+        #: the cylindrical azimuthal number (fields ~ e^{i m phi})
+        self.m = m
+        # special_kz's modes as the reference accepts them
+        # (simulation.py:418-425); every one integrates the complex (or
+        # real-pair) fields, the reference's "complex" mode
+        if kz_2d not in ("complex", "real/imag", "3d"):
+            raise ValueError(f"kz_2d: unknown mode {kz_2d!r}")
+        self.kz_2d = kz_2d
         self.geometry = list(geometry)
         self.sources = list(sources)
         self.boundary_layers = list(boundary_layers)
@@ -324,7 +354,8 @@ class Simulation:
             return None
         axes = G._DIM_AXES[dim]
         dx = 1.0 / self.resolution
-        origin = [-sz / 2 for sz in size]
+        origin = [0.0 if (dim == "cyl" and d == "r") else -sz / 2
+                  for d, sz in zip(axes, size)]
         for sym in self.symmetries:
             if isinstance(sym, (Rotate2, Rotate4)) and \
                     self.k_point is not None:
@@ -425,6 +456,11 @@ class Simulation:
         else:
             self._rot2 = (folded[0], axes.index(perp[1]), w, int(sym.phase))
 
+    def _special_kz(self) -> bool:
+        """A 2D cell with a k_point whose z component is nonzero."""
+        return self.gv.dim == "2d" and self.k_point is not None \
+            and _v3(self.k_point).z != 0.0
+
     def _absorbing_both_sides(self, d) -> bool:
         """Whether absorbing layers cover both ends of direction `d`."""
         lo = hi = False
@@ -479,6 +515,10 @@ class Simulation:
     def _live_components(self):
         """Component closure from sources + monitors
         (fields::require_component)."""
+        if self._special_kz():
+            # the i beta coupling mixes TE and TM: every component is live
+            # (simulation.py:680-687)
+            return list(self.gv.e_components), list(self.gv.h_components)
         need = {s.component for s in self.sources}
         need |= {m.component for m in self._dft_specs}
         live = set(need)
@@ -693,7 +733,9 @@ class Simulation:
                 # a mirrored axis keeps its plane at the low side: PML on
                 # the high side only (simulation.py:1315-1340)
                 side = bl.side
-                if d in mirror_dirs:
+                if d in mirror_dirs or (self.gv.dim == "cyl" and d == "r"):
+                    # r = 0 is the coordinate axis, not a boundary: PML in
+                    # r goes on the high side only (simulation.py:1333-1340)
                     if side == -1:
                         continue
                     side = +1
@@ -705,15 +747,15 @@ class Simulation:
         if self.k_point is not None:
             kv = _v3(self.k_point)
             bloch_k = _vec_to_axes(self.gv, kv)
-            if self.gv.dim == "2d" and kv.z != 0.0:
+            if self._special_kz():
                 # special_kz: the out-of-plane wavenumber (simulation.py:
-                # 1368-1371); the stepper refuses it (ROADMAP A9)
+                # 1368-1371), k in units of 2 pi / a
                 beta = 2.0 * np.pi * float(kv.z)
         self._plan = compile_plan(
             self.gv, mat, pmls=pmls, sources=srcs,
             periodic=self._periodic(), bloch_k=bloch_k, beta=beta,
             dfts=self._dft_specs, courant=self.courant, dtype=self.dtype,
-            live_e=live_e, live_h=live_h,
+            live_e=live_e, live_h=live_h, m=float(self.m or 0.0),
             boundaries=self._boundaries or None,
             complex_fields=True if self.force_complex_fields else None,
             bfast_scaled_k=(tuple(_v3(self.bfast_scaled_k))
@@ -739,8 +781,7 @@ class Simulation:
                     or os.environ.get("MNT_REAL_PAIR") == "1"):
                 self._plan.real_pair = True
         try:
-            # special_kz and cylindrical cells; pair fields with chi2/chi3
-            # or multilevel media (init_state)
+            # pair fields with chi2/chi3 or multilevel media (init_state)
             S.check_supported(self._plan)
             self._plan.use_pallas = self.use_pallas
             self._state = S.init_state(self._plan)
@@ -1254,7 +1295,8 @@ class Simulation:
                                      self.default_material)
             eps_amb = float(scene._eps_of(idx, self.geometry,
                                           self.default_material, 2)[0])
-        h = _N2FHandle(name, freqs, surfaces, eps=eps_amb, sim=self,
+        h = _N2FHandle(name, freqs, surfaces, eps=eps_amb,
+                       m=float(self.m or 0.0), sim=self,
                        mirrors=tuple(self._mirrors),
                        periodic=tuple(periodic))
         self._handles.append(h)
@@ -1300,7 +1342,8 @@ class Simulation:
         from ..analysis.near2far import farfield
         return farfield(handle.surfaces, self._state, handle.freqs, x_axes,
                         self.gv.dim, eps=handle.eps, mu=handle.mu,
-                        periodic=handle.periodic, mirrors=handle.mirrors)
+                        m=handle.m, periodic=handle.periodic,
+                        mirrors=handle.mirrors)
 
     def get_farfield(self, handle, pt) -> np.ndarray:
         """(6, nfreq) far fields at the point `pt`."""
@@ -1532,6 +1575,16 @@ class Simulation:
             self._state = None
             self._t = 0
 
+    def change_m(self, m):
+        """Change the cylindrical azimuthal number (simulation.py:3930); the
+        fields restart, since m sets the plan's coefficients and whether
+        its fields are complex."""
+        self.m = m
+        if self._plan is not None:
+            self._plan = None
+            self._state = None
+            self._t = 0
+
     def restart_fields(self):
         """Zero the fields and the clock, keeping the DFT accumulators
         (simulation.py:3937)."""
@@ -1621,8 +1674,10 @@ class Simulation:
 
     def using_real_fields(self) -> bool:
         """Whether this run steps real fields (simulation.py:3736-3748):
-        not with force_complex_fields, a complex symmetry phase, or a
-        nonzero k_point (a 2D cell's k along z alone counts as zero)."""
+        not with force_complex_fields, a cylindrical m != 0, a complex
+        symmetry phase, or a nonzero k_point (a 2D cell's k along z alone
+        counts as zero)."""
+        cond1 = self.gv.dim == "cyl" and self.m != 0
         cond2 = any(complex(getattr(s, "phase", 1)).imag
                     for s in self.symmetries if hasattr(s, "phase"))
         kp = _v3(self.k_point) if self.k_point is not None else None
@@ -1631,7 +1686,13 @@ class Simulation:
                  and kp.x == 0 and kp.y == 0)
         cond5 = not (cond3 or cond4 or (kp is not None and tuple(kp)
                                         == (0.0, 0.0, 0.0)))
-        return not (self.force_complex_fields or cond2 or cond5)
+        return not (self.force_complex_fields or cond1 or cond2 or cond5)
+
+    def require_dimensions(self):
+        """The dimensionality as the reference numbers it (simulation.py:
+        3750): 1, 2, 3, or -2 for a cylindrical cell."""
+        self.dimensions = {"1d": 1, "2d": 2, "3d": 3, "cyl": -2}[self.dim]
+        return self.dimensions
 
     def get_field_point(self, component, pt) -> complex:
         """The component interpolated at point `pt`, folded into the
@@ -1700,6 +1761,39 @@ class Simulation:
             i1 = int(np.searchsorted(coords[ax], hi + 1e-9))
             sl.append(slice(i0, max(i1, i0 + 1)))
         return arr[tuple(sl)]
+
+    def _get_field_family(self, letter, snap=False) -> np.ndarray:
+        """A field family's components stacked on the last axis
+        (simulation.py:4346): (x, y, z), or on a cylindrical cell (r, p)
+        as the reference stacks them; a component the plan does not step
+        reads zeros, every array cut to the smallest extents."""
+        comps = (letter + "r", letter + "p") if self.gv.dim == "cyl" \
+            else (letter + "x", letter + "y", letter + "z")
+        arrs = []
+        for c in comps:
+            try:
+                arrs.append(np.asarray(self.get_array(component=c,
+                                                      snap=snap)))
+            except KeyError:
+                arrs.append(None)
+        have = [a for a in arrs if a is not None]
+        shp = tuple(min(a.shape[i] for a in have)
+                    for i in range(have[0].ndim))
+        arrs = [np.zeros(shp) if a is None
+                else a[tuple(slice(0, n) for n in shp)] for a in arrs]
+        return np.stack(arrs, axis=-1)
+
+    def get_efield(self, snap=False) -> np.ndarray:
+        return self._get_field_family("e", snap)
+
+    def get_hfield(self, snap=False) -> np.ndarray:
+        return self._get_field_family("h", snap)
+
+    def get_dfield(self, snap=False) -> np.ndarray:
+        return self._get_field_family("d", snap)
+
+    def get_bfield(self, snap=False) -> np.ndarray:
+        return self._get_field_family("b", snap)
 
     def _field_np(self, component) -> np.ndarray:
         """A component's live storage as a host array, complex for complex

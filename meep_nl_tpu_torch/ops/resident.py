@@ -75,9 +75,10 @@ import torch
 
 from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
-from ..stepper.step import (ProbeSpec, _is_pair, bfast_ks, bfast_specs,
-                            build_xs, check_supported, mirror_ghost,
-                            rot2_ghost, rot4_ghost, run)
+from ..stepper.step import (ProbeSpec, _is_pair, axis_corrections,
+                            bfast_ks, bfast_specs, build_xs,
+                            check_supported, mirror_ghost, rot2_ghost,
+                            rot4_ghost, run)
 
 #: the reference's VMEM budget for 2x state (resident.py:50); on the H100
 #: the state lives in device memory, so this is a routing rule, not a limit
@@ -175,9 +176,15 @@ def resident_supported(plan) -> bool:
     if plan.gv.ndim < 2 or plan.dtype != np.float32:
         return False
     if plan.gv.dim == "cyl" or plan.beta != 0.0:
-        # the kernel has no r-weighted curl, no i m / r or i beta term and
-        # no axis ring yet
-        return False
+        # the CYL variants: linear, no BFAST term, and for a cylindrical
+        # cell no Bloch wrap and the axis at r = 0 (its corrections)
+        if plan.bfast_k is not None or any(
+                s.has_chi3 or s.has_nr
+                for s in plan.eh_specs_e + plan.eh_specs_h):
+            return False
+        if plan.gv.dim == "cyl" and (any(plan.periodic)
+                                     or abs(plan.gv.origin[0]) > 1e-12):
+            return False
     if plan.complex_fields and not plan.real_pair:
         return False                     # native complex storage
     if plan.bfast_k is not None and not _is_pair(plan):
@@ -361,9 +368,11 @@ def tiling(shape, nslot: int, nstate: int, c: int, e, nloops: int,
 
 #: the direct schedule's variants (Tiling.direct): plain, with the
 #: rotational fold ghosts, with the Bloch wrap, a real pair (with or
-#: without the wrap), a real pair with BFAST's term
-DIRECT, DIRECT_ROT, DIRECT_WRAP, DIRECT_PAIR, DIRECT_PAIR_BFAST = \
-    1, 2, 3, 4, 5
+#: without the wrap), a real pair with BFAST's term, a cylindrical plan on
+#: real fields (m = 0), a cylindrical or beta plan on a real pair (with or
+#: without the wrap)
+DIRECT, DIRECT_ROT, DIRECT_WRAP, DIRECT_PAIR, DIRECT_PAIR_BFAST, \
+    DIRECT_CYL, DIRECT_PAIR_CYL = 1, 2, 3, 4, 5, 6, 7
 
 
 def direct_tiling(shape, c: int, e, variant: int = DIRECT
@@ -381,8 +390,16 @@ def direct_tiling(shape, c: int, e, variant: int = DIRECT
             "smem": 0, "ntile": 1, "direct": variant}
 
 
+def _cyl(plan) -> bool:
+    """A cylindrical plan, or a 2D plan with an out-of-plane wavenumber:
+    the CYL variants' terms."""
+    return plan.gv.dim == "cyl" or plan.beta != 0.0
+
+
 def direct_variant(plan) -> int:
     """The direct schedule's variant a plan needs."""
+    if _cyl(plan):
+        return DIRECT_PAIR_CYL if _is_pair(plan) else DIRECT_CYL
     if _is_pair(plan):
         return DIRECT_PAIR if plan.bfast_k is None else DIRECT_PAIR_BFAST
     if _rotational(plan):
@@ -462,6 +479,13 @@ class _Tiling(ctypes.Structure):
                            "gvec", "direct")]
 
 
+class _CylP(ctypes.Structure):
+    _fields_ = [(n, _I) for n in ("rg", "rfinv", "imr", "phi")] + \
+        [(n, ctypes.c_double) for n in ("ps", "imc")] + \
+        [(n, _I) for n in ("ag", "ar")] + \
+        [(n, ctypes.c_double) for n in ("are", "aim")]
+
+
 class _ResArgs(ctypes.Structure):
     _fields_ = [("pb", fdtd3d._Params * 2), ("pd", fdtd3d._Params * 2),
                 ("src", _SrcFam * 2), ("pr", _Probes), ("tl", _Tiling),
@@ -478,7 +502,8 @@ class _ResArgs(ctypes.Structure):
          ("wphi", ctypes.c_double * 3), ("wphim", ctypes.c_double * 3),
          ("wphii", ctypes.c_double * 3), ("half", _I)] + \
         [(n, (_I * fdtd3d.NCOMP) * 2) for n in ("bf", "bt", "bw")] + \
-        [("bk", ((ctypes.c_double * 2) * fdtd3d.NCOMP) * 2)]
+        [("bk", ((ctypes.c_double * 2) * fdtd3d.NCOMP) * 2),
+         ("cyl", _P)]
 
 
 def set_ghosts(A, plan, slot):
@@ -809,6 +834,7 @@ class ResidentKernel:
                 out.append(P)
         self._bfast = self._bfast_table({p: k for k, p in enumerate(paths)},
                                         coef)
+        cyl = self._cyl_table({p: k for k, p in enumerate(paths)}, vecs)
         # the tensors behind the addresses the parameter blocks hold
         known = list(rp.coefs.values()) + [
             t for vv in rp.__dict__.get("_alive_cache", {}).values()
@@ -827,8 +853,50 @@ class ResidentKernel:
         vec_t = [(tensor(a, shape[ax]), ax) for a, ax in vecs]
         table = torch.as_tensor(np.asarray(vecs, np.int64).reshape(-1, 2),
                                 device=self.plan.device)
+        self._cyl_dev = None if cyl is None else torch.frombuffer(
+            bytearray(bytes(cyl)), dtype=torch.uint8).to(self.plan.device)
         self._layout_ = (paths, pb, pd, coef, vec_t, table)
         return self._layout_
+
+    def _cyl_table(self, slot, vecs):
+        """The CYL variants' (2, NCOMP) CylP table (csrc/resident.cu), per
+        family (0 B, 1 D) and curl component: the vector tokens of `{c}:rg`
+        and `{c}:rfinv` (the r-weighted partner) and of `{c}:imr` (a beta
+        plan's constant imr goes in `imc`), the slot token of the phi
+        partner with ps = phi_sign sgn Courant (step._curl), and the axis
+        correction of the component (step.axis_corrections): its partner's
+        slot token, the partner's ring and the factor.  None for other
+        plans."""
+        rp = self.rplan
+        if not _cyl(rp):
+            return None
+        tab = ((_CylP * fdtd3d.NCOMP) * 2)()
+        phi_on = rp.m != 0 or rp.beta != 0.0
+        for fam, specs, ft in ((0, rp.curl_specs_b, "b"),
+                               (1, rp.curl_specs_d, "d")):
+            fixes = {c: (g, ring, v)
+                     for c, g, ring, v in axis_corrections(rp, ft)}
+            for q, spec in enumerate(specs):
+                c, t = spec.c, tab[fam][q]
+                if spec.r_weighted and spec.g_plus is not None:
+                    t.rg = self._vec_tok(rp.coefs[f"{c}:rg"].data_ptr(), 0,
+                                         vecs)
+                    t.rfinv = self._vec_tok(
+                        rp.coefs[f"{c}:rfinv"].data_ptr(), 0, vecs)
+                if spec.phi_comp is not None and phi_on:
+                    sgn = 1.0 if spec.is_d else -1.0
+                    t.phi = slot[("f", spec.phi_comp)] + 1
+                    t.ps = spec.phi_sign * sgn * rp.courant
+                    imr = rp.coefs[f"{c}:imr"]
+                    if imr.numel() == 1:
+                        t.imc = float(imr)
+                    else:
+                        t.imr = self._vec_tok(imr.data_ptr(), 0, vecs)
+                if c in fixes:
+                    g, ring, (re, im) = fixes[c]
+                    t.ag, t.ar = slot[("f", g)] + 1, ring
+                    t.are, t.aim = re, im
+        return tab
 
     def _bfast_table(self, slot, coef):
         """BFAST's terms for the argument block (the PAIR_BFAST variant):
@@ -932,8 +1000,7 @@ class ResidentKernel:
         if nslot <= MAXSLOT and variant == DIRECT:
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
-        if tl is None or tl["T"] == 1 or variant in (DIRECT_PAIR,
-                                                     DIRECT_PAIR_BFAST):
+        if tl is None or tl["T"] == 1:
             tl = direct_tiling(shape, c, e, variant)
         self.schedule = (key, tl)
         return tl
@@ -1263,6 +1330,7 @@ class ResidentKernel:
         A.nsteps = n
         A.e_local = int(tl["c"] == 1)
         set_ghosts(A, rp, slot)
+        A.cyl = _ptr(self._cyl_dev)
         for fam in (0, 1):
             for q in range(fdtd3d.NCOMP):
                 A.bf[fam][q], A.bt[fam][q], A.bw[fam][q], k1, k2 = \

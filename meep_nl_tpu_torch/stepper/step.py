@@ -46,7 +46,7 @@ import torch
 
 from ..core import grid as G
 from ..core.device import torch_dtype
-from ..ops.stencil import shift
+from ..ops.stencil import cmul_pair, shift
 from .plan import CurlSpec, EhSpec, Plan, PolSpec
 
 #: fixed Newton iteration count of the chi2 solve (the JAX package's
@@ -60,9 +60,7 @@ def check_supported(plan: Plan) -> None:
     naming the ROADMAP item that brings each."""
     gv = plan.gv
     why = None
-    if gv.dim == "cyl" or plan.m or plan.beta:
-        why = "cylindrical / special_kz cells (ROADMAP A9)"
-    elif any(s.has_cond or s.folded_cond
+    if any(s.has_cond or s.folded_cond
              for s in plan.curl_specs_d + plan.curl_specs_b):
         why = "conductivity (ROADMAP A6)"
     elif any(s.has_u1 or s.has_u2 for s in plan.eh_specs_e + plan.eh_specs_h):
@@ -272,11 +270,22 @@ def rot4_ghost(gname: str, a: int, plan: Plan):
     return g2, k0, sign, (ax2 if a == ax1 else ax1)
 
 
-def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any]):
+def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any],
+          C: Optional[Dict[str, Any]] = None):
     """dfl such that the no-PML update is f += dfl (step_generic.cpp:39-67).
 
     D components: +Courant * (bwd-diff g_plus - bwd-diff g_minus)
     B components: -Courant * (fwd-diff g_plus - fwd-diff g_minus)
+
+    Cylindrical cells (step_db.cpp:86-294; the reference's step.py:396-421):
+    a z component's radial derivative is (1/r) d(r g)/dr, rfinv * diff(rg
+    * g), with the coefficients `{c}:rfinv` and `{c}:rg` (the partner's r);
+    the phi derivative of the partner `spec.phi_comp` becomes the term
+    i (phi_sign sgn Courant) imr f[phi_comp], imr = m dx / r (`{c}:imr`),
+    added to the delta.  A 2D plan with an out-of-plane wavenumber beta
+    (special_kz) takes the same term with the constant imr = beta dx for
+    the dropped z derivatives.  Complex fields natively, or the real pair
+    through a channel rotation (`cmul_pair`).
 
     A fold through a plane on whole sites replaces the zero fill of the
     backward difference along its axis by the fold ghost, plane 0 of the
@@ -292,17 +301,17 @@ def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any]):
         ghost = None
         o = _off(plan, g)                      # a real pair's channel axis
         ga = a + o
-        for (ax, d, phase) in plan.mirror_node:
+        for (ax, d, phase) in plan.mirror_node if gname else ():
             if ax == a:
                 k0, sign = mirror_ghost(gname, d, phase, plan.gv.dim)
                 ghost = sign * g.narrow(ga, k0, 1)
-        if plan.rot2 is not None and a == plan.rot2[0]:
+        if plan.rot2 is not None and a == plan.rot2[0] and gname:
             k0, sign, nl = rot2_ghost(gname, plan)
             fl = plan.rot2[1] + o
             rev = torch.flip(g.narrow(ga, k0, 1).narrow(fl, 0, nl), (fl,))
             pad = [0, 0] * (g.ndim - 1 - fl) + [0, g.shape[fl] - nl]
             ghost = sign * torch.nn.functional.pad(rev, pad)
-        if plan.rot4 is not None and a in plan.rot4[:2]:
+        if plan.rot4 is not None and a in plan.rot4[:2] and gname:
             g2, k0, sign, other = rot4_ghost(gname, a, plan)
             ghost = sign * f[g2].narrow(other + o, k0, 1).transpose(
                 ga, other + o)
@@ -311,16 +320,29 @@ def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any]):
                            dim=ga)
         return g - sh
 
+    if C is None:
+        C = plan.coefs
     total = None
     if spec.g_plus is not None:
-        total = diff(f[spec.g_plus], spec.plus_axis, spec.g_plus)
+        if spec.r_weighted:
+            rg = C[f"{spec.c}:rg"] * f[spec.g_plus]
+            total = C[f"{spec.c}:rfinv"] * diff(rg, spec.plus_axis, None)
+        else:
+            total = diff(f[spec.g_plus], spec.plus_axis, spec.g_plus)
     if spec.g_minus is not None:
         t2 = diff(f[spec.g_minus], spec.minus_axis, spec.g_minus)
         total = -t2 if total is None else total - t2
-    if total is None:
-        return torch.zeros_like(f[spec.c])
     sgn = 1.0 if spec.is_d else -1.0
-    return sgn * plan.courant * total
+    out = None if total is None else sgn * plan.courant * total
+    if spec.phi_comp is not None and (plan.m != 0 or plan.beta != 0.0):
+        s = spec.phi_sign * sgn * plan.courant
+        g = f[spec.phi_comp]
+        if _is_pair(plan):
+            term = C[f"{spec.c}:imr"] * cmul_pair(g, complex(0.0, s))
+        else:
+            term = (1j * s) * C[f"{spec.c}:imr"] * g
+        out = term if out is None else out + term
+    return torch.zeros_like(f[spec.c]) if out is None else out
 
 
 def _slab_slices(slabs, axis: int, n_sites: int, ndim: int):
@@ -354,7 +376,7 @@ def _curl_update(plan: Plan, C: Dict[str, Any], spec: CurlSpec,
     f_u stays zero there (the K1 kernel implements the same rule)."""
     c = spec.c
     f = state["f"][c]
-    dfl = _curl(plan, spec, state["f"])
+    dfl = _curl(plan, spec, state["f"], C)
     new_state = state
     has_sig = spec.dsig_axis is not None
     has_sigu = spec.dsigu_axis is not None
@@ -494,6 +516,64 @@ def _bfast_update(plan: Plan, C: Dict[str, Any], spec: CurlSpec,
         delta = delta * C[f"{c}:siginvu"]
     fc = _apply_mask(plan, C, c, f[c] + delta)
     return {**new_state, "f": {**f, c: fc}}
+
+
+def axis_corrections(plan: Plan, ft2: str):
+    """The r = 0 corrections of a cylindrical plan's `ft2` family
+    (step_db.cpp:296-457; the reference's step.py:1381-1455 `_axis_specials`):
+    [(component, partner, ring of the partner, (re, im))], each adding
+    (re + i im) * partner[ring] to ring 0 of the component:
+
+      m = 0:    dz += 4 C hp      (the limit of (1/r) d(r hp)/dr)
+      |m| = 1:  dp -= C hz        (the antisymmetric limit of -dhz/dr)
+                br -= i m C ez[1] (-i m ez / r one ring in)
+
+    (C the Courant number; a component or partner the plan does not step
+    drops its correction).  Empty for other plans, and where the cell does
+    not start at the axis."""
+    gv = plan.gv
+    if gv.dim != "cyl" or abs(gv.origin[gv.axis_of("r")]) > 1e-12:
+        return []
+    Cc = plan.courant
+    if plan.m == 0:
+        want = [("dz", "hp", 0, (4 * Cc, 0.0))] if ft2 == "d" else []
+    elif abs(plan.m) == 1:
+        want = [("dp", "hz", 0, (-Cc, 0.0))] if ft2 == "d" else \
+            [("br", "ez", 1, (0.0, -plan.m * Cc))]
+    else:
+        return []
+    live = {s.c for s in plan.curl_specs_d + plan.curl_specs_b} | \
+        {s.ec for s in plan.eh_specs_e + plan.eh_specs_h}
+    return [w for w in want if w[0] in live and w[1] in live]
+
+
+def _axis_specials(plan: Plan, C: Dict[str, Any], ft2: str,
+                   state: Dict[str, Any]) -> Dict[str, Any]:
+    """The axis corrections (`axis_corrections`) after the family's curl
+    updates and before its sources, then the masks again on the rings
+    they touched.  They go into f only and bypass the PML chains, as the
+    reference's do (sigma_r is 0 at the axis; a z-PML corner sees the
+    reference's slight mismatch).  Written out of place: ring 0 of a
+    clone."""
+    fixes = axis_corrections(plan, ft2)
+    if not fixes:
+        return state
+    rax = plan.gv.axis_of("r")
+    f = dict(state["f"])
+    for c, g, ring, (re, im) in fixes:
+        a, b = f[c], f[g]
+        ga = b.narrow(rax + _off(plan, b), ring, 1)
+        if im == 0.0:
+            add = re * ga
+        elif _is_pair(plan):
+            add = cmul_pair(ga, complex(re, im))
+        else:
+            add = complex(re, im) * ga
+        new = a.clone()
+        new.narrow(rax + _off(plan, a), 0, 1).copy_(
+            a.narrow(rax + _off(plan, a), 0, 1) + add)
+        f[c] = _apply_mask(plan, C, c, new)
+    return {**state, "f": f}
 
 
 def _nonlinear_u(Dsqr, Di, u, chi2, chi3):
@@ -875,6 +955,7 @@ def make_step(plan: Plan, dft: bool = True,
         for spec in plan.curl_specs_b:
             state = _curl_update(plan, C, spec, state)
             state = _bfast_update(plan, C, spec, state)
+        state = _axis_specials(plan, C, "b", state)
         state = _apply_sources(plan, C, "b", state, xs)
         dmp_h = _compute_fmp(plan, "h", state)
         for spec in plan.eh_specs_h:
@@ -887,6 +968,7 @@ def make_step(plan: Plan, dft: bool = True,
         for spec in plan.curl_specs_d:
             state = _curl_update(plan, C, spec, state)
             state = _bfast_update(plan, C, spec, state)
+        state = _axis_specials(plan, C, "d", state)
         state = _apply_sources(plan, C, "d", state, xs)
         dmp_e = _compute_fmp(plan, "e", state)
         for spec in plan.eh_specs_e:

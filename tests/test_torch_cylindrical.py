@@ -66,3 +66,71 @@ def test_resident_declines_cylindrical_and_beta_plans(monkeypatch):
                          device="cpu")
     p2.real_pair = True
     assert TS._is_pair(p2) and not R.resident_supported(p2)
+
+
+def _assert_plans_equal(pj, pt):
+    """Every coefficient to fp64 roundoff and every spec field equal."""
+    import dataclasses
+    from meep_nl_tpu_torch import interop
+    from test_torch_plan import _assert_same, _spec_fields
+    cj = {k: np.asarray(v) for k, v in pj.coefs.items()}
+    ct = interop.coefs_to_numpy(pt.coefs)
+    assert set(cj) == set(ct)
+    for k in cj:
+        assert cj[k].shape == ct[k].shape, k
+        np.testing.assert_allclose(ct[k], cj[k], rtol=1e-15, atol=0,
+                                   err_msg=k)
+    for f in dataclasses.fields(pj):
+        if f.name in ("coefs", "device", "gv"):
+            continue
+        a, b = getattr(pj, f.name), getattr(pt, f.name)
+        if f.name in ("curl_specs_b", "curl_specs_d", "eh_specs_h",
+                      "eh_specs_e", "pol_specs_e", "pol_specs_h",
+                      "sources", "dfts"):
+            a = [_spec_fields(s) for s in a]
+            b = [_spec_fields(s) for s in b]
+        _assert_same(a, b, f.name)
+    assert dataclasses.asdict(pj.gv) == dataclasses.asdict(pt.gv)
+
+
+@pytest.mark.parametrize("m", [0, 1, -1, 3])
+def test_plan_equals_the_reference(m):
+    """The cylindrical plan pieces -- i m / r (`:imr`), the r-weighted
+    curl's `:rg` / `:rfinv`, the r = 0 masks per m, PML on the high r side
+    and both z sides -- equal the reference's compile; m != 0 makes the
+    fields complex."""
+    pj, pt = cyl_plan(JAX, m=m), cyl_plan(PORT, m=m, device="cpu")
+    _assert_plans_equal(pj, pt)
+    assert pt.complex_fields == (m != 0)
+    keys = set(pt.coefs)
+    assert {"dz:rg", "dz:rfinv", "bz:rg", "bz:rfinv"} <= keys
+    assert any(k.endswith(":imr") for k in keys) == (m != 0)
+    for s in pt.curl_specs_d + pt.curl_specs_b:
+        if s.dsig_axis == 0:
+            assert s.dsig_slabs[0] == 0            # no PML at the axis
+    # the r = 0 ring of the components the reference zeroes there
+    dead = {c for c in pt.mask_planes if (0, 0) in (pt.mask_planes[c] or ())}
+    want = {0: {"dp", "ep", "br", "hr"}, 1: {"dz", "ez"},
+            3: {"dp", "ep", "dz", "ez", "br", "hr"}}[abs(m)]
+    assert want <= dead
+
+
+def test_grid_equals_the_reference():
+    """core/grid.py's cylindrical grid: the axes (r, z), the origin on the
+    axis, component sites and the r-low side that is the axis, not a
+    wall."""
+    import dataclasses
+    gj = JG.GridVolume.create("cyl", [2.0, 3.0], 10.0)
+    gt = TG.GridVolume.create("cyl", [2.0, 3.0], 10.0)
+    assert dataclasses.asdict(gj) == dataclasses.asdict(gt)
+    assert gt.axes == ("r", "z") and gt.origin[0] == 0.0
+    for c in gt.e_components + gt.h_components:
+        for ax in range(2):
+            np.testing.assert_array_equal(gt.comp_coords(c, ax),
+                                          gj.comp_coords(c, ax))
+        np.testing.assert_array_equal(gt.metal_mask(c, (False, False)),
+                                      np.asarray(gj.metal_mask(
+                                          c, (False, False))))
+        dc = {"e": "d", "h": "b"}[c[0]] + c[1]
+        assert dataclasses.astuple(gt.step_plan(dc)) == \
+            dataclasses.astuple(gj.step_plan(dc))

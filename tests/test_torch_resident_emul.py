@@ -87,7 +87,11 @@ def scene(kind, device="cpu", res=10):
     source and a z-normal flux plane; bf-pml: BFAST (0.3, 0.2, 0) in a
     1 x 1 x 2 cell with PML on every face and an eps=4 ball (no wrap; both
     of a curl's terms, the decay of both chains).  Both are complex, so
-    they take the PAIR_BFAST variant (written with the trailing "*")."""
+    they take the PAIR_BFAST variant (written with the trailing "*").
+    cyl*, kz*: `cyl_scene`'s cylindrical and special_kz cells (the CYL
+    variants)."""
+    if kind.startswith(("cyl", "kz")):
+        return cyl_scene(kind, device)
     pair = kind.endswith("*")
     kind = kind.rstrip("*")
     kind, _, per = kind.partition("~")
@@ -220,8 +224,71 @@ def scene(kind, device="cpu", res=10):
     return sim.plan
 
 
+def cyl_scene(kind, device="cpu"):
+    """The CYL variants' scenes.  cylM (M = 0, 1, -1, 3; m != 0 needs the
+    trailing "*", the real pair): an (r, z) cell 1.6 x 2.4 at resolution
+    10 with PML 0.5 on the high r side and both z sides (so the z PML
+    meets the axis in two corners), an eps=4 ring (0.5 < r < 0.9), a point
+    source on the axis (Ez, m = 0) or off it (Er at r = 0.6, m != 0), an
+    r-normal and a z-normal flux line (the 2 pi r measure in their
+    weights) and an energy box reaching the axis.  kz*: special_kz's
+    vacuum-dispersion cell (1 x 1 at resolution 16, Courant 0.25, k =
+    (0.2, 0, 0.3): Bloch-periodic on both axes, a complex phase on x) with
+    a flux line across it; kz-pml*: a 3 x 2 cell at resolution 10 with PML
+    0.5 on every side, an eps=4 cylinder and k = (0, 0, 0.4)."""
+    pair = kind.endswith("*")
+    kind = kind.rstrip("*")
+    if kind.startswith("cyl"):
+        m = int(kind[3:])
+        src = mp.Source(mp.GaussianSource(0.8, fwidth=0.4),
+                        mp.Ez if m == 0 else mp.Er,
+                        center=mp.Vector3(0.0 if m == 0 else 0.6, 0, 0.1))
+        sim = mp.Simulation(
+            cell_size=mp.Vector3(1.6, 0, 2.4), resolution=10,
+            dimensions=mp.CYLINDRICAL, m=m, sources=[src],
+            geometry=[mp.Block(center=mp.Vector3(0.7, 0, 0),
+                               size=mp.Vector3(0.4, mp.inf, mp.inf),
+                               material=mp.Medium(epsilon=4))],
+            boundary_layers=[mp.PML(0.5)], device=device,
+            force_complex_fields=pair and m == 0)
+        sim.add_flux(0.8, 0.4, 3, mp.FluxRegion(
+            center=mp.Vector3(0.9, 0, 0), size=mp.Vector3(0, 0, 1.2)))
+        sim.add_flux(0.8, 0.4, 2, mp.FluxRegion(
+            center=mp.Vector3(0.45, 0, 0.5), size=mp.Vector3(0.9, 0, 0)))
+        sim.add_energy(0.8, 0.4, 2, mp.EnergyRegion(
+            center=mp.Vector3(0.3, 0, -0.2), size=mp.Vector3(0.6, 0, 0.4)))
+    else:
+        pml = kind == "kz-pml"
+        sim = mp.Simulation(
+            cell_size=mp.Vector3(3, 2) if pml else mp.Vector3(1, 1),
+            resolution=10 if pml else 16, Courant=0.25,
+            geometry=[mp.Cylinder(radius=0.5, material=mp.Medium(
+                epsilon=4))] if pml else [],
+            sources=[mp.Source(mp.GaussianSource(0.36, fwidth=0.25), mp.Ex,
+                               center=mp.Vector3(0.1, -0.17))],
+            boundary_layers=[mp.PML(0.5)] if pml else [],
+            k_point=mp.Vector3(0, 0, 0.4) if pml
+            else mp.Vector3(0.2, 0, 0.3), device=device)
+        sim.add_flux(0.36, 0.25, 3, mp.FluxRegion(
+            center=mp.Vector3(0.2, 0), size=mp.Vector3(0, 0.8)),
+            decimation_factor=1)
+    old = os.environ.get("MNT_REAL_PAIR")
+    os.environ["MNT_REAL_PAIR"] = "1"
+    try:
+        sim.init_sim()
+    finally:
+        if old is None:
+            del os.environ["MNT_REAL_PAIR"]
+        else:
+            os.environ["MNT_REAL_PAIR"] = old
+    assert sim.plan.real_pair == pair and sim.plan.complex_fields == pair
+    return sim.plan
+
+
 #: the component each scene's probes read (else ez)
-COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz"}
+COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz",
+        "cyl1": "er", "cyl-1": "hp", "cyl3": "ez", "kz": "hy",
+        "kz-pml": "ez"}
 
 
 def base_kind(kind):
@@ -333,7 +400,19 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "bfast-k3": ("bf*", False, 13, 8192, None),
          "bfast-k4-seams": ("bf*", True, 13, 5, (None, 1, 3, 7)),
          "bfast-pml-k3-seams": ("bf-pml*", False, 9, 4, (None, 1, 4, 1)),
-         "bfast-pml-k4": ("bf-pml*", True, 9, 8192, None)}
+         "bfast-pml-k4": ("bf-pml*", True, 9, 8192, None),
+         # cylindrical cells and special_kz on the CYL variants: m = 0 on
+         # real fields (the z PML at the axis), a complex m = 0, m = 1, -1
+         # and 3 on the pair (the phi term, the |m| = 1 axis ring), beta
+         # across a complex wrap and beta with PML
+         "cyl0-k3": ("cyl0", False, 13, 8192, None),
+         "cyl0-k4-seams": ("cyl0", True, 13, 5, (None, 1, 3, 7)),
+         "cyl0-pair-k3": ("cyl0*", False, 13, 8192, None),
+         "cyl1-k3-seams": ("cyl1*", False, 13, 5, (None, 1, 4, 1)),
+         "cyl-1-k4": ("cyl-1*", True, 13, 8192, None),
+         "cyl3-k4-seams": ("cyl3*", True, 13, 5, (None, 1, 3, 7)),
+         "kz-k4": ("kz*", True, 13, 8192, None),
+         "kz-pml-k3-seams": ("kz-pml*", False, 13, 5, (None, 1, 4, 1))}
 
 
 def h100_schedule(ker, host_lib):
@@ -416,7 +495,9 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         ((nlaunch, 0) if probed else (0, nlaunch))
     assert int(sk["t"]) == int(sr["t"]) == nsteps
     tl = ker.schedule[1]
-    assert tl["direct"] == (5 if kind.startswith("bf") else 4 if pair
+    cyl = kind.startswith(("cyl", "kz"))
+    assert tl["direct"] == (7 if cyl and pair else 6 if cyl
+                            else 5 if kind.startswith("bf") else 4 if pair
                             else 2 if rotational else 3
                             if periodic else (
                                 kind in ("nl3d", "poles3d")
@@ -450,6 +531,31 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
         assert t.shape == ((nsteps, 2) if pair else (nsteps,))
         assert torch.equal(yk[k], t), k
     assert float((sr["f"][comp] - st0["f"][comp]).abs().max()) > 0
+
+
+def test_launch_refuses_a_variant_that_does_not_match(host_lib,
+                                                      monkeypatch):
+    """The launch checks that the variant matches the plan: a cylindrical
+    plan's table on another variant, and a plain plan with a CYL variant
+    or a table, are refused before anything runs."""
+    monkeypatch.setattr(R, "_lib", lambda: host_lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(R.ResidentKernel, "_check", _own)
+    force(monkeypatch, None, 1)
+    for kind, variant, table in (("cyl0", R.DIRECT, False),
+                                 ("cyl1*", R.DIRECT_PAIR, False),
+                                 ("tm", R.DIRECT_CYL, False),
+                                 ("tm", R.DIRECT, True)):
+        plan = scene(kind)
+        ker = R.ResidentKernel(plan)
+        with monkeypatch.context() as m:
+            m.setattr(R, "direct_variant", lambda p, v=variant: v)
+            if table:
+                ker._layout()
+                ker._cyl_dev = torch.zeros(16, dtype=torch.uint8)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ker._run_cuda(random_state(plan, 4), 3, 5, ())
 
 
 # ---------------------------------------------------------------------------

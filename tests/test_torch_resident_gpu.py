@@ -18,7 +18,9 @@ their ghosts), Bloch-periodic plans (the direct schedule's WRAP variant,
 phase +1 and -1, beside a node mirror, with chi2), with flux monitors and (K4) 20 probes, over
 two chunks, with the wrapper's own schedule; BFAST plans (the PAIR_BFAST
 variant: refl_angular_bfast's cell cut down, and a cell with PML on every
-face), F included; and
+face), F included; cylindrical cells and special_kz (the CYL variants:
+m = 0 on real fields, a complex m = 0, m = 1, -1 and 3 and beta on the
+pair); and
 test_torch_resident_emul.py's schedule cases (small forced tiles, a
 source, probe points and the flux line on tile seams, T not dividing the
 stretch; the direct schedule forced on 2D plans).  Tolerance
@@ -115,6 +117,35 @@ def test_bfast_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     _agree(sk, yk, sr, yr)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("kind", ["cyl0", "cyl0*", "cyl1*", "cyl-1*",
+                                  "cyl3*", "kz*", "kz-pml*"])
+def test_cyl_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
+    """Cylindrical and special_kz plans on the card (Tiling.direct 6 on
+    real fields, 7 on the pair) from a seeded random state over two
+    chunks: the r-weighted curl, the phi term, the axis corrections and the
+    2 pi r flux weights; K4 with a (complex on the pair) probe of two
+    points."""
+    monkeypatch.setattr(R, "MAX_CHUNK", 17)
+    plan = scene(kind, device=cuda)
+    st0 = random_state(plan, 8)
+    pair = kind.endswith("*")
+    comp = COMP.get(base_kind(kind), "ez")
+    probes = [TS.ProbeSpec("p0", comp, np.array([[0, 9], [1, 9]]),
+                           np.array([0.6 + 0.2j, 0.4]) if pair
+                           else np.array([0.6, 0.4]))] if probed else []
+    sr, yr = R.resident_ref(plan)(st0, 30, 40, probes)
+    ker = R.ResidentKernel(plan)
+    sk, yk = ker._run(st0, 30, 40, probes)
+    torch.cuda.synchronize()
+    assert (ker.probed_launches if probed else ker.launches) == 2
+    assert ker.plain_steps == 0
+    assert ker.schedule[1]["direct"] == (R.DIRECT_PAIR_CYL if pair
+                                         else R.DIRECT_CYL)
+    _agree(sk, yk, sr, yr)
+
+
 def _agree(sk, yk, sr, yr):
     scale = max(float(t.abs().max()) for t in sr["f"].values())
     for key in ("f", "f_u", "f_w", "f_bfast"):
@@ -193,6 +224,10 @@ def test_shared_memory_rule_matches_the_card(cuda):
         assert lib.mnt_k3_max_blocks(1, probed, 2, 0) < 0
         for nl in (0, 1):
             assert lib.mnt_k3_max_blocks(nl, probed, 3, 0) >= sms
+        # the CYL variants (linear plans only)
+        for direct in (R.DIRECT_CYL, R.DIRECT_PAIR_CYL):
+            assert lib.mnt_k3_max_blocks(0, probed, direct, 0) >= sms
+            assert lib.mnt_k3_max_blocks(1, probed, direct, 0) < 0
 
 
 @pytest.mark.gpu
