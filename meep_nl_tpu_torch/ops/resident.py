@@ -175,16 +175,13 @@ def resident_supported(plan) -> bool:
     plans outside it are declined, never raised on."""
     if plan.gv.ndim < 2 or plan.dtype != np.float32:
         return False
-    if plan.gv.dim == "cyl" or plan.beta != 0.0:
-        # the CYL variants: linear, no BFAST term, and for a cylindrical
-        # cell no Bloch wrap and the axis at r = 0 (its corrections)
-        if plan.bfast_k is not None or any(
-                s.has_chi3 or s.has_nr
-                for s in plan.eh_specs_e + plan.eh_specs_h):
-            return False
-        if plan.gv.dim == "cyl" and (any(plan.periodic)
-                                     or abs(plan.gv.origin[0]) > 1e-12):
-            return False
+    if _cyl(plan) and (plan.bfast_k is not None or (
+            plan.gv.dim == "cyl" and (any(plan.periodic)
+                                      or abs(plan.gv.origin[0]) > 1e-12))):
+        # the CYL variants (linear: the stepper refuses chi2/chi3 on a
+        # cylindrical cell, and a beta plan is a real pair) carry no BFAST
+        # term, and a cylindrical cell's no Bloch wrap; its axis is at r = 0
+        return False
     if plan.complex_fields and not plan.real_pair:
         return False                     # native complex storage
     if plan.bfast_k is not None and not _is_pair(plan):

@@ -534,9 +534,10 @@ def compile_plan(
                 support_boxes[key] = tuple(
                     (int(ix.min()), int(ix.max()) + 1) for ix in nz)
         # contiguous: the kernels index these tensors by flat offsets (the
-        # .real/.imag of a complex array are strided views)
+        # .real/.imag of a complex array are strided views); a scalar stays
+        # 0-d, as the reference keeps it
         coefs[key] = torch.as_tensor(
-            np.ascontiguousarray(arr, dtype=as_dtype or dtype),
+            np.asarray(arr, dtype=as_dtype or dtype, order="C"),
             dtype=torch_dtype(as_dtype or dtype), device=dev)
         return key
 

@@ -72,6 +72,11 @@ def check_supported(plan: Plan) -> None:
         # component's own direction, which is no grid axis in 1D (the
         # reference's step fails there with a TypeError, ROADMAP C.3)
         why = "full-tensor chi2 in 1D cells (ROADMAP A9)"
+    elif gv.dim == "cyl" and any(s.has_chi3 or s.has_nr
+                                 for s in plan.eh_specs_e + plan.eh_specs_h):
+        # the phi component's neighbour sums run along phi, no grid axis:
+        # the reference's step fails there with a TypeError (ROADMAP C.3)
+        why = "chi2/chi3 media in cylindrical cells (ROADMAP A9)"
     else:
         for p in plan.pol_specs_e + plan.pol_specs_h:
             if p.kind != "lorentzian":
