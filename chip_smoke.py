@@ -226,6 +226,30 @@ falls back to the CPU or to a plain version:
      probed stretch of the cell through K4, K3 and K4 with BFAST bit for
      bit from the end state and a seeded random state, and K3 with BFAST
      timed beside the same cell without BFAST (real fields, K3's wrap).
+ 17. cylindrical cells and special_kz (K3/K4's CYL variants: m = 0 on
+     real fields, m != 0 and beta on the real pair), at the resolutions
+     the repo's tests publish them with: the PEC cylindrical cavity (R 2,
+     L 3, m = 0, resolution 20) with a Harminv collector through K4
+     (TM010 within 2e-3 of 2.404826 / (2 pi R), every Q > 500 mode within
+     5e-3 of the TM0np set); the Drexhage mirror (an on-axis dipole above
+     a PEC plane at h = 0.15 and 0.35, normalized by the vacuum box) at
+     resolution 20 and at 80 (200x480) through K3, P/P0 within 1.5 % of the
+     image-theory integral, the resolution-80 runs timed; the on-axis
+     dipole's far-field pattern through near2far (the port's greencyl,
+     within 0.06 of sin theta); the cylindrical near fields against a 5^3
+     cell in 3D at resolution 12 (magnitude within 4 % of one constant,
+     phase within 0.04 rad); ring-cyl (m = 3, resolution 10) with Harminv
+     through K4 on the pair (modes in (0.1, 0.2), equal to the CPU's to
+     1e-4); m = 1 with PML through K3 on the pair (finite); special_kz's
+     vacuum dispersion (k = (0.2, 0, 0.3), resolution 16) with Harminv
+     through K4 on the pair (within 2e-4 of the exact discrete dispersion,
+     1e-2 or more from the frequency without beta); and
+     bench.py::run_resident's disk with k_point (0, 0, 0.25) at the largest
+     size whose doubled pair state fits the resident budget (600^2: at
+     767^2 the state is 90 MiB, and the route is the eager stepper, as the
+     reference's), K3 on the pair timed beside the same cell without
+     beta.  Every CYL launch is held bit for bit against its plain version
+     from the run's end state and from a seeded random state.
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -509,6 +533,10 @@ def cpu_twins(path) -> int:
     sim, fl = flagship_sim(mp, 16, 8.0, "cpu", pml=0.25, kx=0.25)
     sim.run(until=200 * sim.dt)
     out["p16:flux"], out["p16:ez"] = sim.get_fluxes(fl), sim.get_array(mp.Ez)
+    # phase 17's twin: ring-cyl's modes (m = 3, native complex)
+    sim, h = ring_cyl_run(mp, "cpu")
+    out["ring_cyl_modes"] = np.array(
+        [(m.freq, m.Q, m.amp) for m in h.modes]).reshape(-1, 3)
     np.savez(path, **out)
     return 0
 
@@ -551,6 +579,10 @@ HOLEY_CHECK_K = (0.1, 0.25, 0.4)
 #: phase 16's DTFT decimation of the x-periodic linear flagship's flux plane
 #: (a cycle of 5 steps: 2 calls of K2's x wrap and 1 K1 step)
 WRAP_DEC = 5
+#: phase 17's special_kz disk (bench.py::run_resident's scene with
+#: k_point (0, 0, KZ_K)): the largest n^2 whose doubled pair state fits the
+#: resident budget, and the published 767^2, which does not
+KZ_N, KZ_K = 600, 0.25
 #: refl_angular_bfast.py (examples/): sin of the angle, the glass index, the
 #: source's centre and width, the frequencies, the published resolution
 #: and that of the CPU twin
@@ -780,12 +812,13 @@ def schedule_text(ker, nsteps, probed):
             f"{nsteps}-step stretch")
 
 
-def compare_resident(ker, st0, t0, nsteps, probes=()):
+def compare_resident(ker, st0, t0, nsteps, probes=(), quiet=()):
     """K3 (K4 with probes) against resident_ref over nsteps from state st0
     at step t0 (these launches are not counted); returns (abs, rel, the
     DTFT accumulators' max abs error relative to their own maximum, the
     series' max abs error).  Fails if the plan has DTFT monitors and no
-    step of the window samples them."""
+    step of the window samples them, or an accumulator stays zero that is
+    not in `quiet` (those of a field that is zero throughout)."""
     import numpy as np
     from meep_nl_tpu_torch.ops import resident as R
     from meep_nl_tpu_torch.stepper.step import build_xs
@@ -803,6 +836,8 @@ def compare_resident(ker, st0, t0, nsteps, probes=()):
     drel = 0.0
     for c, t in sr["dft"].items():
         scale = float(t.abs().max())
+        if c in quiet and not scale > 0:
+            continue
         if not scale > 0:
             raise AssertionError(f"DTFT accumulator {c} is zero")
         derr = float((sk["dft"][c] - t).abs().max())
@@ -3619,6 +3654,444 @@ def phase_wrap_bfast(mp, dev, card, blank, twins15):
     return [k2w, k3b, k4b]
 
 
+def cavity_sim(mp, device):
+    """test_cylindrical.py::test_pec_cylinder_cavity_modes_m0: a PEC
+    cylinder of radius 2 and length 3 (the (r, z) cell's metal walls), m =
+    0, resolution 20, an Ez Gaussian source (0.3, fwidth 0.35) at (0.9,
+    0.4)."""
+    return mp.Simulation(
+        cell_size=mp.Vector3(2.0, 0, 3.0), resolution=20,
+        dimensions=mp.CYLINDRICAL, m=0, device=device,
+        sources=[mp.Source(mp.GaussianSource(frequency=0.3, fwidth=0.35),
+                           component=mp.Ez, center=mp.Vector3(0.9, 0, 0.4))])
+
+
+def purcell_sim(mp, res, device, h=None):
+    """test_cylindrical.py::test_cyl_mirror_purcell_ratio's runs: an
+    on-axis Ez dipole (f 1, fwidth 0.3) in a 2.5 x 6 (r, z) cell, PML 0.8;
+    h None: the vacuum box (PML on the high r side and both z sides, a
+    flux side at r = 1.2 and caps at z = +-1.5); else the dipole at height h
+    above the metal wall at z = -3 (PML on r and the high z side only), the
+    flux side and the top cap at z = 1.4.  Returns (sim, [(flux, sign)])."""
+    fcen, r0 = 1.0, 1.2
+    zlo, ztop = -3.0, 1.4
+    layers = [mp.PML(0.8)] if h is None else [
+        mp.PML(0.8, direction="r"), mp.PML(0.8, direction="z", side=+1)]
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(2.5, 0, 6.0), resolution=res,
+        dimensions=mp.CYLINDRICAL, m=0, boundary_layers=layers,
+        device=device,
+        sources=[mp.Source(mp.GaussianSource(frequency=fcen, fwidth=0.3),
+                           component=mp.Ez,
+                           center=mp.Vector3(0, 0, 0.0 if h is None
+                                             else zlo + h))])
+    if h is None:
+        z0 = 1.5
+        regions = [((r0, 0), (0, 2 * z0), 1), ((r0 / 2, z0), (r0, 0), 1),
+                   ((r0 / 2, -z0), (r0, 0), -1)]
+    else:
+        regions = [((r0, (zlo + ztop) / 2), (0, ztop - zlo), 1),
+                   ((r0 / 2, ztop), (r0, 0), 1)]
+    fl = [(sim.add_flux(fcen, 0, 1, mp.FluxRegion(
+        center=mp.Vector3(c[0], 0, c[1]), size=mp.Vector3(z[0], 0, z[1]))),
+        sign) for c, z, sign in regions]
+    return sim, fl
+
+
+def purcell_exact(h):
+    """The image-theory P/P0 of a vertical dipole at height h above a
+    perfect mirror, (3/4) int_0^{pi/2} 4 cos^2(k h cos t) sin^3 t dt."""
+    import numpy as np
+    from scipy.integrate import quad
+    k = 2 * np.pi
+    num = quad(lambda th: 4 * np.cos(k * h * np.cos(th)) ** 2
+               * np.sin(th) ** 3, 0, np.pi / 2)[0]
+    return num / (4.0 / 3.0)
+
+
+def dipole_n2f_sim(mp, device):
+    """test_cyl_dipole_radiation_pattern: an on-axis Ez dipole (f 1,
+    fwidth 0.3) in a 3 x 6 (r, z) cell at resolution 20, PML 1, the near
+    surface a side at r = 1.6 and caps at z = +-1.8."""
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(3.0, 0, 6.0), resolution=20,
+        dimensions=mp.CYLINDRICAL, m=0, boundary_layers=[mp.PML(1.0)],
+        device=device,
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.3),
+                           component=mp.Ez, center=mp.Vector3())])
+    r0, z0 = 1.6, 1.8
+    n2f = sim.add_near2far(
+        1.0, 0, 1,
+        mp.FluxRegion(center=mp.Vector3(r0, 0, 0),
+                      size=mp.Vector3(0, 0, 2 * z0), weight=+1),
+        mp.FluxRegion(center=mp.Vector3(r0 / 2, 0, z0),
+                      size=mp.Vector3(r0, 0, 0), weight=+1),
+        mp.FluxRegion(center=mp.Vector3(r0 / 2, 0, -z0),
+                      size=mp.Vector3(r0, 0, 0), weight=-1))
+    return sim, n2f
+
+
+def ring_cyl_run(mp, device, counted=None):
+    """test_cylindrical.py::test_ring_cyl_resonance (Meep's ring-cyl.py):
+    n 3.4, w 1, r 1, pad 4, dpml 2 (PML on the high r side), m = 3,
+    resolution 10, an Ez Gaussian source (0.15, fwidth 0.1) at r + 0.1;
+    run(after_sources(Harminv(Ez, r + 0.2, 0.15, 0.1)),
+    until_after_sources=200), through `counted` when given.  Returns (sim,
+    the collector)."""
+    n, w, r, pad, dpml = 3.4, 1.0, 1.0, 4.0, 2.0
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(r + w + pad + dpml, 0, 2.0), resolution=10,
+        dimensions=mp.CYLINDRICAL, m=3, device=device,
+        geometry=[mp.Block(center=mp.Vector3(r + w / 2, 0, 0),
+                           size=mp.Vector3(w, mp.inf, mp.inf),
+                           material=mp.Medium(index=n))],
+        sources=[mp.Source(mp.GaussianSource(frequency=0.15, fwidth=0.1),
+                           component=mp.Ez,
+                           center=mp.Vector3(r + 0.1, 0, 0))],
+        boundary_layers=[mp.PML(dpml, direction="r", side=+1)])
+    h = mp.Harminv(mp.Ez, mp.Vector3(r + 0.2, 0, 0), 0.15, 0.1)
+    (counted or (lambda s_, *a, **k: s_.run(*a, **k)))(
+        sim, mp.after_sources(h), until_after_sources=200)
+    return sim, h
+
+
+def kz_freq(kx, kz, res, courant=0.25):
+    """The exact discrete dispersion of the Yee scheme with beta (the
+    reference's test_special_kz.py::_disc_freq)."""
+    import numpy as np
+    dx = 1.0 / res
+    dt = courant * dx
+    s = (2.0 / dx) ** 2 * np.sin(np.pi * kx * dx) ** 2 + (2 * np.pi * kz) ** 2
+    return 2.0 / dt * np.arcsin(dt / 2.0 * np.sqrt(s)) / (2 * np.pi)
+
+
+def phase_cyl(mp, dev, card, blank, twins):
+    """Phase 17: cylindrical cells and special_kz on the card (the module
+    docstring).  `twins`: (process, .npz path, directory) of cpu_twins,
+    which phase 11 has waited for.  Returns the kernel table entries of
+    K3 and K4 in their CYL (real) and PAIR_CYL variants."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import resident as R
+    src = "meep_nl_tpu_torch/csrc/resident.cu"
+    k3c = _entry("resident_k3_cyl", src, K3_REPLACES, blank)
+    k4c = _entry("resident_k4_cyl", src, K4_REPLACES, blank)
+    k3p = _entry("resident_k3_paircyl", src, K3_REPLACES, blank)
+    k4p = _entry("resident_k4_paircyl", src, K4_REPLACES, blank)
+    with np.load(twins[1]) as z:
+        ring_cpu = z["ring_cyl_modes"]
+    t_phase = time.perf_counter()
+
+    def counted(sim, *funcs, variant, **kw):
+        """sim.run through resident_run_counted; the K3 / K4 launches into
+        the CYL or PAIR_CYL entries; fails off the variant."""
+        sim.init_sim()
+        R._kernel(sim.plan)
+        wall, l3, l4 = resident_run_counted(sim, *funcs, **kw)
+        ker = sim.plan._resident_kernel
+        if ker.schedule[1]["direct"] != variant or not (l3 + l4) \
+                or l3 + l4 != sim.routes["resident"]:
+            raise AssertionError(f"CYL run: K3 {l3}, K4 {l4}, routes "
+                                 f"{dict(sim.routes)}, schedule "
+                                 f"{ker.schedule[1]}")
+        pair = variant == R.DIRECT_PAIR_CYL
+        (k3p if pair else k3c)["launches"] += l3
+        (k4p if pair else k4c)["launches"] += l4
+        return ker, wall, l3, l4
+
+    def bitcheck(sim, what, probes, nsteps, seed):
+        """K3 (K4 with probes) bit for bit from the run's end state and a
+        seeded random state; into the variant's entry."""
+        ker = sim.plan._resident_kernel
+        pair = ker.schedule[1]["direct"] == R.DIRECT_PAIR_CYL
+        entry = ((k4p if pair else k4c) if probes
+                 else (k3p if pair else k3c))
+        name = ("K4" if probes else "K3") + (" pair CYL" if pair else " CYL")
+        for label, st0 in (("the run's state", sim.fields_state),
+                           ("a random state",
+                            random_state(sim.plan, seed, dev))):
+            # an m = 0 dipole leaves E_phi zero: so are its accumulators
+            quiet = {m.name for m in sim.plan.dfts
+                     if not float(st0["f"][m.component].abs().max()) > 0}
+            err, rel, drel, serr = compare_resident(ker, st0, sim._t, nsteps,
+                                                    probes, quiet)
+            print(f"[17] {name} vs plain, {what}, from {label}, {nsteps} "
+                  f"steps: state and accumulators max abs {err:.3e}, "
+                  f"series max abs {serr:.3e}", flush=True)
+            if not (err == 0.0 and serr == 0.0):
+                raise AssertionError(f"{name} is not bit for bit ({what}, "
+                                     f"from {label}): {err:.3e}, series "
+                                     f"{serr:.3e}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err, serr)
+
+    def timing(sim, what, probes, entry, nsteps=1000):
+        """The kernel's ms/step (CUDA events around its launches), the
+        wrapper's call, the plain version and the bound, from the run's
+        end state; into `entry`."""
+        ker, st, t_end = sim.plan._resident_kernel, sim.fields_state, sim._t
+        ms, call_ms = time_resident(
+            lambda s_, n_: ker._run(s_, n_, t_end, probes), st, nsteps)
+        ref = R.resident_ref(sim.plan)
+        _, plain_ms = time_resident(
+            lambda s_, n_: ref(s_, n_, t_end, probes), st, 20, reps=1)
+        cost = R.step_cost(sim.plan, nsteps)
+        b_ms, b_by = bound({"bytes": cost["bytes"] / nsteps,
+                            "ops": cost["ops"] / nsteps})
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        cells = int(np.prod(sim.plan.gv.shape))
+        print(f"[17] {entry['name']} at {what} ({sim.plan.storage_shape}): "
+              f"{ms:.4f} ms/step = {cells / ms / 1e6:.3f} GCells/s "
+              f"({schedule_text(ker, nsteps, bool(probes))}); the wrapper's "
+              f"call {call_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.6f} "
+              f"ms/step ({b_by}) ({card})", flush=True)
+        return ms
+
+    # ---- 17.1: the PEC cylindrical cavity, m = 0, Harminv (K4) ----------
+    sim = cavity_sim(mp, dev)
+    h = mp.Harminv(mp.Ez, mp.Vector3(1.2, 0, -0.3), 0.3, 0.35)
+    _, wall, l3, l4 = counted(sim, mp.after_sources(h),
+                              until_after_sources=300, variant=R.DIRECT_CYL)
+    R_, L_ = 2.0, 3.0
+    f_tm = [x / (2 * np.pi * R_) for x in (2.404826, 5.520078)]
+    expected = [np.sqrt(fr ** 2 + (p / (2 * L_)) ** 2) for fr in f_tm
+                for p in range(4)]
+    freqs = sorted(m.freq for m in h.modes if m.amp > 1e-4 and m.Q > 500)
+    errs = [min(abs(f - fe) / fe for fe in expected) for f in freqs]
+    d010 = min([abs(f - f_tm[0]) for f in freqs] or [np.inf])
+    print(f"[17] PEC cylinder cavity m = 0 ({sim.plan.storage_shape}): "
+          f"{sim._t} steps in {wall:.3f} s = {wall / sim._t * 1e3:.4f} "
+          f"ms/step, K4 launches {l4}, K3 {l3}; Q > 500 modes "
+          f"{[round(f, 6) for f in freqs]}, worst relative distance to the "
+          f"TM0np set {max(errs or [np.inf]):.3e} (gate 5e-3), TM010 "
+          f"{f_tm[0]:.6f} off by {d010:.3e} (gate 2e-3) ({card})",
+          flush=True)
+    if not (freqs and max(errs) < 5e-3 and d010 < 2e-3 and l3 == 0):
+        raise AssertionError(f"cavity modes {freqs}: {errs}, TM010 {d010}")
+    probe = [sim._point_probe("pc", mp.Ez, mp.Vector3(1.2, 0, -0.3))]
+    bitcheck(sim, "the cavity", probe, 24, 71)
+    timing(sim, "the cavity", probe, k4c)
+    del sim
+
+    # ---- 17.2: the Drexhage mirror, P/P0 at resolutions 20 and 80 (K3) --
+    for res in (20, 80):
+        P = {}
+        for hh in (None, 0.15, 0.35):
+            sim, fl = purcell_sim(mp, res, dev, hh)
+            _, wall, l3, l4 = counted(sim, until=60.0, variant=R.DIRECT_CYL)
+            P[hh] = sum(sign * float(np.asarray(sim.get_fluxes(f))[0])
+                        for f, sign in fl)
+            cells = int(np.prod(sim.plan.gv.shape))
+            print(f"[17] Purcell {'vacuum box' if hh is None else f'h {hh}'}"
+                  f" at resolution {res} ({sim.plan.storage_shape}): "
+                  f"{sim._t} steps in {wall:.3f} s = "
+                  f"{wall / sim._t * 1e3:.4f} ms/step = "
+                  f"{cells * sim._t / wall / 1e9:.3f} GCells/s, K3 launches "
+                  f"{l3}; P {P[hh]:.6e} ({card})", flush=True)
+            if l4 or not np.isfinite(P[hh]):
+                raise AssertionError(f"Purcell run: K4 {l4}, P {P[hh]}")
+        for hh in (0.15, 0.35):
+            ratio, exact = P[hh] / P[None], purcell_exact(hh)
+            d = abs(ratio - exact) / exact
+            print(f"[17] Purcell P/P0 at h {hh}, resolution {res}: "
+                  f"{ratio:.5f}, image theory {exact:.5f}, off by {d:.3e} "
+                  f"(gate 1.5e-2)", flush=True)
+            if not d < 0.015:
+                raise AssertionError(f"P/P0 at h {hh}, res {res}: {ratio} "
+                                     f"against {exact}")
+    bitcheck(sim, "the resolution-80 mirror", (), 80, 73)
+    timing(sim, "the resolution-80 mirror", (), k3c)
+    del sim
+
+    # ---- 17.3: the on-axis dipole's far-field pattern (K3, near2far) ----
+    sim, n2f = dipole_n2f_sim(mp, dev)
+    _, wall, l3, _ = counted(sim, until=60.0, variant=R.DIRECT_CYL)
+    ths = np.linspace(0.2, np.pi - 0.2, 13)
+    amps = np.array([np.linalg.norm(np.asarray(sim.get_farfield(
+        n2f, mp.Vector3(400 * np.sin(t), 0, 400 * np.cos(t))))[:3])
+        for t in ths])
+    ratio = amps / amps[len(amps) // 2]
+    err = float(np.abs(ratio - np.sin(ths)).max())
+    sym = float(np.abs(ratio - ratio[::-1]).max())
+    print(f"[17] on-axis dipole far field ({sim.plan.storage_shape}, "
+          f"{sim._t} steps, {wall / sim._t * 1e3:.4f} ms/step, K3 launches "
+          f"{l3}): |E|(theta) / |E|(pi/2) against sin(theta) max abs "
+          f"{err:.4f} (gate 0.06), up/down {sym:.4f}; ratio "
+          f"{np.round(ratio, 4).tolist()} ({card})", flush=True)
+    if not (err < 0.06 and sym < 1e-2 * float(ratio.max())):
+        raise AssertionError(f"dipole pattern: {err}, symmetry {sym}")
+    del sim
+
+    # ---- 17.4: cylindrical near fields against a 3D cell ----------------
+    f0, pts = 1.0, [(1.0, 0.0), (0.8, 0.4), (0.6, 0.6), (0.8, 0.8),
+                    (0.4, 0.8), (1.2, -0.4), (0.6, -0.6), (1.0, 0.6)]
+
+    def dft_at_points(s_, runner):
+        rec = {"t": [], "v": []}
+
+        def sample(x):
+            rec["t"].append(x.meep_time())
+            rec["v"].append([x.get_field_point(mp.Ez, mp.Vector3(r, 0, z))
+                             .real for (r, z) in pts])
+        runner(s_, mp.at_every(0.25, sample), until=8.0)
+        t = np.array(rec["t"])
+        return (np.exp(2j * np.pi * f0 * t)[:, None]
+                * np.array(rec["v"])).sum(0)
+
+    srcs = [mp.Source(mp.GaussianSource(frequency=f0, fwidth=2.0),
+                      component=mp.Ez, center=mp.Vector3())]
+    sc = mp.Simulation(cell_size=mp.Vector3(2.5, 0, 5.0), resolution=12,
+                       dimensions=mp.CYLINDRICAL, m=0, sources=srcs,
+                       boundary_layers=[mp.PML(0.75)], device=dev)
+    a = dft_at_points(sc, lambda s_, *f, **k: counted(
+        s_, *f, variant=R.DIRECT_CYL, **k))
+    s3 = mp.Simulation(cell_size=mp.Vector3(5.0, 5.0, 5.0), resolution=12,
+                       sources=srcs, boundary_layers=[mp.PML(0.75)],
+                       device=dev)
+    b = dft_at_points(s3, lambda s_, *f, **k: s_.run(*f, **k))
+    ratio = a / b
+    mag = np.abs(ratio) / np.median(np.abs(ratio))
+    ang = np.angle(ratio / ratio[0])
+    print(f"[17] cylindrical m = 0 ({sc.plan.storage_shape}, routes "
+          f"{dict(sc.routes)}) against 3D ({s3.plan.storage_shape}, routes "
+          f"{dict(s3.routes)}) near fields at 8 points: magnitude spread "
+          f"{float(np.abs(mag - 1).max()):.4f} (gate 0.04), phase "
+          f"{float(np.abs(ang).max()):.4f} rad (gate 0.04)", flush=True)
+    if not (np.all(np.abs(b) > 1e-12) and np.all(np.abs(mag - 1) < 0.04)
+            and np.all(np.abs(ang) < 0.04)):
+        raise AssertionError(f"cyl vs 3D: {mag}, {ang}")
+    del sc, s3
+
+    # ---- 17.5: ring-cyl, m = 3, Harminv on the pair (K4) ----------------
+    out = {}
+
+    def ring_counted(s_, *f, **k):
+        out["run"] = counted(s_, *f, variant=R.DIRECT_PAIR_CYL, **k)
+
+    sim, h = ring_cyl_run(mp, dev, ring_counted)
+    _, wall, l3, l4 = out["run"]
+    modes = [m for m in h.modes if m.amp > 1e-4 and m.Q > 20]
+    # held against the CPU: the decaying ones (a Q of inf is a pole that
+    # does not decay in the window, whose fit moves with the series'
+    # fp32 round-off)
+    held = [m for m in modes if np.isfinite(m.Q)]
+    cpu = ring_cpu[(ring_cpu[:, 2] > 1e-4) & (ring_cpu[:, 1] > 20)]
+    worst = max([min(abs(c - m.freq) / m.freq for c in cpu[:, 0])
+                 if len(cpu) else np.inf for m in held] or [np.inf])
+    print(f"[17] ring-cyl m = 3 ({sim.plan.storage_shape}, real pair "
+          f"{sim.plan.real_pair}): {sim._t} steps in {wall:.3f} s = "
+          f"{wall / sim._t * 1e3:.4f} ms/step, K4 launches {l4}, K3 {l3}; "
+          f"Q > 20 modes {[(round(m.freq, 6), round(m.Q, 1)) for m in modes]}"
+          f"; the decaying ones against the CPU's (native complex) "
+          f"{worst:.3e} (gate 1e-4); CPU {ring_cpu.tolist()} ({card})",
+          flush=True)
+    if not (held and all(0.1 < m.freq < 0.2 for m in modes)
+            and worst <= 1e-4 and l3 == 0):
+        raise AssertionError(f"ring-cyl modes {modes}, CPU {cpu}")
+    probe = [sim._point_probe("pr", mp.Ez, mp.Vector3(1.2, 0, 0))]
+    bitcheck(sim, "ring-cyl", probe, 24, 79)
+    timing(sim, "ring-cyl", probe, k4p)
+    del sim
+
+    # ---- 17.6: m = 1 with PML (K3 on the pair) --------------------------
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(3.0, 0, 3.0), resolution=16,
+        dimensions=mp.CYLINDRICAL, m=1, boundary_layers=[mp.PML(0.8)],
+        device=dev,
+        sources=[mp.Source(mp.GaussianSource(frequency=0.4, fwidth=0.2),
+                           component=mp.Er, center=mp.Vector3(1.2, 0, 0))])
+    _, wall, l3, _ = counted(sim, until=60.0, variant=R.DIRECT_PAIR_CYL)
+    fin = all(bool(torch.isfinite(t).all())
+              for t in sim.fields_state["f"].values())
+    er = float(sim.fields_state["f"]["er"].abs().max())
+    print(f"[17] m = 1 with PML ({sim.plan.storage_shape}): {sim._t} steps "
+          f"in {wall:.3f} s, K3 launches {l3}; finite {fin}, max |Er| "
+          f"{er:.3e} ({card})", flush=True)
+    if not (fin and er > 1e-8):
+        raise AssertionError(f"m = 1 run: finite {fin}, |Er| {er}")
+    bitcheck(sim, "m = 1 with PML", (), 24, 83)
+    del sim
+
+    # ---- 17.7: special_kz's vacuum dispersion (K4 on the pair) ----------
+    kx, kz = 0.2, 0.3
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(1.0, 1.0), resolution=16, Courant=0.25,
+        sources=[mp.Source(mp.GaussianSource(frequency=0.36, fwidth=0.25),
+                           component=mp.Ex, center=mp.Vector3(0.1, -0.17))],
+        k_point=mp.Vector3(kx, 0, kz), device=dev)
+    h = mp.Harminv(mp.Ex, mp.Vector3(-0.23, 0.11), 0.36, 0.25)
+    _, wall, l3, l4 = counted(sim, h, until_after_sources=150,
+                              variant=R.DIRECT_PAIR_CYL)
+    f_ex, f_nok = kz_freq(kx, kz, 16), kz_freq(kx, 0.0, 16)
+    m = min(h.modes, key=lambda x: abs(x.freq - f_ex)) if h.modes else None
+    print(f"[17] special_kz vacuum dispersion k = ({kx}, 0, {kz}) "
+          f"({sim.plan.storage_shape}, beta {sim.plan.beta:.6f}): {sim._t} "
+          f"steps in {wall:.3f} s, K4 launches {l4}; mode "
+          f"{m.freq if m else None} against the exact {f_ex:.6f} (gate "
+          f"2e-4), without beta {f_nok:.6f} ({card})", flush=True)
+    if not (m and abs(m.freq - f_ex) < 2e-4 and abs(m.freq - f_nok) > 1e-2
+            and l3 == 0):
+        raise AssertionError(f"special_kz dispersion: {m}, {f_ex}")
+    probe = [sim._point_probe("pk", mp.Ex, mp.Vector3(-0.23, 0.11))]
+    bitcheck(sim, "the kz cell", probe, 24, 89)
+    del sim
+
+    # ---- 17.8: special_kz at size (K3 on the pair) ----------------------
+    big, _ = resident_sim(mp, 767, dev, flux=True,
+                          k_point=mp.Vector3(0, 0, KZ_K))
+    bytes_ = R._state_bytes(big.plan)
+    if R.resident_supported(big.plan):
+        raise AssertionError("the 767^2 kz plan fits the resident budget")
+    big.run(until=2 * big.dt)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.run(until=10 * big.dt)
+    torch.cuda.synchronize()
+    e_ms = (time.perf_counter() - t0) / 8 * 1e3
+    print(f"[17] bench.py::run_resident's 767^2 disk with k_point (0, 0, "
+          f"{KZ_K}): a pair state of {bytes_ / 2 ** 20:.1f} MiB, doubled "
+          f"above the resident budget of {R.VMEM_BUDGET / 2 ** 20:.0f} MiB, "
+          f"so the eager stepper (routes {dict(big.routes)}) at "
+          f"{e_ms:.3f} ms/step ({card})", flush=True)
+    if dict(big.routes) != {"eager": 2}:
+        raise AssertionError(f"767^2 kz routes {dict(big.routes)}")
+    del big
+    torch.cuda.empty_cache()
+    ms = {}
+    for label, kw in (("with beta", {"k_point": mp.Vector3(0, 0, KZ_K)}),
+                      ("without beta", {})):
+        sim, fl = resident_sim(mp, KZ_N, dev, flux=True, **kw)
+        sim.run(until=24 * sim.dt)                  # warm-up: tables
+        variant = R.DIRECT_PAIR_CYL if kw else None
+        if kw:
+            _, wall, l3, _ = counted(sim, until=1000 * sim.dt,
+                                     variant=variant)
+            flux = np.asarray(sim.get_fluxes(fl))
+            print(f"[17] the {KZ_N}^2 disk {label} "
+                  f"({sim.plan.storage_shape}, beta {sim.plan.beta:.6f}, "
+                  f"real pair {sim.plan.real_pair}): 1000 steps in "
+                  f"{wall:.3f} s = {wall / 1000 * 1e3:.4f} ms/step, K3 "
+                  f"launches {l3}; "
+                  f"flux {flux.tolist()} ({card})", flush=True)
+            if not np.all(np.isfinite(flux)):
+                raise AssertionError(f"kz disk flux {flux}")
+            bitcheck(sim, f"the {KZ_N}^2 kz disk", (), 24, 97)
+            ms[label] = timing(sim, f"the {KZ_N}^2 kz disk", (), k3p)
+        else:
+            ker = R._kernel(sim.plan)
+            st, t_end = sim.fields_state, sim._t
+            ms[label], _ = time_resident(
+                lambda s_, n_: ker._run(s_, n_, t_end, ()), st, 1000)
+            print(f"[17] K3 on the {KZ_N}^2 disk {label} (real fields, "
+                  f"{sim.plan.storage_shape}): {ms[label]:.4f} ms/step "
+                  f"({schedule_text(ker, 1000, False)}) against "
+                  f"{ms['with beta']:.4f} with beta ({card})", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+    print(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [k3c, k4c, k3p, k4p]
+
+
 def main() -> int:
     import shutil
     import torch
@@ -3640,7 +4113,7 @@ def main() -> int:
 
 
 def run_phases(twins, twins15) -> int:
-    """Phases 1-16 (the module docstring); `twins`, `twins15`: the CPU
+    """Phases 1-17 (the module docstring); `twins`, `twins15`: the CPU
     runs (start_cpu_twins, start_cpu_twins15)."""
     import numpy as np
     import torch
@@ -3973,12 +4446,13 @@ def run_phases(twins, twins15) -> int:
     wrap = phase_periodic(mp, dev, card, main_ms, blank, twins)
     pair = phase_complex(mp, dev, card, main_ms, blank, twins15)
     wrap2 = phase_wrap_bfast(mp, dev, card, blank, twins15)
-    print(f"[16] phases 1-16 took {time.perf_counter() - t_start:.1f} s",
+    cyl = phase_cyl(mp, dev, card, blank, twins)
+    print(f"[17] phases 1-17 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap + pair
-                      + wrap2}))
+                      + wrap2 + cyl}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

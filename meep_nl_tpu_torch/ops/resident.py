@@ -1419,7 +1419,10 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     (`bytes`); per site and step the arithmetic of the per-site functions
     (curl + chains ~12 per D/B component, E/H update ~6 per component, the
     NR solve ~150 and the ADE ~8 per material site, BFAST's term ~16 per
-    component that has one), the sources and the DTFT (`ops`).  `stream_bytes` is what a kernel that kept nothing on
+    component that has one; on a cylindrical or beta plan 3 per site of
+    an r-weighted difference, 5 of a phi term, 3 per ring site of an axis
+    correction), the sources and the DTFT (`ops`).  `stream_bytes` is what
+    a kernel that kept nothing on
     chip between steps would move per step: the state read and written and
     the coefficients read."""
     rp = resident_plan(plan)
@@ -1457,8 +1460,19 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     # the flip-flop, the chains' scaling of the change, f and f_u
     nbf = 0 if rp.bfast_k is None else sum(
         1 for s in bfast_specs(rp) if any(bfast_ks(rp, s)))
-    ops_step = ch * (18 * ncomp * N + 8 * pol + 16 * nbf * N) + 150 * nl \
-        + region
+    # cylindrical / beta: the r-weighted difference (3 more products), the
+    # phi term (the rotation's 3 and imr's 1, the sum), and per ring site
+    # of the axis corrections 3 (read in `bytes` with the coefficients)
+    ncyl = 0
+    if _cyl(rp):
+        curls = rp.curl_specs_b + rp.curl_specs_d
+        nrw = sum(1 for s in curls if s.r_weighted and s.g_plus is not None)
+        nphi = sum(1 for s in curls if s.phi_comp is not None) \
+            if rp.m != 0 or rp.beta != 0.0 else 0
+        nax = len(axis_corrections(rp, "b") + axis_corrections(rp, "d"))
+        ncyl = 3 * nrw * N + 5 * nphi * N + 3 * nax * (N // shape[0])
+    ops_step = ch * (18 * ncomp * N + 8 * pol + 16 * nbf * N + ncyl) \
+        + 150 * nl + region
     return {"bytes": float(2 * state + coef + table),
             "ops": float(nsteps * ops_step),
             "stream_bytes": float(2 * state + coef)}
