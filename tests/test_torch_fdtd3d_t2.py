@@ -97,14 +97,18 @@ def test_capture_matches_reference_kernel_interpreted(monkeypatch):
     same capture planes under the same keys.  The start state is a developed
     one (the jnp stepper's, 25 steps around the source's peak), since the
     reference's compact layout holds no E or PML auxiliary outside its
-    slabs."""
+    slabs; the port's eager stepper with the same slab-local chains makes
+    it, which test_torch_step holds against the jnp stepper)."""
     monkeypatch.setenv("MNT_PALLAS_INTERPRET", "1")
     depth, t0 = 2, 150
     kw = dict(cells=(20, 12, 12))
     pj = build_plan(JAX, **kw)
     pj.slab_opt = True
     assert JT2.supported(pj, depth=depth)
-    start = JS.run(pj, JS.init_state(pj), 25, t0=t0 - 25)
+    ps = build_plan(PORT, device="cpu", **kw)
+    ps.slab_opt = True
+    start = jax.tree_util.tree_map(jax.numpy.asarray, interop.state_to_numpy(
+        TS.run(ps, TS.init_state(ps), 25, t0=t0 - 25)))
     planes = [("ez", 7), ("hy", 7), ("hy", 8)]
     jker = JT2.Fdtd3dT2Kernel(pj, depth=depth, cap_planes=planes)
     xs = {k: np.asarray(v) for k, v in JS.build_xs(pj, depth, t0).items()

@@ -413,12 +413,15 @@ def test_use_pallas_step_with_monitors_matches_eager():
                          ids=["nperiods-A8", "symmetries-A5",
                               "cylindrical-A9"])
 def test_unported_monitor_features_raise(case, item):
-    """What the port refuses: the +-i irreps of a C4 fold, cylindrical
-    cells.  Lattice images at a complex phase (nperiods with k = (0,
-    0.1)) ran into the complex-fields refusal until complex fields were
-    ported; they now run on complex fields, and the far field with its
-    complex per-period phases equals the JAX package's to 1e-4 of its
-    maximum (47 steps)."""
+    """What the port refuses: the +-i irreps of a C4 fold.  Lattice images
+    at a complex phase (nperiods with k = (0, 0.1)) ran into the
+    complex-fields refusal until complex fields were ported; they now run
+    on complex fields, and the far field with its complex per-period
+    phases equals the JAX package's to 1e-4 of its maximum (47 steps).
+    Cylindrical cells (test_near2far's cylindrical cases) were refused
+    until they were ported; an on-axis dipole's far field through the
+    port's greencyl (m = 0, a side and two caps) now equals the JAX
+    package's to 1e-4 of its maximum at three angles (47 steps)."""
     kw = dict(cell_size=mtt.Vector3(4, 4), resolution=8)
     if case == "nperiods":
         far = []
@@ -436,13 +439,32 @@ def test_unported_monitor_features_raise(case, item):
         assert np.abs(far[1].imag).max() > 0
         _close(far[1], far[0], "far field")
         return
+    if case == "cylindrical":
+        far = []
+        for mp, dev in ((mnt, {}), (mtt, {"device": "cpu"})):
+            sim = mp.Simulation(cell_size=mp.Vector3(2, 0, 3), resolution=8,
+                                dimensions=-2, m=0,
+                                boundary_layers=[mp.PML(0.5)],
+                                sources=_src(mp, mp.Ez, mp.Vector3()), **dev)
+            n2f = sim.add_near2far(
+                0.5, 0.2, 1,
+                mp.Near2FarRegion(center=mp.Vector3(1, 0, 0),
+                                  size=mp.Vector3(0, 0, 1.6), weight=+1),
+                mp.Near2FarRegion(center=mp.Vector3(0.5, 0, 0.8),
+                                  size=mp.Vector3(1, 0, 0), weight=+1),
+                mp.Near2FarRegion(center=mp.Vector3(0.5, 0, -0.8),
+                                  size=mp.Vector3(1, 0, 0), weight=-1))
+            sim.run(until=47 * sim.dt)
+            far.append(np.array([np.asarray(sim.get_farfield(
+                n2f, mp.Vector3(50 * np.sin(th), 0, 50 * np.cos(th))))
+                for th in (0.5, 1.2, 2.2)]))
+        assert np.abs(far[1]).max() > 0
+        _close(far[1], far[0], "far field")
+        return
     kw.update(sources=_src(mtt, mtt.Ez, mtt.Vector3()), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        if case == "symmetries":       # the +-i irreps of a C4 fold
-            mtt.Simulation(symmetries=[mtt.Rotate4(mtt.Z, phase=1j)], **kw)
-        else:                          # test_near2far's cylindrical cases
-            mtt.Simulation(**{**kw, "cell_size": mtt.Vector3(3, 0, 4)},
-                           dimensions=-2)
+        # the +-i irreps of a C4 fold
+        mtt.Simulation(symmetries=[mtt.Rotate4(mtt.Z, phase=1j)], **kw)
 
 
 def test_near2far_module_matches_reference():

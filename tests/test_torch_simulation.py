@@ -138,10 +138,11 @@ def test_simulation_resident_route_matches_jax():
 
 @pytest.mark.parametrize("cell,kw,item", [
     ((0, 0, 2), {"symmetries": [mtt.Rotate2("x")]}, "2d/3d"),
-    ((2, 0, 2), {"dimensions": -2}, "ROADMAP A9")], ids=["1d", "cylindrical"])
+    ((2, 0, 2), {"dimensions": -2, "symmetries": [mtt.Rotate2("z")]},
+     "2d/3d cartesian")], ids=["1d", "cylindrical"])
 def test_simulation_rejects_1d_and_cylindrical(cell, kw, item):
-    """Cylindrical cells wait for ROADMAP A9; a 1D cell runs, but not with
-    a rotational symmetry (the reference refuses it too)."""
+    """A 1D cell and a cylindrical cell run, but not with a rotational
+    symmetry (the reference refuses both too)."""
     with pytest.raises(NotImplementedError, match=item):
         mtt.Simulation(cell_size=mtt.Vector3(*cell), resolution=8,
                        device="cpu", **kw)
