@@ -574,9 +574,10 @@ __device__ __forceinline__ float diff_w(const float* sm, int g, int ax,
          v;
 }
 
-// the wrapped read of a real pair's channel `ch` at staged offset `at`
-// times the complex phase a + i b: channel 0 a own - b other, channel 1
-// b other + a own (step._sh's rotation; a real phase scales both)
+// a real pair's channel `ch` at staged offset `at` times the complex
+// factor a + i b: channel 0 a own - b other, channel 1 b other + a own
+// (stencil.cmul_pair: step._sh's rotation of a wrapped read, the phi term
+// and the axis ring's imaginary factor; a real factor scales both)
 __device__ __forceinline__ float wrap_pair(const float* sm, int at,
                                            const ResArgs& A, int ch, float a,
                                            float bb) {
@@ -711,17 +712,6 @@ __device__ __forceinline__ float diff_r(const float* sm, int g, int st,
           v);
 }
 
-// (re + i im) times a real pair's value at staged offset `at`, channel
-// `ch` (stencil.cmul_pair: channel 0 re own - im other, channel 1 im
-// other + re own; sm the channel's half of the buffer)
-__device__ __forceinline__ float cmul_ch(const float* sm, int at,
-                                         const ResArgs& A, int ch, float re,
-                                         float im) {
-  const float own = sm[at];
-  const float other = sm[at + (ch ? -(int)A.half : (int)A.half)];
-  return ch ? im * other + re * own : re * own - im * other;
-}
-
 // step._curl_update of one component (q of its family) at one site; GK:
 // the D curl reads the rotational ghosts of A (GK_ROT), both curls read
 // across the Bloch wrap (GK_WRAP), channel `ch` of a real pair's across it
@@ -768,7 +758,7 @@ __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
   if (GK == GK_PAIRCYL && cy->phi >= 0) {
     // i (ps) imr f[phi]: imr times the partner rotated by i ps
     const float imr = cy->imr >= 0 ? sm[cy->imr + x.i] : cy->imc;
-    const float t = imr * cmul_ch(sm, cy->phi + x.l, A, ch, 0.0f, cy->ps);
+    const float t = imr * wrap_pair(sm, cy->phi + x.l, A, ch, 0.0f, cy->ps);
     dfl = (c.gp >= 0 || c.gm >= 0) ? dfl + t : t;
   }
   const float f = sm[c.f + x.l];
@@ -829,8 +819,8 @@ __device__ __forceinline__ void curl_t(const CurlT& c, float csgn, float* sm,
     // then the mask again
     const float m = mask_t(c.alive, sm, x);
     const int at = cy->ag + x.l + cy->aro;
-    const float add = GK == GK_PAIRCYL && cy->aim != 0.0f
-                          ? cmul_ch(sm, at, A, ch, cy->are, cy->aim)
+    const float add = GK == GK_PAIRCYL
+                          ? wrap_pair(sm, at, A, ch, cy->are, cy->aim)
                           : cy->are * sm[at];
     sm[c.f + x.l] = (base * m + add) * m;
     return;

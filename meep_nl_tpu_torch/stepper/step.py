@@ -1,8 +1,8 @@
 """The FDTD timestep as a plain PyTorch `state -> state` function.
 
-The torch counterpart of ``meep_nl_tpu/stepper/step.py`` for the
-Cartesian subset (1D, 2D and 3D cells, real or complex fields): the eager
-stepper is the plain version
+The torch counterpart of ``meep_nl_tpu/stepper/step.py`` for 1D, 2D, 3D
+and cylindrical cells, real or complex fields: the eager stepper is the
+plain version
 of the whole step and the port's own oracle (the K1, K2 and resident
 kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
 
@@ -12,6 +12,7 @@ kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
   * Pade Kerr factor               -> `_nonlinear_u` (step_generic.cpp:546)
   * fork's chi2 Newton-Raphson     -> `_nr_solve` (newton_raphson.cpp:93)
   * fork's BFAST step_bfast        -> `_bfast_update` (step_generic.cpp:339)
+  * cylindrical r = 0 updates      -> `_axis_specials` (step_db.cpp:296-457)
   * lorentzian_susceptibility::update_P -> `_pol_update_lorentzian`
   * dft_chunk::update_dft          -> `_dft_update` (dft.cpp:265-306)
   * step_source                    -> `_apply_sources` (step.cpp:296-319)
@@ -303,20 +304,22 @@ def _curl(plan: Plan, spec: CurlSpec, f: Dict[str, Any],
         if not spec.is_d:
             return _sh(plan, g, a, +1) - g
         sh = _sh(plan, g, a, -1)
+        if gname is None:                      # the r-weighted product
+            return g - sh
         ghost = None
         o = _off(plan, g)                      # a real pair's channel axis
         ga = a + o
-        for (ax, d, phase) in plan.mirror_node if gname else ():
+        for (ax, d, phase) in plan.mirror_node:
             if ax == a:
                 k0, sign = mirror_ghost(gname, d, phase, plan.gv.dim)
                 ghost = sign * g.narrow(ga, k0, 1)
-        if plan.rot2 is not None and a == plan.rot2[0] and gname:
+        if plan.rot2 is not None and a == plan.rot2[0]:
             k0, sign, nl = rot2_ghost(gname, plan)
             fl = plan.rot2[1] + o
             rev = torch.flip(g.narrow(ga, k0, 1).narrow(fl, 0, nl), (fl,))
             pad = [0, 0] * (g.ndim - 1 - fl) + [0, g.shape[fl] - nl]
             ghost = sign * torch.nn.functional.pad(rev, pad)
-        if plan.rot4 is not None and a in plan.rot4[:2] and gname:
+        if plan.rot4 is not None and a in plan.rot4[:2]:
             g2, k0, sign, other = rot4_ghost(gname, a, plan)
             ghost = sign * f[g2].narrow(other + o, k0, 1).transpose(
                 ga, other + o)
