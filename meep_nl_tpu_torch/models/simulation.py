@@ -1,6 +1,6 @@
 """User-facing Simulation API: the subset of
-``meep_nl_tpu/models/simulation.py`` the port carries so far (2D and 3D
-Cartesian cells).
+``meep_nl_tpu/models/simulation.py`` the port carries so far (1D, 2D, 3D
+and cylindrical cells).
 
     sim = Simulation(cell_size=Vector3(8, 8, 8), resolution=16,
                      geometry=[Sphere(...)], sources=[Source(...)],
@@ -88,14 +88,12 @@ from .geom import Medium, Vector3, _v3
 from .source import Source
 
 Ex, Ey, Ez = "ex", "ey", "ez"
-Er, Ep = "er", "ep"
-Hr, Hp = "hr", "hp"
-Dr, Dp = "dr", "dp"
-Br, Bp = "br", "bp"
-CYLINDRICAL = "cyl"
 Hx, Hy, Hz = "hx", "hy", "hz"
 Dx, Dy, Dz = "dx", "dy", "dz"
 Bx, By, Bz = "bx", "by", "bz"
+Er, Ep, Hr, Hp = "er", "ep", "hr", "hp"
+Dr, Dp, Br, Bp = "dr", "dp", "br", "bp"
+CYLINDRICAL = "cyl"
 X, Y, Z = "x", "y", "z"
 ALL = "all"
 Low, High = "low", "high"
@@ -251,8 +249,8 @@ def _vec_to_axes(gv: G.GridVolume, v) -> List[float]:
 
 
 class Simulation:
-    """The top-level scene + run controller (simulation.py:1216), 3D
-    Cartesian subset."""
+    """The top-level scene + run controller (simulation.py:1216), the
+    port's subset."""
 
     def __init__(self, cell_size, resolution: float,
                  geometry: Sequence = (),

@@ -18,7 +18,10 @@ wrap planes, anywhere on the grid; complex fields in real-pair storage
 take the direct schedule's PAIR variant, both channels in one buffer,
 the channels mixed where the wrap's complex phase rotates them, and a BFAST
 plan (always complex, so a pair on the card) its PAIR_BFAST variant, which
-adds the flip-flop term after each curl.  What it
+adds the flip-flop term after each curl; a cylindrical plan, or a 2D plan
+with an out-of-plane wavenumber beta, the CYL variant (real fields, m =
+0) or PAIR_CYL (the pair: m != 0, beta), with the r-weighted curl, the
+i m / r or i beta term and the r = 0 axis corrections.  What it
 computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
@@ -54,7 +57,9 @@ take the real pair, which has no chi2/chi3) chi2/chi3 support boxes clear
 of the wrap planes (their neighbour sums do not wrap here, ROADMAP B3).
 BFAST runs only as a real pair (the PAIR_BFAST variant; K1, K2 and K5
 decline it, as the reference's do, so a BFAST plan above the budget runs on
-the eager stepper).
+the eager stepper).  Cylindrical and beta plans run without BFAST, a
+cylindrical cell without a Bloch wrap and with its axis at r = 0; K1, K2
+and K5 decline them too.
 Folds: node mirrors on every axis, Rotate2 and Rotate4; a real pair with
 a rotational fold (force_complex_fields and Rotate2; the kernel builds
 the rotational ghosts without the pair) is declined and runs on the
@@ -1422,9 +1427,8 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     component that has one; on a cylindrical or beta plan 3 per site of
     an r-weighted difference, 5 of a phi term, 3 per ring site of an axis
     correction), the sources and the DTFT (`ops`).  `stream_bytes` is what
-    a kernel that kept nothing on
-    chip between steps would move per step: the state read and written and
-    the coefficients read."""
+    a kernel that kept nothing on chip between steps would move per step:
+    the state read and written and the coefficients read."""
     rp = resident_plan(plan)
     shape = tuple(rp.storage_shape or rp.gv.shape)
     N = int(np.prod(shape))
