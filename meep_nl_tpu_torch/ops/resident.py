@@ -1425,7 +1425,7 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     (curl + chains ~12 per D/B component, E/H update ~6 per component, the
     NR solve ~150 and the ADE ~8 per material site, BFAST's term ~16 per
     component that has one; on a cylindrical or beta plan 3 per site of
-    an r-weighted difference, 5 of a phi term, 3 per ring site of an axis
+    an r-weighted difference, 2 of a phi term, 3 per ring site of an axis
     correction), the sources and the DTFT (`ops`).  `stream_bytes` is what
     a kernel that kept nothing on chip between steps would move per step:
     the state read and written and the coefficients read."""
@@ -1465,8 +1465,10 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     nbf = 0 if rp.bfast_k is None else sum(
         1 for s in bfast_specs(rp) if any(bfast_ks(rp, s)))
     # cylindrical / beta: the r-weighted difference (3 more products), the
-    # phi term (the rotation's 3 and imr's 1, the sum), and per ring site
-    # of the axis corrections 3 (read in `bytes` with the coefficients)
+    # phi term (its factor phi_sign * sgn * dtdx * imr depends on r alone,
+    # so a product by the partner and the sum; the pair's rotation only
+    # swaps channels and folds its sign into that factor), and per ring
+    # site of the axis corrections 3 (read in `bytes` with the coefficients)
     ncyl = 0
     if _cyl(rp):
         curls = rp.curl_specs_b + rp.curl_specs_d
@@ -1474,7 +1476,7 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
         nphi = sum(1 for s in curls if s.phi_comp is not None) \
             if rp.m != 0 or rp.beta != 0.0 else 0
         nax = len(axis_corrections(rp, "b") + axis_corrections(rp, "d"))
-        ncyl = 3 * nrw * N + 5 * nphi * N + 3 * nax * (N // shape[0])
+        ncyl = 3 * nrw * N + 2 * nphi * N + 3 * nax * (N // shape[0])
     ops_step = ch * (18 * ncomp * N + 8 * pol + 16 * nbf * N + ncyl) \
         + 150 * nl + region
     return {"bytes": float(2 * state + coef + table),

@@ -163,12 +163,14 @@ def refl_angular(mp, interface, **kw):
 
 
 def reflectance(mp, **kw):
+    # both runs 1005 steps, one stretch each: the JAX package compiles its
+    # runner once per stretch length, so the second run reuses the first's
     s0, r0 = refl_angular(mp, False, **kw)
-    s0.run(until=20.3)
+    s0.run(until=29.0)
     inc = np.asarray(s0.get_fluxes(r0))
     s1, r1 = refl_angular(mp, True, **kw)
     s1.load_minus_flux_data(r1, s0.get_flux_data(r0))
-    s1.run(until=29.0)         # 1005 steps: one stretch of the JAX runner
+    s1.run(until=29.0)
     return -np.asarray(s1.get_fluxes(r1)) / inc, (s0, s1)
 
 
