@@ -175,6 +175,20 @@ def _nl_clear_of_wrap(plan) -> bool:
         for b in nl for ax, per in enumerate(plan.periodic) if per)
 
 
+def _offdiag(plan) -> bool:
+    """Whether an E or H row has off-diagonal chi1inv entries (u1 / u2)."""
+    return any(s.has_u1 or s.has_u2
+               for s in plan.eh_specs_e + plan.eh_specs_h)
+
+
+def _sep_poles(plan) -> bool:
+    """Whether a pole reads partner W at neighbouring sites: a gyrotropic
+    pole, or a Lorentzian one with off-diagonal sigma rows."""
+    return any(p.kind == "gyrotropic" or any(d != G.component_direction(c)
+                                             for (c, d) in p.sigma)
+               for p in plan.pol_specs_e + plan.pol_specs_h)
+
+
 def resident_supported(plan) -> bool:
     """The static envelope (resident.py:158-182, see the module docstring):
     plans outside it are declined, never raised on."""
@@ -198,6 +212,8 @@ def resident_supported(plan) -> bool:
         return False                     # the WRAP variant's phases are real
     if any(plan.periodic) and not _nl_clear_of_wrap(plan):
         return False
+    if _offdiag(plan) or _sep_poles(plan):
+        return False                     # the OFFDIAG / GYRO modes: not yet
     try:
         check_supported(plan)
     except NotImplementedError:
