@@ -14,7 +14,11 @@ from .models.source import (GaussianSource, ContinuousSource, CustomSource,
                             Source, SourceTime)
 from .models.geom import (Vector3, Medium, Sphere, Cylinder, Block,
                           GeometricObject, LorentzianSusceptibility,
-                          DrudeSusceptibility, interpolate, vacuum, air)
+                          DrudeSusceptibility,
+                          GyrotropicLorentzianSusceptibility,
+                          GyrotropicDrudeSusceptibility,
+                          GyrotropicSaturatedSusceptibility, Matrix,
+                          get_rotation_matrix, interpolate, vacuum, air)
 from .models.run_control import (FieldProbe, after_sources, at_every,
                                  at_beginning, at_end, during_sources,
                                  stop_when_fields_decayed)

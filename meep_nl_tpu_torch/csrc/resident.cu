@@ -276,6 +276,50 @@ struct ResArgs {
   // device memory, per family (0 B, 1 D) and curl component; null in
   // every other variant
   const void* cyl;
+  // the anisotropic modes (AX_OFFDIAG, AX_GYRO; 0: neither): the AxTab in
+  // device memory (null with mode 0)
+  i64 axmode;
+  const void* ax;
+};
+
+// the anisotropic modes: off-diagonal chi1inv rows in E's update
+// (OFFDIAG), and besides them poles that run in a sub-update of their own
+// after the family's E (H): gyrotropic ones, Lorentzian ones with
+// off-diagonal sigma rows (GYRO)
+enum { AX_NONE = 0, AX_OFFDIAG = 1, AX_GYRO = 2 };
+
+// one pole's update at one component (ops/resident.py::_ax_table; every
+// member 8 bytes): kind -1: the pole has no entry at the component, 0: a
+// Lorentzian with off-diagonal sigma rows, 1: a gyrotropic Lorentzian /
+// Drude, 2: a saturated gyrotropic one; slot tokens of the entries along
+// the component's own direction and the two cycled ones (p: the array the
+// even steps read as the current P, pp: as the previous one, which the
+// new P replaces; 1, 2 gyrotropic only); coefficient tokens of the
+// diagonal sigma and (kind 0) the off-diagonal rows along the cycled
+// directions (0: none); w: the E (H) index of the drive field along the
+// own and the cycled directions (-1: none); av: per cycled direction how
+// its W is averaged onto the site (step.gyro_avg; kind 0: the OFFDIAG
+// average): mode (0 none, 1 four sites, 2 two along the own axis, 3 two
+// along the partner's), the own axis, the partner's axis; k, c, inv: the
+// update's constants (kind 1: diag, gamma1, omega0dtsqr; kind 2: -w2pidt,
+// alpha / 2, dt2pi, g2pidt; c: the r rows' partner factors c01, c02, c10,
+// c12, c21, c20; inv the 3x3 solve), step._pol_update_gyro's values
+struct SepP {
+  i64 kind;
+  i64 p[3], pp[3];
+  i64 sig, so[2];
+  i64 w[3];
+  i64 av[2][3];
+  double k[4], c[6], inv[9];
+};
+
+struct AxTab {
+  i64 u1[2][NCOMP], u2[2][NCOMP];  // per family and E (H) component: the
+                                   // coefficient tokens of the off-diagonal
+                                   // chi1inv rows (0: none)
+  i64 sep[2];                      // per family: bit p, pole p runs in the
+                                   // pole sub-update (else fused in E / H)
+  SepP pole[2][MAXPOL][NCOMP];
 };
 
 // one curl component's cylindrical / beta terms (ops/resident.py
@@ -863,19 +907,71 @@ __device__ float sum4_t(const FamT& F, int q, const float* sm, const Box& b,
   return v0 + vs + vx + vsx;
 }
 
+// the local index of the site shifted by da along axis a and db along
+// axis bb (-1: none), or -1 off the grid (the box's edge there)
+__device__ __forceinline__ int nb_l(const Box& b, const Loc& x, int a, int da,
+                                    int bb, int db) {
+  const int ci = x.i + (a == 0 ? da : 0) + (bb == 0 ? db : 0);
+  const int cj = x.j + (a == 1 ? da : 0) + (bb == 1 ? db : 0);
+  const int ck = x.k + (a == 2 ? da : 0) + (bb == 2 ? db : 0);
+  if (ci < 0 || ci >= b.n[0] || cj < 0 || cj >= b.n[1] || ck < 0 ||
+      ck >= b.n[2])
+    return -1;
+  return (ci * b.n[1] + cj) * b.n[2] + ck;
+}
+
+// the staged array at offset o at that shifted site, zero off the grid
+__device__ __forceinline__ float at_nb(const float* sm, int o, const Box& b,
+                                       const Loc& x, int a, int da, int bb,
+                                       int db) {
+  const int l = nb_l(b, x, a, da, bb, db);
+  return l >= 0 ? sm[o + l] : 0.0f;
+}
+
+// OFFDIAG (step._offdiag, step_generic.cpp:597) of the off-diagonal
+// chi1inv row at offset u against partner q's D - P: t = (g1 + g1 shifted
+// by -g along a1) u at the site and at the site shifted by g along the own
+// axis (zero past the grid), 0.25 (t + t'); u taken at each of the two
+// sites
+__device__ float offdiag_t(const FamT& F, int q, int u, const float* sm,
+                           const Box& b, const Loc& x, int a1, int own) {
+  const int g = F.s.sgn, d = F.eh[q].d, np = F.s.npol;
+  const PolT& pl = F.pol[q];
+  const float t0 = (dmp_t(d, pl, np, sm, x.l) +
+                    dmp_nb_t(d, pl, np, sm, b, x, a1, -g, -1, 0)) *
+                   sm[u + x.l];
+  const int l1 = nb_l(b, x, own, g, -1, 0);
+  float t1 = 0.0f;
+  if (l1 >= 0)
+    t1 = (dmp_t(d, pl, np, sm, l1) +
+          dmp_nb_t(d, pl, np, sm, b, x, own, g, a1, -g)) *
+         sm[u + l1];
+  return 0.25f * (t0 + t1);
+}
+
 // step._eh_update of one E (or H) component (descriptor e, in registers;
 // its poles pl) at one site, then its ADE (step._pol_update_lorentzian):
 // the new P into the PP buffer, whose old value only this site reads; F is
-// the family (its scalars, the chi2/chi3 partners of an NL block)
-template <bool NL>
+// the family (its scalars, the chi2/chi3 partners of an NL block).  AX
+// (the anisotropic modes): the off-diagonal rows at offsets u1 / u2 (-1:
+// none) add their OFFDIAG averages; poles whose bit is set in `sep` run in
+// the pole sub-update instead (AX_GYRO)
+template <bool NL, int AX = AX_NONE>
 __device__ __forceinline__ void eh_t(const FamT& F, const EhT& e,
                                      const PolT& pl, float* sm, const Box& b,
-                                     const Loc& x) {
+                                     const Loc& x, int u1 = -1, int u2 = -1,
+                                     unsigned sep = 0u) {
   const FamS& s = F.s;
   const int l = x.l;
   const float gs = dmp_t(e.d, pl, s.npol, sm, l);
   const float us = e.u >= 0 ? sm[e.u + l] : 1.0f;
   float lin = e.u >= 0 ? gs * us : gs;
+  if (AX != AX_NONE) {
+    if (u1 >= 0) lin = lin + offdiag_t(F, e.dc1, u1, sm, b, x, e.ax_1,
+                                       e.ax_own);
+    if (u2 >= 0) lin = lin + offdiag_t(F, e.dc2, u2, sm, b, x, e.ax_2,
+                                       e.ax_own);
+  }
   if (NL && e.chi3 >= 0) {
     float Dsqr = gs * gs;
     if (e.dc1 >= 0)
@@ -916,6 +1012,7 @@ __device__ __forceinline__ void eh_t(const FamT& F, const EhT& e,
   const float W = e.w_ax >= 0 ? lin : fnew;
   for (int p = 0; p < s.npol; ++p) {
     if (pl.p[p] < 0) continue;
+    if (AX == AX_GYRO && ((sep >> p) & 1u)) continue;
     sm[pl.pp[p] + l] = ade_value<float>(
         s.pg1inv[p], s.p2md[p], s.pg1[p], s.pw2[p], W, sm[pl.sigma[p] + l],
         sm[pl.p[p] + l], sm[pl.pp[p] + l]);
@@ -956,15 +1053,168 @@ __device__ __forceinline__ void curl_all(const FamT& F, float* sm,
 // component by component: the descriptor in registers, its poles (indexed
 // at run time, which registers cannot be) and the family's scalars read in
 // place
-template <bool NL>
+template <bool NL, int AX = AX_NONE>
 __device__ __forceinline__ void eh_all(const FamT& F, float* sm,
                                        const Box& b, const int* lo,
-                                       const int* hi, const Team& tm) {
+                                       const int* hi, const Team& tm,
+                                       const ResArgs* A = nullptr,
+                                       int fam = 0) {
   for (int q = 0; q < F.s.neh; ++q) {
     const EhT e = F.eh[q];
     const PolT& pl = F.pol[q];
+    if (AX != AX_NONE) {
+      const AxTab* X = (const AxTab*)A->ax;
+      const int vol = (int)A->tl.vol;
+      const int u1 = off_of((const void*)X->u1[fam][q], vol);
+      const int u2 = off_of((const void*)X->u2[fam][q], vol);
+      const unsigned sep = (unsigned)X->sep[fam];
+      over(b, lo, hi, tm, [&](const Loc& x) {
+        eh_t<NL, AX>(F, e, pl, sm, b, x, u1, u2, sep);
+      });
+      continue;
+    }
     over(b, lo, hi, tm,
          [&](const Loc& x) { eh_t<NL>(F, e, pl, sm, b, x); });
+  }
+}
+
+// one pole's update at one component (SepP) on a box: offsets of its
+// entries (cur: the current P, prv: the previous one, which the new P
+// replaces; by step parity), of sigma and the off-diagonal rows, of the
+// drive fields, the averages' modes and axes, the constants
+struct SepT {
+  int kind, cur[3], prv[3], sig, so[2], w[3], av[2][3];
+  float k[4], c[6], inv[9];
+};
+
+// the W of E (H) component q: its W chain's input where it has one, else
+// the field (step._W)
+__device__ __forceinline__ int w_of(const FamT& F, int q) {
+  return F.eh[q].w_ax >= 0 ? F.eh[q].fw : F.eh[q].f;
+}
+
+__device__ SepT sep_of(const SepP& e, const FamT& F, int odd, int vol) {
+  SepT t;
+  t.kind = (int)e.kind;
+  for (int j = 0; j < 3; ++j) {
+    const int a = off_of((const void*)e.p[j], vol);
+    const int b = off_of((const void*)e.pp[j], vol);
+    t.cur[j] = odd ? b : a;
+    t.prv[j] = odd ? a : b;
+    t.w[j] = e.w[j] >= 0 ? w_of(F, (int)e.w[j]) : -1;
+  }
+  t.sig = off_of((const void*)e.sig, vol);
+  for (int j = 0; j < 2; ++j) {
+    t.so[j] = off_of((const void*)e.so[j], vol);
+    for (int m = 0; m < 3; ++m) t.av[j][m] = (int)e.av[j][m];
+  }
+  for (int m = 0; m < 4; ++m) t.k[m] = (float)e.k[m];
+  for (int m = 0; m < 6; ++m) t.c[m] = (float)e.c[m];
+  for (int m = 0; m < 9; ++m) t.inv[m] = (float)e.inv[m];
+  return t;
+}
+
+// a partner W (staged at offset o) averaged onto the site
+// (step.gyro_avg): mode 1 the four sites around it (step._avg4), 2 two
+// along the own axis, 3 two along the partner's, 0 the value itself
+__device__ __forceinline__ float gyro_avg_t(const float* sm, int o,
+                                            const Box& b, const Loc& x,
+                                            const int* av, int g) {
+  const float w = sm[o + x.l];
+  const int own = av[1], off = av[2];
+  if (av[0] == 1) {
+    const float gs = at_nb(sm, o, b, x, own, g, -1, 0);
+    const float gx = at_nb(sm, o, b, x, off, -g, -1, 0);
+    const float gsx = at_nb(sm, o, b, x, own, g, off, -g);
+    return 0.25f * (w + gs + gx + gsx);
+  }
+  if (av[0] == 2) return 0.5f * (w + at_nb(sm, o, b, x, own, g, -1, 0));
+  if (av[0] == 3) return 0.5f * (w + at_nb(sm, o, b, x, off, -g, -1, 0));
+  return w;
+}
+
+// step._offdiag of an off-diagonal sigma row (offset u) against a partner
+// W (offset o), the partner's axis and the own one in av
+__device__ __forceinline__ float offdiag_w(const float* sm, int o, int u,
+                                           const Box& b, const Loc& x,
+                                           const int* av, int g) {
+  const int own = av[1], off = av[2];
+  const float t0 = (sm[o + x.l] + at_nb(sm, o, b, x, off, -g, -1, 0)) *
+                   sm[u + x.l];
+  const int l1 = nb_l(b, x, own, g, -1, 0);
+  float t1 = 0.0f;
+  if (l1 >= 0)
+    t1 = (sm[o + l1] + at_nb(sm, o, b, x, own, g, off, -g)) * sm[u + l1];
+  return 0.25f * (t0 + t1);
+}
+
+// one pole at one component and site, after the family's E (H): kind 0 the
+// Lorentzian leapfrog with the off-diagonal sigma drive and the s != 0
+// guard (step._pol_update_lorentzian), kinds 1 and 2 the gyrotropic
+// precession (step._pol_update_gyro) in the plain version's order; the
+// new P into the previous one's arrays
+__device__ __forceinline__ void sep_t(const SepT& t, const FamS& fs, int p,
+                                      float* sm, const Box& b, const Loc& x) {
+  const int l = x.l, g = fs.sgn;
+  const float s = sm[t.sig + l];
+  const float w0 = sm[t.w[0] + l];
+  if (t.kind == 0) {
+    float drive = s * w0;
+    bool aniso = false;
+    for (int j = 0; j < 2; ++j) {
+      if (t.so[j] < 0) continue;
+      aniso = true;
+      drive = drive + offdiag_w(sm, t.w[j + 1], t.so[j], b, x, t.av[j], g);
+    }
+    const float pc = sm[t.cur[0] + l];
+    const float pn = fs.pg1inv[p] * (pc * fs.p2md[p] -
+                                     fs.pg1[p] * sm[t.prv[0] + l] +
+                                     fs.pw2[p] * drive);
+    sm[t.prv[0] + l] = (aniso && s == 0.0f) ? pc : pn;
+    return;
+  }
+  const float a1 = t.w[1] >= 0 ? gyro_avg_t(sm, t.w[1], b, x, t.av[0], g)
+                               : 0.0f;
+  const float a2 = t.w[2] >= 0 ? gyro_avg_t(sm, t.w[2], b, x, t.av[1], g)
+                               : 0.0f;
+  const float p0 = sm[t.cur[0] + l], p1 = sm[t.cur[1] + l],
+              p2 = sm[t.cur[2] + l];
+  const float pp0 = sm[t.prv[0] + l], pp1 = sm[t.prv[1] + l],
+              pp2 = sm[t.prv[2] + l];
+  const float ks = t.k[2] * s;
+  float r0, r1, r2;
+  if (t.kind == 2) {
+    const float q0 = t.k[0] * p0 + t.k[1] * pp0 + ks * w0;
+    const float q1 = t.k[0] * p1 + t.k[1] * pp1 + ks * a1;
+    const float q2 = t.k[0] * p2 + t.k[1] * pp2 + ks * a2;
+    r0 = 0.5f * pp0 - t.k[3] * p0 + t.c[0] * q1 + t.c[1] * q2;
+    r1 = 0.5f * pp1 - t.k[3] * p1 + t.c[3] * q2 + t.c[2] * q0;
+    r2 = 0.5f * pp2 - t.k[3] * p2 + t.c[5] * q0 + t.c[4] * q1;
+  } else {
+    r0 = t.k[0] * p0 - t.k[1] * pp0 + ks * w0 - t.c[0] * pp1 - t.c[1] * pp2;
+    r1 = t.k[0] * p1 - t.k[1] * pp1 + ks * a1 - t.c[2] * pp0 - t.c[3] * pp2;
+    r2 = t.k[0] * p2 - t.k[1] * pp2 + ks * a2 - t.c[4] * pp1 - t.c[5] * pp0;
+  }
+  sm[t.prv[0] + l] = t.inv[0] * r0 + t.inv[1] * r1 + t.inv[2] * r2;
+  sm[t.prv[1] + l] = t.inv[3] * r0 + t.inv[4] * r1 + t.inv[5] * r2;
+  sm[t.prv[2] + l] = t.inv[6] * r0 + t.inv[7] * r1 + t.inv[8] * r2;
+}
+
+// the pole sub-update of family F (fam 0 B, 1 D) over [lo, hi): every
+// pole of the AxTab's `sep` mask, component by component
+__device__ void sep_all(const FamT& F, const ResArgs& A, int fam, int odd,
+                        float* sm, const Box& b, const int* lo,
+                        const int* hi, const Team& tm) {
+  const AxTab* X = (const AxTab*)A.ax;
+  const unsigned sep = (unsigned)X->sep[fam];
+  for (int p = 0; p < F.s.npol; ++p) {
+    if (!((sep >> p) & 1u)) continue;
+    for (int q = 0; q < F.s.neh; ++q) {
+      if (X->pole[fam][p][q].kind < 0) continue;
+      const SepT t = sep_of(X->pole[fam][p][q], F, odd, (int)A.tl.vol);
+      over(b, lo, hi, tm,
+           [&](const Loc& x) { sep_t(t, F.s, p, sm, b, x); });
+    }
   }
 }
 
@@ -1351,8 +1601,11 @@ __device__ __forceinline__ void copy_box(const void* const* grid, float* sm,
 // the Tp steps of pass `pass` on box b (staged in sm, or the grid itself
 // in the direct schedule), interior [lo, hi); `tf` the descriptors on b,
 // `mine` the thread's first probe point; GK: the rotational ghosts or the
-// Bloch wrap (direct schedule only)
-template <bool NL, bool PROBED, bool DIRECT, int GK>
+// Bloch wrap (direct schedule only); AX: the anisotropic modes (linear
+// plans without a wrap), whose poles of the AxTab's `sep` masks run after
+// their family's E (H) and a barrier, on the boxes that lose the site
+// their neighbour reads cost (ops/resident.py::boxes "p", "q")
+template <bool NL, bool PROBED, bool DIRECT, int GK, int AX = AX_NONE>
 __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
                            float* sm, const Box& b, const int* lo,
                            const int* hi, int tile, i64 pass, int Tp,
@@ -1361,8 +1614,9 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
   const Team tm = team_of<DIRECT>();
   const int S[3] = {(int)A.pb[0].S0, (int)A.pb[0].S1, (int)A.pb[0].S2};
   const int vol = (int)tl.vol;
-  const int c = (int)tl.c, nl = c - 1;
+  const int c = (int)tl.c, ne = A.e_local ? 0 : 1;
   const int* flags = (const int*)A.flags;
+  const AxTab* X = (const AxTab*)A.ax;
   for (int r = 0; r < Tp; ++r) {
     const i64 s = pass * tl.T + r;
     const FamT& FB = tf[0][s & 1];
@@ -1371,36 +1625,49 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
     const bool bsrc = fl & STEP_BSRC, dsrc = fl & STEP_DSRC;
     const int L = (Tp - r) * c;
     int blo[3], bhi[3], dlo[3], elo[3], ehi[3];
+    int plo[3], phi[3], qlo[3], qhi[3];
     for (int ax = 0; ax < 3; ++ax) {
       const int H = L + (int)tl.e[ax];
       blo[ax] = max(0, lo[ax] - L);
       bhi[ax] = min(S[ax], hi[ax] + H - 1);
       dlo[ax] = max(0, lo[ax] - L + 1);
-      elo[ax] = max(0, lo[ax] - L + 1 + nl);
-      ehi[ax] = min(S[ax], hi[ax] + H - 1 - nl);
+      elo[ax] = max(0, lo[ax] - L + 1 + ne);
+      ehi[ax] = min(S[ax], hi[ax] + H - 1 - ne);
+      plo[ax] = max(0, lo[ax] - L + c);
+      phi[ax] = min(S[ax], hi[ax] + H - c);
+      qlo[ax] = max(0, lo[ax] - L + 1);
+      qhi[ax] = min(S[ax], hi[ax] + H - 2);
     }
     // B curl (+ H)
     curl_all<false, GK == GK_WRAP || GK == GK_CYL ? GK : GK_NONE>(
         FB, sm, b, blo, bhi, tm, A);
-    if (!bsrc) eh_all<false>(FB, sm, b, blo, bhi, tm);
+    if (!bsrc) eh_all<false, AX>(FB, sm, b, blo, bhi, tm, &A, 0);
     bar<DIRECT>();
     if (bsrc) {
       sources_at(A, A.src[0], FB, sm, b, tile, s, S[1], S[2], tm);
       bar<DIRECT>();
-      eh_all<false>(FB, sm, b, blo, bhi, tm);
+      eh_all<false, AX>(FB, sm, b, blo, bhi, tm, &A, 0);
+      bar<DIRECT>();
+    }
+    if (AX == AX_GYRO && X->sep[0]) {
+      sep_all(FB, A, 0, (int)(s & 1), sm, b, qlo, qhi, tm);
       bar<DIRECT>();
     }
     // D curl (+ E)
     const bool fused = A.e_local && !dsrc;
     curl_all<true, GK>(FD, sm, b, dlo, bhi, tm, A);
-    if (fused) eh_all<NL>(FD, sm, b, dlo, bhi, tm);
+    if (fused) eh_all<NL, AX>(FD, sm, b, dlo, bhi, tm, &A, 1);
     bar<DIRECT>();
     if (!fused) {
       if (dsrc) {
         sources_at(A, A.src[1], FD, sm, b, tile, s, S[1], S[2], tm);
         bar<DIRECT>();
       }
-      eh_all<NL>(FD, sm, b, elo, ehi, tm);
+      eh_all<NL, AX>(FD, sm, b, elo, ehi, tm, &A, 1);
+      bar<DIRECT>();
+    }
+    if (AX == AX_GYRO && X->sep[1]) {
+      sep_all(FD, A, 1, (int)(s & 1), sm, b, plo, phi, tm);
       bar<DIRECT>();
     }
     // DTFT and probe products at the interior's sites
@@ -1514,7 +1781,7 @@ __device__ __forceinline__ void describe_box(const ResArgs& A,
 }
 
 // one tile's pass: stage, Tp steps, write the interior into the other set
-template <bool NL, bool PROBED>
+template <bool NL, bool PROBED, int AX = AX_NONE>
 __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
                           int tile, i64 pass, int Tp) {
   const Tiling& tl = A.tl;
@@ -1540,8 +1807,8 @@ __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
       sm[tl.nslot * vol + u] = ((const float*)vt[2 * v])[b.o[ax] + m];
   }
   __syncthreads();
-  pass_steps<NL, PROBED, false, GK_NONE>(A, tf, sm, b, lo, hi, tile, pass,
-                                          Tp, mine);
+  pass_steps<NL, PROBED, false, GK_NONE, AX>(A, tf, sm, b, lo, hi, tile,
+                                              pass, Tp, mine);
   // the interior into the set this pass writes
   copy_box<false>(A.set[(pass + 1) & 1], sm, vol, (int)tl.nstate, b, lo, n,
                   S1, S2);
@@ -1551,8 +1818,8 @@ __device__ void tile_pass(const ResArgs& A, FamT (&tf)[2][2], float* sm,
 // NL: the E family carries chi3 / chi2-NR coefficients; PROBED: K4; DIRECT:
 // the direct schedule (one tile, the whole grid, stepped in place in A.base
 // by all the grid's threads, T = 1); GK (with DIRECT): the rotational fold
-// ghosts or the Bloch wrap
-template <bool NL, bool PROBED, bool DIRECT, int GK>
+// ghosts or the Bloch wrap; AX: the anisotropic modes (GK_NONE, linear)
+template <bool NL, bool PROBED, bool DIRECT, int GK, int AX = AX_NONE>
 __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     k3_kernel(const ResArgs* gA) {
   __shared__ __align__(16) ResArgs A;
@@ -1590,8 +1857,8 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     // the probe products)
     for (i64 p = 0; p < npass; ++p) {
       if (PROBED && p > 0) probe_sums(A, p - 1);
-      pass_steps<NL, PROBED, true, GK>(A, tf, (float*)A.base, b, lo, hi, 0,
-                                       p, 1, mine);
+      pass_steps<NL, PROBED, true, GK, AX>(A, tf, (float*)A.base, b, lo,
+                                           hi, 0, p, 1, mine);
     }
   } else {
     cg::grid_group grid = cg::this_grid();
@@ -1601,7 +1868,7 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
       if (PROBED && p > 0) probe_sums(A, p - 1);
       const int Tp = (int)min(A.tl.T, A.nsteps - p * A.tl.T);
       for (int tile = (int)blockIdx.x; tile < ntile; tile += (int)gridDim.x)
-        tile_pass<NL, PROBED>(A, tf, sm, tile, p, Tp);
+        tile_pass<NL, PROBED, AX>(A, tf, sm, tile, p, Tp);
       if (PROBED || p + 1 < npass) grid.sync();
     }
   }
@@ -1609,6 +1876,17 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
 }
 
 static int threads_of(int nl) { return nl ? NTHR / 2 : NTHR; }
+
+// the anisotropic modes' variants: linear, tiles (direct 0) or the direct
+// schedule (1), K3 or K4
+template <int AX>
+static const void* kernel_ax(int probed, int direct) {
+  if (direct)
+    return probed ? (const void*)k3_kernel<false, true, true, GK_NONE, AX>
+                  : (const void*)k3_kernel<false, false, true, GK_NONE, AX>;
+  return probed ? (const void*)k3_kernel<false, true, false, GK_NONE, AX>
+                : (const void*)k3_kernel<false, false, false, GK_NONE, AX>;
+}
 
 template <bool NL, bool PROBED>
 static const void* kernel_dir(int direct) {
@@ -1624,7 +1902,12 @@ static const void* kernel_dir(int direct) {
 // 5: the same with BFAST's term; direct 6: the direct schedule of a
 // cylindrical plan on real fields, 7: of a cylindrical or beta plan on a
 // real pair (linear plans only: the wrapper declines chi2/chi3 there)
-static const void* kernel_of(int nl, int probed, int direct) {
+static const void* kernel_of(int nl, int probed, int direct,
+                             int axmode = AX_NONE) {
+  if (axmode != AX_NONE)
+    return (nl || direct > 1) ? nullptr
+           : axmode == AX_GYRO ? kernel_ax<AX_GYRO>(probed, direct)
+                               : kernel_ax<AX_OFFDIAG>(probed, direct);
   if (direct == 7)
     return nl ? nullptr
               : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIRCYL>
@@ -1699,12 +1982,13 @@ int mnt_k3_sms(void) {
 // the largest co-resident grid of the variant (nl, probed, direct: 0 tiles,
 // 1 the direct schedule, 2 with the rotational ghosts, 3 with the Bloch
 // wrap, 4 a real pair, 5 a real pair with BFAST, 6 cylindrical, 7 a
-// cylindrical or beta real pair) with
+// cylindrical or beta real pair; axmode: the anisotropic modes) with
 // `smem` bytes of dynamic shared memory on the current device, after
 // allowing the variant that much there; or -cudaError.  The wrapper asks
 // once per device, variant and smem, and launches at most that many blocks.
-int mnt_k3_max_blocks(int nl, int probed, int direct, int smem) {
-  const void* fn = kernel_of(nl != 0, probed != 0, direct);
+int mnt_k3_max_blocks(int nl, int probed, int direct, int axmode,
+                      int smem) {
+  const void* fn = kernel_of(nl != 0, probed != 0, direct, axmode);
   if (!fn) return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1761,6 +2045,11 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
       (host->cyl != nullptr) != (direct == 6 || direct == 7))
     return (int)cudaErrorInvalidValue;
   if (pair != (host->half > 0)) return (int)cudaErrorInvalidValue;
+  // the anisotropic modes: their table, tiles or the plain direct schedule
+  const int axmode = (int)host->axmode;
+  if (axmode < 0 || axmode > AX_GYRO || (axmode != 0) != (host->ax != nullptr)
+      || (axmode != 0 && direct > 1))
+    return (int)cudaErrorInvalidValue;
   if (tl.T < 1 || tl.c < 1 || tl.nstate > tl.nslot || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const i64 ntile = tl.nt[0] * tl.nt[1] * tl.nt[2];
@@ -1768,10 +2057,11 @@ int mnt_k3_launch(const ResArgs* host, const void* args, int blocks,
     return (int)cudaErrorInvalidValue;
   const int nl = has_nl(host->pd[0]) ? 1 : 0;
   const int probed = host->pr.nprobe > 0 ? 1 : 0;
-  if (!kernel_of(nl, probed, direct)) return (int)cudaErrorInvalidValue;
+  if (!kernel_of(nl, probed, direct, axmode))
+    return (int)cudaErrorInvalidValue;
   void* kargs[] = {(void*)&args};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_of(nl, probed, direct), dim3((unsigned)blocks),
+      kernel_of(nl, probed, direct, axmode), dim3((unsigned)blocks),
       dim3(threads_of(nl)), kargs, (size_t)smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -6,8 +6,9 @@ The JAX package's state pytree and coefficient dict are handed over with
 port's tensors (and back), so that both packages can be stepped from one
 identical state.  Dtypes and shapes are kept: complex64 fields of a
 native complex state, and a real pair's (2, ...) float32 fields, whose
-leading axis is the (re, im) channel in both packages.  Nothing here
-imports the JAX package.
+leading axis is the (re, im) channel in both packages; a gyrotropic
+pole's off-axis entries (the `c#1` / `c#2` keys of its "p" and "pp") go
+across with the rest.  Nothing here imports the JAX package.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """Geometry and material scene objects (analog of python/geom.py).
 
 The port's own copy of the subset of ``meep_nl_tpu/models/geom.py`` that
-this slice needs: `Vector3`, `Medium` (eps/mu, conductivities,
-susceptibilities, chi2/chi3 with `chi2_full_tensor`), the Lorentzian
-susceptibility family, and the `Sphere`, `Cylinder` and `Block` primitives.  Objects are
-pure descriptions; rasterization onto Yee sites happens in models.scene.
+this slice needs: `Vector3`, `Matrix`, `Medium` (eps/mu with the
+off-diagonal epsilon entries, conductivities, susceptibilities, chi2/chi3
+with `chi2_full_tensor`; the frequency evaluator `m.epsilon(f)`,
+`transform` and `rotate`), the Lorentzian and gyrotropic susceptibility
+families, and the `Sphere`, `Cylinder` and `Block` primitives.  Objects
+are pure descriptions; rasterization onto Yee sites happens in
+models.scene.
 """
 
 from __future__ import annotations
@@ -98,21 +101,73 @@ class DrudeSusceptibility(LorentzianSusceptibility):
     drude: bool = True
 
 
+@dataclasses.dataclass
+class GyrotropicLorentzianSusceptibility(LorentzianSusceptibility):
+    """A Lorentzian pole precessing about `bias` (python/geom.py;
+    gyrotropic_susceptibility, susceptibility.cpp:445)."""
+    bias: Vector3 = dataclasses.field(default_factory=Vector3)
+
+
+@dataclasses.dataclass
+class GyrotropicDrudeSusceptibility(GyrotropicLorentzianSusceptibility):
+    """Gyrotropic free-carrier pole (python/geom.py)."""
+    drude: bool = True
+
+
+@dataclasses.dataclass
+class GyrotropicSaturatedSusceptibility(GyrotropicLorentzianSusceptibility):
+    """Linearized Landau-Lifshitz-Gilbert gyrotropy (python/geom.py;
+    susceptibility.cpp:519 GYROTROPIC_SATURATED): `frequency` is the
+    Larmor precession frequency, `gamma` the off-diagonal loss rate,
+    `alpha` the diagonal (Gilbert) loss factor; `bias` sets the precession
+    axis only (its magnitude is ignored: the medium is saturated)."""
+    alpha: float = 0.0
+    saturated: bool = True
+
+
 # ---------------------------------------------------------------------------
 # Medium
 # ---------------------------------------------------------------------------
+
+
+class _MediumEval(float):
+    """A scalar medium parameter that is also the frequency evaluator:
+    `m.epsilon` is the instantaneous float in arithmetic, `m.epsilon(f)`
+    the full dispersive complex tensor (python/geom.py Medium.epsilon /
+    Medium.mu):
+
+        eps(f) = eps_inst + sum_j sigma_j f_j^2/(f_j^2 - f^2 - i f g_j)
+                 (Drude: -f^2 - i f g denominator) + i sigma_cond / f
+    """
+
+    def __new__(cls, value, medium=None, kind="e"):
+        o = super().__new__(cls, value)
+        o._medium = medium
+        o._kind = kind
+        return o
+
+    def __call__(self, freq):
+        m = self._medium
+        if self._kind == "e":
+            return m._epsmu(m.eps_diag_vec(), m.epsilon_offdiag,
+                            m.E_susceptibilities, m.cond_diag_vec(), freq)
+        b = Vector3(m.B_conductivity, m.B_conductivity, m.B_conductivity)
+        return m._epsmu(m.mu_diag_vec(), None, m.H_susceptibilities, b,
+                        freq)
 
 
 @dataclasses.dataclass
 class Medium:
     """Material description (python/geom.py:Medium).
 
-    epsilon/mu may be scalars or diagonal Vector3.  chi2/chi3 are the
+    epsilon/mu may be scalars or diagonal Vector3, with the off-diagonal
+    epsilon entries (xy, xz, yz) in epsilon_offdiag.  chi2/chi3 are the
     scalar nonlinear susceptibilities;
     chi2_full_tensor selects the fork's Newton-Raphson coupled solve
     (zinc-blende chi2, newton_raphson.cpp)."""
     epsilon: float = 1.0
     epsilon_diag: Optional[Vector3] = None
+    epsilon_offdiag: Optional[Vector3] = None    # (xy, xz, yz) entries
     mu: float = 1.0
     mu_diag: Optional[Vector3] = None
     D_conductivity: float = 0.0
@@ -129,6 +184,8 @@ class Medium:
     def __post_init__(self, index):
         if index is not None:
             self.epsilon = index ** 2
+        self.epsilon = _MediumEval(self.epsilon, self, "e")
+        self.mu = _MediumEval(self.mu, self, "h")
 
     def eps_diag_vec(self) -> Vector3:
         if self.epsilon_diag is not None:
@@ -139,6 +196,147 @@ class Medium:
         if self.mu_diag is not None:
             return _v3(self.mu_diag)
         return Vector3(self.mu, self.mu, self.mu)
+
+    def cond_diag_vec(self) -> Vector3:
+        return Vector3(self.D_conductivity, self.D_conductivity,
+                       self.D_conductivity)
+
+    def _epsmu(self, diag, offdiag, sus, cond, freq) -> np.ndarray:
+        fr = np.atleast_1d(np.asarray(freq, np.float64))
+        out = np.zeros((len(fr), 3, 3), np.complex128)
+        dv = tuple(diag)
+        for i in range(3):
+            out[:, i, i] = dv[i]
+        if offdiag is not None:
+            ov = _v3(offdiag)
+            out[:, 0, 1] = out[:, 1, 0] = ov.x
+            out[:, 0, 2] = out[:, 2, 0] = ov.y
+            out[:, 1, 2] = out[:, 2, 1] = ov.z
+        for s in sus:
+            sv = tuple(s.sigma_vec())
+            f0, g = s.frequency, s.gamma
+            if getattr(s, "drude", False):
+                chi = f0 ** 2 / (-fr ** 2 - 1j * fr * g)
+            else:
+                chi = f0 ** 2 / (f0 ** 2 - fr ** 2 - 1j * fr * g)
+            for i in range(3):
+                out[:, i, i] += sv[i] * chi
+        cv = tuple(cond)
+        for i in range(3):
+            out[:, i, i] += 1j * cv[i] / np.where(fr == 0, np.inf, fr)
+        return out[0] if np.isscalar(freq) else out
+
+    def transform(self, m):
+        """Transform epsilon, mu and the susceptibilities' sigmas by the
+        3x3 matrix M: chi -> M chi M^T / |det M| (python/geom.py
+        Medium.transform, transformation optics)."""
+        M = np.asarray(m.m if hasattr(m, "m") else m, float).reshape(3, 3)
+        det = abs(np.linalg.det(M))
+
+        def xf(diag, offdiag):
+            d = tuple(diag)
+            o = tuple(_v3(offdiag)) if offdiag is not None else (0, 0, 0)
+            chi = np.array([[d[0], o[0], o[1]],
+                            [o[0], d[1], o[2]],
+                            [o[1], o[2], d[2]]], float)
+            t = M @ chi @ M.T / det
+            return (Vector3(t[0, 0], t[1, 1], t[2, 2]),
+                    Vector3(t[0, 1], t[0, 2], t[1, 2]))
+        ed, eo = xf(self.eps_diag_vec(), self.epsilon_offdiag)
+        self.epsilon_diag, self.epsilon_offdiag = ed, eo
+        self.epsilon = _MediumEval(1.0, self, "e")   # the tensor is in diag
+        md, _mo = xf(self.mu_diag_vec(), None)
+        self.mu_diag = md
+        self.mu = _MediumEval(1.0, self, "h")
+        for s in list(self.E_susceptibilities) + \
+                list(self.H_susceptibilities):
+            sd, so = xf(s.sigma_vec(), getattr(s, "sigma_offdiag", None))
+            s.sigma_diag = sd
+            if hasattr(s, "sigma_offdiag"):
+                s.sigma_offdiag = so
+        return self
+
+    def rotate(self, axis, theta):
+        """Rotate the material tensors about `axis` by `theta` radians
+        (python/geom.py Medium.rotate)."""
+        return self.transform(get_rotation_matrix(axis, theta))
+
+
+class Matrix:
+    """3x3 matrix of column vectors (python/geom.py Matrix): products with
+    matrices, vectors and scalars, inverse, transpose, determinant."""
+
+    def __init__(self, c1=Vector3(), c2=Vector3(), c3=Vector3(),
+                 diag=None, offdiag=None):
+        if diag is not None:
+            d = _v3(diag)
+            o = _v3(offdiag) if offdiag is not None else Vector3()
+            self.m = np.array([[d.x, o.x, o.y],
+                               [o.x, d.y, o.z],
+                               [o.y, o.z, d.z]], float)
+        else:
+            self.m = np.array([list(_v3(c1)), list(_v3(c2)),
+                               list(_v3(c3))], float).T
+
+    @property
+    def c1(self):
+        return Vector3(*self.m[:, 0])
+
+    @property
+    def c2(self):
+        return Vector3(*self.m[:, 1])
+
+    @property
+    def c3(self):
+        return Vector3(*self.m[:, 2])
+
+    def __mul__(self, other):
+        if isinstance(other, Matrix):
+            out = Matrix()
+            out.m = self.m @ other.m
+            return out
+        if isinstance(other, Vector3) or (
+                isinstance(other, (tuple, list)) and len(other) == 3):
+            return Vector3(*(self.m @ np.asarray(list(_v3(other)))))
+        out = Matrix()
+        out.m = self.m * float(other)
+        return out
+
+    def inverse(self):
+        out = Matrix()
+        out.m = np.linalg.inv(self.m)
+        return out
+
+    def transpose(self):
+        out = Matrix()
+        out.m = self.m.T
+        return out
+
+    def determinant(self):
+        return float(np.linalg.det(self.m))
+
+    def row(self, i):
+        return Vector3(*self.m[i])
+
+    def __repr__(self):
+        return f"Matrix({self.m!r})"
+
+
+def get_rotation_matrix(axis, theta) -> Matrix:
+    """Rotation by angle theta (radians) about `axis` (python/geom.py
+    get_rotation_matrix; Rodrigues form)."""
+    a = np.asarray(list(_v3(axis)), float)
+    n = np.linalg.norm(a)
+    if n == 0:
+        raise ValueError("zero rotation axis")
+    a = a / n
+    K = np.array([[0, -a[2], a[1]],
+                  [a[2], 0, -a[0]],
+                  [-a[1], a[0], 0]])
+    R = np.eye(3) + math.sin(theta) * K + (1 - math.cos(theta)) * (K @ K)
+    out = Matrix()
+    out.m = R
+    return out
 
 
 vacuum = Medium()

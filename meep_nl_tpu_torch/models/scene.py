@@ -10,7 +10,10 @@ Subpixel scheme: each component site's voxel is supersampled; for interface
 voxels the interface normal (analytic where the shape knows it, else the
 fill-fraction gradient) combines
     einv_eff = <1/eps> * n_d^2 + (1/<eps>) * (1 - n_d^2)
-i.e. harmonic averaging along the normal and arithmetic tangentially.
+i.e. harmonic averaging along the normal and arithmetic tangentially, and
+with `subpixel_tensor` the off-diagonal Kottke rows (<1/eps> - <eps>^-1)
+n_i n_j.  A medium with off-diagonal epsilon entries gets its inverse
+tensor's rows sampled pointwise.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import numpy as np
 
 from ..core import grid as G
 from ..stepper.plan import MaterialSpec, PolSpec
-from .geom import GeometricObject, Medium
+from .geom import (GeometricObject, GyrotropicLorentzianSusceptibility,
+                   GyrotropicSaturatedSusceptibility, Medium, _v3)
 
 _SLOT = {"x": 0, "y": 1, "z": 2, "r": 0, "p": 1}
 
@@ -114,10 +118,27 @@ def _analytic_normals(gv: G.GridVolume, pts: np.ndarray,
     return normals
 
 
+def _kind_of(sus) -> tuple:
+    """(kind, bias, alpha, saturated) of a susceptibility: the part of the
+    reference's key (scene.py:311-375) beyond frequency, gamma and drude;
+    a saturated medium's bias is its unit axis (susceptibility.cpp:356)."""
+    if isinstance(sus, GyrotropicSaturatedSusceptibility):
+        b = np.asarray(tuple(sus.bias), float)
+        nb = np.linalg.norm(b)
+        if nb == 0:
+            raise ValueError("GyrotropicSaturatedSusceptibility needs a "
+                             "nonzero bias axis")
+        return ("gyrotropic", tuple(b / nb), float(sus.alpha), True)
+    if isinstance(sus, GyrotropicLorentzianSusceptibility):
+        return ("gyrotropic", tuple(sus.bias), 0.0, False)
+    return ("lorentzian", (0.0, 0.0, 0.0), 0.0, False)
+
+
 def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
               default_material: Medium = Medium(),
               eps_averaging: bool = True,
               subpixel_n: int = 3,
+              subpixel_tensor: bool = False,
               live_e: Optional[Sequence[str]] = None,
               live_h: Optional[Sequence[str]] = None) -> MaterialSpec:
     geometry = list(geometry)
@@ -170,11 +191,43 @@ def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
             nd2 = n_own * n_own
             # Kottke tensor for isotropic two-material voxels, diagonal row
             einv = mean_inv * nd2 + (1.0 / mean_eps) * (1.0 - nd2)
+            # its off-diagonal row entries (<1/eps> - <eps>^-1) n_i n_j,
+            # with subpixel_tensor
+            if subpixel_tensor and gv.dim in ("2d", "3d"):
+                delta_inv = mean_inv - 1.0 / mean_eps
+                for dd in ("x", "y", "z"):
+                    if dd == d_c or (c[0] + dd) not in live_e:
+                        continue
+                    od = delta_inv * n_own * nvec[..., _SLOT[dd]]
+                    if np.any(np.abs(od) > 1e-12):
+                        chi1inv.setdefault(c, {})[dd] = od
         else:
             idx = _material_at(pts, geometry, default_material)
             einv = 1.0 / _eps_of(idx, geometry, default_material, dind)
         if not np.allclose(einv, 1.0):
             chi1inv.setdefault(c, {})[d_c] = einv
+
+        # full-tensor epsilon: the inverse tensor's rows, sampled pointwise
+        # (the reference's scene.py:223-243; its diagonal entry replaces
+        # the averaged one)
+        if any(m.epsilon_offdiag is not None for m in all_media):
+            idx_od = _material_at(pts, geometry, default_material)
+            full = np.zeros(gv.shape + (3, 3))
+            for i, obj in enumerate(list(geometry) + [None]):
+                med = obj.material if obj is not None else default_material
+                diag = tuple(med.eps_diag_vec())
+                od = (tuple(_v3(med.epsilon_offdiag))
+                      if med.epsilon_offdiag is not None else (0., 0., 0.))
+                eps_t = np.array([[diag[0], od[0], od[1]],
+                                  [od[0], diag[1], od[2]],
+                                  [od[1], od[2], diag[2]]])
+                sel = (idx_od == i) if obj is not None else (idx_od == -1)
+                full[sel] = np.linalg.inv(eps_t)
+            row = _SLOT[d_c]
+            chi1inv.setdefault(c, {})[d_c] = full[..., row, row]
+            for dd in ("x", "y", "z"):
+                if dd != d_c and np.any(full[..., row, _SLOT[dd]] != 0):
+                    chi1inv.setdefault(c, {})[dd] = full[..., row, _SLOT[dd]]
 
         # pointwise scalars at this site
         idx0 = _material_at(pts, geometry, default_material)
@@ -209,8 +262,8 @@ def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
                                           lambda m: m.B_conductivity)
 
     # ---- susceptibilities ----------------------------------------------------
-    # one PolSpec per distinct (frequency, gamma, drude, family): the
-    # Lorentzian family only (ROADMAP A9 brings gyrotropic, noisy and
+    # one PolSpec per distinct (frequency, gamma, drude, family, kind): the
+    # Lorentzian and gyrotropic families (ROADMAP A9 brings noisy and
     # multilevel media)
     pols: List[PolSpec] = []
     sus_keys = {}
@@ -218,9 +271,9 @@ def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
         for ft, sus_list in (("e", m.E_susceptibilities),
                              ("h", m.H_susceptibilities)):
             for s in sus_list:
-                key = (s.frequency, s.gamma, s.drude, ft)
+                key = (s.frequency, s.gamma, s.drude, ft) + _kind_of(s)
                 sus_keys.setdefault(key, []).append((m, s))
-    for (f0, gam, drude, ft) in sus_keys:
+    for (f0, gam, drude, ft, kind, bias, g_alpha, g_sat) in sus_keys:
         sigma: Dict[Tuple[str, str], np.ndarray] = {}
         live = live_e if ft == "e" else live_h
         for c in live:
@@ -236,7 +289,8 @@ def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
                        else med.H_susceptibilities)
                 sv = 0.0
                 for s in sus:
-                    if (s.frequency, s.gamma, s.drude) == (f0, gam, drude):
+                    if (s.frequency, s.gamma, s.drude) == (f0, gam, drude) \
+                            and _kind_of(s) == (kind, bias, g_alpha, g_sat):
                         sv += tuple(s.sigma_vec())[dind]
                 if sv != 0.0:
                     any_nonzero = True
@@ -246,7 +300,9 @@ def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
                 sigma[(c, d_c)] = arr
         if sigma:
             pols.append(PolSpec(field_type=ft, omega0=f0, gamma=gam,
-                                sigma=sigma, drude=drude))
+                                sigma=sigma, drude=drude, kind=kind,
+                                bias=bias, gyro_alpha=g_alpha,
+                                saturated=g_sat))
 
     return MaterialSpec(chi1inv=chi1inv, cond=cond, chi2=chi2, chi3=chi3,
                         nr_chi2=nr_chi2, pols=pols)

@@ -260,6 +260,7 @@ class Simulation:
                  Courant: float = 0.5,
                  eps_averaging: bool = True,
                  subpixel_n: int = 3,
+                 subpixel_tensor: bool = False,
                  dimensions=None,
                  dtype=np.float32,
                  use_pallas: bool = False,
@@ -306,6 +307,8 @@ class Simulation:
         self.courant = Courant
         self.eps_averaging = eps_averaging
         self.subpixel_n = subpixel_n
+        #: the off-diagonal Kottke rows at interfaces (scene.rasterize)
+        self.subpixel_tensor = subpixel_tensor
         self.dtype = dtype
         #: step through the fused half-step kernel (K5) where the plan
         #: admits it
@@ -519,6 +522,21 @@ class Simulation:
             return list(self.gv.e_components), list(self.gv.h_components)
         need = {s.component for s in self.sources}
         need |= {m.component for m in self._dft_specs}
+        # gyrotropic media precess P about the bias axis, coupling every
+        # component of the susceptibility's field type
+        # (susceptibility.cpp:519; simulation.py:696-710)
+        for med in [getattr(g, "material", None) for g in self.geometry] \
+                + [self.default_material]:
+            if med is None:
+                continue
+            for ft, sus_list in (("e", med.E_susceptibilities),
+                                 ("h", med.H_susceptibilities)):
+                if any(np.linalg.norm(list(_v3(s_.bias))) > 0
+                       for s_ in sus_list if hasattr(s_, "bias")):
+                    comps = self.gv.e_components if ft == "e" \
+                        else self.gv.h_components
+                    if need & set(comps) or not need:
+                        need |= set(comps)
         live = set(need)
         changed = True
         while changed:
@@ -703,6 +721,7 @@ class Simulation:
         mat = scene.rasterize(self.gv, self.geometry, self.default_material,
                               eps_averaging=self.eps_averaging,
                               subpixel_n=self.subpixel_n,
+                              subpixel_tensor=self.subpixel_tensor,
                               live_e=live_e, live_h=live_h)
         srcs = self._build_sources()
         if self._ldos is not None:

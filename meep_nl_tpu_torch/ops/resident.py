@@ -82,8 +82,8 @@ from . import fdtd3d, fdtd3d_t2
 from ..core import grid as G
 from ..stepper.step import (ProbeSpec, _is_pair, axis_corrections,
                             bfast_ks, bfast_specs, build_xs,
-                            check_supported, mirror_ghost, rot2_ghost,
-                            rot4_ghost, run)
+                            check_supported, gyro_constants, mirror_ghost,
+                            rot2_ghost, rot4_ghost, run)
 
 #: the reference's VMEM budget for 2x state (resident.py:50); on the H100
 #: the state lives in device memory, so this is a routing rule, not a limit
@@ -95,6 +95,8 @@ MAX_CHUNK = 8192
 PREFER_BYTES = 32 * 2 ** 20
 
 STEP_BSRC, STEP_DSRC, STEP_DFT = 1, 2, 4
+#: the anisotropic modes (csrc/resident.cu AX_*)
+AX_NONE, AX_OFFDIAG, AX_GYRO = 0, 1, 2
 
 
 def resident_plan(plan):
@@ -154,7 +156,7 @@ def _state_bytes(plan) -> int:
         n += N * len(bfast_specs(plan))
     for p in plan.pol_specs_e + plan.pol_specs_h:
         comps = {c for (c, d) in p.sigma if d == G.component_direction(c)}
-        n += 2 * N * len(comps)
+        n += 2 * N * len(comps) * (3 if p.kind == "gyrotropic" else 1)
     for m in plan.dfts:
         n += int(np.prod([b - a for a, b in m.region])) * len(m.freqs) * 2
     return n * np.dtype(plan.dtype).itemsize + 4
@@ -189,6 +191,35 @@ def _sep_poles(plan) -> bool:
                for p in plan.pol_specs_e + plan.pol_specs_h)
 
 
+def _ax_supported(plan) -> bool:
+    """The anisotropic modes' envelope (AX_OFFDIAG, AX_GYRO): real fields
+    (the real pair declines them, ROADMAP C.2), no Bloch wrap, fold
+    ghosts of a rotation, cylindrical or beta terms, BFAST or chi2/chi3;
+    off-diagonal rows on the E family only (the H update runs fused with
+    the B curl, and no scene makes an off-diagonal mu), each with both of
+    its axes on the grid."""
+    if _is_pair(plan) or any(plan.periodic) or _rotational(plan) \
+            or _cyl(plan) or plan.bfast_k is not None:
+        return False
+    if any(s.has_chi3 or s.has_nr for s in plan.eh_specs_e + plan.eh_specs_h):
+        return False
+    if any(s.has_u1 or s.has_u2 for s in plan.eh_specs_h):
+        return False
+    return all(s.ax_own is not None
+               and (not s.has_u1 or s.ax_1 is not None)
+               and (not s.has_u2 or s.ax_2 is not None)
+               for s in plan.eh_specs_e if s.has_u1 or s.has_u2)
+
+
+def ax_mode(plan) -> int:
+    """The anisotropic mode a plan needs: AX_GYRO where a pole runs in a
+    sub-update of its own (`_sep_poles`), AX_OFFDIAG where only E rows
+    have off-diagonal entries, else AX_NONE."""
+    if _sep_poles(plan):
+        return AX_GYRO
+    return AX_OFFDIAG if _offdiag(plan) else AX_NONE
+
+
 def resident_supported(plan) -> bool:
     """The static envelope (resident.py:158-182, see the module docstring):
     plans outside it are declined, never raised on."""
@@ -212,8 +243,8 @@ def resident_supported(plan) -> bool:
         return False                     # the WRAP variant's phases are real
     if any(plan.periodic) and not _nl_clear_of_wrap(plan):
         return False
-    if _offdiag(plan) or _sep_poles(plan):
-        return False                     # the OFFDIAG / GYRO modes: not yet
+    if (_offdiag(plan) or _sep_poles(plan)) and not _ax_supported(plan):
+        return False
     try:
         check_supported(plan)
     except NotImplementedError:
@@ -442,8 +473,13 @@ def boxes(tl, shape, tile: int, Tp: int, r: int) -> Dict[str, Any]:
     `tile` in a pass of Tp steps, at its step r, as csrc/resident.cu
     computes them: "interior", "staged" (grown by Tp c below and Tp c + e
     above, clipped to the grid) and the sub-updates' boxes "b" (B curl, B
-    sources, H), "d" (D curl, D sources), "e" (E and the ADE)."""
-    c, nl = tl["c"], tl["c"] - 1
+    sources, H), "d" (D curl, D sources), "e" (E and the ADE) and, in the
+    GYRO mode, "q" and "p", the H and E families' pole sub-updates, which
+    read their partners' W one site around.  E's box loses tl["ne"] sites
+    (1: E reads its neighbours' D - P; default c - 1), and c - 1 - ne is
+    the pole sub-update's site (the wrapper's ResidentKernel._e_local)."""
+    c = tl["c"]
+    nl = tl.get("ne", c - 1)
     nt = tl["nt"]
     at = (tile // (nt[1] * nt[2]), (tile // nt[2]) % nt[1], tile % nt[2])
     lo = [a * t for a, t in zip(at, tl["t"])]
@@ -461,6 +497,8 @@ def boxes(tl, shape, tile: int, Tp: int, r: int) -> Dict[str, Any]:
     out["b"] = box(L, L - 1)
     out["d"] = box(L - 1, L - 1)
     out["e"] = box(L - 1 - nl, L - 1 - nl)
+    out["q"] = box(L - 1, L - 2)
+    out["p"] = box(L - c, L - c)
     return out
 
 
@@ -521,7 +559,20 @@ class _ResArgs(ctypes.Structure):
          ("wphii", ctypes.c_double * 3), ("half", _I)] + \
         [(n, (_I * fdtd3d.NCOMP) * 2) for n in ("bf", "bt", "bw")] + \
         [("bk", ((ctypes.c_double * 2) * fdtd3d.NCOMP) * 2),
-         ("cyl", _P)]
+         ("cyl", _P), ("axmode", _I), ("ax", _P)]
+
+
+class _SepP(ctypes.Structure):
+    _fields_ = [("kind", _I), ("p", _I * 3), ("pp", _I * 3), ("sig", _I),
+                ("so", _I * 2), ("w", _I * 3), ("av", (_I * 3) * 2),
+                ("k", ctypes.c_double * 4), ("c", ctypes.c_double * 6),
+                ("inv", ctypes.c_double * 9)]
+
+
+class _AxTab(ctypes.Structure):
+    _fields_ = [("u1", (_I * fdtd3d.NCOMP) * 2),
+                ("u2", (_I * fdtd3d.NCOMP) * 2), ("sep", _I * 2),
+                ("pole", ((_SepP * fdtd3d.NCOMP) * fdtd3d.MAXPOL) * 2)]
 
 
 def set_ghosts(A, plan, slot):
@@ -599,7 +650,7 @@ def bind(lib):
         lib.mnt_k3_smem.argtypes = [ctypes.c_void_p]
         lib.mnt_k3_smem.restype = ctypes.c_int
         lib.mnt_k3_sms.restype = ctypes.c_int
-        lib.mnt_k3_max_blocks.argtypes = [ctypes.c_int] * 4
+        lib.mnt_k3_max_blocks.argtypes = [ctypes.c_int] * 5
         lib.mnt_k3_max_blocks.restype = ctypes.c_int
         lib.mnt_k3_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int, ctypes.c_int,
@@ -651,6 +702,9 @@ def state_paths(plan):
         comps = sorted({c for (c, d) in p.sigma
                         if d == G.component_direction(c)})
         paths += [("pol", pi, k, c) for k in ("p", "pp") for c in comps]
+        if p.kind == "gyrotropic":
+            paths += [("pol", pi, k, f"{c}#{j}") for k in ("p", "pp")
+                      for c in comps for j in (1, 2)]
     return paths
 
 
@@ -852,6 +906,7 @@ class ResidentKernel:
                 out.append(P)
         self._bfast = self._bfast_table({p: k for k, p in enumerate(paths)},
                                         coef)
+        ax = self._ax_table({p: k for k, p in enumerate(paths)}, coef)
         cyl = self._cyl_table({p: k for k, p in enumerate(paths)}, vecs)
         # the tensors behind the addresses the parameter blocks hold
         known = list(rp.coefs.values()) + [
@@ -873,6 +928,8 @@ class ResidentKernel:
                                 device=self.plan.device)
         self._cyl_dev = None if cyl is None else torch.frombuffer(
             bytearray(bytes(cyl)), dtype=torch.uint8).to(self.plan.device)
+        self._ax_dev = None if ax is None else torch.frombuffer(
+            bytearray(bytes(ax)), dtype=torch.uint8).to(self.plan.device)
         self._layout_ = (paths, pb, pd, coef, vec_t, table)
         return self._layout_
 
@@ -914,6 +971,106 @@ class ResidentKernel:
                     g, ring, (re, im) = fixes[c]
                     t.ag, t.ar = slot[("f", g)] + 1, ring
                     t.are, t.aim = re, im
+        return tab
+
+    def _ax_table(self, slot, coef):
+        """The anisotropic modes' AxTab (csrc/resident.cu), None for
+        AX_NONE: per family (0 B, 1 D) and E (H) component the coefficient
+        tokens of the off-diagonal chi1inv rows (step._eh_update's u1 and
+        u2); the poles that run in the pole sub-update (gyrotropic ones,
+        Lorentzian ones with an off-diagonal sigma row) as a bit mask, and
+        for each of them and each component the SepP row: the kind, the
+        slot tokens of its P entries, the tokens of sigma and of the
+        off-diagonal rows the plain version adds (step.
+        _pol_update_lorentzian's conditions), the drive fields' E (H)
+        indices, the averages (step.gyro_avg) and the constants
+        (step.gyro_constants)."""
+        rp = self.rplan
+        mode = ax_mode(rp)
+        if mode == AX_NONE:
+            return None
+        gv = rp.gv
+        tab = _AxTab()
+        ns = len(slot)
+        npol_e = len(rp.pol_specs_e)
+
+        def ctok(key):
+            return self._coef_tok(rp.coefs[key].data_ptr(), ns, coef)
+
+        for fam, ehs, pols, pol0 in ((0, rp.eh_specs_h, rp.pol_specs_h,
+                                      npol_e),
+                                     (1, rp.eh_specs_e, rp.pol_specs_e, 0)):
+            idx = {s.ec: q for q, s in enumerate(ehs)}
+            for q, sp in enumerate(ehs):
+                if sp.has_u1:
+                    tab.u1[fam][q] = ctok(f"{sp.ec}:u1")
+                if sp.has_u2:
+                    tab.u2[fam][q] = ctok(f"{sp.ec}:u2")
+            for p, pol in enumerate(pols):
+                pi = pol0 + p
+                gyro = pol.kind == "gyrotropic"
+                if not gyro and all(d == G.component_direction(c)
+                                    for (c, d) in pol.sigma):
+                    for q in range(fdtd3d.NCOMP):
+                        tab.pole[fam][p][q].kind = -1
+                    continue
+                tab.sep[fam] |= 1 << p
+                k = gyro_constants(rp, pol) if gyro else None
+                for q in range(fdtd3d.NCOMP):
+                    e = tab.pole[fam][p][q]
+                    e.kind = -1
+                    if q >= len(ehs):
+                        continue
+                    c = ehs[q].ec
+                    if (c, G.component_direction(c)) not in pol.sigma:
+                        continue
+                    d0 = G.component_direction(c)
+                    dd = (d0, G.cycle_direction(gv.dim, d0, 1),
+                          G.cycle_direction(gv.dim, d0, 2))
+                    keys = (c, f"{c}#1", f"{c}#2") if gyro else (c,)
+                    for j, key in enumerate(keys):
+                        e.p[j] = slot[("pol", pi, "p", key)] + 1
+                        e.pp[j] = slot[("pol", pi, "pp", key)] + 1
+                    e.sig = ctok(f"pol{pi}:{c}:{d0}")
+                    for j, d in enumerate(dd):
+                        e.w[j] = idx.get(c[0] + d, -1)
+                    own = gv.axis_of(d0) if gv.has_direction(d0) else -1
+                    for j, d in enumerate(dd[1:]):
+                        off = gv.axis_of(d) if gv.has_direction(d) else -1
+                        e.av[j][1], e.av[j][2] = own, off
+                        e.av[j][0] = 0 if off < 0 and own < 0 else (
+                            1 if off >= 0 and own >= 0 else
+                            2 if own >= 0 else 3)
+                    if not gyro:
+                        e.kind = 0
+                        for j, d in enumerate(dd[1:]):
+                            key = f"pol{pi}:{c}:{d}"
+                            if key in rp.coefs and e.w[j + 1] >= 0 \
+                                    and gv.has_direction(d) and own >= 0:
+                                e.so[j] = ctok(key)
+                        continue
+                    i0, i1, i2 = ("xyz".index(d) for d in dd)
+                    g = k["gmat"]
+                    if pol.saturated:
+                        e.kind = 2
+                        vals = (-k["w2pidt"], 0.5 * k["alpha"], k["dt2pi"],
+                                k["g2pidt"])
+                        pt = 1.0
+                    else:
+                        e.kind = 1
+                        vals = (k["diag"], k["gamma1"], k["omega0dtsqr"],
+                                0.0)
+                        pt = k["pt"]
+                    for m, v in enumerate(vals):
+                        e.k[m] = v
+                    for m, (a, b) in enumerate(((i0, i1), (i0, i2),
+                                                (i1, i0), (i1, i2),
+                                                (i2, i1), (i2, i0))):
+                        e.c[m] = pt * float(g[a][b])
+                    for m, (a, b) in enumerate(
+                            (r, cc) for r in (i0, i1, i2)
+                            for cc in (i0, i1, i2)):
+                        e.inv[m] = float(k["inv"][a][b])
         return tab
 
     def _bfast_table(self, slot, coef):
@@ -1009,9 +1166,14 @@ class ResidentKernel:
                     if ys_[dd] == 0:
                         e[ax] = 1
         shape = self.shape + (1,) * (3 - len(self.shape))
-        c = 1 if self._e_local() else 2
+        # a site of each side a step costs: the curls', one where E reads
+        # its neighbours' D - P, one where a pole reads its partners' W
+        ne = 0 if self._e_local() else 1
+        npole = int(ax_mode(rp) == AX_GYRO)
+        c = 1 + ne + npole
         nloops = len(rp.curl_specs_b + rp.eh_specs_h + rp.curl_specs_d
-                     + rp.eh_specs_e)
+                     + rp.eh_specs_e) + npole * len(rp.eh_specs_e
+                                                     + rp.eh_specs_h)
         nslot = len(paths) + len(coef)
         tl = None
         variant = direct_variant(rp)
@@ -1033,7 +1195,7 @@ class ResidentKernel:
         memory."""
         nl = self._nl()
         key = (self._device_key(), nl, int(probed), int(tl["direct"]),
-               tl["smem"])
+               ax_mode(self.rplan), tl["smem"])
         if key not in self._most:
             most = lib.mnt_k3_max_blocks(*key[1:])
             if most < 1:
@@ -1058,20 +1220,32 @@ class ResidentKernel:
             ([nsteps % MAX_CHUNK] if nsteps % MAX_CHUNK else [])
         passes = sum(-(-n // tl["T"]) for n in chunks)
         if tl["direct"]:
-            least = 2 + int(tl["c"] == 2) + int(probed)
-            barriers = (least, 6 + int(probed or bool(self.rplan.dfts)))
+            # the pole sub-updates' barriers: one after each family's
+            sep = sum(1 for p in range(2) if ax_mode(self.rplan) == AX_GYRO
+                      and self._ax_fam(p))
+            least = 2 + int(not self._e_local()) + int(probed) + sep
+            barriers = (least, 6 + sep
+                        + int(probed or bool(self.rplan.dfts)))
         else:
             barriers = passes - (0 if probed else len(chunks))
         return {**tl, "blocks": self._blocks(lib, tl, probed),
                 "passes": passes, "barriers": barriers}
 
     def _e_local(self):
-        """E from D reads no neighbour (no live chi2/chi3 partner sums)."""
+        """E from D reads no neighbour (no live chi2/chi3 partner sums, no
+        off-diagonal rows)."""
         rp = self.rplan
         live = {s.dc for s in rp.eh_specs_e}
-        return not any((s.has_chi3 or s.has_nr)
-                       and (s.dc1 in live or s.dc2 in live)
-                       for s in rp.eh_specs_e)
+        return not any(((s.has_chi3 or s.has_nr)
+                        and (s.dc1 in live or s.dc2 in live))
+                       or s.has_u1 or s.has_u2 for s in rp.eh_specs_e)
+
+    def _ax_fam(self, fam: int) -> bool:
+        """Whether family `fam` (0 B, 1 D) has a pole sub-update."""
+        pols = self.rplan.pol_specs_e if fam else self.rplan.pol_specs_h
+        return any(p.kind == "gyrotropic"
+                   or any(d != G.component_direction(c) for (c, d) in p.sigma)
+                   for p in pols)
 
     def _site_tables(self, tl):
         """Per family, the source sites (every site where a source's dense
@@ -1346,9 +1520,10 @@ class ResidentKernel:
             series = {name: out[i] for i, name in enumerate(tabs["names"])}
         A.dt = rp.dt
         A.nsteps = n
-        A.e_local = int(tl["c"] == 1)
+        A.e_local = int(self._e_local())
         set_ghosts(A, rp, slot)
         A.cyl = _ptr(self._cyl_dev)
+        A.axmode, A.ax = ax_mode(rp), _ptr(self._ax_dev)
         for fam in (0, 1):
             for q in range(fdtd3d.NCOMP):
                 A.bf[fam][q], A.bt[fam][q], A.bw[fam][q], k1, k2 = \

@@ -13,7 +13,10 @@ kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
   * fork's chi2 Newton-Raphson     -> `_nr_solve` (newton_raphson.cpp:93)
   * fork's BFAST step_bfast        -> `_bfast_update` (step_generic.cpp:339)
   * cylindrical r = 0 updates      -> `_axis_specials` (step_db.cpp:296-457)
+  * OFFDIAG chi1inv average        -> `_offdiag` (step_generic.cpp:597)
   * lorentzian_susceptibility::update_P -> `_pol_update_lorentzian`
+  * gyrotropic_susceptibility::update_P -> `_pol_update_gyro`
+                                     (susceptibility.cpp:445-517, :519)
   * dft_chunk::update_dft          -> `_dft_update` (dft.cpp:265-306)
   * step_source                    -> `_apply_sources` (step.cpp:296-319)
   * get_field time series          -> `run(..., probes=...)`, `ProbeSpec`
@@ -21,7 +24,10 @@ kernels in ops/ are held against it).  Reference mapping, as in the JAX package:
 The state is a dict of tensors: {"f", "f_u", "f_cond", "f_w": {comp:
 tensor}, "pol": [{"p": {...}, "pp": {...}}], "dft": {name: (..., nfreq,
 2)}, "t": int}, and for a BFAST plan "f_bfast": {comp: tensor}, the
-flip-flop auxiliary of each curl component with both partners.  The step
+flip-flop auxiliary of each curl component with both partners.  A
+gyrotropic pole keeps the full P 3-vector at each of its component sites:
+the entry `c` is P along c's own direction, `c#1` and `c#2` along the two
+cycled ones (only `c` enters D - P).  The step
 is functional (it returns new tensors and leaves its input untouched),
 like the JAX stepper it mirrors.
 
@@ -64,8 +70,6 @@ def check_supported(plan: Plan) -> None:
     if any(s.has_cond or s.folded_cond
              for s in plan.curl_specs_d + plan.curl_specs_b):
         why = "conductivity (ROADMAP A6)"
-    elif any(s.has_u1 or s.has_u2 for s in plan.eh_specs_e + plan.eh_specs_h):
-        why = "off-diagonal epsilon/mu (ROADMAP A9)"
     elif any(s.is_integrated for s in plan.sources):
         why = "integrated sources (ROADMAP A9)"
     elif gv.dim == "1d" and any(s.has_nr for s in plan.eh_specs_e):
@@ -80,10 +84,8 @@ def check_supported(plan: Plan) -> None:
         why = "chi2/chi3 media in cylindrical cells (ROADMAP A9)"
     else:
         for p in plan.pol_specs_e + plan.pol_specs_h:
-            if p.kind != "lorentzian":
+            if p.kind not in ("lorentzian", "gyrotropic"):
                 why = f"{p.kind} susceptibilities (ROADMAP A9)"
-            elif any(d != c[1] for (c, d) in p.sigma):
-                why = "off-diagonal susceptibility sigma (ROADMAP A9)"
     if why is not None:
         raise NotImplementedError(f"the torch stepper does not run {why} yet")
 
@@ -189,8 +191,16 @@ def init_state(plan: Plan) -> Dict[str, Any]:
     pol = []
     for p in plan.pol_specs_e + plan.pol_specs_h:
         comps = sorted({c for (c, d) in p.sigma if d == G.component_direction(c)})
-        pol.append({"p": {c: zeros() for c in comps},
-                    "pp": {c: zeros() for c in comps}})
+        entry = {"p": {c: zeros() for c in comps},
+                 "pp": {c: zeros() for c in comps}}
+        if p.kind == "gyrotropic":
+            # the off-axis P entries of each component site (gyrotropy_data,
+            # susceptibility.cpp:445; step.py:202-210)
+            for c in comps:
+                for k in ("p", "pp"):
+                    entry[k][f"{c}#1"] = zeros()
+                    entry[k][f"{c}#2"] = zeros()
+        pol.append(entry)
     dft = {}
     for m in plan.dfts:
         ext = tuple(b - a for a, b in m.region)
@@ -592,6 +602,15 @@ def _nonlinear_u(Dsqr, Di, u, chi2, chi3):
     return (1 + c2 + 2 * c3) / (1 + 2 * c2 + 3 * c3)
 
 
+def _offdiag(plan, u1, g1, ax1, ax_own, sgn):
+    """OFFDIAG(u, g, sx) of step_generic.cpp:597: the stable Yee average of
+    an off-diagonal chi1inv row against the partner D component,
+    0.25 (t + t shifted along the own axis), t = (g1 + g1 shifted along
+    ax1) u1 (step.py:652-656)."""
+    t = (g1 + _sh(plan, g1, ax1, -sgn)) * u1
+    return 0.25 * (t + _sh(plan, t, ax_own, sgn))
+
+
 def _avg4(plan, g, ax_own, ax_off, sgn):
     """gs_2-style neighbor average (step_generic.cpp:740)."""
     g_s = _sh(plan, g, ax_own, sgn)
@@ -654,13 +673,19 @@ def _nr_solve(A_own, A_1, A_2, eps, chi2, seed_own, seed_1, seed_2):
 
 def _eh_update(plan: Plan, C: Dict[str, Any], spec: EhSpec,
                state: Dict[str, Any], dmp: Dict[str, Any]) -> Dict[str, Any]:
-    """E = chi1inv*(D - P) with Kerr Pade, the NR chi2 branch, and the PML
-    W chain (step_generic.cpp:576-906)."""
+    """E = chi1inv*(D - P) with off-diagonal averaging, Kerr Pade, the NR
+    chi2 branch, and the PML W chain (step_generic.cpp:576-906)."""
     ec = spec.ec
     sgn = 1 if ec[0] == "e" else -1  # H strides negated (update_eh.cpp:192)
     gs = dmp[spec.dc]
     us = C[f"{ec}:u"] if spec.has_u else None
     lin = gs * us if us is not None else gs
+    if spec.has_u1:
+        lin = lin + _offdiag(plan, C[f"{ec}:u1"], dmp[spec.dc1], spec.ax_1,
+                             spec.ax_own, sgn)
+    if spec.has_u2:
+        lin = lin + _offdiag(plan, C[f"{ec}:u2"], dmp[spec.dc2], spec.ax_2,
+                             spec.ax_own, sgn)
 
     if spec.has_chi3:
         u_for_nl = us if us is not None else 1.0
@@ -716,11 +741,30 @@ def _eh_update(plan: Plan, C: Dict[str, Any], spec: EhSpec,
     return {**new_state, "f": {**new_state["f"], ec: f_new}}
 
 
+def _W(state: Dict[str, Any], c: str):
+    """The drive field of a pole at component c: E (H) before the W chain
+    where c has one, else E (H); None where c is not stepped."""
+    return state["f_w"].get(c, state["f"].get(c))
+
+
+def _pol_update(plan: Plan, C: Dict[str, Any], pi: int, p: PolSpec,
+                state: Dict[str, Any]) -> Dict[str, Any]:
+    """Susceptibility ADE dispatch (step.py:820-830): the Lorentzian/Drude
+    leapfrog or the gyrotropic precession (check_supported refuses the
+    other kinds)."""
+    if p.kind == "gyrotropic":
+        return _pol_update_gyro(plan, C, pi, p, state)
+    return _pol_update_lorentzian(plan, C, pi, p, state)
+
+
 def _pol_update_lorentzian(plan: Plan, C: Dict[str, Any], pi: int,
                            p: PolSpec, state: Dict[str, Any]
                            ) -> Dict[str, Any]:
-    """Lorentzian/Drude ADE leapfrog (susceptibility.cpp:188-260), diagonal
-    sigma rows."""
+    """Lorentzian/Drude ADE leapfrog (susceptibility.cpp:188-260): the
+    diagonal sigma row drives P with W, an off-diagonal row adds the
+    partner W's `_offdiag` average, and where a component has one the new
+    P holds only where its diagonal sigma is nonzero (the s != 0 guard,
+    susceptibility.cpp:231; step.py:1102-1121)."""
     dt = plan.dt
     w2pi = 2 * math.pi * p.omega0
     g2pi = 2 * math.pi * p.gamma
@@ -728,17 +772,144 @@ def _pol_update_lorentzian(plan: Plan, C: Dict[str, Any], pi: int,
     gamma1inv = 1.0 / (1 + 0.5 * g2pi * dt)
     gamma1 = 1 - 0.5 * g2pi * dt
     denom = 0.0 if p.drude else omega0dtsqr
+    gv = plan.gv
     pol_st = state["pol"][pi]
     new_p = dict(pol_st["p"])
     new_pp = dict(pol_st["pp"])
     for c in pol_st["p"]:
-        W = state["f_w"].get(c, state["f"].get(c))
-        drive = C[f"pol{pi}:{c}:{c[1]}"] * W
+        d = G.component_direction(c)
+        sgn = 1 if c[0] == "e" else -1
+        s = C[f"pol{pi}:{c}:{d}"]
+        drive = s * _W(state, c)
+        ax_own = gv.axis_of(d) if gv.has_direction(d) else None
+        aniso = False
+        for doff in (G.cycle_direction(gv.dim, d, 1),
+                     G.cycle_direction(gv.dim, d, 2)):
+            key = f"pol{pi}:{c}:{doff}"
+            w_off = _W(state, c[0] + doff)
+            if key in C and w_off is not None and gv.has_direction(doff) \
+                    and ax_own is not None:
+                aniso = True
+                drive = drive + _offdiag(plan, C[key], w_off,
+                                         gv.axis_of(doff), ax_own, sgn)
         pcur = pol_st["p"][c]
         pprev = pol_st["pp"][c]
-        new_p[c] = gamma1inv * (pcur * (2 - denom) - gamma1 * pprev
-                                + omega0dtsqr * drive)
+        pnew = gamma1inv * (pcur * (2 - denom) - gamma1 * pprev
+                            + omega0dtsqr * drive)
+        if aniso:
+            pnew = torch.where(s != 0, pnew, pcur)
+        new_p[c] = pnew
         new_pp[c] = pcur
+    pols = list(state["pol"])
+    pols[pi] = {"p": new_p, "pp": new_pp}
+    return {**state, "pol": pols}
+
+
+def gyro_constants(plan: Plan, p: PolSpec):
+    """The gyrotropic update's constants (step.py:981-1013): a dict of the
+    scalars of its form, `gmat` (g[i][j] = eps_ijk b_k) and `inv`, the
+    inverse of the per-site 3x3 system, as numpy float64 arrays.  The
+    kernels read the same values."""
+    dt = plan.dt
+    w2pidt = 2 * math.pi * p.omega0 * dt
+    g2pidt = 2 * math.pi * p.gamma * dt
+    omega0dtsqr = w2pidt * w2pidt
+    out = {"w2pidt": w2pidt, "g2pidt": g2pidt, "omega0dtsqr": omega0dtsqr,
+           "gamma1": 1 - g2pidt / 2,
+           "diag": 2 - (0.0 if p.drude else omega0dtsqr),
+           "pt": math.pi * dt, "dt2pi": 2 * math.pi * dt,
+           "alpha": p.gyro_alpha}
+    bx, by, bz = p.bias
+    out["gmat"] = np.array([[0.0, bz, -by], [-bz, 0.0, bx], [by, -bx, 0.0]])
+    if p.saturated:
+        # LLG: the alpha P+ term rides the skew inverse
+        gd, gx, gy, gz = 0.5, -0.5 * p.gyro_alpha * bx, \
+            -0.5 * p.gyro_alpha * by, -0.5 * p.gyro_alpha * bz
+    else:
+        pt = out["pt"]
+        gd, gx, gy, gz = 1 + g2pidt / 2, pt * bx, pt * by, pt * bz
+    invdet = 1.0 / gd / (gd * gd + gx * gx + gy * gy + gz * gz)
+    out["inv"] = np.array([
+        [invdet * (gd * gd + gx * gx), invdet * (gx * gy + gd * gz),
+         invdet * (gx * gz - gd * gy)],
+        [invdet * (gy * gx - gd * gz), invdet * (gd * gd + gy * gy),
+         invdet * (gy * gz + gd * gx)],
+        [invdet * (gz * gx + gd * gy), invdet * (gz * gy - gd * gx),
+         invdet * (gd * gd + gz * gz)]])
+    return out
+
+
+def gyro_avg(plan: Plan, w, d0: str, d_other: str, sgn: int):
+    """A partner W averaged onto the site of a component along d0
+    (step.py:1037-1046): the four-site average where both the own and the
+    partner's direction are grid axes, the two-site one along the one that
+    is, else W itself."""
+    gv = plan.gv
+    ax_own = gv.axis_of(d0) if gv.has_direction(d0) else None
+    ax_off = gv.axis_of(d_other) if gv.has_direction(d_other) else None
+    if ax_own is not None and ax_off is not None:
+        return _avg4(plan, w, ax_own, ax_off, sgn)
+    if ax_own is not None:
+        return 0.5 * (w + _sh(plan, w, ax_own, sgn))
+    if ax_off is not None:
+        return 0.5 * (w + _sh(plan, w, ax_off, -sgn))
+    return w
+
+
+def _pol_update_gyro(plan: Plan, C: Dict[str, Any], pi: int, p: PolSpec,
+                     state: Dict[str, Any]) -> Dict[str, Any]:
+    """Gyrotropic precession (step.py:975-1076): the Lorentzian/Drude form
+    (gyrotropic_susceptibility::update_P, susceptibility.cpp:445-517) or
+    the saturated linearized Landau-Lifshitz-Gilbert one
+    (susceptibility.cpp:519), a per-site 3x3 skew-symmetric solve about
+    the bias; the partners' W averaged onto the component's site
+    (`gyro_avg`).  The constants are Python floats, so the arithmetic runs
+    in the state's type in the reference's order."""
+    k = gyro_constants(plan, p)
+    gmat, inv = k["gmat"], k["inv"]
+    gv = plan.gv
+    pol_st = state["pol"][pi]
+    new_p = dict(pol_st["p"])
+    new_pp = dict(pol_st["pp"])
+    for c in [key for key in pol_st["p"] if "#" not in key]:
+        d0 = G.component_direction(c)
+        sgn = 1 if c[0] == "e" else -1
+        s_arr = C[f"pol{pi}:{c}:{d0}"]
+        d1 = G.cycle_direction(gv.dim, d0, 1)
+        d2 = G.cycle_direction(gv.dim, d0, 2)
+        i0, i1, i2 = ("xyz".index(d) for d in (d0, d1, d2))
+        w0, w1, w2 = (_W(state, c[0] + d) for d in (d0, d1, d2))
+        avg1 = gyro_avg(plan, w1, d0, d1, sgn) if w1 is not None else 0.0
+        avg2 = gyro_avg(plan, w2, d0, d2, sgn) if w2 is not None else 0.0
+        p0, p1, p2 = (pol_st["p"][key] for key in (c, f"{c}#1", f"{c}#2"))
+        pp0, pp1, pp2 = (pol_st["pp"][key]
+                         for key in (c, f"{c}#1", f"{c}#2"))
+
+        def g(a, b):
+            return float(gmat[a][b])
+
+        if p.saturated:
+            w2pidt, ha, dt2pi = k["w2pidt"], 0.5 * k["alpha"], k["dt2pi"]
+            g2pidt = k["g2pidt"]
+            q0 = -w2pidt * p0 + ha * pp0 + dt2pi * s_arr * w0
+            q1 = -w2pidt * p1 + ha * pp1 + dt2pi * s_arr * avg1
+            q2 = -w2pidt * p2 + ha * pp2 + dt2pi * s_arr * avg2
+            r0 = 0.5 * pp0 - g2pidt * p0 + g(i0, i1) * q1 + g(i0, i2) * q2
+            r1 = 0.5 * pp1 - g2pidt * p1 + g(i1, i2) * q2 + g(i1, i0) * q0
+            r2 = 0.5 * pp2 - g2pidt * p2 + g(i2, i0) * q0 + g(i2, i1) * q1
+        else:
+            diag, gamma1, w2, pt = k["diag"], k["gamma1"], \
+                k["omega0dtsqr"], k["pt"]
+            r0 = diag * p0 - gamma1 * pp0 + w2 * s_arr * w0 \
+                - pt * g(i0, i1) * pp1 - pt * g(i0, i2) * pp2
+            r1 = diag * p1 - gamma1 * pp1 + w2 * s_arr * avg1 \
+                - pt * g(i1, i0) * pp0 - pt * g(i1, i2) * pp2
+            r2 = diag * p2 - gamma1 * pp2 + w2 * s_arr * avg2 \
+                - pt * g(i2, i1) * pp1 - pt * g(i2, i0) * pp0
+        new_pp[c], new_pp[f"{c}#1"], new_pp[f"{c}#2"] = p0, p1, p2
+        for key, i in ((c, i0), (f"{c}#1", i1), (f"{c}#2", i2)):
+            new_p[key] = float(inv[i][i0]) * r0 + float(inv[i][i1]) * r1 \
+                + float(inv[i][i2]) * r2
     pols = list(state["pol"])
     pols[pi] = {"p": new_p, "pp": new_pp}
     return {**state, "pol": pols}
@@ -754,6 +925,8 @@ def _compute_fmp(plan: Plan, ft: str, state: Dict[str, Any]
     fmp = {spec.dc: state["f"][spec.dc] for spec in specs}
     for pi in range(pol_off, pol_off + npol):
         for c, parr in state["pol"][pi]["p"].items():
+            if "#" in c:
+                continue      # a gyrotropic pole's off-axis entries
             dc = ft2 + c[1]
             if dc in fmp:
                 fmp[dc] = fmp[dc] - parr
@@ -970,8 +1143,7 @@ def make_step(plan: Plan, dft: bool = True,
             state = _eh_update(plan, C, spec, state, dmp_h)
         for k in range(len(plan.pol_specs_h)):
             pi = len(plan.pol_specs_e) + k
-            state = _pol_update_lorentzian(plan, C, pi, plan.pol_specs_h[k],
-                                           state)
+            state = _pol_update(plan, C, pi, plan.pol_specs_h[k], state)
         # --- D half ---------------------------------------------------------
         for spec in plan.curl_specs_d:
             state = _curl_update(plan, C, spec, state)
@@ -982,8 +1154,7 @@ def make_step(plan: Plan, dft: bool = True,
         for spec in plan.eh_specs_e:
             state = _eh_update(plan, C, spec, state, dmp_e)
         for k in range(len(plan.pol_specs_e)):
-            state = _pol_update_lorentzian(plan, C, k, plan.pol_specs_e[k],
-                                           state)
+            state = _pol_update(plan, C, k, plan.pol_specs_e[k], state)
         state = {**state, "t": state["t"] + 1}
         if dft:
             state = _dft_update(plan, C, state, xs)

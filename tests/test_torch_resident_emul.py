@@ -92,6 +92,8 @@ def scene(kind, device="cpu", res=10):
     variants)."""
     if kind.startswith(("cyl", "kz")):
         return cyl_scene(kind, device)
+    if kind.startswith(AX_KINDS):
+        return ax_scene(kind, device)
     pair = kind.endswith("*")
     kind = kind.rstrip("*")
     kind, _, per = kind.partition("~")
@@ -285,10 +287,107 @@ def cyl_scene(kind, device="cpu"):
     return sim.plan
 
 
+#: the anisotropic modes' scenes (`ax_scene`)
+AX_KINDS = ("aniso", "tensor", "asig", "gyro")
+
+
+def ax_scene(kind, device="cpu"):
+    """The OFFDIAG and GYRO modes' scenes, 2D cells 6 x 5 at resolution 10
+    with PML 0.8 (3D: 2 x 2 x 2 at resolution 7, PML 0.5), sources and a
+    flux line as `scene`'s.  aniso: TE (an Hz point and an Ex line source)
+    on a block of a uniaxial crystal rotated 30 degrees about z (xy
+    off-diagonal rows); tensor: TE on an eps=4 cylinder with
+    subpixel_tensor; asig: that cylinder with a Lorentz pole whose sigma
+    has off-diagonal rows (added to the rasterized MaterialSpec: no medium
+    makes one), whose new P holds only where its diagonal sigma is
+    nonzero; gyro-h: TM (Ez) on a cylinder of a saturated gyrotropic
+    H-family pole biased along z (every component live); gyro-e: TE on
+    the rotated block with E-family gyrotropic Lorentzian and Drude poles
+    (tilted biases) beside a plain Lorentz pole; gyro3d: a ball of a
+    crystal rotated about (1, 1, 1) (all three off-diagonal entries) with
+    a saturated H pole and a gyrotropic Lorentzian E pole."""
+    te = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Hz,
+                    center=mp.Vector3(-2, 0.3)),
+          mp.Source(mp.GaussianSource(0.6, fwidth=0.2), mp.Ex,
+                    center=mp.Vector3(-2, 0.3), size=mp.Vector3(0, 1))]
+    src = te
+    cell, res, pml, flux = mp.Vector3(6, 5), 10, 0.8, mp.Vector3(0, 1.5)
+    rotated = mp.Medium(epsilon_diag=mp.Vector3(2.0, 5.0, 3.0)).rotate(
+        mp.Vector3(0, 0, 1), np.pi / 6)
+    block = mp.Vector3(2, 2, mp.inf)
+    kw = {}
+    if kind == "aniso":
+        geom = [mp.Block(size=block, material=rotated)]
+    elif kind in ("tensor", "asig"):
+        geom = [mp.Cylinder(radius=1.0, material=mp.Medium(epsilon=4))]
+        kw = {"subpixel_tensor": kind == "tensor"}
+    elif kind == "gyro-h":
+        geom = [mp.Cylinder(radius=1.0, material=mp.Medium(
+            epsilon=6, H_susceptibilities=[
+                mp.GyrotropicSaturatedSusceptibility(
+                    frequency=0.9, gamma=0.05, sigma=0.8, alpha=0.05,
+                    bias=mp.Vector3(0, 0, 1))]))]
+        src = [mp.Source(mp.GaussianSource(0.5, fwidth=0.2), mp.Ez,
+                         center=mp.Vector3(-2, 0.1))]
+    elif kind == "gyro-e":
+        rotated.E_susceptibilities = [
+            mp.GyrotropicLorentzianSusceptibility(
+                frequency=1.2, gamma=0.1, sigma=0.5,
+                bias=mp.Vector3(0.1, 0.2, 0.6)),
+            mp.LorentzianSusceptibility(frequency=1.5, gamma=0.1,
+                                        sigma=0.2),
+            mp.GyrotropicDrudeSusceptibility(
+                frequency=0.8, gamma=0.2, sigma=0.3,
+                bias=mp.Vector3(0, 0, 0.5))]
+        geom = [mp.Block(size=block, material=rotated)]
+    else:                                  # gyro3d
+        mat = mp.Medium(epsilon_diag=mp.Vector3(2.0, 4.0, 3.0), H_susceptibilities=[
+            mp.GyrotropicSaturatedSusceptibility(
+                frequency=0.9, gamma=0.05, sigma=0.6, alpha=0.05,
+                bias=mp.Vector3(1, 1, 1))], E_susceptibilities=[
+            mp.GyrotropicLorentzianSusceptibility(
+                frequency=1.2, gamma=0.1, sigma=0.3,
+                bias=mp.Vector3(0, 0.3, 0.4))]).rotate(
+                    mp.Vector3(1, 1, 1), 0.5)
+        geom = [mp.Sphere(radius=0.5, material=mat)]
+        src = [mp.Source(mp.GaussianSource(0.8, fwidth=0.3), mp.Ez,
+                         center=mp.Vector3(-0.45, 0.05, 0))]
+        cell, res, pml, flux = mp.Vector3(2, 2, 2), 7, 0.5, \
+            mp.Vector3(0, 1, 1)
+    sim = mp.Simulation(cell_size=cell, resolution=res, geometry=geom,
+                        sources=src, boundary_layers=[mp.PML(pml)],
+                        device=device, **kw)
+    sim.add_flux(0.5, 0.2, 3, mp.FluxRegion(
+        center=mp.Vector3(0.4 if pml == 0.5 else 0.9, 0, 0), size=flux))
+    if kind != "asig":
+        sim.init_sim()
+        return sim.plan
+    from meep_nl_tpu_torch.models import scene as SC
+    raster = SC.rasterize
+
+    def with_offdiag_sigma(*args, **kw):
+        mat = raster(*args, **kw)
+        inside = (mat.chi1inv["ex"]["x"] < 0.5).astype(float)
+        mat.pols.append(mp.PolSpec(
+            field_type="e", omega0=1.1, gamma=0.1,
+            sigma={("ex", "x"): 0.4 * inside, ("ex", "y"): 0.15 * inside,
+                   ("ey", "y"): 0.4 * inside,
+                   ("ey", "x"): -0.1 * inside}))
+        return mat
+
+    SC.rasterize = with_offdiag_sigma
+    try:
+        sim.init_sim()
+    finally:
+        SC.rasterize = raster
+    return sim.plan
+
+
 #: the component each scene's probes read (else ez)
 COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz",
         "cyl1": "er", "cyl-1": "hp", "cyl3": "ez", "kz": "hy",
-        "kz-pml": "ez"}
+        "kz-pml": "ez", "aniso": "hz", "tensor": "hz", "asig": "ey",
+        "gyro-e": "ey", "gyro-h": "hx"}
 
 
 def base_kind(kind):
@@ -412,7 +511,30 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "cyl-1-k4": ("cyl-1*", True, 13, 8192, None),
          "cyl3-k4-seams": ("cyl3*", True, 13, 5, (None, 1, 3, 7)),
          "kz-k4": ("kz*", True, 13, 8192, None),
-         "kz-pml-k3-seams": ("kz-pml*", False, 13, 5, (None, 1, 4, 1))}
+         "kz-pml-k3-seams": ("kz-pml*", False, 13, 5, (None, 1, 4, 1)),
+         # the anisotropic modes: OFFDIAG (a rotated crystal, tensor
+         # subpixel averaging) and GYRO (off-diagonal sigma, gyrotropic
+         # poles of both families, fused and separate poles side by side,
+         # 3D with every off-diagonal entry) on tiles cut through the
+         # material and on the direct schedule
+         "aniso-k3-tiles-seams": ("aniso", False, 13, 5,
+                                  ((10, 14, 1), 2, 4, 7)),
+         "aniso-k4-direct": ("aniso", True, 13, 8192, (None, 1, 3, 1)),
+         "tensor-k4-tiles": ("tensor", True, 13, 8192,
+                             ((10, 14, 1), 3, 4, 1)),
+         "asig-k3-tiles-seams": ("asig", False, 13, 5,
+                                 ((10, 14, 1), 2, 3, 1)),
+         "asig-k4-direct-seams": ("asig", True, 13, 5, (None, 1, 4, 7)),
+         "gyro-h-k4-tiles": ("gyro-h", True, 13, 8192,
+                             ((13, 13, 1), 2, 4, 0)),
+         "gyro-h-k3-direct-seams": ("gyro-h", False, 13, 5,
+                                    (None, 1, 3, 7)),
+         "gyro-e-k3-tiles-seams": ("gyro-e", False, 13, 5,
+                                   ((5, 7, 1), 2, 5, 7)),
+         "gyro-e-k4-direct": ("gyro-e", True, 13, 8192, (None, 1, 4, 1)),
+         "gyro3d-k4-direct-seams": ("gyro3d", True, 9, 4,
+                                    (None, 1, 4, 1)),
+         "gyro3d-k3-direct": ("gyro3d", False, 9, 8192, (None, 1, 3, 7))}
 
 
 def h100_schedule(ker, host_lib):
@@ -563,18 +685,21 @@ def test_launch_refuses_a_variant_that_does_not_match(host_lib,
 # ---------------------------------------------------------------------------
 
 
-def _replay(shape, tl, Tp, nl_partners):
+def _replay(shape, tl, Tp, nl_partners, poles=False):
     """Run each tile's pass of Tp steps on version counters per field class
-    (B, H, D, E, P; grid (S0, S1), stencil reach as the step's): each
-    sub-update computes its box (resident.boxes) from the versions its
-    reads need; every site it computes must read valid versions, and the
-    interior grown by e above must hold version Tp at the end."""
+    (B, H, D, E, P and the H family's poles Q; grid (S0, S1), stencil
+    reach as the step's): each sub-update computes its box
+    (resident.boxes) from the versions its reads need; every site it
+    computes must read valid versions, and the interior grown by e above
+    must hold version Tp at the end.  `poles`: the GYRO mode's pole
+    sub-updates, which read their family's fields one site around after
+    the family's E (H) ("p", "q")."""
     S = np.array(shape[:2])
     for tile in range(tl["ntile"]):
         st = R.boxes(tl, shape, tile, Tp, 0)["staged"]
         o = np.array(st[0][:2])
         n = np.array(st[1][:2]) - o
-        ver = {k: np.zeros(tuple(n), np.int64) for k in "BHDEP"}
+        ver = {k: np.zeros(tuple(n), np.int64) for k in "BHDEPQ"}
 
         def at(k, i, j, r):
             """version of k at grid site (i, j), r if off the grid (the
@@ -596,11 +721,16 @@ def _replay(shape, tl, Tp, nl_partners):
                     new[i - o[0], j - o[1]] = r + 1
             ver[k] = new
 
+        around = [(a, b) for a in (-1, 0, 1) for b in (-1, 0, 1)]
         for r in range(Tp):
             bx = R.boxes(tl, shape, tile, Tp, r)
             update("B", bx["b"], [("B", 0, 0, r), ("E", 0, 0, r),
                                   ("E", 1, 0, r), ("E", 0, 1, r)], r)
-            update("H", bx["b"], [("B", 0, 0, r + 1), ("H", 0, 0, r)], r)
+            update("H", bx["b"], [("B", 0, 0, r + 1), ("H", 0, 0, r)]
+                   + ([("Q", 0, 0, r)] if poles else []), r)
+            if poles:
+                update("Q", bx["q"], [("H", a, b, r + 1) for a, b in around]
+                       + [("Q", 0, 0, r)], r)
             update("D", bx["d"], [("D", 0, 0, r), ("H", 0, 0, r + 1),
                                   ("H", -1, 0, r + 1), ("H", 0, -1, r + 1)],
                    r)
@@ -608,29 +738,46 @@ def _replay(shape, tl, Tp, nl_partners):
                                 (-1, 1)] if nl_partners else [])
             update("E", bx["e"], [("D", a, b, r + 1) for a, b in near]
                    + [("P", a, b, r) for a, b in near] + [("E", 0, 0, r)], r)
-            update("P", bx["e"], [("E", 0, 0, r + 1), ("P", 0, 0, r)], r)
+            if poles:
+                update("P", bx["p"], [("E", a, b, r + 1) for a, b in around]
+                       + [("P", 0, 0, r)], r)
+            else:
+                update("P", bx["e"], [("E", 0, 0, r + 1), ("P", 0, 0, r)], r)
         lo, hi = bx["interior"]
-        for k in "BHDEP":
+        for k in "BHDEPQ" if poles else "BHDEP":
             for i in range(lo[0], min(S[0], hi[0] + tl["e"][0])):
                 for j in range(lo[1], min(S[1], hi[1] + tl["e"][1])):
                     assert at(k, i, j, Tp) == Tp, (tile, k, i, j)
 
 
-@pytest.mark.parametrize("c,e", [(1, (0, 0, 0)), (1, (1, 0, 0)),
-                                 (2, (0, 1, 0)), (2, (1, 1, 0))])
-def test_boxes_keep_every_read_valid(c, e):
+BOX_CASES = [(1, (0, 0, 0), None), (1, (1, 0, 0), None),
+             (2, (0, 1, 0), None), (2, (1, 1, 0), None),
+             (2, (1, 0, 0), 0), (3, (0, 1, 0), 1), (3, (1, 1, 0), 1)]
+
+
+@pytest.mark.parametrize(
+    "c,e,ne", BOX_CASES,
+    ids=["1-e0", "1-e1", "2-e2", "2-e3", "gyro-2-e4", "gyro-offdiag-3-e5",
+         "gyro-offdiag-3-e6"])
+def test_boxes_keep_every_read_valid(c, e, ne):
     """The staged box's halo (T c below, T c + e above) and the
     sub-updates' boxes give every computed site valid reads and leave the
     interior (grown by e above) valid after the pass, for full and shorter
     passes, tiles on the grid's edges and inside, linear (c = 1) and
-    chi2-partner (c = 2) steps; and tiling() sizes the staged box so."""
+    chi2-partner (c = 2) steps, and the GYRO mode's pole sub-updates (ne
+    not None: c = 2 with site-local E, c = 3 where E also reads its
+    neighbours through off-diagonal rows); and tiling() sizes the staged
+    box so."""
     shape = (23, 17, 1)
     tl = R.tiling(shape, 4, 3, c, e, 6, 10 ** 9, 4, force=((7, 6, 1), 3))
     assert tl["nt"] == (4, 3, 1) and tl["ntile"] == 12
     g = [min(S, t + 2 * 3 * c + ei) for S, t, ei in zip(shape, tl["t"], e)]
     assert tl["vol"] == int(np.prod(g)) and tl["smem"] == 16 * tl["vol"]
+    if ne is not None:
+        tl = {**tl, "ne": ne}
     for Tp in (3, 1):
-        _replay(shape, tl, Tp, c == 2)
+        _replay(shape, tl, Tp, c == 2 if ne is None else ne == 1,
+                poles=ne is not None)
 
 
 def test_tiling_fits_shared_memory():
