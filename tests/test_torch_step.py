@@ -150,12 +150,22 @@ def test_nr_solve_matches_jax(dtype):
                                      "integrated"])
 def test_outside_the_slice_raises(feature):
     """Features of later slices raise NotImplementedError naming the
-    ROADMAP item, never run silently wrong."""
+    ROADMAP item, never run silently wrong.  The off-diagonal chi1inv row,
+    refused until the slice that ported it, now runs: 9 steps of it match
+    the JAX package's stepper."""
     kw = {"cond": dict(ball=True, cond=True),
           "noisy": dict(ball=True, noisy=True),
           "offdiag": dict(ball=True, offdiag=True),
           "integrated": dict(integrated=True)}[feature]
     pt = build_plan(PORT, device="cpu", **kw)
+    if feature == "offdiag":
+        assert pt.eh_specs_e[0].has_u1
+        st_np = random_state(build_plan(JAX, **kw), seed=3)
+        want = jax_run(kw, np.float32, False, st_np, NSTEPS)
+        got = TS.run(pt, interop.state_from_numpy(st_np, "cpu"), NSTEPS,
+                     t0=0)
+        assert_states_close(interop.state_to_numpy(got), want, 1e-5)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.init_state(pt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
