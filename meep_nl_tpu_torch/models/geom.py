@@ -363,6 +363,12 @@ class GeometricObject:
         anisotropic_averaging.cpp:27), used by subpixel smoothing."""
         return None
 
+    def bbox(self):
+        """(lo, hi): per slot (x, y, z) bounds that hold every point
+        `inside` admits (infinite where unbounded), or None; the scene
+        tests an object only on the grid points in its box."""
+        return None
+
     def _init_common(self, material, center):
         self.material = material if material is not None else Medium()
         self.center = center if center is not None else Vector3()
@@ -389,6 +395,9 @@ class Sphere(GeometricObject):
         d = pts - c
         r = np.sqrt(np.maximum((d ** 2).sum(-1, keepdims=True), 1e-300))
         return d / r
+
+    def bbox(self):
+        return _box_around(self.center, [self.radius] * 3)
 
 
 @dataclasses.dataclass(init=False)
@@ -421,6 +430,15 @@ class Cylinder(GeometricObject):
         if self.height != float("inf"):
             ok &= np.abs(z) <= self.height / 2
         return ok
+
+    def bbox(self):
+        a = np.abs(np.array(tuple(_v3(self.axis)), dtype=np.float64))
+        a = a / np.linalg.norm(a)
+        h = self.height / 2
+        if np.count_nonzero(a) == 1:        # along a coordinate axis
+            return _box_around(self.center, [h if v else self.radius
+                                             for v in a])
+        return _box_around(self.center, [self.radius + h] * 3)
 
     def normal_at(self, pts):
         # the side wall's radial normal, or the nearer end cap's axial one
@@ -463,6 +481,16 @@ class Block(GeometricObject):
             ok &= np.abs(proj) <= half + 1e-12
         return ok
 
+    def bbox(self):
+        half = np.zeros(3)
+        for ei, sz in zip((self.e1, self.e2, self.e3),
+                          tuple(_v3(self.size))):
+            e = np.array(tuple(_v3(ei)), dtype=np.float64)
+            e = np.abs(e / np.linalg.norm(e))
+            with np.errstate(invalid="ignore"):
+                half = half + np.where(e > 0, e * (sz / 2 + 1e-12), 0.0)
+        return _box_around(self.center, half)
+
     def normal_at(self, pts):
         # nearest face: the finite axis with the least distance to its face
         c = np.array(tuple(_v3(self.center)))
@@ -482,6 +510,16 @@ class Block(GeometricObject):
             sgn = np.where(proj >= 0, 1.0, -1.0)
             normal = np.where(closer[..., None], sgn[..., None] * e, normal)
         return normal if np.isfinite(best).any() else None
+
+
+def _box_around(center, half):
+    """(lo, hi) of `center` +- `half` per slot, widened by a relative 1e-9
+    so that no rounding of a point or the centre puts an inside point out
+    of it."""
+    c = np.array(tuple(_v3(center)), dtype=np.float64)
+    half = np.asarray(half, dtype=np.float64)
+    pad = 1e-9 * (1.0 + np.abs(c) + np.where(np.isfinite(half), half, 0.0))
+    return c - half - pad, c + half + pad
 
 
 def interpolate(n: int, nums) -> list:

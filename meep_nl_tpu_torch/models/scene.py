@@ -31,31 +31,88 @@ from .geom import (GeometricObject, GyrotropicLorentzianSusceptibility,
 _SLOT = {"x": 0, "y": 1, "z": 2, "r": 0, "p": 1}
 
 
+def _grid_lines(pts: np.ndarray):
+    """For points on an axis-aligned grid (a meshgrid of ascending
+    coordinates, as _site_points makes, shifted or not): per slot (x, y,
+    z) either (array axis, its coordinates) or (None, the constant value);
+    None for any other point set."""
+    nd = pts.ndim - 1
+    out = []
+    for slot in range(3):
+        v = pts[..., slot]
+        first = v[(0,) * nd]
+        along = [ax for ax in range(nd) if v.shape[ax] > 1 and
+                 v[(0,) * ax + (1,) + (0,) * (nd - ax - 1)] != first]
+        if not along:
+            if not np.all(v == first):
+                return None
+            out.append((None, float(first)))
+            continue
+        if len(along) > 1:
+            return None
+        ax = along[0]
+        line = v[(0,) * ax + (slice(None),) + (0,) * (nd - ax - 1)]
+        shape = [1] * nd
+        shape[ax] = len(line)
+        if not (np.all(np.diff(line) > 0)
+                and np.array_equal(v, np.broadcast_to(line.reshape(shape),
+                                                      v.shape))):
+            return None
+        out.append((ax, line))
+    return out
+
+
+def _box_slices(lines, box, grow: float = 0.0):
+    """The index block of the grid `lines` (_grid_lines) that holds every
+    point of the box (lo, hi) grown by `grow`: a tuple of slices, False
+    when no point lies in it, None when there is no box."""
+    if box is None:
+        return None
+    nd = max([ax for ax, _ in lines if ax is not None] + [-1]) + 1
+    sl = [slice(None)] * nd
+    for slot, (ax, line) in enumerate(lines):
+        lo, hi = box[0][slot] - grow, box[1][slot] + grow
+        if ax is None:
+            if not lo <= line <= hi:
+                return False
+            continue
+        i0 = int(np.searchsorted(line, lo, "left"))
+        i1 = int(np.searchsorted(line, hi, "right"))
+        if i0 >= i1:
+            return False
+        sl[ax] = slice(i0, i1)
+    return tuple(sl)
+
+
 def _material_at(pts: np.ndarray, geometry: Sequence[GeometricObject],
                  default: Medium) -> np.ndarray:
     """Index of the material governing each point (-1 = default).  Later
-    objects take precedence (doc/docs/Python_User_Interface.md:136)."""
+    objects take precedence (doc/docs/Python_User_Interface.md:136).  On
+    a grid of points an object with a bounding box is tested only on the
+    block of points inside it (outside, `inside` is False)."""
     idx = np.full(pts.shape[:-1], -1, dtype=np.int32)
-    for i in range(len(geometry)):
-        mask = geometry[i].inside(pts)
-        idx = np.where(mask, i, idx)
+    lines = _grid_lines(pts) if len(geometry) > 1 else None
+    for i, obj in enumerate(geometry):
+        sl = _box_slices(lines, obj.bbox()) if lines is not None else None
+        if sl is None:
+            idx = np.where(obj.inside(pts), i, idx)
+        elif sl is not False:
+            idx[sl] = np.where(obj.inside(pts[sl]), i, idx[sl])
     return idx
 
 
 def _eps_of(idx: np.ndarray, geometry, default: Medium, dind: int) -> np.ndarray:
     """Diagonal epsilon entry `dind` (0/1/2 for x/y/z) per point."""
-    out = np.full(idx.shape, tuple(default.eps_diag_vec())[dind])
-    for i, obj in enumerate(geometry):
-        v = tuple(obj.material.eps_diag_vec())[dind]
-        out = np.where(idx == i, v, out)
-    return out
+    return _scalar_of(idx, geometry, default,
+                      lambda m: tuple(m.eps_diag_vec())[dind])
 
 
 def _scalar_of(idx: np.ndarray, geometry, default: Medium, getter) -> np.ndarray:
-    out = np.full(idx.shape, getter(default), dtype=np.float64)
-    for i, obj in enumerate(geometry):
-        out = np.where(idx == i, getter(obj.material), out)
-    return out
+    """getter(material) per point: a table of the objects' values and the
+    default's (last, where idx is -1)."""
+    table = np.array([float(getter(obj.material)) for obj in geometry]
+                     + [float(getter(default))], dtype=np.float64)
+    return table[idx]
 
 
 def _site_points(gv: G.GridVolume, c: str) -> np.ndarray:
@@ -106,15 +163,23 @@ def _analytic_normals(gv: G.GridVolume, pts: np.ndarray,
     boundary crosses them; NaN where no analytic normal is available."""
     normals = None
     corner = _corner_offsets(gv)
+    lines = _grid_lines(pts) if len(geometry) > 1 else None
     for obj in geometry:                      # later objects overwrite
-        ins = [obj.inside(pts + off) for off in corner]
+        # the block whose voxel corners can lie in the object's box
+        sl = _box_slices(lines, obj.bbox(), 0.5 * gv.dx * (1 + 1e-9)) \
+            if lines is not None else None
+        if sl is False:
+            continue
+        sub = pts if sl is None else pts[sl]
+        ins = [obj.inside(sub + off) for off in corner]
         varies = np.logical_or.reduce(ins) & ~np.logical_and.reduce(ins)
         if not varies.any():
             continue
-        n = obj.normal_at(pts)
+        n = obj.normal_at(sub)
         if normals is None:
             normals = np.full(pts.shape, np.nan)
-        normals[varies] = np.nan if n is None else n[varies]
+        blk = normals if sl is None else normals[sl]
+        blk[varies] = np.nan if n is None else n[varies]
     return normals
 
 
@@ -281,23 +346,19 @@ def rasterize(gv: G.GridVolume, geometry: Sequence[GeometricObject],
             dind = _SLOT[d_c]
             pts = _site_points(gv, c)
             idx = _material_at(pts, geometry, default_material)
-            arr = np.zeros(gv.shape)
-            any_nonzero = False
+            # the summed sigma of this pole per object (the default's
+            # last), looked up per site
+            table = np.zeros(len(geometry) + 1)
             for i, obj in enumerate(list(geometry) + [None]):
                 med = obj.material if obj is not None else default_material
                 sus = (med.E_susceptibilities if ft == "e"
                        else med.H_susceptibilities)
-                sv = 0.0
                 for s in sus:
                     if (s.frequency, s.gamma, s.drude) == (f0, gam, drude) \
                             and _kind_of(s) == (kind, bias, g_alpha, g_sat):
-                        sv += tuple(s.sigma_vec())[dind]
-                if sv != 0.0:
-                    any_nonzero = True
-                    sel = (idx == i) if obj is not None else (idx == -1)
-                    arr = np.where(sel, sv, arr)
-            if any_nonzero:
-                sigma[(c, d_c)] = arr
+                        table[i] += tuple(s.sigma_vec())[dind]
+            if np.any(table != 0.0):
+                sigma[(c, d_c)] = table[idx]
         if sigma:
             pols.append(PolSpec(field_type=ft, omega0=f0, gamma=gam,
                                 sigma=sigma, drude=drude, kind=kind,
