@@ -250,6 +250,23 @@ falls back to the CPU or to a plain version:
      reference's), K3 on the pair timed beside the same cell without
      beta.  Every CYL launch is held bit for bit against its plain version
      from the run's end state and from a seeded random state.
+ 18. anisotropic epsilon and gyrotropic media (K3/K4's OFFDIAG and GYRO
+     modes): the one-way waveguide of Wang, Chong, Joannopoulos and
+     Soljacic (PRL 100, 013905, 2008: YIG rods r = 0.11 a, eps 15, a
+     saturated gyrotropic H pole biased along z, TM; the largest nx x nx/2
+     cell of the lattice at resolution 20 whose doubled state fits the
+     resident budget) through K3 GYRO, forward / backward flux at 0.54
+     above 5 and the unbiased control's within 1e-3 of 1, then a probed
+     stretch through K4 GYRO; the ring tutorial in Hz with
+     subpixel_tensor through K4 OFFDIAG and without it (modes and Q of
+     both); bench.py::run_resident's 767^2 cell in Hz with a slab of a
+     uniaxial crystal rotated 30 degrees through K3 OFFDIAG (tiles); a
+     48^3 ball of a biaxial crystal rotated about (1, 1, 1) (every
+     off-diagonal entry) through K3 OFFDIAG in 3D; the same ball at 160^3,
+     above the budget, on the eager stepper (K1, K2 and K5 decline it, as
+     the reference's).  Each K3/K4 run is held bit for bit against its
+     plain version from its end state and a seeded random state, and
+     timed beside its bound.
 The last lines: the card line, the kernel table as one JSON object, and
 {"ok": true, "device": {...}}.
 """
@@ -771,11 +788,12 @@ def resident_sim(mp, n, device, flux=False, **sim_kw):
     return sim, fl
 
 
-def ring_sim(mp, res, device, nudge=0.0, **sim_kw):
+def ring_sim(mp, res, device, nudge=0.0, comp=None, **sim_kw):
     """Meep's ring-resonator tutorial (python/examples/ring.py), without
     its Mirror(Y) unless `sim_kw` declares it (symmetries): n = 3.4, w = 1,
     r = 1, pad = 4, dpml = 2 (a 16 x 16 cell), an Ez Gaussian source
-    (0.15, fwidth 0.1) at (r + 0.1, 0).  `nudge` grows both radii: at
+    (0.15, fwidth 0.1) at (r + 0.1, 0); `comp` (mp.Hz) takes the other
+    polarization.  `nudge` grows both radii: at
     resolution 10 the outer surface r + w = 2 passes exactly through 8 of
     the Ez sites (such as (1.6, +-1.2)), whose smoothed eps then depends on
     how their coordinates round (6.87 at y = -1.2, 5.69 at +1.2), so the
@@ -787,8 +805,8 @@ def ring_sim(mp, res, device, nudge=0.0, **sim_kw):
         geometry=[mp.Cylinder(radius=r + w + nudge,
                               material=mp.Medium(index=n)),
                   mp.Cylinder(radius=r + nudge)],
-        sources=[mp.Source(mp.GaussianSource(0.15, fwidth=0.1), mp.Ez,
-                           center=mp.Vector3(r + 0.1))],
+        sources=[mp.Source(mp.GaussianSource(0.15, fwidth=0.1),
+                           comp or mp.Ez, center=mp.Vector3(r + 0.1))],
         boundary_layers=[mp.PML(dpml)], device=device, **sim_kw)
 
 
@@ -4091,6 +4109,346 @@ def phase_cyl(mp, dev, card, blank, twins):
     return [k3c, k4c, k3p, k4p]
 
 
+#: the one-way waveguide of Wang, Chong, Joannopoulos & Soljacic, PRL 100,
+#: 013905 (2008): a square lattice (a = 1) of YIG rods, r = 0.11 a, eps
+#: 15, biased along z, whose permeability tensor has mu = 14 and kappa =
+#: 12.4 at the operating frequency 0.54 (2 pi c / a).  The saturated pole's
+#: Larmor frequency and sigma are the Polder tensor's omega_0 and omega_m
+#: that give those values there (mu - 1 = w0 wm / (w0^2 - w^2), kappa =
+#: w wm / (w0^2 - w^2)); lossless, as the paper's.
+ONEWAY_F = 0.54
+ONEWAY_F0 = ONEWAY_F * 13.0 / 12.4
+ONEWAY_SIGMA = 12.4 * (ONEWAY_F0 ** 2 - ONEWAY_F ** 2) / ONEWAY_F
+
+
+def oneway_sim(mp, nx, ny, res, device, bias=True):
+    """The one-way waveguide: an nx x ny cell of the lattice at resolution
+    `res`, rods in every row but the top one, whose air gap ends at the
+    cell's upper edge (a metal wall: no PML there; PML 1 on the other
+    sides); an Ez line source across the gap at x = 0 (the edge), a
+    Gaussian of 0.54 and fwidth 0.06; x-normal flux lines across the top
+    3 a at x = +-nx / 4 (5 frequencies).  `bias` False drops the
+    gyrotropic pole (the control: eps = 15 rods)."""
+    sus = [mp.GyrotropicSaturatedSusceptibility(
+        frequency=ONEWAY_F0, gamma=0.0, sigma=ONEWAY_SIGMA, alpha=0.0,
+        bias=mp.Vector3(0, 0, 1))] if bias else []
+    yig = mp.Medium(epsilon=15, H_susceptibilities=sus)
+    geom = [mp.Cylinder(radius=0.11, material=yig,
+                        center=mp.Vector3(-nx / 2 + 0.5 + i,
+                                          -ny / 2 + 0.5 + j))
+            for i in range(nx) for j in range(ny - 1)]
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(nx, ny), resolution=res, geometry=geom,
+        sources=[mp.Source(mp.GaussianSource(ONEWAY_F, fwidth=0.06),
+                           mp.Ez, center=mp.Vector3(0, ny / 2 - 0.5),
+                           size=mp.Vector3(0, 1.0))],
+        boundary_layers=[mp.PML(1.0, direction=mp.X),
+                         mp.PML(1.0, direction=mp.Y, side=-1)],
+        device=device)
+    fl = [sim.add_flux(ONEWAY_F, 0.06, 5, mp.FluxRegion(
+        center=mp.Vector3(sx * nx / 4, ny / 2 - 1.5),
+        size=mp.Vector3(0, 3))) for sx in (1, -1)]
+    return sim, fl
+
+
+def oneway_size(mp, device, res=20):
+    """The largest nx x nx / 2 cell of the lattice whose doubled state
+    fits the resident budget (nx even): estimated from a small cell's
+    bytes per site, then stepped down until resident_supported admits
+    it; returns (nx, ny, its Simulation, flux lines)."""
+    import numpy as np
+    from meep_nl_tpu_torch.ops import resident as R
+    small, _ = oneway_sim(mp, 8, 4, res, device)
+    small.init_sim()
+    per = R._state_bytes(small.plan) / float(np.prod(small.plan.gv.shape))
+    nx = 2 * int((R.VMEM_BUDGET / (2 * per) / (res * res / 2)) ** 0.5 / 2)
+    while True:
+        sim, fl = oneway_sim(mp, nx, nx // 2, res, device)
+        sim.init_sim()
+        if R.resident_supported(sim.plan):
+            return nx, nx // 2, sim, fl
+        nx -= 2
+
+
+def aniso_slab_sim(mp, n, device):
+    """bench.py::run_resident's 767^2 cell (resolution 16, PML 1) in Hz
+    polarization, with a slab (L / 6 wide, across the cell) of a uniaxial
+    crystal (eps_e 4.0 along x, eps_o 2.25) rotated 30 degrees about z
+    (Medium.rotate: the xy off-diagonal rows) in place of the disk, a
+    Gaussian Hz point source at x = -L / 3 and an x-normal flux line of 3
+    frequencies at x = +L / 3."""
+    import numpy as np
+    res = 16.0
+    L = n / res
+    crystal = mp.Medium(epsilon_diag=mp.Vector3(4.0, 2.25, 2.25)).rotate(
+        mp.Vector3(0, 0, 1), np.pi / 6)
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(L, L), resolution=res,
+        geometry=[mp.Block(size=mp.Vector3(L / 6, mp.inf, mp.inf),
+                           material=crystal)],
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
+                           component=mp.Hz,
+                           center=mp.Vector3(-L / 3, 0))],
+        boundary_layers=[mp.PML(1.0)], device=device)
+    fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
+        center=mp.Vector3(L / 3, 0), size=mp.Vector3(0, L / 2)))
+    sim.init_sim()
+    return sim, fl
+
+
+def aniso_ball_sim(mp, n, device):
+    """An n^3 cell at resolution 16 (PML 0.5) with a ball (radius a
+    quarter of the cell) of a biaxial crystal (2, 4, 3) rotated 0.5 rad
+    about (1, 1, 1): all three off-diagonal entries; a Gaussian Ez point
+    source and an x-normal flux plane."""
+    L = n / 16.0
+    crystal = mp.Medium(epsilon_diag=mp.Vector3(2.0, 4.0, 3.0)).rotate(
+        mp.Vector3(1, 1, 1), 0.5)
+    sim = mp.Simulation(
+        cell_size=mp.Vector3(L, L, L), resolution=16,
+        geometry=[mp.Sphere(radius=L / 4, material=crystal)],
+        sources=[mp.Source(mp.GaussianSource(frequency=1.0, fwidth=0.5),
+                           component=mp.Ez,
+                           center=mp.Vector3(-L / 3, 0.05, 0))],
+        boundary_layers=[mp.PML(0.5)], device=device)
+    fl = sim.add_flux(1.0, 0.4, 3, mp.FluxRegion(
+        center=mp.Vector3(L / 3, 0, 0), size=mp.Vector3(0, L / 2, L / 2)))
+    sim.init_sim()
+    return sim, fl
+
+
+def phase_aniso(mp, dev, card, blank):
+    """Phase 18: anisotropic epsilon and gyrotropic media on the card (the
+    module docstring).  Returns the kernel table entries of K3 and K4 in
+    their OFFDIAG and GYRO modes."""
+    import numpy as np
+    import torch
+    from meep_nl_tpu_torch.ops import fdtd3d, fdtd3d_t2, fused
+    from meep_nl_tpu_torch.ops import resident as R
+    src = "meep_nl_tpu_torch/csrc/resident.cu"
+    ent = {(R.AX_OFFDIAG, False): _entry("resident_k3_offdiag", src,
+                                         K3_REPLACES, blank),
+           (R.AX_OFFDIAG, True): _entry("resident_k4_offdiag", src,
+                                        K4_REPLACES, blank),
+           (R.AX_GYRO, False): _entry("resident_k3_gyro", src, K3_REPLACES,
+                                      blank),
+           (R.AX_GYRO, True): _entry("resident_k4_gyro", src, K4_REPLACES,
+                                     blank)}
+    t_phase = time.perf_counter()
+
+    def counted(sim, *funcs, mode, **kw):
+        """sim.run through resident_run_counted; the K3 / K4 launches into
+        the mode's entries; fails off the mode or the resident route."""
+        sim.init_sim()
+        R._kernel(sim.plan)
+        wall, l3, l4 = resident_run_counted(sim, *funcs, **kw)
+        if R.ax_mode(sim.plan) != mode or not (l3 + l4) \
+                or l3 + l4 != sim.routes["resident"]:
+            raise AssertionError(f"mode {R.ax_mode(sim.plan)} run: K3 {l3}, "
+                                 f"K4 {l4}, routes {dict(sim.routes)}")
+        ent[mode, False]["launches"] += l3
+        ent[mode, True]["launches"] += l4
+        return wall, l3, l4
+
+    def bitcheck(sim, what, probes, nsteps, seed):
+        """K3 (K4 with probes) bit for bit from the run's end state and a
+        seeded random state."""
+        ker = sim.plan._resident_kernel
+        mode = R.ax_mode(sim.plan)
+        entry = ent[mode, bool(probes)]
+        for label, st0 in (("the run's state", sim.fields_state),
+                           ("a random state",
+                            random_state(sim.plan, seed, dev))):
+            err, rel, drel, serr = compare_resident(ker, st0, sim._t, nsteps,
+                                                    probes)
+            print(f"[18] {entry['name']} vs plain, {what}, from {label}, "
+                  f"{nsteps} steps: state and accumulators max abs "
+                  f"{err:.3e}, series max abs {serr:.3e}", flush=True)
+            if not (err == 0.0 and serr == 0.0):
+                raise AssertionError(f"{entry['name']} is not bit for bit "
+                                     f"({what}, from {label}): {err:.3e}, "
+                                     f"series {serr:.3e}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err, serr)
+
+    def timing(sim, what, probes, nsteps=1000):
+        """The kernel's ms/step (CUDA events around its launches), the
+        wrapper's call, the plain version and the bound, from the run's
+        end state; into the mode's entry."""
+        ker, st, t_end = sim.plan._resident_kernel, sim.fields_state, sim._t
+        entry = ent[R.ax_mode(sim.plan), bool(probes)]
+        ms, call_ms = time_resident(
+            lambda s_, n_: ker._run(s_, n_, t_end, probes), st, nsteps)
+        ref = R.resident_ref(sim.plan)
+        _, plain_ms = time_resident(
+            lambda s_, n_: ref(s_, n_, t_end, probes), st, 20, reps=1)
+        cost = R.step_cost(sim.plan, nsteps)
+        b_ms, b_by = bound({"bytes": cost["bytes"] / nsteps,
+                            "ops": cost["ops"] / nsteps})
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        cells = int(np.prod(sim.plan.gv.shape))
+        print(f"[18] {entry['name']} at {what} ({sim.plan.storage_shape}): "
+              f"{ms:.4f} ms/step = {cells / ms / 1e6:.3f} GCells/s "
+              f"({schedule_text(ker, nsteps, bool(probes))}); the wrapper's "
+              f"call {call_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.6f} "
+              f"ms/step ({b_by}) ({card})", flush=True)
+        return ms
+
+    # ---- 18.1: the one-way waveguide (K3 GYRO, then K4 GYRO) ----------
+    nx, ny, sim, fl = oneway_size(mp, dev)
+    plan = sim.plan
+    print(f"[18] one-way waveguide: {nx} x {ny} lattice constants at "
+          f"resolution 20 ({plan.storage_shape}, {len(sim.geometry)} rods, "
+          f"every component live: {[s.ec for s in plan.eh_specs_e]} "
+          f"{[s.ec for s in plan.eh_specs_h]}), a state of "
+          f"{R._state_bytes(plan) / 2 ** 20:.1f} MiB, doubled within the "
+          f"resident budget of {R.VMEM_BUDGET / 2 ** 20:.0f} MiB", flush=True)
+    flux = {}
+    for bias in (True, False):
+        if not bias:
+            sim, fl = oneway_sim(mp, nx, ny, 20, dev, bias=False)
+            sim.init_sim()
+            R._kernel(sim.plan)
+            wall, l3, l4 = resident_run_counted(sim, until=250.0)
+        else:
+            wall, l3, l4 = counted(sim, until=250.0, mode=R.AX_GYRO)
+        right, left = (np.asarray(sim.get_fluxes(f)) for f in fl)
+        flux[bias] = (right, left)
+        k = len(right) // 2
+        label = "biased" if bias else "unbiased (control: eps = 15 rods)"
+        print(f"[18] one-way waveguide {label}: {sim._t} steps in "
+              f"{wall:.3f} s "
+              f"= {wall / sim._t * 1e3:.4f} ms/step, K3 launches {l3}; flux "
+              f"+x side {right.tolist()}, -x side {left.tolist()}; at "
+              f"{ONEWAY_F}: forward / backward {right[k] / -left[k]:.4f} "
+              f"({card})", flush=True)
+        if bias:
+            ker = sim.plan._resident_kernel
+            print(f"[18] schedule: {schedule_text(ker, 1000, False)}",
+                  flush=True)
+            bitcheck(sim, "the one-way waveguide", (), 24, 101)
+            timing(sim, "the one-way waveguide", ())
+            h = mp.Harminv(mp.Ez, mp.Vector3(nx / 4, ny / 2 - 0.5),
+                           ONEWAY_F, 0.06)
+            wall, l3, l4 = counted(sim, h, until=15.0, mode=R.AX_GYRO)
+            print(f"[18] a probed stretch of the waveguide: {l4} K4 "
+                  f"launches in {wall:.3f} s; Harminv at the +x line "
+                  f"{[(round(m.freq, 5), round(m.Q, 1)) for m in h.modes]}",
+                  flush=True)
+            if not (l4 and l3 == 0):
+                raise AssertionError(f"probed stretch: K3 {l3}, K4 {l4}")
+            probe = [sim._point_probe("pw", mp.Ez,
+                                      mp.Vector3(nx / 4, ny / 2 - 0.5))]
+            bitcheck(sim, "the one-way waveguide", probe, 24, 103)
+            timing(sim, "the one-way waveguide", probe)
+        del sim
+        torch.cuda.empty_cache()
+    (r1, l1), (r0, l0) = flux[True], flux[False]
+    k = len(r1) // 2
+    ratio, control = r1[k] / -l1[k], r0[k] / -l0[k]
+    print(f"[18] one-way transport at {ONEWAY_F}: forward / backward "
+          f"{ratio:.4f} biased, {control:.6f} unbiased (gates: > 5, within "
+          f"1e-3 of 1)", flush=True)
+    if not (np.all(np.isfinite(r1)) and ratio > 5.0
+            and abs(control - 1.0) < 1e-3):
+        raise AssertionError(f"one-way transport: {ratio}, control "
+                             f"{control}")
+
+    # ---- 18.2: the ring in Hz, with and without tensor averaging (K4) --
+    r = 1.0
+    modes = {}
+    for tensor in (True, False):
+        sim = ring_sim(mp, 10, dev, comp=mp.Hz, subpixel_tensor=tensor)
+        h = mp.Harminv(mp.Hz, mp.Vector3(r + 0.1), 0.15, 0.1)
+        if tensor:
+            wall, l3, l4 = counted(sim, mp.after_sources(h),
+                                   until_after_sources=300,
+                                   mode=R.AX_OFFDIAG)
+        else:
+            sim.init_sim()
+            R._kernel(sim.plan)
+            wall, l3, l4 = resident_run_counted(
+                sim, mp.after_sources(h), until_after_sources=300)
+            if R.ax_mode(sim.plan) != R.AX_NONE:
+                raise AssertionError("the ring without tensor averaging "
+                                     "has off-diagonal rows")
+        modes[tensor] = [m for m in h.modes if m.amp > 1e-4 and m.Q > 50]
+        print(f"[18] ring in Hz {'with' if tensor else 'without'} tensor "
+              f"averaging ({sim.plan.storage_shape}): {sim._t} steps in "
+              f"{wall:.3f} s = {wall / sim._t * 1e3:.4f} ms/step, K4 "
+              f"launches {l4}, K3 {l3}; Q > 50 modes (freq, Q) "
+              f"{[(round(m.freq, 6), round(m.Q, 1)) for m in modes[tensor]]}"
+              f" ({card})", flush=True)
+        if tensor:
+            probe = [sim._point_probe("pr", mp.Hz, mp.Vector3(r + 0.1))]
+            bitcheck(sim, "the Hz ring", probe, 24, 107)
+            timing(sim, "the Hz ring", probe)
+        del sim
+    if not (modes[True] and modes[False]
+            and all(0.1 < m.freq < 0.2 for m in modes[True])):
+        raise AssertionError(f"Hz ring modes {modes}")
+    for m in modes[True]:
+        o = min(modes[False], key=lambda x: abs(x.freq - m.freq))
+        print(f"[18] ring mode {m.freq:.6f}: Q {m.Q:.1f} with tensor "
+              f"averaging, {o.Q:.1f} without (freq {o.freq:.6f})",
+              flush=True)
+
+    # ---- 18.3: a rotated uniaxial slab in the 767^2 Hz cell (K3) -------
+    sim, fl = aniso_slab_sim(mp, 767, dev)
+    sim.run(until=24 * sim.dt)                  # warm-up: tables
+    wall, l3, _ = counted(sim, until=1000 * sim.dt, mode=R.AX_OFFDIAG)
+    flux = np.asarray(sim.get_fluxes(fl))
+    print(f"[18] the 767^2 Hz cell with the rotated slab "
+          f"({sim.plan.storage_shape}): 1000 steps in {wall:.3f} s = "
+          f"{wall / 1000 * 1e3:.4f} ms/step, K3 launches {l3}; flux "
+          f"{flux.tolist()} ({card})", flush=True)
+    if not np.all(np.isfinite(flux)):
+        raise AssertionError(f"slab flux {flux}")
+    bitcheck(sim, "the 767^2 rotated slab", (), 24, 109)
+    timing(sim, "the 767^2 rotated slab", ())
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- 18.4: a 48^3 ball with every off-diagonal entry (K3, 3D) ------
+    sim, fl = aniso_ball_sim(mp, 48, dev)
+    u = sorted(k for k in sim.plan.coefs if k.endswith((":u1", ":u2")))
+    wall, l3, _ = counted(sim, until=300 * sim.dt, mode=R.AX_OFFDIAG)
+    flux = np.asarray(sim.get_fluxes(fl))
+    print(f"[18] the 48^3 rotated ball ({sim.plan.storage_shape}, "
+          f"off-diagonal rows {u}): {sim._t} steps in {wall:.3f} s = "
+          f"{wall / sim._t * 1e3:.4f} ms/step, K3 launches {l3} "
+          f"({schedule_text(sim.plan._resident_kernel, 300, False)}); flux "
+          f"{flux.tolist()} ({card})", flush=True)
+    if len(u) < 6 or not np.all(np.isfinite(flux)):
+        raise AssertionError(f"3D ball: rows {u}, flux {flux}")
+    bitcheck(sim, "the 48^3 rotated ball", (), 24, 113)
+    del sim
+
+    # ---- 18.5: the ball at 160^3, above the budget: the eager stepper --
+    big, _ = aniso_ball_sim(mp, 160, dev)
+    plan = big.plan
+    takes = (R.resident_supported(plan), fdtd3d.supported(plan),
+             fdtd3d_t2.supported(plan), fused.pallas_supported(plan))
+    big.run(until=2 * big.dt)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.run(until=8 * big.dt)
+    torch.cuda.synchronize()
+    e_ms = (time.perf_counter() - t0) / 8 * 1e3
+    print(f"[18] the rotated ball at 160^3 ({plan.storage_shape}): a state "
+          f"of {R._state_bytes(plan) / 2 ** 20:.1f} MiB; resident, K1, K2, "
+          f"K5 take it: {takes}; so the eager stepper (routes "
+          f"{dict(big.routes)}) at {e_ms:.3f} ms/step ({card})", flush=True)
+    if any(takes) or dict(big.routes) != {"eager": 2}:
+        raise AssertionError(f"160^3 ball: {takes}, routes "
+                             f"{dict(big.routes)}")
+    del big
+    torch.cuda.empty_cache()
+    print(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return [ent[R.AX_OFFDIAG, False], ent[R.AX_OFFDIAG, True],
+            ent[R.AX_GYRO, False], ent[R.AX_GYRO, True]]
+
+
 def main() -> int:
     import shutil
     import torch
@@ -4112,7 +4470,7 @@ def main() -> int:
 
 
 def run_phases(twins, twins15) -> int:
-    """Phases 1-17 (the module docstring); `twins`, `twins15`: the CPU
+    """Phases 1-18 (the module docstring); `twins`, `twins15`: the CPU
     runs (start_cpu_twins, start_cpu_twins15)."""
     import numpy as np
     import torch
@@ -4446,12 +4804,13 @@ def run_phases(twins, twins15) -> int:
     pair = phase_complex(mp, dev, card, main_ms, blank, twins15)
     wrap2 = phase_wrap_bfast(mp, dev, card, blank, twins15)
     cyl = phase_cyl(mp, dev, card, blank, twins)
-    print(f"[17] phases 1-17 took {time.perf_counter() - t_start:.1f} s",
+    aniso = phase_aniso(mp, dev, card, blank)
+    print(f"[18] phases 1-18 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5] + wrap + pair
-                      + wrap2 + cyl}))
+                      + wrap2 + cyl + aniso}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,9 @@ meep_nl_tpu_torch with the port's nvcc flags and -Xptxas -v, all builds
 started together, and prints for every kernel variant its registers,
 spill stores and loads, stack frame and static shared memory in both
 trees: "same" when they agree, both lines when they differ, the one line
-of a variant only one tree has; then each build's wall seconds (nvcc is
+of a variant only one tree has (a variant whose name carries one more
+trailing template argument at 0 / false pairs with the old name without
+it); then each build's wall seconds (nvcc is
 single-threaded, so the concurrent builds barely slow each other on a
 machine with a core for each).  Exits 1 when a variant both trees have
 differs in registers or spills.  Needs nvcc (the CUDA toolkit), no card.
@@ -85,6 +87,12 @@ def main() -> int:
     fields = "registers, spill stores, spill loads, stack, smem"
     for n in names:
         a, b = got[(old, n)], got[(new, n)]
+        # a template argument appended with a default of 0 / false: the new
+        # tree's variant at that default pairs with the old tree's name
+        for k in [k for k in b if k not in a]:
+            short = re.sub(r"E(Li0|Lb0)EEv", "EEv", k, count=1)
+            if short != k and short in a and short not in b:
+                b[short] = b.pop(k)
         print(f"== csrc/{n}.cu ({fields}): {len(a)} variants in "
               f"{old}, {len(b)} in {new}")
         for k in sorted(set(a) | set(b)):

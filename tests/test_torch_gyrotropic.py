@@ -12,6 +12,8 @@ Tolerances as test_torch_anisotropic.py: the plan to fp64 roundoff, the
 stepper and the resident kernel to 1e-5 (fp32) and 1e-12 (fp64),
 Simulation fields and fluxes to 1e-4."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -53,11 +55,12 @@ def pole(mp, name):
 def gyro_sim(mp, fam, names=tuple(POLES), comp=None, **kw):
     """A 4 x 3.5 cell at resolution 10 (40 x 35), PML 0.6, an eps=4
     cylinder of radius 0.9 carrying the poles `names` on family `fam`
-    ("e" or "h"), a Gaussian point source (Ez unless `comp`) and an
-    x-normal flux line."""
-    poles = [pole(mp, n) for n in names]
-    med = mp.Medium(epsilon=4, **({"E_susceptibilities": poles} if fam == "e"
-                                  else {"H_susceptibilities": poles}))
+    ("e", "h", or "eh": on both), a Gaussian point source (Ez unless
+    `comp`) and an x-normal flux line."""
+    med = mp.Medium(epsilon=4, **{
+        key: [pole(mp, n) for n in names]
+        for f, key in (("e", "E_susceptibilities"),
+                       ("h", "H_susceptibilities")) if f in fam})
     sim = mp.Simulation(
         cell_size=mp.Vector3(4, 3.5), resolution=10,
         geometry=[mp.Cylinder(radius=0.9, material=med)],
@@ -108,27 +111,49 @@ def test_plan_matches_jax(name, fam):
     assert set(st["pol"][0]["p"]) == set(JS.init_state(pj)["pol"][0]["p"])
 
 
+@functools.lru_cache(maxsize=None)
+def jax_stepped(dtype):
+    """The three poles on both families: a random state (every P entry
+    random) and 23 steps of the JAX package's eager stepper from it (one
+    compile per dtype, shared by the parametrized cases)."""
+    with jax.enable_x64(dtype == np.float64):
+        sj, _ = gyro_sim(mnt, "eh", dtype=dtype)
+        sj.init_sim()
+        pj = sj._plan
+        st = random_state(pj, 11)
+        want = to_np(JS.run(pj, jax.tree_util.tree_map(jax.numpy.asarray,
+                                                        st), 23, t0=6))
+    return st, want
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64],
                          ids=["fp32", "fp64"])
 @pytest.mark.parametrize("fam", ["e", "h"])
 def test_stepper_matches_jax(fam, dtype):
-    """The three poles side by side on one family: 23 steps of both
-    packages' eager steppers from one random state (every P entry random),
-    carried into the port by interop."""
-    with jax.enable_x64(dtype == np.float64):
-        sj, _ = gyro_sim(mnt, fam, dtype=dtype)
-        sj.init_sim()
-        pj = sj._plan
-        st = random_state(pj, 11)
-        assert any("#" in c for e in st["pol"] for c in e["p"])
-        want = to_np(JS.run(pj, jax.tree_util.tree_map(jax.numpy.asarray,
-                                                        st), 23, t0=6))
-    sim, _ = gyro_sim(mtt, fam, dtype=dtype, device="cpu")
+    """The three poles side by side on the E and the H family: 23 steps of
+    both packages' eager steppers from one random state, carried into the
+    port by interop; the family's poles' P entries and every field."""
+    st, want = jax_stepped(dtype)
+    assert any("#" in c for e in st["pol"] for c in e["p"])
+    sim, _ = gyro_sim(mtt, "eh", dtype=dtype, device="cpu")
     sim.init_sim()
     got = TS.run(sim.plan, interop.state_from_numpy(st, "cpu"), 23, t0=6)
     back = interop.state_to_numpy(got)
-    assert set(back["pol"][1]["pp"]) == set(want["pol"][1]["pp"])
+    pols = [pi for pi, p in enumerate(sim.plan.pol_specs_e
+                                      + sim.plan.pol_specs_h)
+            if p.field_type == fam]
+    assert len(pols) == 3
+    for pi in pols:
+        assert set(back["pol"][pi]["pp"]) == set(want["pol"][pi]["pp"])
     assert_states_close(back, want, TOL[dtype])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_complex():
+    """The JAX package's native complex run of the H-family poles with
+    force_complex_fields, 31 steps from zero (shared by both storages)."""
+    pj, _ = plans("h", force_complex_fields=True)
+    return to_np(JS.run(pj, JS.init_state(pj), 31, t0=0))
 
 
 @pytest.mark.parametrize("pair", [False, True], ids=["native", "pair"])
@@ -136,8 +161,8 @@ def test_complex_storages_match_jax(pair):
     """force_complex_fields with the H-family poles: the port's native
     complex64 and real pair against the JAX package's native complex run,
     31 steps from zero."""
-    pj, pt = plans("h", force_complex_fields=True)
-    want = to_np(JS.run(pj, JS.init_state(pj), 31, t0=0))
+    want = jax_complex()
+    _, pt = plans("h", force_complex_fields=True)
     pt.real_pair = pair
     got = TS.run(pt, TS.init_state(pt), 31, t0=0)
     scale = max(float(np.abs(v).max()) for v in want["f"].values())
@@ -194,19 +219,18 @@ def jax_resident_cpu(monkeypatch):
     monkeypatch.setenv("MNT_RESIDENT_CPU", "1")
 
 
-@pytest.mark.parametrize("fam", ["e", "h"])
-def test_resident_kernel_matches_jax_kernel(fam, jax_resident_cpu):
+def test_resident_kernel_matches_jax_kernel(jax_resident_cpu):
     """ResidentKernel.run (its plain version on the CPU, the GYRO mode's
-    plan) against the JAX ResidentKernel in interpret mode: 25 steps of
-    the three poles from a random state."""
-    pj, pt = plans(fam)
+    plan) against the JAX ResidentKernel in interpret mode: 13 steps of
+    the three poles on both families from a random state."""
+    pj, pt = plans("eh")
     assert R.resident_supported(pt) and R.ax_mode(pt) == R.AX_GYRO
     st = random_state(pj, 5)
     want = to_np(JR.ResidentKernel(pj).run(
-        jax.tree_util.tree_map(jax.numpy.asarray, st), 25, 30))
+        jax.tree_util.tree_map(jax.numpy.asarray, st), 13, 30))
     ker = R.ResidentKernel(pt)
-    got = ker.run(interop.state_from_numpy(st, "cpu"), 25, 30)
-    assert ker.plain_steps == 25 and ker.launches == 0
+    got = ker.run(interop.state_from_numpy(st, "cpu"), 13, 30)
+    assert ker.plain_steps == 13 and ker.launches == 0
     assert_states_close(interop.state_to_numpy(got), want, 1e-5)
 
 

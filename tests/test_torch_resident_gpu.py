@@ -20,7 +20,8 @@ two chunks, with the wrapper's own schedule; BFAST plans (the PAIR_BFAST
 variant: refl_angular_bfast's cell cut down, and a cell with PML on every
 face), F included; cylindrical cells and special_kz (the CYL variants:
 m = 0 on real fields, a complex m = 0, m = 1, -1 and 3 and beta on the
-pair); and
+pair); the OFFDIAG and GYRO modes (off-diagonal chi1inv rows,
+off-diagonal sigma, gyrotropic poles of both families); and
 test_torch_resident_emul.py's schedule cases (small forced tiles, a
 source, probe points and the flux line on tile seams, T not dividing the
 stretch; the direct schedule forced on 2D plans).  Tolerance
@@ -146,6 +147,33 @@ def test_cyl_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     _agree(sk, yk, sr, yr)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("kind", ["aniso", "tensor", "asig", "gyro-h",
+                                  "gyro-e", "gyro3d"])
+def test_ax_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
+    """The OFFDIAG and GYRO modes on the card with the wrapper's own
+    schedule, from a seeded random state over two chunks: the off-diagonal
+    rows, the off-diagonal sigma drive and the gyrotropic poles of both
+    families in their own sub-update; K4 with a probe of two points."""
+    monkeypatch.setattr(R, "MAX_CHUNK", 17)
+    plan = scene(kind, device=cuda)
+    st0 = random_state(plan, 8)
+    comp = COMP.get(kind, "ez")
+    pt = [10, 10] + ([7] if plan.gv.ndim == 3 else [])
+    probes = [TS.ProbeSpec("p0", comp, np.array([pt, [pt[0] + 1] + pt[1:]]),
+                           np.array([0.6, 0.4]))] if probed else []
+    sr, yr = R.resident_ref(plan)(st0, 30, 40, probes)
+    ker = R.ResidentKernel(plan)
+    sk, yk = ker._run(st0, 30, 40, probes)
+    torch.cuda.synchronize()
+    assert (ker.probed_launches if probed else ker.launches) == 2
+    assert ker.plain_steps == 0
+    assert R.ax_mode(plan) == (R.AX_OFFDIAG if kind in ("aniso", "tensor")
+                               else R.AX_GYRO)
+    _agree(sk, yk, sr, yr)
+
+
 def _agree(sk, yk, sr, yr):
     scale = max(float(t.abs().max()) for t in sr["f"].values())
     for key in ("f", "f_u", "f_w", "f_bfast"):
@@ -214,20 +242,27 @@ def test_shared_memory_rule_matches_the_card(cuda):
         tl = R.tiling(shape, 11, 10, 1, (1, 0, 0), 6, budget, sms)
         assert tl["T"] >= 2
         for nl in (0, 1):
-            assert lib.mnt_k3_max_blocks(nl, 1, 0, tl["smem"]) >= sms
+            assert lib.mnt_k3_max_blocks(nl, 1, 0, 0, tl["smem"]) >= sms
     for nl in (0, 1):
         for probed in (0, 1):
-            assert lib.mnt_k3_max_blocks(nl, probed, 1, 0) >= sms
+            assert lib.mnt_k3_max_blocks(nl, probed, 1, 0, 0) >= sms
     # the rotational folds' variant (linear plans only), the Bloch wrap's
     for probed in (0, 1):
-        assert lib.mnt_k3_max_blocks(0, probed, 2, 0) >= sms
-        assert lib.mnt_k3_max_blocks(1, probed, 2, 0) < 0
+        assert lib.mnt_k3_max_blocks(0, probed, 2, 0, 0) >= sms
+        assert lib.mnt_k3_max_blocks(1, probed, 2, 0, 0) < 0
         for nl in (0, 1):
-            assert lib.mnt_k3_max_blocks(nl, probed, 3, 0) >= sms
+            assert lib.mnt_k3_max_blocks(nl, probed, 3, 0, 0) >= sms
         # the CYL variants (linear plans only)
         for direct in (R.DIRECT_CYL, R.DIRECT_PAIR_CYL):
-            assert lib.mnt_k3_max_blocks(0, probed, direct, 0) >= sms
-            assert lib.mnt_k3_max_blocks(1, probed, direct, 0) < 0
+            assert lib.mnt_k3_max_blocks(0, probed, direct, 0, 0) >= sms
+            assert lib.mnt_k3_max_blocks(1, probed, direct, 0, 0) < 0
+        # the OFFDIAG and GYRO modes: linear plans on tiles or the plain
+        # direct schedule
+        for mode in (R.AX_OFFDIAG, R.AX_GYRO):
+            assert lib.mnt_k3_max_blocks(0, probed, 1, mode, 0) >= sms
+            assert lib.mnt_k3_max_blocks(0, probed, 0, mode, 65536) >= 1
+            assert lib.mnt_k3_max_blocks(1, probed, 1, mode, 0) < 0
+            assert lib.mnt_k3_max_blocks(0, probed, 3, mode, 0) < 0
 
 
 @pytest.mark.gpu
