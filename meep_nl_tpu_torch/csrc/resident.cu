@@ -1614,7 +1614,10 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
   const Team tm = team_of<DIRECT>();
   const int S[3] = {(int)A.pb[0].S0, (int)A.pb[0].S1, (int)A.pb[0].S2};
   const int vol = (int)tl.vol;
-  const int c = (int)tl.c, ne = A.e_local ? 0 : 1;
+  // E's box loses ne sites to its neighbour reads: c - 1, except in the
+  // GYRO mode, whose poles take one more (A.e_local says whether E reads)
+  const int c = (int)tl.c,
+            ne = AX == AX_GYRO ? (A.e_local ? 0 : 1) : c - 1;
   const int* flags = (const int*)A.flags;
   const AxTab* X = (const AxTab*)A.ax;
   for (int r = 0; r < Tp; ++r) {
@@ -1633,10 +1636,12 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
       dlo[ax] = max(0, lo[ax] - L + 1);
       elo[ax] = max(0, lo[ax] - L + 1 + ne);
       ehi[ax] = min(S[ax], hi[ax] + H - 1 - ne);
-      plo[ax] = max(0, lo[ax] - L + c);
-      phi[ax] = min(S[ax], hi[ax] + H - c);
-      qlo[ax] = max(0, lo[ax] - L + 1);
-      qhi[ax] = min(S[ax], hi[ax] + H - 2);
+      if (AX == AX_GYRO) {
+        plo[ax] = max(0, lo[ax] - L + c);
+        phi[ax] = min(S[ax], hi[ax] + H - c);
+        qlo[ax] = max(0, lo[ax] - L + 1);
+        qhi[ax] = min(S[ax], hi[ax] + H - 2);
+      }
     }
     // B curl (+ H)
     curl_all<false, GK == GK_WRAP || GK == GK_CYL ? GK : GK_NONE>(

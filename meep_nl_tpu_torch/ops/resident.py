@@ -183,12 +183,16 @@ def _offdiag(plan) -> bool:
                for s in plan.eh_specs_e + plan.eh_specs_h)
 
 
+def _sep_pole(p) -> bool:
+    """Whether pole `p` reads partner W at neighbouring sites, and so runs
+    in the GYRO mode's pole sub-update: a gyrotropic pole, or a Lorentzian
+    one with off-diagonal sigma rows."""
+    return p.kind == "gyrotropic" or any(d != G.component_direction(c)
+                                         for (c, d) in p.sigma)
+
+
 def _sep_poles(plan) -> bool:
-    """Whether a pole reads partner W at neighbouring sites: a gyrotropic
-    pole, or a Lorentzian one with off-diagonal sigma rows."""
-    return any(p.kind == "gyrotropic" or any(d != G.component_direction(c)
-                                             for (c, d) in p.sigma)
-               for p in plan.pol_specs_e + plan.pol_specs_h)
+    return any(_sep_pole(p) for p in plan.pol_specs_e + plan.pol_specs_h)
 
 
 def _ax_supported(plan) -> bool:
@@ -1009,8 +1013,7 @@ class ResidentKernel:
             for p, pol in enumerate(pols):
                 pi = pol0 + p
                 gyro = pol.kind == "gyrotropic"
-                if not gyro and all(d == G.component_direction(c)
-                                    for (c, d) in pol.sigma):
+                if not _sep_pole(pol):
                     for q in range(fdtd3d.NCOMP):
                         tab.pole[fam][p][q].kind = -1
                     continue
@@ -1221,8 +1224,8 @@ class ResidentKernel:
         passes = sum(-(-n // tl["T"]) for n in chunks)
         if tl["direct"]:
             # the pole sub-updates' barriers: one after each family's
-            sep = sum(1 for p in range(2) if ax_mode(self.rplan) == AX_GYRO
-                      and self._ax_fam(p))
+            sep = sum(any(_sep_pole(p) for p in pols) for pols in (
+                self.rplan.pol_specs_e, self.rplan.pol_specs_h))
             least = 2 + int(not self._e_local()) + int(probed) + sep
             barriers = (least, 6 + sep
                         + int(probed or bool(self.rplan.dfts)))
@@ -1239,13 +1242,6 @@ class ResidentKernel:
         return not any(((s.has_chi3 or s.has_nr)
                         and (s.dc1 in live or s.dc2 in live))
                        or s.has_u1 or s.has_u2 for s in rp.eh_specs_e)
-
-    def _ax_fam(self, fam: int) -> bool:
-        """Whether family `fam` (0 B, 1 D) has a pole sub-update."""
-        pols = self.rplan.pol_specs_e if fam else self.rplan.pol_specs_h
-        return any(p.kind == "gyrotropic"
-                   or any(d != G.component_direction(c) for (c, d) in p.sigma)
-                   for p in pols)
 
     def _site_tables(self, tl):
         """Per family, the source sites (every site where a source's dense
@@ -1617,7 +1613,9 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     NR solve ~150 and the ADE ~8 per material site, BFAST's term ~16 per
     component that has one; on a cylindrical or beta plan 3 per site of
     an r-weighted difference, 2 of a phi term, 3 per ring site of an axis
-    correction), the sources and the DTFT (`ops`).  `stream_bytes` is what
+    correction; an off-diagonal chi1inv row 7 per site and the partner's
+    D - P at four sites, a gyrotropic pole ~60 per site of its sigma), the
+    sources and the DTFT (`ops`).  `stream_bytes` is what
     a kernel that kept nothing on chip between steps would move per step:
     the state read and written and the coefficients read."""
     rp = resident_plan(plan)
@@ -1668,8 +1666,18 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
             if rp.m != 0 or rp.beta != 0.0 else 0
         nax = len(axis_corrections(rp, "b") + axis_corrections(rp, "d"))
         ncyl = 3 * nrw * N + 2 * nphi * N + 3 * nax * (N // shape[0])
-    ops_step = ch * (18 * ncomp * N + 8 * pol + 16 * nbf * N + ncyl) \
-        + 150 * nl + region
+    # the off-diagonal rows (OFFDIAG): per row and site the partner's D - P
+    # at four sites (1 + its poles' subtractions each), two sums, two
+    # products, their average and the sum into E, 7; a gyrotropic pole
+    # (GYRO) per site of its sigma ~60 beside the ADE's 8 counted above:
+    # the partners' two averages, the three r rows, the 3x3 solve
+    nod = sum(int(s.has_u1) + int(s.has_u2) for s in rp.eh_specs_e)
+    nod_ops = nod * N * (7 + 4 * (1 + len(rp.pol_specs_e)))
+    gyro = sum(int(torch.count_nonzero(rp.coefs[f"pol{pi}:{c}:{d}"]))
+               for pi, p in enumerate(rp.pol_specs_e + rp.pol_specs_h)
+               if p.kind == "gyrotropic" for (c, d) in p.sigma)
+    ops_step = ch * (18 * ncomp * N + 8 * pol + 16 * nbf * N + ncyl
+                     + nod_ops + 52 * gyro) + 150 * nl + region
     return {"bytes": float(2 * state + coef + table),
             "ops": float(nsteps * ops_step),
             "stream_bytes": float(2 * state + coef)}

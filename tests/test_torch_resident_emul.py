@@ -341,14 +341,15 @@ def ax_scene(kind, device="cpu"):
                 bias=mp.Vector3(0, 0, 0.5))]
         geom = [mp.Block(size=block, material=rotated)]
     else:                                  # gyro3d
-        mat = mp.Medium(epsilon_diag=mp.Vector3(2.0, 4.0, 3.0), H_susceptibilities=[
-            mp.GyrotropicSaturatedSusceptibility(
-                frequency=0.9, gamma=0.05, sigma=0.6, alpha=0.05,
-                bias=mp.Vector3(1, 1, 1))], E_susceptibilities=[
-            mp.GyrotropicLorentzianSusceptibility(
-                frequency=1.2, gamma=0.1, sigma=0.3,
-                bias=mp.Vector3(0, 0.3, 0.4))]).rotate(
-                    mp.Vector3(1, 1, 1), 0.5)
+        mat = mp.Medium(
+            epsilon_diag=mp.Vector3(2.0, 4.0, 3.0), H_susceptibilities=[
+                mp.GyrotropicSaturatedSusceptibility(
+                    frequency=0.9, gamma=0.05, sigma=0.6, alpha=0.05,
+                    bias=mp.Vector3(1, 1, 1))], E_susceptibilities=[
+                mp.GyrotropicLorentzianSusceptibility(
+                    frequency=1.2, gamma=0.1, sigma=0.3,
+                    bias=mp.Vector3(0, 0.3, 0.4))]).rotate(
+                        mp.Vector3(1, 1, 1), 0.5)
         geom = [mp.Sphere(radius=0.5, material=mat)]
         src = [mp.Source(mp.GaussianSource(0.8, fwidth=0.3), mp.Ez,
                          center=mp.Vector3(-0.45, 0.05, 0))]
