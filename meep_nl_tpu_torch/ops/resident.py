@@ -93,6 +93,12 @@ MAX_CHUNK = 8192
 #: 3D plans whose doubled state is larger prefer the hybrid route
 #: (resident.py:525-533, MNT_RESIDENT_PREFER)
 PREFER_BYTES = 32 * 2 ** 20
+#: whether GYRO-mode plans may take tiles: their tiled variant spills
+#: (192 / 236 bytes in K3 / K4, ptxas) and ran 1.54x slower than the direct
+#: schedule at chip_smoke's one-way waveguide (0.3108 against 0.2024
+#: ms/step on an H100, PERF.md §6), so they take the direct schedule; the
+#: tests and chip_smoke set it to run and time the tiles
+GYRO_TILES = False
 
 STEP_BSRC, STEP_DSRC, STEP_DFT = 1, 2, 4
 #: the anisotropic modes (csrc/resident.cu AX_*)
@@ -1140,9 +1146,9 @@ class ResidentKernel:
         """The schedule of this plan on the current device: tiling()'s
         choice on the card's shared memory, or the direct schedule
         (`direct_tiling`) where tiles give no temporal reuse (more staged
-        arrays than MAXSLOT, no tile that fits, or only T = 1), and for a
+        arrays than MAXSLOT, no tile that fits, or only T = 1), for a
         rotational fold or a Bloch-periodic plan, whose ghost and wrap
-        reads lie outside any tile.  Asked of the card once per device."""
+        reads lie outside any tile, and for a GYRO plan unless GYRO_TILES.  Asked of the card once per device."""
         key = self._device_key()
         if self.schedule is not None and self.schedule[0] == key:
             return self.schedule[1]
@@ -1180,7 +1186,8 @@ class ResidentKernel:
         nslot = len(paths) + len(coef)
         tl = None
         variant = direct_variant(rp)
-        if nslot <= MAXSLOT and variant == DIRECT:
+        if nslot <= MAXSLOT and variant == DIRECT \
+                and (npole == 0 or GYRO_TILES):
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
         if tl is None or tl["T"] == 1:

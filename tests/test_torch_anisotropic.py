@@ -13,6 +13,8 @@ field maximum; Simulation fields and fluxes to 1e-4.  Stretches are not
 multiples of 4 (the JAX package's run unrolls its scan 4 times for those,
 which makes its CPU compile several times longer)."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -217,12 +219,19 @@ def test_offdiag_sigma_stepper_matches_jax(dtype):
     assert_states_close(interop.state_to_numpy(got), want, TOL[dtype])
 
 
+@functools.lru_cache(maxsize=None)
+def jax_complex_sigma():
+    """The JAX package's native complex run of sigma_plan, 23 steps from
+    zero (one compile, shared by both storages)."""
+    pj = sigma_plan(JAXP, complex_fields=True)
+    return to_np(JS.run(pj, JS.init_state(pj), SIGMA_STEPS, t0=0))
+
+
 @pytest.mark.parametrize("pair", [False, True], ids=["native", "pair"])
 def test_offdiag_sigma_complex_storages_match_jax(pair):
     """Complex fields: the port's native complex64 and its real pair
     against the JAX package's native complex run, 23 steps from zero."""
-    pj = sigma_plan(JAXP, complex_fields=True)
-    want = to_np(JS.run(pj, JS.init_state(pj), SIGMA_STEPS, t0=0))
+    want = jax_complex_sigma()
     pt = sigma_plan(PORT, complex_fields=True)
     pt.real_pair = pair
     got = TS.run(pt, TS.init_state(pt), SIGMA_STEPS, t0=0)

@@ -550,7 +550,8 @@ def h100_schedule(ker, host_lib):
 
 def force(monkeypatch, tile, T):
     """Make ResidentKernel take tiling `tile`, T (tiling()'s `force`), or
-    the direct schedule when tile is None."""
+    the direct schedule when tile is None (GYRO plans too: GYRO_TILES)."""
+    monkeypatch.setattr(R, "GYRO_TILES", True)
     orig = R.tiling
 
     def forced(*args, **kw):
@@ -886,3 +887,23 @@ def test_plans_stage_what_their_step_reads(kind, host_lib, monkeypatch):
     assert not tl["direct"] and tl["T"] >= 2
     assert tl["smem"] == 4 * (nslot * tl["vol"] + len(vecs) * tl["gvec"])
     assert tl["smem"] <= R.SMEM_H100 - R.STATIC_SMEM
+
+
+@pytest.mark.parametrize("kind,c,mode", [("aniso", 2, R.AX_OFFDIAG),
+                                         ("gyro-h", 2, R.AX_GYRO),
+                                         ("gyro-e", 3, R.AX_GYRO)])
+def test_anisotropic_schedules(kind, c, mode, host_lib, monkeypatch):
+    """The OFFDIAG and GYRO modes' schedules on the stub's H100 figures: c
+    is 1 plus a site where E reads its neighbours' D - P plus one where a
+    pole reads its partners' W; an OFFDIAG plan takes tiling()'s tiles, a
+    GYRO plan the direct schedule (its tiled variant spills and measured
+    slower), or tiles where GYRO_TILES allows them."""
+    monkeypatch.setattr(R, "_lib", lambda: host_lib)
+    plan = scene(kind)
+    assert R.ax_mode(plan) == mode
+    tl = h100_schedule(R.ResidentKernel(plan), host_lib)
+    assert tl["c"] == c
+    assert tl["direct"] == (mode == R.AX_GYRO)
+    monkeypatch.setattr(R, "GYRO_TILES", True)
+    tl = h100_schedule(R.ResidentKernel(plan), host_lib)
+    assert not tl["direct"] and tl["T"] >= 2 and tl["c"] == c
