@@ -143,6 +143,22 @@
 //     The corrections read only the other family's fields (H in the D
 //     half, E ring 1 for br in the B half), which no thread writes in that
 //     sub-update, so they need no barrier of their own.
+//   * Anisotropic media (step._offdiag, step._pol_update_lorentzian's
+//     off-diagonal sigma, step._pol_update_gyro): two compile-time modes
+//     (AX, from A.axmode; linear real fields without a wrap, on tiles or
+//     the plain direct schedule), whose tables the wrapper puts in device
+//     memory (A.ax, AxTab).  OFFDIAG: E's update adds each off-diagonal
+//     chi1inv row's average 0.25 (t + t'), t = (g1 + g1 shifted) u1 at the
+//     site and one site along its own axis, g1 the partner's D - P, so E
+//     reads its neighbours (not site-local, c = 2).  GYRO: a pole that
+//     reads its partners' W at neighbouring sites (a gyrotropic one, a
+//     Lorentzian one with off-diagonal sigma) cannot be fused into the
+//     thread that updated E at its site; such poles run in a sub-update
+//     of their own after the family's E (H) and a barrier (sep_all), on a
+//     box one site smaller than E's (H's), so c grows by one; the other
+//     poles stay fused.  The new P of a pole goes into its previous P's
+//     arrays, as the fused ADE's does.  The wrapper takes the direct
+//     schedule for GYRO plans (their tiled variant spills).
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -881,18 +897,25 @@ __device__ __forceinline__ float dmp_t(int d, const PolT& pl, int npol,
   return v;
 }
 
-// D - P of component e at the site shifted by da along axis a and db along
-// axis bb (-1: none); zero off the grid (the box's edge there)
-__device__ float dmp_nb_t(int d, const PolT& pl, int npol, const float* sm,
-                          const Box& b, const Loc& x, int a, int da, int bb,
-                          int db) {
+// the local index of the site shifted by da along axis a and db along
+// axis bb (-1: none), or -1 off the grid (the box's edge there)
+__device__ __forceinline__ int nb_l(const Box& b, const Loc& x, int a, int da,
+                                    int bb, int db) {
   const int ci = x.i + (a == 0 ? da : 0) + (bb == 0 ? db : 0);
   const int cj = x.j + (a == 1 ? da : 0) + (bb == 1 ? db : 0);
   const int ck = x.k + (a == 2 ? da : 0) + (bb == 2 ? db : 0);
   if (ci < 0 || ci >= b.n[0] || cj < 0 || cj >= b.n[1] || ck < 0 ||
       ck >= b.n[2])
-    return 0.0f;
-  return dmp_t(d, pl, npol, sm, (ci * b.n[1] + cj) * b.n[2] + ck);
+    return -1;
+  return (ci * b.n[1] + cj) * b.n[2] + ck;
+}
+
+// D - P of component e at that shifted site; zero off the grid
+__device__ float dmp_nb_t(int d, const PolT& pl, int npol, const float* sm,
+                          const Box& b, const Loc& x, int a, int da, int bb,
+                          int db) {
+  const int l = nb_l(b, x, a, da, bb, db);
+  return l < 0 ? 0.0f : dmp_t(d, pl, npol, sm, l);
 }
 
 // sum4 (step._sum4 / _avg4) of partner q of family F around the site
@@ -907,20 +930,8 @@ __device__ float sum4_t(const FamT& F, int q, const float* sm, const Box& b,
   return v0 + vs + vx + vsx;
 }
 
-// the local index of the site shifted by da along axis a and db along
-// axis bb (-1: none), or -1 off the grid (the box's edge there)
-__device__ __forceinline__ int nb_l(const Box& b, const Loc& x, int a, int da,
-                                    int bb, int db) {
-  const int ci = x.i + (a == 0 ? da : 0) + (bb == 0 ? db : 0);
-  const int cj = x.j + (a == 1 ? da : 0) + (bb == 1 ? db : 0);
-  const int ck = x.k + (a == 2 ? da : 0) + (bb == 2 ? db : 0);
-  if (ci < 0 || ci >= b.n[0] || cj < 0 || cj >= b.n[1] || ck < 0 ||
-      ck >= b.n[2])
-    return -1;
-  return (ci * b.n[1] + cj) * b.n[2] + ck;
-}
-
-// the staged array at offset o at that shifted site, zero off the grid
+// the staged array at offset o at the site shifted by da along axis a and
+// db along axis bb (nb_l), zero off the grid
 __device__ __forceinline__ float at_nb(const float* sm, int o, const Box& b,
                                        const Loc& x, int a, int da, int bb,
                                        int db) {

@@ -21,7 +21,12 @@ plan (always complex, so a pair on the card) its PAIR_BFAST variant, which
 adds the flip-flop term after each curl; a cylindrical plan, or a 2D plan
 with an out-of-plane wavenumber beta, the CYL variant (real fields, m =
 0) or PAIR_CYL (the pair: m != 0, beta), with the r-weighted curl, the
-i m / r or i beta term and the r = 0 axis corrections.  What it
+i m / r or i beta term and the r = 0 axis corrections; a plan with
+off-diagonal epsilon rows, off-diagonal sigma or gyrotropic poles one of
+the anisotropic modes (`ax_mode`: OFFDIAG, E's off-diagonal average;
+GYRO, poles that read their partners' W in a sub-update of their own),
+on tiles or the direct schedule (GYRO: the direct schedule, unless
+GYRO_TILES).  What it
 computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
@@ -54,7 +59,10 @@ planes, no H-family chi2/chi3, no chi2/chi3 on a rotational fold (no
 Simulation makes one: it rejects them, as the reference's does), and on a
 Bloch-periodic axis (real phases: k = 0 or the zone edge; complex ones
 take the real pair, which has no chi2/chi3) chi2/chi3 support boxes clear
-of the wrap planes (their neighbour sums do not wrap here, ROADMAP B3).
+of the wrap planes (their neighbour sums do not wrap here, ROADMAP B3);
+the anisotropic modes on linear real fields only, without a wrap, fold
+rotation, cylindrical / beta terms or BFAST, and no off-diagonal mu row
+(`_ax_supported`, ROADMAP C.2).
 BFAST runs only as a real pair (the PAIR_BFAST variant; K1, K2 and K5
 decline it, as the reference's do, so a BFAST plan above the budget runs on
 the eager stepper).  Cylindrical and beta plans run without BFAST, a
