@@ -255,8 +255,9 @@ falls back to the CPU or to a plain version:
      Soljacic (PRL 100, 013905, 2008: YIG rods r = 0.11 a, eps 15, a
      saturated gyrotropic H pole biased along z, TM; the largest nx x nx/2
      cell of the lattice at resolution 20 whose doubled state fits the
-     resident budget) through K3 GYRO, forward / backward flux at 0.54
-     above 5 and the unbiased control's within 1e-3 of 1, then a probed
+     resident budget) through K3 GYRO, forward (+x) / backward flux
+     above 5 at 0.555 (the edge band; the bias along +z sets the
+     direction) and the unbiased control's within 1e-3 of 1, then a probed
      stretch through K4 GYRO; the ring tutorial in Hz with
      subpixel_tensor through K4 OFFDIAG and without it (modes and Q of
      both); bench.py::run_resident's 767^2 cell in Hz with a slab of a
@@ -820,8 +821,8 @@ def schedule_text(ker, nsteps, probed):
         why = {2: "a rotational fold's ghosts",
                3: "the Bloch wrap's reads"}.get(
             d["direct"], "tiles would give no temporal reuse")
-        if R.ax_mode(ker.plan) == R.AX_GYRO and not R.GYRO_TILES:
-            why = "the GYRO mode: its tiled variant spills"
+        if R.ax_mode(ker.plan) == R.AX_GYRO:
+            why = "the GYRO mode, built for it alone"
         return (f"direct schedule ({why}): "
                 f"the whole grid in place, {d['blocks']} blocks, T 1, "
                 f"{d['barriers'][0]}-{d['barriers'][1]} grid barriers a "
@@ -4122,19 +4123,27 @@ def phase_cyl(mp, dev, card, blank, twins):
 ONEWAY_F = 0.54
 ONEWAY_F0 = ONEWAY_F * 13.0 / 12.4
 ONEWAY_SIGMA = 12.4 * (ONEWAY_F0 ** 2 - ONEWAY_F ** 2) / ONEWAY_F
+#: the flux frequency at which phase 18 gates one-way transport: the edge
+#: band's on this lattice at resolution 20, where a bias along +z sends
+#: the edge mode towards +x; the band's ends run backward in the JAX
+#: package as in the port, and a bias along -z inverts every ratio
+#: (scripts/oneway_witness.py, a 16 x 8 cell on the CPU)
+ONEWAY_EDGE = 0.555
 
 
-def oneway_sim(mp, nx, ny, res, device, bias=True):
+def oneway_sim(mp, nx, ny, res, device, bias=1.0):
     """The one-way waveguide: an nx x ny cell of the lattice at resolution
     `res`, rods in every row but the top one, whose air gap ends at the
     cell's upper edge (a metal wall: no PML there; PML 1 on the other
     sides); an Ez line source across the gap at x = 0 (the edge), a
     Gaussian of 0.54 and fwidth 0.06; x-normal flux lines across the top
-    3 a at x = +-nx / 4 (5 frequencies).  `bias` False drops the
-    gyrotropic pole (the control: eps = 15 rods)."""
+    3 a at x = +-nx / 4 (5 frequencies).  The gyrotropic pole is biased
+    along `bias` z; `bias` 0 drops it (the control: eps = 15 rods).
+    `device` None leaves the Simulation's own default (a package without
+    the keyword: scripts/oneway_witness.py's reference runs)."""
     sus = [mp.GyrotropicSaturatedSusceptibility(
         frequency=ONEWAY_F0, gamma=0.0, sigma=ONEWAY_SIGMA, alpha=0.0,
-        bias=mp.Vector3(0, 0, 1))] if bias else []
+        bias=mp.Vector3(0, 0, bias))] if bias else []
     yig = mp.Medium(epsilon=15, H_susceptibilities=sus)
     geom = [mp.Cylinder(radius=0.11, material=yig,
                         center=mp.Vector3(-nx / 2 + 0.5 + i,
@@ -4147,7 +4156,7 @@ def oneway_sim(mp, nx, ny, res, device, bias=True):
                            size=mp.Vector3(0, 1.0))],
         boundary_layers=[mp.PML(1.0, direction=mp.X),
                          mp.PML(1.0, direction=mp.Y, side=-1)],
-        device=device)
+        **({} if device is None else {"device": device}))
     fl = [sim.add_flux(ONEWAY_F, 0.06, 5, mp.FluxRegion(
         center=mp.Vector3(sx * nx / 4, ny / 2 - 1.5),
         size=mp.Vector3(0, 3))) for sx in (1, -1)]
@@ -4296,18 +4305,12 @@ def phase_aniso(mp, dev, card, blank):
               f"ms/step ({b_by}) ({card})", flush=True)
         return ms
 
-    def timing_alt(sim, what, own_ms, nsteps=1000):
-        """K3 on the schedule the wrapper did not take, from the run's end
-        state, beside its own: tiles (tiling()'s choice, GYRO_TILES) where
-        it took the direct schedule, else the direct schedule (tiling()
-        made to find nothing); a fresh kernel object, so the run's keeps
-        its schedule; not counted."""
-        direct = sim.plan._resident_kernel.schedule[1]["direct"]
-        saved = R.tiling, R.GYRO_TILES
-        if direct:
-            R.GYRO_TILES = True
-        else:
-            R.tiling = lambda *a, **k: None
+    def timing_direct(sim, what, own_ms, nsteps=1000):
+        """K3 on the direct schedule (tiling() made to find nothing), from
+        the run's end state, beside the wrapper's tiles; a fresh kernel
+        object, so the run's keeps its schedule; not counted."""
+        saved = R.tiling
+        R.tiling = lambda *a, **k: None
         try:
             kd = R.ResidentKernel(sim.plan)
             ms, _ = time_resident(
@@ -4315,11 +4318,10 @@ def phase_aniso(mp, dev, card, blank):
                 sim.fields_state, nsteps)
             sched = schedule_text(kd, nsteps, False)
         finally:
-            R.tiling, R.GYRO_TILES = saved
-        where = "tiles" if direct else "the direct schedule"
-        print(f"[18] K3 at {what} on {where}: {ms:.4f} ms/step ({sched}) "
-              f"against {own_ms:.4f} on the wrapper's schedule ({card})",
-              flush=True)
+            R.tiling = saved
+        print(f"[18] K3 at {what} on the direct schedule: {ms:.4f} ms/step "
+              f"({sched}) against {own_ms:.4f} on the wrapper's tiles "
+              f"({card})", flush=True)
         return ms
 
     # ---- 18.1: the one-way waveguide (K3 GYRO, then K4 GYRO) ----------
@@ -4334,7 +4336,7 @@ def phase_aniso(mp, dev, card, blank):
     flux = {}
     for bias in (True, False):
         if not bias:
-            sim, fl = oneway_sim(mp, nx, ny, 20, dev, bias=False)
+            sim, fl = oneway_sim(mp, nx, ny, 20, dev, bias=0.0)
             sim.init_sim()
             R._kernel(sim.plan)
             wall, l3, l4 = resident_run_counted(sim, until=250.0)
@@ -4355,8 +4357,7 @@ def phase_aniso(mp, dev, card, blank):
             print(f"[18] schedule: {schedule_text(ker, 1000, False)}",
                   flush=True)
             bitcheck(sim, "the one-way waveguide", (), 24, 101)
-            timing_alt(sim, "the one-way waveguide",
-                       timing(sim, "the one-way waveguide", ()))
+            timing(sim, "the one-way waveguide", ())
             h = mp.Harminv(mp.Ez, mp.Vector3(nx / 4, ny / 2 - 0.5),
                            ONEWAY_F, 0.06)
             wall, l3, l4 = counted(sim, h, until=15.0, mode=R.AX_GYRO)
@@ -4373,13 +4374,14 @@ def phase_aniso(mp, dev, card, blank):
         del sim
         torch.cuda.empty_cache()
     ratio, control = flux[True], flux[False]
-    most = float(np.max(np.maximum(ratio, 1.0 / ratio)))
-    print(f"[18] one-way transport over the band: forward / backward "
-          f"{ratio.round(4).tolist()} biased (the largest asymmetry "
-          f"{most:.3f}), {control.round(6).tolist()} unbiased (gates: an "
-          f"asymmetry above 5 somewhere in the band, every control ratio "
-          f"within 1e-3 of 1)", flush=True)
-    if not (np.all(np.isfinite(ratio)) and most > 5.0
+    freqs = np.asarray(mp.get_flux_freqs(fl[0]))
+    k = int(np.argmin(np.abs(freqs - ONEWAY_EDGE)))
+    print(f"[18] one-way transport over the band {freqs.round(4).tolist()}: "
+          f"forward (+x) / backward {ratio.round(4).tolist()} biased along "
+          f"+z, {control.round(6).tolist()} unbiased (gates: forward / "
+          f"backward above 5 at {freqs[k]:.4f}, the edge band; every "
+          f"control ratio within 1e-3 of 1)", flush=True)
+    if not (np.all(np.isfinite(ratio)) and ratio[k] > 5.0
             and np.all(np.abs(control - 1.0) < 1e-3)):
         raise AssertionError(f"one-way transport: {ratio}, control "
                              f"{control}")
@@ -4435,8 +4437,8 @@ def phase_aniso(mp, dev, card, blank):
     if not (np.all(np.isfinite(flux)) and flux[1] > 0):
         raise AssertionError(f"slab flux {flux}")
     bitcheck(sim, "the 767^2 rotated slab", (), 24, 109)
-    timing_alt(sim, "the 767^2 rotated slab",
-               timing(sim, "the 767^2 rotated slab", ()))
+    timing_direct(sim, "the 767^2 rotated slab",
+                  timing(sim, "the 767^2 rotated slab", ()))
     del sim
     torch.cuda.empty_cache()
 

@@ -145,8 +145,9 @@
 //     sub-update, so they need no barrier of their own.
 //   * Anisotropic media (step._offdiag, step._pol_update_lorentzian's
 //     off-diagonal sigma, step._pol_update_gyro): two compile-time modes
-//     (AX, from A.axmode; linear real fields without a wrap, on tiles or
-//     the plain direct schedule), whose tables the wrapper puts in device
+//     (AX, from A.axmode; linear real fields without a wrap; OFFDIAG on
+//     tiles or the plain direct schedule, GYRO on the plain direct
+//     schedule only), whose tables the wrapper puts in device
 //     memory (A.ax, AxTab).  OFFDIAG: E's update adds each off-diagonal
 //     chi1inv row's average 0.25 (t + t'), t = (g1 + g1 shifted) u1 at the
 //     site and one site along its own axis, g1 the partner's D - P, so E
@@ -154,11 +155,11 @@
 //     reads its partners' W at neighbouring sites (a gyrotropic one, a
 //     Lorentzian one with off-diagonal sigma) cannot be fused into the
 //     thread that updated E at its site; such poles run in a sub-update
-//     of their own after the family's E (H) and a barrier (sep_all), on a
-//     box one site smaller than E's (H's), so c grows by one; the other
-//     poles stay fused.  The new P of a pole goes into its previous P's
-//     arrays, as the fused ADE's does.  The wrapper takes the direct
-//     schedule for GYRO plans (their tiled variant spills).
+//     of their own after the family's E (H) and a grid barrier (sep_all,
+//     over the whole grid); the other poles stay fused.  The new P of a
+//     pole goes into its previous P's arrays, as the fused ADE's does.
+//     A tiled GYRO variant (the pole sub-update on a box one site smaller,
+//     c grown by one) spilled and ran 1.54x slower, so there is none.
 //   * Per-step inputs: the source currents (nsteps, nsrc, 2) and the DTFT
 //     phase rows (nsteps, nfreq) of build_xs, uploaded once per launch, and
 //     a per-step flag word saying which of them are nonzero: a step whose
@@ -1613,22 +1614,20 @@ __device__ __forceinline__ void copy_box(const void* const* grid, float* sm,
 // in the direct schedule), interior [lo, hi); `tf` the descriptors on b,
 // `mine` the thread's first probe point; GK: the rotational ghosts or the
 // Bloch wrap (direct schedule only); AX: the anisotropic modes (linear
-// plans without a wrap), whose poles of the AxTab's `sep` masks run after
-// their family's E (H) and a barrier, on the boxes that lose the site
-// their neighbour reads cost (ops/resident.py::boxes "p", "q")
+// plans without a wrap), GYRO on the direct schedule only, whose poles of
+// the AxTab's `sep` masks run after their family's E (H) and a barrier,
+// on the whole grid
 template <bool NL, bool PROBED, bool DIRECT, int GK, int AX = AX_NONE>
 __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
                            float* sm, const Box& b, const int* lo,
                            const int* hi, int tile, i64 pass, int Tp,
                            const Pts& mine) {
+  static_assert(AX != AX_GYRO || DIRECT, "GYRO: the direct schedule only");
   const Tiling& tl = A.tl;
   const Team tm = team_of<DIRECT>();
   const int S[3] = {(int)A.pb[0].S0, (int)A.pb[0].S1, (int)A.pb[0].S2};
   const int vol = (int)tl.vol;
-  // E's box loses ne sites to its neighbour reads: c - 1, except in the
-  // GYRO mode, whose poles take one more (A.e_local says whether E reads)
-  const int c = (int)tl.c,
-            ne = AX == AX_GYRO ? (A.e_local ? 0 : 1) : c - 1;
+  const int c = (int)tl.c, nl = c - 1;
   const int* flags = (const int*)A.flags;
   const AxTab* X = (const AxTab*)A.ax;
   for (int r = 0; r < Tp; ++r) {
@@ -1639,20 +1638,13 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
     const bool bsrc = fl & STEP_BSRC, dsrc = fl & STEP_DSRC;
     const int L = (Tp - r) * c;
     int blo[3], bhi[3], dlo[3], elo[3], ehi[3];
-    int plo[3], phi[3], qlo[3], qhi[3];
     for (int ax = 0; ax < 3; ++ax) {
       const int H = L + (int)tl.e[ax];
       blo[ax] = max(0, lo[ax] - L);
       bhi[ax] = min(S[ax], hi[ax] + H - 1);
       dlo[ax] = max(0, lo[ax] - L + 1);
-      elo[ax] = max(0, lo[ax] - L + 1 + ne);
-      ehi[ax] = min(S[ax], hi[ax] + H - 1 - ne);
-      if (AX == AX_GYRO) {
-        plo[ax] = max(0, lo[ax] - L + c);
-        phi[ax] = min(S[ax], hi[ax] + H - c);
-        qlo[ax] = max(0, lo[ax] - L + 1);
-        qhi[ax] = min(S[ax], hi[ax] + H - 2);
-      }
+      elo[ax] = max(0, lo[ax] - L + 1 + nl);
+      ehi[ax] = min(S[ax], hi[ax] + H - 1 - nl);
     }
     // B curl (+ H)
     curl_all<false, GK == GK_WRAP || GK == GK_CYL ? GK : GK_NONE>(
@@ -1666,7 +1658,7 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
       bar<DIRECT>();
     }
     if (AX == AX_GYRO && X->sep[0]) {
-      sep_all(FB, A, 0, (int)(s & 1), sm, b, qlo, qhi, tm);
+      sep_all(FB, A, 0, (int)(s & 1), sm, b, lo, hi, tm);
       bar<DIRECT>();
     }
     // D curl (+ E)
@@ -1683,7 +1675,7 @@ __device__ void pass_steps(const ResArgs& A, const FamT (&tf)[2][2],
       bar<DIRECT>();
     }
     if (AX == AX_GYRO && X->sep[1]) {
-      sep_all(FD, A, 1, (int)(s & 1), sm, b, plo, phi, tm);
+      sep_all(FD, A, 1, (int)(s & 1), sm, b, lo, hi, tm);
       bar<DIRECT>();
     }
     // DTFT and probe products at the interior's sites
@@ -1862,7 +1854,7 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
     if (PROBED) probe_sums_pair(A, A.nsteps - 1);
     return;
   }
-  if (DIRECT) {
+  if constexpr (DIRECT) {
     int lo[3], hi[3];
     Box b;
     tile_box(A, 0, 1, lo, hi, b);
@@ -1893,15 +1885,20 @@ __global__ void __launch_bounds__(NL ? NTHR / 2 : NTHR, 1)
 
 static int threads_of(int nl) { return nl ? NTHR / 2 : NTHR; }
 
-// the anisotropic modes' variants: linear, tiles (direct 0) or the direct
-// schedule (1), K3 or K4
-template <int AX>
-static const void* kernel_ax(int probed, int direct) {
-  if (direct)
-    return probed ? (const void*)k3_kernel<false, true, true, GK_NONE, AX>
-                  : (const void*)k3_kernel<false, false, true, GK_NONE, AX>;
-  return probed ? (const void*)k3_kernel<false, true, false, GK_NONE, AX>
-                : (const void*)k3_kernel<false, false, false, GK_NONE, AX>;
+// the anisotropic modes' variants: linear, K3 or K4; OFFDIAG on tiles
+// (direct 0) or the direct schedule (1), GYRO on the direct schedule only
+// (its tiled variant spilled and ran slower)
+template <int AX, bool DIRECT>
+static const void* kernel_ax(int probed) {
+  return probed ? (const void*)k3_kernel<false, true, DIRECT, GK_NONE, AX>
+                : (const void*)k3_kernel<false, false, DIRECT, GK_NONE, AX>;
+}
+
+static const void* kernel_ax(int axmode, int probed, int direct) {
+  if (axmode == AX_GYRO)
+    return direct ? kernel_ax<AX_GYRO, true>(probed) : nullptr;
+  return direct ? kernel_ax<AX_OFFDIAG, true>(probed)
+                : kernel_ax<AX_OFFDIAG, false>(probed);
 }
 
 template <bool NL, bool PROBED>
@@ -1922,8 +1919,7 @@ static const void* kernel_of(int nl, int probed, int direct,
                              int axmode = AX_NONE) {
   if (axmode != AX_NONE)
     return (nl || direct > 1) ? nullptr
-           : axmode == AX_GYRO ? kernel_ax<AX_GYRO>(probed, direct)
-                               : kernel_ax<AX_OFFDIAG>(probed, direct);
+                              : kernel_ax(axmode, probed, direct);
   if (direct == 7)
     return nl ? nullptr
               : (probed ? (const void*)k3_kernel<false, true, true, GK_PAIRCYL>

@@ -25,9 +25,8 @@ i m / r or i beta term and the r = 0 axis corrections; a plan with
 off-diagonal epsilon rows, off-diagonal sigma or gyrotropic poles one of
 the anisotropic modes (`ax_mode`: OFFDIAG, E's off-diagonal average;
 GYRO, poles that read their partners' W in a sub-update of their own),
-on tiles or the direct schedule (GYRO: the direct schedule, unless
-GYRO_TILES).  What it
-computes is the
+OFFDIAG on tiles or the direct schedule, GYRO on the direct schedule
+only.  What it computes is the
 eager `make_step` over
 `resident_plan(plan)`: full-grid PML chains, dense pre-scattered sources,
 the DTFT accumulated in the loop in the frequency-major layout; K4 adds the
@@ -101,13 +100,6 @@ MAX_CHUNK = 8192
 #: 3D plans whose doubled state is larger prefer the hybrid route
 #: (resident.py:525-533, MNT_RESIDENT_PREFER)
 PREFER_BYTES = 32 * 2 ** 20
-#: whether GYRO-mode plans may take tiles: their tiled variant spills
-#: (192 / 236 bytes in K3 / K4, ptxas) and ran 1.54x slower than the direct
-#: schedule at chip_smoke's one-way waveguide (0.3108 against 0.2024
-#: ms/step on an H100, PERF.md §6), so they take the direct schedule; the
-#: tests and chip_smoke set it to run and time the tiles
-GYRO_TILES = False
-
 STEP_BSRC, STEP_DSRC, STEP_DFT = 1, 2, 4
 #: the anisotropic modes (csrc/resident.cu AX_*)
 AX_NONE, AX_OFFDIAG, AX_GYRO = 0, 1, 2
@@ -491,13 +483,8 @@ def boxes(tl, shape, tile: int, Tp: int, r: int) -> Dict[str, Any]:
     `tile` in a pass of Tp steps, at its step r, as csrc/resident.cu
     computes them: "interior", "staged" (grown by Tp c below and Tp c + e
     above, clipped to the grid) and the sub-updates' boxes "b" (B curl, B
-    sources, H), "d" (D curl, D sources), "e" (E and the ADE) and, in the
-    GYRO mode, "q" and "p", the H and E families' pole sub-updates, which
-    read their partners' W one site around.  E's box loses tl["ne"] sites
-    (1: E reads its neighbours' D - P; default c - 1), and c - 1 - ne is
-    the pole sub-update's site (the wrapper's ResidentKernel._e_local)."""
-    c = tl["c"]
-    nl = tl.get("ne", c - 1)
+    sources, H), "d" (D curl, D sources), "e" (E and the ADE)."""
+    c, nl = tl["c"], tl["c"] - 1
     nt = tl["nt"]
     at = (tile // (nt[1] * nt[2]), (tile // nt[2]) % nt[1], tile % nt[2])
     lo = [a * t for a, t in zip(at, tl["t"])]
@@ -515,8 +502,6 @@ def boxes(tl, shape, tile: int, Tp: int, r: int) -> Dict[str, Any]:
     out["b"] = box(L, L - 1)
     out["d"] = box(L - 1, L - 1)
     out["e"] = box(L - 1 - nl, L - 1 - nl)
-    out["q"] = box(L - 1, L - 2)
-    out["p"] = box(L - c, L - c)
     return out
 
 
@@ -1156,7 +1141,9 @@ class ResidentKernel:
         (`direct_tiling`) where tiles give no temporal reuse (more staged
         arrays than MAXSLOT, no tile that fits, or only T = 1), for a
         rotational fold or a Bloch-periodic plan, whose ghost and wrap
-        reads lie outside any tile, and for a GYRO plan unless GYRO_TILES.  Asked of the card once per device."""
+        reads lie outside any tile, and for a GYRO plan (its poles' sub-update
+        runs on the direct schedule only).  Asked of the card once per
+        device."""
         key = self._device_key()
         if self.schedule is not None and self.schedule[0] == key:
             return self.schedule[1]
@@ -1183,19 +1170,13 @@ class ResidentKernel:
                     if ys_[dd] == 0:
                         e[ax] = 1
         shape = self.shape + (1,) * (3 - len(self.shape))
-        # a site of each side a step costs: the curls', one where E reads
-        # its neighbours' D - P, one where a pole reads its partners' W
-        ne = 0 if self._e_local() else 1
-        npole = int(ax_mode(rp) == AX_GYRO)
-        c = 1 + ne + npole
+        c = 1 if self._e_local() else 2
         nloops = len(rp.curl_specs_b + rp.eh_specs_h + rp.curl_specs_d
-                     + rp.eh_specs_e) + npole * len(rp.eh_specs_e
-                                                     + rp.eh_specs_h)
+                     + rp.eh_specs_e)
         nslot = len(paths) + len(coef)
         tl = None
         variant = direct_variant(rp)
-        if nslot <= MAXSLOT and variant == DIRECT \
-                and (npole == 0 or GYRO_TILES):
+        if nslot <= MAXSLOT and variant == DIRECT and ax_mode(rp) != AX_GYRO:
             tl = tiling(shape, nslot, len(paths), c, e, nloops, budget, sms,
                         nvec=len(vecs))
         if tl is None or tl["T"] == 1:
@@ -1628,8 +1609,8 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
     NR solve ~150 and the ADE ~8 per material site, BFAST's term ~16 per
     component that has one; on a cylindrical or beta plan 3 per site of
     an r-weighted difference, 2 of a phi term, 3 per ring site of an axis
-    correction; an off-diagonal chi1inv row 7 per site and the partner's
-    D - P at four sites, a gyrotropic pole ~60 per site of its sigma), the
+    correction; an off-diagonal chi1inv row 5 per site where it is
+    nonzero, a gyrotropic pole ~60 per site of its sigma), the
     sources and the DTFT (`ops`).  `stream_bytes` is what
     a kernel that kept nothing on chip between steps would move per step:
     the state read and written and the coefficients read."""
@@ -1681,13 +1662,17 @@ def step_cost(plan, nsteps: int) -> Dict[str, float]:
             if rp.m != 0 or rp.beta != 0.0 else 0
         nax = len(axis_corrections(rp, "b") + axis_corrections(rp, "d"))
         ncyl = 3 * nrw * N + 2 * nphi * N + 3 * nax * (N // shape[0])
-    # the off-diagonal rows (OFFDIAG): per row and site the partner's D - P
-    # at four sites (1 + its poles' subtractions each), two sums, two
-    # products, their average and the sum into E, 7; a gyrotropic pole
-    # (GYRO) per site of its sigma ~60 beside the ADE's 8 counted above:
-    # the partners' two averages, the three r rows, the 3x3 solve
-    nod = sum(int(s.has_u1) + int(s.has_u2) for s in rp.eh_specs_e)
-    nod_ops = nod * N * (7 + 4 * (1 + len(rp.pol_specs_e)))
+    # the off-diagonal rows (OFFDIAG), where a row is nonzero: t = (g + g
+    # one site back along the partner's axis) u, a sum and a product per
+    # site of u, which E at that site and E one site back along its own
+    # axis share, then E's average t + t' scaled by 1/4 and its sum into
+    # E, 5 (the partner's D - P, g, is its own E update's); a gyrotropic
+    # pole (GYRO) per site of its sigma ~60 beside the ADE's 8 counted
+    # above: the partners' two averages, the three r rows, the 3x3 solve
+    nod_ops = 5 * sum(int(torch.count_nonzero(rp.coefs[f"{s.ec}:{u}"]))
+                      for s in rp.eh_specs_e
+                      for u, has in (("u1", s.has_u1), ("u2", s.has_u2))
+                      if has)
     gyro = sum(int(torch.count_nonzero(rp.coefs[f"pol{pi}:{c}:{d}"]))
                for pi, p in enumerate(rp.pol_specs_e + rp.pol_specs_h)
                if p.kind == "gyrotropic" for (c, d) in p.sigma)

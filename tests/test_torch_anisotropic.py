@@ -308,3 +308,17 @@ def test_pair_offdiag_matches_jax():
     for c, w in want["f"].items():
         g = got["f"][c].numpy()
         assert float(np.abs(g[0] + 1j * g[1] - w).max()) <= 2e-6 * scale, c
+
+
+def test_step_cost_counts_offdiag_rows_where_nonzero():
+    """K3/K4's bound counts an off-diagonal row's 5 operations only at the
+    sites where the row is nonzero (the rotated block, not the cell)."""
+    sim, _ = aniso_sim(mtt, "rotated", device="cpu")
+    sim.init_sim()
+    ops = R.step_cost(sim.plan, 7)["ops"]
+    rp = R.resident_plan(sim.plan)
+    u = [k for k in rp.coefs if k.endswith((":u1", ":u2"))]
+    nnz = sum(int(torch.count_nonzero(rp.coefs[k])) for k in u)
+    assert 0 < nnz < len(u) * int(np.prod(rp.gv.shape)) // 4
+    rp.coefs.update({k: torch.zeros_like(rp.coefs[k]) for k in u})
+    assert ops - R.step_cost(sim.plan, 7)["ops"] == 7 * 5 * nnz

@@ -514,24 +514,18 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "kz-k4": ("kz*", True, 13, 8192, None),
          "kz-pml-k3-seams": ("kz-pml*", False, 13, 5, (None, 1, 4, 1)),
          # the anisotropic modes: OFFDIAG (a rotated crystal, tensor
-         # subpixel averaging) and GYRO (off-diagonal sigma, gyrotropic
-         # poles of both families, fused and separate poles side by side,
-         # 3D with every off-diagonal entry) on tiles cut through the
-         # material and on the direct schedule
+         # subpixel averaging) on tiles cut through the material and on the
+         # direct schedule; GYRO (off-diagonal sigma, gyrotropic poles of
+         # both families, fused and separate poles side by side, 3D with
+         # every off-diagonal entry) on the direct schedule, its only one
          "aniso-k3-tiles-seams": ("aniso", False, 13, 5,
                                   ((10, 14, 1), 2, 4, 7)),
          "aniso-k4-direct": ("aniso", True, 13, 8192, (None, 1, 3, 1)),
          "tensor-k4-tiles": ("tensor", True, 13, 8192,
                              ((10, 14, 1), 3, 4, 1)),
-         "asig-k3-tiles-seams": ("asig", False, 13, 5,
-                                 ((10, 14, 1), 2, 3, 1)),
          "asig-k4-direct-seams": ("asig", True, 13, 5, (None, 1, 4, 7)),
-         "gyro-h-k4-tiles": ("gyro-h", True, 13, 8192,
-                             ((13, 13, 1), 2, 4, 0)),
          "gyro-h-k3-direct-seams": ("gyro-h", False, 13, 5,
                                     (None, 1, 3, 7)),
-         "gyro-e-k3-tiles-seams": ("gyro-e", False, 13, 5,
-                                   ((5, 7, 1), 2, 5, 7)),
          "gyro-e-k4-direct": ("gyro-e", True, 13, 8192, (None, 1, 4, 1)),
          "gyro3d-k4-direct-seams": ("gyro3d", True, 9, 4,
                                     (None, 1, 4, 1)),
@@ -550,8 +544,7 @@ def h100_schedule(ker, host_lib):
 
 def force(monkeypatch, tile, T):
     """Make ResidentKernel take tiling `tile`, T (tiling()'s `force`), or
-    the direct schedule when tile is None (GYRO plans too: GYRO_TILES)."""
-    monkeypatch.setattr(R, "GYRO_TILES", True)
+    the direct schedule when tile is None."""
     orig = R.tiling
 
     def forced(*args, **kw):
@@ -660,12 +653,21 @@ def test_kernel_source_matches_plain_on_the_host(case, host_lib,
 def test_launch_refuses_a_variant_that_does_not_match(host_lib,
                                                       monkeypatch):
     """The launch checks that the variant matches the plan: a cylindrical
-    plan's table on another variant, and a plain plan with a CYL variant
-    or a table, are refused before anything runs."""
+    plan's table on another variant, a plain plan with a CYL variant or a
+    table, and a GYRO plan on tiles (its variant is built on the direct
+    schedule only) are refused before anything runs."""
     monkeypatch.setattr(R, "_lib", lambda: host_lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(R.ResidentKernel, "_check", _own)
+    plan = ax_scene("gyro-h")
+    ker = R.ResidentKernel(plan)
+    paths, _, _, coef, vecs, _ = ker._layout()
+    ker.schedule = ("host", R.tiling(
+        ker.shape + (1,), len(paths) + len(coef), len(paths), 1, (0, 0, 0),
+        6, 10 ** 9, 1, force=((13, 13, 1), 2), nvec=len(vecs)))
+    with pytest.raises(RuntimeError, match="occupancy"):
+        ker._run_cuda(random_state(plan, 4), 3, 5, ())
     force(monkeypatch, None, 1)
     for kind, variant, table in (("cyl0", R.DIRECT, False),
                                  ("cyl1*", R.DIRECT_PAIR, False),
@@ -687,21 +689,18 @@ def test_launch_refuses_a_variant_that_does_not_match(host_lib,
 # ---------------------------------------------------------------------------
 
 
-def _replay(shape, tl, Tp, nl_partners, poles=False):
+def _replay(shape, tl, Tp, nl_partners):
     """Run each tile's pass of Tp steps on version counters per field class
-    (B, H, D, E, P and the H family's poles Q; grid (S0, S1), stencil
-    reach as the step's): each sub-update computes its box
-    (resident.boxes) from the versions its reads need; every site it
-    computes must read valid versions, and the interior grown by e above
-    must hold version Tp at the end.  `poles`: the GYRO mode's pole
-    sub-updates, which read their family's fields one site around after
-    the family's E (H) ("p", "q")."""
+    (B, H, D, E, P; grid (S0, S1), stencil reach as the step's): each
+    sub-update computes its box (resident.boxes) from the versions its
+    reads need; every site it computes must read valid versions, and the
+    interior grown by e above must hold version Tp at the end."""
     S = np.array(shape[:2])
     for tile in range(tl["ntile"]):
         st = R.boxes(tl, shape, tile, Tp, 0)["staged"]
         o = np.array(st[0][:2])
         n = np.array(st[1][:2]) - o
-        ver = {k: np.zeros(tuple(n), np.int64) for k in "BHDEPQ"}
+        ver = {k: np.zeros(tuple(n), np.int64) for k in "BHDEP"}
 
         def at(k, i, j, r):
             """version of k at grid site (i, j), r if off the grid (the
@@ -723,63 +722,52 @@ def _replay(shape, tl, Tp, nl_partners, poles=False):
                     new[i - o[0], j - o[1]] = r + 1
             ver[k] = new
 
-        around = [(a, b) for a in (-1, 0, 1) for b in (-1, 0, 1)]
         for r in range(Tp):
             bx = R.boxes(tl, shape, tile, Tp, r)
             update("B", bx["b"], [("B", 0, 0, r), ("E", 0, 0, r),
                                   ("E", 1, 0, r), ("E", 0, 1, r)], r)
-            update("H", bx["b"], [("B", 0, 0, r + 1), ("H", 0, 0, r)]
-                   + ([("Q", 0, 0, r)] if poles else []), r)
-            if poles:
-                update("Q", bx["q"], [("H", a, b, r + 1) for a, b in around]
-                       + [("Q", 0, 0, r)], r)
+            update("H", bx["b"], [("B", 0, 0, r + 1), ("H", 0, 0, r)], r)
             update("D", bx["d"], [("D", 0, 0, r), ("H", 0, 0, r + 1),
                                   ("H", -1, 0, r + 1), ("H", 0, -1, r + 1)],
                    r)
+            # E's neighbour reads of D - P: the chi2 partners' sums and the
+            # off-diagonal rows' averages (the partner at the site, one
+            # site back along the partner's axis, and both one site along
+            # E's own axis)
             near = [(0, 0)] + ([(1, 0), (0, 1), (-1, 0), (0, -1), (1, -1),
                                 (-1, 1)] if nl_partners else [])
             update("E", bx["e"], [("D", a, b, r + 1) for a, b in near]
                    + [("P", a, b, r) for a, b in near] + [("E", 0, 0, r)], r)
-            if poles:
-                update("P", bx["p"], [("E", a, b, r + 1) for a, b in around]
-                       + [("P", 0, 0, r)], r)
-            else:
-                update("P", bx["e"], [("E", 0, 0, r + 1), ("P", 0, 0, r)], r)
+            update("P", bx["e"], [("E", 0, 0, r + 1), ("P", 0, 0, r)], r)
         lo, hi = bx["interior"]
-        for k in "BHDEPQ" if poles else "BHDEP":
+        for k in "BHDEP":
             for i in range(lo[0], min(S[0], hi[0] + tl["e"][0])):
                 for j in range(lo[1], min(S[1], hi[1] + tl["e"][1])):
                     assert at(k, i, j, Tp) == Tp, (tile, k, i, j)
 
 
-BOX_CASES = [(1, (0, 0, 0), None), (1, (1, 0, 0), None),
-             (2, (0, 1, 0), None), (2, (1, 1, 0), None),
-             (2, (1, 0, 0), 0), (3, (0, 1, 0), 1), (3, (1, 1, 0), 1)]
+BOX_E = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0)]
+BOX_CASES = [(c, e) for c in (1, 2) for e in BOX_E]
 
 
 @pytest.mark.parametrize(
-    "c,e,ne", BOX_CASES,
-    ids=["1-e0", "1-e1", "2-e2", "2-e3", "gyro-2-e4", "gyro-offdiag-3-e5",
-         "gyro-offdiag-3-e6"])
-def test_boxes_keep_every_read_valid(c, e, ne):
+    "c,e", BOX_CASES,
+    ids=[f"{c}-e{BOX_E.index(e)}" for c, e in BOX_CASES])
+def test_boxes_keep_every_read_valid(c, e):
     """The staged box's halo (T c below, T c + e above) and the
     sub-updates' boxes give every computed site valid reads and leave the
     interior (grown by e above) valid after the pass, for full and shorter
-    passes, tiles on the grid's edges and inside, linear (c = 1) and
-    chi2-partner (c = 2) steps, and the GYRO mode's pole sub-updates (ne
-    not None: c = 2 with site-local E, c = 3 where E also reads its
-    neighbours through off-diagonal rows); and tiling() sizes the staged
-    box so."""
+    passes, tiles on the grid's edges and inside, linear (c = 1) steps and
+    steps whose E reads its neighbours' D - P (c = 2: chi2 partners, the
+    OFFDIAG mode's off-diagonal rows), with and without the centred
+    DTFT's extra sites e; and tiling() sizes the staged box so."""
     shape = (23, 17, 1)
     tl = R.tiling(shape, 4, 3, c, e, 6, 10 ** 9, 4, force=((7, 6, 1), 3))
     assert tl["nt"] == (4, 3, 1) and tl["ntile"] == 12
     g = [min(S, t + 2 * 3 * c + ei) for S, t, ei in zip(shape, tl["t"], e)]
     assert tl["vol"] == int(np.prod(g)) and tl["smem"] == 16 * tl["vol"]
-    if ne is not None:
-        tl = {**tl, "ne": ne}
     for Tp in (3, 1):
-        _replay(shape, tl, Tp, c == 2 if ne is None else ne == 1,
-                poles=ne is not None)
+        _replay(shape, tl, Tp, c == 2)
 
 
 def test_tiling_fits_shared_memory():
@@ -890,20 +878,19 @@ def test_plans_stage_what_their_step_reads(kind, host_lib, monkeypatch):
 
 
 @pytest.mark.parametrize("kind,c,mode", [("aniso", 2, R.AX_OFFDIAG),
-                                         ("gyro-h", 2, R.AX_GYRO),
-                                         ("gyro-e", 3, R.AX_GYRO)])
+                                         ("gyro-h", 1, R.AX_GYRO),
+                                         ("gyro-e", 2, R.AX_GYRO)])
 def test_anisotropic_schedules(kind, c, mode, host_lib, monkeypatch):
     """The OFFDIAG and GYRO modes' schedules on the stub's H100 figures: c
-    is 1 plus a site where E reads its neighbours' D - P plus one where a
-    pole reads its partners' W; an OFFDIAG plan takes tiling()'s tiles, a
-    GYRO plan the direct schedule (its tiled variant spills and measured
-    slower), or tiles where GYRO_TILES allows them."""
+    is 1 plus a site where E reads its neighbours' D - P; an OFFDIAG plan
+    takes tiling()'s tiles with T >= 2, a GYRO plan the direct schedule
+    (the only one its variant is built for)."""
     monkeypatch.setattr(R, "_lib", lambda: host_lib)
     plan = scene(kind)
     assert R.ax_mode(plan) == mode
     tl = h100_schedule(R.ResidentKernel(plan), host_lib)
     assert tl["c"] == c
-    assert tl["direct"] == (mode == R.AX_GYRO)
-    monkeypatch.setattr(R, "GYRO_TILES", True)
-    tl = h100_schedule(R.ResidentKernel(plan), host_lib)
-    assert not tl["direct"] and tl["T"] >= 2 and tl["c"] == c
+    if mode == R.AX_GYRO:
+        assert tl["direct"] == R.DIRECT and tl["T"] == 1
+    else:
+        assert not tl["direct"] and tl["T"] >= 2

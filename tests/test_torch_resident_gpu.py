@@ -256,13 +256,14 @@ def test_shared_memory_rule_matches_the_card(cuda):
         for direct in (R.DIRECT_CYL, R.DIRECT_PAIR_CYL):
             assert lib.mnt_k3_max_blocks(0, probed, direct, 0, 0) >= sms
             assert lib.mnt_k3_max_blocks(1, probed, direct, 0, 0) < 0
-        # the OFFDIAG and GYRO modes: linear plans on tiles or the plain
-        # direct schedule
+        # the OFFDIAG and GYRO modes: linear plans on the plain direct
+        # schedule, OFFDIAG on tiles too
         for mode in (R.AX_OFFDIAG, R.AX_GYRO):
             assert lib.mnt_k3_max_blocks(0, probed, 1, mode, 0) >= sms
-            assert lib.mnt_k3_max_blocks(0, probed, 0, mode, 65536) >= 1
             assert lib.mnt_k3_max_blocks(1, probed, 1, mode, 0) < 0
             assert lib.mnt_k3_max_blocks(0, probed, 3, mode, 0) < 0
+        assert lib.mnt_k3_max_blocks(0, probed, 0, R.AX_OFFDIAG, 65536) >= 1
+        assert lib.mnt_k3_max_blocks(0, probed, 0, R.AX_GYRO, 65536) < 0
 
 
 @pytest.mark.gpu
