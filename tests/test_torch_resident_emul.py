@@ -296,7 +296,9 @@ def ax_scene(kind, device="cpu"):
     with PML 0.8 (3D: 2 x 2 x 2 at resolution 7, PML 0.5), sources and a
     flux line as `scene`'s.  aniso: TE (an Hz point and an Ex line source)
     on a block of a uniaxial crystal rotated 30 degrees about z (xy
-    off-diagonal rows); tensor: TE on an eps=4 cylinder with
+    off-diagonal rows); aniso-pole: that block with a Lorentz pole (fused
+    into E's update, its P in the partner's D - P that E reads at its
+    neighbours); tensor: TE on an eps=4 cylinder with
     subpixel_tensor; asig: that cylinder with a Lorentz pole whose sigma
     has off-diagonal rows (added to the rasterized MaterialSpec: no medium
     makes one), whose new P holds only where its diagonal sigma is
@@ -317,6 +319,10 @@ def ax_scene(kind, device="cpu"):
     block = mp.Vector3(2, 2, mp.inf)
     kw = {}
     if kind == "aniso":
+        geom = [mp.Block(size=block, material=rotated)]
+    elif kind == "aniso-pole":
+        rotated.E_susceptibilities = [mp.LorentzianSusceptibility(
+            frequency=1.3, gamma=0.1, sigma=0.6)]
         geom = [mp.Block(size=block, material=rotated)]
     elif kind in ("tensor", "asig"):
         geom = [mp.Cylinder(radius=1.0, material=mp.Medium(epsilon=4))]
@@ -387,7 +393,8 @@ def ax_scene(kind, device="cpu"):
 #: the component each scene's probes read (else ez)
 COMP = {"te": "hz", "flag-te": "ey", "ldos-te": "hz", "te-lin": "hz",
         "cyl1": "er", "cyl-1": "hp", "cyl3": "ez", "kz": "hy",
-        "kz-pml": "ez", "aniso": "hz", "tensor": "hz", "asig": "ey",
+        "kz-pml": "ez", "aniso": "hz", "aniso-pole": "hz",
+        "tensor": "hz", "asig": "ey",
         "gyro-e": "ey", "gyro-h": "hx"}
 
 
@@ -513,14 +520,17 @@ CASES = {"tm-k3": ("tm", False, 13, 8192, None),
          "cyl3-k4-seams": ("cyl3*", True, 13, 5, (None, 1, 3, 7)),
          "kz-k4": ("kz*", True, 13, 8192, None),
          "kz-pml-k3-seams": ("kz-pml*", False, 13, 5, (None, 1, 4, 1)),
-         # the anisotropic modes: OFFDIAG (a rotated crystal, tensor
-         # subpixel averaging) on tiles cut through the material and on the
+         # the anisotropic modes: OFFDIAG (a rotated crystal, with a
+         # Lorentz pole, tensor subpixel averaging) on tiles cut through the
+         # material and on the
          # direct schedule; GYRO (off-diagonal sigma, gyrotropic poles of
          # both families, fused and separate poles side by side, 3D with
          # every off-diagonal entry) on the direct schedule, its only one
          "aniso-k3-tiles-seams": ("aniso", False, 13, 5,
                                   ((10, 14, 1), 2, 4, 7)),
          "aniso-k4-direct": ("aniso", True, 13, 8192, (None, 1, 3, 1)),
+         "aniso-pole-k3-tiles-seams": ("aniso-pole", False, 13, 5,
+                                       ((10, 14, 1), 3, 4, 7)),
          "tensor-k4-tiles": ("tensor", True, 13, 8192,
                              ((10, 14, 1), 3, 4, 1)),
          "asig-k4-direct-seams": ("asig", True, 13, 5, (None, 1, 4, 7)),

@@ -149,8 +149,8 @@ def test_cyl_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("probed", [False, True], ids=["k3", "k4"])
-@pytest.mark.parametrize("kind", ["aniso", "tensor", "asig", "gyro-h",
-                                  "gyro-e", "gyro3d"])
+@pytest.mark.parametrize("kind", ["aniso", "aniso-pole", "tensor", "asig",
+                                  "gyro-h", "gyro-e", "gyro3d"])
 def test_ax_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     """The OFFDIAG and GYRO modes on the card with the wrapper's own
     schedule, from a seeded random state over two chunks: the off-diagonal
@@ -169,7 +169,9 @@ def test_ax_matches_plain_on_cuda(kind, probed, cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (ker.probed_launches if probed else ker.launches) == 2
     assert ker.plain_steps == 0
-    assert R.ax_mode(plan) == (R.AX_OFFDIAG if kind in ("aniso", "tensor")
+    assert R.ax_mode(plan) == (R.AX_OFFDIAG if kind in ("aniso",
+                                                       "aniso-pole",
+                                                       "tensor")
                                else R.AX_GYRO)
     _agree(sk, yk, sr, yr)
 
